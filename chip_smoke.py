@@ -1,0 +1,532 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100).
+
+Run from the root of a checkout:  python3 chip_smoke.py
+
+Drives the port (``src/repro_torch``) only; imports nothing of JAX or
+of the JAX package. Phases, one JSON line each:
+
+1. device  — the card (``nvidia-smi`` name and power limit) and the
+             seconds it took to build the CUDA kernels from
+             ``src/repro_torch/csrc`` (one ``nvcc`` per source, all
+             started together).
+2. kernel  — every kernel of the main path against its plain PyTorch
+             version on the same card tensors, at the main path's
+             full-width Llama-7B shapes, f32 and bf16 activations:
+             max error against the stated tolerance (``TOL``), the
+             kernel's and
+             the plain version's median ms (CUDA events, L2 flushed
+             before each launch), the bound from bytes and operations,
+             and a PyTorch yardstick (``library_ms``) the port never
+             calls.
+3. parity  — reduced Llama in f32: ``prefill_paged`` and one
+             ``decode_step_paged`` on the card (kernels) against the
+             CPU (plain versions) with the same weights.
+4. engine  — ``chameleon-llama-7b`` at full width (32 layers, d 4096,
+             bf16 weights from a seeded generator) served by the
+             default ``EngineConfig``: 16 requests over 12 adapters
+             from shared preambles, some seeded-sampled, after a
+             three-request warm-up. Kernel launch counts are zeroed
+             just before the trace and read just after; every kernel
+             must have launched and no plain or einsum path may have
+             run. Then the seed decode loop serves the same trace as
+             the fused loop's A/B.
+
+A device-time profile of the same path is ``chip_profile.py``.
+
+Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
+before the last line.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
+PEAK_FLOPS = {"bf16": 989e12,      # dense tensor-core bf16
+              "f32": 67e12}        # f32 outside the tensor cores
+# (atol, rtol): |got - want| <= atol + rtol * |want| elementwise.
+TOL = {
+    # Every rounding in f32: only the order of the f32 sums differs.
+    "f32": (1e-4, 1e-4),
+    # bgmv/sgmv with bf16 operands: the rank-r intermediate is rounded
+    # to bf16 from two f32 sums taken in another order, so it can land
+    # one bf16 ulp apart and carry that through the expand.
+    "lora_bf16": (2e-2, 2e-2),
+    # A bf16 output computed in f32: the two f32 results round to the
+    # same bf16 value or to neighbours, one ulp <= 2**-7 of |want| apart.
+    "bf16_out": (1e-4, 2 ** -7),
+}
+MIB = 1 << 20
+
+
+class PhaseError(RuntimeError):
+    pass
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise PhaseError(what)
+
+
+# ----------------------------------------------------------- timing
+def median_ms(fn, flush, warmup: int = 3, iters: int = 15) -> float:
+    """Median device time of one call, from CUDA events around it. The
+    L2 is flushed before every call (the engine finds these operands
+    cold), then the card spins for about a millisecond, so the host
+    has enqueued the whole call before the first event is reached and
+    the time excludes the wrapper's host work."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        flush()
+        torch.cuda._sleep(2_000_000)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def bound_ms(n_bytes: float, flops: float, op_type: str) -> tuple:
+    t_mem = n_bytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[op_type]
+    return (max(t_mem, t_ops) * 1e3,
+            "bytes" if t_mem >= t_ops else "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def op_type(*ts) -> str:
+    import torch
+    return "bf16" if all(t.dtype == torch.bfloat16 for t in ts) else "f32"
+
+
+# ------------------------------------------------------------ phase 1
+def phase_device() -> dict:
+    import torch
+    from repro_torch.kernels import build
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    smi_line = smi.stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    took = build.build_all()
+    build_s = time.perf_counter() - t0
+    info = dict(phase="device", nvidia_smi=smi_line,
+                name=torch.cuda.get_device_name(0),
+                count=torch.cuda.device_count(),
+                capability=list(torch.cuda.get_device_capability(0)),
+                torch=torch.__version__, cuda=torch.version.cuda,
+                build_s=build_s, built={k: round(v, 2)
+                                        for k, v in took.items()})
+    emit(info)
+    return info
+
+
+# ------------------------------------------------------------ phase 2
+def phase_kernels() -> dict:
+    """Each kernel at the main path's full-width shapes (Llama-7B under
+    the default EngineConfig) against its plain version. Returns the
+    rows of the ``kernels`` line and, per kernel, a call that launches
+    it on the timed operands."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+    bgmv = importlib.import_module("repro_torch.kernels.bgmv")
+    sgmv = importlib.import_module("repro_torch.kernels.sgmv")
+    pa = importlib.import_module("repro_torch.kernels.paged_attention")
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1234)
+    scratch = torch.empty(64 * MIB, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev)
+                * scale).to(dtype)
+
+    # Llama-7B, default EngineConfig: 8 batch slots, 8 LoRA slots of
+    # r_max 32, d_model = q_dim = kv_dim = 4096, 16-token pages over
+    # 256 positions (16 pages a row), 161 physical pages.
+    d, r, n_slots, Bt = 4096, 32, 8, 8
+    A = randn(n_slots, d, r, dtype=torch.bfloat16, scale=d ** -0.5)
+    Bw = randn(n_slots, r, d, dtype=torch.bfloat16, scale=r ** -0.5)
+    rows = {}
+
+    def record(name, case, got, want, tol):
+        atol, rtol = TOL[tol]
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        ok = bool((diff <= atol + rtol * want.float().abs()).all())
+        emit(dict(phase="kernel", kernel=name, case=case,
+                  max_abs_err=err, atol=atol, rtol=rtol, ok=ok))
+        check(ok, f"{name} [{case}] disagrees with its plain version: "
+                  f"max abs err {err}, atol {atol}, rtol {rtol}")
+        rows.setdefault(name, dict(max_abs_err=0.0))
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+
+    # bgmv: decode LoRA, one token per batch slot, q/k/v/o widths.
+    idx = torch.randperm(n_slots, generator=g, device=dev)[:Bt].int()
+    for xdt, tname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        x = randn(Bt, d, dtype=xdt)
+        got = bgmv.bgmv(x, A, Bw, idx)
+        torch.cuda.synchronize()
+        record("bgmv", f"x {tname}, A/B bf16, x {tuple(x.shape)}", got,
+               bgmv.bgmv_plain(x, A, Bw, idx), "lora_bf16")
+    x = x_bgmv = randn(Bt, d, dtype=torch.bfloat16)  # the engine's dtype
+    ms = median_ms(lambda: bgmv.bgmv(x, A, Bw, idx), flush)
+    plain = median_ms(lambda: bgmv.bgmv_plain(x, A, Bw, idx), flush)
+    lib = median_ms(lambda: torch.bmm(torch.bmm(x[:, None], A[idx.long()]),
+                                      Bw[idx.long()]), flush)
+    used = idx.unique().numel()
+    b, by = bound_ms(nbytes(x, idx) + used * nbytes(A[0], Bw[0])
+                     + Bt * d * x.element_size(),
+                     2 * Bt * r * (d + d), op_type(x, A))
+    rows["bgmv"].update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                        library_ms=lib,
+                        shape=f"x {tuple(x.shape)} bf16, r {r}")
+
+    # sgmv: prefill LoRA, the full (8, 256) prefill bucket, tile 128.
+    S, tile = 256, 128
+    T = Bt * S
+    ts = torch.randint(0, n_slots, (T // tile,), generator=g,
+                       device=dev).int()
+    for xdt, tname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        x = randn(T, d, dtype=xdt)
+        got = sgmv.sgmv(x, A, Bw, ts, tile)
+        torch.cuda.synchronize()
+        record("sgmv", f"x {tname}, A/B bf16, x {tuple(x.shape)}", got,
+               sgmv.sgmv_plain(x, A, Bw, ts, tile), "lora_bf16")
+    x = x_sgmv = randn(T, d, dtype=torch.bfloat16)
+    ms = median_ms(lambda: sgmv.sgmv(x, A, Bw, ts, tile), flush)
+    plain = median_ms(lambda: sgmv.sgmv_plain(x, A, Bw, ts, tile), flush)
+    xt = x.view(T // tile, tile, d)
+    lib = median_ms(lambda: torch.bmm(torch.bmm(xt, A[ts.long()]),
+                                      Bw[ts.long()]), flush)
+    used = ts.unique().numel()
+    b, by = bound_ms(nbytes(x, ts) + used * nbytes(A[0], Bw[0])
+                     + T * d * x.element_size(),
+                     2 * T * r * (d + d), op_type(x, A))
+    rows["sgmv"].update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                        library_ms=lib,
+                        shape=f"x {tuple(x.shape)} bf16, tile {tile}")
+
+    # paged_attention: decode over f32 KV pages (the engine's), Kh 32,
+    # G 1, dh 128; random lengths for the check, full rows for timing.
+    Kh, G, dh, page, P, n_pages = 32, 1, 128, 16, 16, 161
+    kp = randn(n_pages, page, Kh, dh)
+    vp = randn(n_pages, page, Kh, dh)
+    table = (1 + torch.randperm(n_pages - 1, generator=g, device=dev)
+             )[:Bt * P].view(Bt, P).int()
+    lens = torch.randint(1, P * page + 1, (Bt,), generator=g,
+                         device=dev).int()
+    for qdt, tname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        q = randn(Bt, Kh, G, dh, dtype=qdt)
+        for kv_name, k_, v_ in (("f32", kp, vp),
+                                ("bf16", kp.bfloat16(), vp.bfloat16())):
+            got = pa.paged_attention(q, k_, v_, table, lens)
+            torch.cuda.synchronize()
+            # Both sides read the same page values and compute in f32;
+            # only the output's rounding to q's dtype differs by case.
+            record("paged_attention", f"q {tname}, pages {kv_name}", got,
+                   pa.paged_attention_plain(q, k_, v_, table, lens),
+                   "f32" if tname == "f32" else "bf16_out")
+    q = randn(Bt, Kh, G, dh, dtype=torch.bfloat16)
+    full = torch.full((Bt,), P * page, dtype=torch.int32, device=dev)
+    ms = median_ms(lambda: pa.paged_attention(q, kp, vp, table, full),
+                   flush)
+    plain = median_ms(
+        lambda: pa.paged_attention_plain(q, kp, vp, table, full), flush)
+
+    def sdpa():
+        k = kp[table.long()].permute(0, 3, 1, 2, 4).reshape(
+            Bt, Kh, P * page, dh)
+        v = vp[table.long()].permute(0, 3, 1, 2, 4).reshape(
+            Bt, Kh, P * page, dh)
+        return F.scaled_dot_product_attention(q.float(), k, v)
+    lib = median_ms(sdpa, flush)
+    n_tok = int(full.sum().item())
+    b, by = bound_ms(nbytes(q, table, full) + 2 * n_tok * Kh * dh * 4
+                     + nbytes(q), 4 * n_tok * Kh * G * dh, "f32")
+    rows["paged_attention"].update(
+        ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
+        shape=f"q {tuple(q.shape)} bf16, f32 pages, {Bt} rows x "
+              f"{P * page} tokens")
+    for name, row in rows.items():
+        emit(dict(phase="kernel_time", kernel=name, **row))
+    calls = {"bgmv": lambda: bgmv.bgmv(x_bgmv, A, Bw, idx),
+             "sgmv": lambda: sgmv.sgmv(x_sgmv, A, Bw, ts, tile),
+             "paged_attention": lambda: pa.paged_attention(
+                 q, kp, vp, table, full)}
+    return rows, calls
+
+
+# ------------------------------------------------------------ phase 3
+def phase_parity() -> None:
+    """Reduced Llama, f32: the card's kernels against the CPU's plain
+    versions on the same weights, prefill then one decode step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.models.lora_apply import (init_lora_slots,
+                                               random_lora_weights,
+                                               write_adapter_to_slot)
+    tol = 2e-4     # f32 sums in another order, 4 layers deep
+    cfg = get_config("chameleon-llama-7b").reduced()
+    params = api.init_params(cfg, 0, torch.float32, device="cpu")
+    slots = init_lora_slots(3, cfg.n_layers, cfg.d_model, cfg.q_dim,
+                            cfg.kv_dim, 32, dtype=torch.float32,
+                            device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    for i, rank in enumerate((8, 16, 32)):
+        write_adapter_to_slot(slots, random_lora_weights(
+            gen, rank, 32, cfg.n_layers, cfg.d_model, cfg.q_dim,
+            cfg.kv_dim, dtype=torch.float32), i)
+    rng = torch.Generator().manual_seed(6)
+    B, S, P, page = 3, 32, 4, 16
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=rng).int()
+    table = (1 + torch.arange(B * P)).view(B, P).int()
+    start = torch.tensor([0, 0, 0], dtype=torch.int32)
+    seq_len = torch.tensor([32, 17, 5], dtype=torch.int32)
+    tok1 = torch.randint(0, cfg.vocab_size, (B, 1), generator=rng).int()
+    idx = torch.tensor([2, 0, 1], dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        mv = {k: v.to(dev) for k, v in params.items()}
+        lr = {k: (a.to(dev), b.to(dev)) for k, (a, b) in slots.items()}
+        kv = api.init_paged_serve_state(cfg, 1 + B * P, page,
+                                        torch.float32, device=dev)
+        kw = dict(lora=lr, adapter_idx=idx.to(dev), lora_backend="kernel")
+        lp, kv = api.prefill_paged(cfg, mv, toks.to(dev), kv, table.to(dev),
+                                   start.to(dev), seq_len.to(dev), **kw)
+        ld, kv = api.decode_step_paged(cfg, mv, tok1.to(dev), kv,
+                                       table.to(dev), seq_len.to(dev), **kw)
+        out[dev] = [t.cpu() for t in (lp, ld, kv[0][:, 1:], kv[1][:, 1:])]
+    errs = [(a - b).abs().max().item()
+            for a, b in zip(out["cpu"], out["cuda"])]
+    ok = all(e <= tol for e in errs) and all(
+        torch.isfinite(t).all() for t in out["cuda"])
+    emit(dict(phase="parity", prefill_logits_err=errs[0],
+              decode_logits_err=errs[1], k_pages_err=errs[2],
+              v_pages_err=errs[3], tol=tol, ok=ok))
+    check(ok, f"card vs CPU step parity failed: {errs} (tol {tol})")
+
+
+# ------------------------------------------------------------ phase 4
+def make_trace(vocab: int, n_req: int = 16, n_adapters: int = 12,
+               out_len: int = 32, seed: int = 0):
+    """Prompts of 32-200 tokens from three shared preambles; request i
+    uses adapter i % n_adapters and preamble (adapter % 3), so repeats
+    of an adapter repeat its preamble; every fourth request samples
+    with a fixed seed."""
+    import numpy as np
+    from repro_torch.core import Request, SamplingParams
+    rng = np.random.default_rng(seed)
+    pres = [rng.integers(3, vocab, size=n).tolist() for n in (24, 64, 120)]
+    trace = []
+    for i in range(n_req):
+        a = i % n_adapters
+        pre = pres[a % 3]
+        n_suffix = int(rng.integers(max(8, 32 - len(pre)),
+                                    200 - len(pre) + 1))
+        prompt = pre + rng.integers(3, vocab, size=n_suffix).tolist()
+        sp = (SamplingParams(temperature=0.8, top_k=50, top_p=0.9,
+                             seed=1000 + i) if i % 4 == 3 else None)
+        trace.append((Request(input_len=len(prompt), output_len=out_len,
+                              adapter_id=a, prompt=prompt), sp))
+    return trace
+
+
+def serve(eng, trace) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.kernels.ops import DISPATCH_METER
+    DISPATCH_METER.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [eng.submit(req, sampling=sp) for req, sp in trace]
+    steps = 0
+    while eng.busy() and steps < 20_000:
+        eng.step()
+        steps += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(not eng.busy(), "engine failed to drain")
+    ttft = np.array([r.ttft for r in eng.records])
+    n_tok = sum(len(h.tokens) for h in handles)
+    decode_tok = n_tok - len(handles)
+    first = min(r.arrival + r.ttft for r in eng.records)
+    last = max(r.arrival + r.e2e for r in eng.records)
+    return dict(
+        handles=handles, wall_s=wall, steps=steps, tokens=n_tok,
+        ttft_p50_s=float(np.percentile(ttft, 50)),
+        ttft_p99_s=float(np.percentile(ttft, 99)),
+        decode_tok_per_s=decode_tok / max(last - first, 1e-9),
+        dispatches_per_token=DISPATCH_METER.dispatches / max(decode_tok, 1),
+        host_sync_s=DISPATCH_METER.sync_seconds)
+
+
+def warm_up(eng, vocab: int) -> None:
+    """Three short requests on adapters the trace never uses, one of
+    them sampled: the first calls of every kernel, of cuBLAS and of the
+    allocator happen here, not in the timed run. Stats are reset after;
+    the adapter cache and prefix tree keep what the warm-up left."""
+    import numpy as np
+    from repro_torch.core import Request, SamplingParams
+    rng = np.random.default_rng(99)
+    for a in (13, 14, 15):
+        sp = SamplingParams(temperature=0.7, seed=5) if a == 15 else None
+        eng.submit(Request(input_len=40, output_len=9, adapter_id=a,
+                           prompt=rng.integers(3, vocab, 40).tolist()),
+                   sampling=sp)
+    eng.run_until_drained()
+    check(not eng.busy(), "warm-up failed to drain")
+    eng.reset_stats()
+
+
+def phase_engine(cfg, params) -> dict:
+    import importlib
+
+    import torch
+    from repro_torch.models.lora_apply import EINSUM
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.systems import build_engine
+    stats = {n: importlib.import_module(f"repro_torch.kernels.{n}").STATS
+             for n in ("bgmv", "sgmv", "paged_attention")}
+    ecfg = EngineConfig()
+    results = {}
+    for loop in ("fused", "seed"):
+        eng = build_engine("chameleon", cfg, params,
+                           EngineConfig(fused_hotloop=loop == "fused"))
+        warm_up(eng, cfg.vocab_size)
+        trace = make_trace(cfg.vocab_size)
+        torch.cuda.reset_peak_memory_stats()
+        for s in stats.values():
+            s.reset()
+        EINSUM.reset()
+        res = serve(eng, trace)                       # the main path
+        launches = {n: s.launches for n, s in stats.items()}
+        plain = {n: s.plain for n, s in stats.items()}
+        res.update(launches=launches, plain_calls=plain,
+                   einsum_calls=EINSUM.calls,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   **{k: v for k, v in eng.stats().items()
+                      if k in ("completed", "prefix_hit_tokens",
+                               "prefix_hits", "cow_forks", "async_loads",
+                               "preempted")},
+                   cache=eng.stats()["cache"])
+        toks = [h.tokens for h in res.pop("handles")]
+        res["outputs"] = toks
+        check(res["completed"] == len(trace),
+              f"{loop}: {res['completed']}/{len(trace)} requests completed")
+        check(all(len(t) == r.output_len for t, (r, _) in zip(toks, trace)),
+              f"{loop}: a request stopped short of its output length")
+        check(all(0 <= x < cfg.vocab_size for t in toks for x in t),
+              f"{loop}: token id outside the vocabulary")
+        check(res["prefix_hit_tokens"] > 0, f"{loop}: the prefix cache "
+                                            f"never hit")
+        check(all(launches[n] > 0 for n in launches),
+              f"{loop}: a kernel never launched: {launches}")
+        check(not any(plain.values()) and res["einsum_calls"] == 0,
+              f"{loop}: a plain/einsum path ran on the card: {plain}, "
+              f"einsum {res['einsum_calls']}")
+        results[loop] = res
+        emit(dict(phase="engine", loop=loop, model=cfg.name,
+                  n_layers=cfg.n_layers, d_model=cfg.d_model,
+                  weights="bf16",
+                  ecfg=dict(max_slots=ecfg.max_slots,
+                            max_len=ecfg.max_len,
+                            n_lora_slots=ecfg.n_lora_slots,
+                            r_max=ecfg.r_max, n_adapters=ecfg.n_adapters,
+                            max_horizon=ecfg.max_horizon),
+                  **{k: v for k, v in res.items() if k != "outputs"}))
+        del eng
+        torch.cuda.empty_cache()
+    greedy = [i for i, (_, sp) in enumerate(make_trace(cfg.vocab_size))
+              if sp is None]
+    same = sum(results["fused"]["outputs"][i] == results["seed"]["outputs"][i]
+               for i in greedy)
+    emit(dict(phase="engine_ab", greedy_requests=len(greedy),
+              greedy_identical_fused_vs_seed=same,
+              decode_tok_per_s_fused=results["fused"]["decode_tok_per_s"],
+              decode_tok_per_s_seed=results["seed"]["decode_tok_per_s"]))
+    return results["fused"]["launches"]
+
+
+KERNELS = {
+    "bgmv": ("src/repro_torch/csrc/bgmv.cu", "src/repro/kernels/bgmv.py:39"),
+    "sgmv": ("src/repro_torch/csrc/sgmv.cu", "src/repro/kernels/sgmv.py:37"),
+    "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
+                        "src/repro/kernels/paged_attention.py:67"),
+}
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke test needs "
+              "the GPU", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: run from a checkout of the repository "
+              "(src/repro_torch is missing)", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        dev = phase_device()
+        rows, _ = phase_kernels()
+        phase_parity()
+        from repro_torch.configs import get_config
+        from repro_torch.models import api
+        cfg = get_config("chameleon-llama-7b")
+        params = api.init_params(cfg, seed=0, dtype=torch.bfloat16)
+        launches = phase_engine(cfg, params)
+    except PhaseError as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+        return 1
+    emit({"kernels": [
+        dict(name=n, route="cuda", source=KERNELS[n][0],
+             replaces=KERNELS[n][1], launches=launches[n],
+             max_abs_err=rows[n]["max_abs_err"], ms=rows[n]["ms"],
+             plain_ms=rows[n]["plain_ms"], bound_ms=rows[n]["bound_ms"],
+             bound_by=rows[n]["bound_by"], library_ms=rows[n]["library_ms"])
+        for n in KERNELS]})
+    print(dev["nvidia_smi"], flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,12 @@
+"""Hand-written Hopper kernels for the serving hot spots + torch oracles.
+
+bgmv  — decode-time batched-gather LoRA (csrc/bgmv.cu)
+sgmv  — prefill-time segmented LoRA matmul (csrc/sgmv.cu)
+paged_attention — decode attention over the paged KV pool
+                  (csrc/paged_attention.cu)
+
+Importing this package needs no CUDA toolkit: kernels build at first
+launch (see build.py).
+"""
+from .ops import lora_bgmv, lora_sgmv, paged_attention
+from . import ref

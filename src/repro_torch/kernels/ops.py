@@ -1,0 +1,149 @@
+"""Public wrappers for the CUDA kernels + the LoRA dispatch layer.
+
+Kernel choice follows the tensors: the kernel wrappers launch the
+hand-written CUDA kernel for CUDA tensors and run their plain PyTorch
+version for CPU tensors. There is no switch around them: a card tensor
+always goes through its kernel. The oracles in ``ref`` serve only the
+tests.
+
+The LoRA *dispatch layer* (``resolve_lora_backend`` /
+``lora_delta_kernel``) is what the model data plane calls
+(models/lora_apply.py): decode steps (S == 1) route per-token LoRA
+through bgmv, batched prefill (S > 1, one contiguous run of S tokens per
+request) through sgmv with tile-aligned segments, and the einsum path
+stays available as the CPU route. The JAX wrappers pad din and
+dout to 128 for the TPU's tiling; the CUDA kernels mask ragged edges
+themselves, so nothing here pads them.
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+
+import torch
+
+from .bgmv import bgmv as _bgmv_kernel
+from .paged_attention import paged_attention as _paged_kernel
+from .sgmv import pack_segments, sgmv as _sgmv_kernel
+
+LORA_BACKENDS = ("auto", "einsum", "kernel")
+
+
+class DispatchMeter:
+    """Hot-loop observability: device dispatches and host-sync wall time.
+
+    The serving engine ticks the meter once per device dispatch it
+    launches on the decode path (one fused horizon, or one decode step
+    plus one sampling call on the seed loop) and wraps its device→host
+    token reads in ``sync()``. Dispatches per token and the host-sync
+    fraction are the two numbers the fused loop exists to shrink. A
+    plain counter + accumulator, so the meter stays on in production
+    paths.
+    """
+
+    def __init__(self) -> None:
+        self.dispatches = 0
+        self.sync_seconds = 0.0
+
+    def reset(self) -> None:
+        self.dispatches = 0
+        self.sync_seconds = 0.0
+
+    def tick(self, n: int = 1) -> None:
+        self.dispatches += n
+
+    @contextlib.contextmanager
+    def sync(self):
+        """Time a blocking device→host readback."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.sync_seconds += time.perf_counter() - t0
+
+
+#: Process-wide meter the engine step loops tick (reset by benchmarks).
+DISPATCH_METER = DispatchMeter()
+
+
+def resolve_lora_backend(backend: str | None,
+                         device: torch.device | str) -> str:
+    """Resolve an ``EngineConfig.lora_backend`` knob to a concrete path.
+
+    ``auto`` (or None) picks the CUDA kernels on a CUDA device and the
+    einsum path elsewhere; ``kernel`` forces the kernel wrappers (their
+    plain versions on CPU tensors); ``einsum`` forces the einsum path.
+    """
+    if backend in (None, "auto"):
+        return "kernel" if torch.device(device).type == "cuda" else "einsum"
+    if backend not in ("einsum", "kernel"):
+        raise ValueError(
+            f"lora_backend must be one of {LORA_BACKENDS}, got {backend!r}")
+    return backend
+
+
+def lora_bgmv(x, A, B, idx):
+    """Decode LoRA delta. x: (Bt, din) -> (Bt, dout)."""
+    return _bgmv_kernel(x, A, B, idx)
+
+
+def lora_sgmv(x, A, B, seq_lens, adapter_slots, *, tile: int = 128):
+    """Prefill LoRA delta over concatenated sequences.
+
+    x: (T, din) tokens concatenated per request (seq_lens[i] each),
+    adapter_slots[i] the adapter of request i. Returns (T, dout).
+    """
+    perm, tile_slot, _ = pack_segments(seq_lens, adapter_slots, tile)
+    perm_t = torch.as_tensor(perm, dtype=torch.long, device=x.device)
+    valid = perm_t >= 0
+    gathered = torch.where(valid[:, None], x[perm_t.clamp(min=0)],
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+    ts = torch.as_tensor(tile_slot, dtype=torch.int32, device=x.device)
+    y = _sgmv_kernel(gathered, A, B, ts, tile)
+    # Scatter back to original token order.
+    out = torch.zeros((x.shape[0], y.shape[-1]), dtype=y.dtype,
+                      device=x.device)
+    return out.index_add_(0, perm_t[valid], y[valid])
+
+
+def _lora_sgmv_uniform(x, A, B, idx, tile):
+    """Prefill LoRA via sgmv for *uniform* segments.
+
+    x: (Bt, S, din) — request b's tokens are the contiguous run x[b],
+    all runs the same length S, adapter idx[b] per run: the batched
+    prefill layout the engine produces (right-padded (B, S) buckets).
+    S is padded up to a tile multiple and ``tile_slot`` is idx repeated
+    per tile; the tile shrinks to a multiple of 8 for short S.
+    """
+    Bt, S, din = x.shape
+    tile = min(tile, -(-S // 8) * 8)
+    S_pad = -(-S // tile) * tile
+    if S_pad != S:
+        x = torch.nn.functional.pad(x, (0, 0, 0, S_pad - S))
+    xt = x.reshape(Bt * S_pad, din)
+    tile_slot = idx.to(torch.int32).repeat_interleave(S_pad // tile)
+    y = _sgmv_kernel(xt, A, B, tile_slot, tile)
+    return y.reshape(Bt, S_pad, -1)[:, :S]
+
+
+def lora_delta_kernel(x, A, B, idx, *, scale: float = 1.0,
+                      tile: int = 128):
+    """Multi-adapter LoRA delta through the kernels.
+
+    x: (Bt, S, din); A: (n_slots, din, r); B: (n_slots, r, dout);
+    idx: (Bt,). Decode (S == 1) routes through bgmv (one gathered
+    adapter per token); prefill (S > 1) routes each request's
+    contiguous token run through sgmv tiles. Returns (Bt, S, dout).
+    """
+    if x.shape[1] == 1:
+        y = _bgmv_kernel(x[:, 0].contiguous(), A, B, idx)[:, None]
+    else:
+        y = _lora_sgmv_uniform(x, A, B, idx, tile)
+    if scale != 1.0:        # 1.0 * y is y: skip the launch
+        y = scale * y
+    return y.to(x.dtype)
+
+
+def paged_attention(q, k_pages, v_pages, page_table, lengths):
+    """Decode attention over paged KV; see paged_attention.py."""
+    return _paged_kernel(q, k_pages, v_pages, page_table, lengths)

@@ -1,0 +1,205 @@
+"""Core layer primitives: norms, RoPE, GQA attention, SwiGLU (PyTorch).
+
+Port of ``src/repro/models/layers.py`` with the JAX package's layouts at
+every public function. GQA never materialises repeated KV heads:
+queries are reshaped to (kv_head, group) and contracted against the raw
+KV tensors. Softmax and norms accumulate in fp32 regardless of
+activation dtype.
+
+dtype rules follow ``jnp``: a plain contraction runs in the promoted
+dtype of its operands (bf16 x f32 -> f32; ``torch.einsum`` would raise
+on the mix), and a ``preferred_element_type=float32`` contraction runs
+on f32 operands.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+
+def promoted(*ts: torch.Tensor) -> list[torch.Tensor]:
+    """Operands cast to their promoted dtype (``jnp.promote_types``)."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return [t if t.dtype == dt else t.to(dt) for t in ts]
+
+
+def einsum(eq: str, *ts: torch.Tensor) -> torch.Tensor:
+    """``jnp.einsum`` without a preferred type: promoted-dtype einsum."""
+    return torch.einsum(eq, *promoted(*ts))
+
+
+def einsum_f32(eq: str, *ts: torch.Tensor) -> torch.Tensor:
+    """``jnp.einsum(..., preferred_element_type=float32)``."""
+    return torch.einsum(eq, *(t.float() for t in ts))
+
+
+# ---------------------------------------------------------------- norms
+def rms_norm(x: torch.Tensor, w: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * w.float()).to(x.dtype)
+
+
+def head_rms_norm(x: torch.Tensor, w: torch.Tensor,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """qk_norm (qwen3): per-head RMS over head_dim; w is (head_dim,)."""
+    return rms_norm(x, w, eps)
+
+
+# ---------------------------------------------------------------- RoPE
+def rope_freqs(head_dim: int, theta: float,
+               device: torch.device | str = "cpu") -> torch.Tensor:
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exps)
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """positions: (..., S) int -> cos/sin (..., S, head_dim/2)."""
+    freqs = rope_freqs(head_dim, theta, positions.device)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, D); cos/sin: (B, S, D/2) — rotate-half convention."""
+    x32 = x.float()
+    x1, x2 = x32.chunk(2, dim=-1)
+    c = cos[:, :, None, :]
+    s = sin[:, :, None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s],
+                     dim=-1).to(x.dtype)
+
+
+# ------------------------------------------------------------ attention
+# Above this query length, attention runs query-chunked (memory-bounded).
+Q_CHUNK_THRESHOLD = 2048
+Q_CHUNK = 1024
+
+
+def _masked_softmax_out(scores, mask, v):
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    return einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
+
+
+def _attn_block(qg, k, v, q_offset, kv_len, causal, scale):
+    """One query block. qg: (B, Sq, Kh, G, D); full k/v. Exact softmax
+    per query row (query-chunking needs no online rescaling)."""
+    Sq = qg.shape[1]
+    Sk = k.shape[1]
+    dev = qg.device
+    scores = einsum_f32("bqkgd,bskd->bkgqs", qg, k) * scale
+    mask = None
+    if causal:
+        qpos = torch.arange(Sq, device=dev)[:, None] + q_offset
+        kpos = torch.arange(Sk, device=dev)[None, :]
+        mask = (kpos <= qpos)[None, None, None]
+    if kv_len is not None:
+        kv_len = torch.as_tensor(kv_len, device=dev).reshape(-1, 1)
+        valid = torch.arange(Sk, device=dev)[None, :] < kv_len
+        valid = valid[:, None, None, None, :]
+        mask = valid if mask is None else (mask & valid)
+    return _masked_softmax_out(scores, mask, v)
+
+
+def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, q_offset=0,
+                  kv_len: torch.Tensor | None = None) -> torch.Tensor:
+    """Grouped-query attention without KV duplication.
+
+    q: (B, Sq, H, D); k, v: (B, Sk, Kh, D) with H = Kh * G.
+    ``q_offset`` is the absolute position of q[0] (decode: cache length).
+    ``kv_len`` masks out cache slots >= kv_len (padded decode caches).
+    Long sequences run query-chunked (blocks of ``Q_CHUNK`` queries) so
+    the (Sq, Sk) score matrix never materialises. Returns (B, Sq, H, D).
+    """
+    B, Sq, H, D = q.shape
+    Kh = k.shape[2]
+    G = H // Kh
+    qg = q.reshape(B, Sq, Kh, G, D)
+    scale = D ** -0.5
+    if Sq < Q_CHUNK_THRESHOLD or Sq % Q_CHUNK != 0:
+        out = _attn_block(qg, k, v, q_offset, kv_len, causal, scale)
+        return out.reshape(B, Sq, H, D)
+    outs = [_attn_block(qg[:, c:c + Q_CHUNK], k, v, q_offset + c, kv_len,
+                        causal, scale)
+            for c in range(0, Sq, Q_CHUNK)]
+    return torch.cat(outs, dim=1).reshape(B, Sq, H, D)
+
+
+def suffix_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     q_positions: torch.Tensor) -> torch.Tensor:
+    """Causal attention where each *row* starts at its own offset.
+
+    Suffix prefill over a prefix-cache hit: row ``b``'s queries sit at
+    absolute positions ``q_positions[b, :]`` while k/v hold the whole
+    context (cached prefix + fresh suffix, gathered from KV pages). The
+    per-row mask is ``kpos <= q_positions[b, i]``; otherwise this is the
+    exact ``_attn_block`` computation (same contractions, NEG_INF
+    masking, softmax), plain einsum by design.
+
+    q: (B, S, H, D); k, v: (B, T, Kh, D); q_positions: (B, S) int.
+    Returns (B, S, H, D).
+    """
+    B, S, H, D = q.shape
+    Kh = k.shape[2]
+    G = H // Kh
+    qg = q.reshape(B, S, Kh, G, D)
+    scale = D ** -0.5
+    scores = einsum_f32("bqkgd,bskd->bkgqs", qg, k) * scale
+    kpos = torch.arange(k.shape[1], device=q.device)
+    mask = kpos[None, None, :] <= q_positions[:, :, None]   # (B, S, T)
+    out = _masked_softmax_out(scores, mask[:, None, None], v)
+    return out.reshape(B, S, H, D)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     cache_len: torch.Tensor) -> torch.Tensor:
+    """Single-token decode against a padded KV cache.
+
+    q: (B, 1, H, D); caches: (B, Smax, Kh, D); cache_len: (B,) — number
+    of valid entries (the new token's KV must already be written).
+    """
+    return gqa_attention(q, k_cache, v_cache, causal=False,
+                         kv_len=cache_len)
+
+
+# ----------------------------------------------------------------- MLP
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    g = einsum("bsd,df->bsf", x, w_gate)
+    u = einsum("bsd,df->bsf", x, w_up)
+    return einsum("bsf,fd->bsd", F.silu(g) * u, w_down)
+
+
+def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor,
+             w_down: torch.Tensor) -> torch.Tensor:
+    h = F.gelu(einsum("bsd,df->bsf", x, w_up), approximate="tanh")
+    return einsum("bsf,fd->bsd", h, w_down)
+
+
+# ---------------------------------------------------------- embeddings
+def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    return table[tokens.long()]
+
+
+def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, D); table: (D, V) -> f32 logits (B, S, V).
+
+    ``preferred_element_type=float32``: the product runs on f32
+    operands, so bf16 weights give f32 logits that are not rounded back
+    to bf16 (greedy argmax would otherwise see bf16 ties).
+    """
+    return einsum_f32("bsd,dv->bsv", x, table)

@@ -1,0 +1,428 @@
+"""Decoder-only LM, dense family, on the paged KV pool (PyTorch).
+
+Port of the paged serving subset of ``src/repro/models/lm.py``.
+Parameters are a *flat* dict {path: tensor} (see base.param_shapes)
+with per-layer tensors stacked on axis 0; the JAX ``lax.scan`` over
+that stack becomes a Python loop over the layer index, and the K-step
+decode scan a loop whose state stays on the device.
+
+Unlike the JAX functions, which return fresh KV arrays, the port writes
+the new K/V into the given page tensors *in place* (the JAX engine
+donates them, so the effect is the same) and returns those tensors.
+
+Out-of-range gathers: JAX clamps ``x[i, j]`` and fills
+``take_along_axis`` where PyTorch raises, so page-table lookups clamp
+their block index to the table before gathering, then mask exactly as
+the JAX code does.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels.ops import paged_attention
+from repro_torch.models.base import ModelConfig, param_shapes
+from repro_torch.models.layers import (apply_rope, einsum, embed,
+                                       gelu_mlp, head_rms_norm, rms_norm,
+                                       rope_cos_sin, suffix_attention,
+                                       swiglu, unembed)
+from repro_torch.models.lora_apply import lora_delta
+
+
+# ----------------------------------------------------------------- init
+def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
+                device: torch.device | str | None = None
+                ) -> dict[str, torch.Tensor]:
+    """Random weights from a seeded ``torch.Generator`` on ``device``.
+
+    Same leaf rules as the JAX ``init_params`` (norms one, biases zero,
+    matrices N(0, 1/fan_in)); the numbers differ, since the generators
+    do. Stacked tensors are drawn one layer at a time, so the f32 draw
+    never holds more than one layer.
+    """
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params: dict[str, torch.Tensor] = {}
+
+    def draw(shape, fn):
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        if len(shape) >= 3:
+            for i in range(shape[0]):
+                out[i] = fn(shape[1:])
+        else:
+            out.copy_(fn(shape))
+        return out
+
+    def normal(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def uniform(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+
+    for path, shape in sorted(param_shapes(cfg).items()):
+        leaf = path.split("/")[-1]
+        if "norm" in leaf:
+            params[path] = torch.ones(shape, dtype=dtype, device=dev)
+        elif leaf in ("A_log",):
+            params[path] = torch.log(uniform(shape, 1.0, 16.0))
+        elif leaf in ("ssm_D",):
+            params[path] = torch.ones(shape, dtype=torch.float32, device=dev)
+        elif leaf in ("dt_bias",):
+            params[path] = torch.log(torch.expm1(uniform(shape, 1e-3, 1e-1)))
+        elif leaf.endswith("_bias") or leaf in ("conv_b",):
+            params[path] = torch.zeros(shape, dtype=dtype, device=dev)
+        elif leaf in ("enc_pos", "dec_pos"):
+            params[path] = draw(shape, lambda s: 0.02 * normal(s))
+        else:
+            fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+            std = fan_in ** -0.5
+            params[path] = draw(shape, lambda s, std=std: std * normal(s))
+    return params
+
+
+# ------------------------------------------------------------ attention
+def _qkv_proj(cfg: ModelConfig, x: torch.Tensor, p: dict, cos, sin,
+              lora=None, adapter_idx=None, prefix: str = "",
+              lora_backend: str = "einsum"):
+    """Normed q/k/v projections (+bias, +LoRA, +qk-norm, +RoPE).
+
+    Returns (h, q, k, v) with q (B,S,H,Dh), k/v (B,S,Kh,Dh); ``h`` is the
+    post-norm hidden.
+    """
+    B, S, _ = x.shape
+    h = rms_norm(x, p[prefix + "attn_norm"], cfg.norm_eps)
+
+    def proj(name):
+        y = einsum("bsd,de->bse", h, p[prefix + name])
+        if cfg.qkv_bias and prefix + name + "_bias" in p:
+            y = y + p[prefix + name + "_bias"]
+        if lora is not None and name in lora:
+            y = y + lora_delta(h, lora[name], adapter_idx,
+                               backend=lora_backend)
+        return y
+
+    q = proj("q").reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k = proj("k").reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = proj("v").reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = head_rms_norm(q, p[prefix + "q_norm"], cfg.norm_eps)
+        k = head_rms_norm(k, p[prefix + "k_norm"], cfg.norm_eps)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    return h, q, k, v
+
+
+def _o_proj(cfg: ModelConfig, x: torch.Tensor, out: torch.Tensor, p: dict,
+            lora=None, adapter_idx=None, prefix: str = "",
+            lora_backend: str = "einsum") -> torch.Tensor:
+    """Output projection + LoRA + residual. out: (B, S, q_dim)."""
+    o = einsum("bse,ed->bsd", out, p[prefix + "o"])
+    if lora is not None and "o" in lora:
+        o = o + lora_delta(out, lora["o"], adapter_idx,
+                           backend=lora_backend)
+    return x + o
+
+
+def _attn_paged(cfg: ModelConfig, x: torch.Tensor, p: dict, cos, sin,
+                k_pages: torch.Tensor, v_pages: torch.Tensor,
+                page_table: torch.Tensor, cache_len: torch.Tensor,
+                page_idx: torch.Tensor, page_off: torch.Tensor,
+                lora=None, adapter_idx=None,
+                lora_backend: str = "einsum") -> torch.Tensor:
+    """Decode attention over paged KV (one layer; S == 1).
+
+    k/v_pages: (n_pages, page, Kh, Dh) of this layer; page_idx/page_off:
+    (B,) write position of the new token. The fresh K/V is written into
+    the pages in place, then attention runs over the request's page
+    list through ``kernels.ops.paged_attention`` (the CUDA kernel on the
+    card, its plain PyTorch version on the CPU). Requests never share a written
+    page; inactive slots all write the reserved trash page 0.
+    """
+    B, S, _ = x.shape
+    _, q, k, v = _qkv_proj(cfg, x, p, cos, sin, lora, adapter_idx,
+                           lora_backend=lora_backend)
+    k_pages[page_idx, page_off] = k[:, 0].to(k_pages.dtype)
+    v_pages[page_idx, page_off] = v[:, 0].to(v_pages.dtype)
+    Kh, G = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    qh = q[:, 0].reshape(B, Kh, G, cfg.head_dim)
+    out = paged_attention(qh, k_pages, v_pages, page_table, cache_len + 1)
+    out = out.reshape(B, S, cfg.q_dim)
+    return _o_proj(cfg, x, out, p, lora, adapter_idx,
+                   lora_backend=lora_backend)
+
+
+def _mlp(cfg, x, p, prefix=""):
+    h = rms_norm(x, p[prefix + "mlp_norm"], cfg.norm_eps)
+    if not cfg.gated_mlp:
+        return x + gelu_mlp(h, p[prefix + "up"], p[prefix + "down"])
+    return x + swiglu(h, p[prefix + "gate"], p[prefix + "up"],
+                      p[prefix + "down"])
+
+
+# ----------------------------------------------------- stacked param views
+def _slice_group(params: dict, prefix: str) -> dict:
+    n = len(prefix)
+    return {k[n:]: v for k, v in params.items() if k.startswith(prefix)}
+
+
+def _layers(cfg: ModelConfig, params: dict, lora):
+    """Per-layer (params, lora) views of the stacked tensors — the
+    ``xs`` of the JAX scan, one layer at a time."""
+    stack = _slice_group(params, "layers/")
+    for i in range(cfg.n_layers):
+        p = {k: v[i] for k, v in stack.items()}
+        lr = ({n: (a[i], b[i]) for n, (a, b) in lora.items()}
+              if lora is not None else None)
+        yield i, p, lr
+
+
+def _positions(cfg: ModelConfig, tokens_shape, offset):
+    B, S = tokens_shape
+    if cfg.mrope:
+        raise NotImplementedError("M-RoPE (VLM) is not ported yet")
+    offset = torch.as_tensor(offset)
+    pos = (torch.arange(S, device=offset.device)[None, :]
+           + offset.reshape(-1, 1).long())
+    return rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
+
+
+def _head(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    table = (params["embed/tok"].T if cfg.tie_embeddings
+             else params["lm_head"])
+    return unembed(h, table)[:, 0]
+
+
+def make_paged_kv(cfg: ModelConfig, n_pages: int, page_size: int,
+                  dtype=torch.bfloat16,
+                  device: torch.device | str | None = None):
+    """Paged KV pool: (L, n_pages, page, Kh, Dh) ×2.
+
+    Page 0 is reserved as the trash page inactive batch slots write
+    into; allocators hand out pages 1..n_pages-1 (engine convention).
+    """
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads,
+             cfg.head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=dev),
+            torch.zeros(shape, dtype=dtype, device=dev))
+
+
+# ------------------------------------------------------------- sampling
+def sample_tokens_core(logits: torch.Tensor, temperature: torch.Tensor,
+                       top_k: torch.Tensor, top_p: torch.Tensor,
+                       gumbel: torch.Tensor) -> torch.Tensor:
+    """The noise-free half of ``sample_tokens``: temperature, top-k and
+    top-p masking, then argmax of masked + ``gumbel`` (B, V). Rows with
+    ``temperature <= 0`` are greedy argmax. Ties rank like the JAX
+    sampler's reversed stable ascending argsort."""
+    B, V = logits.shape
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    scaled = logits / torch.clamp(temperature, min=1e-6)[:, None]
+    # Rank every vocab entry within its row (0 = best).
+    order = torch.argsort(scaled, dim=-1, stable=True).flip(-1)
+    ranks = torch.empty_like(order).scatter_(
+        1, order, torch.arange(V, device=logits.device).expand(B, V))
+    k_eff = torch.where(top_k > 0, top_k, torch.full_like(top_k, V))
+    keep_k = ranks < k_eff[:, None]
+    # Nucleus: keep entries whose *preceding* cumulative mass < top_p.
+    probs = torch.softmax(scaled, dim=-1)
+    sorted_p = torch.gather(probs, 1, order)
+    cum = torch.cumsum(sorted_p, dim=-1)
+    keep_p_sorted = (cum - sorted_p) < top_p[:, None]
+    keep_p = torch.gather(keep_p_sorted, 1, ranks)
+    masked = torch.where(keep_k & keep_p, scaled,
+                         torch.full_like(scaled, float("-inf")))
+    sampled = torch.argmax(masked + gumbel, dim=-1).to(torch.int32)
+    return torch.where(temperature > 0.0, sampled, greedy)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(h: torch.Tensor) -> torch.Tensor:
+    """32-bit integer hash on int64 lanes (multipliers < 2**31, so the
+    products never leave int64)."""
+    h = h ^ (h >> 16)
+    h = (h * 0x7FEB352D) & _M32
+    h = h ^ (h >> 15)
+    h = (h * 0x5BD1E995) & _M32
+    return h ^ (h >> 16)
+
+
+def gumbel_noise(seeds: torch.Tensor, positions: torch.Tensor,
+                 V: int) -> torch.Tensor:
+    """(B, V) Gumbel noise that depends only on (seed, position): a
+    counter-based hash evaluated on the device, so a token's randomness
+    is the same across batch compositions and re-executions, and the
+    fused loop needs no host round-trip to draw it. (JAX's threefry bits
+    are not reproduced; tests feed JAX's own noise to
+    ``sample_tokens_core``.)"""
+    s = seeds.long() & _M32
+    p = positions.long() & _M32
+    key = _mix32(_mix32(s ^ 0x3C6EF372) ^ p)
+    idx = torch.arange(V, device=seeds.device, dtype=torch.long)
+    h = _mix32(key[:, None] ^ _mix32(idx + 0x1B873593))
+    u = ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(u))
+
+
+def sample_tokens(logits: torch.Tensor, temperature: torch.Tensor,
+                  top_k: torch.Tensor, top_p: torch.Tensor,
+                  seeds: torch.Tensor, positions: torch.Tensor
+                  ) -> torch.Tensor:
+    """Batched next-token sampler, one row per batch slot.
+
+    logits (B, V) float; temperature/top_p (B,) float; top_k (B,) int
+    (0 = disabled); seeds (B,) int; positions (B,) token index being
+    sampled. Greedy rows (``temperature <= 0``) are argmax; stochastic
+    rows draw ``gumbel_noise(seed, position)``.
+    """
+    gumbel = gumbel_noise(seeds, positions, logits.shape[-1])
+    return sample_tokens_core(logits, temperature, top_k, top_p, gumbel)
+
+
+# ------------------------------------------------- fused decode hot loop
+def _fused_decode_scan(decode_one, tokens, cache_len, active, positions,
+                       kv, budget, stop_ids, temperature, top_k, top_p,
+                       seeds, max_ctx: int, n_steps: int,
+                       all_greedy: bool):
+    """Run ``n_steps`` decode+sample+advance iterations on the device.
+
+    The JAX scan body as a loop: decode one token for every batch slot,
+    pick the next token (argmax when the whole batch is greedy, else the
+    seeded sampler), advance ``cache_len``/``positions`` for active
+    rows, and fold the per-row finish conditions (budget, stop id,
+    context bound) into an on-device done mask, so a row that finishes
+    inside the horizon stops emitting there. Nothing is read back to the
+    host: the caller syncs the (n_steps, B) token block and emit mask.
+
+    decode_one: (tokens (B,1), kv, cache_len) -> (logits (B,V), kv').
+    Returns ((tokens', kv', cache_len', active', positions'),
+             toks (n_steps, B) int32, emits (n_steps, B) bool).
+    """
+    toks, emits = [], []
+    for _ in range(n_steps):
+        logits, kv = decode_one(tokens, kv, cache_len)
+        if all_greedy:
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        else:
+            nxt = sample_tokens(logits, temperature, top_k, top_p, seeds,
+                                positions)
+        emit = active
+        step = active.to(torch.int32)
+        new_len = cache_len + step
+        new_pos = positions + step
+        hit_stop = (nxt[:, None] == stop_ids).any(dim=-1)
+        done_now = emit & ((new_pos >= budget) | hit_stop
+                           | (new_len + 1 >= max_ctx - 1))
+        tokens, cache_len = nxt[:, None], new_len
+        active, positions = emit & ~done_now, new_pos
+        toks.append(nxt)
+        emits.append(emit)
+    return ((tokens, kv, cache_len, active, positions),
+            torch.stack(toks), torch.stack(emits))
+
+
+def decode_fused_paged(cfg: ModelConfig, params: dict, tokens, kv_pages,
+                       page_table, cache_len, active, positions, budget,
+                       stop_ids, temperature, top_k, top_p, seeds, *,
+                       n_steps: int, all_greedy: bool, max_ctx: int,
+                       lora=None, adapter_idx=None,
+                       lora_backend: str = "einsum"):
+    """Fused multi-step decode over the paged KV pool. The page table
+    is read-only across the horizon: the engine pre-allocates pages
+    covering every write the loop can make."""
+
+    def decode_one(tok, kv, clen):
+        return decode_step_paged(cfg, params, tok, kv, page_table, clen,
+                                 lora=lora, adapter_idx=adapter_idx,
+                                 lora_backend=lora_backend)
+
+    return _fused_decode_scan(decode_one, tokens, cache_len, active,
+                              positions, kv_pages, budget, stop_ids,
+                              temperature, top_k, top_p, seeds, max_ctx,
+                              n_steps, all_greedy)
+
+
+def decode_step_paged(cfg: ModelConfig, params: dict, tokens, kv_pages,
+                      page_table, cache_len, lora=None, adapter_idx=None,
+                      lora_backend: str = "einsum"):
+    """One decode step over a paged KV pool.
+
+    tokens: (B, 1); kv_pages: (k_pages, v_pages) each (L, n_pages,
+    page, Kh, Dh), updated in place; page_table: (B, P) physical page
+    ids per request; cache_len: (B,) valid lengths. Returns
+    (logits (B, V) f32, kv_pages).
+    """
+    x = embed(tokens, params["embed/tok"])
+    cos, sin = _positions(cfg, tokens.shape, cache_len)
+    k_pages, v_pages = kv_pages
+    page = k_pages.shape[2]
+    B, P = page_table.shape
+    # Write position of the new token, shared across layers (the block
+    # index clamps to the table as JAX's gather does).
+    blk = torch.clamp(cache_len.long() // page, max=P - 1)
+    page_idx = page_table.long()[torch.arange(B, device=blk.device), blk]
+    page_off = cache_len.long() % page
+    h = x
+    for i, p, lr in _layers(cfg, params, lora):
+        h = _attn_paged(cfg, h, p, cos, sin, k_pages[i], v_pages[i],
+                        page_table, cache_len, page_idx, page_off, lr,
+                        adapter_idx, lora_backend)
+        h = _mlp(cfg, h, p)
+    return _head(cfg, params, h), (k_pages, v_pages)
+
+
+def prefill_paged(cfg: ModelConfig, params: dict, tokens, kv_pages,
+                  page_table, start, seq_len, lora=None, adapter_idx=None,
+                  lora_backend: str = "einsum"):
+    """Suffix prefill straight into paged KV (prefix-cache data plane).
+
+    tokens: (B, S) right-padded *suffix* token ids; start: (B,) absolute
+    position of tokens[:, 0] (the cached prefix length, 0 on a miss);
+    seq_len: (B,) valid suffix lengths (>= 1); page_table: (B, P)
+    physical pages covering positions 0..start+S-1.
+
+    Per layer: project the suffix q/k/v (RoPE at the absolute offset),
+    write K/V into the pages at positions start..start+seq_len-1
+    (padding redirected to trash page 0), gather the request's whole
+    page list back to (B, P*page, Kh, Dh), and run offset-causal
+    attention over it. Returns (last-valid-position logits (B, V) f32,
+    kv_pages updated in place).
+    """
+    B, S = tokens.shape
+    dev = tokens.device
+    x = embed(tokens, params["embed/tok"])
+    cos, sin = _positions(cfg, tokens.shape, start)
+    k_pages, v_pages = kv_pages
+    page = k_pages.shape[2]
+    P = page_table.shape[1]
+    pt = page_table.long()
+    pos = start.long()[:, None] + torch.arange(S, device=dev)[None, :]
+    valid = torch.arange(S, device=dev)[None, :] < seq_len.long()[:, None]
+    blk = torch.clamp(pos // page, max=P - 1)
+    page_idx = torch.where(valid, torch.gather(pt, 1, blk),
+                           torch.zeros_like(blk))        # pad → trash
+    page_off = pos % page
+    h = x
+    for i, p, lr in _layers(cfg, params, lora):
+        _, q, k, v = _qkv_proj(cfg, h, p, cos, sin, lr, adapter_idx,
+                               lora_backend=lora_backend)
+        kp, vp = k_pages[i], v_pages[i]
+        kp[page_idx, page_off] = k.to(kp.dtype)
+        vp[page_idx, page_off] = v.to(vp.dtype)
+        kf = kp[pt].reshape(B, P * page, cfg.n_kv_heads, cfg.head_dim)
+        vf = vp[pt].reshape(B, P * page, cfg.n_kv_heads, cfg.head_dim)
+        # f32 pages promote the attention output; keep the activation
+        # dtype, as the decode kernel does (a no-op for f32 weights; the
+        # JAX scan would reject the promoted carry for bf16 weights).
+        out = suffix_attention(q, kf, vf, pos).to(q.dtype)
+        out = out.reshape(B, S, cfg.q_dim)
+        h = _o_proj(cfg, h, out, p, lr, adapter_idx,
+                    lora_backend=lora_backend)
+        h = _mlp(cfg, h, p)
+    last = (seq_len.long() - 1).clamp(min=0)
+    h_last = h[torch.arange(B, device=dev), last][:, None]
+    return _head(cfg, params, h_last), (k_pages, v_pages)

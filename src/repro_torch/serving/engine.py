@@ -1,0 +1,1207 @@
+"""PyTorch serving engine: continuous batching with Chameleon integrated.
+
+Port of the default path of ``src/repro/serving/engine.py``: one
+``ChameleonEngine`` over paged KV (16-token pages), the prefix cache in
+``"exact"`` (or ``"alora"``) mode, the fused decode micro-horizon with
+pipelined readback, asynchronous adapter loads and kernel LoRA on the
+card. The control plane — scheduler, adapter cache, memory pool,
+prefix radix tree, prefetchers — is the reference's own code
+(``repro_torch.core`` is a verbatim copy); this file moves bytes and
+drives the data plane.
+
+Device state lives in preallocated tensors updated in place: the KV
+page pool (the JAX engine donates it into each jit), the per-slot
+current token, ``cache_len`` and adapter index. The fused horizon runs
+K decode+sample steps as a loop of device launches with an on-device
+done mask; its (K, B) token block is copied to pinned host memory
+behind an event as soon as it is enqueued, so the pipelined readback of
+horizon N waits only for horizon N, not for horizon N+1 dispatched
+after it.
+
+Asynchronous adapter loads: a cache miss copies the adapter's pinned
+host weights into its (free) device slot on a side CUDA stream and
+records an event; ``_poll_loads`` retires the load once
+``event.query()`` is true. Decode on the main stream keeps reading the
+other slots meanwhile — the slot being written is free, and a LOADING
+adapter is never placed. On the CPU the copy is synchronous.
+
+Not ported yet (each raises ``NotImplementedError`` at construction,
+naming the knob): ``mesh_shape``, ``spec_decode``,
+``prefill_chunk_tokens > 0``, ``paged=False`` (the dense slab),
+``prefix_cache=False``, and model families without paged decode; the
+disaggregation migration API raises when called.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import (AdapterCache, AdapterInfo, CacheStats,
+                              ChameleonScheduler, HistogramPrefetcher,
+                              MemoryPool, NoisyOraclePredictor, PoolError,
+                              PrefixCache, QueuedRequestPrefetcher, Request,
+                              RequestState, SamplingParams)
+from repro_torch.device import resolve_device
+from repro_torch.kernels.ops import DISPATCH_METER, resolve_lora_backend
+from repro_torch.models import api
+from repro_torch.models.base import ModelConfig
+from repro_torch.models.lora_apply import (init_lora_slots,
+                                           random_lora_weights,
+                                           write_adapter_to_slot)
+from repro_torch.serving.handles import RequestHandle, prepare_request
+from repro_torch.serving.metrics import RequestRecord, RunMetrics
+
+
+@dataclass
+class EngineConfig:
+    """Same fields and defaults as the JAX ``EngineConfig``; see there
+    for each knob. The port serves the default path and rejects the
+    knobs it does not implement yet at engine construction."""
+    max_slots: int = 8
+    max_len: int = 256
+    n_lora_slots: int = 8
+    r_max: int = 32
+    n_adapters: int = 16
+    predictor_accuracy: float = 0.8
+    seed: int = 0
+    paged: bool = True
+    page_size: int = 16
+    # "auto" = CUDA kernels on a CUDA device, einsum elsewhere.
+    lora_backend: str = "auto"
+    async_load: bool = True
+    h2d_gbps: float = 0.0
+    queued_prefetch: bool = True
+    histogram_prefetch: bool = True
+    fused_hotloop: bool = True
+    max_horizon: int = 8
+    pipeline_readback: bool = True
+    prefix_cache: bool = True
+    prefix_mode: str = "exact"
+    mesh_shape: Optional[tuple] = None
+    prefill_chunk_tokens: int = 0
+    spec_decode: bool = False
+    spec_k: int = 4
+    spec_draft: str = "internlm2-1.8b"
+
+
+def _unsupported(cfg: ModelConfig, e: EngineConfig) -> list[str]:
+    out = []
+    if e.mesh_shape is not None:
+        out.append(f"mesh_shape={e.mesh_shape}")
+    if e.spec_decode:
+        out.append("spec_decode=True")
+    if e.prefill_chunk_tokens > 0:
+        out.append(f"prefill_chunk_tokens={e.prefill_chunk_tokens}")
+    if not e.paged:
+        out.append("paged=False")
+    if not e.prefix_cache:
+        out.append("prefix_cache=False")
+    if not api.supports_paged(cfg):
+        out.append(f"model family {cfg.family.name} (no paged decode)")
+    return out
+
+
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    """Host copy of an adapter weight, pinned when a card is present so
+    slot loads are true asynchronous H2D copies."""
+    t = t.detach().to("cpu")
+    return t.pin_memory() if torch.cuda.is_available() else t
+
+
+class AdapterCatalog:
+    """Host-side LoRA adapter store shared by every engine replica.
+
+    Holds the adapter weights ("host memory" in the paper) and the
+    AdapterInfo metadata the control plane prices residency with. The
+    weights are either drawn from a seeded ``torch.Generator`` on
+    ``device`` (then kept in pinned host memory) or given as
+    ``weights`` ({adapter_id: {proj: (A (L, din, r_max), B (L, r_max,
+    dout))}}, e.g. the JAX catalog's weights through ``bridge``).
+    """
+
+    def __init__(self, cfg: ModelConfig, n_adapters: int, r_max: int,
+                 seed: int = 0, *, weights: Optional[dict] = None,
+                 device: torch.device | str | None = None):
+        self.cfg = cfg
+        self.r_max = r_max
+        self.ranks = [min(cfg.lora_ranks[i % len(cfg.lora_ranks)], r_max)
+                      for i in range(n_adapters)]
+        if weights is None:
+            gen = torch.Generator(device=resolve_device(device))
+            gen.manual_seed(seed)
+            weights = {}
+            for aid in range(n_adapters):
+                w = random_lora_weights(gen, self.ranks[aid], r_max,
+                                        cfg.n_layers, cfg.d_model,
+                                        cfg.q_dim, cfg.kv_dim)
+                weights[aid] = {name: (_host_copy(a), _host_copy(b))
+                                for name, (a, b) in w.items()}
+        elif len(weights) != n_adapters:
+            raise ValueError(f"weights hold {len(weights)} adapters, "
+                             f"n_adapters={n_adapters}")
+        self.weights = weights
+        kv_tok = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2
+        lora_bytes = {aid: sum((a.numel() + b.numel()) * 2
+                               for a, b in self.weights[aid].values())
+                      for aid in self.weights}
+        self.infos = {aid: AdapterInfo(
+            adapter_id=aid, rank=self.ranks[aid],
+            size_bytes=lora_bytes[aid],
+            size_tokens=max(1, lora_bytes[aid] // kv_tok))
+            for aid in self.weights}
+
+    def __len__(self) -> int:
+        return len(self.weights)
+
+    def rank_of(self, adapter_id: int) -> int:
+        return self.infos[adapter_id].rank
+
+
+class ChameleonEngine:
+    """Single-device engine over a real model (CUDA by default)."""
+
+    def __init__(self, cfg: ModelConfig, params: dict,
+                 ecfg: EngineConfig | None = None,
+                 scheduler_cls=ChameleonScheduler, cache_enabled=True,
+                 catalog: AdapterCatalog | None = None,
+                 clock: Optional[Callable[[], float]] = None,
+                 device: torch.device | str | None = None):
+        self.cfg = cfg
+        self.ecfg = ecfg or EngineConfig()
+        e = self.ecfg
+        missing = _unsupported(cfg, e)
+        if missing:
+            raise NotImplementedError(
+                "not ported to the PyTorch engine yet: " + ", ".join(missing))
+        if e.prefix_mode not in ("exact", "alora"):
+            raise ValueError(f"unknown prefix_mode {e.prefix_mode!r}")
+        self.device = dev = resolve_device(device)
+        self.params = {k: v.to(dev) for k, v in params.items()}
+
+        # --- LoRA adapter catalog (host-side weights = "host memory") ---
+        self.catalog = catalog or AdapterCatalog(cfg, e.n_adapters,
+                                                 e.r_max, seed=e.seed,
+                                                 device=dev)
+        self.host_adapters = self.catalog.weights
+        # Device adapter-slot buffers, written in place by loads.
+        self.lora = init_lora_slots(e.n_lora_slots, cfg.n_layers,
+                                    cfg.d_model, cfg.q_dim, cfg.kv_dim,
+                                    self.catalog.r_max, device=dev)
+        self.slot_of: dict[int, int] = {}       # adapter_id -> lora slot
+        self.free_slots = list(range(e.n_lora_slots))
+        # adapter_id -> (copy-done event or None, modeled-ready time).
+        self._pending_loads: dict[int, tuple[Optional[torch.cuda.Event],
+                                             float]] = {}
+        self._load_stream = None
+        if dev.type == "cuda":
+            # Slot copies on the side stream must land after the zero
+            # fill just enqueued on the main stream.
+            self._load_stream = torch.cuda.Stream(dev)
+            self._load_stream.wait_stream(torch.cuda.current_stream(dev))
+        self.n_async_loads = 0
+        self._lora_backend = resolve_lora_backend(e.lora_backend, dev)
+
+        # --- memory pool in token units ---
+        infos = self.catalog.infos
+        cap = e.max_slots * e.max_len \
+            + 4 * max(c.size_tokens for c in infos.values())
+        self.pool = MemoryPool(capacity_tokens=cap, page_size=e.page_size)
+        self.cache = AdapterCache(self.pool, infos,
+                                  enabled=cache_enabled,
+                                  on_load=self._load_adapter,
+                                  on_evict=self._evict_adapter,
+                                  max_entries=e.n_lora_slots)
+        pred = NoisyOraclePredictor(accuracy=e.predictor_accuracy,
+                                    seed=e.seed)
+        skw = dict(max_batch_requests=e.max_slots)
+        if issubclass(scheduler_cls, ChameleonScheduler):
+            skw["t_refresh"] = 5.0
+        self.sched = scheduler_cls(self.pool, self.cache, infos, pred,
+                                   **skw)
+        self.q_prefetch = (QueuedRequestPrefetcher(self.cache)
+                           if e.queued_prefetch else None)
+        self.h_prefetch = (HistogramPrefetcher(self.cache)
+                           if e.histogram_prefetch else None)
+        # The engine holds exactly its allocated pages in the pool.
+        self.sched.reserve_from_pool = False
+
+        # --- device state: paged KV pool, page 0 = trash page ---
+        ps = e.page_size
+        self.n_pages = cap // ps + 1
+        self.pages_per_slot = -(-e.max_len // ps)
+        self.kv_pages = api.init_paged_serve_state(
+            cfg, self.n_pages, ps, torch.float32, device=dev)
+        self.page_table = np.zeros((e.max_slots, self.pages_per_slot),
+                                   np.int32)
+        self.slot_pages: list[list[int]] = [[] for _ in range(e.max_slots)]
+        self.free_pages = list(range(self.n_pages - 1, 0, -1))
+        # --- prefix KV reuse (radix tree over the paged pool) ---
+        self.prefix = PrefixCache(self.pool, e.page_size)
+        self.slot_shared: list[list[int]] = [[] for _ in range(e.max_slots)]
+        self.prefix_hit_tokens = 0
+        self.prefix_lookup_tokens = 0
+        self.n_prefix_hits = 0
+        self.n_cow_forks = 0
+        self.tokens = torch.zeros((e.max_slots, 1), dtype=torch.int32,
+                                  device=dev)
+        self.cache_len = torch.zeros((e.max_slots,), dtype=torch.int32,
+                                     device=dev)
+        self.active = np.zeros((e.max_slots,), bool)
+        self.adapter_slot = torch.zeros((e.max_slots,), dtype=torch.int32,
+                                        device=dev)
+        self.slot_req: list[Optional[Request]] = [None] * e.max_slots
+        self.t0 = time.monotonic()
+        self._clock = clock
+        self.completed: list[Request] = []
+        self.records: list[RequestRecord] = []
+        self.outputs: dict[int, list[int]] = {}
+        self._tbts: dict[int, list[float]] = {}
+        self._last_tok: dict[int, float] = {}
+        self.handles: dict[int, RequestHandle] = {}
+        self.batch_occupancy: list[int] = []
+        self.n_preempted = 0
+        self.n_cancelled = 0
+        self.n_expired = 0
+        self._deadlines_armed = False
+        self._cancel_armed = False
+        self._cancel_races: list[Request] = []
+
+        # --- device-resident hot loop state ---
+        self.fused = bool(e.fused_hotloop) and api.supports_fused(cfg)
+        self.batch_epoch = 0
+        self._dev: Optional[dict] = None
+        self._dev_epoch = -1
+        self._page_table_dev: Optional[torch.Tensor] = None
+        self._page_table_dirty = True
+        # One dispatched-but-unsynced horizon: (toks, emits, K), the
+        # blocks as (host tensor, copy-done event or None).
+        self._inflight: Optional[tuple] = None
+
+    # ------------------------------------------------------------- clock
+    def now(self) -> float:
+        if self._clock is not None:
+            return self._clock()
+        return time.monotonic() - self.t0
+
+    # ----------------------------------------------------- adapter moves
+    def _load_adapter(self, info: AdapterInfo) -> None:
+        """Cache ``on_load`` hook: copy the adapter into a free slot.
+
+        Async mode (default) issues the H2D copy on the load stream,
+        records an event and marks the entry LOADING; decode keeps
+        running on the main stream, and ``_poll_loads`` retires the
+        load once the event completed. Sync mode blocks until the copy
+        (plus any modeled H2D time) lands.
+        """
+        if not self.free_slots:
+            raise RuntimeError(
+                "adapter slot accounting drift: no free LoRA slot for "
+                f"adapter {info.adapter_id} "
+                f"(n_lora_slots={self.ecfg.n_lora_slots}, "
+                f"slot_of={dict(sorted(self.slot_of.items()))}, "
+                f"cache_resident={sorted(self.cache.resident_ids())}, "
+                f"cache_loading={sorted(self.cache.loading_ids())})")
+        slot = self.free_slots.pop()
+        self.slot_of[info.adapter_id] = slot
+        weights = self.host_adapters[info.adapter_id]
+        e = self.ecfg
+        delay = (info.size_bytes / (e.h2d_gbps * 1e9)
+                 if e.h2d_gbps > 0 else 0.0)
+        if e.async_load:
+            event = None
+            if self._load_stream is not None:
+                with torch.cuda.stream(self._load_stream):
+                    write_adapter_to_slot(self.lora, weights, slot,
+                                          non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record(self._load_stream)
+            else:
+                write_adapter_to_slot(self.lora, weights, slot)
+            self.cache.mark_loading(info.adapter_id)
+            self._pending_loads[info.adapter_id] = (event,
+                                                    self.now() + delay)
+            self.n_async_loads += 1
+        else:
+            write_adapter_to_slot(self.lora, weights, slot)
+            if delay:
+                time.sleep(delay)   # modeled H2D stall blocks the loop
+
+    def _poll_loads(self) -> None:
+        """Retire in-flight loads; runs every step, never blocks. A load
+        is READY once its copy completed and its modeled ``h2d_gbps``
+        time passed. The load stream runs copies in order, so the first
+        unfinished copy ends the scan."""
+        now = self.now()
+        for aid in list(self._pending_loads):
+            event, t_ready = self._pending_loads[aid]
+            if event is not None:
+                if not event.query():
+                    break
+                self._pending_loads[aid] = (None, t_ready)
+            if now >= t_ready:
+                del self._pending_loads[aid]
+                self.cache.mark_ready(aid)
+
+    def flush_loads(self) -> None:
+        """Barrier: block until every in-flight load lands."""
+        if not self._pending_loads:
+            return
+        if self._load_stream is not None:
+            self._load_stream.synchronize()
+        for aid in list(self._pending_loads):
+            del self._pending_loads[aid]
+            self.cache.mark_ready(aid)
+
+    def _evict_adapter(self, info: AdapterInfo) -> None:
+        slot = self.slot_of.pop(info.adapter_id)
+        self.free_slots.append(slot)
+        # LOADING entries are never eviction candidates.
+        self._pending_loads.pop(info.adapter_id, None)
+
+    def _prefill_lora(self):
+        """LoRA tensors for *prefill*. aLoRA prefix mode computes prompt
+        KV with the base model (the adapter activates at generation), so
+        cached prefix pages are adapter-invariant; decode is untouched."""
+        return None if self.ecfg.prefix_mode == "alora" else self.lora
+
+    # ------------------------------------------------------- page moves
+    def _alloc_page(self, req_id: int, now: float) -> Optional[int]:
+        """One physical page for ``req_id``; None when memory is full
+        (after reclaiming idle prefix pages, then shrinking the adapter
+        cache)."""
+        ps = self.pool.page_size
+        if self.pool.free_tokens < ps:
+            self.free_pages.extend(self.prefix.evict_lru(1))
+        if self.pool.free_tokens < ps and not self.cache.shrink_for_requests(
+                ps, now, self.sched.queued_adapter_ids()):
+            return None
+        if not self.free_pages:
+            return None
+        try:
+            self.pool.reserve_request_pages(req_id, 1)
+        except PoolError:
+            return None
+        return self.free_pages.pop()
+
+    def _grow_slot(self, slot: int, n_pages: int, now: float) -> bool:
+        """Grow a slot's page list by ``n_pages``; all-or-nothing."""
+        req = self.slot_req[slot]
+        got = []
+        for _ in range(n_pages):
+            pid = self._alloc_page(req.req_id, now)
+            if pid is None:
+                for p in got:
+                    self.free_pages.append(p)
+                if got:
+                    self.pool.shrink_request(
+                        req.req_id, len(got) * self.pool.page_size)
+                return False
+            got.append(pid)
+        base = len(self.slot_pages[slot])
+        self.slot_pages[slot].extend(got)
+        self.page_table[slot, base:base + len(got)] = got
+        self._page_table_dirty = True
+        return True
+
+    def _free_slot_pages(self, slot: int, req_id: int) -> None:
+        shared = self.slot_shared[slot]
+        if shared:
+            # Drop the slot's references; the prefix tree keeps its own.
+            self.free_pages.extend(self.pool.release_shared(shared))
+            self.slot_shared[slot] = []
+            shared_set = set(shared)
+            private = [p for p in self.slot_pages[slot]
+                       if p not in shared_set]
+        else:
+            private = self.slot_pages[slot]
+        self.free_pages.extend(private)
+        self.slot_pages[slot] = []
+        self.page_table[slot, :] = 0
+        self._page_table_dirty = True
+        self.pool.release_request(req_id)
+
+    def _stash_progress(self, req: Request) -> None:
+        """Squash/preemption: keep the streamed tokens and TBT records
+        on the request across the requeue."""
+        rid = req.req_id
+        req.stash_progress(self.outputs.pop(rid, None),
+                           self._tbts.pop(rid, None),
+                           self._last_tok.pop(rid, None))
+
+    def _squash_slot(self, slot: int) -> None:
+        """Free a slot and requeue its request (bypass misprediction or
+        page preemption — the request re-executes, keeping its streamed
+        prefix)."""
+        req = self.slot_req[slot]
+        self.active[slot] = False
+        self.slot_req[slot] = None
+        self.batch_epoch += 1
+        self._stash_progress(req)
+        self._free_slot_pages(slot, req.req_id)
+        self.sched.on_squash(req, self.now())
+
+    def _preempt(self, slot: int) -> None:
+        """Out of pages mid-flight: squash, and count it."""
+        self.n_preempted += 1
+        self._squash_slot(slot)
+
+    # ---------------------------------------------------------- lifecycle
+    def submit(self, req: Request, *,
+               sampling: Optional[SamplingParams] = None,
+               on_token=None, ttl: Optional[float] = None,
+               ) -> RequestHandle:
+        """Non-blocking: enqueue with the scheduler; no device work."""
+        now = self.now()
+        handle = prepare_request(req, self, now, sampling, on_token, ttl)
+        self.handles[req.req_id] = handle
+        if req.deadline is not None:
+            self._deadlines_armed = True
+        self.sched.submit(req, now)
+        if self.h_prefetch is not None:
+            self.h_prefetch.observe_arrival(req.adapter_id, now)
+        return handle
+
+    def cancel(self, handle) -> bool:
+        """Cancel a request. Queued / LOADING-deferred requests terminate
+        immediately; RUNNING requests are finalised at the next step
+        boundary. False once already terminal."""
+        req = handle.req if isinstance(handle, RequestHandle) else handle
+        if req.terminal:
+            return False
+        now = self.now()
+        if any(r is req for r in self.slot_req):
+            req.cancel_requested = True
+            self._cancel_armed = True
+            return True
+        if self.sched.cancel(req, now):
+            self._finalize_unplaced(req, RequestState.CANCELLED, now)
+            return True
+        req.cancel_requested = True
+        self._cancel_armed = True
+        self._cancel_races.append(req)
+        return True
+
+    def _finalize_unplaced(self, req: Request, state: RequestState,
+                           now: float) -> None:
+        req.state = state
+        req.finish_time = now
+        if state is RequestState.CANCELLED:
+            self.n_cancelled += 1
+        else:
+            self.n_expired += 1
+
+    # The disaggregation handoff is not ported yet.
+    def begin_migration(self, req: Request):
+        raise NotImplementedError("KV migration API (begin_migration) is "
+                                  "not ported to the PyTorch engine yet")
+
+    complete_migration = abort_migration = import_request_kv = \
+        begin_migration
+
+    # ------------------------------------------------------ token delivery
+    def _record_token(self, req: Request, pos: int, tok: int,
+                      now: float) -> None:
+        """Record (and stream) the token at output position ``pos``;
+        re-executed positions after a squash overwrite in place and are
+        not re-streamed."""
+        rid = req.req_id
+        out = self.outputs[rid]
+        if pos < len(out):
+            out[pos] = tok
+            return
+        out.append(tok)
+        if pos >= 1:
+            tbts = self._tbts[rid]
+            if len(tbts) < pos:
+                tbts.append(now - self._last_tok[rid])
+        self._last_tok[rid] = now
+        handle = self.handles.get(rid)
+        if handle is not None and not req.cancel_requested:
+            handle._push(pos, tok)
+
+    def _free_slots(self) -> list[int]:
+        return [s for s in range(self.ecfg.max_slots)
+                if not self.active[s] and self.slot_req[s] is None]
+
+    def _prompt_tokens(self, req: Request) -> np.ndarray:
+        """The request's prompt token ids, vocab-folded (trace-driven
+        requests without token material get a deterministic prompt)."""
+        if req.prompt is not None:
+            return np.asarray(req.prompt, np.int32) % self.cfg.vocab_size
+        return (np.arange(req.input_len) % self.cfg.vocab_size) \
+            .astype(np.int32)
+
+    def _sig_of(self, req: Request) -> int:
+        """KV signature a cached page is keyed by: the adapter in exact
+        mode, one shared tree in aLoRA mode."""
+        return -1 if self.ecfg.prefix_mode == "alora" else req.adapter_id
+
+    def _tensor(self, a, dtype) -> torch.Tensor:
+        """A fresh device tensor holding host data ``a``."""
+        return torch.tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    def _place_batch_prefix(self, reqs: list[Request]) -> None:
+        """Prefix-cache admission: match each prompt against the radix
+        tree, map the shared pages into the slot's page table, COW-fork
+        a mid-page divergence, then batch-prefill only the suffixes via
+        ``prefill_paged`` (a miss is simply start=0). Freshly computed
+        full prompt pages are adopted into the tree afterwards."""
+        now = self.now()
+        free = self._free_slots()
+        placed, slots, starts, prompts = [], [], [], []
+        for req in reqs:
+            slot = free[len(placed)]
+            toksr = self._prompt_tokens(req)
+            L = req.input_len
+            sig = self._sig_of(req)
+            # Cap the match at L-1: the last prompt position always
+            # prefills, so first-token logits are computed fresh.
+            pages, m, ppage, plen = self.prefix.match(sig, toksr, L - 1)
+            # Reference everything we plan to read *before* allocating.
+            self.pool.share_pages(pages)
+            if ppage is not None:
+                self.pool.share_pages([ppage])
+            self.slot_req[slot] = req
+            self.slot_pages[slot] = list(pages)
+            self.slot_shared[slot] = list(pages)
+            if pages:
+                self.page_table[slot, :len(pages)] = pages
+                self._page_table_dirty = True
+            n_priv = self.pool.pages_for(L) - len(pages)
+            if not self._grow_slot(slot, n_priv, now):
+                # Bounce: undo the mapping and requeue (squash path).
+                self.free_pages.extend(self.pool.release_shared(pages))
+                if ppage is not None:
+                    self.free_pages.extend(
+                        self.pool.release_shared([ppage]))
+                self.slot_pages[slot] = []
+                self.slot_shared[slot] = []
+                self.page_table[slot, :] = 0
+                self.slot_req[slot] = None
+                self.n_preempted += 1
+                self.sched.on_squash(req, now)
+                continue
+            start = m
+            if ppage is not None:
+                # Divergence mid-page: copy the agreeing head of the
+                # cached page into the request's first private page.
+                dst = self.slot_pages[slot][len(pages)]
+                for kv in self.kv_pages:
+                    kv[:, dst, :plen] = kv[:, ppage, :plen]
+                self.free_pages.extend(self.pool.release_shared([ppage]))
+                self.n_cow_forks += 1
+                start = m + plen
+            self.prefix_lookup_tokens += L
+            self.prefix_hit_tokens += start
+            if start:
+                self.n_prefix_hits += 1
+            placed.append(req)
+            slots.append(slot)
+            starts.append(start)
+            prompts.append(toksr)
+        if not placed:
+            return
+        S = 1 << max(3, (max(r.input_len - s for r, s in
+                             zip(placed, starts)) - 1).bit_length())
+        B = 1 << max(0, (len(placed) - 1).bit_length())
+        toks = np.zeros((B, S), np.int32)
+        start_arr = np.zeros((B,), np.int32)
+        seq_len = np.ones((B,), np.int32)    # pad rows: 1 trash token
+        lslots = np.zeros((B,), np.int32)
+        row_table = np.zeros((B, self.pages_per_slot), np.int32)
+        for i, req in enumerate(placed):
+            s, L = starts[i], req.input_len
+            toks[i, :L - s] = prompts[i][s:]
+            start_arr[i] = s
+            seq_len[i] = L - s
+            lslots[i] = self.slot_of[req.adapter_id]
+            row_table[i] = self.page_table[slots[i]]
+        i32 = torch.int32
+        logits, self.kv_pages = api.prefill_paged(
+            self.cfg, self.params, self._tensor(toks, i32), self.kv_pages,
+            self._tensor(row_table, i32), self._tensor(start_arr, i32),
+            self._tensor(seq_len, i32), lora=self._prefill_lora(),
+            adapter_idx=self._tensor(lslots, i32),
+            lora_backend=self._lora_backend)
+        if self._all_greedy(placed):
+            first_toks = torch.argmax(logits, dim=-1)
+        else:
+            first_toks = api.sample_tokens(
+                logits, *self._sampling_arrays(placed, B, first=True))
+        first_toks = first_toks.cpu().numpy()
+        now = self.now()
+        for i, req in enumerate(placed):
+            slot = slots[i]
+            self.active[slot] = True
+            L = req.input_len
+            first = int(first_toks[i])
+            self.tokens[slot, 0] = first
+            self.cache_len[slot] = L
+            self.adapter_slot[slot] = int(lslots[i])
+            req.generated = 1
+            rid = req.req_id
+            if req.preserved_tokens:
+                self.outputs[rid] = list(req.preserved_tokens)
+                self._tbts[rid] = list(req.preserved_tbts)
+                if req.last_stream_time is not None:
+                    self._last_tok[rid] = req.last_stream_time
+            else:
+                self.outputs[rid] = []
+                self._tbts[rid] = []
+                req.first_token_time = now
+            self._record_token(req, 0, first, now)
+            self._adopt_prompt_pages(slot, req, prompts[i])
+        self.batch_epoch += 1
+        for i, req in enumerate(placed):
+            if req.done or self._hit_stop(req):
+                self._finish(slots[i])
+
+    def _adopt_prompt_pages(self, slot: int, req: Request,
+                            toks: np.ndarray) -> None:
+        """Hand the request's fully-written prompt pages to the radix
+        tree (a conserving transfer per adopted page: the request's hold
+        shrinks, the shared ledger gains it, the slot takes a ref)."""
+        n_full = req.input_len // self.pool.page_size
+        if n_full == 0:
+            return
+        ps = self.pool.page_size
+        pages = self.slot_pages[slot][:n_full]
+        adopted = self.prefix.insert(self._sig_of(req), toks[:n_full * ps],
+                                     pages)
+        for pid in adopted:
+            self.pool.shrink_request(req.req_id, ps)
+            self.pool.add_shared_page(pid)
+            self.pool.share_pages([pid])
+            self.slot_shared[slot].append(pid)
+
+    def _hit_stop(self, req: Request) -> bool:
+        """Did the latest recorded token hit a SamplingParams stop id?"""
+        sp = req.sampling
+        if sp is None or not sp.stop_token_ids:
+            return False
+        return self.outputs[req.req_id][req.generated - 1] \
+            in sp.stop_token_ids
+
+    @staticmethod
+    def _all_greedy(reqs) -> bool:
+        """With no stochastic row in the batch, sampling is argmax."""
+        return all(r is None or r.sampling is None or r.sampling.greedy
+                   for r in reqs)
+
+    def _sampling_arrays(self, reqs, B: int, first: bool = False):
+        """Per-row sampler inputs (device tensors) for a prefill batch
+        (``first=True`` → all positions 0) or the decode batch
+        (``reqs = slot_req``; inactive slots run greedy garbage)."""
+        temp = np.zeros(B, np.float32)
+        topk = np.zeros(B, np.int32)
+        topp = np.ones(B, np.float32)
+        seeds = np.zeros(B, np.int64)
+        pos = np.zeros(B, np.int32)
+        for i, req in enumerate(reqs):
+            if req is None:
+                continue
+            sp = req.sampling
+            if sp is not None and not sp.greedy:
+                temp[i] = sp.temperature
+                topk[i] = sp.top_k
+                topp[i] = sp.top_p
+                seeds[i] = sp.seed_for(req.req_id)
+            if not first:
+                pos[i] = req.generated
+        return (self._tensor(temp, torch.float32),
+                self._tensor(topk, torch.int32),
+                self._tensor(topp, torch.float32),
+                self._tensor(seeds, torch.int64),
+                self._tensor(pos, torch.int32))
+
+    def _finish(self, slot: int) -> None:
+        req = self.slot_req[slot]
+        self._finalize_slot(slot, RequestState.CANCELLED
+                            if req.cancel_requested
+                            else RequestState.FINISHED)
+
+    def _finalize_slot(self, slot: int, state: RequestState) -> None:
+        """Terminal transition for the request occupying ``slot``;
+        releases the slot, its KV pages and the scheduler/pool/cache
+        holds. Only FINISHED contributes a RequestRecord."""
+        req = self.slot_req[slot]
+        req.state = state
+        now = self.now()
+        req.finish_time = now
+        self.sched.on_finish(req, now)
+        self._free_slot_pages(slot, req.req_id)
+        self.active[slot] = False
+        self.slot_req[slot] = None
+        self.batch_epoch += 1
+        tbts = self._tbts.pop(req.req_id, [])
+        req.preserved_tbts = tbts
+        self._last_tok.pop(req.req_id, None)
+        if state is RequestState.CANCELLED:
+            self.n_cancelled += 1
+            return
+        if state is RequestState.EXPIRED:
+            self.n_expired += 1
+            return
+        self.completed.append(req)
+        self.records.append(RequestRecord(
+            req_id=req.req_id, adapter_id=req.adapter_id,
+            rank=self.catalog.rank_of(req.adapter_id),
+            input_len=req.input_len, output_len=req.output_len,
+            arrival=req.arrival_time,
+            ttft=req.ttft() or 0.0, e2e=req.e2e() or 0.0,
+            tbt_mean=float(np.mean(tbts)) if tbts else 0.0,
+            tbt_p99=float(np.percentile(tbts, 99)) if tbts else 0.0,
+            slowdown=1.0,
+            squashes=req.squash_count, bypassed=req.bypassed,
+            queue_wait=req.queue_wait() or 0.0,
+            load_wait=req.adapter_load_wait))
+
+    def _ensure_decode_pages(self, lens: Optional[np.ndarray] = None
+                             ) -> None:
+        """Grow each active slot to cover its next decode write; slots
+        that cannot get a page are preempted. The fused loop passes
+        host-derived lengths so this never syncs the device."""
+        now = self.now()
+        if lens is None:
+            lens = self.cache_len.cpu().numpy()
+        ps = self.pool.page_size
+        for slot in np.where(self.active)[0]:
+            needed = int(lens[slot]) // ps + 1
+            short = needed - len(self.slot_pages[slot])
+            if short > 0 and not self._grow_slot(int(slot), short, now):
+                self._preempt(int(slot))
+
+    def _run_prefetchers(self, now: float) -> None:
+        """Ahead-of-demand loads into idle slots only (paper §4.1)."""
+        if not self.free_slots:
+            return
+        queued = self.sched.queued_requests_in_order()
+        if self.q_prefetch is not None and queued:
+            self.q_prefetch.run(queued, now, budget=len(self.free_slots))
+        if self.h_prefetch is not None and self.free_slots:
+            self.h_prefetch.run(
+                now, queued_protect={r.adapter_id for r in queued},
+                budget=len(self.free_slots))
+
+    def _sweep_lifecycle(self, now: float) -> None:
+        """Reap queued requests past their deadline, then finalise
+        active slots whose request was cancelled or expired."""
+        if self._deadlines_armed:
+            for req in self.sched.reap_expired(now):
+                self._finalize_unplaced(req, RequestState.EXPIRED, now)
+            self._deadlines_armed = (
+                any(r is not None and r.deadline is not None
+                    for r in self.slot_req)
+                or any(r.deadline is not None
+                       for r in self.sched.queued_requests_in_order()))
+        self._cancel_armed = False
+        for slot in np.where(self.active)[0]:
+            req = self.slot_req[slot]
+            if req.cancel_requested:
+                self._finalize_slot(int(slot), RequestState.CANCELLED)
+            elif req.deadline is not None and now >= req.deadline:
+                self._finalize_slot(int(slot), RequestState.EXPIRED)
+        if self._cancel_races:
+            races, self._cancel_races = self._cancel_races, []
+            for req in races:
+                if not req.terminal:
+                    self.cancel(req)
+
+    def _idle_wait(self) -> None:
+        """Idle with loads in flight: wait up to the earliest modeled
+        readiness (never under an injected clock)."""
+        if self._pending_loads and self._clock is None:
+            t_next = min(t for _, t in self._pending_loads.values())
+            wait = t_next - self.now()
+            time.sleep(min(max(wait, 1e-4), 0.05))
+
+    def step(self) -> None:
+        """One engine iteration: retire loads -> lifecycle sweep -> admit
+        -> prefetch -> batched prefill -> decode (one fused horizon, or
+        the seed decode + sampling pair)."""
+        if self.fused:
+            return self._step_fused()
+        return self._step_seed()
+
+    def _step_seed(self) -> None:
+        """The seed decode loop: one decode dispatch, logits to a second
+        sampling dispatch, per-step page-table and sampling uploads and
+        a blocking token sync before bookkeeping. Kept as the fused
+        loop's A/B baseline; token-identical to it."""
+        self._poll_loads()
+        now = self.now()
+        self._sweep_lifecycle(now)
+        running = [r for r in self.slot_req if r is not None]
+        admitted = self.sched.schedule(now, running)
+        self._run_prefetchers(now)
+        self._place_batch_prefix(admitted)
+        self._ensure_decode_pages()
+        if not self.active.any():
+            self._idle_wait()
+            return
+        self.batch_occupancy.append(int(self.active.sum()))
+        DISPATCH_METER.tick()
+        logits, self.kv_pages = api.decode_step_paged(
+            self.cfg, self.params, self.tokens, self.kv_pages,
+            self._tensor(self.page_table, torch.int32), self.cache_len,
+            lora=self.lora, adapter_idx=self.adapter_slot,
+            lora_backend=self._lora_backend)
+        DISPATCH_METER.tick()
+        if self._all_greedy(self.slot_req):
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        else:
+            nxt = api.sample_tokens(
+                logits, *self._sampling_arrays(self.slot_req,
+                                               self.ecfg.max_slots))
+        self.tokens = nxt[:, None]
+        self.cache_len = self.cache_len + self._tensor(self.active,
+                                                       torch.int32)
+        now = self.now()
+        with DISPATCH_METER.sync():
+            nxt_host = nxt.cpu().numpy()
+        to_finish, to_squash = [], []
+        for slot in np.where(self.active)[0]:
+            req = self.slot_req[slot]
+            pos = req.generated
+            req.generated += 1
+            self._record_token(req, pos, int(nxt_host[slot]), now)
+            if req.done or self._hit_stop(req) \
+                    or req.generated + req.input_len \
+                    >= self.ecfg.max_len - 1:
+                to_finish.append(slot)
+            elif req.bypassed and req.exceeded_prediction():
+                to_squash.append(slot)
+        for slot in to_finish:
+            self._finish(slot)
+        for slot in to_squash:
+            self._squash_slot(slot)
+
+    # ------------------------------------ fused device-resident hot loop
+    def _host_work_pending(self) -> bool:
+        """Queued admissions, armed deadline/cancel sweeps, or in-flight
+        adapter loads to poll."""
+        return bool(self._deadlines_armed or self._cancel_armed
+                    or self._cancel_races or self._pending_loads
+                    or self.sched.pending_count() > 0)
+
+    def _refresh_device_state(self) -> None:
+        """(Re)build the device-resident batch state, only when the
+        batch epoch moved."""
+        if self._dev_epoch == self.batch_epoch and self._dev is not None:
+            return
+        B = self.ecfg.max_slots
+        reqs = self.slot_req
+        temp, topk, topp, seeds, pos = self._sampling_arrays(reqs, B)
+        budget = np.zeros(B, np.int32)
+        n_stop = max((len(r.sampling.stop_token_ids) for r in reqs
+                      if r is not None and r.sampling is not None),
+                     default=0)
+        stop = np.full((B, n_stop), -1, np.int32)
+        for i, r in enumerate(reqs):
+            if r is None:
+                continue
+            budget[i] = r.max_output_tokens
+            if r.sampling is not None and r.sampling.stop_token_ids:
+                stop[i, :len(r.sampling.stop_token_ids)] = \
+                    r.sampling.stop_token_ids
+        self._dev = dict(
+            active=self._tensor(self.active, torch.bool),
+            positions=pos, budget=self._tensor(budget, torch.int32),
+            stop=self._tensor(stop, torch.int32), temp=temp, topk=topk,
+            topp=topp, seeds=seeds, all_greedy=self._all_greedy(reqs))
+        self._dev_epoch = self.batch_epoch
+
+    def _host_lens(self) -> np.ndarray:
+        """cache_len from host truth (no device sync)."""
+        lens = np.zeros(self.ecfg.max_slots, np.int64)
+        for i, r in enumerate(self.slot_req):
+            if r is not None:
+                lens[i] = r.input_len + r.generated - 1
+        return lens
+
+    def _choose_horizon(self) -> int:
+        """Adaptive micro-horizon K: 1 whenever the host may need to
+        intervene between tokens, else up to ``max_horizon`` clamped by
+        the longest surviving budget and any bypasser's squash point,
+        bucketed to a power of two."""
+        e = self.ecfg
+        if e.max_horizon <= 1 or self._host_work_pending():
+            return 1
+        reqs = [r for r in self.slot_req if r is not None]
+        if not reqs:
+            return 1
+        K = min(e.max_horizon,
+                max(r.max_output_tokens - r.generated for r in reqs))
+        for r in reqs:
+            if r.bypassed:
+                K = min(K, r.predicted_output - r.generated + 1)
+        if K <= 1:
+            return 1
+        return 1 << (K.bit_length() - 1)
+
+    def _page_cover(self) -> int:
+        """Tokens writable from already-allocated pages, minimised over
+        active slots (host truth)."""
+        ps = self.pool.page_size
+        cover = 1 << 30
+        for slot in np.where(self.active)[0]:
+            r = self.slot_req[slot]
+            cover = min(cover, len(self.slot_pages[slot]) * ps
+                        - (r.input_len + r.generated - 1))
+        return cover
+
+    def _to_host(self, t: torch.Tensor):
+        """Start the device→host copy of a result block: into pinned
+        memory behind an event on the card, plain on the CPU."""
+        if t.device.type != "cuda":
+            return t, None
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    def _dispatch_horizon(self, K: int, refresh: bool = True) -> None:
+        """Launch one fused K-step horizon and re-point the engine's
+        device state at its outputs. ``refresh=False`` (pipelined
+        dispatch): the carried device state is the only truth — host
+        truth lags by the in-flight horizon."""
+        if refresh:
+            self._refresh_device_state()
+        d = self._dev
+        DISPATCH_METER.tick()
+        if self._page_table_dirty or self._page_table_dev is None:
+            self._page_table_dev = self._tensor(self.page_table,
+                                                torch.int32)
+            self._page_table_dirty = False
+        carry, toks, emits = api.decode_fused_paged(
+            self.cfg, self.params, self.tokens, self.kv_pages,
+            self._page_table_dev, self.cache_len, d["active"],
+            d["positions"], d["budget"], d["stop"], d["temp"], d["topk"],
+            d["topp"], d["seeds"], n_steps=K, all_greedy=d["all_greedy"],
+            max_ctx=self.ecfg.max_len, lora=self.lora,
+            adapter_idx=self.adapter_slot, lora_backend=self._lora_backend)
+        (self.tokens, self.kv_pages, self.cache_len,
+         d["active"], d["positions"]) = carry
+        self._inflight = (self._to_host(toks), self._to_host(emits), K)
+
+    def _drain_inflight(self) -> None:
+        """Sync the in-flight horizon's token block and replay the seed
+        loop's per-token bookkeeping from it."""
+        if self._inflight is None:
+            return
+        (toks, tev), (emits, eev), _K = self._inflight
+        self._inflight = None
+        with DISPATCH_METER.sync():
+            for ev in (tev, eev):
+                if ev is not None:
+                    ev.synchronize()
+            toks_h = toks.numpy()
+            emits_h = emits.numpy()
+        now = self.now()
+        for k in range(toks_h.shape[0]):
+            em = emits_h[k]
+            if not em.any():
+                break               # every row finished earlier
+            self.batch_occupancy.append(int(em.sum()))
+            to_finish, to_squash = [], []
+            for slot in np.where(em)[0]:
+                req = self.slot_req[slot]
+                if req is None:
+                    continue        # squashed at an earlier sub-step
+                pos = req.generated
+                req.generated += 1
+                self._record_token(req, pos, int(toks_h[k, slot]), now)
+                if req.done or self._hit_stop(req) \
+                        or req.generated + req.input_len \
+                        >= self.ecfg.max_len - 1:
+                    to_finish.append(int(slot))
+                elif req.bypassed and req.exceeded_prediction():
+                    to_squash.append(int(slot))
+            for slot in to_finish:
+                self._finish(slot)
+            for slot in to_squash:
+                self._squash_slot(slot)
+
+    def _plan_pipelined_horizon(self) -> Optional[int]:
+        """Whether the *next* horizon can be dispatched from the carried
+        device state before the in-flight one is synced; returns its K
+        or None to sync first (every bound assumes the worst case of
+        the in-flight K)."""
+        e = self.ecfg
+        if (not e.pipeline_readback or self._inflight is None
+                or self._host_work_pending()):
+            return None
+        k_in = self._inflight[2]
+        alive = 0
+        for r in self.slot_req:
+            if r is None or (r.sampling is not None
+                             and r.sampling.stop_token_ids):
+                continue        # a stop token could end the row any step
+            rem = r.max_output_tokens - r.generated - k_in
+            rem = min(rem, (e.max_len - 1 - r.input_len
+                            - r.generated - k_in))
+            alive = max(alive, rem)
+        if alive <= 0:
+            return None
+        K = min(e.max_horizon, alive)
+        for r in self.slot_req:
+            if r is not None and r.bypassed:
+                K = min(K, r.predicted_output - r.generated - k_in + 1)
+        if K < 1:
+            return None
+        K = min(K, self._page_cover() - k_in)
+        if K < 1:
+            return None
+        return 1 << (K.bit_length() - 1)
+
+    def _step_fused(self) -> None:
+        """One fused-loop iteration. Steady state: dispatch horizon N+1
+        from the carried device state, *then* sync horizon N. Pending
+        host work first syncs, then runs the seed loop's admit/place
+        path."""
+        self._poll_loads()
+        if self._inflight is not None:
+            k_next = self._plan_pipelined_horizon()
+            if k_next is not None:
+                prev, self._inflight = self._inflight, None
+                self._dispatch_horizon(k_next, refresh=False)
+                nxt, self._inflight = self._inflight, prev
+                self._drain_inflight()
+                self._inflight = nxt
+                return
+            self._drain_inflight()
+        now = self.now()
+        self._sweep_lifecycle(now)
+        running = [r for r in self.slot_req if r is not None]
+        admitted = self.sched.schedule(now, running)
+        self._run_prefetchers(now)
+        self._place_batch_prefix(admitted)
+        self._ensure_decode_pages(self._host_lens())
+        if not self.active.any():
+            self._idle_wait()
+            return
+        K = self._choose_horizon()
+        if K > 1:
+            # Clamp to allocated pages (allocation timing stays
+            # seed-equal).
+            K = 1 << (max(1, min(K, self._page_cover())).bit_length() - 1)
+        self._dispatch_horizon(K)
+        if not self.ecfg.pipeline_readback:
+            self._drain_inflight()
+
+    def busy(self) -> bool:
+        return bool(self.active.any()) or self.sched.pending_count() > 0
+
+    def run_until_drained(self, max_steps: int = 10_000) -> None:
+        for _ in range(max_steps):
+            if not self.busy():
+                break
+            self.step()
+
+    drain = run_until_drained
+
+    def reset_stats(self) -> None:
+        """Clear accounting after a warmup pass; device state and cache
+        residency are kept."""
+        self._drain_inflight()
+        self.flush_loads()
+        self.completed = []
+        self.records = []
+        self.outputs = {}
+        self._tbts = {}
+        self._last_tok = {}
+        self.handles = {}
+        self.batch_occupancy = []
+        self.n_preempted = 0
+        self.n_cancelled = 0
+        self.n_expired = 0
+        self.n_async_loads = 0
+        self.prefix_hit_tokens = 0
+        self.prefix_lookup_tokens = 0
+        self.n_prefix_hits = 0
+        self.n_cow_forks = 0
+        self.prefix.evictions = 0
+        self.prefix.inserts = 0
+        self.cache.stats = CacheStats()
+        for counter in ("n_bypassed", "n_squashed", "n_deferred"):
+            if hasattr(self.sched, counter):
+                setattr(self.sched, counter, 0)
+
+    # ---------------------------------------------------------- reporting
+    def queue_pressure(self) -> float:
+        """Routing signal: scheduler backlog plus occupied batch slots."""
+        return self.sched.queue_pressure() + float(self.active.sum())
+
+    def kv_page_stats(self) -> dict:
+        total = self.n_pages - 1     # page 0 is the trash page
+        used = total - len(self.free_pages)
+        return {"kv_pages_used": used, "kv_pages_total": total,
+                "kv_page_util": used / max(1, total),
+                "preempted": self.n_preempted}
+
+    def prefix_stats(self) -> dict:
+        return {
+            "prefix_hit_rate": round(
+                self.prefix_hit_tokens
+                / max(1, self.prefix_lookup_tokens), 4),
+            "prefix_hit_tokens": self.prefix_hit_tokens,
+            "prefix_lookup_tokens": self.prefix_lookup_tokens,
+            "prefix_hits": self.n_prefix_hits,
+            "prefix_shared_pages": self.pool.n_shared_pages,
+            "prefix_nodes": len(self.prefix),
+            "prefix_evictions": self.prefix.evictions,
+            "cow_forks": self.n_cow_forks,
+        }
+
+    def stats(self) -> dict:
+        return {
+            "completed": len(self.completed),
+            "cache": self.cache.stats.__dict__.copy(),
+            "bypassed": getattr(self.sched, "n_bypassed", 0),
+            "squashed": getattr(self.sched, "n_squashed", 0),
+            "deferred": getattr(self.sched, "n_deferred", 0),
+            "cancelled": self.n_cancelled,
+            "expired": self.n_expired,
+            "async_loads": self.n_async_loads,
+            "pending_loads": len(self._pending_loads),
+            "resident_adapters": sorted(self.cache.resident_ids()),
+            "pool": self.pool.snapshot(),
+            "fused_hotloop": self.fused,
+            "batch_epoch": self.batch_epoch,
+            **self.kv_page_stats(),
+            **self.prefix_stats(),
+        }
+
+    def metrics(self) -> RunMetrics:
+        """Per-node RunMetrics, aggregatable at cluster level."""
+        n_sub = (len(self.records) + int(self.active.sum())
+                 + self.sched.pending_count())
+        m = RunMetrics(records=list(self.records), horizon=self.now(),
+                       n_submitted=n_sub)
+        m.cache_stats = {
+            "hit_rate": round(self.cache.stats.hit_rate, 4),
+            "hits": self.cache.stats.hits,
+            "misses": self.cache.stats.misses,
+            "evictions": self.cache.stats.evictions,
+            "gb_loaded": round(self.cache.stats.bytes_loaded / 1e9, 6),
+        }
+        m.sched_stats = {
+            "bypassed": getattr(self.sched, "n_bypassed", 0),
+            "squashed": getattr(self.sched, "n_squashed", 0),
+            "deferred": getattr(self.sched, "n_deferred", 0),
+            "cancelled": self.n_cancelled,
+            "expired": self.n_expired,
+            "async_loads": self.n_async_loads,
+            "pressure": round(self.queue_pressure(), 3),
+            "batch_occupancy_mean": round(
+                float(np.mean(self.batch_occupancy))
+                if self.batch_occupancy else 0.0, 3),
+            **self.kv_page_stats(),
+            **self.prefix_stats(),
+        }
+        return m

@@ -1,0 +1,193 @@
+"""The port's CUDA kernels and engine on the card.
+
+Marked ``cuda``: these need an NVIDIA GPU and the CUDA toolkit
+(``nvcc``) and skip elsewhere. On a machine with a card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Each kernel is held to its plain PyTorch version on the same card
+tensors over ragged shapes the full-width smoke run does not reach
+(rank 128 and ranks not a multiple of 4, dout not a multiple of the
+256-column block, tiles not a multiple of 16 rows, G up to 8, rows
+shorter than a page). Tolerances: 1e-4 where every operand is f32 (f32
+sums in another order); 2e-2 for bgmv/sgmv where bf16 is involved (the
+rank-r intermediate is rounded to bf16 from sums taken in another
+order, so it can land one bf16 ulp apart). paged_attention computes in
+f32 from the same page values on both sides: 1e-4 for an f32 output,
+and one bf16 ulp (2**-7 of |want|, plus 1e-4) for a bf16 one. The
+reduced engine must serve a
+shared-prefix trace through all three kernels, its fused and seed
+loops must agree, and its greedy tokens must equal the CPU port's.
+"""
+import importlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+pytestmark = pytest.mark.cuda
+
+bgmv_mod = importlib.import_module("repro_torch.kernels.bgmv")
+sgmv_mod = importlib.import_module("repro_torch.kernels.sgmv")
+pa_mod = importlib.import_module("repro_torch.kernels.paged_attention")
+
+DT = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+@pytest.fixture(scope="module")
+def card():
+    """The card, or a skip. Decided here, not at import, so every
+    worker collects the same tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def tol(*dtypes):
+    t = 1e-4 if all(d == "f32" for d in dtypes) else 2e-2
+    return dict(rtol=t, atol=t)
+
+
+def out_tol(out_dtype):
+    """An output computed in f32 on both sides and rounded to
+    ``out_dtype``: bf16 results may round to neighbouring values."""
+    return dict(rtol=1e-4, atol=1e-4) if out_dtype == "f32" \
+        else dict(rtol=2 ** -7, atol=1e-4)
+
+
+def randn(gen, shape, dtype, dev, scale=1.0):
+    return (torch.randn(shape, generator=gen) * scale).to(dev, dtype)
+
+
+@pytest.mark.parametrize("xdt,wdt", [("f32", "f32"), ("f32", "bf16"),
+                                     ("bf16", "bf16")])
+@pytest.mark.parametrize("Bt,din,r,dout,n", [
+    (1, 128, 8, 128, 2), (8, 4096, 32, 4096, 8), (5, 300, 128, 700, 3),
+    (3, 96, 6, 257, 4)])
+def test_bgmv_matches_plain(card, Bt, din, r, dout, n, xdt, wdt):
+    gen = torch.Generator().manual_seed(Bt * 7 + r)
+    x = randn(gen, (Bt, din), DT[xdt], card)
+    A = randn(gen, (n, din, r), DT[wdt], card, din ** -0.5)
+    B = randn(gen, (n, r, dout), DT[wdt], card, r ** -0.5)
+    idx = torch.randint(0, n, (Bt,), generator=gen).int().to(card)
+    bgmv_mod.STATS.reset()
+    got = bgmv_mod.bgmv(x, A, B, idx)
+    torch.cuda.synchronize()
+    assert bgmv_mod.STATS.launches == 1 and bgmv_mod.STATS.plain == 0
+    assert got.dtype == x.dtype and got.shape == (Bt, dout)
+    torch.testing.assert_close(got.float(),
+                               bgmv_mod.bgmv_plain(x, A, B, idx).float(),
+                               **tol(xdt, wdt))
+
+
+@pytest.mark.parametrize("xdt,wdt", [("f32", "f32"), ("f32", "bf16"),
+                                     ("bf16", "bf16")])
+@pytest.mark.parametrize("T,din,r,dout,n,tile", [
+    (128, 128, 8, 128, 2, 64), (96, 256, 32, 384, 5, 24),
+    (64, 200, 128, 300, 3, 8), (256, 512, 12, 257, 4, 128)])
+def test_sgmv_matches_plain(card, T, din, r, dout, n, tile, xdt, wdt):
+    gen = torch.Generator().manual_seed(T + r)
+    x = randn(gen, (T, din), DT[xdt], card)
+    A = randn(gen, (n, din, r), DT[wdt], card, din ** -0.5)
+    B = randn(gen, (n, r, dout), DT[wdt], card, r ** -0.5)
+    ts = torch.randint(0, n, (T // tile,), generator=gen).int().to(card)
+    sgmv_mod.STATS.reset()
+    got = sgmv_mod.sgmv(x, A, B, ts, tile)
+    torch.cuda.synchronize()
+    assert sgmv_mod.STATS.launches == 1 and sgmv_mod.STATS.plain == 0
+    assert got.dtype == x.dtype and got.shape == (T, dout)
+    torch.testing.assert_close(got.float(),
+                               sgmv_mod.sgmv_plain(x, A, B, ts, tile).float(),
+                               **tol(xdt, wdt))
+
+
+@pytest.mark.parametrize("qdt,kvdt", [("f32", "f32"), ("bf16", "f32"),
+                                      ("f32", "bf16"), ("bf16", "bf16")])
+@pytest.mark.parametrize("B,Kh,G,dh,page,P", [
+    (1, 1, 1, 64, 16, 2), (3, 2, 4, 64, 16, 4), (2, 4, 8, 128, 32, 3),
+    (4, 8, 2, 128, 16, 20), (2, 2, 1, 256, 16, 3)])
+def test_paged_attention_matches_plain(card, B, Kh, G, dh, page, P, qdt,
+                                       kvdt):
+    gen = torch.Generator().manual_seed(B * 13 + G)
+    n_pages = B * P + 3
+    q = randn(gen, (B, Kh, G, dh), DT[qdt], card)
+    kp = randn(gen, (n_pages, page, Kh, dh), DT[kvdt], card)
+    vp = randn(gen, (n_pages, page, Kh, dh), DT[kvdt], card)
+    table = torch.randperm(n_pages, generator=gen)[:B * P].view(B, P)
+    table = table.int().to(card)
+    # A row of one token, a row inside its first page, the rest random.
+    lens = torch.randint(1, P * page + 1, (B,), generator=gen)
+    lens[0] = 1
+    if B > 1:
+        lens[1] = min(page - 3, P * page)
+    lens = lens.int().to(card)
+    pa_mod.STATS.reset()
+    got = pa_mod.paged_attention(q, kp, vp, table, lens)
+    torch.cuda.synchronize()
+    assert pa_mod.STATS.launches == 1 and pa_mod.STATS.plain == 0
+    assert got.dtype == q.dtype and got.shape == q.shape
+    want = pa_mod.paged_attention_plain(q, kp, vp, table, lens)
+    torch.testing.assert_close(got.float(), want.float(), **out_tol(qdt))
+
+
+def _shared_prefix_trace(vocab, n=10, seed=3):
+    rng = np.random.default_rng(seed)
+    pres = [rng.integers(3, vocab, size=40).tolist() for _ in range(2)]
+    return [(pres[i % 2] + rng.integers(3, vocab, size=int(
+        rng.integers(4, 13))).tolist(), i % 6) for i in range(n)]
+
+
+def test_reduced_engine_on_the_card(card):
+    """Reduced Llama, f32, more adapters than LoRA slots: the card
+    engine runs every kernel and no plain path, the fused and seed loops
+    agree, and greedy tokens equal the CPU port's on the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import Request
+    from repro_torch.models import api
+    from repro_torch.serving.engine import AdapterCatalog, EngineConfig
+    from repro_torch.serving.systems import build_engine
+    cfg = get_config("chameleon-llama-7b").reduced()
+    params = api.init_params(cfg, 0, torch.float32, device="cpu")
+    base = dict(max_slots=4, max_len=128, n_lora_slots=4, n_adapters=8)
+    catalog = AdapterCatalog(cfg, 8, 32, seed=0, device="cpu")
+    trace = _shared_prefix_trace(cfg.vocab_size)
+    stats = (bgmv_mod.STATS, sgmv_mod.STATS, pa_mod.STATS)
+    out = {}
+    for dev, fused in (("cpu", True), ("cuda", True), ("cuda", False)):
+        t = [0.0]
+        eng = build_engine("chameleon", cfg, params,
+                           EngineConfig(**base, fused_hotloop=fused,
+                                        lora_backend="kernel"),
+                           catalog=catalog, clock=lambda: t[0], device=dev)
+        for s in stats:
+            s.reset()
+        out[(dev, fused)] = _serve(eng, trace, Request, t)
+        if dev == "cuda":
+            assert all(s.launches > 0 for s in stats), \
+                [s.launches for s in stats]
+            assert all(s.plain == 0 for s in stats)
+            assert eng.prefix_hit_tokens > 0
+    assert out[("cuda", True)] == out[("cuda", False)]
+    assert out[("cuda", True)] == out[("cpu", True)]
+
+
+def _serve(eng, trace, request_cls, t, dt=0.01):
+    """Submit the trace, step to drained on the virtual clock ``t``."""
+    handles = [eng.submit(request_cls(input_len=len(p), output_len=8,
+                                      adapter_id=a, prompt=list(p)))
+               for p, a in trace]
+    for _ in range(5000):
+        if not eng.busy():
+            break
+        if eng._load_stream is not None:
+            # Land side-stream slot copies before the step polls them,
+            # as the CPU engine's synchronous copies are: the schedule
+            # then does not depend on copy timing.
+            eng._load_stream.synchronize()
+        eng.step()
+        t[0] += dt
+    assert not eng.busy(), "engine failed to drain"
+    assert all(len(h.tokens) == 8 for h in handles)
+    return [h.tokens for h in handles]

@@ -1,0 +1,199 @@
+"""The port's whole engine on the CPU vs the JAX engine.
+
+Both engines are built on the same weights (the JAX package's
+``init_params`` and ``AdapterCatalog``, bridged to tensors), the same
+``EngineConfig`` (the ``BASE`` of ``tests/test_prefix_cache.py``) and
+a virtual clock that both advance by the same step, so every
+scheduling decision can match. They serve a shared-prefix trace over
+more adapters than LoRA slots, so adapters load and evict and the
+prefix cache hits and forks. Greedy tokens must be identical, with
+equal prefix hits, COW forks and adapter loads, and the pool
+invariants must hold after every step. The port's fused loop and its
+seed loop must give identical tokens too.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# One intra-op thread: the suite runs several pytest workers on one
+# machine, and torch's default of one thread per core oversubscribes it.
+torch.set_num_threads(1)
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.core import Request as JRequest  # noqa: E402
+from repro.models import api as japi  # noqa: E402
+from repro.serving import engine as jengine  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import Request  # noqa: E402
+from repro_torch.serving import engine  # noqa: E402
+from repro_torch.serving.systems import build_engine  # noqa: E402
+
+BASE = dict(max_slots=4, max_len=128, n_lora_slots=4, n_adapters=8,
+            seed=0)
+N_REQ, N_ADAPTERS_USED, DT = 12, 6, 0.01
+
+
+class StepClock:
+    """Virtual time the test advances once per engine step."""
+
+    def __init__(self) -> None:
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def shared_prefix_prompts(n=8, prefix_len=40, n_prefixes=2, seed=11,
+                          vocab=256):
+    """As in ``tests/test_prefix_cache.py``: n prompts drawn from
+    n_prefixes fixed preambles plus unique suffixes."""
+    rng = np.random.default_rng(seed)
+    pres = [rng.integers(3, vocab, size=prefix_len).tolist()
+            for _ in range(n_prefixes)]
+    return [pres[i % n_prefixes]
+            + rng.integers(3, vocab, size=int(rng.integers(4, 13))).tolist()
+            for i in range(n)]
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jcfg = jget_config("chameleon-llama-7b").reduced()
+    params = japi.init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
+    jcat = jengine.AdapterCatalog(jcfg, BASE["n_adapters"], 32, seed=0)
+    cfg = get_config("chameleon-llama-7b").reduced()
+    cat = engine.AdapterCatalog(
+        cfg, BASE["n_adapters"], 32,
+        weights=bridge.catalog_weights_to_torch(jcat.weights, "cpu"))
+    prompts = shared_prefix_prompts(n=N_REQ)
+    # Prefix i % 2 pairs with adapter i % 6, so a repeat of an adapter
+    # repeats its prefix (exact mode keys pages by adapter).
+    adapters = [i % N_ADAPTERS_USED for i in range(N_REQ)]
+    return dict(jcfg=jcfg, jparams=params, jcat=jcat, cfg=cfg,
+                params=bridge.params_to_torch(params, "cpu"), cat=cat,
+                prompts=prompts, adapters=adapters)
+
+
+def land_jax_loads(eng):
+    """Block until the JAX engine's in-flight slot writes are done, so
+    its ``_poll_loads`` finds them ready at the next step, as the port's
+    synchronous CPU copies are. Without this, ``is_ready()`` depends on
+    how busy the host is, and so does the JAX engine's schedule."""
+    for _, leaves, _ in eng._pending_loads.values():
+        jax.block_until_ready(leaves)
+
+
+def serve(eng, request_cls, prompts, adapters, clock, check, out_len=8,
+          max_steps=5000, before_step=None):
+    handles = [eng.submit(request_cls(input_len=len(p), output_len=out_len,
+                                      adapter_id=a, prompt=list(p)))
+               for p, a in zip(prompts, adapters)]
+    steps = 0
+    while eng.busy() and steps < max_steps:
+        if before_step is not None:
+            before_step(eng)
+        eng.step()
+        if check:
+            eng.pool.check_invariants(free_page_ids=eng.free_pages)
+        clock.t += DT
+        steps += 1
+    assert not eng.busy(), "engine failed to drain"
+    return [h.tokens for h in handles]
+
+
+def summary(eng):
+    s = eng.stats()
+    return dict(completed=s["completed"], cache=s["cache"],
+                async_loads=s["async_loads"],
+                prefix_hit_tokens=s["prefix_hit_tokens"],
+                prefix_hits=s["prefix_hits"], cow_forks=s["cow_forks"],
+                preempted=s["preempted"])
+
+
+@pytest.fixture(scope="module")
+def jax_run(setup):
+    clock = StepClock()
+    eng = jengine.ChameleonEngine(setup["jcfg"], setup["jparams"],
+                                  jengine.EngineConfig(**BASE),
+                                  catalog=setup["jcat"], clock=clock)
+    toks = serve(eng, JRequest, setup["prompts"], setup["adapters"], clock,
+                 check=False, before_step=land_jax_loads)
+    return toks, summary(eng)
+
+
+def port_run(setup, **kw):
+    clock = StepClock()
+    eng = engine.ChameleonEngine(setup["cfg"], setup["params"],
+                                 engine.EngineConfig(**BASE, **kw),
+                                 catalog=setup["cat"], clock=clock,
+                                 device="cpu")
+    toks = serve(eng, Request, setup["prompts"], setup["adapters"], clock,
+                 check=True)
+    return toks, summary(eng)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_port_engine_matches_jax_engine(setup, jax_run, fused):
+    jtoks, jsum = jax_run
+    toks, s = port_run(setup, fused_hotloop=fused)
+    assert s["completed"] == N_REQ
+    assert all(len(t) == 8 for t in toks)
+    assert toks == jtoks, "greedy tokens differ from the JAX engine"
+    assert s == jsum
+    # The trace exercises what it is meant to.
+    assert s["prefix_hit_tokens"] > 0 and s["cow_forks"] > 0
+    assert s["cache"]["evictions"] > 0
+    assert s["async_loads"] > BASE["n_lora_slots"]
+
+
+def test_alora_mode_matches_jax_engine(setup):
+    """``prefix_mode="alora"``: base-model prompt prefill, one prefix
+    tree across adapters."""
+    clock = StepClock()
+    jeng = jengine.ChameleonEngine(
+        setup["jcfg"], setup["jparams"],
+        jengine.EngineConfig(**BASE, prefix_mode="alora"),
+        catalog=setup["jcat"], clock=clock)
+    p, a = setup["prompts"][:6], setup["adapters"][:6]
+    jtoks = serve(jeng, JRequest, p, a, clock, check=False,
+                  before_step=land_jax_loads)
+    clock = StepClock()
+    eng = build_engine("chameleon", setup["cfg"], setup["params"],
+                       engine.EngineConfig(**BASE, prefix_mode="alora"),
+                       catalog=setup["cat"], clock=clock, device="cpu")
+    toks = serve(eng, Request, p, a, clock, check=True)
+    assert toks == jtoks
+    assert summary(eng) == summary(jeng)
+    assert eng.prefix_hit_tokens > 0
+
+
+@pytest.mark.parametrize("knob", [
+    dict(mesh_shape=(1, 1)), dict(spec_decode=True),
+    dict(prefill_chunk_tokens=32), dict(paged=False),
+    dict(prefix_cache=False)])
+def test_unported_knobs_raise_naming_the_knob(setup, knob):
+    with pytest.raises(NotImplementedError, match=next(iter(knob))):
+        engine.ChameleonEngine(setup["cfg"], setup["params"],
+                               engine.EngineConfig(**BASE, **knob),
+                               catalog=setup["cat"], device="cpu")
+
+
+def test_migration_api_raises(setup):
+    eng = engine.ChameleonEngine(setup["cfg"], setup["params"],
+                                 engine.EngineConfig(**BASE),
+                                 catalog=setup["cat"], device="cpu")
+    for name in ("begin_migration", "complete_migration",
+                 "abort_migration", "import_request_kv"):
+        with pytest.raises(NotImplementedError):
+            getattr(eng, name)(None)
+
+
+def test_engine_config_has_the_jax_fields_and_defaults():
+    import dataclasses
+    want = {f.name: f.default for f in dataclasses.fields(
+        jengine.EngineConfig)}
+    got = {f.name: f.default for f in dataclasses.fields(
+        engine.EngineConfig)}
+    assert got == want

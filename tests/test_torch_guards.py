@@ -1,0 +1,191 @@
+"""Guards around the PyTorch port.
+
+- The port, ``chip_smoke.py`` and ``chip_profile.py`` import neither
+  JAX nor the JAX package (``repro``): a subprocess imports every
+  module of ``repro_torch``; an AST scan reads the two scripts.
+- The copied control-plane modules stay verbatim copies of the JAX
+  package's (only their import lines differ), so a change to
+  ``repro/core`` that the port misses fails here instead of diverging.
+- Every config and its ``.reduced()`` form equal the JAX package's.
+- Entry points called without ``device=`` run on the GPU or raise;
+  they never fall back to the CPU.
+"""
+import ast
+import dataclasses
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+# One intra-op thread: the suite runs several pytest workers on one
+# machine, and torch's default of one thread per core oversubscribes it.
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+PORT, REF = SRC / "repro_torch", SRC / "repro"
+
+COPIED = ([f"core/{n}.py" for n in (
+    "__init__", "request", "sampling", "lora", "memory_pool",
+    "adapter_cache", "predictor", "prefetcher", "prefix_cache",
+    "scheduler", "baselines", "wrs", "kmeans", "quotas")]
+    + ["serving/handles.py", "serving/metrics.py", "models/base.py"]
+    + sorted(f"configs/{p.name}" for p in (REF / "configs").glob("*.py")))
+
+# Import statements and ``importlib.import_module`` calls.
+IMPORT_LINE = re.compile(r"^\s*(from|import)\s|import_module\(")
+
+
+def _normalised(path: Path, package: str) -> list[str]:
+    """Source lines with the package name in import lines replaced."""
+    out = []
+    for line in path.read_text().splitlines():
+        if IMPORT_LINE.search(line):
+            line = re.sub(rf"\b{package}\b", "PKG", line)
+        out.append(line)
+    return out
+
+
+@pytest.mark.parametrize("rel", COPIED)
+def test_copied_module_matches_jax_package(rel):
+    assert (PORT / rel).is_file(), f"port lacks its copy of {rel}"
+    assert _normalised(PORT / rel, "repro_torch") == \
+        _normalised(REF / rel, "repro"), (
+        f"src/repro_torch/{rel} drifted from src/repro/{rel}: copy the "
+        f"change over (only import lines may differ)")
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    code = """
+import importlib, json, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m.startswith("jaxlib.") or m == "repro"
+             or m.startswith("repro."))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == [], f"the port pulled in {res['bad']}"
+    for must in ("repro_torch.serving.engine", "repro_torch.kernels.bgmv",
+                 "repro_torch.kernels.sgmv",
+                 "repro_torch.kernels.paged_attention",
+                 "repro_torch.models.lm", "repro_torch.bridge"):
+        assert must in res["modules"]
+
+
+def _imported_names(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield node.module or ""
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "")
+              == "import_module" and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+@pytest.mark.parametrize("path", [
+    "chip_smoke.py", "chip_profile.py",
+    *sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))])
+def test_no_jax_or_reference_import_in_source(path):
+    names = list(_imported_names(ast.parse((ROOT / path).read_text())))
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_chip_smoke_fails_without_a_gpu(monkeypatch, tmp_path):
+    """Without a card the smoke test exits non-zero and prints no
+    result line, both in the checkout and copied alone."""
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    for script in (ROOT / "chip_smoke.py", alone):
+        out = subprocess.run(
+            [sys.executable, str(script)], capture_output=True, text=True,
+            timeout=120, cwd=script.parent,
+            env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+        assert out.returncode != 0
+        assert '"ok": true' not in out.stdout
+
+
+def test_configs_equal_the_jax_package():
+    pytest.importorskip("jax")
+    from repro.configs import ARCH_IDS as JIDS
+    from repro.configs import get_config as jget
+    from repro_torch.configs import ARCH_IDS, get_config
+    assert tuple(ARCH_IDS) == tuple(JIDS)
+    for name in ARCH_IDS:
+        for port, ref in ((get_config(name), jget(name)),
+                          (get_config(name).reduced(),
+                           jget(name).reduced())):
+            p, r = dataclasses.asdict(port), dataclasses.asdict(ref)
+            p["family"], r["family"] = port.family.name, ref.family.name
+            assert p == r, name
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _entry_points():
+    import numpy as np
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.models import api, lm
+    from repro_torch.models.lora_apply import init_lora_slots
+    from repro_torch.serving import engine, systems
+    cfg = get_config("chameleon-llama-7b").reduced()
+    params = lm.init_params(cfg, 0, torch.float32, device="cpu")
+    return {
+        "init_params": lambda: api.init_params(cfg, 0),
+        "make_paged_kv": lambda: lm.make_paged_kv(cfg, 4, 16),
+        "init_paged_serve_state": lambda: api.init_paged_serve_state(
+            cfg, 4, 16),
+        "init_lora_slots": lambda: init_lora_slots(2, 1, 8, 8, 8, 4),
+        "AdapterCatalog": lambda: engine.AdapterCatalog(cfg, 2, 8),
+        "ChameleonEngine": lambda: engine.ChameleonEngine(
+            cfg, params, engine.EngineConfig(n_adapters=2)),
+        "build_engine": lambda: systems.build_engine(
+            "chameleon", cfg, params, engine.EngineConfig(n_adapters=2)),
+        "build_system": lambda: systems.build_system("chameleon"),
+        "bridge.to_torch": lambda: bridge.to_torch(np.zeros(2)),
+        "bridge.params_to_torch": lambda: bridge.params_to_torch(
+            {"w": np.zeros(2)}),
+        "explicit cuda": lambda: api.init_params(cfg, 0, device="cuda"),
+    }
+
+
+ENTRY_POINTS = ("init_params", "make_paged_kv", "init_paged_serve_state",
+                "init_lora_slots", "AdapterCatalog", "ChameleonEngine",
+                "build_engine", "build_system", "bridge.to_torch",
+                "bridge.params_to_torch", "explicit cuda")
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_entry_point_without_device_needs_the_gpu(no_cuda, name):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _entry_points()[name]()
+
+
+def test_unported_tiers_raise():
+    from repro_torch.serving import systems
+    for tier in ("sim", "cluster", "sim-cluster", "disagg"):
+        with pytest.raises(NotImplementedError):
+            systems.build_system("chameleon", tier, device="cpu")
+    with pytest.raises(NotImplementedError, match="gateway"):
+        systems.build_system("chameleon", device="cpu", gateway=True)
