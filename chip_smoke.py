@@ -19,18 +19,22 @@ of the JAX package. Phases, one JSON line each:
              before each launch), the bound from bytes and operations,
              and a PyTorch yardstick (``library_ms``) the port never
              calls.
-3. parity  — reduced Llama in f32: ``prefill_paged`` and one
-             ``decode_step_paged`` on the card (kernels) against the
-             CPU (plain versions) with the same weights.
+3. parity  — reduced Llama in f32, the card (kernels) against the CPU
+             (plain versions) on the same weights: ``prefill_paged``
+             and one ``decode_step_paged``; the dense ``prefill``, the
+             K/V slab it fills and one ``decode_step`` over the slab.
 4. engine  — ``chameleon-llama-7b`` at full width (32 layers, d 4096,
-             bf16 weights from a seeded generator) served by the
-             default ``EngineConfig``: 16 requests over 12 adapters
-             from shared preambles, some seeded-sampled, after a
-             three-request warm-up. Kernel launch counts are zeroed
-             just before the trace and read just after; every kernel
-             must have launched and no plain or einsum path may have
-             run. Then the seed decode loop serves the same trace as
-             the fused loop's A/B.
+             bf16 weights from a seeded generator): 16 requests over
+             12 adapters from shared preambles, some seeded-sampled,
+             after a three-request warm-up, served by four engines
+             built and freed one at a time: the default
+             ``EngineConfig`` (paged KV, prefix cache, fused loop), the
+             seed decode loop as its A/B, the dense KV slab
+             (``paged=False``) and the paged engine without the prefix
+             cache (``prefix_cache=False``). Kernel launch counts are
+             zeroed just before each engine's trace and read just
+             after; every kernel on that engine's path must have
+             launched and no plain or einsum path may have run.
 
 A device-time profile of the same path is ``chip_profile.py``.
 
@@ -40,6 +44,7 @@ before the last line.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -65,6 +70,11 @@ TOL = {
     # same bf16 value or to neighbours, one ulp <= 2**-7 of |want| apart.
     "bf16_out": (1e-4, 2 ** -7),
 }
+# flash_attention in bf16 adds to "bf16_out", per element,
+# 2**-8 * sum_s p_s |v_s|: its plain version rounds each probability to
+# bf16 (at most 2**-8 relative, bf16's unit roundoff) before the
+# product with V, the kernel keeps them in f32.
+FLASH_P_ROUNDING = 2 ** -8
 MIB = 1 << 20
 
 
@@ -178,13 +188,19 @@ def phase_kernels() -> dict:
     Bw = randn(n_slots, r, d, dtype=torch.bfloat16, scale=r ** -0.5)
     rows = {}
 
-    def record(name, case, got, want, tol):
+    def record(name, case, got, want, tol, extra=None, **info):
+        """``extra``: a per-element allowance added to the tolerance;
+        ``info``: further readings for the case's line."""
         atol, rtol = TOL[tol]
         diff = (got.float() - want.float()).abs()
         err = diff.max().item()
-        ok = bool((diff <= atol + rtol * want.float().abs()).all())
+        bound = atol + rtol * want.float().abs()
+        if extra is not None:
+            bound = bound + extra
+        ok = bool((diff <= bound).all())
         emit(dict(phase="kernel", kernel=name, case=case,
-                  max_abs_err=err, atol=atol, rtol=rtol, ok=ok))
+                  max_abs_err=err, atol=atol, rtol=rtol,
+                  extra=extra is not None, ok=ok, **info))
         check(ok, f"{name} [{case}] disagrees with its plain version: "
                   f"max abs err {err}, atol {atol}, rtol {rtol}")
         rows.setdefault(name, dict(max_abs_err=0.0))
@@ -277,19 +293,108 @@ def phase_kernels() -> dict:
         ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
         shape=f"q {tuple(q.shape)} bf16, f32 pages, {Bt} rows x "
               f"{P * page} tokens")
+    flash_calls = phase_flash(record, rows, randn, flush)
     for name, row in rows.items():
         emit(dict(phase="kernel_time", kernel=name, **row))
     calls = {"bgmv": lambda: bgmv.bgmv(x_bgmv, A, Bw, idx),
              "sgmv": lambda: sgmv.sgmv(x_sgmv, A, Bw, ts, tile),
              "paged_attention": lambda: pa.paged_attention(
-                 q, kp, vp, table, full)}
+                 q, kp, vp, table, full),
+             **flash_calls}
     return rows, calls
+
+
+def flash_bound(q, k, v, causal: bool) -> tuple:
+    """Bytes of q, k, v and the output once; 4 * dh operations per
+    (query head, query, key) pair the mask keeps."""
+    B, S, H, dh = q.shape
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return bound_ms(nbytes(q, k, v) + nbytes(q), 4 * B * H * dh * pairs,
+                    op_type(q, k, v))
+
+
+def phase_flash(record, rows, randn, flush) -> dict:
+    """flash_attention against its plain version: causal and not, MHA
+    32/32/128 (Llama-7B), GQA 40/8/128 (qwen2.5-32b) and MQA 8/1/128,
+    f32 and bf16, ragged S (5, 100, 1000) and block multiples (256,
+    2048); then timed at the main path's largest prefill bucket
+    (8, 256, 32, 128) and at (1, 2048, 32, 128), bf16 causal. Returns
+    the calls that launch it on the timed operands."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    dh = 128
+    for causal in (True, False):
+        for H, Kh in ((32, 32), (40, 8), (8, 1)):
+            for dt, tname in ((torch.float32, "f32"),
+                              (torch.bfloat16, "bf16")):
+                for S in (5, 100, 1000, 256, 2048):
+                    B = 2 if S <= 1000 else 1
+                    q = randn(B, S, H, dh, dtype=dt)
+                    k = randn(B, S, Kh, dh, dtype=dt)
+                    v = randn(B, S, Kh, dh, dtype=dt)
+                    got = fa.flash_attention(q, k, v, causal)
+                    torch.cuda.synchronize()
+                    want = fa.flash_attention_plain(q, k, v, causal)
+                    extra, info = None, {}
+                    if dt == torch.bfloat16:
+                        extra = FLASH_P_ROUNDING * fa.flash_attention_plain(
+                            q.float(), k.float(), v.float().abs(), causal)
+                        # Why the extra term: without it the plain
+                        # version fails one ulp; the all-f32 plain
+                        # version, rounded once, holds the kernel to it.
+                        atol, rtol = TOL["bf16_out"]
+                        diff = (got.float() - want.float()).abs()
+                        w32 = fa.flash_attention_plain(
+                            q.float(), k.float(), v.float(), causal).to(dt)
+                        d32 = (got.float() - w32.float()).abs()
+                        info = dict(
+                            one_ulp_ok=bool((diff <= atol + rtol * want
+                                             .float().abs()).all()),
+                            max_abs_err_vs_f32_plain=d32.max().item(),
+                            one_ulp_ok_vs_f32_plain=bool(
+                                (d32 <= atol + rtol * w32.float().abs())
+                                .all()))
+                    record("flash_attention",
+                           f"{'causal' if causal else 'full'}, H {H}/Kh "
+                           f"{Kh}, {tname}, B {B}, S {S}", got, want,
+                           "f32" if tname == "f32" else "bf16_out", extra,
+                           **info)
+                    check(info.get("one_ulp_ok_vs_f32_plain", True),
+                          f"flash_attention [{H}/{Kh}, S {S}] is more than "
+                          f"one bf16 ulp from the all-f32 plain version")
+    calls = {}
+    for B, S in ((8, 256), (1, 2048)):
+        q, k, v = (randn(B, S, 32, dh, dtype=torch.bfloat16)
+                   for _ in range(3))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        ms = median_ms(lambda: fa.flash_attention(q, k, v), flush)
+        plain = median_ms(lambda: fa.flash_attention_plain(q, k, v), flush)
+        lib = median_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), flush)
+        b, by = flash_bound(q, k, v, True)
+        row = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                   library_ms=lib,
+                   shape=f"q/k/v {tuple(q.shape)} bf16, causal")
+        if B == 8:          # the main path's bucket: the kernels line
+            rows["flash_attention"].update(row)
+            calls["flash_attention"] = lambda q=q, k=k, v=v: \
+                fa.flash_attention(q, k, v)
+        else:
+            emit(dict(phase="kernel_time", kernel="flash_attention",
+                      max_abs_err=rows["flash_attention"]["max_abs_err"],
+                      **row))
+    return calls
 
 
 # ------------------------------------------------------------ phase 3
 def phase_parity() -> None:
     """Reduced Llama, f32: the card's kernels against the CPU's plain
-    versions on the same weights, prefill then one decode step."""
+    versions on the same weights. Paged: suffix prefill then one decode
+    step. Dense: whole-prompt prefill (flash_attention), its K/V copied
+    into an f32 slab as the engine does, then one decode step."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import api
@@ -326,14 +431,25 @@ def phase_parity() -> None:
                                    start.to(dev), seq_len.to(dev), **kw)
         ld, kv = api.decode_step_paged(cfg, mv, tok1.to(dev), kv,
                                        table.to(dev), seq_len.to(dev), **kw)
-        out[dev] = [t.cpu() for t in (lp, ld, kv[0][:, 1:], kv[1][:, 1:])]
+        dense_p, (k_new, v_new) = api.prefill(
+            cfg, mv, toks.to(dev), last_pos=(seq_len - 1).to(dev), **kw)
+        slab = api.init_serve_state(cfg, B, 48, torch.float32, device=dev)
+        for b, L in enumerate(seq_len.tolist()):
+            for c, n in zip(slab, (k_new, v_new)):
+                c[:, b, :L] = n[:, b, :L]
+        dense_d, slab = api.decode_step(cfg, mv, tok1.to(dev), slab,
+                                        seq_len.to(dev), **kw)
+        out[dev] = [t.cpu() for t in (lp, ld, kv[0][:, 1:], kv[1][:, 1:],
+                                      dense_p, slab[0], slab[1], dense_d)]
     errs = [(a - b).abs().max().item()
             for a, b in zip(out["cpu"], out["cuda"])]
     ok = all(e <= tol for e in errs) and all(
         torch.isfinite(t).all() for t in out["cuda"])
     emit(dict(phase="parity", prefill_logits_err=errs[0],
               decode_logits_err=errs[1], k_pages_err=errs[2],
-              v_pages_err=errs[3], tol=tol, ok=ok))
+              v_pages_err=errs[3], dense_prefill_logits_err=errs[4],
+              k_slab_err=errs[5], v_slab_err=errs[6],
+              dense_decode_logits_err=errs[7], tol=tol, ok=ok))
     check(ok, f"card vs CPU step parity failed: {errs} (tol {tol})")
 
 
@@ -409,7 +525,19 @@ def warm_up(eng, vocab: int) -> None:
     eng.reset_stats()
 
 
+# name: (EngineConfig overrides, kernels on that engine's path)
+ENGINES = {
+    "fused": (dict(), ("bgmv", "sgmv", "paged_attention")),
+    "seed": (dict(fused_hotloop=False), ("bgmv", "sgmv", "paged_attention")),
+    "dense": (dict(paged=False), ("bgmv", "sgmv", "flash_attention")),
+    "no_prefix": (dict(prefix_cache=False),
+                  ("bgmv", "sgmv", "paged_attention", "flash_attention")),
+}
+
+
 def phase_engine(cfg, params) -> dict:
+    """Each engine of ``ENGINES`` over the same trace, one at a time.
+    Returns {engine: {kernel: launches in its trace}}."""
     import importlib
 
     import torch
@@ -417,46 +545,50 @@ def phase_engine(cfg, params) -> dict:
     from repro_torch.serving.engine import EngineConfig
     from repro_torch.serving.systems import build_engine
     stats = {n: importlib.import_module(f"repro_torch.kernels.{n}").STATS
-             for n in ("bgmv", "sgmv", "paged_attention")}
+             for n in KERNELS}
     ecfg = EngineConfig()
     results = {}
-    for loop in ("fused", "seed"):
-        eng = build_engine("chameleon", cfg, params,
-                           EngineConfig(fused_hotloop=loop == "fused"))
+    for name, (knobs, path) in ENGINES.items():
+        eng = build_engine("chameleon", cfg, params, EngineConfig(**knobs))
         warm_up(eng, cfg.vocab_size)
         trace = make_trace(cfg.vocab_size)
         torch.cuda.reset_peak_memory_stats()
-        for s in stats.values():
-            s.reset()
+        for st in stats.values():
+            st.reset()
         EINSUM.reset()
-        res = serve(eng, trace)                       # the main path
-        launches = {n: s.launches for n, s in stats.items()}
-        plain = {n: s.plain for n, s in stats.items()}
+        res = serve(eng, trace)                       # this engine's path
+        launches = {n: st.launches for n, st in stats.items()}
+        plain = {n: st.plain for n, st in stats.items()}
+        est = eng.stats()
         res.update(launches=launches, plain_calls=plain,
                    einsum_calls=EINSUM.calls,
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-                   **{k: v for k, v in eng.stats().items()
+                   **{k: v for k, v in est.items()
                       if k in ("completed", "prefix_hit_tokens",
                                "prefix_hits", "cow_forks", "async_loads",
                                "preempted")},
-                   cache=eng.stats()["cache"])
+                   cache=est["cache"])
         toks = [h.tokens for h in res.pop("handles")]
         res["outputs"] = toks
         check(res["completed"] == len(trace),
-              f"{loop}: {res['completed']}/{len(trace)} requests completed")
+              f"{name}: {res['completed']}/{len(trace)} requests completed")
         check(all(len(t) == r.output_len for t, (r, _) in zip(toks, trace)),
-              f"{loop}: a request stopped short of its output length")
+              f"{name}: a request stopped short of its output length")
         check(all(0 <= x < cfg.vocab_size for t in toks for x in t),
-              f"{loop}: token id outside the vocabulary")
-        check(res["prefix_hit_tokens"] > 0, f"{loop}: the prefix cache "
-                                            f"never hit")
-        check(all(launches[n] > 0 for n in launches),
-              f"{loop}: a kernel never launched: {launches}")
+              f"{name}: token id outside the vocabulary")
+        if eng.prefix is not None:
+            check(res["prefix_hit_tokens"] > 0,
+                  f"{name}: the prefix cache never hit")
+        check(all(launches[n] > 0 for n in path),
+              f"{name}: a kernel of its path never launched: {launches}")
+        check(launches["flash_attention"] % cfg.n_layers == 0,
+              f"{name}: flash_attention launches are not a whole number "
+              f"of prefill calls ({cfg.n_layers} layers): {launches}")
         check(not any(plain.values()) and res["einsum_calls"] == 0,
-              f"{loop}: a plain/einsum path ran on the card: {plain}, "
+              f"{name}: a plain/einsum path ran on the card: {plain}, "
               f"einsum {res['einsum_calls']}")
-        results[loop] = res
-        emit(dict(phase="engine", loop=loop, model=cfg.name,
+        results[name] = res
+        emit(dict(phase="engine", engine=name, knobs=knobs, model=cfg.name,
                   n_layers=cfg.n_layers, d_model=cfg.d_model,
                   weights="bf16",
                   ecfg=dict(max_slots=ecfg.max_slots,
@@ -465,17 +597,33 @@ def phase_engine(cfg, params) -> dict:
                             r_max=ecfg.r_max, n_adapters=ecfg.n_adapters,
                             max_horizon=ecfg.max_horizon),
                   **{k: v for k, v in res.items() if k != "outputs"}))
-        del eng
+        # Requests' handles point back at their engine: collect the
+        # cycle so the next engine's peak does not hold this one.
+        del eng, est
+        gc.collect()
         torch.cuda.empty_cache()
     greedy = [i for i, (_, sp) in enumerate(make_trace(cfg.vocab_size))
               if sp is None]
-    same = sum(results["fused"]["outputs"][i] == results["seed"]["outputs"][i]
-               for i in greedy)
+
+    def agreement(a: str, b: str) -> dict:
+        """Greedy requests with identical outputs, identical first
+        tokens, and the mean length of the common output prefix."""
+        pairs = [(results[a]["outputs"][i], results[b]["outputs"][i])
+                 for i in greedy]
+        common = [next((j for j, (x, y) in enumerate(zip(u, w)) if x != y),
+                       min(len(u), len(w))) for u, w in pairs]
+        return dict(identical=sum(u == w for u, w in pairs),
+                    first_token_identical=sum(u[:1] == w[:1]
+                                              for u, w in pairs),
+                    mean_common_prefix=sum(common) / len(common))
+
     emit(dict(phase="engine_ab", greedy_requests=len(greedy),
-              greedy_identical_fused_vs_seed=same,
-              decode_tok_per_s_fused=results["fused"]["decode_tok_per_s"],
-              decode_tok_per_s_seed=results["seed"]["decode_tok_per_s"]))
-    return results["fused"]["launches"]
+              greedy_vs_fused={name: agreement(name, "fused")
+                               for name in results if name != "fused"},
+              greedy_dense_vs_no_prefix=agreement("dense", "no_prefix"),
+              decode_tok_per_s={name: res["decode_tok_per_s"]
+                                for name, res in results.items()}))
+    return {name: res["launches"] for name, res in results.items()}
 
 
 KERNELS = {
@@ -483,7 +631,14 @@ KERNELS = {
     "sgmv": ("src/repro_torch/csrc/sgmv.cu", "src/repro/kernels/sgmv.py:37"),
     "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:67"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:67"),
 }
+# The engine whose trace gives a kernel's ``launches`` in the kernels
+# line: the default path for the decode-path kernels, the dense slab
+# for flash_attention (the default path never runs it).
+LAUNCHES_FROM = {"bgmv": "fused", "sgmv": "fused",
+                 "paged_attention": "fused", "flash_attention": "dense"}
 
 
 def main() -> int:
@@ -516,7 +671,8 @@ def main() -> int:
         return 1
     emit({"kernels": [
         dict(name=n, route="cuda", source=KERNELS[n][0],
-             replaces=KERNELS[n][1], launches=launches[n],
+             replaces=KERNELS[n][1],
+             launches=launches[LAUNCHES_FROM[n]][n],
              max_abs_err=rows[n]["max_abs_err"], ms=rows[n]["ms"],
              plain_ms=rows[n]["plain_ms"], bound_ms=rows[n]["bound_ms"],
              bound_by=rows[n]["bound_by"], library_ms=rows[n]["library_ms"])

@@ -1,0 +1,109 @@
+"""flash_attention — prefill attention over a whole sequence
+(hand-written CUDA for Hopper).
+
+Per (batch row b, query head h), with kv head h // G:
+
+    out[b, :, h] = softmax(q[b, :, h] · K[b, :, h // G]^T / sqrt(dh)
+                           [+ causal mask]) · V[b, :, h // G]
+
+written in q's dtype. Replaces
+``src/repro/kernels/flash_attention.py::flash_attention`` (Pallas body
+``_flash_kernel``). Source: ``csrc/flash_attention.cu``.
+
+Bound on the H100: operations at the serving path's prefill shapes
+(4·B·H·S²·dh, halved when causal), bytes below a few hundred
+positions. The Pallas grid walks the key blocks of one query block in
+order and carries the online-softmax state in VMEM scratch; a CUDA
+block per (64 query rows, h, b) walks its key tiles in a loop with the
+state in registers (f32 FMAs from 16-byte shared-memory reads), stops
+at the diagonal when causal, and masks the ragged query rows and key
+columns itself, so any S works (the engine's prefill buckets start at
+8 positions; the Pallas kernel needs S % 128 == 0).
+``flash_attention_plain`` is the function the kernel computes, in
+plain PyTorch: the port's ``gqa_attention``, which the JAX package's
+oracle also is; the wrapper uses it only for CPU tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.models.layers import gqa_attention
+
+from .build import (KernelStats, check_launch, dtype_code, library,
+                    stream_handle)
+
+MAX_DH = 256
+STATS = KernelStats()
+
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+             + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2
+             + [ctypes.c_void_p])
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, causal: bool = True
+                          ) -> torch.Tensor:
+    """What the kernel computes, in plain PyTorch: the dense prefill's
+    attention (``layers.gqa_attention``), exact softmax per row with the
+    probabilities cast to v's dtype, query-chunked from 2048 rows."""
+    return gqa_attention(q, k, v, causal=causal)
+
+
+def _check(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(
+            f"flash_attention expects q (B, S, H, dh), k/v (B, S, Kh, dh); "
+            f"got q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"v {tuple(v.shape)}")
+    B, S, H, dh = q.shape
+    Bk, Sk, Kh, dhk = k.shape
+    if (Bk, Sk, dhk) != (B, S, dh) or Kh < 1 or H % Kh:
+        raise ValueError(
+            f"flash_attention shape mismatch: q {tuple(q.shape)}, "
+            f"k/v {tuple(k.shape)} (H must be a multiple of Kh)")
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"flash_attention needs one dtype for q, k and v; "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    devs = {t.device for t in (q, k, v)}
+    if len(devs) != 1:
+        raise ValueError(f"flash_attention operands on several devices: "
+                         f"{devs}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """q: (B, S, H, dh); k/v: (B, S, Kh, dh) with H a multiple of Kh
+    -> (B, S, H, dh) in q's dtype.
+
+    CUDA tensors launch the kernel (any S, dh <= 256 a multiple of 4,
+    q/k/v of one dtype, f32 or bf16; strided views are read in place as
+    long as the head_dim axis is contiguous); CPU tensors take
+    ``flash_attention_plain``.
+    """
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        STATS.plain += 1
+        return flash_attention_plain(q, k, v, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    B, S, H, dh = q.shape
+    Kh = k.shape[2]
+    if dh > MAX_DH or dh % 4:
+        raise ValueError(f"flash_attention supports dh <= {MAX_DH} a "
+                         f"multiple of 4, got {dh}")
+    code = dtype_code(q, "q/k/v")
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    out = torch.empty((B, S, H, dh), dtype=q.dtype, device=q.device)
+    if B == 0 or S == 0:
+        return out
+    lib = library("flash_attention", _ARGTYPES)
+    strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
+    err = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
+        Kh, dh, *strides, int(causal), code, stream_handle(q.device))
+    check_launch("flash_attention", err)
+    STATS.launches += 1
+    return out

@@ -23,6 +23,7 @@ import time
 import torch
 
 from .bgmv import bgmv as _bgmv_kernel
+from .flash_attention import flash_attention as _flash_kernel
 from .paged_attention import paged_attention as _paged_kernel
 from .sgmv import pack_segments, sgmv as _sgmv_kernel
 
@@ -147,3 +148,8 @@ def lora_delta_kernel(x, A, B, idx, *, scale: float = 1.0,
 def paged_attention(q, k_pages, v_pages, page_table, lengths):
     """Decode attention over paged KV; see paged_attention.py."""
     return _paged_kernel(q, k_pages, v_pages, page_table, lengths)
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """Prefill attention over a whole sequence; see flash_attention.py."""
+    return _flash_kernel(q, k, v, causal)

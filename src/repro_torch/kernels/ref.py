@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import promoted
+from repro_torch.models.layers import gqa_attention, promoted
 
 
 def bgmv_ref(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
@@ -67,3 +67,9 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bksd->bkgd", *promoted(probs.to(v.dtype), v))
     return out.to(q.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """Plain attention oracle. q: (B,S,H,dh); k,v: (B,S,Kh,dh)."""
+    return gqa_attention(q, k, v, causal=causal)

@@ -1,9 +1,10 @@
-"""Family dispatcher: the paged serving surface of the port.
+"""Family dispatcher: the serving surface of the port.
 
-Port of the paged subset of ``src/repro/models/api.py`` with the same
+Port of ``src/repro/models/api.py`` for the dense family, with the same
 gates: fused decode covers the dense and MoE families, paged KV the
-dense family; the port implements the dense family (the MoE superstep
-path is not ported yet, so its fused entry points raise).
+dense family. The port implements the dense family only; every entry
+point raises ``NotImplementedError`` naming any other family (MoE,
+SSM, hybrid, enc-dec, VLM are not ported yet).
 """
 from __future__ import annotations
 
@@ -13,6 +14,39 @@ from . import lm
 from .base import Family, ModelConfig
 from .lm import init_params  # shared: param_shapes covers every family
 from .lm import sample_tokens  # family-agnostic: operates on logits
+
+
+def _dense_only(cfg: ModelConfig, what: str) -> None:
+    if cfg.family != Family.DENSE:
+        raise NotImplementedError(
+            f"{what} is ported for the DENSE family only, not family "
+            f"{cfg.family.name}")
+
+
+def forward(cfg, params, tokens, **kw):
+    """Full-sequence logits (B, S, V)."""
+    _dense_only(cfg, "forward")
+    return lm.forward(cfg, params, tokens, **kw)
+
+
+def prefill(cfg, params, tokens, **kw):
+    """Whole-prompt prefill: (last-position logits, (k, v) stacks)."""
+    _dense_only(cfg, "prefill")
+    return lm.prefill(cfg, params, tokens, **kw)
+
+
+def decode_step(cfg, params, tokens, state, cache_len=None, **kw):
+    """One decode step over the dense KV slab ``state``."""
+    _dense_only(cfg, "decode_step")
+    return lm.decode_step(cfg, params, tokens, state, cache_len, **kw)
+
+
+def init_serve_state(cfg: ModelConfig, batch: int, max_len: int,
+                     dtype=torch.bfloat16,
+                     device: torch.device | str | None = None):
+    """The dense KV slab (L, batch, max_len, Kh, Dh) ×2."""
+    _dense_only(cfg, "init_serve_state")
+    return lm.make_kv_caches(cfg, batch, max_len, dtype, device)
 
 
 def supports_fused(cfg: ModelConfig) -> bool:
@@ -25,6 +59,17 @@ def supports_paged(cfg: ModelConfig) -> bool:
     """Families whose decode can run over a paged KV pool: dense
     decoder LMs (the JAX gate)."""
     return cfg.family == Family.DENSE
+
+
+def decode_fused(cfg, params, tokens, kv_caches, cache_len, active,
+                 positions, budget, stop_ids, temperature, top_k, top_p,
+                 seeds, **kw):
+    """K fused decode+sample steps over the dense KV slab, state on
+    device (``lm.decode_fused``)."""
+    _dense_only(cfg, "decode_fused")
+    return lm.decode_fused(cfg, params, tokens, kv_caches, cache_len,
+                           active, positions, budget, stop_ids,
+                           temperature, top_k, top_p, seeds, **kw)
 
 
 def decode_fused_paged(cfg, params, tokens, kv_pages, page_table,
@@ -70,5 +115,6 @@ def prefill_paged(cfg, params, tokens, kv_pages, page_table, start,
 
 
 __all__ = ["supports_fused", "supports_paged", "init_params",
-           "sample_tokens", "decode_fused_paged", "init_paged_serve_state",
-           "decode_step_paged", "prefill_paged"]
+           "sample_tokens", "forward", "prefill", "decode_step",
+           "decode_fused", "init_serve_state", "decode_fused_paged",
+           "init_paged_serve_state", "decode_step_paged", "prefill_paged"]

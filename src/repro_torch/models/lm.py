@@ -1,14 +1,20 @@
-"""Decoder-only LM, dense family, on the paged KV pool (PyTorch).
+"""Decoder-only LM, dense family, on the paged KV pool and the dense KV
+slab (PyTorch).
 
-Port of the paged serving subset of ``src/repro/models/lm.py``.
-Parameters are a *flat* dict {path: tensor} (see base.param_shapes)
-with per-layer tensors stacked on axis 0; the JAX ``lax.scan`` over
-that stack becomes a Python loop over the layer index, and the K-step
-decode scan a loop whose state stays on the device.
+Port of the dense-family serving subset of ``src/repro/models/lm.py``:
+the whole-sequence ``forward`` and ``prefill`` (attention through the
+flash_attention kernel), decode over the dense slab (``decode_step``,
+``decode_fused``) and over the paged pool (``prefill_paged``,
+``decode_step_paged``, ``decode_fused_paged``). Parameters are a *flat*
+dict {path: tensor} (see base.param_shapes) with per-layer tensors
+stacked on axis 0; the JAX ``lax.scan`` over that stack becomes a
+Python loop over the layer index, and the K-step decode scan a loop
+whose state stays on the device.
 
 Unlike the JAX functions, which return fresh KV arrays, the port writes
-the new K/V into the given page tensors *in place* (the JAX engine
-donates them, so the effect is the same) and returns those tensors.
+the new K/V into the given slab or page tensors *in place* (the JAX
+engine donates them, so the effect is the same) and returns those
+tensors.
 
 Out-of-range gathers: JAX clamps ``x[i, j]`` and fills
 ``take_along_axis`` where PyTorch raises, so page-table lookups clamp
@@ -20,12 +26,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.ops import paged_attention
+from repro_torch.kernels.ops import flash_attention, paged_attention
 from repro_torch.models.base import ModelConfig, param_shapes
-from repro_torch.models.layers import (apply_rope, einsum, embed,
-                                       gelu_mlp, head_rms_norm, rms_norm,
-                                       rope_cos_sin, suffix_attention,
-                                       swiglu, unembed)
+from repro_torch.models.layers import (apply_rope, decode_attention, einsum,
+                                       embed, gelu_mlp, head_rms_norm,
+                                       rms_norm, rope_cos_sin,
+                                       suffix_attention, swiglu, unembed)
 from repro_torch.models.lora_apply import lora_delta
 
 
@@ -124,6 +130,48 @@ def _o_proj(cfg: ModelConfig, x: torch.Tensor, out: torch.Tensor, p: dict,
     return x + o
 
 
+def _attn(cfg: ModelConfig, x: torch.Tensor, p: dict, cos, sin,
+          kv_cache=None, cache_len=None, lora=None, adapter_idx=None,
+          lora_backend: str = "einsum"):
+    """Attention block over the whole sequence or the dense KV slab.
+
+    Without a cache (prefill, forward) the fresh q/k/v go through
+    ``kernels.ops.flash_attention`` with the causal mask (the CUDA
+    kernel on the card, its plain version on the CPU) and the fresh
+    (k, v) are returned. With ``kv_cache`` = this layer's (k, v) slabs
+    (B, Smax, Kh, Dh) the decode token's K/V are written in place at
+    ``cache_len`` and attention runs over the slab up to
+    ``cache_len + S``. A write past the slab's end is dropped, as JAX's
+    ``.at[].set`` drops it: the slot keeps its old value.
+    Returns (x + attention output, new_kv).
+    """
+    B, S, _ = x.shape
+    _, q, k, v = _qkv_proj(cfg, x, p, cos, sin, lora, adapter_idx,
+                           lora_backend=lora_backend)
+    if kv_cache is None:
+        out = flash_attention(q, k, v, causal=True)
+        new_kv = (k, v)
+    else:
+        k_cache, v_cache = kv_cache
+        Smax = k_cache.shape[1]
+        rows = torch.arange(B, device=x.device)[:, None]
+        idx = (cache_len.long()[:, None]
+               + torch.arange(S, device=x.device)[None, :])
+        keep = (idx < Smax)[:, :, None, None]
+        idx = idx.clamp(max=Smax - 1)
+        for cache, new in ((k_cache, k), (v_cache, v)):
+            cache[rows, idx] = torch.where(keep, new.to(cache.dtype),
+                                           cache[rows, idx])
+        # An f32 slab promotes the attention output; keep the activation
+        # dtype, as the paged path does (a no-op for f32 weights).
+        out = decode_attention(q, k_cache, v_cache,
+                               cache_len + S).to(q.dtype)
+        new_kv = (k_cache, v_cache)
+    out = out.reshape(B, S, cfg.q_dim)
+    return _o_proj(cfg, x, out, p, lora, adapter_idx,
+                   lora_backend=lora_backend), new_kv
+
+
 def _attn_paged(cfg: ModelConfig, x: torch.Tensor, p: dict, cos, sin,
                 k_pages: torch.Tensor, v_pages: torch.Tensor,
                 page_table: torch.Tensor, cache_len: torch.Tensor,
@@ -177,21 +225,65 @@ def _layers(cfg: ModelConfig, params: dict, lora):
         yield i, p, lr
 
 
-def _positions(cfg: ModelConfig, tokens_shape, offset):
-    B, S = tokens_shape
+def _positions(cfg: ModelConfig, tokens: torch.Tensor, offset):
+    """RoPE cos/sin for ``tokens`` (B, S) starting at ``offset`` (an int
+    or a (B,) tensor of per-row offsets)."""
+    B, S = tokens.shape
     if cfg.mrope:
         raise NotImplementedError("M-RoPE (VLM) is not ported yet")
-    offset = torch.as_tensor(offset)
-    pos = (torch.arange(S, device=offset.device)[None, :]
+    offset = torch.as_tensor(offset, device=tokens.device)
+    pos = (torch.arange(S, device=tokens.device)[None, :]
            + offset.reshape(-1, 1).long())
     return rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
 
 
-def _head(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
+def _logits(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
+    """Final norm + unembedding: (B, S, D) -> f32 logits (B, S, V)."""
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     table = (params["embed/tok"].T if cfg.tie_embeddings
              else params["lm_head"])
-    return unembed(h, table)[:, 0]
+    return unembed(h, table)
+
+
+def _head(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
+    """Logits of a one-position hidden (B, 1, D) -> (B, V)."""
+    return _logits(cfg, params, h)[:, 0]
+
+
+def _backbone(cfg: ModelConfig, params: dict, x: torch.Tensor, cos, sin,
+              kv_caches=None, cache_len=None, lora=None, adapter_idx=None,
+              collect_kv: bool = False, lora_backend: str = "einsum"):
+    """The dense layer stack (the JAX ``_backbone`` scan as a loop).
+
+    With ``kv_caches`` = (k, v) slabs (L, B, Smax, Kh, Dh) each layer
+    decodes against its slab, written in place, and the slabs are
+    returned; with ``collect_kv`` the fresh per-layer K/V are stacked
+    to (L, B, S, Kh, Dh) (prefill). Returns (hidden, kv or None).
+    """
+    ks, vs = [], []
+    h = x
+    for i, p, lr in _layers(cfg, params, lora):
+        kv = ((kv_caches[0][i], kv_caches[1][i])
+              if kv_caches is not None else None)
+        h, new_kv = _attn(cfg, h, p, cos, sin, kv, cache_len, lr,
+                          adapter_idx, lora_backend)
+        h = _mlp(cfg, h, p)
+        if kv_caches is None and collect_kv:
+            ks.append(new_kv[0])
+            vs.append(new_kv[1])
+    if kv_caches is not None:
+        return h, kv_caches
+    return h, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
+
+
+def make_kv_caches(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16,
+                   device: torch.device | str | None = None):
+    """Dense KV slab: (L, batch, max_len, Kh, Dh) ×2, zeroed."""
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=dev),
+            torch.zeros(shape, dtype=dtype, device=dev))
 
 
 def make_paged_kv(cfg: ModelConfig, n_pages: int, page_size: int,
@@ -325,6 +417,29 @@ def _fused_decode_scan(decode_one, tokens, cache_len, active, positions,
             torch.stack(toks), torch.stack(emits))
 
 
+def decode_fused(cfg: ModelConfig, params: dict, tokens, kv_caches,
+                 cache_len, active, positions, budget, stop_ids,
+                 temperature, top_k, top_p, seeds, *, n_steps: int,
+                 all_greedy: bool, max_ctx: int, lora=None,
+                 adapter_idx=None, lora_backend: str = "einsum"):
+    """Fused multi-step decode over the dense KV slab (see
+    ``_fused_decode_scan``). Done rows keep writing at their
+    ``cache_len``, which the context bound keeps inside the slab for
+    every row that decoded up to it; a row placed with a prompt that
+    already fills the slab writes past its end, and that write is
+    dropped (see ``_attn``)."""
+
+    def decode_one(tok, kv, clen):
+        return decode_step(cfg, params, tok, kv, clen, lora=lora,
+                           adapter_idx=adapter_idx,
+                           lora_backend=lora_backend)
+
+    return _fused_decode_scan(decode_one, tokens, cache_len, active,
+                              positions, kv_caches, budget, stop_ids,
+                              temperature, top_k, top_p, seeds, max_ctx,
+                              n_steps, all_greedy)
+
+
 def decode_fused_paged(cfg: ModelConfig, params: dict, tokens, kv_pages,
                        page_table, cache_len, active, positions, budget,
                        stop_ids, temperature, top_k, top_p, seeds, *,
@@ -346,6 +461,55 @@ def decode_fused_paged(cfg: ModelConfig, params: dict, tokens, kv_pages,
                               n_steps, all_greedy)
 
 
+# ------------------------------------------------- dense entry points
+def forward(cfg: ModelConfig, params: dict, tokens) -> torch.Tensor:
+    """Full-sequence logits (B, S, V) f32, causal attention through
+    flash_attention."""
+    x = embed(tokens, params["embed/tok"])
+    cos, sin = _positions(cfg, tokens, 0)
+    h, _ = _backbone(cfg, params, x, cos, sin)
+    return _logits(cfg, params, h)
+
+
+def prefill(cfg: ModelConfig, params: dict, tokens, lora=None,
+            adapter_idx=None, last_pos=None, lora_backend: str = "einsum"):
+    """Whole-prompt prefill. Returns (logits (B, V) f32 of position
+    ``last_pos`` (B,) — S-1 when None; right-padded batches pass each
+    row's last prompt position — , (k, v) each (L, B, S, Kh, Dh) in the
+    activation dtype). ``lora_backend="kernel"`` routes the LoRA deltas
+    through the sgmv kernel (each row is one contiguous token run)."""
+    B, _ = tokens.shape
+    x = embed(tokens, params["embed/tok"])
+    cos, sin = _positions(cfg, tokens, 0)
+    h, kv = _backbone(cfg, params, x, cos, sin, lora=lora,
+                      adapter_idx=adapter_idx, collect_kv=True,
+                      lora_backend=lora_backend)
+    if last_pos is None:
+        h_last = h[:, -1:]
+    else:
+        rows = torch.arange(B, device=h.device)
+        h_last = h[rows, last_pos.long()][:, None]
+    return _head(cfg, params, h_last), kv
+
+
+def decode_step(cfg: ModelConfig, params: dict, tokens, kv_caches,
+                cache_len, lora=None, adapter_idx=None,
+                lora_backend: str = "einsum"):
+    """One decode step over the dense KV slab.
+
+    tokens: (B, 1); kv_caches: (k, v) each (L, B, Smax, Kh, Dh), updated
+    in place; cache_len: (B,) valid lengths. Returns (logits (B, V) f32,
+    kv_caches). ``lora_backend="kernel"`` routes the per-token LoRA
+    deltas through the bgmv kernel.
+    """
+    x = embed(tokens, params["embed/tok"])
+    cos, sin = _positions(cfg, tokens, cache_len)
+    h, kv = _backbone(cfg, params, x, cos, sin, kv_caches=kv_caches,
+                      cache_len=cache_len, lora=lora,
+                      adapter_idx=adapter_idx, lora_backend=lora_backend)
+    return _head(cfg, params, h), kv
+
+
 def decode_step_paged(cfg: ModelConfig, params: dict, tokens, kv_pages,
                       page_table, cache_len, lora=None, adapter_idx=None,
                       lora_backend: str = "einsum"):
@@ -357,7 +521,7 @@ def decode_step_paged(cfg: ModelConfig, params: dict, tokens, kv_pages,
     (logits (B, V) f32, kv_pages).
     """
     x = embed(tokens, params["embed/tok"])
-    cos, sin = _positions(cfg, tokens.shape, cache_len)
+    cos, sin = _positions(cfg, tokens, cache_len)
     k_pages, v_pages = kv_pages
     page = k_pages.shape[2]
     B, P = page_table.shape
@@ -395,7 +559,7 @@ def prefill_paged(cfg: ModelConfig, params: dict, tokens, kv_pages,
     B, S = tokens.shape
     dev = tokens.device
     x = embed(tokens, params["embed/tok"])
-    cos, sin = _positions(cfg, tokens.shape, start)
+    cos, sin = _positions(cfg, tokens, start)
     k_pages, v_pages = kv_pages
     page = k_pages.shape[2]
     P = page_table.shape[1]

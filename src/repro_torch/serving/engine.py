@@ -1,19 +1,22 @@
 """PyTorch serving engine: continuous batching with Chameleon integrated.
 
-Port of the default path of ``src/repro/serving/engine.py``: one
-``ChameleonEngine`` over paged KV (16-token pages), the prefix cache in
-``"exact"`` (or ``"alora"``) mode, the fused decode micro-horizon with
-pipelined readback, asynchronous adapter loads and kernel LoRA on the
-card. The control plane — scheduler, adapter cache, memory pool,
-prefix radix tree, prefetchers — is the reference's own code
-(``repro_torch.core`` is a verbatim copy); this file moves bytes and
-drives the data plane.
+Port of ``src/repro/serving/engine.py`` for the dense family: one
+``ChameleonEngine`` over paged KV (16-token pages) with the prefix
+cache in ``"exact"`` (or ``"alora"``) mode — the default — or without
+it (``prefix_cache=False``: whole-prompt dense prefill whose K/V are
+copied into the slot's pages), or over the dense KV slab
+(``paged=False``: one (max_slots, max_len) row per batch slot); the
+fused decode micro-horizon with pipelined readback or the seed loop,
+asynchronous adapter loads and kernel LoRA on the card. The control
+plane — scheduler, adapter cache, memory pool, prefix radix tree,
+prefetchers — is the reference's own code (``repro_torch.core`` is a
+verbatim copy); this file moves bytes and drives the data plane.
 
 Device state lives in preallocated tensors updated in place: the KV
-page pool (the JAX engine donates it into each jit), the per-slot
-current token, ``cache_len`` and adapter index. The fused horizon runs
-K decode+sample steps as a loop of device launches with an on-device
-done mask; its (K, B) token block is copied to pinned host memory
+page pool or slab (the JAX engine donates it into each jit), the
+per-slot current token, ``cache_len`` and adapter index. The fused
+horizon runs K decode+sample steps as a loop of device launches with an
+on-device done mask; its (K, B) token block is copied to pinned host memory
 behind an event as soon as it is enqueued, so the pipelined readback of
 horizon N waits only for horizon N, not for horizon N+1 dispatched
 after it.
@@ -27,9 +30,8 @@ adapter is never placed. On the CPU the copy is synchronous.
 
 Not ported yet (each raises ``NotImplementedError`` at construction,
 naming the knob): ``mesh_shape``, ``spec_decode``,
-``prefill_chunk_tokens > 0``, ``paged=False`` (the dense slab),
-``prefix_cache=False``, and model families without paged decode; the
-disaggregation migration API raises when called.
+``prefill_chunk_tokens > 0``, and every model family but the dense
+one; the disaggregation migration API raises when called.
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ from repro_torch.core import (AdapterCache, AdapterInfo, CacheStats,
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import DISPATCH_METER, resolve_lora_backend
 from repro_torch.models import api
-from repro_torch.models.base import ModelConfig
+from repro_torch.models.base import Family, ModelConfig
 from repro_torch.models.lora_apply import (init_lora_slots,
                                            random_lora_weights,
                                            write_adapter_to_slot)
@@ -59,8 +61,8 @@ from repro_torch.serving.metrics import RequestRecord, RunMetrics
 @dataclass
 class EngineConfig:
     """Same fields and defaults as the JAX ``EngineConfig``; see there
-    for each knob. The port serves the default path and rejects the
-    knobs it does not implement yet at engine construction."""
+    for each knob. The port rejects the knobs it does not implement yet
+    at engine construction."""
     max_slots: int = 8
     max_len: int = 256
     n_lora_slots: int = 8
@@ -96,13 +98,15 @@ def _unsupported(cfg: ModelConfig, e: EngineConfig) -> list[str]:
         out.append("spec_decode=True")
     if e.prefill_chunk_tokens > 0:
         out.append(f"prefill_chunk_tokens={e.prefill_chunk_tokens}")
-    if not e.paged:
-        out.append("paged=False")
-    if not e.prefix_cache:
-        out.append("prefix_cache=False")
-    if not api.supports_paged(cfg):
-        out.append(f"model family {cfg.family.name} (no paged decode)")
+    if cfg.family != Family.DENSE:
+        out.append(f"model family {cfg.family.name}")
     return out
+
+
+def _bucket(n_rows: int, n_tokens: int) -> tuple[int, int]:
+    """The (B, S) prefill bucket: powers of two, S at least 8."""
+    return (1 << max(0, (n_rows - 1).bit_length()),
+            1 << max(3, (n_tokens - 1).bit_length()))
 
 
 def _host_copy(t: torch.Tensor) -> torch.Tensor:
@@ -209,7 +213,9 @@ class ChameleonEngine:
         infos = self.catalog.infos
         cap = e.max_slots * e.max_len \
             + 4 * max(c.size_tokens for c in infos.values())
-        self.pool = MemoryPool(capacity_tokens=cap, page_size=e.page_size)
+        self.paged = bool(e.paged)
+        self.pool = MemoryPool(capacity_tokens=cap,
+                               page_size=e.page_size if self.paged else 1)
         self.cache = AdapterCache(self.pool, infos,
                                   enabled=cache_enabled,
                                   on_load=self._load_adapter,
@@ -226,21 +232,31 @@ class ChameleonEngine:
                            if e.queued_prefetch else None)
         self.h_prefetch = (HistogramPrefetcher(self.cache)
                            if e.histogram_prefetch else None)
-        # The engine holds exactly its allocated pages in the pool.
-        self.sched.reserve_from_pool = False
+        # Paged mode: the engine holds exactly its allocated pages in the
+        # pool; the dense slab keeps the scheduler's reservation.
+        self.sched.reserve_from_pool = not self.paged
 
-        # --- device state: paged KV pool, page 0 = trash page ---
-        ps = e.page_size
-        self.n_pages = cap // ps + 1
-        self.pages_per_slot = -(-e.max_len // ps)
-        self.kv_pages = api.init_paged_serve_state(
-            cfg, self.n_pages, ps, torch.float32, device=dev)
-        self.page_table = np.zeros((e.max_slots, self.pages_per_slot),
-                                   np.int32)
-        self.slot_pages: list[list[int]] = [[] for _ in range(e.max_slots)]
-        self.free_pages = list(range(self.n_pages - 1, 0, -1))
+        # --- device state: paged KV pool (page 0 = trash page) or the
+        # dense slab, f32 as in the JAX engine ---
+        self.kv_pages = self.kv = None
+        if self.paged:
+            ps = e.page_size
+            self.n_pages = cap // ps + 1
+            self.pages_per_slot = -(-e.max_len // ps)
+            self.kv_pages = api.init_paged_serve_state(
+                cfg, self.n_pages, ps, torch.float32, device=dev)
+            self.page_table = np.zeros((e.max_slots, self.pages_per_slot),
+                                       np.int32)
+            self.slot_pages: list[list[int]] = [[] for _ in
+                                                range(e.max_slots)]
+            self.free_pages = list(range(self.n_pages - 1, 0, -1))
+        else:
+            self.kv = api.init_serve_state(cfg, e.max_slots, e.max_len,
+                                           torch.float32, device=dev)
         # --- prefix KV reuse (radix tree over the paged pool) ---
-        self.prefix = PrefixCache(self.pool, e.page_size)
+        self.prefix: Optional[PrefixCache] = (
+            PrefixCache(self.pool, e.page_size)
+            if self.paged and e.prefix_cache else None)
         self.slot_shared: list[list[int]] = [[] for _ in range(e.max_slots)]
         self.prefix_hit_tokens = 0
         self.prefix_lookup_tokens = 0
@@ -374,7 +390,7 @@ class ChameleonEngine:
         (after reclaiming idle prefix pages, then shrinking the adapter
         cache)."""
         ps = self.pool.page_size
-        if self.pool.free_tokens < ps:
+        if self.pool.free_tokens < ps and self.prefix is not None:
             self.free_pages.extend(self.prefix.evict_lru(1))
         if self.pool.free_tokens < ps and not self.cache.shrink_for_requests(
                 ps, now, self.sched.queued_adapter_ids()):
@@ -408,6 +424,8 @@ class ChameleonEngine:
         return True
 
     def _free_slot_pages(self, slot: int, req_id: int) -> None:
+        if not self.paged:
+            return      # the scheduler releases the slab's reservation
         shared = self.slot_shared[slot]
         if shared:
             # Drop the slot's references; the prefix tree keeps its own.
@@ -605,9 +623,8 @@ class ChameleonEngine:
             prompts.append(toksr)
         if not placed:
             return
-        S = 1 << max(3, (max(r.input_len - s for r, s in
-                             zip(placed, starts)) - 1).bit_length())
-        B = 1 << max(0, (len(placed) - 1).bit_length())
+        B, S = _bucket(len(placed), max(r.input_len - s for r, s in
+                                        zip(placed, starts)))
         toks = np.zeros((B, S), np.int32)
         start_arr = np.zeros((B,), np.int32)
         seq_len = np.ones((B,), np.int32)    # pad rows: 1 trash token
@@ -627,38 +644,134 @@ class ChameleonEngine:
             self._tensor(seq_len, i32), lora=self._prefill_lora(),
             adapter_idx=self._tensor(lslots, i32),
             lora_backend=self._lora_backend)
-        if self._all_greedy(placed):
-            first_toks = torch.argmax(logits, dim=-1)
-        else:
-            first_toks = api.sample_tokens(
-                logits, *self._sampling_arrays(placed, B, first=True))
-        first_toks = first_toks.cpu().numpy()
+        first_toks = self._first_tokens(logits, placed, B)
         now = self.now()
         for i, req in enumerate(placed):
-            slot = slots[i]
-            self.active[slot] = True
-            L = req.input_len
-            first = int(first_toks[i])
-            self.tokens[slot, 0] = first
-            self.cache_len[slot] = L
-            self.adapter_slot[slot] = int(lslots[i])
-            req.generated = 1
-            rid = req.req_id
-            if req.preserved_tokens:
-                self.outputs[rid] = list(req.preserved_tokens)
-                self._tbts[rid] = list(req.preserved_tbts)
-                if req.last_stream_time is not None:
-                    self._last_tok[rid] = req.last_stream_time
-            else:
-                self.outputs[rid] = []
-                self._tbts[rid] = []
-                req.first_token_time = now
-            self._record_token(req, 0, first, now)
-            self._adopt_prompt_pages(slot, req, prompts[i])
+            self._start_decode(slots[i], req, int(first_toks[i]),
+                               int(lslots[i]), now)
+            self._adopt_prompt_pages(slots[i], req, prompts[i])
+        self._end_placement(placed, slots)
+
+    def _place_batch(self, reqs: list[Request]) -> None:
+        """Batched prefill admission: one prefill over a (B, S) bucket of
+        powers of two covers every request admitted this iteration.
+        With the prefix cache on this is ``_place_batch_prefix``;
+        otherwise the whole right-padded prompts run the dense
+        ``prefill`` (flash attention), whose K/V are then copied into
+        each slot's slab row or pages. Right-padding is safe under
+        causal attention, and padded batch rows run masked garbage like
+        inactive decode slots. Paged slots get their prompt pages up
+        front; a request that cannot get them bounces back to its queue
+        (squash path)."""
+        if not reqs:
+            return
+        if self.prefix is not None:
+            return self._place_batch_prefix(reqs)
+        free = self._free_slots()
+        if self.paged:
+            now = self.now()
+            placed = []
+            for req in reqs:
+                slot = free[len(placed)]
+                self.slot_req[slot] = req
+                if self._grow_slot(slot, self.pool.pages_for(req.input_len),
+                                   now):
+                    placed.append(req)
+                else:
+                    self.slot_req[slot] = None
+                    self.n_preempted += 1
+                    self.sched.on_squash(req, now)
+            reqs = placed
+            if not reqs:
+                return
+        slots = free[:len(reqs)]
+        B, S = _bucket(len(reqs), max(r.input_len for r in reqs))
+        toks = np.zeros((B, S), np.int32)
+        last_pos = np.zeros((B,), np.int32)
+        lslots = np.zeros((B,), np.int32)
+        for i, req in enumerate(reqs):
+            toks[i, :req.input_len] = self._prompt_tokens(req)
+            last_pos[i] = req.input_len - 1
+            lslots[i] = self.slot_of[req.adapter_id]
+        i32 = torch.int32
+        logits, (k_new, v_new) = api.prefill(
+            self.cfg, self.params, self._tensor(toks, i32),
+            lora=self._prefill_lora(), adapter_idx=self._tensor(lslots, i32),
+            last_pos=self._tensor(last_pos, i32),
+            lora_backend=self._lora_backend)
+        first_toks = self._first_tokens(logits, reqs, B)
+        self._write_prompt_kv(reqs, slots, k_new, v_new)
+        now = self.now()
+        for i, req in enumerate(reqs):
+            self.slot_req[slots[i]] = req
+            self._start_decode(slots[i], req, int(first_toks[i]),
+                               int(lslots[i]), now)
+        self._end_placement(reqs, slots)
+
+    def _write_prompt_kv(self, reqs: list[Request], slots: list[int],
+                         k_new: torch.Tensor, v_new: torch.Tensor) -> None:
+        """Copy row i's first ``input_len`` K/V of the prefill stacks
+        (L, B, S, Kh, Dh) into slot ``slots[i]``'s slab row or its pages:
+        one indexed copy per stack, cast to the KV dtype. Slots never
+        share a written position, so the copy equals the per-page
+        writes of the JAX engine."""
+        n = [r.input_len for r in reqs]
+        src_row = np.repeat(np.arange(len(reqs)), n)
+        src_pos = np.concatenate([np.arange(L) for L in n])
+        if self.paged:
+            ps = self.pool.page_size
+            dst = (np.concatenate([np.asarray(self.slot_pages[s])[
+                np.arange(L) // ps] for s, L in zip(slots, n)]),
+                src_pos % ps)
+            targets = self.kv_pages
+        else:
+            dst = (np.repeat(np.asarray(slots), n), src_pos)
+            targets = self.kv
+        sr, sp, d0, d1 = (self._tensor(a, torch.long)
+                          for a in (src_row, src_pos, *dst))
+        for t, new in zip(targets, (k_new, v_new)):
+            t[:, d0, d1] = new[:, sr, sp].to(t.dtype)
+
+    def _first_tokens(self, logits: torch.Tensor, reqs: list[Request],
+                      B: int) -> np.ndarray:
+        """First tokens of a prefill batch: argmax, or the seeded
+        sampler when any row samples."""
+        if self._all_greedy(reqs):
+            first = torch.argmax(logits, dim=-1)
+        else:
+            first = api.sample_tokens(
+                logits, *self._sampling_arrays(reqs, B, first=True))
+        return first.cpu().numpy()
+
+    def _start_decode(self, slot: int, req: Request, first: int, lslot: int,
+                      now: float) -> None:
+        """A placed request's first token: the slot's decode state and
+        the request's stream (a squash survivor keeps its streamed
+        prefix and latency records)."""
+        self.active[slot] = True
+        self.tokens[slot, 0] = first
+        self.cache_len[slot] = req.input_len
+        self.adapter_slot[slot] = lslot
+        req.generated = 1
+        rid = req.req_id
+        if req.preserved_tokens:
+            self.outputs[rid] = list(req.preserved_tokens)
+            self._tbts[rid] = list(req.preserved_tbts)
+            if req.last_stream_time is not None:
+                self._last_tok[rid] = req.last_stream_time
+        else:
+            self.outputs[rid] = []
+            self._tbts[rid] = []
+            req.first_token_time = now
+        self._record_token(req, 0, first, now)
+
+    def _end_placement(self, reqs: list[Request], slots: list[int]) -> None:
+        """Admission boundary: the device batch state rebuilds at the
+        next dispatch; requests done at their first token finish."""
         self.batch_epoch += 1
-        for i, req in enumerate(placed):
+        for slot, req in zip(slots, reqs):
             if req.done or self._hit_stop(req):
-                self._finish(slots[i])
+                self._finish(slot)
 
     def _adopt_prompt_pages(self, slot: int, req: Request,
                             toks: np.ndarray) -> None:
@@ -838,18 +951,25 @@ class ChameleonEngine:
         running = [r for r in self.slot_req if r is not None]
         admitted = self.sched.schedule(now, running)
         self._run_prefetchers(now)
-        self._place_batch_prefix(admitted)
-        self._ensure_decode_pages()
+        self._place_batch(admitted)
+        if self.paged:
+            self._ensure_decode_pages()
         if not self.active.any():
             self._idle_wait()
             return
         self.batch_occupancy.append(int(self.active.sum()))
         DISPATCH_METER.tick()
-        logits, self.kv_pages = api.decode_step_paged(
-            self.cfg, self.params, self.tokens, self.kv_pages,
-            self._tensor(self.page_table, torch.int32), self.cache_len,
-            lora=self.lora, adapter_idx=self.adapter_slot,
-            lora_backend=self._lora_backend)
+        kw = dict(lora=self.lora, adapter_idx=self.adapter_slot,
+                  lora_backend=self._lora_backend)
+        if self.paged:
+            logits, self.kv_pages = api.decode_step_paged(
+                self.cfg, self.params, self.tokens, self.kv_pages,
+                self._tensor(self.page_table, torch.int32), self.cache_len,
+                **kw)
+        else:
+            logits, self.kv = api.decode_step(
+                self.cfg, self.params, self.tokens, self.kv, self.cache_len,
+                **kw)
         DISPATCH_METER.tick()
         if self._all_greedy(self.slot_req):
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -974,19 +1094,28 @@ class ChameleonEngine:
             self._refresh_device_state()
         d = self._dev
         DISPATCH_METER.tick()
-        if self._page_table_dirty or self._page_table_dev is None:
-            self._page_table_dev = self._tensor(self.page_table,
-                                                torch.int32)
-            self._page_table_dirty = False
-        carry, toks, emits = api.decode_fused_paged(
-            self.cfg, self.params, self.tokens, self.kv_pages,
-            self._page_table_dev, self.cache_len, d["active"],
-            d["positions"], d["budget"], d["stop"], d["temp"], d["topk"],
-            d["topp"], d["seeds"], n_steps=K, all_greedy=d["all_greedy"],
-            max_ctx=self.ecfg.max_len, lora=self.lora,
-            adapter_idx=self.adapter_slot, lora_backend=self._lora_backend)
-        (self.tokens, self.kv_pages, self.cache_len,
-         d["active"], d["positions"]) = carry
+        state = (d["active"], d["positions"], d["budget"], d["stop"],
+                 d["temp"], d["topk"], d["topp"], d["seeds"])
+        kw = dict(n_steps=K, all_greedy=d["all_greedy"],
+                  max_ctx=self.ecfg.max_len, lora=self.lora,
+                  adapter_idx=self.adapter_slot,
+                  lora_backend=self._lora_backend)
+        if self.paged:
+            if self._page_table_dirty or self._page_table_dev is None:
+                self._page_table_dev = self._tensor(self.page_table,
+                                                    torch.int32)
+                self._page_table_dirty = False
+            carry, toks, emits = api.decode_fused_paged(
+                self.cfg, self.params, self.tokens, self.kv_pages,
+                self._page_table_dev, self.cache_len, *state, **kw)
+            (self.tokens, self.kv_pages, self.cache_len,
+             d["active"], d["positions"]) = carry
+        else:
+            carry, toks, emits = api.decode_fused(
+                self.cfg, self.params, self.tokens, self.kv, self.cache_len,
+                *state, **kw)
+            (self.tokens, self.kv, self.cache_len,
+             d["active"], d["positions"]) = carry
         self._inflight = (self._to_host(toks), self._to_host(emits), K)
 
     def _drain_inflight(self) -> None:
@@ -1054,9 +1183,12 @@ class ChameleonEngine:
                 K = min(K, r.predicted_output - r.generated - k_in + 1)
         if K < 1:
             return None
-        K = min(K, self._page_cover() - k_in)
-        if K < 1:
-            return None
+        if self.paged:
+            # Host truth lags by the in-flight writes; existing pages
+            # must cover those plus the next horizon.
+            K = min(K, self._page_cover() - k_in)
+            if K < 1:
+                return None
         return 1 << (K.bit_length() - 1)
 
     def _step_fused(self) -> None:
@@ -1080,13 +1212,14 @@ class ChameleonEngine:
         running = [r for r in self.slot_req if r is not None]
         admitted = self.sched.schedule(now, running)
         self._run_prefetchers(now)
-        self._place_batch_prefix(admitted)
-        self._ensure_decode_pages(self._host_lens())
+        self._place_batch(admitted)
+        if self.paged:
+            self._ensure_decode_pages(self._host_lens())
         if not self.active.any():
             self._idle_wait()
             return
         K = self._choose_horizon()
-        if K > 1:
+        if self.paged and K > 1:
             # Clamp to allocated pages (allocation timing stays
             # seed-equal).
             K = 1 << (max(1, min(K, self._page_cover())).bit_length() - 1)
@@ -1125,8 +1258,9 @@ class ChameleonEngine:
         self.prefix_lookup_tokens = 0
         self.n_prefix_hits = 0
         self.n_cow_forks = 0
-        self.prefix.evictions = 0
-        self.prefix.inserts = 0
+        if self.prefix is not None:
+            self.prefix.evictions = 0
+            self.prefix.inserts = 0
         self.cache.stats = CacheStats()
         for counter in ("n_bypassed", "n_squashed", "n_deferred"):
             if hasattr(self.sched, counter):
@@ -1138,6 +1272,9 @@ class ChameleonEngine:
         return self.sched.queue_pressure() + float(self.active.sum())
 
     def kv_page_stats(self) -> dict:
+        """Page-occupancy telemetry (empty for the dense slab)."""
+        if not self.paged:
+            return {}
         total = self.n_pages - 1     # page 0 is the trash page
         used = total - len(self.free_pages)
         return {"kv_pages_used": used, "kv_pages_total": total,
@@ -1145,6 +1282,9 @@ class ChameleonEngine:
                 "preempted": self.n_preempted}
 
     def prefix_stats(self) -> dict:
+        """Prefix-reuse gauges (empty when the cache is off)."""
+        if self.prefix is None:
+            return {}
         return {
             "prefix_hit_rate": round(
                 self.prefix_hit_tokens

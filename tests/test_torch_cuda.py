@@ -14,10 +14,15 @@ sums in another order); 2e-2 for bgmv/sgmv where bf16 is involved (the
 rank-r intermediate is rounded to bf16 from sums taken in another
 order, so it can land one bf16 ulp apart). paged_attention computes in
 f32 from the same page values on both sides: 1e-4 for an f32 output,
-and one bf16 ulp (2**-7 of |want|, plus 1e-4) for a bf16 one. The
-reduced engine must serve a
-shared-prefix trace through all three kernels, its fused and seed
-loops must agree, and its greedy tokens must equal the CPU port's.
+and one bf16 ulp (2**-7 of |want|, plus 1e-4) for a bf16 one.
+flash_attention: 1e-4 in f32; in bf16 one ulp of the output plus
+2**-8 * sum_s p_s |v_s|, because its plain version rounds each
+probability to bf16 (at most 2**-8 relative, bf16's unit roundoff)
+before the product with V and the kernel keeps them in f32. The
+reduced engine must serve a shared-prefix trace through all three
+decode-path kernels, the dense slab and the non-prefix paged engines
+through flash_attention, their fused and seed loops must agree, and
+their greedy tokens must equal the CPU port's.
 """
 import importlib
 
@@ -31,6 +36,7 @@ pytestmark = pytest.mark.cuda
 bgmv_mod = importlib.import_module("repro_torch.kernels.bgmv")
 sgmv_mod = importlib.import_module("repro_torch.kernels.sgmv")
 pa_mod = importlib.import_module("repro_torch.kernels.paged_attention")
+fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
 
 DT = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -132,6 +138,49 @@ def test_paged_attention_matches_plain(card, B, Kh, G, dh, page, P, qdt,
     torch.testing.assert_close(got.float(), want.float(), **out_tol(qdt))
 
 
+def flash_tol(q, k, v, causal, want):
+    """Per-element bound |got - want| may reach (see the module doc)."""
+    if q.dtype == torch.float32:
+        return 1e-4 + 1e-4 * want.float().abs()
+    pv = fa_mod.flash_attention_plain(q.float(), k.float(),
+                                      v.float().abs(), causal)
+    return 1e-4 + 2 ** -7 * want.float().abs() + 2 ** -8 * pv
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,Kh,dh", [
+    (1, 1, 1, 1, 32), (2, 5, 4, 2, 32), (1, 100, 8, 8, 64),
+    (2, 100, 4, 1, 128), (1, 130, 40, 8, 128), (3, 64, 6, 3, 80),
+    (1, 300, 2, 2, 256), (2, 256, 32, 32, 128)])
+def test_flash_attention_matches_plain(card, B, S, H, Kh, dh, causal, dt):
+    gen = torch.Generator().manual_seed(S * 7 + H)
+    q = randn(gen, (B, S, H, dh), DT[dt], card)
+    k = randn(gen, (B, S, Kh, dh), DT[dt], card)
+    v = randn(gen, (B, S, Kh, dh), DT[dt], card)
+    fa_mod.STATS.reset()
+    got = fa_mod.flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fa_mod.STATS.launches == 1 and fa_mod.STATS.plain == 0
+    assert got.dtype == q.dtype and got.shape == q.shape
+    want = fa_mod.flash_attention_plain(q, k, v, causal)
+    err = (got.float() - want.float()).abs()
+    assert (err <= flash_tol(q, k, v, causal, want)).all(), err.max()
+
+
+def test_flash_attention_reads_strided_views(card):
+    """q/k/v as (B, H, S, dh) tensors viewed as (B, S, H, dh): read in
+    place through their strides, same result as contiguous copies."""
+    gen = torch.Generator().manual_seed(11)
+    q, k, v = (randn(gen, (2, h, 70, 64), torch.float32, card)
+               .transpose(1, 2) for h in (4, 2, 2))
+    got = fa_mod.flash_attention(q, k, v)
+    want = fa_mod.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 def _shared_prefix_trace(vocab, n=10, seed=3):
     rng = np.random.default_rng(seed)
     pres = [rng.integers(3, vocab, size=40).tolist() for _ in range(2)]
@@ -169,6 +218,46 @@ def test_reduced_engine_on_the_card(card):
                 [s.launches for s in stats]
             assert all(s.plain == 0 for s in stats)
             assert eng.prefix_hit_tokens > 0
+    assert out[("cuda", True)] == out[("cuda", False)]
+    assert out[("cuda", True)] == out[("cpu", True)]
+
+
+@pytest.mark.parametrize("knob", [dict(paged=False),
+                                  dict(prefix_cache=False)])
+def test_reduced_dense_prefill_engines_on_the_card(card, knob):
+    """The dense slab and the non-prefix paged engine at reduced width,
+    f32: prefill runs flash_attention on the card and no plain path,
+    the fused and seed loops agree, and greedy tokens equal the CPU
+    port's."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import Request
+    from repro_torch.models import api
+    from repro_torch.serving.engine import AdapterCatalog, EngineConfig
+    from repro_torch.serving.systems import build_engine
+    cfg = get_config("chameleon-llama-7b").reduced()
+    params = api.init_params(cfg, 0, torch.float32, device="cpu")
+    base = dict(max_slots=4, max_len=128, n_lora_slots=4, n_adapters=8)
+    catalog = AdapterCatalog(cfg, 8, 32, seed=0, device="cpu")
+    trace = _shared_prefix_trace(cfg.vocab_size)
+    stats = {"bgmv": bgmv_mod.STATS, "sgmv": sgmv_mod.STATS,
+             "paged_attention": pa_mod.STATS,
+             "flash_attention": fa_mod.STATS}
+    out = {}
+    for dev, fused in (("cpu", True), ("cuda", True), ("cuda", False)):
+        t = [0.0]
+        eng = build_engine("chameleon", cfg, params,
+                           EngineConfig(**base, **knob, fused_hotloop=fused,
+                                        lora_backend="kernel"),
+                           catalog=catalog, clock=lambda: t[0], device=dev)
+        for st in stats.values():
+            st.reset()
+        out[(dev, fused)] = _serve(eng, trace, Request, t)
+        if dev == "cuda":
+            launched = {n: st.launches > 0 for n, st in stats.items()}
+            assert launched == {"bgmv": True, "sgmv": True,
+                                "flash_attention": True,
+                                "paged_attention": eng.paged}, launched
+            assert all(st.plain == 0 for st in stats.values())
     assert out[("cuda", True)] == out[("cuda", False)]
     assert out[("cuda", True)] == out[("cpu", True)]
 

@@ -171,8 +171,7 @@ def test_alora_mode_matches_jax_engine(setup):
 
 @pytest.mark.parametrize("knob", [
     dict(mesh_shape=(1, 1)), dict(spec_decode=True),
-    dict(prefill_chunk_tokens=32), dict(paged=False),
-    dict(prefix_cache=False)])
+    dict(prefill_chunk_tokens=32)])
 def test_unported_knobs_raise_naming_the_knob(setup, knob):
     with pytest.raises(NotImplementedError, match=next(iter(knob))):
         engine.ChameleonEngine(setup["cfg"], setup["params"],

@@ -83,6 +83,7 @@ print(json.dumps({"modules": names, "bad": bad}))
     for must in ("repro_torch.serving.engine", "repro_torch.kernels.bgmv",
                  "repro_torch.kernels.sgmv",
                  "repro_torch.kernels.paged_attention",
+                 "repro_torch.kernels.flash_attention",
                  "repro_torch.models.lm", "repro_torch.bridge"):
         assert must in res["modules"]
 
@@ -154,12 +155,16 @@ def _entry_points():
     return {
         "init_params": lambda: api.init_params(cfg, 0),
         "make_paged_kv": lambda: lm.make_paged_kv(cfg, 4, 16),
+        "make_kv_caches": lambda: lm.make_kv_caches(cfg, 2, 16),
+        "init_serve_state": lambda: api.init_serve_state(cfg, 2, 16),
         "init_paged_serve_state": lambda: api.init_paged_serve_state(
             cfg, 4, 16),
         "init_lora_slots": lambda: init_lora_slots(2, 1, 8, 8, 8, 4),
         "AdapterCatalog": lambda: engine.AdapterCatalog(cfg, 2, 8),
         "ChameleonEngine": lambda: engine.ChameleonEngine(
             cfg, params, engine.EngineConfig(n_adapters=2)),
+        "ChameleonEngine paged=False": lambda: engine.ChameleonEngine(
+            cfg, params, engine.EngineConfig(n_adapters=2, paged=False)),
         "build_engine": lambda: systems.build_engine(
             "chameleon", cfg, params, engine.EngineConfig(n_adapters=2)),
         "build_system": lambda: systems.build_system("chameleon"),
@@ -170,8 +175,10 @@ def _entry_points():
     }
 
 
-ENTRY_POINTS = ("init_params", "make_paged_kv", "init_paged_serve_state",
+ENTRY_POINTS = ("init_params", "make_paged_kv", "make_kv_caches",
+                "init_serve_state", "init_paged_serve_state",
                 "init_lora_slots", "AdapterCatalog", "ChameleonEngine",
+                "ChameleonEngine paged=False",
                 "build_engine", "build_system", "bridge.to_torch",
                 "bridge.params_to_torch", "explicit cuda")
 
