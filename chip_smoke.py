@@ -9,7 +9,10 @@ of the JAX package. Phases, one JSON line each:
 1. device  — the card (``nvidia-smi`` name and power limit) and the
              seconds it took to build the CUDA kernels from
              ``src/repro_torch/csrc`` (one ``nvcc`` per source, all
-             started together).
+             started together); then one ``ptxas`` line per source:
+             each kernel's registers, shared memory (static, and the
+             dynamic bytes of the tensor-core instances) and spills as
+             ``nvcc -Xptxas=-v`` reported them.
 2. kernel  — every kernel of the main path against its plain PyTorch
              version on the same card tensors, at the main path's
              full-width Llama-7B shapes, f32 and bf16 activations:
@@ -18,7 +21,12 @@ of the JAX package. Phases, one JSON line each:
              the plain version's median ms (CUDA events, L2 flushed
              before each launch), the bound from bytes and operations,
              and a PyTorch yardstick (``library_ms``) the port never
-             calls.
+             calls. sgmv and flash_attention have two instances each
+             (tensor cores for bf16, CUDA cores otherwise): every case
+             line names the instance that launched, and it must be the
+             one the dtype and shape select; each kernel's timing line
+             counts the checked cases of each instance
+             (``checked_by_instance``).
 3. parity  — reduced Llama in f32, the card (kernels) against the CPU
              (plain versions) on the same weights: ``prefill_paged``
              and one ``decode_step_paged``; the dense ``prefill``, the
@@ -34,7 +42,11 @@ of the JAX package. Phases, one JSON line each:
              cache (``prefix_cache=False``). Kernel launch counts are
              zeroed just before each engine's trace and read just
              after; every kernel on that engine's path must have
-             launched and no plain or einsum path may have run.
+             launched, sgmv and flash_attention only in their
+             tensor-core instances (bf16 at full width), and no plain or
+             einsum path may have run. Each engine's line carries its
+             TTFT p50/p99 and the device time of its prefill calls
+             (CUDA events around each ``api.prefill[_paged]`` call).
 
 A device-time profile of the same path is ``chip_profile.py``.
 
@@ -152,7 +164,37 @@ def phase_device() -> dict:
                 build_s=build_s, built={k: round(v, 2)
                                         for k, v in took.items()})
     emit(info)
+    for name, usage in kernel_resources().items():
+        emit(dict(phase="ptxas", source=name, kernels=usage))
     return info
+
+
+def kernel_resources() -> dict:
+    """{source: [per kernel: registers, static and dynamic shared
+    memory, stack and spill bytes]} from the build's ``-Xptxas=-v``
+    log; the dynamic bytes of the tensor-core instances come from the
+    libraries' own size functions."""
+    import importlib
+    from repro_torch.kernels import build
+    sg = build.library("sgmv", importlib.import_module(
+        "repro_torch.kernels.sgmv")._ARGTYPES)
+    fa = build.library("flash_attention", importlib.import_module(
+        "repro_torch.kernels.flash_attention")._ARGTYPES)
+    dynamic = {}
+    for rp in (32, 64, 128):
+        dynamic[f"shrink_tc<{rp}>"] = sg.sgmv_tc_smem_bytes(rp, 0)
+        dynamic[f"expand_tc<{rp}>"] = sg.sgmv_tc_smem_bytes(rp, 1)
+    for dh in (32, 64, 128, 256):
+        dynamic[f"flash_tc<{dh}>"] = fa.flash_attention_tc_smem_bytes(dh)
+    out = {}
+    for name in build.SOURCES:
+        usage = build.ptxas_usage(name)
+        for u in usage:
+            kname = u["kernel"].removeprefix("void ")
+            if kname in dynamic:
+                u["smem_dynamic"] = dynamic[kname]
+        out[name] = usage
+    return out
 
 
 # ------------------------------------------------------------ phase 2
@@ -203,8 +245,13 @@ def phase_kernels() -> dict:
                   extra=extra is not None, ok=ok, **info))
         check(ok, f"{name} [{case}] disagrees with its plain version: "
                   f"max abs err {err}, atol {atol}, rtol {rtol}")
-        rows.setdefault(name, dict(max_abs_err=0.0))
-        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+        row = rows.setdefault(name, dict(max_abs_err=0.0,
+                                         checked_by_instance={}))
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        # bgmv and paged_attention have one instance, the CUDA-core one.
+        inst = info.get("instance", "cuda_cores")
+        row["checked_by_instance"][inst] = (
+            row["checked_by_instance"].get(inst, 0) + 1)
 
     # bgmv: decode LoRA, one token per batch slot, q/k/v/o widths.
     idx = torch.randperm(n_slots, generator=g, device=dev)[:Bt].int()
@@ -224,7 +271,7 @@ def phase_kernels() -> dict:
                      + Bt * d * x.element_size(),
                      2 * Bt * r * (d + d), op_type(x, A))
     rows["bgmv"].update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-                        library_ms=lib,
+                        library_ms=lib, instance="cuda_cores",
                         shape=f"x {tuple(x.shape)} bf16, r {r}")
 
     # sgmv: prefill LoRA, the full (8, 256) prefill bucket, tile 128.
@@ -234,10 +281,13 @@ def phase_kernels() -> dict:
                        device=dev).int()
     for xdt, tname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         x = randn(T, d, dtype=xdt)
+        sgmv.STATS.reset()
         got = sgmv.sgmv(x, A, Bw, ts, tile)
         torch.cuda.synchronize()
         record("sgmv", f"x {tname}, A/B bf16, x {tuple(x.shape)}", got,
-               sgmv.sgmv_plain(x, A, Bw, ts, tile), "lora_bf16")
+               sgmv.sgmv_plain(x, A, Bw, ts, tile), "lora_bf16",
+               instance=launched(sgmv, sgmv.sgmv_instance(
+                   xdt, A.dtype, r, tile)))
     x = x_sgmv = randn(T, d, dtype=torch.bfloat16)
     ms = median_ms(lambda: sgmv.sgmv(x, A, Bw, ts, tile), flush)
     plain = median_ms(lambda: sgmv.sgmv_plain(x, A, Bw, ts, tile), flush)
@@ -250,6 +300,8 @@ def phase_kernels() -> dict:
                      2 * T * r * (d + d), op_type(x, A))
     rows["sgmv"].update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
                         library_ms=lib,
+                        instance=sgmv.sgmv_instance(x.dtype, A.dtype, r,
+                                                    tile),
                         shape=f"x {tuple(x.shape)} bf16, tile {tile}")
 
     # paged_attention: decode over f32 KV pages (the engine's), Kh 32,
@@ -291,6 +343,7 @@ def phase_kernels() -> dict:
                      + nbytes(q), 4 * n_tok * Kh * G * dh, "f32")
     rows["paged_attention"].update(
         ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
+        instance="cuda_cores",
         shape=f"q {tuple(q.shape)} bf16, f32 pages, {Bt} rows x "
               f"{P * page} tokens")
     flash_calls = phase_flash(record, rows, randn, flush)
@@ -302,6 +355,15 @@ def phase_kernels() -> dict:
                  q, kp, vp, table, full),
              **flash_calls}
     return rows, calls
+
+
+def launched(mod, want: str) -> str:
+    """The instance the kernel of ``mod`` launched since its counts were
+    reset: exactly one launch, of instance ``want``."""
+    check(mod.STATS.instances == {want: 1},
+          f"{mod.__name__}: launched {mod.STATS.instances}, expected one "
+          f"launch of {want}")
+    return want
 
 
 def flash_bound(q, k, v, causal: bool) -> tuple:
@@ -335,10 +397,13 @@ def phase_flash(record, rows, randn, flush) -> dict:
                     q = randn(B, S, H, dh, dtype=dt)
                     k = randn(B, S, Kh, dh, dtype=dt)
                     v = randn(B, S, Kh, dh, dtype=dt)
+                    fa.STATS.reset()
                     got = fa.flash_attention(q, k, v, causal)
                     torch.cuda.synchronize()
                     want = fa.flash_attention_plain(q, k, v, causal)
-                    extra, info = None, {}
+                    extra = None
+                    info = dict(instance=launched(
+                        fa, fa.flash_instance(dt, dh)))
                     if dt == torch.bfloat16:
                         extra = FLASH_P_ROUNDING * fa.flash_attention_plain(
                             q.float(), k.float(), v.float().abs(), causal)
@@ -350,7 +415,7 @@ def phase_flash(record, rows, randn, flush) -> dict:
                         w32 = fa.flash_attention_plain(
                             q.float(), k.float(), v.float(), causal).to(dt)
                         d32 = (got.float() - w32.float()).abs()
-                        info = dict(
+                        info.update(
                             one_ulp_ok=bool((diff <= atol + rtol * want
                                              .float().abs()).all()),
                             max_abs_err_vs_f32_plain=d32.max().item(),
@@ -376,7 +441,7 @@ def phase_flash(record, rows, randn, flush) -> dict:
             qt, kt, vt, is_causal=True, enable_gqa=True), flush)
         b, by = flash_bound(q, k, v, True)
         row = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-                   library_ms=lib,
+                   library_ms=lib, instance=fa.flash_instance(q.dtype, dh),
                    shape=f"q/k/v {tuple(q.shape)} bf16, causal")
         if B == 8:          # the main path's bucket: the kernels line
             rows["flash_attention"].update(row)
@@ -478,6 +543,61 @@ def make_trace(vocab: int, n_req: int = 16, n_adapters: int = 12,
     return trace
 
 
+class PrefillTimer:
+    """CUDA events around every prefill call an engine makes
+    (``api.prefill`` / ``api.prefill_paged``, patched for the duration
+    of a ``with`` block): the device time from the call's first launch
+    to its last, host gaps between them included. Recording events does
+    not synchronise, so the engine's schedule is unchanged."""
+
+    NAMES = ("prefill", "prefill_paged")
+
+    def __init__(self) -> None:
+        self.calls = []            # (bucket (B, S), start, end)
+
+    def __enter__(self):
+        from repro_torch.models import api
+        self.saved = {n: getattr(api, n) for n in self.NAMES}
+        for n, fn in self.saved.items():
+            setattr(api, n, self._timed(fn))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from repro_torch.models import api
+        for n, fn in self.saved.items():
+            setattr(api, n, fn)
+
+    def _timed(self, fn):
+        import torch
+
+        def call(cfg, params, tokens, *args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(cfg, params, tokens, *args, **kwargs)
+            end.record()
+            self.calls.append((tuple(tokens.shape), start, end))
+            return out
+        return call
+
+    def summary(self) -> dict:
+        """Calls, total and median ms, and per (B, S) bucket the number
+        of calls and their median ms."""
+        import torch
+        torch.cuda.synchronize()
+        ms = [(b, s.elapsed_time(e)) for b, s, e in self.calls]
+        buckets = {}
+        for b, t in ms:
+            buckets.setdefault(f"{b[0]}x{b[1]}", []).append(t)
+        return dict(prefill_calls=len(ms),
+                    prefill_ms_total=sum(t for _, t in ms),
+                    prefill_ms_p50=(statistics.median(t for _, t in ms)
+                                    if ms else None),
+                    prefill_ms_by_bucket={
+                        k: dict(calls=len(v), p50=statistics.median(v))
+                        for k, v in sorted(buckets.items())})
+
+
 def serve(eng, trace) -> dict:
     import numpy as np
     import torch
@@ -556,12 +676,15 @@ def phase_engine(cfg, params) -> dict:
         for st in stats.values():
             st.reset()
         EINSUM.reset()
-        res = serve(eng, trace)                       # this engine's path
+        with PrefillTimer() as timer:
+            res = serve(eng, trace)                   # this engine's path
         launches = {n: st.launches for n, st in stats.items()}
+        instances = {n: dict(st.instances) for n, st in stats.items()}
         plain = {n: st.plain for n, st in stats.items()}
         est = eng.stats()
-        res.update(launches=launches, plain_calls=plain,
-                   einsum_calls=EINSUM.calls,
+        res.update(timer.summary())
+        res.update(launches=launches, launches_by_instance=instances,
+                   plain_calls=plain, einsum_calls=EINSUM.calls,
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                    **{k: v for k, v in est.items()
                       if k in ("completed", "prefix_hit_tokens",
@@ -581,6 +704,12 @@ def phase_engine(cfg, params) -> dict:
                   f"{name}: the prefix cache never hit")
         check(all(launches[n] > 0 for n in path),
               f"{name}: a kernel of its path never launched: {launches}")
+        # bf16 weights give bf16 activations: every sgmv and
+        # flash_attention launch must be the tensor-core instance.
+        for n in ("sgmv", "flash_attention"):
+            check(set(instances[n]) <= {"tensor_cores"},
+                  f"{name}: {n} launched {instances[n]}, expected the "
+                  f"tensor-core instance only")
         check(launches["flash_attention"] % cfg.n_layers == 0,
               f"{name}: flash_attention launches are not a whole number "
               f"of prefill calls ({cfg.n_layers} layers): {launches}")
@@ -622,7 +751,14 @@ def phase_engine(cfg, params) -> dict:
                                for name in results if name != "fused"},
               greedy_dense_vs_no_prefix=agreement("dense", "no_prefix"),
               decode_tok_per_s={name: res["decode_tok_per_s"]
-                                for name, res in results.items()}))
+                                for name, res in results.items()},
+              ttft_s={name: dict(p50=res["ttft_p50_s"],
+                                 p99=res["ttft_p99_s"])
+                      for name, res in results.items()},
+              prefill_ms={name: dict(p50=res["prefill_ms_p50"],
+                                     total=res["prefill_ms_total"],
+                                     calls=res["prefill_calls"])
+                          for name, res in results.items()}))
     return {name: res["launches"] for name, res in results.items()}
 
 

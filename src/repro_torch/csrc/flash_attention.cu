@@ -3,34 +3,55 @@
 //
 // Replaces src/repro/kernels/flash_attention.py::flash_attention (body
 // _flash_kernel): per (b, query head h), an online softmax over the
-// keys of kv head h / G, queries scaled by dh^-0.5 before the product,
-// causal positions kpos > qpos masked at -1e30, output
-// acc / max(l, 1e-30) written in q's dtype. Scores, the running max and
-// denominator and the accumulator are f32.
+// keys of kv head h / G, scores scaled by dh^-0.5, causal positions
+// kpos > qpos masked at -1e30, output acc / max(l, 1e-30) written in
+// q's dtype. Scores, the running max and denominator and the
+// accumulator are f32.
 //
-// Bound: at the prefill shapes of the serving path the operations (4 *
-// B * H * S^2 * dh, halved when causal) outweigh the bytes of q, k, v
-// and o once S reaches a few hundred positions.
+// Bound: bytes of q, k, v and the output at the engine's (8, 256)
+// prefill bucket; operations (4 * B * H * S^2 * dh, halved when causal)
+// once S reaches about a thousand positions, (1, 2048) for example.
 //
-// Design: one block of 256 threads per (tile of 64 query rows, h, b).
-// The Pallas grid's sequential KV axis, which carries m, l and acc in
-// VMEM scratch, becomes a loop inside the block over tiles of 64 key
-// positions. Per tile: K is staged in shared memory as f32, each
-// thread computes a 4 x 4 block of scores (rows ty + 16 i, columns
-// tx + 16 j) from 16-byte shared-memory reads along dh (the padded row
-// stride puts the 8 rows a quarter-warp reads in distinct banks); the
-// row max and sum come from shuffles over the 16 threads of a
-// half-warp that share a row; the probabilities go to shared memory;
-// V then replaces K in the same buffer and each thread accumulates the
-// column groups 4 tx + 64 g .. + 3 of its 4 rows in registers, again
-// from 16-byte reads. Causal blocks stop at the tile holding their
-// last query row: later tiles would only add exp(-1e30 - m) = 0.
-// Ragged edges are masked here: key columns past S get probability 0
-// (and zero V rows), query rows past S are computed and not stored.
-// Strides in elements are passed for the batch, sequence and head
-// axes; the head_dim axis is contiguous and dh % 4 == 0. CUDA cores
-// only: tensor cores, TMA and split-K are later work.
+// Two instances, picked by the wrapper from dtype and head_dim alone:
+//
+// * Tensor cores (bf16 with dh % 16 == 0, dh <= 256: the dense
+//   prefill's case at full width), FlashAttention-2's layout. One block
+//   of 4 warps per (64 query rows, h, b), each warp owning 16 query
+//   rows; 4 warps rather than 8 keep 1024 blocks at both timed shapes.
+//   Q is copied once into padded shared memory and, for dh <= 128, held
+//   as mma fragments in registers (ldmatrix), so its tile becomes the
+//   second V buffer: 68 KB at dh 128, three blocks an SM. K and V tiles
+//   of 64 positions go through a cp.async double buffer (16-byte
+//   copies): tile t + 1's copies are issued once tile t's Q·K^T
+//   products are, and waited for at the top of tile t + 1, so each tile
+//   has one wait and one barrier. S = Q·K^T by mma.sync m16n8k16 (bf16
+//   products are exact in f32, so only the order of the f32 sums
+//   differs from the Pallas kernel); the scale dh^-0.5 (with log2 e,
+//   for exp2) is applied to the f32 scores. The online softmax runs in
+//   registers with quad shuffles. The Pallas kernel keeps P in f32; a P
+//   rounded once to bf16 would miss the all-f32 result by more than one
+//   bf16 ulp, so each probability is split into p_hi = bf16(p) and
+//   p_lo = bf16(p - p_hi) and O += P_hi·V + P_lo·V (V through
+//   ldmatrix.trans): the error left is about 2^-16 of sum p|v|, for
+//   half as many MMAs again. The score fragments are the A fragments of
+//   P·V, so P never leaves registers. Causal blocks stop at the
+//   diagonal tile, the only one masked (with the ragged last tile), and
+//   start longest first. Rows and keys past S are zero-filled and
+//   masked; query rows past S are not stored. The output goes through
+//   shared memory to 16-byte stores. A dh below the instance's width
+//   (32, 64, 128, 256) is zero-padded in shared memory.
+// * CUDA cores (f32, or bf16 with dh % 16 != 0): one block of 256
+//   threads per (64 query rows, h, b) looping over 64-position key
+//   tiles staged as f32 in shared memory, each thread a 4 x 4 block of
+//   scores from 16-byte shared-memory reads, row statistics by
+//   half-warp shuffles, probabilities through shared memory, V in K's
+//   buffer; q pre-scaled in f32 before the product. Tensor cores would
+//   change f32's arithmetic.
+//
+// Strides in elements are passed for the batch, sequence and head axes
+// of every tensor; the head_dim axis is contiguous.
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -255,17 +276,353 @@ int launch_dh(const void* q, const void* k, const void* v, void* out, int B,
                       causal, st);
 }
 
+// ------------------------------------------------ tensor-core instance
+using bf16 = __nv_bfloat16;
+constexpr int kTcThreads = 128;    // 4 warps x 16 query rows
+
+// Up to DH 128 the Q fragments live in registers after the first tile,
+// so Q's tile doubles as the second V buffer: four tiles, three blocks
+// an SM. At DH 256 Q stays in shared memory: five tiles, one block.
+__host__ __device__ constexpr bool tc_q_in_regs(int DH) {
+  return DH <= 128;
+}
+constexpr size_t tc_smem_bytes(int DH) {
+  return (size_t)(tc_q_in_regs(DH) ? 4 : 5) * kTile * (DH + 8) *
+         sizeof(bf16);
+}
+// The instance width for head_dim dh: the products run over DH columns,
+// those past dh zero-filled.
+constexpr int tc_width(int dh) {
+  return dh <= 32 ? 32 : dh <= 64 ? 64 : dh <= 128 ? 128 : 256;
+}
+
+// Rows [s0, s0 + kTile) of one head, the first dh values of each, into
+// a padded tile (row stride DH + 8); rows past S are zero. Each thread
+// copies one 16-byte column chunk of every (kTcThreads / (DH / 8))-th
+// row: with `vec` (16-byte aligned rows) by cp.async with zero fill and
+// no branch, else by scalar loads.
+template <int DH>
+__device__ __forceinline__ void copy_rows(bf16* dst,
+                                          const bf16* __restrict__ src,
+                                          long long stride, int s0, int S,
+                                          int dh, bool vec) {
+  constexpr int kChunks = DH / 8;               // 16-byte chunks a row
+  constexpr int kStep = kTcThreads / kChunks;   // rows a pass
+  const int c = (threadIdx.x % kChunks) * 8;
+  const int r0 = threadIdx.x / kChunks;
+  if (c >= dh) return;
+  bf16* d = dst + r0 * (DH + 8) + c;
+  if (vec) {
+    const bf16* p = src + (long long)(s0 + r0) * stride + c;
+#pragma unroll
+    for (int u = 0; u < kTile / kStep; ++u) {
+      const bool in = s0 + r0 + u * kStep < S;  // else row 0 is named
+      tc::cp_async16_zfill(d + u * kStep * (DH + 8),
+                           in ? p + u * kStep * stride : src + c, in);
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < kTile / kStep; ++u) {
+      const int s = s0 + r0 + u * kStep;
+      tc::copy8_scalar(d + u * kStep * (DH + 8),
+                       src + (long long)s * stride + c, s < S ? 8 : 0);
+    }
+  }
+}
+
+// Zero columns [dh, DH) of n_tiles tiles, once: the copies never write
+// there, so the products over the padded width add zeros.
+template <int DH>
+__device__ void zero_pad(bf16* tiles, int n_tiles, int dh) {
+  const int pad = (DH - dh) / 8;     // 16-byte chunks per row
+  for (int i = threadIdx.x; i < n_tiles * kTile * pad; i += kTcThreads)
+    *reinterpret_cast<uint4*>(tiles + (i / pad) * (DH + 8) + dh +
+                              (i % pad) * 8) = make_uint4(0, 0, 0, 0);
+}
+
+// Two probabilities as bf16 pairs hi = bf16(p) and lo = bf16(p - hi).
+__device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h2 = __floats2bfloat162_rn(p0, p1);
+  const float2 hf = __bfloat1622float2(h2);
+  hi = *reinterpret_cast<const uint32_t*>(&h2);
+  lo = tc::pack_bf16(p0 - hf.x, p1 - hf.y);
+}
+
+// Max and sum of a row's 16 values in this thread (s[j][2 h], s[j][2 h
+// + 1] for j < 8) as trees, then over the quad.
+__device__ __forceinline__ float row_max16(const float (&s)[8][4], int h) {
+  float v[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = fmaxf(s[j][2 * h], s[j][2 * h + 1]);
+#pragma unroll
+  for (int w = 4; w > 0; w >>= 1)
+#pragma unroll
+    for (int j = 0; j < w; ++j) v[j] = fmaxf(v[j], v[j + w]);
+  v[0] = fmaxf(v[0], __shfl_xor_sync(0xffffffffu, v[0], 1));
+  return fmaxf(v[0], __shfl_xor_sync(0xffffffffu, v[0], 2));
+}
+__device__ __forceinline__ float row_sum16(const float (&s)[8][4], int h) {
+  float v[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = s[j][2 * h] + s[j][2 * h + 1];
+#pragma unroll
+  for (int w = 4; w > 0; w >>= 1)
+#pragma unroll
+    for (int j = 0; j < w; ++j) v[j] += v[j + w];
+  return v[0];
+}
+
+// DH: the instance width (32, 64, 128 or 256, from tc_width); the
+// kernel takes any dh <= DH with dh % 16 == 0. Every loop below has
+// compile-time bounds and no guard, so the compiler can issue the
+// shared-memory loads of the next products ahead of this one's mma.
+template <int DH>
+__global__ void __launch_bounds__(kTcThreads, tc_q_in_regs(DH) ? 3 : 1)
+flash_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+         const bf16* __restrict__ v, bf16* __restrict__ out, int S, int G,
+         int dh, Strides qst, Strides kst, Strides vst, Strides ost,
+         int causal, float scale_log2, int vec) {
+  constexpr int LD = DH + 8;
+  constexpr int NK = DH / 16;          // 16-wide steps over dh
+  constexpr bool kQRegs = tc_q_in_regs(DH);
+  constexpr uint32_t kTileBytes = kTile * LD * sizeof(bf16);
+  extern __shared__ uint4 smem_fa[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_fa);   // 2 x kTile x LD
+  bf16* vs = ks + 2 * kTile * LD;                 // 2 x kTile x LD
+  bf16* qs = kQRegs ? vs + kTile * LD : vs + 2 * kTile * LD;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  // Causal blocks take (query tile + 1) key tiles: the longest start
+  // first, so the short ones fill the last wave.
+  const int q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kTile;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const bf16* qb = q + b * qst.b + h * qst.h;
+  const bf16* kb = k + b * kst.b + (h / G) * kst.h;
+  const bf16* vb = v + b * vst.b + (h / G) * vst.h;
+  const int q_last = min(q0 + kTile, S) - 1;
+  const int n_tiles = causal ? q_last / kTile + 1 : (S + kTile - 1) / kTile;
+
+  if (dh < DH) zero_pad<DH>(ks, kQRegs ? 4 : 5, dh);
+  copy_rows<DH>(qs, qb, qst.s, q0, S, dh, vec);
+  copy_rows<DH>(ks, kb, kst.s, 0, S, dh, vec);
+  copy_rows<DH>(vs, vb, vst.s, 0, S, dh, vec);
+  tc::cp_async_commit();               // group: Q, K_0 and V_0
+
+  // This lane's shared-memory addresses for the fragment loads of this
+  // warp's 16 query rows, of K tile 0 and of V tile 0.
+  const uint32_t q_addr = tc::smem_addr(qs) +
+                          2 * (warp * 16 * LD + tc::lane_off_rows16(LD, lane));
+  const uint32_t k_addr =
+      tc::smem_addr(ks) + 2 * tc::lane_off_b_nmajor(LD, lane);
+  const uint32_t v_addr =
+      tc::smem_addr(vs) + 2 * tc::lane_off_rows16(LD, lane);
+  const int row_lo = q0 + warp * 16 + g;  // this thread's rows: +0, +8
+  uint32_t qf[kQRegs ? NK : 1][4];
+  float o[DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1, k0 = t * kTile;
+    const uint32_t kt = k_addr + buf * kTileBytes;
+    const uint32_t vt = v_addr + buf * kTileBytes;
+    // K_t and V_t were copied during tile t - 1: one wait and one
+    // barrier a tile, which also frees tile t - 1's buffers.
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    if (kQRegs && t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk)
+        tc::ldsm_x4(qf[kQRegs ? kk : 0], q_addr + kk * 32);
+      __syncthreads();                 // Q read: its tile takes V_1
+    }
+
+    // S = Q K^T for the 64 keys of the tile (the diagonal tile too: its
+    // masked scores are overwritten below).
+    float sc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      uint32_t a[4];
+      if (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[kQRegs ? kk : 0][e];
+      } else {
+        tc::ldsm_x4(a, q_addr + kk * 32);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t bk[4];
+        tc::ldsm_x4(bk, kt + 2 * (j * 16 * LD + kk * 16));
+        tc::mma(sc[2 * j], a, bk[0], bk[1]);
+        tc::mma(sc[2 * j + 1], a, bk[2], bk[3]);
+      }
+    }
+    // Prefetch tile t + 1 into the other buffers while the products
+    // run: their last readers (tile t - 1) passed the barrier above.
+    if (t + 1 < n_tiles) {
+      copy_rows<DH>(ks + (buf ^ 1) * kTile * LD, kb, kst.s, k0 + kTile, S,
+                    dh, vec);
+      copy_rows<DH>(vs + (buf ^ 1) * kTile * LD, vb, vst.s, k0 + kTile, S,
+                    dh, vec);
+    }
+    tc::cp_async_commit();
+
+    // Mask (the diagonal and the ragged last tile only) and the online
+    // softmax in the log2 domain: m is the running max of the scaled
+    // scores, p = 2^(s * scale_log2 - m) in one FFMA and one EX2.
+    if ((causal && t == n_tiles - 1) || k0 + kTile > S) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + j * 8 + c2 + (e & 1);
+          if (kpos >= S)
+            sc[j][e] = -INFINITY;      // no such key: probability 0
+          else if (causal && kpos > row_lo + (e >> 1) * 8)
+            sc[j][e] = kNegInf;        // the Pallas kernel's mask value
+        }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float m_new = fmaxf(m[hh], row_max16(sc, hh) * scale_log2);
+      alpha[hh] = tc::exp2_fast(m[hh] - m_new);
+      m[hh] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[j][e] = tc::exp2_fast(fmaf(sc[j][e], scale_log2, -m[e >> 1]));
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      l[hh] = l[hh] * alpha[hh] + row_sum16(sc, hh);
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // O += P_hi·V + P_lo·V, 16 keys a step; the score fragments of keys
+    // [16 kk, 16 kk + 16) are the A fragment of the step.
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t ph[4], pl[4];
+      split_bf16(sc[2 * kk][0], sc[2 * kk][1], ph[0], pl[0]);
+      split_bf16(sc[2 * kk][2], sc[2 * kk][3], ph[1], pl[1]);
+      split_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1], ph[2], pl[2]);
+      split_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ph[3], pl[3]);
+      // The lo products follow all hi ones, so no accumulator waits on
+      // the product just issued into it; at DH 256 the V fragments of a
+      // step would not fit in registers and are loaded twice.
+      constexpr int kHold = DH <= 128 ? NK : 1;
+      uint32_t bv[kHold][4];
+#pragma unroll
+      for (int np = 0; np < NK; ++np) {
+        uint32_t(&f)[4] = bv[kHold == 1 ? 0 : np];
+        tc::ldsm_x4_trans(f, vt + 2 * (kk * 16 * LD + np * 16));
+        tc::mma(o[2 * np], ph, f[0], f[1]);
+        tc::mma(o[2 * np + 1], ph, f[2], f[3]);
+        if (kHold == 1) {
+          tc::mma(o[2 * np], pl, f[0], f[1]);
+          tc::mma(o[2 * np + 1], pl, f[2], f[3]);
+        }
+      }
+      if (kHold > 1) {
+#pragma unroll
+        for (int np = 0; np < NK; ++np) {
+          const uint32_t(&f)[4] = bv[kHold == 1 ? 0 : np];
+          tc::mma(o[2 * np], pl, f[0], f[1]);
+          tc::mma(o[2 * np + 1], pl, f[2], f[3]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    l[hh] = fmaxf(l[hh], 1e-30f);
+  }
+  // The output goes through this warp's rows of the K buffer the last
+  // tile did not use (read last in tile n_tiles - 2, before the last
+  // barrier; nothing is copied into it since) to 16-byte stores.
+  bf16* ow = ks + ((n_tiles & 1) * kTile + warp * 16) * LD;
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<uint32_t*>(ow + (g + 8 * hh) * LD + n * 8 + c2) =
+          tc::pack_bf16(o[n][2 * hh] / l[hh], o[n][2 * hh + 1] / l[hh]);
+  __syncwarp();
+  bf16* ob = out + b * ost.b + h * ost.h;
+  constexpr int kChunks = DH / 8;
+#pragma unroll
+  for (int i = lane; i < 16 * kChunks; i += 32) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const int qpos = q0 + warp * 16 + r;
+    if (qpos >= S || c >= dh) continue;
+    const bf16* src = ow + r * LD + c;
+    bf16* dst = ob + (long long)qpos * ost.s + c;
+    if (vec) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) dst[e] = src[e];
+    }
+  }
+}
+
+bool aligned16(const void* p, Strides st) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && st.b % 8 == 0 &&
+         st.s % 8 == 0 && st.h % 8 == 0;
+}
+
+template <int DH>
+int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
+              int S, int H, int G, int dh, Strides qst, Strides kst,
+              Strides vst, Strides ost, int causal, cudaStream_t stream) {
+  auto kernel = flash_tc<DH>;
+  const size_t smem = tc_smem_bytes(DH);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  // 16-byte copies need 16-byte aligned rows in every tensor.
+  const int vec = aligned16(q, qst) && aligned16(k, kst) &&
+                  aligned16(v, vst) && aligned16(out, ost);
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)dh);
+  const dim3 grid((S + kTile - 1) / kTile, H, B);
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), S, G, dh, qst,
+      kst, vst, ost, causal, scale_log2, vec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Strides are in elements; the head_dim axis of every tensor is
-// contiguous and dh is a multiple of 4. Returns the CUDA error code of
-// the launch.
+// contiguous and dh is a multiple of 4. tensor_cores = 1 takes the
+// tensor-core instance, 0 the CUDA-core one: the wrapper's
+// flash_instance owns that rule (bf16 with dh % 16 == 0).
+// Returns the CUDA error code of the launch.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int B, int S,
     int H, int Kh, int dh, long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh, long long vsb,
     long long vss, long long vsh, long long osb, long long oss,
-    long long osh, int causal, int dtype, void* stream) {
+    long long osh, int causal, int dtype, int tensor_cores, void* stream) {
   if (B < 1 || S < 1 || H < 1 || Kh < 1 || H % Kh || dh < 4 || dh > 256 ||
       dh % 4 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
@@ -273,6 +630,22 @@ extern "C" int flash_attention_launch(
       ost{osb, oss, osh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int G = H / Kh;
+  if (tensor_cores) {
+    switch (tc_width(dh)) {
+      case 32:
+        return launch_tc<32>(q, k, v, out, B, S, H, G, dh, qst, kst, vst,
+                             ost, causal, st);
+      case 64:
+        return launch_tc<64>(q, k, v, out, B, S, H, G, dh, qst, kst, vst,
+                             ost, causal, st);
+      case 128:
+        return launch_tc<128>(q, k, v, out, B, S, H, G, dh, qst, kst, vst,
+                              ost, causal, st);
+      default:
+        return launch_tc<256>(q, k, v, out, B, S, H, G, dh, qst, kst, vst,
+                              ost, causal, st);
+    }
+  }
   if (dtype == DTYPE_F32)
     return launch_dh<float>(q, k, v, out, B, S, H, G, dh, qst, kst, vst, ost,
                             causal, st);
@@ -280,4 +653,10 @@ extern "C" int flash_attention_launch(
     return launch_dh<__nv_bfloat16>(q, k, v, out, B, S, H, G, dh, qst, kst,
                                     vst, ost, causal, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of the tensor-core instance at head_dim dh, in
+// bytes.
+extern "C" int flash_attention_tc_smem_bytes(int dh) {
+  return (int)tc_smem_bytes(tc_width(dh));
 }

@@ -24,8 +24,8 @@ import ctypes
 
 import torch
 
-from .build import (KernelStats, check_launch, dtype_code, library,
-                    lora_splits, stream_handle)
+from .build import (CUDA_CORES, KernelStats, check_launch, dtype_code,
+                    library, lora_splits, stream_handle)
 
 MAX_RANK = 128
 STATS = KernelStats()
@@ -94,5 +94,5 @@ def bgmv(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
                           din, r, dout, n, n_split, xc, wc,
                           stream_handle(x.device))
     check_launch("bgmv", err)
-    STATS.launches += 1
+    STATS.launched(CUDA_CORES)
     return y

@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -28,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("bgmv", "sgmv", "paged_attention", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # Dtype codes shared with csrc/common.cuh.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -37,18 +38,29 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
+# Kernel instances of sgmv and flash_attention, chosen by dtype and shape.
+TENSOR_CORES = "tensor_cores"
+CUDA_CORES = "cuda_cores"
+
+
 class KernelStats:
     """Per-kernel counters: ``launches`` counts CUDA launches (added to
-    only right after a successful launch), ``plain`` counts calls the
-    wrapper served with its plain PyTorch version (CPU tensors)."""
+    only right after a successful launch), ``instances`` the same per
+    kernel instance (sgmv and flash_attention have two, the other
+    kernels one), ``plain`` counts calls the wrapper served with its
+    plain PyTorch version (CPU tensors)."""
 
     def __init__(self) -> None:
-        self.launches = 0
-        self.plain = 0
+        self.reset()
 
     def reset(self) -> None:
         self.launches = 0
         self.plain = 0
+        self.instances: dict[str, int] = {}
+
+    def launched(self, instance: str) -> None:
+        self.launches += 1
+        self.instances[instance] = self.instances.get(instance, 0) + 1
 
 
 def build_dir() -> Path:
@@ -101,10 +113,44 @@ def build_all() -> dict[str, float]:
         if proc.returncode != 0:
             failed.append(f"--- {name} (exit {proc.returncode}) ---\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return took
+
+
+def ptxas_usage(name: str) -> list[dict]:
+    """Registers, static shared memory, stack and spill bytes of every
+    kernel in ``csrc/<name>.cu`` as ``nvcc -Xptxas=-v`` reported them
+    when the library was built (empty if it was not built here)."""
+    log = _lib_path(name).with_suffix(".log")
+    if not log.is_file():
+        return []
+    usage, cur = [], None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = dict(kernel=m.group(1))
+            usage.append(cur)
+        elif cur is not None:
+            for key, pat in (("stack", r"(\d+) bytes stack frame"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads"),
+                             ("registers", r"Used (\d+) registers"),
+                             ("smem_static", r"(\d+) bytes smem")):
+                m = re.search(pat, line)
+                if m:
+                    cur[key] = int(m.group(1))
+    filt = shutil.which("c++filt")
+    if filt and usage:
+        names = subprocess.run([filt], input="\n".join(u["kernel"]
+                                                       for u in usage),
+                               capture_output=True, text=True).stdout
+        for u, n in zip(usage, names.splitlines()):
+            u["kernel"] = n.replace("(anonymous namespace)::",
+                                    "").split("(", 1)[0]
+    return usage
 
 
 def library(name: str, argtypes: list) -> ctypes.CDLL:

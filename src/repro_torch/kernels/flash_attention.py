@@ -10,15 +10,26 @@ written in q's dtype. Replaces
 ``src/repro/kernels/flash_attention.py::flash_attention`` (Pallas body
 ``_flash_kernel``). Source: ``csrc/flash_attention.cu``.
 
-Bound on the H100: operations at the serving path's prefill shapes
-(4·B·H·S²·dh, halved when causal), bytes below a few hundred
+Bound on the H100: bytes at the engine's (8, 256) prefill bucket,
+operations (4·B·H·S²·dh, halved when causal) from about a thousand
 positions. The Pallas grid walks the key blocks of one query block in
 order and carries the online-softmax state in VMEM scratch; a CUDA
-block per (64 query rows, h, b) walks its key tiles in a loop with the
-state in registers (f32 FMAs from 16-byte shared-memory reads), stops
-at the diagonal when causal, and masks the ragged query rows and key
-columns itself, so any S works (the engine's prefill buckets start at
-8 positions; the Pallas kernel needs S % 128 == 0).
+block per (64 query rows, h, b) walks its 64-position key tiles in a
+loop with the state in registers, stops at the diagonal when causal,
+and masks the ragged query rows and key columns itself, so any S works
+(the engine's prefill buckets start at 8 positions; the Pallas kernel
+needs S % 128 == 0). Two instances, picked by ``flash_instance`` from
+dtype and head_dim alone:
+
+- ``tensor_cores`` for bf16 with dh % 16 == 0 (the dense prefill at
+  full width): both products on mma.sync, K/V through a cp.async double
+  buffer, and the probabilities split into two bf16 parts (hi + lo) for
+  P·V, so P keeps f32 accuracy as in the Pallas kernel.
+- ``cuda_cores`` for f32, and for bf16 with dh % 16 != 0: f32 FMAs
+  from 16-byte shared-memory reads. Tensor cores would change f32's
+  arithmetic.
+
+``STATS.instances`` counts the launches of each.
 ``flash_attention_plain`` is the function the kernel computes, in
 plain PyTorch: the port's ``gqa_attention``, which the JAX package's
 oracle also is; the wrapper uses it only for CPU tensors.
@@ -31,15 +42,27 @@ import torch
 
 from repro_torch.models.layers import gqa_attention
 
-from .build import (KernelStats, check_launch, dtype_code, library,
-                    stream_handle)
+from .build import (CUDA_CORES, TENSOR_CORES, KernelStats, check_launch,
+                    dtype_code, library, stream_handle)
 
 MAX_DH = 256
 STATS = KernelStats()
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-             + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2
+             + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
              + [ctypes.c_void_p])
+
+
+def flash_instance(dtype: torch.dtype, dh: int) -> str:
+    """The kernel instance a CUDA call launches: ``tensor_cores`` for
+    bf16 with dh a multiple of 16, else ``cuda_cores``. Raises for a dh
+    neither takes (above 256 or not a multiple of 4)."""
+    if dh > MAX_DH or dh < 4 or dh % 4:
+        raise ValueError(f"flash_attention supports dh <= {MAX_DH} a "
+                         f"multiple of 4, got {dh}")
+    if dtype == torch.bfloat16 and dh % 16 == 0:
+        return TENSOR_CORES
+    return CUDA_CORES
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -77,10 +100,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, S, H, dh); k/v: (B, S, Kh, dh) with H a multiple of Kh
     -> (B, S, H, dh) in q's dtype.
 
-    CUDA tensors launch the kernel (any S, dh <= 256 a multiple of 4,
-    q/k/v of one dtype, f32 or bf16; strided views are read in place as
-    long as the head_dim axis is contiguous); CPU tensors take
-    ``flash_attention_plain``.
+    CUDA tensors launch the kernel instance ``flash_instance`` names
+    (any S, dh <= 256 a multiple of 4, q/k/v of one dtype, f32 or bf16;
+    strided views are read in place as long as the head_dim axis is
+    contiguous); CPU tensors take ``flash_attention_plain``.
     """
     _check(q, k, v)
     if q.device.type == "cpu":
@@ -91,9 +114,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{q.device}")
     B, S, H, dh = q.shape
     Kh = k.shape[2]
-    if dh > MAX_DH or dh % 4:
-        raise ValueError(f"flash_attention supports dh <= {MAX_DH} a "
-                         f"multiple of 4, got {dh}")
+    inst = flash_instance(q.dtype, dh)
     code = dtype_code(q, "q/k/v")
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     out = torch.empty((B, S, H, dh), dtype=q.dtype, device=q.device)
@@ -103,7 +124,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
-        Kh, dh, *strides, int(causal), code, stream_handle(q.device))
+        Kh, dh, *strides, int(causal), code, int(inst == TENSOR_CORES),
+        stream_handle(q.device))
     check_launch("flash_attention", err)
-    STATS.launches += 1
+    STATS.launched(inst)
     return out

@@ -28,8 +28,8 @@ import ctypes
 
 import torch
 
-from .build import (KernelStats, check_launch, dtype_code, library,
-                    stream_handle)
+from .build import (CUDA_CORES, KernelStats, check_launch, dtype_code,
+                    library, stream_handle)
 
 NEG_INF = -1e30
 MAX_G, MAX_DH = 16, 256
@@ -122,5 +122,5 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         lens.data_ptr(), out.data_ptr(), B, Kh, G, dh, page, P, n_pages, qc,
         kc, stream_handle(q.device))
     check_launch("paged_attention", err)
-    STATS.launches += 1
+    STATS.launched(CUDA_CORES)
     return out

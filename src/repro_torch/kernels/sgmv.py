@@ -13,12 +13,22 @@ rank-r intermediate to the weights' dtype (``sgmv.py:30``). Source:
 
 Bound on the H100: bytes at the engine's widths (x, the used adapters'
 A and B, y); the 2·T·r·(din + dout) operations sit far below the bf16
-ridge. The kernel pair of ``csrc/lora.cuh`` runs the shrink with 16
-rows of a tile per block (each A row read serves 16 tokens) and din
-split over blocks, then an expand launch that sums the splits in a
-fixed order, rounds, and reads each B column once for 16 rows.
-``sgmv_plain`` is the same function in plain PyTorch; the wrapper uses
-it only for CPU tensors.
+ridge. Two instances of a shrink launch (x·A, din split over blocks,
+f32 partial sums) and an expand launch (the splits summed in a fixed
+order, rounded, times B), picked by ``sgmv_instance`` from the dtypes
+alone:
+
+- ``tensor_cores`` when x, A and B are all bf16 (the engine at full
+  width): 64 rows of a tile per block, x and A streamed through a
+  cp.async ring, both products on mma.sync; any tile, rank up to 128
+  and ragged din/dout, masked in the kernel.
+- ``cuda_cores`` when any operand is f32 (the reduced f32 models):
+  ``csrc/lora.cuh`` with 16 rows of a tile per block and f32 FMAs.
+  Tensor cores would round an f32 x to bf16 or TF32.
+
+``STATS.instances`` counts the launches of each. ``sgmv_plain`` is the
+same function in plain PyTorch; the wrapper uses it only for CPU
+tensors.
 """
 from __future__ import annotations
 
@@ -27,14 +37,41 @@ import ctypes
 import numpy as np
 import torch
 
-from .build import (KernelStats, check_launch, dtype_code, library,
-                    lora_splits, stream_handle)
+from .build import (CUDA_CORES, TENSOR_CORES, KernelStats, check_launch,
+                    dtype_code, library, lora_splits, stream_handle)
 
 MAX_RANK = 128
 STATS = KernelStats()
 
-ROWS_PER_BLOCK = 16
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+ROWS_PER_BLOCK = 16          # CUDA-core instance (csrc/lora.cuh)
+TC_ROWS_PER_BLOCK = 64       # tensor-core instance (csrc/sgmv.cu)
+TC_DIN_STEP = 64             # din per pipeline stage of its shrink
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+
+
+def sgmv_instance(x_dtype: torch.dtype, w_dtype: torch.dtype, r: int,
+                  tile: int) -> str:
+    """The kernel instance a CUDA call launches: ``tensor_cores`` when
+    x and the weights are both bf16, else ``cuda_cores``. The rank
+    (1..128) and the tile (any size) do not change the choice."""
+    if not 1 <= r <= MAX_RANK or tile < 1:
+        raise ValueError(f"sgmv takes rank 1..{MAX_RANK} and tile >= 1, "
+                         f"got r={r}, tile={tile}")
+    if x_dtype == w_dtype == torch.bfloat16:
+        return TENSOR_CORES
+    return CUDA_CORES
+
+
+def tc_splits(T: int, tile: int, din: int) -> int:
+    """How many blocks split din in the tensor-core shrink: about two
+    waves over the H100's 132 SMs, at least four pipeline stages of din
+    per split, at most 64 splits; each split a whole number of stages,
+    every split non-empty. The wrapper allocates the (splits, T, r) f32
+    partial sums."""
+    n_chunks = (T // tile) * -(-tile // TC_ROWS_PER_BLOCK)
+    want = max(1, min(-(-264 // n_chunks), din // (4 * TC_DIN_STEP), 64))
+    split_len = -(-(-(-din // want)) // TC_DIN_STEP) * TC_DIN_STEP
+    return -(-din // split_len)
 
 
 def sgmv_plain(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
@@ -77,7 +114,8 @@ def sgmv(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
          tile_slot: torch.Tensor, tile: int = 128) -> torch.Tensor:
     """x: (T, din), T % tile == 0; tile_slot: (T/tile,) adapter slots.
 
-    CUDA tensors launch the kernel; CPU tensors take ``sgmv_plain``.
+    CUDA tensors launch the kernel instance ``sgmv_instance`` names;
+    CPU tensors take ``sgmv_plain``.
     """
     _check(x, A, B, tile_slot, tile)
     if x.device.type == "cpu":
@@ -94,16 +132,20 @@ def sgmv(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     y = torch.empty((T, dout), dtype=x.dtype, device=x.device)
     if T == 0 or dout == 0:
         return y
-    n_split = lora_splits(T, tile, ROWS_PER_BLOCK, din, r)
+    inst = sgmv_instance(x.dtype, A.dtype, r, tile)
+    if inst == TENSOR_CORES:
+        n_split = tc_splits(T, tile, din)
+    else:
+        n_split = lora_splits(T, tile, ROWS_PER_BLOCK, din, r)
     part = torch.empty((n_split, T, r), dtype=torch.float32,
                        device=x.device)
     lib = library("sgmv", _ARGTYPES)
     err = lib.sgmv_launch(x.data_ptr(), A.data_ptr(), B.data_ptr(),
                           ts.data_ptr(), part.data_ptr(), y.data_ptr(), T,
                           tile, din, r, dout, n, n_split, xc, wc,
-                          stream_handle(x.device))
+                          int(inst == TENSOR_CORES), stream_handle(x.device))
     check_launch("sgmv", err)
-    STATS.launches += 1
+    STATS.launched(inst)
     return y
 
 

@@ -23,6 +23,13 @@ reduced engine must serve a shared-prefix trace through all three
 decode-path kernels, the dense slab and the non-prefix paged engines
 through flash_attention, their fused and seed loops must agree, and
 their greedy tokens must equal the CPU port's.
+
+sgmv and flash_attention each have two instances, chosen from dtype and
+shape alone (``sgmv_instance``, ``flash_instance``): every case asserts
+which one launched, tensor cores for bf16 (flash: dh % 16 == 0), CUDA
+cores for f32 and for bf16 flash at dh 36. The bf16 flash cases also
+hold the kernel to one bf16 ulp of the all-f32 plain version rounded
+once, the accuracy the split of P into two bf16 parts is there to keep.
 """
 import importlib
 
@@ -103,10 +110,59 @@ def test_sgmv_matches_plain(card, T, din, r, dout, n, tile, xdt, wdt):
     got = sgmv_mod.sgmv(x, A, B, ts, tile)
     torch.cuda.synchronize()
     assert sgmv_mod.STATS.launches == 1 and sgmv_mod.STATS.plain == 0
+    assert sgmv_mod.STATS.instances == {sgmv_instance(xdt, wdt): 1}
     assert got.dtype == x.dtype and got.shape == (T, dout)
     torch.testing.assert_close(got.float(),
                                sgmv_mod.sgmv_plain(x, A, B, ts, tile).float(),
                                **tol(xdt, wdt))
+
+
+def sgmv_instance(xdt, wdt):
+    return "tensor_cores" if xdt == wdt == "bf16" else "cuda_cores"
+
+
+@pytest.mark.parametrize("T,din,r,dout,n,tile,offset", [
+    (64, 200, 12, 257, 3, 8, 0),        # din and dout tails, r % 8 != 0
+    (96, 256, 32, 384, 5, 24, 0),       # tiles shorter than 64 rows
+    (256, 4096, 32, 4096, 8, 128, 0),   # din split over 16 blocks
+    (128, 200, 128, 257, 2, 128, 0),    # rank 128
+    (48, 512, 32, 257, 4, 24, 1),       # x rows not 16-byte aligned
+    (16, 64, 1, 24, 2, 1, 0),           # rank 1, one-token tiles
+    (120, 1000, 48, 520, 3, 40, 0)])    # din split with a ragged last split
+def test_sgmv_tensor_cores_matches_plain(card, T, din, r, dout, n, tile,
+                                         offset):
+    gen = torch.Generator().manual_seed(T * 3 + r)
+    x = randn(gen, (T * din + offset,), torch.bfloat16, card)[offset:]
+    x = x.view(T, din)
+    A = randn(gen, (n, din, r), torch.bfloat16, card, din ** -0.5)
+    B = randn(gen, (n, r, dout), torch.bfloat16, card, r ** -0.5)
+    ts = torch.randint(0, n, (T // tile,), generator=gen).int().to(card)
+    sgmv_mod.STATS.reset()
+    got = sgmv_mod.sgmv(x, A, B, ts, tile)
+    torch.cuda.synchronize()
+    assert sgmv_mod.STATS.instances == {"tensor_cores": 1}
+    assert got.dtype == x.dtype and got.shape == (T, dout)
+    torch.testing.assert_close(got.float(),
+                               sgmv_mod.sgmv_plain(x, A, B, ts, tile).float(),
+                               **tol("bf16", "bf16"))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_sgmv_slot_out_of_range_yields_zeros(card, dt):
+    """Tiles whose slot is -1 or n_slots come out zero; the others are
+    untouched by them."""
+    gen = torch.Generator().manual_seed(5)
+    T, din, r, dout, n, tile = 128, 256, 32, 300, 3, 32
+    x = randn(gen, (T, din), DT[dt], card)
+    A = randn(gen, (n, din, r), DT[dt], card, din ** -0.5)
+    B = randn(gen, (n, r, dout), DT[dt], card, r ** -0.5)
+    ts = torch.tensor([1, -1, n, 0], dtype=torch.int32, device=card)
+    got = sgmv_mod.sgmv(x, A, B, ts, tile).float()
+    ok = torch.tensor([1, 0, 0, 0], dtype=torch.int32, device=card)
+    want = sgmv_mod.sgmv_plain(x, A, B, ok, tile).float()
+    assert (got[tile:3 * tile] == 0).all()
+    torch.testing.assert_close(got[:tile], want[:tile], **tol(dt, dt))
+    torch.testing.assert_close(got[3 * tile:], want[3 * tile:], **tol(dt, dt))
 
 
 @pytest.mark.parametrize("qdt,kvdt", [("f32", "f32"), ("bf16", "f32"),
@@ -162,10 +218,76 @@ def test_flash_attention_matches_plain(card, B, S, H, Kh, dh, causal, dt):
     got = fa_mod.flash_attention(q, k, v, causal)
     torch.cuda.synchronize()
     assert fa_mod.STATS.launches == 1 and fa_mod.STATS.plain == 0
+    assert fa_mod.STATS.instances == {flash_instance(dt, dh): 1}
     assert got.dtype == q.dtype and got.shape == q.shape
+    check_flash(got, q, k, v, causal)
+
+
+def flash_instance(dt, dh):
+    return ("tensor_cores" if dt == "bf16" and dh % 16 == 0
+            else "cuda_cores")
+
+
+def check_flash(got, q, k, v, causal):
+    """Within ``flash_tol`` of the plain version and, in bf16, within one
+    ulp of the all-f32 plain version rounded once."""
     want = fa_mod.flash_attention_plain(q, k, v, causal)
     err = (got.float() - want.float()).abs()
     assert (err <= flash_tol(q, k, v, causal, want)).all(), err.max()
+    if q.dtype == torch.bfloat16:
+        w32 = fa_mod.flash_attention_plain(q.float(), k.float(), v.float(),
+                                           causal).to(q.dtype).float()
+        d32 = (got.float() - w32).abs()
+        assert (d32 <= 1e-4 + 2 ** -7 * w32.abs()).all(), d32.max()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,Kh,dh", [
+    (1, 1, 4, 4, 32), (2, 5, 4, 2, 64), (1, 63, 40, 8, 128),
+    (2, 64, 8, 1, 80), (1, 65, 4, 4, 256), (2, 100, 40, 8, 64),
+    (1, 2048, 8, 2, 128), (1, 100, 2, 1, 256), (3, 130, 6, 3, 16)])
+def test_flash_attention_tensor_cores_matches_plain(card, B, S, H, Kh, dh,
+                                                    causal):
+    gen = torch.Generator().manual_seed(S * 5 + dh)
+    q = randn(gen, (B, S, H, dh), torch.bfloat16, card)
+    k = randn(gen, (B, S, Kh, dh), torch.bfloat16, card)
+    v = randn(gen, (B, S, Kh, dh), torch.bfloat16, card)
+    fa_mod.STATS.reset()
+    got = fa_mod.flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fa_mod.STATS.instances == {"tensor_cores": 1}
+    assert got.dtype == q.dtype and got.shape == q.shape
+    check_flash(got, q, k, v, causal)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_dh36_takes_cuda_cores(card, causal):
+    gen = torch.Generator().manual_seed(36)
+    q = randn(gen, (2, 70, 4, 36), torch.bfloat16, card)
+    k = randn(gen, (2, 70, 2, 36), torch.bfloat16, card)
+    v = randn(gen, (2, 70, 2, 36), torch.bfloat16, card)
+    fa_mod.STATS.reset()
+    got = fa_mod.flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fa_mod.STATS.instances == {"cuda_cores": 1}
+    check_flash(got, q, k, v, causal)
+
+
+@pytest.mark.parametrize("pad", [0, 4])
+def test_flash_attention_tensor_cores_reads_strided_views(card, pad):
+    """bf16 q/k/v as (B, H, S, dh + pad) tensors viewed as (B, S, H, dh):
+    read in place (16-byte copies when pad is 0, element copies when the
+    rows are not 16-byte aligned), same result as contiguous copies."""
+    gen = torch.Generator().manual_seed(12 + pad)
+    q, k, v = (randn(gen, (2, h, 70, 64 + pad), torch.bfloat16, card)
+               [..., pad:].transpose(1, 2) for h in (4, 2, 2))
+    fa_mod.STATS.reset()
+    got = fa_mod.flash_attention(q, k, v)
+    want = fa_mod.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous())
+    torch.cuda.synchronize()
+    assert fa_mod.STATS.instances == {"tensor_cores": 2}
+    assert torch.equal(got, want)
 
 
 def test_flash_attention_reads_strided_views(card):

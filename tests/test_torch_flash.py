@@ -121,3 +121,20 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         q = q[0]
     with pytest.raises((ValueError, TypeError)):
         ops.flash_attention(q, k, k.clone())
+
+
+@pytest.mark.parametrize("dh", [16, 32, 36, 64, 80, 100, 128, 256])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_instance_follows_dtype_and_head_dim(dh, dt):
+    """Tensor cores for bf16 with dh % 16 == 0; CUDA cores for f32 and
+    for bf16 at any other dh."""
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+    want = ("tensor_cores" if dt == "bf16" and dh % 16 == 0
+            else "cuda_cores")
+    assert fa_mod.flash_instance(dtype, dh) == want
+
+
+@pytest.mark.parametrize("dh", [2, 6, 258, 272])
+def test_instance_rejects_head_dims_no_kernel_takes(dh):
+    with pytest.raises(ValueError):
+        fa_mod.flash_instance(torch.bfloat16, dh)

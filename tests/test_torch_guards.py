@@ -1,8 +1,8 @@
 """Guards around the PyTorch port.
 
-- The port, ``chip_smoke.py`` and ``chip_profile.py`` import neither
-  JAX nor the JAX package (``repro``): a subprocess imports every
-  module of ``repro_torch``; an AST scan reads the two scripts.
+- The port and the ``chip_*.py`` scripts import neither JAX nor the
+  JAX package (``repro``): a subprocess imports every module of
+  ``repro_torch``; an AST scan reads the scripts.
 - The copied control-plane modules stay verbatim copies of the JAX
   package's (only their import lines differ), so a change to
   ``repro/core`` that the port misses fails here instead of diverging.
@@ -101,7 +101,7 @@ def _imported_names(tree):
 
 
 @pytest.mark.parametrize("path", [
-    "chip_smoke.py", "chip_profile.py",
+    "chip_smoke.py", "chip_profile.py", "chip_prefill.py",
     *sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))])
 def test_no_jax_or_reference_import_in_source(path):
     names = list(_imported_names(ast.parse((ROOT / path).read_text())))
@@ -121,6 +121,15 @@ def test_chip_smoke_fails_without_a_gpu(monkeypatch, tmp_path):
             env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
         assert out.returncode != 0
         assert '"ok": true' not in out.stdout
+
+
+def test_chip_prefill_fails_without_a_gpu():
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "chip_prefill.py")], capture_output=True,
+        text=True, timeout=120, cwd=ROOT,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert "prefill_ms" not in out.stdout
 
 
 def test_configs_equal_the_jax_package():

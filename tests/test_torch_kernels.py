@@ -208,6 +208,39 @@ class TestSGMV:
         close(got, want, rtol=2e-5, atol=2e-5)
 
 
+    @pytest.mark.parametrize("r", [1, 12, 32, 128])
+    @pytest.mark.parametrize("tile", [1, 8, 24, 128])
+    @pytest.mark.parametrize("xdt,wdt,want", [
+        ("bf16", "bf16", "tensor_cores"), ("f32", "f32", "cuda_cores"),
+        ("f32", "bf16", "cuda_cores"), ("bf16", "f32", "cuda_cores")])
+    def test_instance_follows_dtypes_only(self, r, tile, xdt, wdt, want):
+        dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+        assert sgmv_mod.sgmv_instance(dts[xdt], dts[wdt], r, tile) == want
+
+    @pytest.mark.parametrize("r,tile", [(0, 8), (129, 8), (32, 0)])
+    def test_instance_rejects_what_no_kernel_takes(self, r, tile):
+        with pytest.raises(ValueError):
+            sgmv_mod.sgmv_instance(torch.bfloat16, torch.bfloat16, r, tile)
+
+    @pytest.mark.parametrize("T,tile,din", [
+        (2048, 128, 4096), (256, 32, 4096), (8, 8, 4096), (120, 40, 1000),
+        (64, 8, 200), (16, 1, 64), (4096, 128, 11008), (2048, 128, 11008)])
+    def test_tc_splits_cover_din_in_whole_stages(self, T, tile, din):
+        """Every split of the tensor-core shrink is a whole number of
+        64-wide stages (the kernel's split length), at least four unless
+        there is one split, non-empty, and the splits cover din; where
+        din has room for two waves of 132 SMs the blocks fill one."""
+        n = sgmv_mod.tc_splits(T, tile, din)
+        step = sgmv_mod.TC_DIN_STEP
+        split_len = -(-(-(-din // n)) // step) * step   # as sgmv.cu does
+        assert 1 <= n <= 64
+        assert (n - 1) * split_len < din <= n * split_len
+        assert n == 1 or split_len >= 4 * step
+        chunks = (T // tile) * -(-tile // sgmv_mod.TC_ROWS_PER_BLOCK)
+        if din // (4 * step) >= -(-264 // chunks):
+            assert chunks * n >= 132
+
+
 class TestPagedAttention:
     @pytest.mark.parametrize("dt", ["f32", "bf16"])
     @pytest.mark.parametrize("B,Kh,G,dh,page,P", PAGED_SHAPES)
