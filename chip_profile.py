@@ -6,9 +6,11 @@ Run from the root of a checkout:  python3 chip_profile.py
 Builds and checks the kernels as ``chip_smoke.py`` phases 1 and 2 do,
 then two torch.profiler windows, one JSON line each:
 
-1. profile_kernel — each CUDA kernel behind a wrapper (bgmv and sgmv
-   launch a shrink and an expand kernel): device µs per call at the
-   phase-2 shapes, L2 warm.
+1. profile_kernel — each CUDA kernel behind a wrapper (sgmv launches
+   a shrink and an expand kernel, the others one): launches and device
+   µs per call at the phase-2 shapes, L2 warm; and the same for one
+   draw of the seeded sampler's Gumbel noise (8 rows, V 32000), which
+   is plain PyTorch.
 2. profile — a few steady fused decode steps of ``chameleon-llama-7b``
    at full width under the default ``EngineConfig``, once every row of
    one wave is placed: ms per decode step, the device's busy share of
@@ -44,10 +46,25 @@ def profile_kernels(calls: dict, iters: int = 20) -> None:
             for _ in range(iters):
                 call()
             torch.cuda.synchronize()
-        emit(dict(phase="profile_kernel", kernel=name, per_call=[
-            dict(cuda_kernel=e.key[:70], us=_dev_us(e) / iters)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]))
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        emit(dict(phase="profile_kernel", kernel=name,
+                  launches_per_call=sum(e.count for e in kernels) / iters,
+                  us_per_call=sum(_dev_us(e) for e in kernels) / iters,
+                  per_call=[dict(cuda_kernel=e.key[:70],
+                                 us=_dev_us(e) / iters)
+                            for e in kernels[:12]]))
+
+
+def sampler_call():
+    """One draw of the seeded sampler's noise for the engine's 8 rows
+    over Llama's 32000-token vocabulary (plain PyTorch, no kernel of
+    its own): its launches and device time per sampled decode step."""
+    import torch
+    from repro_torch.models import lm
+    seeds = torch.arange(8, device="cuda") + 1000
+    pos = torch.arange(8, device="cuda", dtype=torch.int32) + 40
+    return lambda: lm.gumbel_noise(seeds, pos, 32000)
 
 
 def _generated(eng) -> int:
@@ -135,6 +152,7 @@ def main() -> int:
     try:
         dev = phase_device()
         _, calls = phase_kernels()
+        calls["gumbel_noise"] = sampler_call()
         profile_kernels(calls)
         from repro_torch.configs import get_config
         from repro_torch.models import api

@@ -26,7 +26,13 @@ of the JAX package. Phases, one JSON line each:
              line names the instance that launched, and it must be the
              one the dtype and shape select; each kernel's timing line
              counts the checked cases of each instance
-             (``checked_by_instance``).
+             (``checked_by_instance``). bgmv and paged_attention run
+             over thread-block clusters: a ``kernel_sweep`` line times
+             each cluster size (paged_attention's also times a PyTorch
+             sum of its K and V pages, a yardstick of the memory
+             rate), and paged_attention is also checked and timed at
+             the trace's ragged decode lengths (32-232) on a
+             ``kernel_time_ragged`` line.
 3. parity  — reduced Llama in f32, the card (kernels) against the CPU
              (plain versions) on the same weights: ``prefill_paged``
              and one ``decode_step_paged``; the dense ``prefill``, the
@@ -272,7 +278,13 @@ def phase_kernels() -> dict:
                      2 * Bt * r * (d + d), op_type(x, A))
     rows["bgmv"].update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
                         library_ms=lib, instance="cuda_cores",
-                        shape=f"x {tuple(x.shape)} bf16, r {r}")
+                        shape=f"x {tuple(x.shape)} bf16, r {r}",
+                        splits=bgmv.SPLITS)
+    # Cluster sizes: blocks per token row (16 is non-portable).
+    emit(dict(phase="kernel_sweep", kernel="bgmv", shape=rows["bgmv"][
+        "shape"], bound_ms=b, ms_by_splits={
+            n: median_ms(lambda n=n: bgmv.bgmv(x, A, Bw, idx, splits=n),
+                         flush) for n in (4, 8, 16)}))
 
     # sgmv: prefill LoRA, the full (8, 256) prefill bucket, tile 128.
     S, tile = 256, 128
@@ -345,7 +357,38 @@ def phase_kernels() -> dict:
         ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
         instance="cuda_cores",
         shape=f"q {tuple(q.shape)} bf16, f32 pages, {Bt} rows x "
-              f"{P * page} tokens")
+              f"{P * page} tokens", splits=pa.SPLITS)
+    # Yardstick of the card's memory rate on the same pages: a PyTorch
+    # sum reads all of K and V once.
+    emit(dict(phase="kernel_sweep", kernel="paged_attention",
+              shape=rows["paged_attention"]["shape"], bound_ms=b,
+              ms_by_splits={n: median_ms(lambda n=n: pa.paged_attention(
+                  q, kp, vp, table, full, splits=n), flush)
+                  for n in (1, 2, 4, 8)},
+              torch_sum_pages_ms=median_ms(lambda: kp.sum() + vp.sum(),
+                                           flush),
+              pages_bytes=nbytes(kp, vp)))
+    # The phase-4 trace's decode rows: 32-232 tokens each.
+    ragged = torch.randint(32, 233, (Bt,), generator=g, device=dev).int()
+    got = pa.paged_attention(q, kp, vp, table, ragged)
+    torch.cuda.synchronize()
+    record("paged_attention", "q bf16, pages f32, ragged 32-232", got,
+           pa.paged_attention_plain(q, kp, vp, table, ragged), "bf16_out")
+    n_rag = int(ragged.sum().item())
+    b_rag, by_rag = bound_ms(nbytes(q, table, ragged)
+                             + 2 * n_rag * Kh * dh * 4 + nbytes(q),
+                             4 * n_rag * Kh * G * dh, "f32")
+    emit(dict(phase="kernel_time_ragged", kernel="paged_attention",
+              shape=f"q {tuple(q.shape)} bf16, f32 pages, lengths "
+                    f"{ragged.tolist()}",
+              ms=median_ms(lambda: pa.paged_attention(q, kp, vp, table,
+                                                      ragged), flush),
+              plain_ms=median_ms(lambda: pa.paged_attention_plain(
+                  q, kp, vp, table, ragged), flush),
+              bound_ms=b_rag, bound_by=by_rag,
+              ms_by_splits={n: median_ms(lambda n=n: pa.paged_attention(
+                  q, kp, vp, table, ragged, splits=n), flush)
+                  for n in (1, 2, 4, 8)}))
     flash_calls = phase_flash(record, rows, randn, flush)
     for name, row in rows.items():
         emit(dict(phase="kernel_time", kernel=name, **row))

@@ -1,19 +1,19 @@
-// Shrink and expand kernels shared by bgmv (decode) and sgmv (prefill).
+// Shrink and expand kernels of sgmv's CUDA-core instance (prefill;
+// bgmv has its own one-launch kernel in bgmv.cu).
 //
 // Both compute, for rows grouped into tiles of `tile` consecutive
 // tokens where tile i uses adapter slot tile_slot[i],
 //     y[m] = round_W(x[m] @ A[slot]) @ B[slot]
 // with f32 accumulation and the rank-r intermediate rounded to the
-// weights' dtype W, as the Pallas kernels do. bgmv is the case
-// tile == 1 (one slot per token).
+// weights' dtype W, as the Pallas kernels do.
 //
 // Bound: bytes (x, the used adapters' A and B, y); at r <= 128 the
 // 2·T·r·(din + dout) operations sit far below the bf16 ridge, so the
 // design is about keeping many independent loads in flight:
 //
-// 1. lora_shrink, grid (row chunks, din splits): a block takes up to M
-//    rows of one tile and one slice of din. Thread (g, c) walks rows
-//    d = g, g + G, ... of its slice (G = 256 / r row groups), reading
+// 1. lora_shrink, grid (row chunks, din splits): a block takes up to
+//    M = 16 rows of one tile and one slice of din. Thread (g, c) walks
+//    rows d = g, g + G, ... of its slice (G = 256 / r row groups), reading
 //    A[slot, d, c] (a warp reads one contiguous A row) and x[m, d]
 //    (a broadcast within the warp), keeping M running sums. The row
 //    groups are summed through shared memory and each block writes its
@@ -34,18 +34,23 @@ namespace lora {
 
 constexpr int kThreads = 256;
 constexpr int kMaxRank = 128;
+// Rows per block: up to 16 rows of one tile share the slot's A and B
+// reads.
+constexpr int M = 16;
 
-__device__ __forceinline__ void chunk_rows(int chunk, int tile, int M,
+// Chunk `chunk` of `rows` rows: its tile, first row and row count (the
+// tensor-core instance in sgmv.cu uses it with its own rows a block).
+__device__ __forceinline__ void chunk_rows(int chunk, int tile, int rows,
                                            int* tile_i, int* row0,
                                            int* mt) {
-  const int per_tile = (tile + M - 1) / M;
+  const int per_tile = (tile + rows - 1) / rows;
   *tile_i = chunk / per_tile;
   const int j = chunk - *tile_i * per_tile;
-  *row0 = *tile_i * tile + j * M;
-  *mt = min(M, tile - j * M);
+  *row0 = *tile_i * tile + j * rows;
+  *mt = min(rows, tile - j * rows);
 }
 
-template <typename TX, typename TW, int M>
+template <typename TX, typename TW>
 __global__ void __launch_bounds__(kThreads)
 lora_shrink(const TX* __restrict__ x, const TW* __restrict__ A,
             const int* __restrict__ tile_slot, float* __restrict__ part,
@@ -85,7 +90,7 @@ lora_shrink(const TX* __restrict__ x, const TW* __restrict__ A,
   }
 }
 
-template <typename TX, typename TW, int M>
+template <typename TX, typename TW>
 __global__ void __launch_bounds__(kThreads)
 lora_expand(const float* __restrict__ part, const TW* __restrict__ B,
             const int* __restrict__ tile_slot, TX* __restrict__ y, int T,
@@ -138,17 +143,17 @@ lora_expand(const float* __restrict__ part, const TW* __restrict__ B,
     if (m < mt) y[(size_t)(row0 + m) * dout + col] = from_f32<TX>(out[m]);
 }
 
-template <typename TX, typename TW, int M>
+template <typename TX, typename TW>
 int launch(const void* x, const void* A, const void* B, const void* ts,
            void* part, void* y, int T, int tile, int din, int r, int dout,
            int n_slots, int n_split, cudaStream_t stream) {
   const int n_chunks = (T / tile) * ((tile + M - 1) / M);
   const int split_len = (din + n_split - 1) / n_split;
-  lora_shrink<TX, TW, M><<<dim3(n_chunks, n_split), kThreads, 0, stream>>>(
+  lora_shrink<TX, TW><<<dim3(n_chunks, n_split), kThreads, 0, stream>>>(
       static_cast<const TX*>(x), static_cast<const TW*>(A),
       static_cast<const int*>(ts), static_cast<float*>(part), T, tile, din,
       r, n_slots, split_len);
-  lora_expand<TX, TW, M>
+  lora_expand<TX, TW>
       <<<dim3(n_chunks, (dout + kThreads - 1) / kThreads), kThreads, 0,
          stream>>>(static_cast<const float*>(part),
                    static_cast<const TW*>(B), static_cast<const int*>(ts),
@@ -156,42 +161,37 @@ int launch(const void* x, const void* A, const void* B, const void* ts,
   return (int)cudaGetLastError();
 }
 
-template <int M>
-int dispatch_dtypes(const void* x, const void* A, const void* B,
-                    const void* ts, void* part, void* y, int T, int tile,
-                    int din, int r, int dout, int n_slots, int n_split,
-                    int x_dtype, int w_dtype, cudaStream_t st) {
+inline int dispatch_dtypes(const void* x, const void* A, const void* B,
+                           const void* ts, void* part, void* y, int T,
+                           int tile, int din, int r, int dout, int n_slots,
+                           int n_split, int x_dtype, int w_dtype,
+                           cudaStream_t st) {
   if (x_dtype == DTYPE_F32 && w_dtype == DTYPE_F32)
-    return launch<float, float, M>(x, A, B, ts, part, y, T, tile, din, r,
-                                   dout, n_slots, n_split, st);
+    return launch<float, float>(x, A, B, ts, part, y, T, tile, din, r, dout,
+                                n_slots, n_split, st);
   if (x_dtype == DTYPE_F32 && w_dtype == DTYPE_BF16)
-    return launch<float, __nv_bfloat16, M>(x, A, B, ts, part, y, T, tile,
-                                           din, r, dout, n_slots, n_split,
-                                           st);
+    return launch<float, __nv_bfloat16>(x, A, B, ts, part, y, T, tile, din,
+                                        r, dout, n_slots, n_split, st);
   if (x_dtype == DTYPE_BF16 && w_dtype == DTYPE_F32)
-    return launch<__nv_bfloat16, float, M>(x, A, B, ts, part, y, T, tile,
-                                           din, r, dout, n_slots, n_split,
-                                           st);
+    return launch<__nv_bfloat16, float>(x, A, B, ts, part, y, T, tile, din,
+                                        r, dout, n_slots, n_split, st);
   if (x_dtype == DTYPE_BF16 && w_dtype == DTYPE_BF16)
-    return launch<__nv_bfloat16, __nv_bfloat16, M>(
+    return launch<__nv_bfloat16, __nv_bfloat16>(
         x, A, B, ts, part, y, T, tile, din, r, dout, n_slots, n_split, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// M rows per block: 1 for bgmv (every token its own slot), 16 for
-// sgmv (up to 16 rows of one tile share the slot's A and B reads).
 // `part` holds n_split * T * r floats.
-template <int M>
-int dispatch(const void* x, const void* A, const void* B, const void* ts,
-             void* part, void* y, int T, int tile, int din, int r, int dout,
-             int n_slots, int n_split, int x_dtype, int w_dtype,
-             void* stream) {
+inline int dispatch(const void* x, const void* A, const void* B,
+                    const void* ts, void* part, void* y, int T, int tile,
+                    int din, int r, int dout, int n_slots, int n_split,
+                    int x_dtype, int w_dtype, void* stream) {
   if (T < 1 || tile < 1 || T % tile || din < 1 || dout < 1 || r < 1 ||
       r > kMaxRank || n_split < 1 || n_split > din)
     return (int)cudaErrorInvalidValue;
-  return dispatch_dtypes<M>(x, A, B, ts, part, y, T, tile, din, r, dout,
-                            n_slots, n_split, x_dtype, w_dtype,
-                            static_cast<cudaStream_t>(stream));
+  return dispatch_dtypes(x, A, B, ts, part, y, T, tile, din, r, dout,
+                         n_slots, n_split, x_dtype, w_dtype,
+                         static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace lora

@@ -360,9 +360,8 @@ extern "C" int sgmv_launch(const void* x, const void* A, const void* B,
                            int n_split, int x_dtype, int w_dtype,
                            int tensor_cores, void* stream) {
   if (!tensor_cores)
-    return lora::dispatch<16>(x, A, B, tile_slot, part, y, T, tile, din, r,
-                              dout, n_slots, n_split, x_dtype, w_dtype,
-                              stream);
+    return lora::dispatch(x, A, B, tile_slot, part, y, T, tile, din, r, dout,
+                          n_slots, n_split, x_dtype, w_dtype, stream);
   if (T < 1 || tile < 1 || T % tile || din < 1 || dout < 1 || r < 1 ||
       r > lora::kMaxRank || n_split < 1 || n_split > din)
     return (int)cudaErrorInvalidValue;

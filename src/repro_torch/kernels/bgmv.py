@@ -11,12 +11,13 @@ written in x's dtype. Source: ``csrc/bgmv.cu``.
 
 Bound on the H100: bytes (x, the used adapters' A and B, y), about
 4 MB at the engine's decode widths, so the call is bound by launch
-latency and by how many loads are in flight. The kernel pair of
-``csrc/lora.cuh`` splits the rank-r shrink over din across blocks (8
-tokens still spread over the card), then one expand launch sums the
-splits in a fixed order, rounds and writes the output. ``bgmv_plain``
-is the same function in plain PyTorch; the wrapper uses it only for
-CPU tensors.
+latency and by how many loads are in flight. One launch, no scratch
+tensor: each token row gets a thread-block cluster of ``splits``
+blocks; each block shrinks a slice of din with 16-byte loads, the
+blocks' rank-r partial sums meet through distributed shared memory (in
+split order, so results do not vary between runs), and each block
+expands a slice of dout. ``bgmv_plain`` is the same function in plain
+PyTorch; the wrapper uses it only for CPU tensors.
 """
 from __future__ import annotations
 
@@ -25,12 +26,17 @@ import ctypes
 import torch
 
 from .build import (CUDA_CORES, KernelStats, check_launch, dtype_code,
-                    library, lora_splits, stream_handle)
+                    library, stream_handle)
 
 MAX_RANK = 128
+# Blocks per token row: one cluster each. 16 is Hopper's largest
+# (non-portable) cluster size; at the engine's 8 decode rows it gives
+# 128 blocks, about one wave over the H100's 132 SMs.
+SPLITS = 16
+MAX_SPLITS = 16
 STATS = KernelStats()
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def bgmv_plain(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
@@ -65,10 +71,11 @@ def _check(x, A, B, idx):
 
 
 def bgmv(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
-         idx: torch.Tensor) -> torch.Tensor:
+         idx: torch.Tensor, splits: int = SPLITS) -> torch.Tensor:
     """x: (Bt, din); A: (n, din, r); B: (n, r, dout); idx: (Bt,) ints.
 
-    CUDA tensors launch the kernel; CPU tensors take ``bgmv_plain``.
+    CUDA tensors launch the kernel with ``splits`` blocks (one cluster)
+    per token row, 1..16; CPU tensors take ``bgmv_plain``.
     """
     _check(x, A, B, idx)
     if x.device.type == "cpu":
@@ -76,6 +83,9 @@ def bgmv(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
         return bgmv_plain(x, A, B, idx)
     if x.device.type != "cuda":
         raise ValueError(f"bgmv runs on cuda or cpu, not {x.device}")
+    if not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"bgmv splits must be in 1..{MAX_SPLITS}, got "
+                         f"{splits}")
     xc, wc = dtype_code(x, "x"), dtype_code(A, "A/B")
     x, A, B = x.contiguous(), A.contiguous(), B.contiguous()
     idx = idx.to(torch.int32).contiguous()
@@ -85,14 +95,10 @@ def bgmv(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     y = torch.empty((Bt, dout), dtype=x.dtype, device=x.device)
     if Bt == 0 or dout == 0:
         return y
-    n_split = lora_splits(Bt, 1, 1, din, r)
-    part = torch.empty((n_split, Bt, r), dtype=torch.float32,
-                       device=x.device)
     lib = library("bgmv", _ARGTYPES)
     err = lib.bgmv_launch(x.data_ptr(), A.data_ptr(), B.data_ptr(),
-                          idx.data_ptr(), part.data_ptr(), y.data_ptr(), Bt,
-                          din, r, dout, n, n_split, xc, wc,
-                          stream_handle(x.device))
+                          idx.data_ptr(), y.data_ptr(), Bt, din, r, dout, n,
+                          splits, xc, wc, stream_handle(x.device))
     check_launch("bgmv", err)
     STATS.launched(CUDA_CORES)
     return y

@@ -182,9 +182,10 @@ def check_launch(name: str, err: int) -> None:
 def lora_splits(T: int, tile: int, rows_per_block: int, din: int,
                 r: int) -> int:
     """How many blocks split din in the shrink kernel of csrc/lora.cuh
-    (bgmv and sgmv): enough blocks for about two waves over the H100's
-    132 SMs, at least four rows of din per thread, at most 64 splits.
-    The wrapper allocates the (splits, T, r) f32 partial sums."""
+    (sgmv's CUDA-core instance): enough blocks for about two waves over
+    the H100's 132 SMs, at least four rows of din per thread, at most
+    64 splits. The wrapper allocates the (splits, T, r) f32 partial
+    sums."""
     n_chunks = (T // tile) * -(-tile // rows_per_block)
     row_groups = 256 // r
     return max(1, min(din // (4 * row_groups), -(-264 // n_chunks), 64))

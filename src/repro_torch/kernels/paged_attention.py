@@ -13,14 +13,15 @@ by max(denominator, 1e-30), written in q's dtype. Replaces
 
 Bound on the H100: bytes — each row's valid K and V pages, read once.
 Where the Pallas grid visits every page of the table in order and
-carries the online-softmax state across grid steps, a CUDA block per
-(b, kv head) walks only its row's ``ceil(lengths[b] / page)`` pages,
-128 positions per round: one thread scores one position with 16-byte
-loads along its K row, a block reduction updates the running max and
-denominator, and each thread accumulates one V column in registers, so
-device memory sees one pass over the valid KV and one write of the
-output. ``paged_attention_plain`` is the same function in plain
-PyTorch; the wrapper uses it only for CPU tensors.
+carries the online-softmax state across grid steps, the CUDA kernel
+visits only a row's ``ceil(lengths[b] / page)`` pages and splits them
+over a thread-block cluster of ``splits`` blocks per (b, kv head), in
+one launch: each warp scores whole K rows with coalesced loads staged
+through a cp.async ring, keeps its own online softmax, the warps of a
+block merge once, and the blocks of the cluster merge once through
+distributed shared memory in split order. ``paged_attention_plain`` is
+the same function in plain PyTorch; the wrapper uses it only for CPU
+tensors.
 """
 from __future__ import annotations
 
@@ -33,9 +34,15 @@ from .build import (CUDA_CORES, KernelStats, check_launch, dtype_code,
 
 NEG_INF = -1e30
 MAX_G, MAX_DH = 16, 256
+# Blocks per (row, kv head), one cluster each: at most 8, the portable
+# cluster size. SPLITS is the one measured point of the served path
+# (8 rows x 32 kv heads of Llama-7B on an H100): 2 ran as fast as 1 and
+# faster than 4 or 8 (PERF.md section 6).
+SPLITS = 2
+MAX_SPLITS = 8
 STATS = KernelStats()
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
 def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
@@ -84,13 +91,15 @@ def _check(q, k_pages, v_pages, page_table, lengths):
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, page_table: torch.Tensor,
-                    lengths: torch.Tensor) -> torch.Tensor:
+                    lengths: torch.Tensor, splits: int = SPLITS
+                    ) -> torch.Tensor:
     """q: (B, Kh, G, dh); k/v_pages: (n_pages, page, Kh, dh);
     page_table: (B, P) ints; lengths: (B,) ints -> (B, Kh, G, dh).
 
-    CUDA tensors launch the kernel; CPU tensors take
-    ``paged_attention_plain``. Rows need ``lengths >= 1`` to match the
-    Pallas kernel up to summation order (the engine passes
+    CUDA tensors launch the kernel with ``splits`` blocks (one cluster)
+    per (row, kv head), 1..8; CPU
+    tensors take ``paged_attention_plain``. Rows need ``lengths >= 1``
+    to match the Pallas kernel up to summation order (the engine passes
     ``cache_len + 1``).
     """
     _check(q, k_pages, v_pages, page_table, lengths)
@@ -108,6 +117,9 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"paged_attention supports G <= {MAX_G} and dh "
                          f"<= {MAX_DH} a multiple of 4; got G={G}, "
                          f"dh={dh}")
+    if not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"paged_attention splits must be in "
+                         f"1..{MAX_SPLITS}, got {splits}")
     qc, kc = dtype_code(q, "q"), dtype_code(k_pages, "k/v_pages")
     q = q.contiguous()
     k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
@@ -119,8 +131,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     lib = library("paged_attention", _ARGTYPES)
     err = lib.paged_attention_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), pt.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), B, Kh, G, dh, page, P, n_pages, qc,
-        kc, stream_handle(q.device))
+        lens.data_ptr(), out.data_ptr(), B, Kh, G, dh, page, P, n_pages,
+        splits, qc, kc, stream_handle(q.device))
     check_launch("paged_attention", err)
     STATS.launched(CUDA_CORES)
     return out

@@ -331,32 +331,63 @@ def sample_tokens_core(logits: torch.Tensor, temperature: torch.Tensor,
 
 
 _M32 = 0xFFFFFFFF
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_THREEFRY_PARITY = 0x1BD11BDA
+_F32_TINY = 1.1754943508222875e-38       # finfo(float32).tiny
 
 
-def _mix32(h: torch.Tensor) -> torch.Tensor:
-    """32-bit integer hash on int64 lanes (multipliers < 2**31, so the
-    products never leave int64)."""
-    h = h ^ (h >> 16)
-    h = (h * 0x7FEB352D) & _M32
-    h = h ^ (h >> 15)
-    h = (h * 0x5BD1E995) & _M32
-    return h ^ (h >> 16)
+def _threefry2x32(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
+                  x1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """JAX's threefry2x32 hash (``jax/_src/prng.py``,
+    ``_threefry2x32_lowering``): 20 rounds on uint32 words held in int64
+    lanes. Keys and counts broadcast together; every input lies in
+    [0, 2**32). ``x1`` is kept exact after each step (the rotation reads
+    its high bits), ``x0`` only modulo 2**32 until the end: its bits
+    above 32 never reach ``x1`` through the masked xor."""
+    ks = (k0, k1, k0 ^ k1 ^ _THREEFRY_PARITY)
+    x0 = x0 + ks[0]
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _THREEFRY_ROTATIONS[i % 2]:
+            x0 = x0 + x1
+            x1 = (((x1 << r) | (x1 >> (32 - r))) ^ x0) & _M32
+        x0 = x0 + ks[(i + 1) % 3]
+        x1 = (x1 + (ks[(i + 2) % 3] + (i + 1))) & _M32
+    return x0 & _M32, x1
+
+
+def threefry_bits(seeds: torch.Tensor, positions: torch.Tensor,
+                  V: int) -> torch.Tensor:
+    """(B, V) int64 lanes holding ``jax.random.bits(fold_in(PRNGKey(s),
+    p), (V,))`` for each row's (seed, position), bit for bit. Seeds and
+    positions wrap to uint32 as ``astype(jnp.uint32)`` does.
+
+    ``PRNGKey(s)`` is the key (0, s); ``fold_in(key, p)`` hashes the
+    count pair (0, p) under it; the bits of element i are ``out0 ^
+    out1`` of the hash of (0, i) under the folded key (the partitionable
+    path, ``jax_threefry_partitionable=True``, JAX's default)."""
+    s = (seeds.long() & _M32)[:, None]
+    p = (positions.long() & _M32)[:, None]
+    k0, k1 = _threefry2x32(torch.zeros_like(s), s, torch.zeros_like(p), p)
+    i = torch.arange(V, device=seeds.device, dtype=torch.long)
+    b0, b1 = _threefry2x32(k0, k1, torch.zeros_like(i), i)
+    return b0 ^ b1
 
 
 def gumbel_noise(seeds: torch.Tensor, positions: torch.Tensor,
                  V: int) -> torch.Tensor:
-    """(B, V) Gumbel noise that depends only on (seed, position): a
-    counter-based hash evaluated on the device, so a token's randomness
-    is the same across batch compositions and re-executions, and the
-    fused loop needs no host round-trip to draw it. (JAX's threefry bits
-    are not reproduced; tests feed JAX's own noise to
-    ``sample_tokens_core``.)"""
-    s = seeds.long() & _M32
-    p = positions.long() & _M32
-    key = _mix32(_mix32(s ^ 0x3C6EF372) ^ p)
-    idx = torch.arange(V, device=seeds.device, dtype=torch.long)
-    h = _mix32(key[:, None] ^ _mix32(idx + 0x1B873593))
-    u = ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
+    """(B, V) f32 Gumbel noise equal to the JAX sampler's
+    ``jax.random.gumbel(fold_in(PRNGKey(seed), position), (V,))``: a
+    token's randomness depends only on (seed, position), so it is the
+    same across batch compositions and re-executions, and it is computed
+    on the tensors' own device with no host round-trip (the fused loop
+    draws it inside the horizon). The uniform is ``random.uniform``'s
+    on [tiny, 1): the top 23 bits as a mantissa in [1, 2), minus 1,
+    plus tiny (JAX's scale by 1 - tiny is 1 in f32, and its floor at
+    tiny cannot bind)."""
+    bits = threefry_bits(seeds, positions, V)
+    mant = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    u = (mant - 1.0) + _F32_TINY
     return -torch.log(-torch.log(u))
 
 

@@ -30,6 +30,16 @@ which one launched, tensor cores for bf16 (flash: dh % 16 == 0), CUDA
 cores for f32 and for bf16 flash at dh 36. The bf16 flash cases also
 hold the kernel to one bf16 ulp of the all-f32 plain version rounded
 once, the accuracy the split of P into two bf16 parts is there to keep.
+
+paged_attention splits each row's pages over a thread-block cluster:
+rows of length 0 (every page fully masked), P * page and at and past a
+split boundary (empty trailing splits), G up to 16, at 1, 2, 4 and 8
+splits, are held to the plain version and to the split-and-combine
+mirror of ``tests/_paged_split.py`` at the same tolerance. bgmv runs as
+one CUDA kernel per call (torch.profiler counts it) at every cluster
+size, empty din and dout slices included. The seeded sampler's
+threefry bits on the card equal the CPU's exactly, its Gumbel noise
+within 1e-6 (the f32 logs may round one ulp apart).
 """
 import importlib
 
@@ -37,6 +47,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from _paged_split import paged_attention_split  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -93,6 +105,58 @@ def test_bgmv_matches_plain(card, Bt, din, r, dout, n, xdt, wdt):
     torch.testing.assert_close(got.float(),
                                bgmv_mod.bgmv_plain(x, A, B, idx).float(),
                                **tol(xdt, wdt))
+
+
+@pytest.mark.parametrize("splits", [1, 4, 8, 16])
+@pytest.mark.parametrize("Bt,din,r,dout,n", [
+    (3, 96, 6, 257, 4), (5, 300, 128, 700, 3), (2, 8, 32, 16, 2)])
+def test_bgmv_cluster_sizes_match_plain(card, Bt, din, r, dout, n, splits):
+    """Every cluster size, with slices of din or dout that are empty
+    (din 8 over 16 blocks; dout 16 in 8-column chunks) or ragged."""
+    gen = torch.Generator().manual_seed(Bt * 11 + splits)
+    for xdt, wdt in (("f32", "f32"), ("bf16", "bf16")):
+        x = randn(gen, (Bt, din), DT[xdt], card)
+        A = randn(gen, (n, din, r), DT[wdt], card, din ** -0.5)
+        B = randn(gen, (n, r, dout), DT[wdt], card, r ** -0.5)
+        idx = torch.randint(0, n, (Bt,), generator=gen).int().to(card)
+        got = bgmv_mod.bgmv(x, A, B, idx, splits=splits)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(),
+                                   bgmv_mod.bgmv_plain(x, A, B, idx).float(),
+                                   **tol(xdt, wdt))
+
+
+def test_bgmv_slot_out_of_range_yields_zeros(card):
+    gen = torch.Generator().manual_seed(3)
+    x = randn(gen, (4, 256), torch.bfloat16, card)
+    A = randn(gen, (2, 256, 32), torch.bfloat16, card, 256 ** -0.5)
+    B = randn(gen, (2, 32, 300), torch.bfloat16, card, 32 ** -0.5)
+    idx = torch.tensor([1, -1, 2, 0], dtype=torch.int32, device=card)
+    got = bgmv_mod.bgmv(x, A, B, idx).float()
+    want = bgmv_mod.bgmv_plain(x, A, B, idx.clamp(0, 1)).float()
+    assert (got[1:3] == 0).all()
+    torch.testing.assert_close(got[[0, 3]], want[[0, 3]], **tol("bf16"))
+
+
+def test_bgmv_is_one_cuda_kernel(card):
+    """One call at the engine's decode width launches one CUDA kernel
+    and allocates no scratch tensor."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator().manual_seed(4)
+    x = randn(gen, (8, 4096), torch.bfloat16, card)
+    A = randn(gen, (8, 4096, 32), torch.bfloat16, card, 4096 ** -0.5)
+    B = randn(gen, (8, 32, 4096), torch.bfloat16, card, 32 ** -0.5)
+    idx = torch.randperm(8, generator=gen).int().to(card)
+    bgmv_mod.bgmv(x, A, B, idx)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        bgmv_mod.bgmv(x, A, B, idx)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    assert sum(e.count for e in kernels) == 1, [e.key for e in kernels]
+    assert "bgmv" in kernels[0].key
 
 
 @pytest.mark.parametrize("xdt,wdt", [("f32", "f32"), ("f32", "bf16"),
@@ -192,6 +256,70 @@ def test_paged_attention_matches_plain(card, B, Kh, G, dh, page, P, qdt,
     assert got.dtype == q.dtype and got.shape == q.shape
     want = pa_mod.paged_attention_plain(q, kp, vp, table, lens)
     torch.testing.assert_close(got.float(), want.float(), **out_tol(qdt))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("G,dh", [(1, 128), (4, 64), (16, 128), (16, 256),
+                                  (2, 36)])
+def test_paged_attention_splits_match_plain_and_mirror(card, G, dh, splits):
+    """Rows of length 0 (all P pages visited, fully masked: the mean of
+    V), 1, page - 3, the split boundary 128, one past it (trailing
+    splits empty at 8) and P * page, every dtype case; dh 36 gives bf16
+    rows of 72 bytes, copied in 8-byte chunks."""
+    page, P, Kh = 16, 16, 2
+    lens = torch.tensor([0, 1, page - 3, 128, 129, P * page],
+                        dtype=torch.int32)
+    B = lens.numel()
+    n_pages = B * P + 1
+    gen = torch.Generator().manual_seed(G * 5 + dh + splits)
+    table = (1 + torch.randperm(n_pages - 1, generator=gen))[:B * P]
+    table = table.view(B, P).int().to(card)
+    for qdt, kvdt in (("f32", "f32"), ("bf16", "f32"), ("f32", "bf16"),
+                      ("bf16", "bf16")):
+        q = randn(gen, (B, Kh, G, dh), DT[qdt], card)
+        kp = randn(gen, (n_pages, page, Kh, dh), DT[kvdt], card)
+        vp = randn(gen, (n_pages, page, Kh, dh), DT[kvdt], card)
+        pa_mod.STATS.reset()
+        got = pa_mod.paged_attention(q, kp, vp, table, lens.to(card),
+                                     splits=splits)
+        torch.cuda.synchronize()
+        assert pa_mod.STATS.launches == 1 and pa_mod.STATS.plain == 0
+        assert torch.isfinite(got.float()).all()
+        want = pa_mod.paged_attention_plain(q, kp, vp, table, lens.to(card))
+        torch.testing.assert_close(got.float(), want.float(), **out_tol(qdt))
+        mirror = paged_attention_split(q, kp, vp, table, lens, splits)
+        torch.testing.assert_close(got.float().cpu(), mirror.float(),
+                                   **out_tol(qdt))
+
+
+def test_paged_attention_is_deterministic(card):
+    """The split merge runs in a fixed order: two calls agree bit for
+    bit."""
+    gen = torch.Generator().manual_seed(9)
+    q = randn(gen, (8, 32, 1, 128), torch.bfloat16, card)
+    kp = randn(gen, (161, 16, 32, 128), torch.float32, card)
+    vp = randn(gen, (161, 16, 32, 128), torch.float32, card)
+    table = (1 + torch.randperm(160, generator=gen))[:128].view(8, 16)
+    table = table.int().to(card)
+    lens = torch.randint(1, 257, (8,), generator=gen).int().to(card)
+    a = pa_mod.paged_attention(q, kp, vp, table, lens)
+    b = pa_mod.paged_attention(q, kp, vp, table, lens)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("V", [512, 32000])
+def test_gumbel_noise_card_equals_cpu(card, V):
+    """The sampler's threefry bits on the card equal the CPU's bit for
+    bit (integer arithmetic); its noise agrees within 1e-6."""
+    from repro_torch.models import lm
+    seeds = torch.tensor([0, 1, 2**31 - 1, 2**32 - 1, -5], dtype=torch.int64)
+    pos = torch.tensor([0, 33, 250, 7, 1000], dtype=torch.int32)
+    bits = lm.threefry_bits(seeds.to(card), pos.to(card), V)
+    assert bits.is_cuda
+    assert torch.equal(bits.cpu(), lm.threefry_bits(seeds, pos, V))
+    noise = lm.gumbel_noise(seeds.to(card), pos.to(card), V)
+    torch.testing.assert_close(noise.cpu(), lm.gumbel_noise(seeds, pos, V),
+                               rtol=0, atol=1e-6)
 
 
 def flash_tol(q, k, v, causal, want):

@@ -6,10 +6,12 @@ Both engines are built on the same weights (the JAX package's
 a virtual clock that both advance by the same step, so every
 scheduling decision can match. They serve a shared-prefix trace over
 more adapters than LoRA slots, so adapters load and evict and the
-prefix cache hits and forks. Greedy tokens must be identical, with
-equal prefix hits, COW forks and adapter loads, and the pool
-invariants must hold after every step. The port's fused loop and its
-seed loop must give identical tokens too.
+prefix cache hits and forks. Every fourth request is seeded-sampled
+(temperature, top-k and top-p), the rest greedy. Every request's tokens
+must be identical, sampled ones too (the port draws JAX's own threefry
+noise), with equal prefix hits, COW forks and adapter loads, and the
+pool invariants must hold after every step. The port's fused loop and
+its seed loop must give identical tokens too.
 """
 import numpy as np
 import pytest
@@ -23,17 +25,24 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.core import Request as JRequest  # noqa: E402
+from repro.core import SamplingParams as JSamplingParams  # noqa: E402
 from repro.models import api as japi  # noqa: E402
 from repro.serving import engine as jengine  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import Request  # noqa: E402
+from repro_torch.core import Request, SamplingParams  # noqa: E402
 from repro_torch.serving import engine  # noqa: E402
 from repro_torch.serving.systems import build_engine  # noqa: E402
 
 BASE = dict(max_slots=4, max_len=128, n_lora_slots=4, n_adapters=8,
             seed=0)
 N_REQ, N_ADAPTERS_USED, DT = 12, 6, 0.01
+SAMPLED = dict(temperature=0.8, top_k=20, top_p=0.9)
+
+
+def sampling_for(i, params_cls):
+    """Request i's sampling: every fourth request seeded-sampled."""
+    return params_cls(**SAMPLED, seed=100 + i) if i % 4 == 3 else None
 
 
 class StepClock:
@@ -86,10 +95,12 @@ def land_jax_loads(eng):
 
 
 def serve(eng, request_cls, prompts, adapters, clock, check, out_len=8,
-          max_steps=5000, before_step=None):
+          max_steps=5000, before_step=None, sampling_cls=None):
     handles = [eng.submit(request_cls(input_len=len(p), output_len=out_len,
-                                      adapter_id=a, prompt=list(p)))
-               for p, a in zip(prompts, adapters)]
+                                      adapter_id=a, prompt=list(p)),
+                          sampling=(sampling_for(i, sampling_cls)
+                                    if sampling_cls else None))
+               for i, (p, a) in enumerate(zip(prompts, adapters))]
     steps = 0
     while eng.busy() and steps < max_steps:
         if before_step is not None:
@@ -119,7 +130,8 @@ def jax_run(setup):
                                   jengine.EngineConfig(**BASE),
                                   catalog=setup["jcat"], clock=clock)
     toks = serve(eng, JRequest, setup["prompts"], setup["adapters"], clock,
-                 check=False, before_step=land_jax_loads)
+                 check=False, before_step=land_jax_loads,
+                 sampling_cls=JSamplingParams)
     return toks, summary(eng)
 
 
@@ -130,7 +142,7 @@ def port_run(setup, **kw):
                                  catalog=setup["cat"], clock=clock,
                                  device="cpu")
     toks = serve(eng, Request, setup["prompts"], setup["adapters"], clock,
-                 check=True)
+                 check=True, sampling_cls=SamplingParams)
     return toks, summary(eng)
 
 
@@ -140,7 +152,11 @@ def test_port_engine_matches_jax_engine(setup, jax_run, fused):
     toks, s = port_run(setup, fused_hotloop=fused)
     assert s["completed"] == N_REQ
     assert all(len(t) == 8 for t in toks)
-    assert toks == jtoks, "greedy tokens differ from the JAX engine"
+    differ = [(i, next(j for j, (a, b) in enumerate(zip(t, u)) if a != b),
+               "sampled" if sampling_for(i, SamplingParams) else "greedy")
+              for i, (t, u) in enumerate(zip(toks, jtoks)) if t != u]
+    assert not differ, ("tokens differ from the JAX engine at (request, "
+                        f"first differing token, kind): {differ}")
     assert s == jsum
     # The trace exercises what it is meant to.
     assert s["prefix_hit_tokens"] > 0 and s["cow_forks"] > 0
