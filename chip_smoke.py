@@ -32,11 +32,18 @@ of the JAX package. Phases, one JSON line each:
              sum of its K and V pages, a yardstick of the memory
              rate), and paged_attention is also checked and timed at
              the trace's ragged decode lengths (32-232) on a
-             ``kernel_time_ragged`` line.
+             ``kernel_time_ragged`` line, with SDPA over the gathered
+             pages under a length mask as its library time.
 3. parity  — reduced Llama in f32, the card (kernels) against the CPU
              (plain versions) on the same weights: ``prefill_paged``
              and one ``decode_step_paged``; the dense ``prefill``, the
              K/V slab it fills and one ``decode_step`` over the slab.
+             Then two engine cases, each served on the card and on the
+             CPU port with the same weights and trace
+             (``parity_engine``): a chunked-prefill engine (chunk 8),
+             and requests exported mid-decode from one engine and
+             imported into another, paged and dense. The card's tokens
+             must equal the CPU port's exactly.
 4. engine  — ``chameleon-llama-7b`` at full width (32 layers, d 4096,
              bf16 weights from a seeded generator): 16 requests over
              12 adapters from shared preambles, some seeded-sampled,
@@ -44,8 +51,9 @@ of the JAX package. Phases, one JSON line each:
              built and freed one at a time: the default
              ``EngineConfig`` (paged KV, prefix cache, fused loop), the
              seed decode loop as its A/B, the dense KV slab
-             (``paged=False``) and the paged engine without the prefix
-             cache (``prefix_cache=False``). Kernel launch counts are
+             (``paged=False``), the paged engine without the prefix
+             cache (``prefix_cache=False``) and chunked prefill
+             (``prefill_chunk_tokens=64``). Kernel launch counts are
              zeroed just before each engine's trace and read just
              after; every kernel on that engine's path must have
              launched, sgmv and flash_attention only in their
@@ -53,6 +61,19 @@ of the JAX package. Phases, one JSON line each:
              einsum path may have run. Each engine's line carries its
              TTFT p50/p99 and the device time of its prefill calls
              (CUDA events around each ``api.prefill[_paged]`` call).
+5. tiers   — the same model, warm-up and trace through
+             ``build_system``: ``tier="disagg"`` (one prefill and one
+             decode replica, KV shipped between them) and
+             ``tier="cluster"`` (two replicas, adapter affinity), each
+             built and freed in turn. Each line carries TTFT p50/p99,
+             decode tokens/s, KV exports and imports, GB shipped, the
+             median host ms of ``begin_migration`` and
+             ``import_request_kv`` beside the modeled link's ms, spilled
+             requests, peak memory and greedy agreement with the fused
+             engine. Every request must complete; on the disagg tier
+             exports must equal imports and be above 0; every replica
+             must read the caller's weight tensors (no copy), and peak
+             memory must stay under the fused engine's peak + 8 GB.
 
 A device-time profile of the same path is ``chip_profile.py``.
 
@@ -343,12 +364,19 @@ def phase_kernels() -> dict:
     plain = median_ms(
         lambda: pa.paged_attention_plain(q, kp, vp, table, full), flush)
 
-    def sdpa():
+    def sdpa(lengths=None):
+        """SDPA over the gathered pages; ``lengths`` masks each row's
+        positions past its length."""
         k = kp[table.long()].permute(0, 3, 1, 2, 4).reshape(
             Bt, Kh, P * page, dh)
         v = vp[table.long()].permute(0, 3, 1, 2, 4).reshape(
             Bt, Kh, P * page, dh)
-        return F.scaled_dot_product_attention(q.float(), k, v)
+        mask = None
+        if lengths is not None:
+            mask = (torch.arange(P * page, device=dev)[None, :]
+                    < lengths[:, None])[:, None, None, :]
+        return F.scaled_dot_product_attention(q.float(), k, v,
+                                              attn_mask=mask)
     lib = median_ms(sdpa, flush)
     n_tok = int(full.sum().item())
     b, by = bound_ms(nbytes(q, table, full) + 2 * n_tok * Kh * dh * 4
@@ -375,6 +403,8 @@ def phase_kernels() -> dict:
     record("paged_attention", "q bf16, pages f32, ragged 32-232", got,
            pa.paged_attention_plain(q, kp, vp, table, ragged), "bf16_out")
     n_rag = int(ragged.sum().item())
+    lib_rag_err = (sdpa(ragged) - pa.paged_attention_plain(
+        q.float(), kp, vp, table, ragged)).abs().max().item()
     b_rag, by_rag = bound_ms(nbytes(q, table, ragged)
                              + 2 * n_rag * Kh * dh * 4 + nbytes(q),
                              4 * n_rag * Kh * G * dh, "f32")
@@ -386,6 +416,9 @@ def phase_kernels() -> dict:
               plain_ms=median_ms(lambda: pa.paged_attention_plain(
                   q, kp, vp, table, ragged), flush),
               bound_ms=b_rag, bound_by=by_rag,
+              library_ms=median_ms(lambda: sdpa(ragged), flush),
+              library="SDPA over gathered pages, length mask",
+              library_max_abs_err_vs_plain=lib_rag_err,
               ms_by_splits={n: median_ms(lambda n=n: pa.paged_attention(
                   q, kp, vp, table, ragged, splits=n), flush)
                   for n in (1, 2, 4, 8)}))
@@ -561,6 +594,116 @@ def phase_parity() -> None:
     check(ok, f"card vs CPU step parity failed: {errs} (tol {tol})")
 
 
+#: (input_len, output_len, adapter) of the reduced engine cases.
+PARITY_SPEC = [(25, 8, 0), (6, 5, 1), (40, 6, 2), (10, 4, 0), (33, 7, 3)]
+
+
+def phase_parity_engines() -> None:
+    """Reduced Llama, f32, on the card and on the CPU port with the
+    same weights, adapters and trace: a chunked-prefill engine (chunk
+    8), and a request exported after 3 tokens from a horizon-1 engine
+    and imported into a default one, paged and dense. Tokens must be
+    equal; the payloads are compared at the phase's tolerance."""
+    import importlib
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import Request
+    from repro_torch.models import api
+    from repro_torch.serving.engine import AdapterCatalog, EngineConfig
+    from repro_torch.serving.systems import build_engine
+    tol = 2e-4
+    cfg = get_config("chameleon-llama-7b").reduced()
+    params = api.init_params(cfg, 0, torch.float32, device="cpu")
+    catalog = AdapterCatalog(cfg, 8, 32, seed=0, device="cpu")
+    base = dict(max_slots=4, max_len=128, n_lora_slots=4, n_adapters=8,
+                lora_backend="kernel")
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(1, 200, L).tolist() for L, _, _ in PARITY_SPEC]
+    stats = {n: importlib.import_module(f"repro_torch.kernels.{n}").STATS
+             for n in KERNELS}
+
+    def engine(dev, **kw):
+        clock = [0.0]
+        eng = build_engine("chameleon", cfg, params,
+                           EngineConfig(**base, **kw), catalog=catalog,
+                           clock=lambda: clock[0], device=dev)
+        return eng, clock
+
+    def step(eng, clock):
+        if eng._load_stream is not None:
+            # Land slot copies before the step polls them, as the CPU's
+            # synchronous copies are: the schedules then agree.
+            eng._load_stream.synchronize()
+        eng.step()
+        clock[0] += 0.01
+
+    def drain(eng, clock):
+        for _ in range(5000):
+            if not eng.busy():
+                return
+            step(eng, clock)
+        raise PhaseError("parity_engine: an engine failed to drain")
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        for st in stats.values():
+            st.reset()
+        eng, clock = engine(dev, prefill_chunk_tokens=8)
+        hs = [eng.submit(Request(input_len=L, output_len=O, adapter_id=a,
+                                 prompt=list(p)))
+              for (L, O, a), p in zip(PARITY_SPEC, prompts)]
+        drain(eng, clock)
+        res = dict(chunked=[h.tokens for h in hs],
+                   chunked_prefills=eng.stats().get("chunked_prefills", 0))
+        for paged in (True, False):
+            src, c_src = engine(dev, paged=paged, max_horizon=1,
+                                pipeline_readback=False)
+            dst, c_dst = engine(dev, paged=paged)
+            req = Request(input_len=25, output_len=10, adapter_id=1,
+                          prompt=list(prompts[0]))
+            h = src.submit(req)
+            while len(h.tokens) < 3 and src.busy():
+                step(src, c_src)
+            ship = src.begin_migration(req)
+            check(ship is not None and dst.import_request_kv(ship),
+                  f"parity_engine: migration on {dev} was refused")
+            src.complete_migration(req)
+            h._system = dst
+            drain(dst, c_dst)
+            res[f"migrated_{'paged' if paged else 'dense'}"] = dict(
+                tokens=h.tokens, k=ship["k"], v=ship["v"],
+                nbytes=ship["nbytes"])
+        # The phase's launches: the dense source prefills with
+        # flash_attention, the rest runs the paged path.
+        res.update(launches={n: st.launches for n, st in stats.items()},
+                   plain={n: st.plain for n, st in stats.items()})
+        out[dev] = res
+    cpu, card = out["cpu"], out["cuda"]
+    payload_err = max((card[m][kv] - cpu[m][kv]).abs().max().item()
+                      for m in ("migrated_paged", "migrated_dense")
+                      for kv in ("k", "v"))
+    line = dict(phase="parity_engine", chunk=8,
+                chunked_tokens_equal=card["chunked"] == cpu["chunked"],
+                chunked_prefills=card["chunked_prefills"],
+                launches=card["launches"],
+                migrated_tokens_equal={
+                    m: card[m]["tokens"] == cpu[m]["tokens"]
+                    for m in ("migrated_paged", "migrated_dense")},
+                payload_bytes={m: card[m]["nbytes"]
+                               for m in ("migrated_paged", "migrated_dense")},
+                payload_max_abs_err=payload_err, tol=tol)
+    line["ok"] = ok = (line["chunked_tokens_equal"]
+                       and all(line["migrated_tokens_equal"].values())
+                       and payload_err <= tol
+                       and card["chunked_prefills"] > 0
+                       and all(card["launches"][n] > 0 for n in KERNELS)
+                       and not any(card["plain"].values()))
+    emit(line)
+    check(ok, f"card vs CPU engine parity failed: {line}")
+
+
 # ------------------------------------------------------------ phase 4
 def make_trace(vocab: int, n_req: int = 16, n_adapters: int = 12,
                out_len: int = 32, seed: int = 0):
@@ -695,12 +838,17 @@ ENGINES = {
     "dense": (dict(paged=False), ("bgmv", "sgmv", "flash_attention")),
     "no_prefix": (dict(prefix_cache=False),
                   ("bgmv", "sgmv", "paged_attention", "flash_attention")),
+    # Prompts over 64 tokens prefill a 64-token chunk a step (B=1 suffix
+    # prefills) and skip the prefix tree.
+    "chunked": (dict(prefill_chunk_tokens=64),
+                ("bgmv", "sgmv", "paged_attention")),
 }
 
 
 def phase_engine(cfg, params) -> dict:
     """Each engine of ``ENGINES`` over the same trace, one at a time.
-    Returns {engine: {kernel: launches in its trace}}."""
+    Returns {engine: its line's readings, with ``outputs`` (tokens per
+    request) and ``launches`` ({kernel: launches in its trace})}."""
     import importlib
 
     import torch
@@ -732,7 +880,7 @@ def phase_engine(cfg, params) -> dict:
                    **{k: v for k, v in est.items()
                       if k in ("completed", "prefix_hit_tokens",
                                "prefix_hits", "cow_forks", "async_loads",
-                               "preempted")},
+                               "preempted", "chunked_prefills")},
                    cache=est["cache"])
         toks = [h.tokens for h in res.pop("handles")]
         res["outputs"] = toks
@@ -742,9 +890,12 @@ def phase_engine(cfg, params) -> dict:
               f"{name}: a request stopped short of its output length")
         check(all(0 <= x < cfg.vocab_size for t in toks for x in t),
               f"{name}: token id outside the vocabulary")
-        if eng.prefix is not None:
+        if eng.prefix is not None and "prefill_chunk_tokens" not in knobs:
             check(res["prefix_hit_tokens"] > 0,
                   f"{name}: the prefix cache never hit")
+        if knobs.get("prefill_chunk_tokens"):
+            check(res.get("chunked_prefills", 0) > 0,
+                  f"{name}: no prompt was prefilled in chunks")
         check(all(launches[n] > 0 for n in path),
               f"{name}: a kernel of its path never launched: {launches}")
         # bf16 weights give bf16 activations: every sgmv and
@@ -774,20 +925,11 @@ def phase_engine(cfg, params) -> dict:
         del eng, est
         gc.collect()
         torch.cuda.empty_cache()
-    greedy = [i for i, (_, sp) in enumerate(make_trace(cfg.vocab_size))
-              if sp is None]
+    greedy = greedy_requests(cfg)
 
     def agreement(a: str, b: str) -> dict:
-        """Greedy requests with identical outputs, identical first
-        tokens, and the mean length of the common output prefix."""
-        pairs = [(results[a]["outputs"][i], results[b]["outputs"][i])
-                 for i in greedy]
-        common = [next((j for j, (x, y) in enumerate(zip(u, w)) if x != y),
-                       min(len(u), len(w))) for u, w in pairs]
-        return dict(identical=sum(u == w for u, w in pairs),
-                    first_token_identical=sum(u[:1] == w[:1]
-                                              for u, w in pairs),
-                    mean_common_prefix=sum(common) / len(common))
+        return greedy_agreement(results[a]["outputs"], results[b]["outputs"],
+                                greedy)
 
     emit(dict(phase="engine_ab", greedy_requests=len(greedy),
               greedy_vs_fused={name: agreement(name, "fused")
@@ -802,7 +944,186 @@ def phase_engine(cfg, params) -> dict:
                                      total=res["prefill_ms_total"],
                                      calls=res["prefill_calls"])
                           for name, res in results.items()}))
-    return {name: res["launches"] for name, res in results.items()}
+    return results
+
+
+def greedy_requests(cfg) -> list[int]:
+    return [i for i, (_, sp) in enumerate(make_trace(cfg.vocab_size))
+            if sp is None]
+
+
+def greedy_agreement(outs_a, outs_b, greedy) -> dict:
+    """Greedy requests with identical outputs, identical first tokens,
+    and the mean length of the common output prefix."""
+    pairs = [(outs_a[i], outs_b[i]) for i in greedy]
+    common = [next((j for j, (x, y) in enumerate(zip(u, w)) if x != y),
+                   min(len(u), len(w))) for u, w in pairs]
+    return dict(identical=sum(u == w for u, w in pairs),
+                first_token_identical=sum(u[:1] == w[:1] for u, w in pairs),
+                mean_common_prefix=sum(common) / len(common))
+
+
+# ------------------------------------------------------------ phase 5
+class HostTimer:
+    """Host ms of the named methods of each engine, patched on the
+    instances for the duration of a ``with`` block. ``import_request_kv``
+    counts only the calls that imported (a refusal returns at once)."""
+
+    def __init__(self, engines, names) -> None:
+        self.engines, self.names = engines, names
+        self.ms = {n: [] for n in names}
+
+    def __enter__(self):
+        for e in self.engines:
+            for n in self.names:
+                setattr(e, n, self._timed(n, getattr(e, n)))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for e in self.engines:
+            for n in self.names:
+                delattr(e, n)
+        self.engines = []       # hold no replica past the block
+
+    def _timed(self, name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if out is not None and out is not False:
+                self.ms[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    def medians(self) -> dict:
+        return {n: statistics.median(v) if v else None
+                for n, v in self.ms.items()}
+
+
+#: tier: build_system options (two replicas on the one card).
+TIERS = {
+    "disagg": dict(tier="disagg", n_nodes=2),
+    "cluster": dict(tier="cluster", n_nodes=2, policy="adapter_affinity"),
+}
+TIER_PATH = ("bgmv", "sgmv", "paged_attention")
+#: Peak memory a tier may hold beyond the fused engine's: one more KV
+#: pool and LoRA slots fit, a second copy of the 13.5 GB of weights
+#: does not.
+TIER_MEM_SLACK_GB = 8.0
+
+
+def phase_tiers(cfg, params, fused: dict) -> None:
+    """Each tier of ``TIERS`` over the phase-4 trace, one at a time,
+    built by ``build_system`` on the card. Kernel counts are taken
+    around the whole tier (the counters are shared by its replicas)."""
+    import importlib
+
+    import torch
+    stats = {n: importlib.import_module(f"repro_torch.kernels.{n}").STATS
+             for n in KERNELS}
+    greedy = greedy_requests(cfg)
+    for name, opts in TIERS.items():
+        # One function call a tier: every reference to its replicas
+        # (handles point back at the tier) dies with the call.
+        run_tier(name, opts, cfg, params, fused, stats, greedy)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def run_tier(name, opts, cfg, params, fused, stats, greedy) -> None:
+    """Build one tier, warm each replica, serve the trace (kernel counts
+    zeroed just before, read just after), emit its line, check it."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.ops import DISPATCH_METER
+    from repro_torch.models.lora_apply import EINSUM
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.systems import build_system
+    sys_ = build_system("chameleon", model_cfg=cfg, params=params,
+                        ecfg=EngineConfig(), **opts)
+    engines = sys_.engines
+    check(all(e.params[k].data_ptr() == v.data_ptr()
+              for e in engines for k, v in params.items()),
+          f"{name}: a replica copied the weights")
+    for e in engines:
+        warm_up(e, cfg.vocab_size)
+    sys_._clock.reset()
+    trace = make_trace(cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for st in stats.values():
+        st.reset()
+    EINSUM.reset()
+    DISPATCH_METER.reset()
+    t0 = time.perf_counter()
+    with HostTimer(engines, ("begin_migration",
+                             "import_request_kv")) as timer:
+        handles = [sys_.submit(req, sampling=sp) for req, sp in trace]
+        steps = 0
+        while sys_.busy() and steps < 20_000:
+            sys_.step()
+            steps += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(not sys_.busy(), f"{name}: the tier failed to drain")
+    merged, _ = sys_.metrics()
+    recs = merged.records
+    per = [e.stats() for e in engines]
+    toks = [h.tokens for h in handles]
+    launches = {n: st.launches for n, st in stats.items()}
+    plain = {n: st.plain for n, st in stats.items()}
+    ttft = np.array([r.ttft for r in recs])
+    first = min(r.arrival + r.ttft for r in recs)
+    last = max(r.arrival + r.e2e for r in recs)
+    exports = sum(p.get("kv_exports", 0) for p in per)
+    imports = sum(p.get("kv_imports", 0) for p in per)
+    shipped = sum(p.get("kv_handoff_gb", 0.0) for p in per)
+    link_gbps = getattr(getattr(sys_, "dcfg", None), "link_gbps", None)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    res = dict(
+        phase="tier", tier=name, options=opts, model=cfg.name,
+        replicas=len(engines), wall_s=wall, steps=steps,
+        completed=sum(h.state.name == "FINISHED" for h in handles),
+        requests=len(trace),
+        ttft_p50_s=float(np.percentile(ttft, 50)),
+        ttft_p99_s=float(np.percentile(ttft, 99)),
+        decode_tok_per_s=(sum(map(len, toks)) - len(toks))
+        / max(last - first, 1e-9),
+        kv_exports=exports, kv_imports=imports, gb_shipped=shipped,
+        begin_migration_host_ms_p50=timer.medians()["begin_migration"],
+        import_request_kv_host_ms_p50=timer.medians()[
+            "import_request_kv"],
+        shipments_ms=timer.ms,
+        link_gbps=link_gbps,
+        link_ms_per_shipment=(shipped / max(exports, 1)
+                              / link_gbps * 1e3
+                              if link_gbps and exports else None),
+        spilled=getattr(sys_, "n_spilled", None),
+        completed_by_replica=[p["completed"] for p in per],
+        peak_mem_gb=peak, fused_peak_mem_gb=fused["peak_mem_gb"],
+        dispatches=DISPATCH_METER.dispatches,
+        launches=launches, plain_calls=plain,
+        einsum_calls=EINSUM.calls,
+        greedy_vs_fused=greedy_agreement(toks, fused["outputs"],
+                                         greedy))
+    emit(res)
+    check(res["completed"] == len(trace)
+          and all(len(t) == r.output_len
+                  for t, (r, _) in zip(toks, trace)),
+          f"{name}: a request did not complete to its output length")
+    check(all(0 <= x < cfg.vocab_size for t in toks for x in t),
+          f"{name}: token id outside the vocabulary")
+    if name == "disagg":
+        check(exports == imports > 0,
+              f"{name}: kv_exports {exports}, kv_imports {imports}")
+    check(all(launches[n] > 0 for n in TIER_PATH),
+          f"{name}: a kernel of its path never launched: {launches}")
+    check(set(stats["sgmv"].instances) <= {"tensor_cores"},
+          f"{name}: sgmv launched {stats['sgmv'].instances}")
+    check(not any(plain.values()) and EINSUM.calls == 0,
+          f"{name}: a plain/einsum path ran on the card")
+    check(peak < fused["peak_mem_gb"] + TIER_MEM_SLACK_GB,
+          f"{name}: peak memory {peak:.2f} GB against the fused "
+          f"engine's {fused['peak_mem_gb']:.2f} GB")
 
 
 KERNELS = {
@@ -840,18 +1161,20 @@ def main() -> int:
         dev = phase_device()
         rows, _ = phase_kernels()
         phase_parity()
+        phase_parity_engines()
         from repro_torch.configs import get_config
         from repro_torch.models import api
         cfg = get_config("chameleon-llama-7b")
         params = api.init_params(cfg, seed=0, dtype=torch.bfloat16)
-        launches = phase_engine(cfg, params)
+        engines = phase_engine(cfg, params)
+        phase_tiers(cfg, params, engines["fused"])
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     emit({"kernels": [
         dict(name=n, route="cuda", source=KERNELS[n][0],
              replaces=KERNELS[n][1],
-             launches=launches[LAUNCHES_FROM[n]][n],
+             launches=engines[LAUNCHES_FROM[n]]["launches"][n],
              max_abs_err=rows[n]["max_abs_err"], ms=rows[n]["ms"],
              plain_ms=rows[n]["plain_ms"], bound_ms=rows[n]["bound_ms"],
              bound_by=rows[n]["bound_by"], library_ms=rows[n]["library_ms"])

@@ -7,7 +7,9 @@ it (``prefix_cache=False``: whole-prompt dense prefill whose K/V are
 copied into the slot's pages), or over the dense KV slab
 (``paged=False``: one (max_slots, max_len) row per batch slot); the
 fused decode micro-horizon with pipelined readback or the seed loop,
-asynchronous adapter loads and kernel LoRA on the card. The control
+asynchronous adapter loads and kernel LoRA on the card; chunked prefill
+(``prefill_chunk_tokens > 0``) and the KV-migration API the
+disaggregated cluster ships requests with. The control
 plane — scheduler, adapter cache, memory pool, prefix radix tree,
 prefetchers — is the reference's own code (``repro_torch.core`` is a
 verbatim copy); this file moves bytes and drives the data plane.
@@ -28,10 +30,13 @@ records an event; ``_poll_loads`` retires the load once
 other slots meanwhile — the slot being written is free, and a LOADING
 adapter is never placed. On the CPU the copy is synchronous.
 
+Migration payloads are host copies in pinned memory, complete when
+``begin_migration`` returns; imports write them into the pool in place
+on the main stream, ahead of the next dispatch.
+
 Not ported yet (each raises ``NotImplementedError`` at construction,
-naming the knob): ``mesh_shape``, ``spec_decode``,
-``prefill_chunk_tokens > 0``, and every model family but the dense
-one; the disaggregation migration API raises when called.
+naming the knob): ``mesh_shape``, ``spec_decode``, and every model
+family but the dense one.
 """
 from __future__ import annotations
 
@@ -96,8 +101,6 @@ def _unsupported(cfg: ModelConfig, e: EngineConfig) -> list[str]:
         out.append(f"mesh_shape={e.mesh_shape}")
     if e.spec_decode:
         out.append("spec_decode=True")
-    if e.prefill_chunk_tokens > 0:
-        out.append(f"prefill_chunk_tokens={e.prefill_chunk_tokens}")
     if cfg.family != Family.DENSE:
         out.append(f"model family {cfg.family.name}")
     return out
@@ -114,6 +117,17 @@ def _host_copy(t: torch.Tensor) -> torch.Tensor:
     slot loads are true asynchronous H2D copies."""
     t = t.detach().to("cpu")
     return t.pin_memory() if torch.cuda.is_available() else t
+
+
+def _payload(t: torch.Tensor) -> torch.Tensor:
+    """A migration payload: a host copy of device KV, in pinned memory
+    from the card. The copy is synchronous, so it is complete before
+    the source frees the pages and before another engine reads it."""
+    if t.device.type != "cuda":
+        return t.clone()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host
 
 
 class AdapterCatalog:
@@ -296,6 +310,16 @@ class ChameleonEngine:
         # One dispatched-but-unsynced horizon: (toks, emits, K), the
         # blocks as (host tensor, copy-done event or None).
         self._inflight: Optional[tuple] = None
+
+        # --- chunked prefill: slot -> {req, prompt, done, table} ---
+        self._chunked: dict[int, dict] = {}
+        self.n_chunked_prefills = 0
+        # --- KV handoff (disaggregation): req_id -> slot held while
+        # MIGRATING ---
+        self._migrating: dict[int, int] = {}
+        self.n_kv_exports = 0
+        self.n_kv_imports = 0
+        self.kv_handoff_bytes = 0
 
     # ------------------------------------------------------------- clock
     def now(self) -> float:
@@ -512,14 +536,6 @@ class ChameleonEngine:
         else:
             self.n_expired += 1
 
-    # The disaggregation handoff is not ported yet.
-    def begin_migration(self, req: Request):
-        raise NotImplementedError("KV migration API (begin_migration) is "
-                                  "not ported to the PyTorch engine yet")
-
-    complete_migration = abort_migration = import_request_kv = \
-        begin_migration
-
     # ------------------------------------------------------ token delivery
     def _record_token(self, req: Request, pos: int, tok: int,
                       now: float) -> None:
@@ -542,6 +558,9 @@ class ChameleonEngine:
             handle._push(pos, tok)
 
     def _free_slots(self) -> list[int]:
+        """Slots a new placement may take: off the active mask and
+        holding no request (a chunked prefill in progress or a MIGRATING
+        request holds an inactive slot)."""
         return [s for s in range(self.ecfg.max_slots)
                 if not self.active[s] and self.slot_req[s] is None]
 
@@ -665,6 +684,17 @@ class ChameleonEngine:
         (squash path)."""
         if not reqs:
             return
+        e = self.ecfg
+        if self.paged and e.prefill_chunk_tokens > 0:
+            big = [r for r in reqs if r.input_len > e.prefill_chunk_tokens]
+            if big:
+                # Long prompts prefill a chunk per step and skip the
+                # prefix tree, as in the JAX engine.
+                reqs = [r for r in reqs
+                        if r.input_len <= e.prefill_chunk_tokens]
+                self._start_chunked(big)
+            if not reqs:
+                return
         if self.prefix is not None:
             return self._place_batch_prefix(reqs)
         free = self._free_slots()
@@ -790,6 +820,231 @@ class ChameleonEngine:
             self.pool.add_shared_page(pid)
             self.pool.share_pages([pid])
             self.slot_shared[slot].append(pid)
+
+    # ------------------------------------------------- chunked prefill
+    def _start_chunked(self, reqs: list[Request]) -> None:
+        """Admit long prompts onto slots without prefilling them yet:
+        the slot takes the request and all its prompt pages up front
+        (the memory admission decision of the monolithic path; a prompt
+        that cannot get its pages bounces through the squash path), then
+        ``_advance_chunked`` runs one ``prefill_chunk_tokens`` chunk per
+        engine step."""
+        now = self.now()
+        free = self._free_slots()
+        n_placed = 0
+        for req in reqs:
+            slot = free[n_placed]
+            self.slot_req[slot] = req
+            if self._grow_slot(slot, self.pool.pages_for(req.input_len),
+                               now):
+                # Decode writes each row's K/V at ``cache_len[row]``,
+                # masked or not; an inactive row is harmless only while
+                # its page-table row maps the trash page. The real row
+                # stays private until activation, and the zeroed global
+                # row reaches the card at the next dispatch (dirty).
+                row = self.page_table[slot].copy()
+                self.page_table[slot, :] = 0
+                self._page_table_dirty = True
+                self._chunked[slot] = {
+                    "req": req, "prompt": self._prompt_tokens(req),
+                    "done": 0, "table": row}
+                self.n_chunked_prefills += 1
+                n_placed += 1
+            else:
+                self.slot_req[slot] = None
+                self.n_preempted += 1
+                self.sched.on_squash(req, now)
+
+    def _advance_chunked(self) -> None:
+        """One prefill chunk for every mid-prefill slot: a B=1 suffix
+        prefill whose tokens attend to every position written before,
+        so the last chunk's logits (and every token) equal the
+        monolithic prefill's. The last chunk's logits give the first
+        token and the slot joins the decode batch."""
+        if not self._chunked:
+            return
+        chunk = self.ecfg.prefill_chunk_tokens
+        i32 = torch.int32
+        for slot in sorted(self._chunked):
+            st = self._chunked[slot]
+            req = st["req"]
+            done = st["done"]
+            L = req.input_len
+            n = min(chunk, L - done)
+            _, S = _bucket(1, n)
+            toks = np.zeros((1, S), np.int32)
+            toks[0, :n] = st["prompt"][done:done + n]
+            lslot = self.slot_of[req.adapter_id]
+            logits, self.kv_pages = api.prefill_paged(
+                self.cfg, self.params, self._tensor(toks, i32),
+                self.kv_pages, self._tensor(st["table"][None, :], i32),
+                self._tensor([done], i32), self._tensor([n], i32),
+                lora=self._prefill_lora(),
+                adapter_idx=self._tensor([lslot], i32),
+                lora_backend=self._lora_backend)
+            st["done"] = done + n
+            if st["done"] >= L:
+                del self._chunked[slot]
+                self.page_table[slot] = st["table"]
+                self._page_table_dirty = True
+                first = int(self._first_tokens(logits, [req], 1)[0])
+                self._start_decode(slot, req, first, lslot, self.now())
+                self._end_placement([req], [slot])
+
+    # ------------------------------------------- KV handoff (disagg)
+    def begin_migration(self, req: Request) -> Optional[dict]:
+        """Detach ``req`` from decode and copy its KV out for a
+        prefill->decode handoff (``serving/disagg.py``). Returns the
+        shipment, or None when the request cannot migrate (mid-chunk,
+        finished, or not here).
+
+        The slot is not freed: ``slot_req`` stays set, and the pool
+        holds and shared-page refs stay live, so neither the prefix
+        tree's eviction nor a cache shrink can take the pages. The
+        request enters MIGRATING; ``complete_migration`` (the shipment
+        landed) or ``abort_migration`` (cancel, deadline) releases it.
+        The in-flight horizon is drained first, so the pending token and
+        ``req.generated`` are current.
+        """
+        self._sync_inflight()
+        slot = next((i for i, r in enumerate(self.slot_req) if r is req),
+                    None)
+        if slot is None or slot in self._chunked \
+                or not self.active[slot] or req.terminal:
+            return None
+        cache_len = req.input_len + req.generated - 1
+        pending = int(self.tokens[slot, 0])
+        if self.paged:
+            pages = self.slot_pages[slot][:self.pool.pages_for(cache_len)]
+            idx = self._tensor(pages, torch.long)
+            k_pay, v_pay = (_payload(t[:, idx]) for t in self.kv_pages)
+        else:
+            k_pay, v_pay = (_payload(t[:, slot, :cache_len])
+                            for t in self.kv)
+        rid = req.req_id
+        shipment = {
+            "req": req,
+            "cache_len": cache_len,
+            "pending_token": pending,
+            "paged": self.paged,
+            "k": k_pay, "v": v_pay,
+            "nbytes": int(k_pay.nbytes + v_pay.nbytes),
+            # Streamed-token state moves with the request, so the decode
+            # replica's bookkeeping (positions, TBT reference point)
+            # continues where the source stopped.
+            "outputs": self.outputs.pop(rid, []),
+            "tbts": self._tbts.pop(rid, []),
+            "last_tok": self._last_tok.pop(rid, None),
+            "handle": self.handles.pop(rid, None),
+        }
+        req.state = RequestState.MIGRATING
+        self.active[slot] = False
+        self._migrating[rid] = slot
+        self.batch_epoch += 1
+        return shipment
+
+    def complete_migration(self, req: Request) -> None:
+        """The shipment landed on the decode replica: release this end
+        (adapter pin, KV pages, the slot)."""
+        slot = self._migrating.pop(req.req_id, None)
+        if slot is None:
+            return
+        self.sched.on_finish(req, self.now())
+        self._free_slot_pages(slot, req.req_id)
+        self.slot_req[slot] = None
+        self.batch_epoch += 1
+        self.n_kv_exports += 1
+
+    def abort_migration(self, req: Request,
+                        state: RequestState = RequestState.CANCELLED,
+                        shipment: Optional[dict] = None) -> bool:
+        """Cancel or deadline expiry while MIGRATING: finalize on the
+        source (the destination never saw the request). A shipment
+        passed back restores the streamed-token records export popped,
+        so ``handle.result()`` reports what the user saw."""
+        slot = self._migrating.pop(req.req_id, None)
+        if slot is None:
+            return False
+        if shipment is not None:
+            rid = req.req_id
+            self.outputs[rid] = list(shipment["outputs"])
+            self._tbts[rid] = list(shipment["tbts"])
+            if shipment["handle"] is not None:
+                self.handles[rid] = shipment["handle"]
+        self._finalize_slot(slot, state)
+        return True
+
+    def import_request_kv(self, shipment: dict) -> bool:
+        """Decode-replica end of the handoff: pin the adapter, reserve
+        pages (or slab tokens), write the shipped KV into this engine's
+        pool in place, restore the streamed-token state and join the
+        decode batch. Returns False, holding nothing, when a slot, the
+        adapter or pages are not available; the caller retries.
+
+        An adapter load this triggers is flushed synchronously: the
+        modeled H2D time overlapped the KV transfer on the link, and the
+        disagg router pre-warms decode replicas."""
+        self._sync_inflight()
+        req = shipment["req"]
+        free = self._free_slots()
+        if not free:
+            return False
+        slot = free[0]
+        now = self.now()
+        aid = req.adapter_id
+        rid = req.req_id
+        cache_len = shipment["cache_len"]
+        protect = self.sched.queued_adapter_ids() - {aid}
+        need = (self.pool.pages_for(cache_len) * self.pool.page_size
+                if self.paged else req.input_len + req.predicted_output)
+        extra = (0 if self.cache.resident(aid)
+                 else self.catalog.infos[aid].size_tokens)
+        if not self.cache.shrink_for_requests(need + extra, now, protect):
+            return False
+        try:
+            self.cache.acquire(aid, now, queued_protect=protect)
+        except PoolError:
+            return False
+        if not self.cache.is_ready(aid):
+            self.flush_loads()
+        self.slot_req[slot] = req
+        if self.paged:
+            if not self._grow_slot(slot, self.pool.pages_for(cache_len),
+                                   now):
+                self.slot_req[slot] = None
+                self.cache.release(aid, now)
+                return False
+            idx = self._tensor(self.slot_pages[slot], torch.long)
+            for t, pay in zip(self.kv_pages, (shipment["k"], shipment["v"])):
+                t.index_copy_(1, idx, pay.to(self.device))
+        else:
+            try:
+                self.pool.reserve_request(rid, need)
+            except PoolError:
+                self.slot_req[slot] = None
+                self.cache.release(aid, now)
+                return False
+            req.reserved_tokens = need
+            for t, pay in zip(self.kv, (shipment["k"], shipment["v"])):
+                t[:, slot, :cache_len] = pay.to(self.device)
+        req.adapter_ref = True
+        self.active[slot] = True
+        self.tokens[slot, 0] = shipment["pending_token"]
+        self.cache_len[slot] = cache_len
+        self.adapter_slot[slot] = self.slot_of[aid]
+        self.outputs[rid] = list(shipment["outputs"])
+        self._tbts[rid] = list(shipment["tbts"])
+        if shipment["last_tok"] is not None:
+            self._last_tok[rid] = shipment["last_tok"]
+        if shipment["handle"] is not None:
+            self.handles[rid] = shipment["handle"]
+        req.state = RequestState.RUNNING
+        if req.deadline is not None:
+            self._deadlines_armed = True
+        self.batch_epoch += 1
+        self.n_kv_imports += 1
+        self.kv_handoff_bytes += shipment["nbytes"]
+        return True
 
     def _hit_stop(self, req: Request) -> bool:
         """Did the latest recorded token hit a SamplingParams stop id?"""
@@ -918,6 +1173,15 @@ class ChameleonEngine:
                 self._finalize_slot(int(slot), RequestState.CANCELLED)
             elif req.deadline is not None and now >= req.deadline:
                 self._finalize_slot(int(slot), RequestState.EXPIRED)
+        # Mid-chunk prefills hold a slot and pages off the active mask.
+        for slot in list(self._chunked):
+            req = self._chunked[slot]["req"]
+            if req.cancel_requested:
+                del self._chunked[slot]
+                self._finalize_slot(slot, RequestState.CANCELLED)
+            elif req.deadline is not None and now >= req.deadline:
+                del self._chunked[slot]
+                self._finalize_slot(slot, RequestState.EXPIRED)
         if self._cancel_races:
             races, self._cancel_races = self._cancel_races, []
             for req in races:
@@ -952,6 +1216,7 @@ class ChameleonEngine:
         admitted = self.sched.schedule(now, running)
         self._run_prefetchers(now)
         self._place_batch(admitted)
+        self._advance_chunked()
         if self.paged:
             self._ensure_decode_pages()
         if not self.active.any():
@@ -1006,6 +1271,7 @@ class ChameleonEngine:
         adapter loads to poll."""
         return bool(self._deadlines_armed or self._cancel_armed
                     or self._cancel_races or self._pending_loads
+                    or self._chunked
                     or self.sched.pending_count() > 0)
 
     def _refresh_device_state(self) -> None:
@@ -1156,6 +1422,11 @@ class ChameleonEngine:
             for slot in to_squash:
                 self._squash_slot(slot)
 
+    def _sync_inflight(self) -> None:
+        """Barrier: retire any dispatched-but-unsynced horizon so host
+        records are complete (stats resets, migrations)."""
+        self._drain_inflight()
+
     def _plan_pipelined_horizon(self) -> Optional[int]:
         """Whether the *next* horizon can be dispatched from the carried
         device state before the in-flight one is synced; returns its K
@@ -1213,6 +1484,7 @@ class ChameleonEngine:
         admitted = self.sched.schedule(now, running)
         self._run_prefetchers(now)
         self._place_batch(admitted)
+        self._advance_chunked()
         if self.paged:
             self._ensure_decode_pages(self._host_lens())
         if not self.active.any():
@@ -1228,7 +1500,11 @@ class ChameleonEngine:
             self._drain_inflight()
 
     def busy(self) -> bool:
-        return bool(self.active.any()) or self.sched.pending_count() > 0
+        """Work in flight or queued. Mid-prefill chunked slots count;
+        MIGRATING slots do not (the disagg cluster's ``busy`` covers
+        shipments in flight)."""
+        return (bool(self.active.any()) or bool(self._chunked)
+                or self.sched.pending_count() > 0)
 
     def run_until_drained(self, max_steps: int = 10_000) -> None:
         for _ in range(max_steps):
@@ -1241,7 +1517,7 @@ class ChameleonEngine:
     def reset_stats(self) -> None:
         """Clear accounting after a warmup pass; device state and cache
         residency are kept."""
-        self._drain_inflight()
+        self._sync_inflight()
         self.flush_loads()
         self.completed = []
         self.records = []
@@ -1254,6 +1530,10 @@ class ChameleonEngine:
         self.n_cancelled = 0
         self.n_expired = 0
         self.n_async_loads = 0
+        self.n_chunked_prefills = 0
+        self.n_kv_exports = 0
+        self.n_kv_imports = 0
+        self.kv_handoff_bytes = 0
         self.prefix_hit_tokens = 0
         self.prefix_lookup_tokens = 0
         self.n_prefix_hits = 0
@@ -1280,6 +1560,18 @@ class ChameleonEngine:
         return {"kv_pages_used": used, "kv_pages_total": total,
                 "kv_page_util": used / max(1, total),
                 "preempted": self.n_preempted}
+
+    def handoff_stats(self) -> dict:
+        """Chunked-prefill and KV-handoff gauges (empty when unused)."""
+        if not (self.n_chunked_prefills or self.n_kv_exports
+                or self.n_kv_imports or self._chunked
+                or self._migrating):
+            return {}
+        return {"chunked_prefills": self.n_chunked_prefills,
+                "kv_exports": self.n_kv_exports,
+                "kv_imports": self.n_kv_imports,
+                "kv_handoff_gb": round(self.kv_handoff_bytes / 1e9, 6),
+                "migrating": len(self._migrating)}
 
     def prefix_stats(self) -> dict:
         """Prefix-reuse gauges (empty when the cache is off)."""
@@ -1314,6 +1606,7 @@ class ChameleonEngine:
             "fused_hotloop": self.fused,
             "batch_epoch": self.batch_epoch,
             **self.kv_page_stats(),
+            **self.handoff_stats(),
             **self.prefix_stats(),
         }
 
@@ -1342,6 +1635,7 @@ class ChameleonEngine:
                 float(np.mean(self.batch_occupancy))
                 if self.batch_occupancy else 0.0, 3),
             **self.kv_page_stats(),
+            **self.handoff_stats(),
             **self.prefix_stats(),
         }
         return m

@@ -22,7 +22,11 @@ before the product with V and the kernel keeps them in f32. The
 reduced engine must serve a shared-prefix trace through all three
 decode-path kernels, the dense slab and the non-prefix paged engines
 through flash_attention, their fused and seed loops must agree, and
-their greedy tokens must equal the CPU port's.
+their greedy tokens must equal the CPU port's. So must the tokens of
+the chunked-prefill engine (chunks of 4, 8 and 32) and of a request
+exported from one card engine and imported into another (paged and
+dense, and with the source's pipelined horizon in flight); migration
+payloads are pinned host copies within 1e-4 of the CPU's.
 
 sgmv and flash_attention each have two instances, chosen from dtype and
 shape alone (``sgmv_instance``, ``flash_instance``): every case asserts
@@ -530,3 +534,133 @@ def _serve(eng, trace, request_cls, t, dt=0.01):
     assert not eng.busy(), "engine failed to drain"
     assert all(len(h.tokens) == 8 for h in handles)
     return [h.tokens for h in handles]
+
+
+def _reduced_model():
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serving.engine import AdapterCatalog
+    cfg = get_config("chameleon-llama-7b").reduced()
+    params = api.init_params(cfg, 0, torch.float32, device="cpu")
+    return cfg, params, AdapterCatalog(cfg, 8, 32, seed=0, device="cpu")
+
+
+def _engine(model, dev, **kw):
+    """A reduced f32 engine on ``dev`` with its own virtual clock."""
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.systems import build_engine
+    cfg, params, catalog = model
+    t = [0.0]
+    eng = build_engine("chameleon", cfg, params,
+                       EngineConfig(max_slots=4, max_len=128,
+                                    n_lora_slots=4, n_adapters=8,
+                                    lora_backend="kernel", **kw),
+                       catalog=catalog, clock=lambda: t[0], device=dev)
+    return eng, t
+
+
+def _step(eng, t, dt=0.01):
+    if eng._load_stream is not None:
+        eng._load_stream.synchronize()
+    eng.step()
+    t[0] += dt
+
+
+#: (input_len, output_len, adapter) of tests/test_disagg.py's chunked
+#: prefill test.
+CHUNK_SPEC = [(25, 8, 0), (6, 5, 1), (40, 6, 2), (10, 4, 0), (33, 7, 3)]
+
+
+@pytest.mark.parametrize("chunk", [4, 8, 32])
+def test_reduced_chunked_engine_on_the_card(card, chunk):
+    """Chunked prefill at reduced width, f32: the card's tokens equal
+    the CPU port's; each chunk is a suffix prefill (sgmv) and decode
+    runs paged_attention and bgmv, with no plain path."""
+    from repro_torch.core import Request
+    model = _reduced_model()
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(1, 200, L).tolist() for L, _, _ in CHUNK_SPEC]
+    stats = (bgmv_mod.STATS, sgmv_mod.STATS, pa_mod.STATS)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng, t = _engine(model, dev, prefill_chunk_tokens=chunk)
+        for s in stats:
+            s.reset()
+        hs = [eng.submit(Request(input_len=L, output_len=O, adapter_id=a,
+                                 prompt=list(p)))
+              for (L, O, a), p in zip(CHUNK_SPEC, prompts)]
+        for _ in range(5000):
+            if not eng.busy():
+                break
+            _step(eng, t)
+        assert not eng.busy()
+        out[dev] = [h.tokens for h in hs]
+        assert eng.n_chunked_prefills == sum(L > chunk
+                                             for L, _, _ in CHUNK_SPEC)
+        if dev == "cuda":
+            assert all(s.launches > 0 for s in stats)
+            assert all(s.plain == 0 for s in stats)
+    assert out["cuda"] == out["cpu"]
+
+
+def _migrate(model, dev, paged, prompt, pipelined=False):
+    """Export the request after 3 tokens (from a horizon-1 source, or
+    from a default source with a horizon in flight), import it into a
+    default engine, finish there. Returns (tokens, shipment)."""
+    from repro_torch.core import Request
+    knobs = ({} if pipelined
+             else dict(max_horizon=1, pipeline_readback=False))
+    src, ts = _engine(model, dev, paged=paged, **knobs)
+    dst, td = _engine(model, dev, paged=paged)
+    req = Request(input_len=len(prompt), output_len=10, adapter_id=1,
+                  prompt=list(prompt))
+    h = src.submit(req)
+    for _ in range(200):
+        if len(h.tokens) >= 3 and (not pipelined
+                                   or src._inflight is not None):
+            break
+        _step(src, ts)
+    assert (src._inflight is not None) == pipelined
+    ship = src.begin_migration(req)
+    assert ship["cache_len"] == len(prompt) + req.generated - 1
+    assert dst.import_request_kv(ship)
+    src.complete_migration(req)
+    h._system = dst
+    for _ in range(1000):
+        if not dst.busy():
+            break
+        _step(dst, td)
+    assert h.done and len(h.tokens) == 10
+    return h.tokens, ship
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_reduced_migration_on_the_card(card, paged):
+    """A request exported after 3 tokens and imported into a second
+    card engine streams the CPU port's tokens; the payload is a pinned
+    host copy within 1e-4 of the CPU's."""
+    model = _reduced_model()
+    prompt = np.random.default_rng(5).integers(1, 200, 25).tolist()
+    want, cpu_ship = _migrate(model, "cpu", paged, prompt)
+    got, ship = _migrate(model, "cuda", paged, prompt)
+    assert got == want
+    for key in ("k", "v"):
+        assert ship[key].device.type == "cpu" and ship[key].is_pinned()
+        torch.testing.assert_close(ship[key], cpu_ship[key], rtol=1e-4,
+                                   atol=1e-4)
+    assert ship["nbytes"] == cpu_ship["nbytes"]
+
+
+def test_export_with_a_pipelined_horizon_in_flight_on_the_card(card):
+    """Default engines: the export drains the in-flight horizon, and the
+    migrated request streams the CPU port's single-engine tokens."""
+    from repro_torch.core import Request
+    model = _reduced_model()
+    prompt = np.random.default_rng(5).integers(1, 200, 25).tolist()
+    eng, t = _engine(model, "cpu")
+    h = eng.submit(Request(input_len=25, output_len=10, adapter_id=1,
+                           prompt=list(prompt)))
+    while eng.busy():
+        _step(eng, t)
+    got, _ = _migrate(model, "cuda", True, prompt, pipelined=True)
+    assert got == h.tokens

@@ -186,23 +186,12 @@ def test_alora_mode_matches_jax_engine(setup):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(mesh_shape=(1, 1)), dict(spec_decode=True),
-    dict(prefill_chunk_tokens=32)])
+    dict(mesh_shape=(1, 1)), dict(spec_decode=True)])
 def test_unported_knobs_raise_naming_the_knob(setup, knob):
     with pytest.raises(NotImplementedError, match=next(iter(knob))):
         engine.ChameleonEngine(setup["cfg"], setup["params"],
                                engine.EngineConfig(**BASE, **knob),
                                catalog=setup["cat"], device="cpu")
-
-
-def test_migration_api_raises(setup):
-    eng = engine.ChameleonEngine(setup["cfg"], setup["params"],
-                                 engine.EngineConfig(**BASE),
-                                 catalog=setup["cat"], device="cpu")
-    for name in ("begin_migration", "complete_migration",
-                 "abort_migration", "import_request_kv"):
-        with pytest.raises(NotImplementedError):
-            getattr(eng, name)(None)
 
 
 def test_engine_config_has_the_jax_fields_and_defaults():

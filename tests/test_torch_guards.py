@@ -6,6 +6,9 @@
 - The copied control-plane modules stay verbatim copies of the JAX
   package's (only their import lines differ), so a change to
   ``repro/core`` that the port misses fails here instead of diverging.
+  ``serving/cluster.py`` and ``serving/disagg.py`` are near-copies:
+  they differ only in import lines, lines that mention ``device`` and
+  the JAX cluster's mesh check (device meshes are not ported).
 - Every config and its ``.reduced()`` form equal the JAX package's.
 - Entry points called without ``device=`` run on the GPU or raise;
   they never fall back to the CPU.
@@ -34,7 +37,10 @@ COPIED = ([f"core/{n}.py" for n in (
     "__init__", "request", "sampling", "lora", "memory_pool",
     "adapter_cache", "predictor", "prefetcher", "prefix_cache",
     "scheduler", "baselines", "wrs", "kmeans", "quotas")]
-    + ["serving/handles.py", "serving/metrics.py", "models/base.py"]
+    + [f"serving/{n}.py" for n in (
+        "handles", "metrics", "trace", "cost_model", "simulator",
+        "gateway")]
+    + ["models/base.py"]
     + sorted(f"configs/{p.name}" for p in (REF / "configs").glob("*.py")))
 
 # Import statements and ``importlib.import_module`` calls.
@@ -58,6 +64,45 @@ def test_copied_module_matches_jax_package(rel):
         _normalised(REF / rel, "repro"), (
         f"src/repro_torch/{rel} drifted from src/repro/{rel}: copy the "
         f"change over (only import lines may differ)")
+
+
+#: The JAX ``EngineCluster``'s check of replicas × mesh size against the
+#: device count (it imports jax); the port raises for ``mesh_shape``.
+MESH_CHECK = ("        if self.ecfg.mesh_shape is not None:",
+              'f"devices, only {have} available")')
+#: A ``device=`` argument the port adds to a line of the JAX file.
+DEVICE_ARG = re.compile(r",? ?device=(device|None)")
+
+
+def _without_mesh_check(lines: list[str]) -> list[str]:
+    start = lines.index(MESH_CHECK[0])
+    end = next(i for i in range(start, len(lines))
+               if lines[i].strip() == MESH_CHECK[1])
+    return lines[:start] + lines[end + 1:]
+
+
+@pytest.mark.parametrize("rel", ["serving/cluster.py", "serving/disagg.py"])
+def test_near_copy_differs_only_in_imports_and_device(rel):
+    import difflib
+    ref = _normalised(REF / rel, "repro")
+    if rel == "serving/cluster.py":
+        ref = _without_mesh_check(ref)
+    port = _normalised(PORT / rel, "repro_torch")
+    sm = difflib.SequenceMatcher(a=ref, b=port, autojunk=False)
+    bad = []
+    for tag, i1, i2, j1, j2 in sm.get_opcodes():
+        if tag == "equal":
+            continue
+        # Port lines: imports, or lines that mention the device. JAX
+        # lines: imports, or a port line of the block without its
+        # ``device=`` argument.
+        bad += [ln for ln in port[j1:j2]
+                if not (IMPORT_LINE.search(ln) or "device" in ln)]
+        stripped = {DEVICE_ARG.sub("", ln) for ln in port[j1:j2]}
+        bad += [ln for ln in ref[i1:i2]
+                if not (IMPORT_LINE.search(ln) or ln in stripped)]
+    assert not bad, (f"src/repro_torch/{rel} differs from src/repro/{rel} "
+                     f"beyond imports and device lines: {bad}")
 
 
 def test_port_imports_no_jax_and_no_reference_package():
@@ -84,7 +129,12 @@ print(json.dumps({"modules": names, "bad": bad}))
                  "repro_torch.kernels.sgmv",
                  "repro_torch.kernels.paged_attention",
                  "repro_torch.kernels.flash_attention",
-                 "repro_torch.models.lm", "repro_torch.bridge"):
+                 "repro_torch.models.lm", "repro_torch.bridge",
+                 "repro_torch.serving.cluster", "repro_torch.serving.disagg",
+                 "repro_torch.serving.gateway",
+                 "repro_torch.serving.simulator",
+                 "repro_torch.distributed.elastic",
+                 "repro_torch.launch.serve"):
         assert must in res["modules"]
 
 
@@ -158,7 +208,8 @@ def _entry_points():
     from repro_torch.configs import get_config
     from repro_torch.models import api, lm
     from repro_torch.models.lora_apply import init_lora_slots
-    from repro_torch.serving import engine, systems
+    from repro_torch.launch import serve
+    from repro_torch.serving import cluster, disagg, engine, systems
     cfg = get_config("chameleon-llama-7b").reduced()
     params = lm.init_params(cfg, 0, torch.float32, device="cpu")
     return {
@@ -177,6 +228,15 @@ def _entry_points():
         "build_engine": lambda: systems.build_engine(
             "chameleon", cfg, params, engine.EngineConfig(n_adapters=2)),
         "build_system": lambda: systems.build_system("chameleon"),
+        "build_system cluster": lambda: systems.build_system(
+            "chameleon", "cluster"),
+        "build_system disagg": lambda: systems.build_system(
+            "chameleon", "disagg"),
+        "EngineCluster": lambda: cluster.EngineCluster(
+            cfg, params, engine.EngineConfig(n_adapters=2)),
+        "DisaggCluster": lambda: disagg.DisaggCluster(
+            cfg, params, engine.EngineConfig(n_adapters=2)),
+        "launch.serve engine": lambda: serve.main(["--backend", "engine"]),
         "bridge.to_torch": lambda: bridge.to_torch(np.zeros(2)),
         "bridge.params_to_torch": lambda: bridge.params_to_torch(
             {"w": np.zeros(2)}),
@@ -188,7 +248,9 @@ ENTRY_POINTS = ("init_params", "make_paged_kv", "make_kv_caches",
                 "init_serve_state", "init_paged_serve_state",
                 "init_lora_slots", "AdapterCatalog", "ChameleonEngine",
                 "ChameleonEngine paged=False",
-                "build_engine", "build_system", "bridge.to_torch",
+                "build_engine", "build_system", "build_system cluster",
+                "build_system disagg", "EngineCluster", "DisaggCluster",
+                "launch.serve engine", "bridge.to_torch",
                 "bridge.params_to_torch", "explicit cuda")
 
 
@@ -198,10 +260,12 @@ def test_entry_point_without_device_needs_the_gpu(no_cuda, name):
         _entry_points()[name]()
 
 
-def test_unported_tiers_raise():
+@pytest.mark.parametrize("tier", ["engine", "cluster", "disagg"])
+def test_mesh_shape_raises_naming_the_mesh(tier):
+    """Device meshes are the one ``build_system`` option not ported."""
     from repro_torch.serving import systems
-    for tier in ("sim", "cluster", "sim-cluster", "disagg"):
-        with pytest.raises(NotImplementedError):
-            systems.build_system("chameleon", tier, device="cpu")
-    with pytest.raises(NotImplementedError, match="gateway"):
-        systems.build_system("chameleon", device="cpu", gateway=True)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        systems.build_system("chameleon", tier, mesh_shape=(1, 1),
+                             device="cpu")
+    with pytest.raises(ValueError, match="mesh_shape"):
+        systems.build_system("chameleon", "sim", mesh_shape=(1, 1))
