@@ -33,7 +33,10 @@ of the JAX package. Phases, one JSON line each:
              rate), and paged_attention is also checked and timed at
              the trace's ragged decode lengths (32-232) on a
              ``kernel_time_ragged`` line, with SDPA over the gathered
-             pages under a length mask as its library time.
+             pages under a length mask as its library time. sgmv is
+             also checked and timed at the speculative verify pass's
+             shape (x (64, 4096): 8 rows of one tile of 8 tokens, dout
+             4096 and 1024) on ``kernel_time_verify`` lines.
 3. parity  — reduced Llama in f32, the card (kernels) against the CPU
              (plain versions) on the same weights: ``prefill_paged``
              and one ``decode_step_paged``; the dense ``prefill``, the
@@ -43,17 +46,32 @@ of the JAX package. Phases, one JSON line each:
              (``parity_engine``): a chunked-prefill engine (chunk 8),
              and requests exported mid-decode from one engine and
              imported into another, paged and dense. The card's tokens
-             must equal the CPU port's exactly.
+             must equal the CPU port's exactly. Then six speculative
+             engines (``parity_spec``): the 2-layer internlm2 draft with
+             a greedy and a mixed batch, and the self-draft over zero
+             adapter deltas, paged and dense; tokens and drafted and
+             accepted counts must equal the CPU port's, and the verify
+             pass's LoRA must run sgmv at tile 8.
 4. engine  — ``chameleon-llama-7b`` at full width (32 layers, d 4096,
              bf16 weights from a seeded generator): 16 requests over
              12 adapters from shared preambles, some seeded-sampled,
-             after a three-request warm-up, served by four engines
+             after a three-request warm-up, served by eight engines
              built and freed one at a time: the default
              ``EngineConfig`` (paged KV, prefix cache, fused loop), the
              seed decode loop as its A/B, the dense KV slab
              (``paged=False``), the paged engine without the prefix
-             cache (``prefix_cache=False``) and chunked prefill
-             (``prefill_chunk_tokens=64``). Kernel launch counts are
+             cache (``prefix_cache=False``), chunked prefill
+             (``prefill_chunk_tokens=64``), and two speculative engines
+             (``spec_decode=True``, ``spec_k=4``; ``spec_parts``):
+             ``spec``, with internlm2-1.8b at its published widths as
+             the draft (vocabulary cut to 32000; acceptance near 0),
+             and ``spec_self``, the shared-layer self-draft (acceptance
+             near 1), beside ``fused_self``, the fused engine on
+             ``spec_self``'s weights, whose greedy tokens it is held to
+             (reported). Their lines add the spec gauges, draft and verify
+             dispatches per token and sgmv's launches per tile; after
+             the drain every page must be back in the pool and the
+             draft mirror freed. Kernel launch counts are
              zeroed just before each engine's trace and read just
              after; every kernel on that engine's path must have
              launched, sgmv and flash_attention only in their
@@ -336,6 +354,7 @@ def phase_kernels() -> dict:
                         instance=sgmv.sgmv_instance(x.dtype, A.dtype, r,
                                                     tile),
                         shape=f"x {tuple(x.shape)} bf16, tile {tile}")
+    sgmv_verify_shape(record, randn, flush, sgmv, A, n_slots, d, r)
 
     # paged_attention: decode over f32 KV pages (the engine's), Kh 32,
     # G 1, dh 128; random lengths for the check, full rows for timing.
@@ -431,6 +450,49 @@ def phase_kernels() -> dict:
                  q, kp, vp, table, full),
              **flash_calls}
     return rows, calls
+
+
+def sgmv_verify_shape(record, randn, flush, sgmv, A, n_slots, d, r):
+    """sgmv at the speculative verify pass's shape: 8 rows of S 8 (a
+    verify of kk + 1 <= 5 tokens pads each row to one tile of 8), tile
+    8, r 32, 8 slots; dout 4096 (q, o) and 1024 (an 8-kv-head k, v, as
+    at dout 1024 the widths of a GQA model). Checked against the plain
+    version at the bf16 LoRA tolerance, then timed beside its bound and
+    two gathered ``bmm``s; one ``kernel_time_verify`` line each."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(77)
+    T, tile = 64, 8
+    ts = torch.randint(0, n_slots, (T // tile,), generator=g,
+                       device="cuda").int()
+    x = randn(T, d, dtype=torch.bfloat16)
+    for dout in (4096, 1024):
+        Bw = randn(n_slots, r, dout, dtype=torch.bfloat16, scale=r ** -0.5)
+        sgmv.STATS.reset()
+        got = sgmv.sgmv(x, A, Bw, ts, tile)
+        torch.cuda.synchronize()
+        check(sgmv.STATS.tiles == {tile: 1},
+              f"sgmv verify shape launched tiles {sgmv.STATS.tiles}")
+        inst = launched(sgmv, sgmv.sgmv_instance(x.dtype, A.dtype, r, tile))
+        record("sgmv", f"verify shape, x {tuple(x.shape)} bf16, tile "
+                       f"{tile}, dout {dout}", got,
+               sgmv.sgmv_plain(x, A, Bw, ts, tile), "lora_bf16",
+               instance=inst)
+        xt = x.view(T // tile, tile, d)
+        used = ts.unique().numel()
+        b, by = bound_ms(nbytes(x, ts) + used * nbytes(A[0], Bw[0])
+                         + T * dout * x.element_size(),
+                         2 * T * r * (d + dout), op_type(x, A))
+        emit(dict(
+            phase="kernel_time_verify", kernel="sgmv", instance=inst,
+            shape=f"x {tuple(x.shape)} bf16, tile {tile}, r {r}, "
+                  f"{n_slots} slots, dout {dout}",
+            ms=median_ms(lambda: sgmv.sgmv(x, A, Bw, ts, tile), flush),
+            plain_ms=median_ms(lambda: sgmv.sgmv_plain(x, A, Bw, ts, tile),
+                               flush),
+            bound_ms=b, bound_by=by,
+            library_ms=median_ms(lambda: torch.bmm(
+                torch.bmm(xt, A[ts.long()]), Bw[ts.long()]), flush),
+            library="gathered bmm x2"))
 
 
 def launched(mod, want: str) -> str:
@@ -704,6 +766,104 @@ def phase_parity_engines() -> None:
     check(ok, f"card vs CPU engine parity failed: {line}")
 
 
+def phase_parity_spec() -> None:
+    """Speculative engines at reduced width, f32, on the card and on the
+    CPU port with the same weights, adapters and trace: the 2-layer
+    internlm2 draft (its vocabulary cut to the target's) with a greedy
+    batch and a mixed one (every second request seeded), and the
+    target drafting for itself over zero LoRA deltas; paged and
+    ``paged=False``. Tokens and the drafted and accepted counts must be
+    equal; on the card the verify pass's LoRA must run sgmv at tile 8
+    and no plain version may run."""
+    import importlib
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import Request, SamplingParams
+    from repro_torch.models import api
+    from repro_torch.serving.engine import (AdapterCatalog, ChameleonEngine,
+                                            EngineConfig)
+    cfg = get_config("chameleon-llama-7b").reduced()
+    params = api.init_params(cfg, 0, torch.float32, device="cpu")
+    dcfg = get_config("internlm2-1.8b").reduced(n_layers=2,
+                                                vocab_size=cfg.vocab_size)
+    drafts = {"other": (dcfg, api.init_params(dcfg, 7, torch.float32,
+                                              device="cpu")),
+              "self": (cfg, params)}
+    catalogs = {"random": AdapterCatalog(cfg, 8, 32, seed=0, device="cpu"),
+                "zero": AdapterCatalog(cfg, 8, 32, seed=0, device="cpu")}
+    for w in catalogs["zero"].weights.values():
+        for a, b in w.values():
+            a.zero_()
+            b.zero_()
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(1, 200, L).tolist() for L, _, _ in PARITY_SPEC]
+    stats = {n: importlib.import_module(f"repro_torch.kernels.{n}").STATS
+             for n in KERNELS}
+    cases = {f"{draft}_{batch}_{'paged' if paged else 'dense'}":
+             (draft, batch, paged)
+             for paged in (True, False)
+             for draft, batch in (("other", "greedy"), ("other", "mixed"),
+                                  ("self", "greedy"))}
+    lines = []
+    for name, (draft, batch, paged) in cases.items():
+        out = {}
+        for dev in ("cpu", "cuda"):
+            for st in stats.values():
+                st.reset()
+            clock = [0.0]
+            eng = ChameleonEngine(
+                cfg, params, EngineConfig(
+                    max_slots=4, max_len=128, n_lora_slots=4, n_adapters=8,
+                    lora_backend="kernel", paged=paged, spec_decode=True),
+                catalog=catalogs["zero" if draft == "self" else "random"],
+                clock=lambda: clock[0], draft=drafts[draft], device=dev)
+            hs = [eng.submit(
+                Request(input_len=L, output_len=O + 8, adapter_id=a,
+                        prompt=list(p)),
+                sampling=(SamplingParams(temperature=0.8, top_k=20,
+                                         seed=100 + i)
+                          if batch == "mixed" and i % 2 else None))
+                for i, ((L, O, a), p) in enumerate(zip(PARITY_SPEC,
+                                                       prompts))]
+            for _ in range(5000):
+                if not eng.busy():
+                    break
+                if eng._load_stream is not None:
+                    eng._load_stream.synchronize()
+                eng.step()
+                clock[0] += 0.01
+            check(not eng.busy(), f"parity_spec {name}: failed to drain")
+            st = eng.spec_stats()
+            out[dev] = dict(
+                tokens=[h.tokens for h in hs],
+                drafted=st["spec_drafted_tokens"],
+                accepted=st["spec_accepted_tokens"],
+                sgmv_tiles=dict(stats["sgmv"].tiles),
+                launches={n: s.launches for n, s in stats.items()},
+                plain={n: s.plain for n, s in stats.items()})
+            del eng, hs
+        cpu, card = out["cpu"], out["cuda"]
+        line = dict(phase="parity_spec", case=name,
+                    tokens_equal=card["tokens"] == cpu["tokens"],
+                    drafted=[card["drafted"], cpu["drafted"]],
+                    accepted=[card["accepted"], cpu["accepted"]],
+                    sgmv_tiles=card["sgmv_tiles"],
+                    launches=card["launches"])
+        line["ok"] = (line["tokens_equal"]
+                      and card["drafted"] == cpu["drafted"] > 0
+                      and card["accepted"] == cpu["accepted"]
+                      and (draft != "self"
+                           or card["accepted"] == card["drafted"])
+                      and card["sgmv_tiles"].get(8, 0) > 0
+                      and not any(card["plain"].values()))
+        emit(line)
+        lines.append(line)
+    bad = [ln["case"] for ln in lines if not ln["ok"]]
+    check(not bad, f"card vs CPU speculative parity failed: {bad}")
+
+
 # ------------------------------------------------------------ phase 4
 def make_trace(vocab: int, n_req: int = 16, n_adapters: int = 12,
                out_len: int = 32, seed: int = 0):
@@ -810,6 +970,10 @@ def serve(eng, trace) -> dict:
         ttft_p99_s=float(np.percentile(ttft, 99)),
         decode_tok_per_s=decode_tok / max(last - first, 1e-9),
         dispatches_per_token=DISPATCH_METER.dispatches / max(decode_tok, 1),
+        draft_dispatches_per_token=(DISPATCH_METER.draft_dispatches
+                                    / max(decode_tok, 1)),
+        verify_dispatches_per_token=(DISPATCH_METER.verify_dispatches
+                                     / max(decode_tok, 1)),
         host_sync_s=DISPATCH_METER.sync_seconds)
 
 
@@ -842,7 +1006,75 @@ ENGINES = {
     # prefills) and skip the prefix tree.
     "chunked": (dict(prefill_chunk_tokens=64),
                 ("bgmv", "sgmv", "paged_attention")),
+    # Speculative decoding (``spec_parts``): an unrelated internlm2-1.8b
+    # draft at its published widths, and the shared-layer self-draft.
+    # The K=1 demotions run bgmv and paged_attention; the verify pass's
+    # LoRA runs sgmv at tile 8.
+    "spec": (dict(spec_decode=True, spec_k=4),
+             ("bgmv", "sgmv", "paged_attention")),
+    # The fused engine on spec_self's weights: the greedy tokens
+    # spec_self must keep.
+    "fused_self": (dict(), ("bgmv", "sgmv", "paged_attention")),
+    "spec_self": (dict(spec_decode=True, spec_k=4),
+                  ("bgmv", "sgmv", "paged_attention")),
 }
+#: Engines of ``ENGINES`` built from ``spec_parts``.
+SPEC_PARTS = ("spec", "fused_self", "spec_self")
+
+
+def spec_parts(name: str, cfg, params) -> dict:
+    """The target weights, adapter catalog and draft of an engine of
+    ``SPEC_PARTS``, and what was cut from the published configurations.
+
+    ``spec``: ``internlm2-1.8b`` at its published widths (24 layers, d
+    2048, 16/8 heads, Dh 128, ff 8192; arXiv:2403.17297), seeded bf16
+    weights, its vocabulary cut from 92544 to the target's 32000 (the
+    engine's vocabulary check). Its proposals are unrelated to the
+    target's, so acceptance is near 0: rejection, rollback and the
+    shrinking of ``spec_k`` at scale.
+
+    ``spec_self`` (and ``fused_self``, the same weights and catalog with
+    no draft): the shared-layer pair of
+    ``benchmarks/decode_hotloop.py`` rebuilt here: the target's ``o``
+    and ``down`` zeroed in layers 1-31 (new tensors, about 4 GB), a
+    1-layer draft sharing layer 0, the embeddings and the head, adapter
+    deltas zero. Its logits equal the target's up to the rounding of
+    GEMMs of other shapes, so acceptance is near 1: what speculation
+    does to decode tokens/s. The zeroed weights change values, not
+    shapes or launches."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serving.engine import AdapterCatalog, EngineConfig
+    if name == "spec":
+        dcfg = dataclasses.replace(get_config("internlm2-1.8b"),
+                                   vocab_size=cfg.vocab_size)
+        return dict(params=params, catalog=None,
+                    draft=(dcfg, api.init_params(dcfg, seed=1,
+                                                 dtype=torch.bfloat16)),
+                    reduced=["draft vocab_size 92544 -> "
+                             f"{cfg.vocab_size}"])
+    tparams = dict(params)
+    for k in ("layers/o", "layers/down"):
+        t = params[k].clone()
+        t[1:].zero_()
+        tparams[k] = t
+    dcfg = dataclasses.replace(cfg, n_layers=1)
+    dparams = {k: (v[:1] if k.startswith("layers/") else v)
+               for k, v in tparams.items()}
+    e = EngineConfig()
+    catalog = AdapterCatalog(cfg, e.n_adapters, e.r_max, seed=e.seed)
+    for w in catalog.weights.values():
+        for a, b in w.values():
+            a.zero_()
+            b.zero_()
+    draft = (dcfg, dparams) if name == "spec_self" else None
+    return dict(params=tparams, catalog=catalog, draft=draft,
+                reduced=["target o and down zeroed in layers 1-31",
+                         "draft: target layer 0, embeddings and head",
+                         "adapter deltas zero"])
 
 
 def phase_engine(cfg, params) -> dict:
@@ -853,14 +1085,24 @@ def phase_engine(cfg, params) -> dict:
 
     import torch
     from repro_torch.models.lora_apply import EINSUM
-    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.engine import ChameleonEngine, EngineConfig
     from repro_torch.serving.systems import build_engine
     stats = {n: importlib.import_module(f"repro_torch.kernels.{n}").STATS
              for n in KERNELS}
     ecfg = EngineConfig()
     results = {}
     for name, (knobs, path) in ENGINES.items():
-        eng = build_engine("chameleon", cfg, params, EngineConfig(**knobs))
+        spec = knobs.get("spec_decode", False)
+        parts = spec_parts(name, cfg, params) if name in SPEC_PARTS else None
+        if parts is not None:
+            eng = ChameleonEngine(cfg, parts["params"],
+                                  EngineConfig(**knobs),
+                                  catalog=parts["catalog"],
+                                  draft=parts["draft"])
+            check(eng.spec == spec, f"{name}: spec is {eng.spec}")
+        else:
+            eng = build_engine("chameleon", cfg, params,
+                               EngineConfig(**knobs))
         warm_up(eng, cfg.vocab_size)
         trace = make_trace(cfg.vocab_size)
         torch.cuda.reset_peak_memory_stats()
@@ -896,6 +1138,28 @@ def phase_engine(cfg, params) -> dict:
         if knobs.get("prefill_chunk_tokens"):
             check(res.get("chunked_prefills", 0) > 0,
                   f"{name}: no prompt was prefilled in chunks")
+        if spec:
+            res.update(eng.spec_stats(), sgmv_tiles=dict(stats["sgmv"].tiles),
+                       draft=dict(name=parts["draft"][0].name,
+                                  n_layers=parts["draft"][0].n_layers,
+                                  d_model=parts["draft"][0].d_model),
+                       draft_len_after=[int(x) for x in eng._draft_len],
+                       pages_back=(eng.pool.used_requests == 0
+                                   and len(eng.free_pages)
+                                   + eng.pool.n_shared_pages
+                                   == eng.n_pages - 1))
+            check(res["pages_back"],
+                  f"{name}: pages not back in the pool after the drain")
+            check(not any(res["draft_len_after"]),
+                  f"{name}: draft-KV mirror not freed: "
+                  f"{res['draft_len_after']}")
+            check(res["sgmv_tiles"].get(8, 0) > 0,
+                  f"{name}: the verify pass never ran sgmv at tile 8: "
+                  f"{res['sgmv_tiles']}")
+            check(res["spec_verify_dispatches"] > 0,
+                  f"{name}: no speculative round ran")
+        if parts is not None:
+            res["reduced"] = parts["reduced"]
         check(all(launches[n] > 0 for n in path),
               f"{name}: a kernel of its path never launched: {launches}")
         # bf16 weights give bf16 activations: every sgmv and
@@ -922,7 +1186,7 @@ def phase_engine(cfg, params) -> dict:
                   **{k: v for k, v in res.items() if k != "outputs"}))
         # Requests' handles point back at their engine: collect the
         # cycle so the next engine's peak does not hold this one.
-        del eng, est
+        del eng, est, parts
         gc.collect()
         torch.cuda.empty_cache()
     greedy = greedy_requests(cfg)
@@ -935,6 +1199,10 @@ def phase_engine(cfg, params) -> dict:
               greedy_vs_fused={name: agreement(name, "fused")
                                for name in results if name != "fused"},
               greedy_dense_vs_no_prefix=agreement("dense", "no_prefix"),
+              # spec_self serves other weights than fused: held to the
+              # fused engine on the same weights.
+              greedy_spec_self_vs_fused_self=agreement("spec_self",
+                                                       "fused_self"),
               decode_tok_per_s={name: res["decode_tok_per_s"]
                                 for name, res in results.items()},
               ttft_s={name: dict(p50=res["ttft_p50_s"],
@@ -1162,6 +1430,7 @@ def main() -> int:
         rows, _ = phase_kernels()
         phase_parity()
         phase_parity_engines()
+        phase_parity_spec()
         from repro_torch.configs import get_config
         from repro_torch.models import api
         cfg = get_config("chameleon-llama-7b")

@@ -40,18 +40,32 @@ class DispatchMeter:
     fraction are the two numbers the fused loop exists to shrink. A
     plain counter + accumulator, so the meter stays on in production
     paths.
+
+    Speculative decoding splits its device work into
+    ``draft_dispatches`` (draft forwards: the chained proposal steps
+    and the draft-KV catch-up passes) and ``verify_dispatches``
+    (multi-token target verify passes); ``dispatches`` still counts the
+    dispatches launched, so one speculative block ticks ``tick(1)``
+    plus the per-phase counts of the forwards inside it.
     """
 
     def __init__(self) -> None:
-        self.dispatches = 0
-        self.sync_seconds = 0.0
+        self.reset()
 
     def reset(self) -> None:
         self.dispatches = 0
+        self.draft_dispatches = 0
+        self.verify_dispatches = 0
         self.sync_seconds = 0.0
 
     def tick(self, n: int = 1) -> None:
         self.dispatches += n
+
+    def tick_draft(self, n: int = 1) -> None:
+        self.draft_dispatches += n
+
+    def tick_verify(self, n: int = 1) -> None:
+        self.verify_dispatches += n
 
     @contextlib.contextmanager
     def sync(self):

@@ -26,7 +26,9 @@ alone:
   ``csrc/lora.cuh`` with 16 rows of a tile per block and f32 FMAs.
   Tensor cores would round an f32 x to bf16 or TF32.
 
-``STATS.instances`` counts the launches of each. ``sgmv_plain`` is the
+``STATS.instances`` counts the launches of each, ``STATS.tiles`` the
+launches at each tile size (128 for a prefill bucket, 8 for a
+speculative verify pass of 2-8 tokens a row). ``sgmv_plain`` is the
 same function in plain PyTorch; the wrapper uses it only for CPU
 tensors.
 """
@@ -41,7 +43,17 @@ from .build import (CUDA_CORES, TENSOR_CORES, KernelStats, check_launch,
                     dtype_code, library, lora_splits, stream_handle)
 
 MAX_RANK = 128
-STATS = KernelStats()
+
+
+class SgmvStats(KernelStats):
+    """``KernelStats`` plus the launches at each tile size."""
+
+    def reset(self) -> None:
+        super().reset()
+        self.tiles: dict[int, int] = {}
+
+
+STATS = SgmvStats()
 
 ROWS_PER_BLOCK = 16          # CUDA-core instance (csrc/lora.cuh)
 TC_ROWS_PER_BLOCK = 64       # tensor-core instance (csrc/sgmv.cu)
@@ -146,6 +158,7 @@ def sgmv(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
                           int(inst == TENSOR_CORES), stream_handle(x.device))
     check_launch("sgmv", err)
     STATS.launched(inst)
+    STATS.tiles[tile] = STATS.tiles.get(tile, 0) + 1
     return y
 
 

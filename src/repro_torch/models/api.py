@@ -85,6 +85,74 @@ def decode_fused_paged(cfg, params, tokens, kv_pages, page_table,
                                  temperature, top_k, top_p, seeds, **kw)
 
 
+# --------------------------------------------- speculative draft–verify
+def supports_spec_draft(cfg: ModelConfig) -> bool:
+    """Families usable as the *draft* model of speculative decoding:
+    the draft runs chained ``lm.decode_step``s on a dense KV slab, so
+    dense decoder LMs only (the JAX gate). The target also needs
+    ``supports_fused``."""
+    return cfg.family == Family.DENSE
+
+
+def verify(cfg, params, tokens, kv_caches, cache_len, **kw):
+    """Multi-token target pass over dense KV returning all-position
+    logits (B, S, V): the verify half of speculative decoding."""
+    if not supports_fused(cfg):
+        raise NotImplementedError(
+            f"verify forward unsupported for family {cfg.family}")
+    _dense_only(cfg, "verify")
+    return lm.verify(cfg, params, tokens, kv_caches, cache_len, **kw)
+
+
+def verify_paged(cfg, params, tokens, kv_pages, page_table, cache_len,
+                 **kw):
+    """Multi-token target pass over paged KV (all-position logits)."""
+    if not supports_paged(cfg):
+        raise NotImplementedError(
+            f"paged verify unsupported for family {cfg.family}")
+    return lm.verify_paged(cfg, params, tokens, kv_pages, page_table,
+                           cache_len, **kw)
+
+
+def _spec_gate(cfg: ModelConfig, draft_cfg: ModelConfig,
+               paged: bool) -> None:
+    if not supports_fused(cfg) or (paged and not supports_paged(cfg)):
+        raise NotImplementedError(
+            f"speculative {'paged ' if paged else ''}decode unsupported "
+            f"for target family {cfg.family}")
+    if not supports_spec_draft(draft_cfg):
+        raise NotImplementedError(
+            f"speculative draft unsupported for family {draft_cfg.family}")
+    _dense_only(cfg, "speculative decode")
+
+
+def decode_spec_fused(cfg, params, draft_cfg, draft_params, tokens,
+                      kv_caches, draft_kv, cache_len, active, positions,
+                      budget, stop_ids, temperature, top_k, top_p, seeds,
+                      **kw):
+    """Fused speculative decode over dense KV: draft–verify rounds with
+    on-device acceptance (``lm._spec_decode_scan``)."""
+    _spec_gate(cfg, draft_cfg, paged=False)
+    return lm.decode_spec_fused(cfg, params, draft_cfg, draft_params,
+                                tokens, kv_caches, draft_kv, cache_len,
+                                active, positions, budget, stop_ids,
+                                temperature, top_k, top_p, seeds, **kw)
+
+
+def decode_spec_fused_paged(cfg, params, draft_cfg, draft_params, tokens,
+                            kv_pages, page_table, draft_kv, cache_len,
+                            active, positions, budget, stop_ids,
+                            temperature, top_k, top_p, seeds, **kw):
+    """Fused speculative decode with the target on paged KV."""
+    _spec_gate(cfg, draft_cfg, paged=True)
+    return lm.decode_spec_fused_paged(cfg, params, draft_cfg,
+                                      draft_params, tokens, kv_pages,
+                                      page_table, draft_kv, cache_len,
+                                      active, positions, budget, stop_ids,
+                                      temperature, top_k, top_p, seeds,
+                                      **kw)
+
+
 def init_paged_serve_state(cfg: ModelConfig, n_pages: int, page_size: int,
                            dtype=torch.bfloat16,
                            device: torch.device | str | None = None):
@@ -117,4 +185,6 @@ def prefill_paged(cfg, params, tokens, kv_pages, page_table, start,
 __all__ = ["supports_fused", "supports_paged", "init_params",
            "sample_tokens", "forward", "prefill", "decode_step",
            "decode_fused", "init_serve_state", "decode_fused_paged",
-           "init_paged_serve_state", "decode_step_paged", "prefill_paged"]
+           "init_paged_serve_state", "decode_step_paged", "prefill_paged",
+           "supports_spec_draft", "verify", "verify_paged",
+           "decode_spec_fused", "decode_spec_fused_paged"]

@@ -5,7 +5,10 @@ Port of the dense-family serving subset of ``src/repro/models/lm.py``:
 the whole-sequence ``forward`` and ``prefill`` (attention through the
 flash_attention kernel), decode over the dense slab (``decode_step``,
 ``decode_fused``) and over the paged pool (``prefill_paged``,
-``decode_step_paged``, ``decode_fused_paged``). Parameters are a *flat*
+``decode_step_paged``, ``decode_fused_paged``), and speculative
+draft–verify decoding on either (``verify``, ``verify_paged``,
+``decode_spec_fused``, ``decode_spec_fused_paged``), seeded rows on
+JAX's own threefry streams. Parameters are a *flat*
 dict {path: tensor} (see base.param_shapes) with per-layer tensors
 stacked on axis 0; the JAX ``lax.scan`` over that stack becomes a
 Python loop over the layer index, and the K-step decode scan a loop
@@ -25,6 +28,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.sampling import (SPEC_ACCEPT_FOLD, SPEC_DRAFT_FOLD,
+                                       SPEC_RESIDUAL_FOLD)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import flash_attention, paged_attention
 from repro_torch.models.base import ModelConfig, param_shapes
@@ -130,6 +135,24 @@ def _o_proj(cfg: ModelConfig, x: torch.Tensor, out: torch.Tensor, p: dict,
     return x + o
 
 
+def _slab_write(kv_cache, new_kv, pos: torch.Tensor,
+                keep: torch.Tensor) -> None:
+    """Write (k, v) (B, S, Kh, Dh) into the slabs (B, Smax, Kh, Dh) at
+    positions ``pos`` (B, S) where ``keep``; elsewhere the slot keeps its
+    old value, as JAX's ``.at[].set(mode="drop")`` drops the write. A
+    dropped position past the slab wraps to ``pos % Smax``: a row's
+    kept positions are one run below Smax and its dropped ones lie
+    after it, so no two writes of a call share a slot (S <= Smax) and
+    the result does not depend on the order of the writes."""
+    Smax = kv_cache[0].shape[1]
+    rows = torch.arange(pos.shape[0], device=pos.device)[:, None]
+    idx = pos % Smax
+    keep = keep[:, :, None, None]
+    for cache, new in zip(kv_cache, new_kv):
+        cache[rows, idx] = torch.where(keep, new.to(cache.dtype),
+                                       cache[rows, idx])
+
+
 def _attn(cfg: ModelConfig, x: torch.Tensor, p: dict, cos, sin,
           kv_cache=None, cache_len=None, lora=None, adapter_idx=None,
           lora_backend: str = "einsum"):
@@ -153,15 +176,9 @@ def _attn(cfg: ModelConfig, x: torch.Tensor, p: dict, cos, sin,
         new_kv = (k, v)
     else:
         k_cache, v_cache = kv_cache
-        Smax = k_cache.shape[1]
-        rows = torch.arange(B, device=x.device)[:, None]
-        idx = (cache_len.long()[:, None]
+        pos = (cache_len.long()[:, None]
                + torch.arange(S, device=x.device)[None, :])
-        keep = (idx < Smax)[:, :, None, None]
-        idx = idx.clamp(max=Smax - 1)
-        for cache, new in ((k_cache, k), (v_cache, v)):
-            cache[rows, idx] = torch.where(keep, new.to(cache.dtype),
-                                           cache[rows, idx])
+        _slab_write(kv_cache, (k, v), pos, pos < k_cache.shape[1])
         # An f32 slab promotes the attention output; keep the activation
         # dtype, as the paged path does (a no-op for f32 weights).
         out = decode_attention(q, k_cache, v_cache,
@@ -302,30 +319,40 @@ def make_paged_kv(cfg: ModelConfig, n_pages: int, page_size: int,
 
 
 # ------------------------------------------------------------- sampling
+def _filter_logits(logits: torch.Tensor, temperature: torch.Tensor,
+                   top_k: torch.Tensor, top_p: torch.Tensor
+                   ) -> torch.Tensor:
+    """The sampler's masking: logits (..., V) scaled by the temperature,
+    entries outside the top-k or the top-p nucleus set to -inf; the
+    parameters have the leading shape (...). Ranks break ties like
+    JAX's reversed stable ascending argsort."""
+    V = logits.shape[-1]
+    scaled = logits / torch.clamp(temperature, min=1e-6)[..., None]
+    # Rank every vocab entry within its row (0 = best).
+    order = torch.argsort(scaled, dim=-1, stable=True).flip(-1)
+    ranks = torch.empty_like(order).scatter_(
+        -1, order, torch.arange(V, device=logits.device).expand_as(order))
+    k_eff = torch.where(top_k > 0, top_k, torch.full_like(top_k, V))
+    keep_k = ranks < k_eff[..., None]
+    # Nucleus: keep entries whose *preceding* cumulative mass < top_p.
+    probs = torch.softmax(scaled, dim=-1)
+    sorted_p = torch.gather(probs, -1, order)
+    cum = torch.cumsum(sorted_p, dim=-1)
+    keep_p_sorted = (cum - sorted_p) < top_p[..., None]
+    keep_p = torch.gather(keep_p_sorted, -1, ranks)
+    return torch.where(keep_k & keep_p, scaled,
+                       torch.full_like(scaled, float("-inf")))
+
+
 def sample_tokens_core(logits: torch.Tensor, temperature: torch.Tensor,
                        top_k: torch.Tensor, top_p: torch.Tensor,
                        gumbel: torch.Tensor) -> torch.Tensor:
     """The noise-free half of ``sample_tokens``: temperature, top-k and
-    top-p masking, then argmax of masked + ``gumbel`` (B, V). Rows with
-    ``temperature <= 0`` are greedy argmax. Ties rank like the JAX
-    sampler's reversed stable ascending argsort."""
-    B, V = logits.shape
+    top-p masking (``_filter_logits``), then argmax of masked +
+    ``gumbel`` (B, V). Rows with ``temperature <= 0`` are greedy
+    argmax."""
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
-    scaled = logits / torch.clamp(temperature, min=1e-6)[:, None]
-    # Rank every vocab entry within its row (0 = best).
-    order = torch.argsort(scaled, dim=-1, stable=True).flip(-1)
-    ranks = torch.empty_like(order).scatter_(
-        1, order, torch.arange(V, device=logits.device).expand(B, V))
-    k_eff = torch.where(top_k > 0, top_k, torch.full_like(top_k, V))
-    keep_k = ranks < k_eff[:, None]
-    # Nucleus: keep entries whose *preceding* cumulative mass < top_p.
-    probs = torch.softmax(scaled, dim=-1)
-    sorted_p = torch.gather(probs, 1, order)
-    cum = torch.cumsum(sorted_p, dim=-1)
-    keep_p_sorted = (cum - sorted_p) < top_p[:, None]
-    keep_p = torch.gather(keep_p_sorted, 1, ranks)
-    masked = torch.where(keep_k & keep_p, scaled,
-                         torch.full_like(scaled, float("-inf")))
+    masked = _filter_logits(logits, temperature, top_k, top_p)
     sampled = torch.argmax(masked + gumbel, dim=-1).to(torch.int32)
     return torch.where(temperature > 0.0, sampled, greedy)
 
@@ -356,38 +383,57 @@ def _threefry2x32(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
     return x0 & _M32, x1
 
 
-def threefry_bits(seeds: torch.Tensor, positions: torch.Tensor,
-                  V: int) -> torch.Tensor:
-    """(B, V) int64 lanes holding ``jax.random.bits(fold_in(PRNGKey(s),
-    p), (V,))`` for each row's (seed, position), bit for bit. Seeds and
-    positions wrap to uint32 as ``astype(jnp.uint32)`` does.
+def threefry_bits(seeds: torch.Tensor, positions: torch.Tensor, V: int,
+                  fold: int | None = None) -> torch.Tensor:
+    """(..., V) int64 lanes holding ``jax.random.bits(key, (V,))`` for
+    ``key = fold_in(PRNGKey(s), p)``, or ``fold_in(key, fold)`` when a
+    stream tag ``fold`` is given (the speculative streams), bit for bit.
+    seeds (B,); positions (B,) or (B, S), giving (B, V) or (B, S, V).
+    Seeds and positions wrap to uint32 as ``astype(jnp.uint32)`` does.
 
-    ``PRNGKey(s)`` is the key (0, s); ``fold_in(key, p)`` hashes the
-    count pair (0, p) under it; the bits of element i are ``out0 ^
+    ``PRNGKey(s)`` is the key (0, s); ``fold_in(key, d)`` hashes the
+    count pair (0, d) under it; the bits of element i are ``out0 ^
     out1`` of the hash of (0, i) under the folded key (the partitionable
-    path, ``jax_threefry_partitionable=True``, JAX's default)."""
-    s = (seeds.long() & _M32)[:, None]
-    p = (positions.long() & _M32)[:, None]
+    path, ``jax_threefry_partitionable=True``, JAX's default). A
+    shape-() draw hashes the count (0, 0): element 0 of a (V,) draw."""
+    p = positions.long() & _M32
+    s = (seeds.long() & _M32).reshape((-1,) + (1,) * (p.dim() - 1))
     k0, k1 = _threefry2x32(torch.zeros_like(s), s, torch.zeros_like(p), p)
+    if fold is not None:
+        k0, k1 = _threefry2x32(k0, k1, torch.zeros_like(k0),
+                               torch.full_like(k0, fold))
     i = torch.arange(V, device=seeds.device, dtype=torch.long)
-    b0, b1 = _threefry2x32(k0, k1, torch.zeros_like(i), i)
+    b0, b1 = _threefry2x32(k0[..., None], k1[..., None],
+                           torch.zeros_like(i), i)
     return b0 ^ b1
 
 
-def gumbel_noise(seeds: torch.Tensor, positions: torch.Tensor,
-                 V: int) -> torch.Tensor:
-    """(B, V) f32 Gumbel noise equal to the JAX sampler's
-    ``jax.random.gumbel(fold_in(PRNGKey(seed), position), (V,))``: a
-    token's randomness depends only on (seed, position), so it is the
-    same across batch compositions and re-executions, and it is computed
-    on the tensors' own device with no host round-trip (the fused loop
-    draws it inside the horizon). The uniform is ``random.uniform``'s
-    on [tiny, 1): the top 23 bits as a mantissa in [1, 2), minus 1,
-    plus tiny (JAX's scale by 1 - tiny is 1 in f32, and its floor at
-    tiny cannot bind)."""
-    bits = threefry_bits(seeds, positions, V)
+def _unit_uniform(bits: torch.Tensor) -> torch.Tensor:
+    """``random.uniform``'s f32 on [0, 1): the top 23 bits as a mantissa
+    in [1, 2), minus 1."""
     mant = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    u = (mant - 1.0) + _F32_TINY
+    return mant - 1.0
+
+
+def uniform_noise(seeds: torch.Tensor, positions: torch.Tensor,
+                  fold: int | None = None) -> torch.Tensor:
+    """``jax.random.uniform(key)``, one f32 scalar per (seed, position)
+    with ``threefry_bits``' key: positions' shape, on [0, 1)."""
+    return _unit_uniform(threefry_bits(seeds, positions, 1, fold)[..., 0])
+
+
+def gumbel_noise(seeds: torch.Tensor, positions: torch.Tensor, V: int,
+                 fold: int | None = None) -> torch.Tensor:
+    """(B, V) (or (B, S, V)) f32 Gumbel noise equal to
+    ``jax.random.gumbel(key, (V,))`` with ``threefry_bits``' key: a
+    token's randomness depends only on (seed, position[, stream]), so it
+    is the same across batch compositions and re-executions, and it is
+    computed on the tensors' own device with no host round-trip (the
+    fused loop draws it inside the horizon). The uniform is
+    ``random.uniform``'s on [tiny, 1): ``_unit_uniform`` plus tiny
+    (JAX's scale by 1 - tiny is 1 in f32, and its floor at tiny cannot
+    bind)."""
+    u = _unit_uniform(threefry_bits(seeds, positions, V, fold)) + _F32_TINY
     return -torch.log(-torch.log(u))
 
 
@@ -570,23 +616,17 @@ def decode_step_paged(cfg: ModelConfig, params: dict, tokens, kv_pages,
     return _head(cfg, params, h), (k_pages, v_pages)
 
 
-def prefill_paged(cfg: ModelConfig, params: dict, tokens, kv_pages,
-                  page_table, start, seq_len, lora=None, adapter_idx=None,
+def _paged_layers(cfg: ModelConfig, params: dict, tokens, kv_pages,
+                  page_table, start, valid, lora=None, adapter_idx=None,
                   lora_backend: str = "einsum"):
-    """Suffix prefill straight into paged KV (prefix-cache data plane).
-
-    tokens: (B, S) right-padded *suffix* token ids; start: (B,) absolute
-    position of tokens[:, 0] (the cached prefix length, 0 on a miss);
-    seq_len: (B,) valid suffix lengths (>= 1); page_table: (B, P)
-    physical pages covering positions 0..start+S-1.
-
-    Per layer: project the suffix q/k/v (RoPE at the absolute offset),
-    write K/V into the pages at positions start..start+seq_len-1
-    (padding redirected to trash page 0), gather the request's whole
-    page list back to (B, P*page, Kh, Dh), and run offset-causal
-    attention over it. Returns (last-valid-position logits (B, V) f32,
-    kv_pages updated in place).
-    """
+    """The layer stack of a multi-token pass over paged KV, shared by
+    ``prefill_paged`` and ``verify_paged``. Row b's tokens sit at
+    absolute positions ``start[b] ..``; per layer their K/V is written
+    into the pages in place (positions not ``valid`` (B, S) go to trash
+    page 0; the block index clamps to the table as JAX's gather does),
+    the row's whole page list is gathered back to (B, P*page, Kh, Dh)
+    and offset-causal attention runs over it. Returns the hidden
+    (B, S, D)."""
     B, S = tokens.shape
     dev = tokens.device
     x = embed(tokens, params["embed/tok"])
@@ -596,7 +636,6 @@ def prefill_paged(cfg: ModelConfig, params: dict, tokens, kv_pages,
     P = page_table.shape[1]
     pt = page_table.long()
     pos = start.long()[:, None] + torch.arange(S, device=dev)[None, :]
-    valid = torch.arange(S, device=dev)[None, :] < seq_len.long()[:, None]
     blk = torch.clamp(pos // page, max=P - 1)
     page_idx = torch.where(valid, torch.gather(pt, 1, blk),
                            torch.zeros_like(blk))        # pad → trash
@@ -618,6 +657,286 @@ def prefill_paged(cfg: ModelConfig, params: dict, tokens, kv_pages,
         h = _o_proj(cfg, h, out, p, lr, adapter_idx,
                     lora_backend=lora_backend)
         h = _mlp(cfg, h, p)
+    return h
+
+
+def prefill_paged(cfg: ModelConfig, params: dict, tokens, kv_pages,
+                  page_table, start, seq_len, lora=None, adapter_idx=None,
+                  lora_backend: str = "einsum"):
+    """Suffix prefill straight into paged KV (prefix-cache data plane).
+
+    tokens: (B, S) right-padded *suffix* token ids; start: (B,) absolute
+    position of tokens[:, 0] (the cached prefix length, 0 on a miss);
+    seq_len: (B,) valid suffix lengths (>= 1); page_table: (B, P)
+    physical pages covering positions 0..start+S-1.
+
+    Per layer (``_paged_layers``): project the suffix q/k/v (RoPE at the
+    absolute offset), write K/V into the pages at positions
+    start..start+seq_len-1 (padding redirected to trash page 0), gather
+    the request's whole page list back and run offset-causal attention
+    over it. Returns (last-valid-position logits (B, V) f32, kv_pages
+    updated in place).
+    """
+    B, S = tokens.shape
+    dev = tokens.device
+    valid = torch.arange(S, device=dev)[None, :] < seq_len.long()[:, None]
+    h = _paged_layers(cfg, params, tokens, kv_pages, page_table, start,
+                      valid, lora, adapter_idx, lora_backend)
     last = (seq_len.long() - 1).clamp(min=0)
     h_last = h[torch.arange(B, device=dev), last][:, None]
-    return _head(cfg, params, h_last), (k_pages, v_pages)
+    return _head(cfg, params, h_last), kv_pages
+
+
+# ---------------------------------- speculative decoding (draft–verify)
+def verify(cfg: ModelConfig, params: dict, tokens, kv_caches, cache_len,
+           seq_len=None, lora=None, adapter_idx=None,
+           lora_backend: str = "einsum"):
+    """Multi-token target pass over the dense KV slab: the verify half
+    of speculative decoding, logits of *every* position.
+
+    tokens: (B, S) at absolute positions ``cache_len[b] ..
+    cache_len[b]+S-1``; kv_caches: (k, v) each (L, B, Smax, Kh, Dh),
+    written in place at those positions; a write past the slab or at a
+    position >= ``seq_len`` (B,) (right padding, the draft catch-up) is
+    dropped (``_slab_write``). Attention is offset-causal over the whole
+    slab, so position j sees exactly the keys one ``decode_step`` would.
+    Returns (logits (B, S, V) f32, kv_caches).
+    """
+    B, S = tokens.shape
+    dev = tokens.device
+    x = embed(tokens, params["embed/tok"])
+    cos, sin = _positions(cfg, tokens, cache_len)
+    ar = torch.arange(S, device=dev)[None, :]
+    pos = cache_len.long()[:, None] + ar
+    keep = pos < kv_caches[0].shape[2]
+    if seq_len is not None:
+        keep = keep & (ar < seq_len.long()[:, None])
+    h = x
+    for i, p, lr in _layers(cfg, params, lora):
+        _, q, k, v = _qkv_proj(cfg, h, p, cos, sin, lr, adapter_idx,
+                               lora_backend=lora_backend)
+        kc, vc = kv_caches[0][i], kv_caches[1][i]
+        _slab_write((kc, vc), (k, v), pos, keep)
+        out = suffix_attention(q, kc, vc, pos).to(q.dtype)
+        out = out.reshape(B, S, cfg.q_dim)
+        h = _o_proj(cfg, h, out, p, lr, adapter_idx,
+                    lora_backend=lora_backend)
+        h = _mlp(cfg, h, p)
+    return _logits(cfg, params, h), kv_caches
+
+
+def verify_paged(cfg: ModelConfig, params: dict, tokens, kv_pages,
+                 page_table, cache_len, seq_len=None, lora=None,
+                 adapter_idx=None, lora_backend: str = "einsum"):
+    """``verify`` over paged KV: K/V lands in the request's pages at
+    positions ``cache_len .. cache_len+S-1`` (positions past the table
+    or past ``seq_len`` go to trash page 0), the page list is gathered
+    back and attention is offset-causal (``_paged_layers``). Returns
+    (logits (B, S, V) f32, kv_pages updated in place)."""
+    S = tokens.shape[1]
+    dev = tokens.device
+    ar = torch.arange(S, device=dev)[None, :]
+    page = kv_pages[0].shape[2]
+    valid = cache_len.long()[:, None] + ar < page_table.shape[1] * page
+    if seq_len is not None:
+        valid = valid & (ar < seq_len.long()[:, None])
+    h = _paged_layers(cfg, params, tokens, kv_pages, page_table, cache_len,
+                      valid, lora, adapter_idx, lora_backend)
+    return _logits(cfg, params, h), kv_pages
+
+
+def _spec_filtered(logits: torch.Tensor, temperature: torch.Tensor,
+                   top_k: torch.Tensor, top_p: torch.Tensor):
+    """Temperature, top-k and top-p masking identical to
+    ``sample_tokens``, plus the renormalised probabilities of the kept
+    set (the rejection rule's p and q). logits (..., V); the parameters
+    have the leading shape (...). Returns (masked scaled logits,
+    filtered probabilities)."""
+    masked = _filter_logits(logits, temperature, top_k, top_p)
+    return masked, torch.softmax(masked, dim=-1)
+
+
+def _spec_residual(pprobs: torch.Tensor, qprobs: torch.Tensor
+                   ) -> torch.Tensor:
+    """The rejection rule's resample distribution: max(p - q, 0)
+    renormalised, or p itself where that mass is 0 (p == q)."""
+    resid = torch.clamp(pprobs - qprobs, min=0.0)
+    rsum = resid.sum(dim=-1, keepdim=True)
+    return torch.where(rsum > 0, resid / torch.clamp(rsum, min=1e-30),
+                       pprobs)
+
+
+def _draft_propose(logits, temperature, top_k, top_p, seeds, positions):
+    """One chained draft step's proposal: greedy rows take the draft
+    argmax, sampled rows draw from the filtered draft distribution with
+    the SPEC_DRAFT stream. Returns (tokens (B,) int32, filtered draft
+    probabilities (B, V): the rejection rule's q)."""
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    masked, qprobs = _spec_filtered(logits, temperature, top_k, top_p)
+    gumbel = gumbel_noise(seeds, positions, logits.shape[-1],
+                          SPEC_DRAFT_FOLD)
+    sampled = torch.argmax(masked + gumbel, dim=-1).to(torch.int32)
+    return torch.where(temperature > 0.0, sampled, greedy), qprobs
+
+
+def _spec_decode_scan(draft_one, verify_multi, tokens, cache_len, active,
+                      positions, kv, draft_kv, budget, stop_ids,
+                      temperature, top_k, top_p, seeds, max_ctx: int,
+                      n_rounds: int, spec_k: int, all_greedy: bool):
+    """Fused draft–verify decode: ``n_rounds`` speculative rounds, up to
+    ``spec_k + 1`` tokens a row a round, as a loop of device launches
+    with no host sync (the JAX ``lax.scan`` over rounds and draft steps).
+
+    Each round: the draft runs ``spec_k + 1`` chained single-token steps
+    on its own KV (one past the last proposal, so its cache holds every
+    accepted token's entry when all drafts land), proposing
+    ``d_1..d_spec_k``; the target scores ``[t0, d_1..d_spec_k]`` in one
+    ``verify_multi`` pass; acceptance, the correction or bonus token
+    and the per-row rollback stay on the device. Greedy rows accept
+    ``d_j`` iff it equals the target argmax, so their tokens equal the
+    non-speculative loop's; sampled rows use rejection sampling
+    (accept with probability min(1, p/q), else resample the residual
+    max(p - q, 0)) on (seed, position) spec streams. Both caches
+    advance by the emitted count only: entries past it are overwritten
+    by the next round before attention reads them. The per-emission
+    finish conditions (budget, stop id, context bound) are
+    ``_fused_decode_scan``'s, replayed emission by emission.
+
+    draft_one: (tokens (B,1), draft_kv, clen) -> (logits (B,V), kv').
+    verify_multi: (tokens (B,S), kv, clen) -> (logits (B,S,V), kv').
+    Returns ((tokens', kv', draft_kv', cache_len', active', positions'),
+             toks (n_rounds*(spec_k+1), B) int32, emits (same) bool,
+             accepted drafts (n_rounds, B) int32).
+    """
+    K = spec_k
+    B = tokens.shape[0]
+    dev = tokens.device
+    rows = torch.arange(B, device=dev)
+    jj = torch.arange(K + 1, device=dev, dtype=torch.int32)
+    sampled_rows = temperature > 0.0
+    toks, emits, accs = [], [], []
+    for _ in range(n_rounds):
+        tok, drafts, qps = tokens, [], []
+        for j in range(K + 1):
+            dlogits, draft_kv = draft_one(tok, draft_kv, cache_len + j)
+            if all_greedy:
+                nxt = torch.argmax(dlogits, dim=-1).to(torch.int32)
+            else:
+                nxt, qp = _draft_propose(dlogits, temperature, top_k,
+                                         top_p, seeds, positions + j)
+                qps.append(qp)
+            drafts.append(nxt)
+            tok = nxt[:, None]
+        d_check = torch.stack(drafts[:K], dim=1)             # (B, K)
+        vlogits, kv = verify_multi(torch.cat([tokens, d_check], dim=1),
+                                   kv, cache_len)            # (B, K+1, V)
+        tgt = torch.argmax(vlogits, dim=-1).to(torch.int32)
+        acc = d_check == tgt[:, :K]
+        if not all_greedy:
+            qprobs = torch.stack(qps[:K], dim=1)             # (B, K, V)
+            _, pprobs = _spec_filtered(
+                vlogits[:, :K], temperature[:, None].expand(B, K),
+                top_k[:, None].expand(B, K), top_p[:, None].expand(B, K))
+            dl = d_check.long()[..., None]
+            p_d = torch.gather(pprobs, -1, dl)[..., 0]
+            q_d = torch.gather(qprobs, -1, dl)[..., 0]
+            pos_mat = positions[:, None] + jj[None, :K]
+            u = uniform_noise(seeds, pos_mat, SPEC_ACCEPT_FOLD)
+            # u < min(1, p/q)  <=>  u*q < p (q > 0 on the proposal's support)
+            acc_s = u * torch.clamp(q_d, min=1e-30) < p_d
+            acc = torch.where(sampled_rows[:, None], acc_s, acc)
+        n_acc = torch.cumprod(acc.to(torch.int32), dim=1).sum(dim=1) \
+            .to(torch.int32)
+        corr = tgt[rows, n_acc.long()]           # argmax(L_n)
+        if not all_greedy:
+            V = vlogits.shape[-1]
+            resid = _spec_residual(pprobs, qprobs)
+            rg = gumbel_noise(seeds, pos_mat, V, SPEC_RESIDUAL_FOLD)
+            resid_tok = torch.argmax(
+                torch.log(torch.clamp(resid, min=1e-38)) + rg,
+                dim=-1).to(torch.int32)                      # (B, K)
+            bonus = sample_tokens(vlogits[:, K], temperature, top_k, top_p,
+                                  seeds, positions + K)
+            corr_s = torch.where(
+                n_acc < K,
+                resid_tok[rows, torch.clamp(n_acc, max=K - 1).long()],
+                bonus)
+            corr = torch.where(sampled_rows, corr_s, corr)
+        # Emission slot j holds d_{j+1} while accepted, else the
+        # correction or bonus at slot n_acc (slots past it are masked).
+        padded = torch.cat([d_check, torch.zeros_like(d_check[:, :1])],
+                           dim=1)
+        e = torch.where(jj[None, :] < n_acc[:, None], padded,
+                        corr[:, None])
+        m = active
+        for j in range(K + 1):
+            ej = e[:, j]
+            emit_j = m & (j <= n_acc)
+            new_pos = positions + (j + 1)
+            new_len = cache_len + (j + 1)
+            hit_stop = (ej[:, None] == stop_ids).any(dim=-1)
+            done_j = emit_j & ((new_pos >= budget) | hit_stop
+                               | (new_len + 1 >= max_ctx - 1))
+            m = m & ~done_j
+            toks.append(ej)
+            emits.append(emit_j)
+        cnt = torch.stack(emits[-(K + 1):]).to(torch.int32).sum(dim=0) \
+            .to(torch.int32)
+        new_tok = e[rows, torch.clamp(cnt - 1, min=0).long()]
+        tokens = torch.where(cnt > 0, new_tok, tokens[:, 0])[:, None]
+        accs.append(torch.where(active, n_acc, torch.zeros_like(n_acc)))
+        cache_len, active, positions = (cache_len + cnt, m,
+                                        positions + cnt)
+    return ((tokens, kv, draft_kv, cache_len, active, positions),
+            torch.stack(toks), torch.stack(emits), torch.stack(accs))
+
+
+def decode_spec_fused(cfg: ModelConfig, params: dict,
+                      draft_cfg: ModelConfig, draft_params: dict, tokens,
+                      kv_caches, draft_kv, cache_len, active, positions,
+                      budget, stop_ids, temperature, top_k, top_p, seeds,
+                      *, spec_k: int, n_rounds: int, all_greedy: bool,
+                      max_ctx: int, lora=None, adapter_idx=None,
+                      lora_backend: str = "einsum"):
+    """Speculative fused decode over the dense KV slab: the draft runs
+    ``decode_step`` on its own dense slab with base weights only (the
+    adapters ride along at verify time), the target ``verify``."""
+
+    def draft_one(tok, dkv, clen):
+        return decode_step(draft_cfg, draft_params, tok, dkv, clen)
+
+    def verify_multi(toks, kv, clen):
+        return verify(cfg, params, toks, kv, clen, lora=lora,
+                      adapter_idx=adapter_idx, lora_backend=lora_backend)
+
+    return _spec_decode_scan(draft_one, verify_multi, tokens, cache_len,
+                             active, positions, kv_caches, draft_kv,
+                             budget, stop_ids, temperature, top_k, top_p,
+                             seeds, max_ctx, n_rounds, spec_k, all_greedy)
+
+
+def decode_spec_fused_paged(cfg: ModelConfig, params: dict,
+                            draft_cfg: ModelConfig, draft_params: dict,
+                            tokens, kv_pages, page_table, draft_kv,
+                            cache_len, active, positions, budget,
+                            stop_ids, temperature, top_k, top_p, seeds, *,
+                            spec_k: int, n_rounds: int, all_greedy: bool,
+                            max_ctx: int, lora=None, adapter_idx=None,
+                            lora_backend: str = "einsum"):
+    """Speculative fused decode with the target on paged KV (the draft
+    keeps its dense slab). The engine allocates pages covering every
+    write a round can make (``cache_len + spec_k + 1``) beforehand and
+    shrinks back after readback."""
+
+    def draft_one(tok, dkv, clen):
+        return decode_step(draft_cfg, draft_params, tok, dkv, clen)
+
+    def verify_multi(toks, kv, clen):
+        return verify_paged(cfg, params, toks, kv, page_table, clen,
+                            lora=lora, adapter_idx=adapter_idx,
+                            lora_backend=lora_backend)
+
+    return _spec_decode_scan(draft_one, verify_multi, tokens, cache_len,
+                             active, positions, kv_pages, draft_kv,
+                             budget, stop_ids, temperature, top_k, top_p,
+                             seeds, max_ctx, n_rounds, spec_k, all_greedy)

@@ -8,8 +8,11 @@ copied into the slot's pages), or over the dense KV slab
 (``paged=False``: one (max_slots, max_len) row per batch slot); the
 fused decode micro-horizon with pipelined readback or the seed loop,
 asynchronous adapter loads and kernel LoRA on the card; chunked prefill
-(``prefill_chunk_tokens > 0``) and the KV-migration API the
-disaggregated cluster ships requests with. The control
+(``prefill_chunk_tokens > 0``), the KV-migration API the
+disaggregated cluster ships requests with, and speculative draft–verify
+decoding inside the fused loop (``spec_decode=True``: a dense draft on
+its own f32 slab, one multi-token target verify a round, drained
+synchronously). The control
 plane — scheduler, adapter cache, memory pool, prefix radix tree,
 prefetchers — is the reference's own code (``repro_torch.core`` is a
 verbatim copy); this file moves bytes and drives the data plane.
@@ -35,12 +38,13 @@ Migration payloads are host copies in pinned memory, complete when
 on the main stream, ahead of the next dispatch.
 
 Not ported yet (each raises ``NotImplementedError`` at construction,
-naming the knob): ``mesh_shape``, ``spec_decode``, and every model
-family but the dense one.
+naming the knob): ``mesh_shape`` and every model family but the dense
+one.
 """
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -99,8 +103,6 @@ def _unsupported(cfg: ModelConfig, e: EngineConfig) -> list[str]:
     out = []
     if e.mesh_shape is not None:
         out.append(f"mesh_shape={e.mesh_shape}")
-    if e.spec_decode:
-        out.append("spec_decode=True")
     if cfg.family != Family.DENSE:
         out.append(f"model family {cfg.family.name}")
     return out
@@ -187,6 +189,7 @@ class ChameleonEngine:
                  scheduler_cls=ChameleonScheduler, cache_enabled=True,
                  catalog: AdapterCatalog | None = None,
                  clock: Optional[Callable[[], float]] = None,
+                 draft: Optional[tuple] = None,
                  device: torch.device | str | None = None):
         self.cfg = cfg
         self.ecfg = ecfg or EngineConfig()
@@ -320,6 +323,80 @@ class ChameleonEngine:
         self.n_kv_exports = 0
         self.n_kv_imports = 0
         self.kv_handoff_bytes = 0
+
+        # --- speculative draft–verify decoding: ``self.spec`` is the
+        # effective switch (spec_decode=True with a valid dense draft on
+        # a fused engine); invalid draft configs raise here ---
+        self.spec = False
+        self.draft_cfg: Optional[ModelConfig] = None
+        self.draft_params: Optional[dict] = None
+        self.draft_kv = None
+        self.spec_drafted_tokens = 0
+        self.spec_accepted_tokens = 0
+        self.n_spec_dispatches = 0
+        self.n_spec_draft_dispatches = 0
+        self.n_spec_verify_dispatches = 0
+        self._spec_ewma = 1.0     # acceptance EWMA -> adaptive spec_k
+        if e.spec_decode:
+            self._init_spec(draft)
+
+    # ------------------------------------- speculative decoding setup
+    def _init_spec(self, draft: Optional[tuple]) -> None:
+        """Validate and build the speculative-decoding state.
+
+        ``draft`` is an optional ``(draft_cfg, draft_params)`` pair;
+        None resolves ``EngineConfig.spec_draft`` through the config
+        registry with weights from the engine seed + 1. A non-dense
+        draft, a vocabulary mismatch or ``spec_k < 1`` raise; a
+        non-fused engine warns and runs without speculation. The draft
+        KV is an f32 dense slab outside the paged pool: "freeing" a
+        slot's draft KV is bookkeeping (``_draft_len`` drops to 0 and
+        the next occupant's catch-up rewrites the rows)."""
+        e = self.ecfg
+        if draft is not None:
+            draft_cfg, draft_params = draft
+        else:
+            from repro_torch.configs import get_config
+            draft_cfg = get_config(e.spec_draft)
+            draft_params = None
+        if not api.supports_spec_draft(draft_cfg):
+            raise ValueError(
+                f"spec_decode=True needs a dense draft model: draft "
+                f"{draft_cfg.name!r} is family {draft_cfg.family.name}, "
+                f"which has no dense-KV decode_step for the speculative "
+                f"scan (api.supports_spec_draft). Pick a Family.DENSE "
+                f"config for EngineConfig.spec_draft (e.g. "
+                f"'internlm2-1.8b') or turn spec_decode off.")
+        if draft_cfg.vocab_size != self.cfg.vocab_size:
+            raise ValueError(
+                f"spec_decode draft {draft_cfg.name!r} has vocab_size="
+                f"{draft_cfg.vocab_size} but the target "
+                f"{self.cfg.name!r} has vocab_size="
+                f"{self.cfg.vocab_size}; draft and target must share a "
+                f"vocabulary for draft tokens to be target-scorable.")
+        if e.spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {e.spec_k}")
+        if not self.fused:
+            warnings.warn(
+                f"spec_decode=True ignored: target family "
+                f"{self.cfg.family.name} (or fused_hotloop=False) has "
+                f"no fused decode path to speculate inside — running "
+                f"the non-speculative loop", RuntimeWarning,
+                stacklevel=2)
+            return
+        dev = self.device
+        if draft_params is None:
+            draft_params = api.init_params(draft_cfg, seed=e.seed + 1,
+                                           device=dev)
+        self.draft_cfg = draft_cfg
+        self.draft_params = {k: v.to(dev) for k, v in draft_params.items()}
+        self.draft_kv = api.init_serve_state(draft_cfg, e.max_slots,
+                                             e.max_len, torch.float32,
+                                             device=dev)
+        # Tokens of the *target* cache the draft cache mirrors, per
+        # slot (host truth; the lazy catch-up syncs the gap).
+        self._draft_len = np.zeros(e.max_slots, np.int64)
+        self.spec = True
 
     # ------------------------------------------------------------- clock
     def now(self) -> float:
@@ -482,6 +559,8 @@ class ChameleonEngine:
         self.active[slot] = False
         self.slot_req[slot] = None
         self.batch_epoch += 1
+        if self.spec:
+            self._draft_len[slot] = 0    # draft KV freed with the slot
         self._stash_progress(req)
         self._free_slot_pages(slot, req.req_id)
         self.sched.on_squash(req, self.now())
@@ -953,6 +1032,8 @@ class ChameleonEngine:
         self._free_slot_pages(slot, req.req_id)
         self.slot_req[slot] = None
         self.batch_epoch += 1
+        if self.spec:
+            self._draft_len[slot] = 0    # draft KV freed with the slot
         self.n_kv_exports += 1
 
     def abort_migration(self, req: Request,
@@ -1105,6 +1186,8 @@ class ChameleonEngine:
         self.active[slot] = False
         self.slot_req[slot] = None
         self.batch_epoch += 1
+        if self.spec:
+            self._draft_len[slot] = 0    # draft KV freed with the slot
         tbts = self._tbts.pop(req.req_id, [])
         req.preserved_tbts = tbts
         self._last_tok.pop(req.req_id, None)
@@ -1340,6 +1423,13 @@ class ChameleonEngine:
                         - (r.input_len + r.generated - 1))
         return cover
 
+    def _page_table_device(self) -> torch.Tensor:
+        """The page table on the device, uploaded only when it changed."""
+        if self._page_table_dirty or self._page_table_dev is None:
+            self._page_table_dev = self._tensor(self.page_table, torch.int32)
+            self._page_table_dirty = False
+        return self._page_table_dev
+
     def _to_host(self, t: torch.Tensor):
         """Start the device→host copy of a result block: into pinned
         memory behind an event on the card, plain on the CPU."""
@@ -1350,6 +1440,174 @@ class ChameleonEngine:
         event = torch.cuda.Event()
         event.record()
         return host, event
+
+    # ------------------------------- speculative draft–verify dispatch
+    def _spec_k_eff(self) -> int:
+        """Adaptive draft length: the acceptance EWMA scales ``spec_k``
+        down when drafts stop landing (a round costs ``kk + 1`` draft
+        steps and one verify whatever is accepted), bucketed to a power
+        of two."""
+        e = self.ecfg
+        kk = int(round(self._spec_ewma * (e.spec_k + 1)))
+        kk = max(1, min(e.spec_k, kk))
+        return 1 << (kk.bit_length() - 1)
+
+    def _draft_sync(self) -> None:
+        """Lazy draft-KV catch-up: replay through one batched
+        multi-token draft pass (``api.verify`` with ``seq_len`` over the
+        draft slab) every token the target cache holds and the draft
+        cache does not. Placement, prefix hits, chunked prefill, KV
+        import and squash re-execution all advance the target without
+        the draft; the tokens come from host truth (prompt + recorded
+        outputs), so the draft prefix is the same on every
+        re-execution."""
+        lens = self._host_lens()
+        rows = [int(s) for s in np.where(self.active)[0]
+                if self._draft_len[s] < lens[s]]
+        if not rows:
+            return
+        gap = max(int(lens[s] - self._draft_len[s]) for s in rows)
+        S = 1 << max(3, (gap - 1).bit_length())
+        B = self.ecfg.max_slots
+        toks = np.zeros((B, S), np.int32)
+        start = np.zeros(B, np.int32)
+        seq = np.zeros(B, np.int32)
+        for s in rows:
+            req = self.slot_req[s]
+            full = np.concatenate([
+                self._prompt_tokens(req),
+                np.asarray(self.outputs[req.req_id], np.int32)])
+            lo, hi = int(self._draft_len[s]), int(lens[s])
+            toks[s, :hi - lo] = full[lo:hi]
+            start[s] = lo
+            seq[s] = hi - lo
+        DISPATCH_METER.tick()
+        DISPATCH_METER.tick_draft()
+        self.n_spec_draft_dispatches += 1
+        i32 = torch.int32
+        _, self.draft_kv = api.verify(
+            self.draft_cfg, self.draft_params, self._tensor(toks, i32),
+            self.draft_kv, self._tensor(start, i32),
+            seq_len=self._tensor(seq, i32))
+        for s in rows:
+            self._draft_len[s] = int(lens[s])
+
+    def _shrink_spec_pages(self) -> None:
+        """Roll back speculative page growth: after the block drained,
+        every surviving slot keeps exactly the pages the seed loop
+        would hold (``len // ps + 1``, the next write covered); the rest
+        go back to the free list and the pool hold shrinks to match."""
+        ps = self.pool.page_size
+        lens = self._host_lens()
+        for slot in np.where(self.active)[0]:
+            req = self.slot_req[slot]
+            if req is None:
+                continue
+            keep = int(lens[slot]) // ps + 1
+            extra = len(self.slot_pages[slot]) - keep
+            if extra <= 0:
+                continue
+            for _ in range(extra):
+                pid = self.slot_pages[slot].pop()
+                self.page_table[slot, len(self.slot_pages[slot])] = 0
+                self.free_pages.append(pid)
+            self.pool.shrink_request(req.req_id, extra * ps)
+            self._page_table_dirty = True
+
+    def _dispatch_spec(self) -> bool:
+        """One speculative block: draft catch-up, then ``n_rounds``
+        draft–verify rounds, drained synchronously (emission counts are
+        data-dependent, so the pipelined page math cannot cover it).
+        Returns False (the caller runs the normal horizon) when
+        speculation is not viable this step: nothing to decode, a
+        bypasser's squash point inside the round, no context headroom,
+        or (paged) not one round of page cover after best-effort
+        growth. Speculation only shrinks on pressure; it never preempts
+        a slot to grow. Called with no horizon in flight (``_step_fused``
+        drains it first)."""
+        e = self.ecfg
+        reqs = [r for r in self.slot_req if r is not None]
+        if not reqs or max(r.max_output_tokens - r.generated
+                           for r in reqs) < 1:
+            return False
+        kk = self._spec_k_eff()
+        has_bypass = False
+        for r in reqs:
+            # A bypasser squashes on the token past its predicted
+            # length: the round must end at or before that point.
+            if r.bypassed:
+                has_bypass = True
+                kk = min(kk, r.predicted_output - r.generated)
+        lens = self._host_lens()
+        for slot in np.where(self.active)[0]:
+            # Rows at the context edge finish within a step or two.
+            kk = min(kk, e.max_len - 2 - int(lens[slot]))
+        if kk < 1:
+            return False
+        kk = 1 << (kk.bit_length() - 1)
+        n_rounds = 1 if has_bypass else max(1, e.max_horizon // (kk + 1))
+        if self.paged:
+            now = self.now()
+            ps = self.pool.page_size
+            need = n_rounds * (kk + 1)
+            for slot in np.where(self.active)[0]:
+                needed = (int(lens[slot]) + need - 1) // ps + 1
+                short = needed - len(self.slot_pages[slot])
+                if short > 0:
+                    self._grow_slot(int(slot), short, now)  # best effort
+            cover = self._page_cover()
+            while n_rounds > 1 and n_rounds * (kk + 1) > cover:
+                n_rounds -= 1
+            if kk + 1 > cover:
+                kk = cover - 1
+                if kk < 1:
+                    self._shrink_spec_pages()
+                    return False
+                kk = 1 << (kk.bit_length() - 1)
+        self._refresh_device_state()
+        self._draft_sync()
+        d = self._dev
+        DISPATCH_METER.tick()
+        DISPATCH_METER.tick_draft(n_rounds * (kk + 1))
+        DISPATCH_METER.tick_verify(n_rounds)
+        self.n_spec_dispatches += 1
+        self.n_spec_draft_dispatches += n_rounds * (kk + 1)
+        self.n_spec_verify_dispatches += n_rounds
+        state = (d["active"], d["positions"], d["budget"], d["stop"],
+                 d["temp"], d["topk"], d["topp"], d["seeds"])
+        kw = dict(spec_k=kk, n_rounds=n_rounds, all_greedy=d["all_greedy"],
+                  max_ctx=e.max_len, lora=self.lora,
+                  adapter_idx=self.adapter_slot,
+                  lora_backend=self._lora_backend)
+        if self.paged:
+            carry, toks, emits, accs = api.decode_spec_fused_paged(
+                self.cfg, self.params, self.draft_cfg, self.draft_params,
+                self.tokens, self.kv_pages, self._page_table_device(),
+                self.draft_kv, self.cache_len, *state, **kw)
+            (self.tokens, self.kv_pages, self.draft_kv, self.cache_len,
+             d["active"], d["positions"]) = carry
+        else:
+            carry, toks, emits, accs = api.decode_spec_fused(
+                self.cfg, self.params, self.draft_cfg, self.draft_params,
+                self.tokens, self.kv, self.draft_kv, self.cache_len,
+                *state, **kw)
+            (self.tokens, self.kv, self.draft_kv, self.cache_len,
+             d["active"], d["positions"]) = carry
+        self._inflight = (self._to_host(toks), self._to_host(emits),
+                          n_rounds * (kk + 1),
+                          (self._to_host(accs), kk, n_rounds))
+        self._drain_inflight()
+        # The draft cache advanced in lockstep with the target for every
+        # surviving slot (entries past the accepted prefix are
+        # overwritten before the next read, as the target's are);
+        # finished and squashed slots were cleared by their hooks.
+        lens = self._host_lens()
+        for slot in range(e.max_slots):
+            if self.active[slot] and self.slot_req[slot] is not None:
+                self._draft_len[slot] = int(lens[slot])
+        if self.paged:
+            self._shrink_spec_pages()
+        return True
 
     def _dispatch_horizon(self, K: int, refresh: bool = True) -> None:
         """Launch one fused K-step horizon and re-point the engine's
@@ -1367,13 +1625,9 @@ class ChameleonEngine:
                   adapter_idx=self.adapter_slot,
                   lora_backend=self._lora_backend)
         if self.paged:
-            if self._page_table_dirty or self._page_table_dev is None:
-                self._page_table_dev = self._tensor(self.page_table,
-                                                    torch.int32)
-                self._page_table_dirty = False
             carry, toks, emits = api.decode_fused_paged(
                 self.cfg, self.params, self.tokens, self.kv_pages,
-                self._page_table_dev, self.cache_len, *state, **kw)
+                self._page_table_device(), self.cache_len, *state, **kw)
             (self.tokens, self.kv_pages, self.cache_len,
              d["active"], d["positions"]) = carry
         else:
@@ -1386,21 +1640,39 @@ class ChameleonEngine:
 
     def _drain_inflight(self) -> None:
         """Sync the in-flight horizon's token block and replay the seed
-        loop's per-token bookkeeping from it."""
+        loop's per-token bookkeeping from it. A speculative block also
+        carries (accepted counts, kk, n_rounds) for the spec gauges."""
         if self._inflight is None:
             return
-        (toks, tev), (emits, eev), _K = self._inflight
+        toks, emits, _K = self._inflight[:3]
+        spec_meta = self._inflight[3] if len(self._inflight) > 3 else None
         self._inflight = None
+        blocks = [toks, emits] + ([spec_meta[0]] if spec_meta else [])
         with DISPATCH_METER.sync():
-            for ev in (tev, eev):
+            for _, ev in blocks:
                 if ev is not None:
                     ev.synchronize()
-            toks_h = toks.numpy()
-            emits_h = emits.numpy()
+            toks_h, emits_h, *accs_h = [t.numpy() for t, _ in blocks]
+        if spec_meta is not None:
+            # Emissions are per-round prefix-masked (round r emits its
+            # first cnt[b] of kk+1 slots), so a rejected round leaves
+            # empty *interior* steps; step 0 of each round is emitted by
+            # every row active then, which counts the drafted tokens.
+            _, kk, n_rounds = spec_meta
+            round_act = emits_h.reshape(n_rounds, kk + 1, -1)[:, 0, :]
+            drafted = int(round_act.sum()) * kk
+            accepted = int(accs_h[0].sum())
+            self.spec_drafted_tokens += drafted
+            self.spec_accepted_tokens += accepted
+            if drafted:
+                self._spec_ewma = (0.8 * self._spec_ewma
+                                   + 0.2 * accepted / drafted)
         now = self.now()
         for k in range(toks_h.shape[0]):
             em = emits_h[k]
             if not em.any():
+                if spec_meta is not None:
+                    continue        # interior rejection gap
                 break               # every row finished earlier
             self.batch_occupancy.append(int(em.sum()))
             to_finish, to_squash = [], []
@@ -1491,6 +1763,11 @@ class ChameleonEngine:
             self._idle_wait()
             return
         K = self._choose_horizon()
+        if self.spec and K > 1 and self._dispatch_spec():
+            # Speculative block dispatched and drained; the K=1
+            # demotions (backlog, armed sweeps, loads) keep speculation
+            # off for the step, like the horizon collapse.
+            return
         if self.paged and K > 1:
             # Clamp to allocated pages (allocation timing stays
             # seed-equal).
@@ -1534,6 +1811,14 @@ class ChameleonEngine:
         self.n_kv_exports = 0
         self.n_kv_imports = 0
         self.kv_handoff_bytes = 0
+        # Speculation accounting restarts; the acceptance EWMA stays
+        # warm (like cache residency), so the measured run speculates at
+        # the adapted spec_k.
+        self.spec_drafted_tokens = 0
+        self.spec_accepted_tokens = 0
+        self.n_spec_dispatches = 0
+        self.n_spec_draft_dispatches = 0
+        self.n_spec_verify_dispatches = 0
         self.prefix_hit_tokens = 0
         self.prefix_lookup_tokens = 0
         self.n_prefix_hits = 0
@@ -1590,6 +1875,27 @@ class ChameleonEngine:
             "cow_forks": self.n_cow_forks,
         }
 
+    def spec_stats(self) -> dict:
+        """Speculative-decoding gauges (empty when spec is off).
+        Acceptance is drafted-token yield: accepted over drafted
+        proposals (``spec_k_eff`` a row a round); every round also
+        emits its correction or bonus token. The dispatch counters split
+        the device work into draft forwards (proposal steps and
+        catch-up passes) and multi-token target verifies."""
+        if not self.spec:
+            return {}
+        return {
+            "spec_accept_rate": round(
+                self.spec_accepted_tokens
+                / max(1, self.spec_drafted_tokens), 4),
+            "spec_drafted_tokens": self.spec_drafted_tokens,
+            "spec_accepted_tokens": self.spec_accepted_tokens,
+            "spec_draft_dispatches": self.n_spec_draft_dispatches,
+            "spec_verify_dispatches": self.n_spec_verify_dispatches,
+            "spec_dispatches": self.n_spec_dispatches,
+            "spec_k_eff": self._spec_k_eff(),
+        }
+
     def stats(self) -> dict:
         return {
             "completed": len(self.completed),
@@ -1608,6 +1914,7 @@ class ChameleonEngine:
             **self.kv_page_stats(),
             **self.handoff_stats(),
             **self.prefix_stats(),
+            **self.spec_stats(),
         }
 
     def metrics(self) -> RunMetrics:
@@ -1637,5 +1944,6 @@ class ChameleonEngine:
             **self.kv_page_stats(),
             **self.handoff_stats(),
             **self.prefix_stats(),
+            **self.spec_stats(),
         }
         return m

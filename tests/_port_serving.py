@@ -86,3 +86,123 @@ def page_kv(eng, slot, n):
     pos = torch.arange(n)
     pages = torch.as_tensor(eng.slot_pages[slot])[pos // ps]
     return [t[:, pages, pos % ps].numpy() for t in eng.kv_pages]
+
+
+# ------------------------------------------------ speculative decoding
+@functools.lru_cache(maxsize=None)
+def draft_models():
+    """The draft of ``tests/test_spec_decode.py``: ``internlm2-1.8b``
+    cut to 2 layers and the target's vocabulary, weights from
+    ``PRNGKey(7)``; returned as the (cfg, params) pair each engine
+    takes, JAX's and bridged."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config as jget_config
+    from repro.models import api as japi
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+
+    V = models()["cfg"].vocab_size
+    jdcfg = jget_config("internlm2-1.8b").reduced(n_layers=2, vocab_size=V)
+    jdparams = japi.init_params(jdcfg, jax.random.PRNGKey(7), jnp.float32)
+    dcfg = get_config("internlm2-1.8b").reduced(n_layers=2, vocab_size=V)
+    return (jdcfg, jdparams), (dcfg, bridge.params_to_torch(jdparams, "cpu"))
+
+
+@functools.lru_cache(maxsize=None)
+def zeroed_catalogs():
+    """JAX and port adapter catalogs whose LoRA deltas are exactly zero:
+    a base-weights self-draft then agrees with the target everywhere."""
+    import jax.numpy as jnp
+
+    from repro.serving import engine as jengine
+    from repro_torch import bridge
+    from repro_torch.serving import engine
+
+    m = models()
+    jcat = jengine.AdapterCatalog(m["jcfg"], ENGINE["n_adapters"], 32, seed=0)
+    for aid in jcat.weights:
+        jcat.weights[aid] = {k: (jnp.zeros_like(a), jnp.zeros_like(b))
+                             for k, (a, b) in jcat.weights[aid].items()}
+    cat = engine.AdapterCatalog(
+        m["cfg"], ENGINE["n_adapters"], 32,
+        weights=bridge.catalog_weights_to_torch(jcat.weights, "cpu"))
+    return jcat, cat
+
+
+def spec_trace(n=10, seed=3, adapters=8):
+    """``tests/test_spec_decode.py``'s ``fixed_trace``: (input_len,
+    output_len, adapter) triples."""
+    rng = np.random.default_rng(seed)
+    return [(int(rng.integers(4, 30)), int(rng.integers(2, 40)),
+             int(rng.integers(0, adapters))) for _ in range(n)]
+
+
+def spec_engines(*, spec=True, draft="other", catalog="random", **knobs):
+    """A JAX engine and a port engine on the same weights, adapters and
+    ``EngineConfig``, each with its own ``StepClock``. ``draft``:
+    "other" (the internlm2 draft), "self" (the target drafts for
+    itself) or None; ``catalog``: "random" or "zero" (zero deltas).
+    Returns ((jax engine, clock), (port engine, clock))."""
+    from repro.serving import engine as jengine
+    from repro_torch.serving import engine
+
+    m = models()
+    jcat, cat = ((m["jcat"], m["cat"]) if catalog == "random"
+                 else zeroed_catalogs())
+    if draft == "other":
+        jdraft, tdraft = draft_models()
+    elif draft == "self":
+        jdraft, tdraft = (m["jcfg"], m["jparams"]), (m["cfg"], m["params"])
+    else:
+        jdraft = tdraft = None
+    kw = {**ENGINE, **knobs, "spec_decode": spec}
+    jclock, clock = StepClock(), StepClock()
+    jeng = jengine.ChameleonEngine(m["jcfg"], m["jparams"],
+                                   jengine.EngineConfig(**kw), catalog=jcat,
+                                   clock=jclock, draft=jdraft)
+    eng = engine.ChameleonEngine(m["cfg"], m["params"],
+                                 engine.EngineConfig(**kw), catalog=cat,
+                                 clock=clock, draft=tdraft, device="cpu")
+    return (jeng, jclock), (eng, clock)
+
+
+def is_port(eng) -> bool:
+    return type(eng).__module__.startswith("repro_torch.")
+
+
+def step_once(eng, clock, dt=0.01):
+    """One engine step; the JAX engine's slot writes land first."""
+    if not is_port(eng):
+        land_jax_loads(eng)
+    eng.step()
+    clock.t += dt
+
+
+def core_classes(eng):
+    """(Request, SamplingParams) of the engine's own package."""
+    if is_port(eng):
+        from repro_torch.core import Request, SamplingParams
+    else:
+        from repro.core import Request, SamplingParams
+    return Request, SamplingParams
+
+
+def serve_trace(eng, clock, specs, sampling=None, after_step=None,
+                max_steps=20_000):
+    """Submit ``specs`` (``sampling``: SamplingParams keywords for every
+    request, or None) and step until drained; ``after_step(eng)`` runs
+    after every step. Returns the handles."""
+    req_cls, sp_cls = core_classes(eng)
+    sp = sp_cls(**sampling) if sampling else None
+    handles = [eng.submit(req_cls(input_len=i, output_len=o, adapter_id=a),
+                          sampling=sp) for i, o, a in specs]
+    for _ in range(max_steps):
+        if not eng.busy():
+            break
+        step_once(eng, clock)
+        if after_step is not None:
+            after_step(eng)
+    assert not eng.busy(), "engine failed to drain"
+    return handles

@@ -664,3 +664,151 @@ def test_export_with_a_pipelined_horizon_in_flight_on_the_card(card):
         _step(eng, t)
     got, _ = _migrate(model, "cuda", True, prompt, pipelined=True)
     assert got == h.tokens
+
+
+# ------------------------------------------------ speculative decoding
+@pytest.mark.parametrize("dout", [4096, 1024])
+@pytest.mark.parametrize("xdt", ["f32", "bf16"])
+def test_sgmv_verify_shape_tile8_matches_plain(card, xdt, dout):
+    """sgmv at the speculative verify pass's shape: 8 rows of S 8 (a
+    verify of 2-8 tokens pads to one tile of 8), tile 8, r 32, 8 slots,
+    din 4096, dout 4096 (q, o) and 1024 (an 8-kv-head k, v)."""
+    gen = torch.Generator().manual_seed(dout + len(xdt))
+    x = randn(gen, (64, 4096), DT[xdt], card)
+    A = randn(gen, (8, 4096, 32), torch.bfloat16, card, 4096 ** -0.5)
+    B = randn(gen, (8, 32, dout), torch.bfloat16, card, 32 ** -0.5)
+    ts = torch.randint(0, 8, (8,), generator=gen).int().to(card)
+    sgmv_mod.STATS.reset()
+    got = sgmv_mod.sgmv(x, A, B, ts, 8)
+    torch.cuda.synchronize()
+    assert sgmv_mod.STATS.tiles == {8: 1}
+    assert sgmv_mod.STATS.instances == {sgmv_instance(xdt, "bf16"): 1}
+    torch.testing.assert_close(got.float(),
+                               sgmv_mod.sgmv_plain(x, A, B, ts, 8).float(),
+                               **tol(xdt, "bf16"))
+
+
+def test_lora_delta_at_verify_length_runs_sgmv_at_tile_8(card):
+    """The verify pass's LoRA (S = spec_k + 1 = 5 tokens a row) pads
+    each row to one tile of 8 tokens."""
+    from repro_torch.kernels.ops import lora_delta_kernel
+    gen = torch.Generator().manual_seed(8)
+    x = randn(gen, (8, 5, 256), torch.bfloat16, card)
+    A = randn(gen, (4, 256, 16), torch.bfloat16, card, 256 ** -0.5)
+    B = randn(gen, (4, 16, 384), torch.bfloat16, card, 16 ** -0.5)
+    idx = torch.randint(0, 4, (8,), generator=gen).int().to(card)
+    sgmv_mod.STATS.reset()
+    got = lora_delta_kernel(x, A, B, idx)
+    torch.cuda.synchronize()
+    assert sgmv_mod.STATS.tiles == {8: 1}
+    want = lora_delta_kernel(x.cpu(), A.cpu(), B.cpu(), idx.cpu())
+    torch.testing.assert_close(got.float().cpu(), want.float(),
+                               **tol("bf16", "bf16"))
+
+
+def _spec_draft():
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    dcfg = get_config("internlm2-1.8b").reduced(n_layers=2, vocab_size=512)
+    return dcfg, api.init_params(dcfg, 7, torch.float32, device="cpu")
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_verify_on_the_card(card, paged):
+    """``verify`` / ``verify_paged`` at reduced width, f32, LoRA through
+    the kernels: the card against the CPU port. Logits and K/V within
+    2e-4 (f32 sums in another order, four layers deep); the q/k/v/o LoRA
+    runs sgmv at tile 8, four launches a layer."""
+    from repro_torch.models import api
+    from repro_torch.models.lora_apply import (init_lora_slots,
+                                               random_lora_weights,
+                                               write_adapter_to_slot)
+    cfg, params, _ = _reduced_model()
+    slots = init_lora_slots(3, cfg.n_layers, cfg.d_model, cfg.q_dim,
+                            cfg.kv_dim, 32, dtype=torch.float32,
+                            device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    for i, rank in enumerate((8, 16, 32)):
+        write_adapter_to_slot(slots, random_lora_weights(
+            gen, rank, 32, cfg.n_layers, cfg.d_model, cfg.q_dim,
+            cfg.kv_dim, dtype=torch.float32), i)
+    B, S, P, page = 3, 5, 4, 16
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen).int()
+    clen = torch.tensor([13, P * page - 3, 20], dtype=torch.int32)
+    seq = torch.tensor([5, 5, 2], dtype=torch.int32)
+    idx = torch.tensor([1, 2, 0], dtype=torch.int32)
+    table = (1 + torch.arange(B * P)).view(B, P).int()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        g = torch.Generator().manual_seed(6)
+        if paged:
+            kv = tuple(torch.randn((cfg.n_layers, 1 + B * P, page,
+                                    cfg.n_kv_heads, cfg.head_dim),
+                                   generator=g).to(dev) for _ in range(2))
+        else:
+            kv = tuple(torch.randn((cfg.n_layers, B, P * page,
+                                    cfg.n_kv_heads, cfg.head_dim),
+                                   generator=g).to(dev) for _ in range(2))
+        kw = dict(seq_len=seq.to(dev), adapter_idx=idx.to(dev),
+                  lora={k: (a.to(dev), b.to(dev))
+                        for k, (a, b) in slots.items()},
+                  lora_backend="kernel")
+        mv = {k: v.to(dev) for k, v in params.items()}
+        sgmv_mod.STATS.reset()
+        if paged:
+            logits, kv = api.verify_paged(cfg, mv, toks.to(dev), kv,
+                                          table.to(dev), clen.to(dev), **kw)
+            kv = tuple(t[:, 1:] for t in kv)      # page 0 is the trash
+        else:
+            logits, kv = api.verify(cfg, mv, toks.to(dev), kv, clen.to(dev),
+                                    **kw)
+        out[dev] = [t.cpu() for t in (logits, *kv)]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert sgmv_mod.STATS.tiles == {8: 4 * cfg.n_layers}
+            assert sgmv_mod.STATS.plain == 0
+    for a, b in zip(out["cpu"], out["cuda"]):
+        torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_reduced_spec_engine_on_the_card(card, paged):
+    """A speculative engine at reduced width, f32, with the 2-layer
+    internlm2 draft, every second request seeded-sampled: the card's
+    tokens and drafted/accepted counts equal the CPU port's; the verify
+    LoRA ran sgmv at tile 8, with no plain path."""
+    from repro_torch.core import Request, SamplingParams
+    from repro_torch.serving.engine import ChameleonEngine, EngineConfig
+    cfg, params, catalog = _reduced_model()
+    draft = _spec_draft()
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(1, 200, L).tolist() for L, _, _ in CHUNK_SPEC]
+    stats = (bgmv_mod.STATS, sgmv_mod.STATS)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        t = [0.0]
+        eng = ChameleonEngine(
+            cfg, params, EngineConfig(
+                max_slots=4, max_len=128, n_lora_slots=4, n_adapters=8,
+                lora_backend="kernel", paged=paged, spec_decode=True),
+            catalog=catalog, clock=lambda: t[0], draft=draft, device=dev)
+        for s in stats:
+            s.reset()
+        hs = [eng.submit(Request(input_len=L, output_len=O + 8,
+                                 adapter_id=a, prompt=list(p)),
+                         sampling=(SamplingParams(temperature=0.8, top_k=20,
+                                                  seed=i) if i % 2 else None))
+              for i, ((L, O, a), p) in enumerate(zip(CHUNK_SPEC, prompts))]
+        for _ in range(5000):
+            if not eng.busy():
+                break
+            _step(eng, t)
+        assert not eng.busy()
+        st = eng.spec_stats()
+        out[dev] = ([h.tokens for h in hs], st["spec_drafted_tokens"],
+                    st["spec_accepted_tokens"])
+        if dev == "cuda":
+            assert sgmv_mod.STATS.tiles.get(8, 0) > 0
+            assert all(s.plain == 0 for s in stats)
+    assert out["cuda"] == out["cpu"]
+    assert out["cuda"][1] > 0

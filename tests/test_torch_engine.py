@@ -185,13 +185,26 @@ def test_alora_mode_matches_jax_engine(setup):
     assert eng.prefix_hit_tokens > 0
 
 
-@pytest.mark.parametrize("knob", [
-    dict(mesh_shape=(1, 1)), dict(spec_decode=True)])
+@pytest.mark.parametrize("knob", [dict(mesh_shape=(1, 1))])
 def test_unported_knobs_raise_naming_the_knob(setup, knob):
     with pytest.raises(NotImplementedError, match=next(iter(knob))):
         engine.ChameleonEngine(setup["cfg"], setup["params"],
                                engine.EngineConfig(**BASE, **knob),
                                catalog=setup["cat"], device="cpu")
+
+
+def test_spec_decode_builds_a_speculative_engine(setup):
+    """``spec_decode=True`` is ported: the engine speculates with the
+    default draft (``spec_draft``, weights from the engine seed + 1),
+    whose vocabulary must match the target's."""
+    draft = get_config("internlm2-1.8b").reduced(
+        n_layers=2, vocab_size=setup["cfg"].vocab_size)
+    eng = engine.ChameleonEngine(
+        setup["cfg"], setup["params"],
+        engine.EngineConfig(**BASE, spec_decode=True),
+        catalog=setup["cat"], draft=(draft, None), device="cpu")
+    assert eng.spec and eng.draft_cfg is draft
+    assert eng.spec_stats()["spec_drafted_tokens"] == 0
 
 
 def test_engine_config_has_the_jax_fields_and_defaults():
