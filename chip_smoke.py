@@ -51,7 +51,17 @@ of the JAX package. Phases, one JSON line each:
              a greedy and a mixed batch, and the self-draft over zero
              adapter deltas, paged and dense; tokens and drafted and
              accepted counts must equal the CPU port's, and the verify
-             pass's LoRA must run sgmv at tile 8.
+             pass's LoRA must run sgmv at tile 8. Then the MoE family
+             (``parity_moe``): reduced qwen3-moe (8 experts, top-2, MoE
+             every layer, qk-norm) and llama4 (top-1, MoE every second
+             layer, shared expert) engines under ``EngineConfig()``
+             (MoE serves from the dense slab), fused and seed loop;
+             tokens and prefill drops over capacity must equal the CPU
+             port's, bgmv, sgmv and flash_attention must launch and
+             paged_attention not. And the VLM model path
+             (``parity_vlm``): reduced qwen2-vl-7b prefill and one
+             decode step with distinct t/h/w M-RoPE positions, logits
+             and slab within 2e-4 of the CPU's.
 4. engine  — ``chameleon-llama-7b`` at full width (32 layers, d 4096,
              bf16 weights from a seeded generator): 16 requests over
              12 adapters from shared preambles, some seeded-sampled,
@@ -92,6 +102,27 @@ of the JAX package. Phases, one JSON line each:
              exports must equal imports and be above 0; every replica
              must read the caller's weight tensors (no copy), and peak
              memory must stay under the fused engine's peak + 8 GB.
+   engine  — (MoE) with Llama's weights freed (under 1 GB may stay
+             allocated): ``qwen3-moe-235b-a22b`` at its published widths
+             cut to 8 layers (42.3 GB of seeded bf16 weights drawn on
+             the card). bgmv, sgmv and flash_attention are first checked
+             against their plain versions at its widths
+             (``kernel_time_moe`` lines) and one (8, 256) prefill call
+             is timed and profiled, then the phase-4 trace is
+             served by ``moe`` (``EngineConfig()``) and ``moe_seed``
+             (``fused_hotloop=False``), one at a time
+             (``engine_moe`` lines): ``paged`` false, TTFT, decode
+             tokens/s, dispatches per token, peak memory, prefill
+             assignments dropped over capacity, distinct experts read
+             per layer per decode step, launches; then a steady 8-row
+             decode window (``decode_window``): ms per decode step,
+             device busy share under torch.profiler and the step's
+             bytes bound. Every request must complete within the
+             vocabulary; bgmv, sgmv (tensor cores) and flash_attention
+             (tensor cores) must launch, paged_attention not, and no
+             plain or einsum path run. ``engine_moe_ab`` reports greedy
+             agreement between the two (not gated: bf16, and the
+             capacity drops depend on which requests share a bucket).
 
 A device-time profile of the same path is ``chip_profile.py``.
 
@@ -864,6 +895,158 @@ def phase_parity_spec() -> None:
     check(not bad, f"card vs CPU speculative parity failed: {bad}")
 
 
+#: Reduced MoE configs of phase 3: qwen3-moe (E 8, top-2, MoE every
+#: layer, qk-norm) and llama4 (top-1, MoE every second layer, shared
+#: expert).
+MOE_PARITY = ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b")
+#: The kernels of an MoE engine's path (it serves from the dense slab).
+MOE_PATH = ("bgmv", "sgmv", "flash_attention")
+
+
+def phase_parity_moe() -> None:
+    """Reduced MoE engines in f32, on the card and on the CPU port with
+    the same weights, adapters and trace (``PARITY_SPEC``, 6 more output
+    tokens a request): ``EngineConfig()`` (MoE serves from the dense
+    slab) with the fused and the seed loop. Tokens and prefill drops
+    over capacity must be equal; on the card bgmv, sgmv and
+    flash_attention launch, paged_attention never, and no plain or
+    einsum path runs."""
+    import importlib
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import Request
+    from repro_torch.models import api, moe
+    from repro_torch.models.lora_apply import EINSUM
+    from repro_torch.serving.engine import AdapterCatalog, EngineConfig
+    from repro_torch.serving.systems import build_engine
+    stats = {n: importlib.import_module(f"repro_torch.kernels.{n}").STATS
+             for n in KERNELS}
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(1, 200, L).tolist() for L, _, _ in PARITY_SPEC]
+    bad = []
+    for name in MOE_PARITY:
+        cfg = get_config(name).reduced()
+        params = api.init_params(cfg, 0, torch.float32, device="cpu")
+        catalog = AdapterCatalog(cfg, 8, 32, seed=0, device="cpu")
+        out = {}
+        for dev, fused in (("cpu", True), ("cpu", False), ("cuda", True),
+                           ("cuda", False)):
+            for st in stats.values():
+                st.reset()
+            EINSUM.reset()
+            moe.STATS.reset()
+            clock = [0.0]
+            eng = build_engine("chameleon", cfg, params, EngineConfig(
+                max_slots=4, max_len=128, n_lora_slots=4, n_adapters=8,
+                lora_backend="kernel", fused_hotloop=fused),
+                catalog=catalog, clock=lambda: clock[0], device=dev)
+            check(not eng.paged, f"parity_moe {name}: engine is paged")
+            hs = [eng.submit(Request(input_len=L, output_len=O + 6,
+                                     adapter_id=a, prompt=list(p)))
+                  for (L, O, a), p in zip(PARITY_SPEC, prompts)]
+            for _ in range(5000):
+                if not eng.busy():
+                    break
+                if eng._load_stream is not None:
+                    eng._load_stream.synchronize()
+                eng.step()
+                clock[0] += 0.01
+            check(not eng.busy(), f"parity_moe {name}: failed to drain")
+            out[(dev, fused)] = dict(
+                tokens=[h.tokens for h in hs], dropped=moe.STATS.dropped,
+                assignments=moe.STATS.assignments,
+                launches={n: s.launches for n, s in stats.items()},
+                plain={n: s.plain for n, s in stats.items()},
+                einsum=EINSUM.calls)
+            del eng, hs
+        for fused in (True, False):
+            cpu, card = out[("cpu", fused)], out[("cuda", fused)]
+            line = dict(phase="parity_moe", model=name, fused=fused,
+                        n_layers=cfg.n_layers, n_experts=cfg.n_experts,
+                        top_k=cfg.top_k, moe_every=cfg.moe_every,
+                        weights="f32",
+                        tokens_equal=card["tokens"] == cpu["tokens"],
+                        dropped=[card["dropped"], cpu["dropped"]],
+                        assignments=card["assignments"],
+                        launches=card["launches"])
+            line["ok"] = (line["tokens_equal"]
+                          and card["dropped"] == cpu["dropped"]
+                          and all(card["launches"][n] > 0 for n in MOE_PATH)
+                          and card["launches"]["paged_attention"] == 0
+                          and not any(card["plain"].values())
+                          and card["einsum"] == 0)
+            emit(line)
+            if not line["ok"]:
+                bad.append((name, fused))
+    check(not bad, f"card vs CPU MoE engine parity failed: {bad}")
+
+
+def mrope_positions(B: int, S: int, start: int = 0):
+    """(3, B, S) int32 M-RoPE positions with distinct axes: t counts, h
+    and w walk a 4x4 grid (a patch raster)."""
+    import torch
+    t = start + torch.arange(S)
+    pos = torch.stack([t, t // 4, t % 4])
+    return pos[:, None].expand(3, B, S).int()
+
+
+def phase_parity_vlm() -> None:
+    """Reduced ``qwen2-vl-7b`` (M-RoPE, sections rescaled 2:3:3) in f32,
+    LoRA on q/k/v/o through the kernels: whole-prompt ``prefill`` with
+    distinct t/h/w positions, its K/V into a slab, one ``decode_step``;
+    logits and slab on the card within 2e-4 of the CPU port's (f32 sums
+    in another order, 4 layers deep, as ``phase_parity``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.models.lora_apply import (init_lora_slots,
+                                               random_lora_weights,
+                                               write_adapter_to_slot)
+    tol = 2e-4
+    cfg = get_config("qwen2-vl-7b").reduced()
+    params = api.init_params(cfg, 0, torch.float32, device="cpu")
+    slots = init_lora_slots(3, cfg.n_layers, cfg.d_model, cfg.q_dim,
+                            cfg.kv_dim, 32, dtype=torch.float32,
+                            device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    for i, rank in enumerate((8, 16, 32)):
+        write_adapter_to_slot(slots, random_lora_weights(
+            gen, rank, 32, cfg.n_layers, cfg.d_model, cfg.q_dim,
+            cfg.kv_dim, dtype=torch.float32), i)
+    rng = torch.Generator().manual_seed(6)
+    B, S, Smax = 3, 32, 48
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=rng).int()
+    tok1 = torch.randint(0, cfg.vocab_size, (B, 1), generator=rng).int()
+    idx = torch.tensor([2, 0, 1], dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        mv = {k: v.to(dev) for k, v in params.items()}
+        lr = {k: (a.to(dev), b.to(dev)) for k, (a, b) in slots.items()}
+        kw = dict(lora=lr, adapter_idx=idx.to(dev), lora_backend="kernel")
+        lp, (k_new, v_new) = api.prefill(
+            cfg, mv, toks.to(dev), mrope_pos=mrope_positions(B, S).to(dev),
+            **kw)
+        slab = api.init_serve_state(cfg, B, Smax, torch.float32, device=dev)
+        for c, n in zip(slab, (k_new, v_new)):
+            c[:, :, :S] = n
+        ld, slab = api.decode_step(
+            cfg, mv, tok1.to(dev), slab,
+            torch.full((B,), S, dtype=torch.int32, device=dev),
+            mrope_pos=mrope_positions(B, 1, start=S).to(dev), **kw)
+        out[dev] = [t.cpu() for t in (lp, ld, *slab)]
+    errs = [(a - b).abs().max().item()
+            for a, b in zip(out["cpu"], out["cuda"])]
+    ok = all(e <= tol for e in errs) and all(
+        torch.isfinite(t).all() for t in out["cuda"])
+    emit(dict(phase="parity_vlm", model=cfg.name,
+              mrope_sections=list(cfg.mrope_sections),
+              prefill_logits_err=errs[0], decode_logits_err=errs[1],
+              k_slab_err=errs[2], v_slab_err=errs[3], tol=tol, ok=ok))
+    check(ok, f"card vs CPU VLM parity failed: {errs} (tol {tol})")
+
+
 # ------------------------------------------------------------ phase 4
 def make_trace(vocab: int, n_req: int = 16, n_adapters: int = 12,
                out_len: int = 32, seed: int = 0):
@@ -1394,6 +1577,439 @@ def run_tier(name, opts, cfg, params, fused, stats, greedy) -> None:
           f"engine's {fused['peak_mem_gb']:.2f} GB")
 
 
+# ------------------------------------------------- phase 4, MoE engines
+def _generated(eng) -> int:
+    return sum(r.generated for r in eng.slot_req if r is not None)
+
+
+def dev_us(e) -> float:
+    """Device µs of a torch.profiler average (the name differs across
+    PyTorch versions)."""
+    return (getattr(e, "self_device_time_total", None)
+            or getattr(e, "self_cuda_time_total", 0))
+
+
+def decode_window(eng, vocab: int, n_steps: int = 3, top: int = 15,
+                  adapters: int | None = None,
+                  patience: int | None = None) -> dict:
+    """Steady decode of one wave on a warmed, drained engine: one
+    request a batch row (32-token prompts, 100 output tokens, every
+    fourth seeded-sampled), on adapters 0 .. ``adapters`` - 1 in turn
+    (default: one adapter a row). The engine steps until all are
+    placed or, given ``patience``, until that many steps pass with no
+    placement and no load in flight; requests the scheduler leaves
+    queued then (the dense slab reserves each request's predicted
+    length from the memory pool) are cancelled, so the window runs the
+    fused horizon, not the horizon 1 of an engine with work queued. Every batch row decodes each step
+    (rows without a request too), and ``rows_active`` of them emit.
+    Once no load is in flight, one more step runs and the card is
+    synchronised; then ``n_steps`` steps on the host clock, ending in a
+    synchronise (``ms_per_decode_step``: wall over the tokens an active
+    row decoded), and ``n_steps`` more under torch.profiler: the
+    device's busy share of that window's wall time, launches, and the
+    operations with the most device and host time. With pipelined
+    readback each step drains the previous horizon, so a window's token
+    count and its device work both cover ``n_steps`` horizons."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import Request, SamplingParams
+    rng = np.random.default_rng(7)
+    n_rows = eng.ecfg.max_slots
+    handles = []
+    for a in range(n_rows):
+        sp = SamplingParams(temperature=0.8, seed=a) if a % 4 == 3 else None
+        handles.append(eng.submit(
+            Request(input_len=32, output_len=100,
+                    adapter_id=a % (adapters or n_rows),
+                    prompt=rng.integers(3, vocab, 32).tolist()),
+            sampling=sp))
+    last, stuck = -1, 0
+    for _ in range(500):
+        eng.step()
+        if eng.sched.pending_count() == 0:
+            break
+        active = int(eng.active.sum())
+        stuck = (stuck + 1 if active == last and not eng._pending_loads
+                 else 0)
+        last = active
+        if patience is not None and stuck >= patience:
+            break
+    for h in handles:
+        if not any(r is h.req for r in eng.slot_req):
+            eng.cancel(h)
+    active = int(eng.active.sum())
+    check(active > 0 and eng.sched.pending_count() == 0,
+          f"decode window: never reached a steady batch ({active} of "
+          f"{n_rows} rows active, {eng.sched.pending_count()} pending)")
+    eng.flush_loads()
+    eng.step()
+    torch.cuda.synchronize()
+    gen0 = _generated(eng)
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gen1 = _generated(eng)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            eng.step()
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    ptokens = _generated(eng) - gen1
+    check(gen1 > gen0 and ptokens > 0,
+          "decode window: no token decoded in a window")
+    avgs = prof.key_averages()
+    kernels = [e for e in avgs if e.device_type == DeviceType.CUDA]
+    ops = [e for e in avgs if e.device_type == DeviceType.CPU]
+    busy_us = sum(dev_us(e) for e in kernels)
+    check(int(eng.active.sum()) == active,
+          "decode window: a request finished inside the window")
+    steps = ptokens / active
+    return dict(
+        rows=n_rows, rows_active=active, steps=n_steps,
+        decode_tokens=gen1 - gen0, wall_s=wall,
+        ms_per_decode_step=wall * 1e3 / ((gen1 - gen0) / active),
+        profiled_decode_tokens=ptokens, profiled_wall_s=pwall,
+        profiled_ms_per_decode_step=pwall * 1e3 / steps,
+        device_busy_share=busy_us * 1e-6 / pwall,
+        device_ms_per_decode_step=busy_us * 1e-3 / steps,
+        launches=sum(e.count for e in kernels),
+        top_device=[dict(name=e.key[:90], calls=e.count, us=dev_us(e))
+                    for e in sorted(kernels, key=dev_us, reverse=True)[:top]],
+        top_host=[dict(name=e.key[:60], calls=e.count,
+                       self_cpu_us=e.self_cpu_time_total)
+                  for e in sorted(ops, key=lambda e: e.self_cpu_time_total,
+                                  reverse=True)[:top]])
+
+
+#: qwen3-moe's 94 layers cut to 8 for one card: 42.3 GB of bf16
+#: weights (142.6 MB of attention and 4.83 GB of experts a layer, 2.49
+#: GB of embedding and head); every width is the published one.
+MOE_LAYERS = 8
+#: name: EngineConfig overrides of the MoE engines (``EngineConfig()``
+#: serves MoE from the dense slab, so neither runs paged_attention).
+MOE_ENGINES = {"moe": dict(), "moe_seed": dict(fused_hotloop=False)}
+
+
+def moe_kernel_checks(cfg, record_to: dict) -> None:
+    """bgmv, sgmv and flash_attention at the widths the MoE engine
+    gives them (d 4096, q 8192 over 64 heads, k/v 512 over 4, so
+    flash_attention groups 16 query heads a KV head), bf16, against
+    their plain versions at phase 2's tolerances, then timed beside
+    their bounds, their plain versions and a PyTorch call
+    (``kernel_time_moe`` lines: gathered ``bmm`` pairs for the LoRA
+    kernels, SDPA for flash_attention)."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+    bgmv = importlib.import_module("repro_torch.kernels.bgmv")
+    sgmv = importlib.import_module("repro_torch.kernels.sgmv")
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4321)
+    scratch = torch.empty(64 * MIB, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev)
+                * scale).to(torch.bfloat16)
+
+    def checked(name, case, call, plain, library, tol, bound,
+                extra=None, **info):
+        got = call()
+        torch.cuda.synchronize()
+        want = plain()
+        atol, rtol = TOL[tol]
+        diff = (got.float() - want.float()).abs()
+        allowed = atol + rtol * want.float().abs()
+        if extra is not None:
+            allowed = allowed + extra
+        err = diff.max().item()
+        ok = bool((diff <= allowed).all())
+        emit(dict(phase="kernel_time_moe", kernel=name, case=case,
+                  max_abs_err=err, atol=atol, rtol=rtol, ok=ok,
+                  ms=median_ms(call, flush),
+                  plain_ms=median_ms(plain, flush),
+                  library_ms=median_ms(library, flush),
+                  bound_ms=bound[0], bound_by=bound[1], **info))
+        check(ok, f"{name} [{case}] disagrees with its plain version at "
+                  f"the MoE widths: max abs err {err}")
+        record_to[name] = max(record_to.get(name, 0.0), err)
+
+    d, r, n_slots, Bt, S, tile = cfg.d_model, 32, 8, 8, 256, 128
+    idx = torch.randperm(n_slots, generator=g, device=dev)[:Bt].int()
+    ts = torch.randint(0, n_slots, (Bt * S // tile,), generator=g,
+                       device=dev).int()
+    for proj, din, dout in (("q", d, cfg.q_dim), ("k/v", d, cfg.kv_dim),
+                            ("o", cfg.q_dim, d)):
+        A = randn(n_slots, din, r, scale=din ** -0.5)
+        Bw = randn(n_slots, r, dout, scale=r ** -0.5)
+        x = randn(Bt, din)
+        checked("bgmv", f"{proj}: x {tuple(x.shape)}, dout {dout}",
+                lambda: bgmv.bgmv(x, A, Bw, idx),
+                lambda: bgmv.bgmv_plain(x, A, Bw, idx),
+                lambda: torch.bmm(torch.bmm(x[:, None], A[idx.long()]),
+                                  Bw[idx.long()]), "lora_bf16",
+                bound_ms(nbytes(x, idx) + idx.unique().numel()
+                         * nbytes(A[0], Bw[0]) + Bt * dout * 2,
+                         2 * Bt * r * (din + dout), "bf16"))
+        x = randn(Bt * S, din)
+        xt = x.view(-1, tile, din)
+        sgmv.STATS.reset()
+        sgmv.sgmv(x, A, Bw, ts, tile)
+        inst = launched(sgmv, sgmv.sgmv_instance(x.dtype, A.dtype, r, tile))
+        checked("sgmv", f"{proj}: x {tuple(x.shape)}, dout {dout}",
+                lambda: sgmv.sgmv(x, A, Bw, ts, tile),
+                lambda: sgmv.sgmv_plain(x, A, Bw, ts, tile),
+                lambda: torch.bmm(torch.bmm(xt, A[ts.long()]),
+                                  Bw[ts.long()]), "lora_bf16",
+                bound_ms(nbytes(x, ts) + ts.unique().numel()
+                         * nbytes(A[0], Bw[0]) + Bt * S * dout * 2,
+                         2 * Bt * S * r * (din + dout), "bf16"),
+                instance=inst)
+    H, Kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = randn(Bt, S, H, dh)
+    k, v = randn(Bt, S, Kh, dh), randn(Bt, S, Kh, dh)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    fa.STATS.reset()
+    fa.flash_attention(q, k, v, True)
+    inst = launched(fa, fa.flash_instance(q.dtype, dh))
+    checked("flash_attention", f"causal, H {H}/Kh {Kh}, q {tuple(q.shape)}",
+            lambda: fa.flash_attention(q, k, v, True),
+            lambda: fa.flash_attention_plain(q, k, v, True),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), "bf16_out",
+            flash_bound(q, k, v, True),
+            extra=FLASH_P_ROUNDING * fa.flash_attention_plain(
+                q.float(), k.float(), v.float().abs(), True),
+            instance=inst)
+
+
+def decode_step_bound(cfg, params, experts_per_layer: float) -> tuple:
+    """Least time of one decode step by bytes: every attention, norm
+    and router weight, ``experts_per_layer`` experts of each MoE layer
+    and the head read once (the embedding rows, KV and LoRA slots are
+    under 1 % and left out). Returns (bound ms, GB)."""
+    n_moe = params["moe/w_gate"].shape[0]
+    expert = sum(params[f"moe/{w}"][0, 0].numel()
+                 for w in ("w_gate", "w_up", "w_down")) * 2
+    dense = sum(nbytes(v) for k, v in params.items()
+                if not k.startswith("moe/w_") and k != "embed/tok")
+    if cfg.tie_embeddings:
+        dense += nbytes(params["embed/tok"])
+    total = dense + n_moe * experts_per_layer * expert
+    return total / HBM_BYTES_PER_S * 1e3, total / 1e9
+
+
+def prefill_bound(cfg, params, B: int, S: int) -> tuple:
+    """Least time of one (B, S) whole-prompt prefill call: every weight
+    read once against the operations of the projections, the capacity
+    buckets' expert products (E x C rows a layer), causal attention and
+    the head on the last positions, at the bf16 peak. Returns (ms,
+    bound_by, GB, TFLOP)."""
+    from repro_torch.models.moe import _capacity
+    T = B * S
+    E, F, D = cfg.n_experts, cfg.d_ff_expert, cfg.d_model
+    Tg = min(2048, T)
+    cap = _capacity(Tg, E, cfg.top_k, cfg.capacity_factor)
+    per_layer = (2 * T * D * (2 * cfg.q_dim + 2 * cfg.kv_dim)
+                 + 2 * 3 * E * (T // Tg) * cap * D * F
+                 + 4 * B * cfg.n_heads * cfg.head_dim * S * (S + 1) // 2)
+    flops = cfg.n_layers * per_layer + 2 * B * D * cfg.vocab_size
+    n_bytes = sum(nbytes(v) for v in params.values())
+    ms, by = bound_ms(n_bytes, flops, "bf16")
+    return ms, by, n_bytes / 1e9, flops / 1e12
+
+
+def time_prefill_moe(cfg, params, reps: int = 5) -> dict:
+    """One whole-prompt (8, 256) ``api.prefill`` call with kernel LoRA
+    over 8 bf16 adapter slots, every position a random token (no
+    padding): median ms of ``reps`` calls after one warm-up (CUDA
+    events, card idle before each), the share of its assignments
+    dropped over capacity, and one more call under torch.profiler: its
+    device time, launches and the kernels with the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import api, moe
+    from repro_torch.models.lora_apply import (init_lora_slots,
+                                               random_lora_weights,
+                                               write_adapter_to_slot)
+    B, S, r = 8, 256, 32
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    slots = init_lora_slots(B, cfg.n_layers, cfg.d_model, cfg.q_dim,
+                            cfg.kv_dim, r)
+    for i in range(B):
+        write_adapter_to_slot(slots, random_lora_weights(
+            gen, r, r, cfg.n_layers, cfg.d_model, cfg.q_dim, cfg.kv_dim),
+            i)
+    toks = torch.randint(3, min(32000, cfg.vocab_size), (B, S),
+                         generator=gen, device="cuda").int()
+    kw = dict(lora=slots, adapter_idx=torch.arange(B, device="cuda").int(),
+              last_pos=torch.full((B,), S - 1, device="cuda").int(),
+              lora_backend="kernel")
+    api.prefill(cfg, params, toks, **kw)
+    times = []
+    for _ in range(reps):
+        moe.STATS.reset()
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        api.prefill(cfg, params, toks, **kw)
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    dropped_share = moe.STATS.dropped / moe.STATS.assignments
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        api.prefill(cfg, params, toks, **kw)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    return dict(ms=statistics.median(times), ms_all=times,
+                dropped_share=dropped_share,
+                profiled_device_ms=sum(dev_us(e) for e in kernels) / 1e3,
+                profiled_launches=sum(e.count for e in kernels),
+                top_device=[dict(name=e.key[:90], calls=e.count,
+                                 us=dev_us(e))
+                            for e in sorted(kernels, key=dev_us,
+                                            reverse=True)[:12]])
+
+
+def phase_engine_moe(trace_vocab: int, greedy: list) -> None:
+    """``qwen3-moe-235b-a22b`` at its published widths (d 4096, 64/4
+    heads, Dh 128, 128 experts top-8, d_ff_expert 1536, V 151936,
+    qk-norm, rope theta 1e6), ``MOE_LAYERS`` layers, seeded bf16
+    weights drawn on the card, served by each engine of
+    ``MOE_ENGINES`` in turn over the phase-4 trace (its token ids lie
+    in the first ``trace_vocab`` ids). The kernels are first checked at
+    the MoE widths (``moe_kernel_checks``) and one (8, 256) prefill
+    call timed (``time_prefill_moe``)."""
+    import dataclasses
+    import importlib
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api, moe
+    from repro_torch.models.lora_apply import EINSUM
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.systems import build_engine
+    full = get_config("qwen3-moe-235b-a22b")
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    errs = {}
+    moe_kernel_checks(cfg, errs)
+    prefill_call = time_prefill_moe(cfg, params)
+    stats = {n: importlib.import_module(f"repro_torch.kernels.{n}").STATS
+             for n in KERNELS}
+    ecfg = EngineConfig()
+    results = {}
+    for name, knobs in MOE_ENGINES.items():
+        eng = build_engine("chameleon", cfg, params, EngineConfig(**knobs))
+        check(not eng.paged and eng.kv_pages is None and eng.prefix is None,
+              f"{name}: an MoE engine must serve from the dense slab")
+        warm_up(eng, trace_vocab)
+        trace = make_trace(trace_vocab)
+        torch.cuda.reset_peak_memory_stats()
+        for st in stats.values():
+            st.reset()
+        EINSUM.reset()
+        moe.STATS.reset()
+        with PrefillTimer() as timer:
+            res = serve(eng, trace)                   # this engine's path
+        launches = {n: st.launches for n, st in stats.items()}
+        instances = {n: dict(st.instances) for n, st in stats.items()}
+        plain = {n: st.plain for n, st in stats.items()}
+        ms = moe.STATS
+        res.update(timer.summary())
+        res.update(
+            paged=eng.paged, launches=launches,
+            launches_by_instance=instances, plain_calls=plain,
+            einsum_calls=EINSUM.calls,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            prefill_assignments=ms.assignments,
+            prefill_dropped=ms.dropped,
+            prefill_dropped_share=ms.dropped / max(ms.assignments, 1),
+            experts_per_layer_per_decode_step=(
+                ms.experts_read / max(ms.gather_calls, 1)),
+            completed=eng.stats()["completed"])
+        toks = [h.tokens for h in res.pop("handles")]
+        res["outputs"] = toks
+        check(res["completed"] == len(trace)
+              and all(len(t) == r.output_len
+                      for t, (r, _) in zip(toks, trace)),
+              f"{name}: a request did not complete to its output length")
+        check(all(0 <= x < cfg.vocab_size for t in toks for x in t),
+              f"{name}: token id outside the vocabulary")
+        check(all(launches[n] > 0 for n in MOE_PATH)
+              and launches["paged_attention"] == 0,
+              f"{name}: launches {launches}: bgmv, sgmv and "
+              f"flash_attention must launch, paged_attention not")
+        for n in ("sgmv", "flash_attention"):
+            check(set(instances[n]) == {"tensor_cores"},
+                  f"{name}: {n} launched {instances[n]}, expected the "
+                  f"tensor-core instance only")
+        check(not any(plain.values()) and res["einsum_calls"] == 0,
+              f"{name}: a plain/einsum path ran on the card: {plain}, "
+              f"einsum {res['einsum_calls']}")
+        # The steady window: its own routing counts, after the trace's.
+        moe.STATS.reset()
+        # The pool holds about four of this model's adapters beside the
+        # requests (4 KV heads and 8 layers make a token's KV small
+        # against an adapter's 17 MB): two adapters for the 8 rows, and
+        # the rows the slab's reservation admits.
+        win = decode_window(eng, trace_vocab, adapters=2, patience=8)
+        win["experts_per_layer_per_decode_step"] = (
+            moe.STATS.experts_read / max(moe.STATS.gather_calls, 1))
+        win["bound_ms"], win["bound_gb"] = decode_step_bound(
+            cfg, params, win["experts_per_layer_per_decode_step"])
+        res["decode_window"] = win
+        results[name] = res
+        pb = prefill_bound(cfg, params, 8, 256)
+        emit(dict(phase="engine_moe", engine=name, knobs=knobs,
+                  model=cfg.name, n_layers=cfg.n_layers,
+                  d_model=cfg.d_model, n_experts=cfg.n_experts,
+                  top_k=cfg.top_k, d_ff_expert=cfg.d_ff_expert,
+                  vocab_size=cfg.vocab_size, weights="bf16",
+                  weights_gb=sum(nbytes(v) for v in params.values()) / 1e9,
+                  init_params_s=init_s,
+                  reduced=[f"n_layers {full.n_layers} -> {cfg.n_layers}"],
+                  ecfg=dict(max_slots=ecfg.max_slots, max_len=ecfg.max_len,
+                            n_lora_slots=ecfg.n_lora_slots,
+                            r_max=ecfg.r_max, n_adapters=ecfg.n_adapters,
+                            max_horizon=ecfg.max_horizon),
+                  prefill_8x256=dict(prefill_call, bound_ms=pb[0],
+                                     bound_by=pb[1], bound_gb=pb[2],
+                                     bound_tflop=pb[3]),
+                  kernel_max_abs_err_at_moe_widths=errs,
+                  **{k: v for k, v in res.items() if k != "outputs"}))
+        del eng, trace, toks
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(dict(phase="engine_moe_ab", greedy_requests=len(greedy),
+              greedy_moe_vs_moe_seed=greedy_agreement(
+                  results["moe"]["outputs"], results["moe_seed"]["outputs"],
+                  greedy),
+              decode_tok_per_s={n: r["decode_tok_per_s"]
+                                for n, r in results.items()},
+              ms_per_decode_step={
+                  n: r["decode_window"]["ms_per_decode_step"]
+                  for n, r in results.items()}))
+
+
 KERNELS = {
     "bgmv": ("src/repro_torch/csrc/bgmv.cu", "src/repro/kernels/bgmv.py:39"),
     "sgmv": ("src/repro_torch/csrc/sgmv.cu", "src/repro/kernels/sgmv.py:37"),
@@ -1431,12 +2047,22 @@ def main() -> int:
         phase_parity()
         phase_parity_engines()
         phase_parity_spec()
+        phase_parity_moe()
+        phase_parity_vlm()
         from repro_torch.configs import get_config
         from repro_torch.models import api
         cfg = get_config("chameleon-llama-7b")
         params = api.init_params(cfg, seed=0, dtype=torch.bfloat16)
         engines = phase_engine(cfg, params)
         phase_tiers(cfg, params, engines["fused"])
+        # Free Llama's 13.5 GB before the 42.3 GB of the MoE model.
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        check(held < 1e9, f"{held / 1e9:.2f} GB still allocated after "
+                          f"the Llama engines and tiers were freed")
+        phase_engine_moe(cfg.vocab_size, greedy_requests(cfg))
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -1,10 +1,13 @@
 """Family dispatcher: the serving surface of the port.
 
-Port of ``src/repro/models/api.py`` for the dense family, with the same
-gates: fused decode covers the dense and MoE families, paged KV the
-dense family. The port implements the dense family only; every entry
-point raises ``NotImplementedError`` naming any other family (MoE,
-SSM, hybrid, enc-dec, VLM are not ported yet).
+Port of ``src/repro/models/api.py`` for the decoder-only families
+(dense, MoE, VLM), with the same gates: fused decode covers the dense
+and MoE families, paged KV the dense family. ``forward``, ``prefill``,
+``decode_step`` and ``init_serve_state`` raise ``NotImplementedError``
+naming any other family (SSM, hybrid, enc-dec are not ported yet).
+``verify`` and the speculative scans raise it for MoE: the reference's
+``lm.verify`` runs the dense MLP on every layer and fails on an MoE
+model, so the port ports it for the dense family only.
 """
 from __future__ import annotations
 
@@ -16,28 +19,42 @@ from .lm import init_params  # shared: param_shapes covers every family
 from .lm import sample_tokens  # family-agnostic: operates on logits
 
 
+#: Families whose model functions the port has (``lm``).
+_LM_FAMILIES = (Family.DENSE, Family.MOE, Family.VLM)
+
+
+def _lm_only(cfg: ModelConfig, what: str) -> None:
+    if cfg.family not in _LM_FAMILIES:
+        raise NotImplementedError(
+            f"{what} is ported for the DENSE, MOE and VLM families only, "
+            f"not family {cfg.family.name}")
+
+
 def _dense_only(cfg: ModelConfig, what: str) -> None:
     if cfg.family != Family.DENSE:
         raise NotImplementedError(
             f"{what} is ported for the DENSE family only, not family "
-            f"{cfg.family.name}")
+            f"{cfg.family.name}" + (
+                " (no MoE verify: the reference's lm.verify runs the "
+                "dense MLP on every layer)" if cfg.family == Family.MOE
+                else ""))
 
 
 def forward(cfg, params, tokens, **kw):
     """Full-sequence logits (B, S, V)."""
-    _dense_only(cfg, "forward")
+    _lm_only(cfg, "forward")
     return lm.forward(cfg, params, tokens, **kw)
 
 
 def prefill(cfg, params, tokens, **kw):
     """Whole-prompt prefill: (last-position logits, (k, v) stacks)."""
-    _dense_only(cfg, "prefill")
+    _lm_only(cfg, "prefill")
     return lm.prefill(cfg, params, tokens, **kw)
 
 
 def decode_step(cfg, params, tokens, state, cache_len=None, **kw):
     """One decode step over the dense KV slab ``state``."""
-    _dense_only(cfg, "decode_step")
+    _lm_only(cfg, "decode_step")
     return lm.decode_step(cfg, params, tokens, state, cache_len, **kw)
 
 
@@ -45,7 +62,7 @@ def init_serve_state(cfg: ModelConfig, batch: int, max_len: int,
                      dtype=torch.bfloat16,
                      device: torch.device | str | None = None):
     """The dense KV slab (L, batch, max_len, Kh, Dh) ×2."""
-    _dense_only(cfg, "init_serve_state")
+    _lm_only(cfg, "init_serve_state")
     return lm.make_kv_caches(cfg, batch, max_len, dtype, device)
 
 
@@ -66,7 +83,9 @@ def decode_fused(cfg, params, tokens, kv_caches, cache_len, active,
                  seeds, **kw):
     """K fused decode+sample steps over the dense KV slab, state on
     device (``lm.decode_fused``)."""
-    _dense_only(cfg, "decode_fused")
+    if not supports_fused(cfg):
+        raise NotImplementedError(
+            f"fused decode unsupported for family {cfg.family}")
     return lm.decode_fused(cfg, params, tokens, kv_caches, cache_len,
                            active, positions, budget, stop_ids,
                            temperature, top_k, top_p, seeds, **kw)

@@ -1,4 +1,5 @@
-"""Core layer primitives: norms, RoPE, GQA attention, SwiGLU (PyTorch).
+"""Core layer primitives: norms, RoPE (+M-RoPE), GQA attention, SwiGLU
+(PyTorch).
 
 Port of ``src/repro/models/layers.py`` with the JAX package's layouts at
 every public function. GQA never materialises repeated KV heads:
@@ -66,6 +67,33 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
     """positions: (..., S) int -> cos/sin (..., S, head_dim/2)."""
     freqs = rope_freqs(head_dim, theta, positions.device)
     ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
+                  sections: tuple[int, ...]
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Multimodal RoPE (qwen2-vl): positions (3, B, S) for the t/h/w axes.
+
+    The head_dim/2 frequency slots are partitioned into ``sections``
+    (t, h, w); each section takes its angle from the matching position
+    axis. Text tokens carry identical t/h/w positions, so M-RoPE reduces
+    to 1-D RoPE for them. Returns cos/sin (B, S, head_dim/2).
+    """
+    if positions.shape[0] != 3:
+        raise ValueError(f"M-RoPE positions must be (3, B, S), got "
+                         f"{tuple(positions.shape)}")
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to "
+                         f"head_dim/2 = {half}")
+    freqs = rope_freqs(head_dim, theta, positions.device)
+    ang_all = positions.float()[..., None] * freqs        # (3, B, S, half)
+    parts, off = [], 0
+    for axis, sec in enumerate(sections):
+        parts.append(ang_all[axis, ..., off:off + sec])
+        off += sec
+    ang = torch.cat(parts, dim=-1)
     return torch.cos(ang), torch.sin(ang)
 
 

@@ -1,14 +1,16 @@
-"""Decoder-only LM, dense family, on the paged KV pool and the dense KV
-slab (PyTorch).
+"""Decoder-only LM: dense, MoE and VLM families (PyTorch).
 
-Port of the dense-family serving subset of ``src/repro/models/lm.py``:
-the whole-sequence ``forward`` and ``prefill`` (attention through the
-flash_attention kernel), decode over the dense slab (``decode_step``,
-``decode_fused``) and over the paged pool (``prefill_paged``,
-``decode_step_paged``, ``decode_fused_paged``), and speculative
-draft–verify decoding on either (``verify``, ``verify_paged``,
-``decode_spec_fused``, ``decode_spec_fused_paged``), seeded rows on
-JAX's own threefry streams. Parameters are a *flat*
+Port of the serving subset of ``src/repro/models/lm.py``: the
+whole-sequence ``forward`` and ``prefill`` (attention through the
+flash_attention kernel) and decode over the dense slab
+(``decode_step``, ``decode_fused``) for the dense, MoE (supersteps of
+``moe_every`` layers, the last one MoE; ``models/moe.py``) and VLM
+(M-RoPE positions) families; for the dense family also decode over the
+paged pool (``prefill_paged``, ``decode_step_paged``,
+``decode_fused_paged``) and speculative draft–verify decoding on either
+(``verify``, ``verify_paged``, ``decode_spec_fused``,
+``decode_spec_fused_paged``), seeded rows on JAX's own threefry
+streams. Parameters are a *flat*
 dict {path: tensor} (see base.param_shapes) with per-layer tensors
 stacked on axis 0; the JAX ``lax.scan`` over that stack becomes a
 Python loop over the layer index, and the K-step decode scan a loop
@@ -32,12 +34,13 @@ from repro_torch.core.sampling import (SPEC_ACCEPT_FOLD, SPEC_DRAFT_FOLD,
                                        SPEC_RESIDUAL_FOLD)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import flash_attention, paged_attention
-from repro_torch.models.base import ModelConfig, param_shapes
+from repro_torch.models.base import Family, ModelConfig, param_shapes
 from repro_torch.models.layers import (apply_rope, decode_attention, einsum,
                                        embed, gelu_mlp, head_rms_norm,
-                                       rms_norm, rope_cos_sin,
+                                       mrope_cos_sin, rms_norm, rope_cos_sin,
                                        suffix_attention, swiglu, unembed)
 from repro_torch.models.lora_apply import lora_delta
+from repro_torch.models.moe import moe_block, moe_block_gather
 
 
 # ----------------------------------------------------------------- init
@@ -225,6 +228,22 @@ def _mlp(cfg, x, p, prefix=""):
                       p[prefix + "down"])
 
 
+def _moe(cfg: ModelConfig, x: torch.Tensor, p: dict):
+    """MoE feed-forward + residual: the dropless expert gather for
+    decode (S == 1), the capacity buckets otherwise; a shared expert
+    (llama4) runs densely for every token. Returns (x + y, aux)."""
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    experts = (p["router"], p["w_gate"], p["w_up"], p["w_down"])
+    if x.shape[1] == 1:
+        y, aux = moe_block_gather(h, *experts, cfg.top_k)
+    else:
+        y, aux = moe_block(h, *experts, cfg.top_k, cfg.capacity_factor)
+    if cfg.shared_expert_ff:
+        y = y + swiglu(h, p["shared_gate"], p["shared_up"],
+                       p["shared_down"])
+    return x + y, aux
+
+
 # ----------------------------------------------------- stacked param views
 def _slice_group(params: dict, prefix: str) -> dict:
     n = len(prefix)
@@ -242,12 +261,19 @@ def _layers(cfg: ModelConfig, params: dict, lora):
         yield i, p, lr
 
 
-def _positions(cfg: ModelConfig, tokens: torch.Tensor, offset):
+def _positions(cfg: ModelConfig, tokens: torch.Tensor, offset,
+               mrope_pos=None):
     """RoPE cos/sin for ``tokens`` (B, S) starting at ``offset`` (an int
-    or a (B,) tensor of per-row offsets)."""
+    or a (B,) tensor of per-row offsets). M-RoPE configs (VLM) take
+    their angles from ``mrope_pos`` (3, B, S) instead and ignore
+    ``offset``."""
     B, S = tokens.shape
     if cfg.mrope:
-        raise NotImplementedError("M-RoPE (VLM) is not ported yet")
+        if mrope_pos is None:
+            # The reference's assert, raised under -O as well.
+            raise AssertionError("VLM needs (3,B,S) M-RoPE positions")
+        return mrope_cos_sin(mrope_pos, cfg.head_dim, cfg.rope_theta,
+                             cfg.mrope_sections)
     offset = torch.as_tensor(offset, device=tokens.device)
     pos = (torch.arange(S, device=tokens.device)[None, :]
            + offset.reshape(-1, 1).long())
@@ -276,7 +302,13 @@ def _backbone(cfg: ModelConfig, params: dict, x: torch.Tensor, cos, sin,
     decodes against its slab, written in place, and the slabs are
     returned; with ``collect_kv`` the fresh per-layer K/V are stacked
     to (L, B, S, Kh, Dh) (prefill). Returns (hidden, kv or None).
+    MoE configs run ``_backbone_moe``.
     """
+    if cfg.family == Family.MOE:
+        h, kv, _aux = _backbone_moe(cfg, params, x, cos, sin, kv_caches,
+                                    cache_len, lora, adapter_idx,
+                                    collect_kv, lora_backend)
+        return h, kv
     ks, vs = [], []
     h = x
     for i, p, lr in _layers(cfg, params, lora):
@@ -291,6 +323,42 @@ def _backbone(cfg: ModelConfig, params: dict, x: torch.Tensor, cos, sin,
     if kv_caches is not None:
         return h, kv_caches
     return h, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
+
+
+def _backbone_moe(cfg: ModelConfig, params: dict, x: torch.Tensor, cos,
+                  sin, kv_caches=None, cache_len=None, lora=None,
+                  adapter_idx=None, collect_kv: bool = False,
+                  lora_backend: str = "einsum"):
+    """The MoE layer stack: supersteps of ``moe_every`` layers, the last
+    of each an MoE layer (``moe/`` stack, one entry a superstep), the
+    others dense (``dense_mlp/`` stack, ``moe_every - 1`` entries a
+    superstep). Attention, K/V and LoRA are indexed by global layer, as
+    in ``_backbone``. Returns (hidden, kv or None, summed aux loss)."""
+    E = cfg.moe_every
+    moe_stack = _slice_group(params, "moe/")
+    dense_stack = _slice_group(params, "dense_mlp/")
+    ks, vs = [], []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = x
+    for i, p, lr in _layers(cfg, params, lora):
+        s, e = divmod(i, E)                    # superstep, layer in it
+        kv = ((kv_caches[0][i], kv_caches[1][i])
+              if kv_caches is not None else None)
+        h, new_kv = _attn(cfg, h, p, cos, sin, kv, cache_len, lr,
+                          adapter_idx, lora_backend)
+        if kv_caches is None and collect_kv:
+            ks.append(new_kv[0])
+            vs.append(new_kv[1])
+        if e == E - 1:
+            h, a = _moe(cfg, h, {k: v[s] for k, v in moe_stack.items()})
+            aux = aux + a
+        else:
+            j = s * (E - 1) + e
+            h = _mlp(cfg, h, {k: v[j] for k, v in dense_stack.items()})
+    if kv_caches is not None:
+        return h, kv_caches, aux
+    return (h, (torch.stack(ks), torch.stack(vs)) if collect_kv else None,
+            aux)
 
 
 def make_kv_caches(cfg: ModelConfig, batch: int, max_len: int,
@@ -539,25 +607,28 @@ def decode_fused_paged(cfg: ModelConfig, params: dict, tokens, kv_pages,
 
 
 # ------------------------------------------------- dense entry points
-def forward(cfg: ModelConfig, params: dict, tokens) -> torch.Tensor:
+def forward(cfg: ModelConfig, params: dict, tokens,
+            mrope_pos=None) -> torch.Tensor:
     """Full-sequence logits (B, S, V) f32, causal attention through
-    flash_attention."""
+    flash_attention. ``mrope_pos`` (3, B, S): M-RoPE positions (VLM)."""
     x = embed(tokens, params["embed/tok"])
-    cos, sin = _positions(cfg, tokens, 0)
+    cos, sin = _positions(cfg, tokens, 0, mrope_pos)
     h, _ = _backbone(cfg, params, x, cos, sin)
     return _logits(cfg, params, h)
 
 
-def prefill(cfg: ModelConfig, params: dict, tokens, lora=None,
-            adapter_idx=None, last_pos=None, lora_backend: str = "einsum"):
+def prefill(cfg: ModelConfig, params: dict, tokens, mrope_pos=None,
+            lora=None, adapter_idx=None, last_pos=None,
+            lora_backend: str = "einsum"):
     """Whole-prompt prefill. Returns (logits (B, V) f32 of position
     ``last_pos`` (B,) — S-1 when None; right-padded batches pass each
     row's last prompt position — , (k, v) each (L, B, S, Kh, Dh) in the
     activation dtype). ``lora_backend="kernel"`` routes the LoRA deltas
-    through the sgmv kernel (each row is one contiguous token run)."""
+    through the sgmv kernel (each row is one contiguous token run).
+    ``mrope_pos`` (3, B, S): M-RoPE positions (VLM)."""
     B, _ = tokens.shape
     x = embed(tokens, params["embed/tok"])
-    cos, sin = _positions(cfg, tokens, 0)
+    cos, sin = _positions(cfg, tokens, 0, mrope_pos)
     h, kv = _backbone(cfg, params, x, cos, sin, lora=lora,
                       adapter_idx=adapter_idx, collect_kv=True,
                       lora_backend=lora_backend)
@@ -570,17 +641,18 @@ def prefill(cfg: ModelConfig, params: dict, tokens, lora=None,
 
 
 def decode_step(cfg: ModelConfig, params: dict, tokens, kv_caches,
-                cache_len, lora=None, adapter_idx=None,
+                cache_len, mrope_pos=None, lora=None, adapter_idx=None,
                 lora_backend: str = "einsum"):
     """One decode step over the dense KV slab.
 
     tokens: (B, 1); kv_caches: (k, v) each (L, B, Smax, Kh, Dh), updated
-    in place; cache_len: (B,) valid lengths. Returns (logits (B, V) f32,
+    in place; cache_len: (B,) valid lengths; ``mrope_pos`` (3, B, 1):
+    the token's M-RoPE positions (VLM). Returns (logits (B, V) f32,
     kv_caches). ``lora_backend="kernel"`` routes the per-token LoRA
     deltas through the bgmv kernel.
     """
     x = embed(tokens, params["embed/tok"])
-    cos, sin = _positions(cfg, tokens, cache_len)
+    cos, sin = _positions(cfg, tokens, cache_len, mrope_pos)
     h, kv = _backbone(cfg, params, x, cos, sin, kv_caches=kv_caches,
                       cache_len=cache_len, lora=lora,
                       adapter_idx=adapter_idx, lora_backend=lora_backend)

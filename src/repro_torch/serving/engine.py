@@ -1,10 +1,10 @@
 """PyTorch serving engine: continuous batching with Chameleon integrated.
 
-Port of ``src/repro/serving/engine.py`` for the dense family: one
-``ChameleonEngine`` over paged KV (16-token pages) with the prefix
-cache in ``"exact"`` (or ``"alora"``) mode — the default — or without
-it (``prefix_cache=False``: whole-prompt dense prefill whose K/V are
-copied into the slot's pages), or over the dense KV slab
+Port of ``src/repro/serving/engine.py`` for the dense and MoE
+families: one ``ChameleonEngine`` over paged KV (16-token pages) with
+the prefix cache in ``"exact"`` (or ``"alora"``) mode — the default —
+or without it (``prefix_cache=False``: whole-prompt dense prefill whose
+K/V are copied into the slot's pages), or over the dense KV slab
 (``paged=False``: one (max_slots, max_len) row per batch slot); the
 fused decode micro-horizon with pipelined readback or the seed loop,
 asynchronous adapter loads and kernel LoRA on the card; chunked prefill
@@ -37,9 +37,14 @@ Migration payloads are host copies in pinned memory, complete when
 ``begin_migration`` returns; imports write them into the pool in place
 on the main stream, ahead of the next dispatch.
 
+The MoE family serves through the same engine as the dense one, from
+the dense KV slab whatever ``paged`` says (``api.supports_paged``), as
+the reference does.
+
 Not ported yet (each raises ``NotImplementedError`` at construction,
-naming the knob): ``mesh_shape`` and every model family but the dense
-one.
+naming the knob): ``mesh_shape``, the VLM, SSM, hybrid and enc-dec
+families (the reference engine cannot serve VLM either: it threads no
+M-RoPE positions), and ``spec_decode=True`` on an MoE model.
 """
 from __future__ import annotations
 
@@ -103,8 +108,13 @@ def _unsupported(cfg: ModelConfig, e: EngineConfig) -> list[str]:
     out = []
     if e.mesh_shape is not None:
         out.append(f"mesh_shape={e.mesh_shape}")
-    if cfg.family != Family.DENSE:
+    if cfg.family not in (Family.DENSE, Family.MOE):
         out.append(f"model family {cfg.family.name}")
+    if e.spec_decode and cfg.family == Family.MOE:
+        # The reference engine builds and then fails at its first
+        # verify: its lm.verify runs the dense MLP on every layer.
+        out.append("spec_decode=True on model family MOE (no MoE "
+                   "verify pass)")
     return out
 
 
@@ -230,7 +240,9 @@ class ChameleonEngine:
         infos = self.catalog.infos
         cap = e.max_slots * e.max_len \
             + 4 * max(c.size_tokens for c in infos.values())
-        self.paged = bool(e.paged)
+        # Paged KV for the dense family only; MoE serves from the slab
+        # (the prefix cache and chunked prefill then stay off).
+        self.paged = bool(e.paged) and api.supports_paged(cfg)
         self.pool = MemoryPool(capacity_tokens=cap,
                                page_size=e.page_size if self.paged else 1)
         self.cache = AdapterCache(self.pool, infos,

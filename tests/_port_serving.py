@@ -1,9 +1,10 @@
 """Shared set-up of the port's serving tests (chunked prefill, the
 migration API and the tiers of ``build_system``).
 
-``models()`` builds the reduced Llama once per process: the JAX
-package's weights and adapter catalog, and the same bridged to tensors
-on the CPU, so the JAX engine and the port serve identical models.
+``models()`` builds the reduced Llama (or the reduced config named)
+once per process: the JAX package's weights and adapter catalog, and
+the same bridged to tensors on the CPU, so the JAX engine and the port
+serve identical models.
 """
 import functools
 
@@ -15,7 +16,7 @@ ENGINE = dict(max_slots=4, max_len=128, n_lora_slots=4, n_adapters=8,
 
 
 @functools.lru_cache(maxsize=None)
-def models():
+def models(name="chameleon-llama-7b"):
     import jax
     import jax.numpy as jnp
 
@@ -26,10 +27,10 @@ def models():
     from repro_torch.configs import get_config
     from repro_torch.serving import engine
 
-    jcfg = jget_config("chameleon-llama-7b").reduced()
+    jcfg = jget_config(name).reduced()
     jparams = japi.init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
     jcat = jengine.AdapterCatalog(jcfg, ENGINE["n_adapters"], 32, seed=0)
-    cfg = get_config("chameleon-llama-7b").reduced()
+    cfg = get_config(name).reduced()
     cat = engine.AdapterCatalog(
         cfg, ENGINE["n_adapters"], 32,
         weights=bridge.catalog_weights_to_torch(jcat.weights, "cpu"))

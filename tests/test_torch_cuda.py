@@ -812,3 +812,79 @@ def test_reduced_spec_engine_on_the_card(card, paged):
             assert all(s.plain == 0 for s in stats)
     assert out["cuda"] == out["cpu"]
     assert out["cuda"][1] > 0
+
+
+@pytest.mark.parametrize("B,S,top_k,cf", [(4, 32, 4, 1.25), (2, 64, 2, 0.5),
+                                          (8, 1, 8, 1.25)])
+def test_moe_blocks_on_the_card(card, B, S, top_k, cf):
+    """The MoE blocks in f32 on the card against the CPU on the same
+    inputs: routing, the kept/dropped pattern and the drop count equal,
+    outputs within 1e-4 (f32 sums in another order). S == 1 is the
+    dropless expert gather; cf 0.5 drops assignments."""
+    from repro_torch.models import moe
+    gen = torch.Generator().manual_seed(21)
+    D, E, F = 256, 16, 192
+    x = torch.randn(B, S, D, generator=gen)
+    w = [torch.randn(s, generator=gen) / s[-2] ** 0.5
+         for s in ((D, E), (E, D, F), (E, D, F), (E, F, D))]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        args = [t.to(dev) for t in (x, *w)]
+        moe.STATS.reset()
+        if S == 1:
+            y, aux = moe.moe_block_gather(*args, top_k)
+        else:
+            y, aux = moe.moe_block(*args, top_k, cf)
+        _, idx, _ = moe.route(args[0], args[1], top_k)
+        out[dev] = (y.cpu(), aux.cpu(), idx.cpu(), moe.STATS.dropped,
+                    moe.STATS.experts_read)
+    (yc, ac, ic, dc, ec), (yg, ag, ig, dg, eg) = out["cpu"], out["cuda"]
+    assert torch.equal(ig, ic)
+    assert (dg, eg) == (dc, ec)
+    if cf < 1:
+        assert dc > 0
+    torch.testing.assert_close(yg, yc, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ag, ac, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["qwen3-moe-235b-a22b",
+                                  "llama4-maverick-400b-a17b"])
+def test_reduced_moe_engine_on_the_card(card, name):
+    """A reduced MoE engine, f32, under ``EngineConfig()`` (which serves
+    MoE from the dense slab): the card's fused and seed loops give the
+    CPU port's tokens; prefill runs flash_attention and sgmv, decode
+    bgmv, paged_attention never, and no plain path."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import Request
+    from repro_torch.models import api
+    from repro_torch.serving.engine import AdapterCatalog
+    cfg = get_config(name).reduced()
+    params = api.init_params(cfg, 0, torch.float32, device="cpu")
+    model = (cfg, params, AdapterCatalog(cfg, 8, 32, seed=0, device="cpu"))
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(1, 200, L).tolist() for L, _, _ in CHUNK_SPEC]
+    stats = {"bgmv": bgmv_mod.STATS, "sgmv": sgmv_mod.STATS,
+             "paged_attention": pa_mod.STATS,
+             "flash_attention": fa_mod.STATS}
+    out = {}
+    for dev, fused in (("cpu", True), ("cuda", True), ("cuda", False)):
+        eng, t = _engine(model, dev, fused_hotloop=fused)
+        assert not eng.paged
+        for st in stats.values():
+            st.reset()
+        hs = [eng.submit(Request(input_len=L, output_len=O + 6,
+                                 adapter_id=a, prompt=list(p)))
+              for (L, O, a), p in zip(CHUNK_SPEC, prompts)]
+        for _ in range(5000):
+            if not eng.busy():
+                break
+            _step(eng, t)
+        assert not eng.busy()
+        out[(dev, fused)] = [h.tokens for h in hs]
+        if dev == "cuda":
+            launched = {n: st.launches > 0 for n, st in stats.items()}
+            assert launched == {"bgmv": True, "sgmv": True,
+                                "flash_attention": True,
+                                "paged_attention": False}, launched
+            assert all(st.plain == 0 for st in stats.values())
+    assert out[("cuda", True)] == out[("cuda", False)] == out[("cpu", True)]

@@ -50,6 +50,8 @@ from test_torch_engine import (BASE, N_ADAPTERS_USED, N_REQ,  # noqa: E402
                                shared_prefix_prompts)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+#: Configs of the families with no model functions in the port yet.
+UNPORTED_API = ("falcon-mamba-7b", "zamba2-1.2b", "whisper-base")
 R_MAX = 32
 RANKS = (8, 16, 32)
 MAX_LEN = BASE["max_len"]
@@ -186,14 +188,19 @@ class TestDenseLM:
             close(t, j)
 
     def test_other_families_raise_naming_the_family(self):
-        cfg = get_config("qwen3-moe-235b-a22b").reduced()
+        """The families the port has no model functions for yet (MoE
+        and VLM have them: ``tests/test_torch_moe.py``)."""
         tok = torch.zeros((1, 4), dtype=torch.int32)
-        for call in (lambda: api.forward(cfg, {}, tok),
-                     lambda: api.prefill(cfg, {}, tok),
-                     lambda: api.decode_step(cfg, {}, tok, None, None),
-                     lambda: api.init_serve_state(cfg, 1, 8, device="cpu")):
-            with pytest.raises(NotImplementedError, match="MOE"):
-                call()
+        for name in UNPORTED_API:
+            cfg = get_config(name).reduced()
+            for call in (lambda: api.forward(cfg, {}, tok),
+                         lambda: api.prefill(cfg, {}, tok),
+                         lambda: api.decode_step(cfg, {}, tok, None, None),
+                         lambda: api.init_serve_state(cfg, 1, 8,
+                                                      device="cpu")):
+                with pytest.raises(NotImplementedError,
+                                   match=cfg.family.name):
+                    call()
 
 
 # ------------------------------------------------------------- engines
@@ -341,8 +348,19 @@ def test_dense_engine_drops_writes_past_the_slab(setup):
 
 @pytest.mark.parametrize("paged", [False, True])
 def test_non_dense_family_raises_naming_the_family(paged):
-    cfg = get_config("qwen3-moe-235b-a22b").reduced()
-    with pytest.raises(NotImplementedError, match="MOE"):
+    """VLM has model functions but no engine (the reference engine
+    threads no M-RoPE positions); MoE serves (``tests/
+    test_torch_moe_engine.py``)."""
+    cfg = get_config("qwen2-vl-7b").reduced()
+    with pytest.raises(NotImplementedError, match="VLM"):
         engine.ChameleonEngine(cfg, {}, engine.EngineConfig(**BASE,
                                                             paged=paged),
+                               device="cpu")
+
+
+@pytest.mark.parametrize("name", UNPORTED_API)
+def test_unported_family_engine_raises_naming_the_family(name):
+    cfg = get_config(name).reduced()
+    with pytest.raises(NotImplementedError, match=cfg.family.name):
+        engine.ChameleonEngine(cfg, {}, engine.EngineConfig(**BASE),
                                device="cpu")
