@@ -61,7 +61,13 @@ of the JAX package. Phases, one JSON line each:
              paged_attention not. And the VLM model path
              (``parity_vlm``): reduced qwen2-vl-7b prefill and one
              decode step with distinct t/h/w M-RoPE positions, logits
-             and slab within 2e-4 of the CPU's.
+             and slab within 2e-4 of the CPU's. Then the families
+             without an engine (``parity_family``): reduced
+             falcon-mamba-7b, zamba2-1.2b (LoRA through the kernels)
+             and whisper-base in f32, S = 16 (and 70 for the scans):
+             ``forward``, ``train_loss``, ``prefill`` and 4
+             ``decode_step``s, logits, loss and states within 1e-4 of
+             the CPU's; their kernels launch, no plain version runs.
 4. engine  — ``chameleon-llama-7b`` at full width (32 layers, d 4096,
              bf16 weights from a seeded generator): 16 requests over
              12 adapters from shared preambles, some seeded-sampled,
@@ -123,6 +129,20 @@ of the JAX package. Phases, one JSON line each:
              plain or einsum path run. ``engine_moe_ab`` reports greedy
              agreement between the two (not gated: bf16, and the
              capacity drops depend on which requests share a bucket).
+
+6. family  — with the MoE model freed, the families served by model
+             functions only, at their published widths, bf16 weights
+             from the port's ``init_params``, one at a time: falcon-
+             mamba-7b (64 layers; prefill (4, 2048), 32 decode steps,
+             serve-state bytes at S 64 and 2048, decode against
+             ``forward`` over S + 1), zamba2-1.2b (prefill (8, 512), 32
+             decode steps, 8 adapters through sgmv and bgmv, then the
+             einsum LoRA on the same tokens) and whisper-base (1500
+             frames, a 32-token prompt, 32 decode steps). Before each,
+             its kernels at its shapes against their plain versions
+             (``kernel_time_family``). Gates: finite logits, constant
+             state shapes, the kernels' outputs, and the launches of
+             each model's path (counts zeroed just before it).
 
 A device-time profile of the same path is ``chip_profile.py``.
 
@@ -1722,27 +1742,8 @@ def moe_kernel_checks(cfg, record_to: dict) -> None:
         return (torch.randn(shape, generator=g, device=dev)
                 * scale).to(torch.bfloat16)
 
-    def checked(name, case, call, plain, library, tol, bound,
-                extra=None, **info):
-        got = call()
-        torch.cuda.synchronize()
-        want = plain()
-        atol, rtol = TOL[tol]
-        diff = (got.float() - want.float()).abs()
-        allowed = atol + rtol * want.float().abs()
-        if extra is not None:
-            allowed = allowed + extra
-        err = diff.max().item()
-        ok = bool((diff <= allowed).all())
-        emit(dict(phase="kernel_time_moe", kernel=name, case=case,
-                  max_abs_err=err, atol=atol, rtol=rtol, ok=ok,
-                  ms=median_ms(call, flush),
-                  plain_ms=median_ms(plain, flush),
-                  library_ms=median_ms(library, flush),
-                  bound_ms=bound[0], bound_by=bound[1], **info))
-        check(ok, f"{name} [{case}] disagrees with its plain version at "
-                  f"the MoE widths: max abs err {err}")
-        record_to[name] = max(record_to.get(name, 0.0), err)
+    def checked(*args, **kw):
+        checked_and_timed("kernel_time_moe", flush, record_to, *args, **kw)
 
     d, r, n_slots, Bt, S, tile = cfg.d_model, 32, 8, 8, 256, 128
     idx = torch.randperm(n_slots, generator=g, device=dev)[:Bt].int()
@@ -1791,6 +1792,37 @@ def moe_kernel_checks(cfg, record_to: dict) -> None:
             extra=FLASH_P_ROUNDING * fa.flash_attention_plain(
                 q.float(), k.float(), v.float().abs(), True),
             instance=inst)
+
+
+def checked_and_timed(phase: str, flush, record_to: dict, name: str,
+                      case: str, call, plain, library, tol: str,
+                      bound: tuple, extra=None, **info) -> dict:
+    """One kernel call held to its plain version (``TOL[tol]``, plus a
+    per-element ``extra`` allowance), then timed beside its plain
+    version, a PyTorch call (``library``) and its ``bound``; one
+    ``phase`` line. ``record_to[name]`` keeps the largest error.
+    Returns the line."""
+    import torch
+    got = call()
+    torch.cuda.synchronize()
+    want = plain()
+    atol, rtol = TOL[tol]
+    diff = (got.float() - want.float()).abs()
+    allowed = atol + rtol * want.float().abs()
+    if extra is not None:
+        allowed = allowed + extra
+    err = diff.max().item()
+    ok = bool((diff <= allowed).all())
+    line = dict(phase=phase, kernel=name, case=case, max_abs_err=err,
+                atol=atol, rtol=rtol, ok=ok, ms=median_ms(call, flush),
+                plain_ms=median_ms(plain, flush),
+                library_ms=median_ms(library, flush),
+                bound_ms=bound[0], bound_by=bound[1], **info)
+    emit(line)
+    check(ok, f"{name} [{case}] disagrees with its plain version: max "
+              f"abs err {err}")
+    record_to[name] = max(record_to.get(name, 0.0), err)
+    return line
 
 
 def decode_step_bound(cfg, params, experts_per_layer: float) -> tuple:
@@ -2010,6 +2042,563 @@ def phase_engine_moe(trace_vocab: int, greedy: list) -> None:
                   for n, r in results.items()}))
 
 
+# ------------------------------------------- phases 3 and 6, families
+#: Configs of the families served by model functions only (no engine),
+#: and the kernels each one's model path runs on the card: the SSM's
+#: scans are plain PyTorch (no TPU kernel), the hybrid's shared block
+#: runs flash_attention and its LoRA sgmv (prefill) and bgmv (decode),
+#: whisper's encoder and decoder prefill run flash_attention.
+FAMILIES = {"falcon-mamba-7b": (),
+            "zamba2-1.2b": ("flash_attention", "sgmv", "bgmv"),
+            "whisper-base": ("flash_attention",)}
+
+
+def family_lora(cfg, n_slots: int, r_max: int, dtype, device, seed: int):
+    """LoRA slots of the hybrid's shared block, stacks of (n_sites,
+    n_slots, din, r_max), each slot one random adapter of rank
+    ``cfg.lora_ranks[i % ...]`` (zero-padded to ``r_max``)."""
+    import torch
+    from repro_torch.models import hybrid
+    from repro_torch.models.lora_apply import (init_lora_slots,
+                                               random_lora_weights,
+                                               write_adapter_to_slot)
+    n_sites = len(hybrid.attn_sites(cfg))
+    slots = init_lora_slots(n_slots, n_sites, cfg.d_model, cfg.q_dim,
+                            cfg.kv_dim, r_max, dtype=dtype, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for i in range(n_slots):
+        rank = min(cfg.lora_ranks[i % len(cfg.lora_ranks)], r_max)
+        write_adapter_to_slot(slots, random_lora_weights(
+            gen, rank, r_max, n_sites, cfg.d_model, cfg.q_dim, cfg.kv_dim,
+            dtype=dtype), i)
+    return slots
+
+
+def family_inputs(cfg, B: int, S: int, seed: int, dtype, device):
+    """(tokens (B, S) int32, extra model kwargs): enc-dec takes
+    ``frames`` (B, enc_ctx, D) of random encoder embeddings."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device=device).int()
+    kw = {}
+    if cfg.family.name == "ENCDEC":
+        kw["frames"] = torch.randn((B, cfg.enc_ctx, cfg.d_model),
+                                   generator=gen, device=device).to(dtype)
+    return toks, kw
+
+
+def serve_family(cfg, params, toks, kw, n_decode: int, feed=None,
+                 lora=None, idx=None, backend: str = "einsum"):
+    """Prefill ``toks``, then ``n_decode`` decode steps, each fed the
+    next token of ``feed`` (B, n_decode) or, without it, the argmax of
+    the last logits. K/V slabs get ``n_decode`` free positions. Returns
+    dict(last, state (prefill), steps [logits], state (after), fed)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import api
+    B, S = toks.shape
+    pkw = dict(kw)
+    if cfg.family.name == "HYBRID":
+        pkw.update(kv_max_len=S + n_decode, lora=lora, adapter_idx=idx,
+                   lora_backend=backend)
+    with torch.no_grad():
+        last, state = api.prefill(cfg, params, toks, **pkw)
+        pre = [t.clone() for t in flat(state)]
+        if cfg.family.name == "ENCDEC":
+            (k, v), cross = state
+            state = ((F.pad(k, (0, 0, 0, 0, 0, n_decode)),
+                      F.pad(v, (0, 0, 0, 0, 0, n_decode))), cross)
+        dkw = (dict(lora=lora, adapter_idx=idx, lora_backend=backend)
+               if cfg.family.name == "HYBRID" else {})
+        logits, steps, fed = last, [], []
+        for i in range(n_decode):
+            tok = (feed[:, i:i + 1] if feed is not None
+                   else logits.argmax(-1)[:, None].int())
+            fed.append(tok)
+            clen = torch.full((B,), S + i, dtype=torch.int32,
+                              device=toks.device)
+            logits, state = api.decode_step(cfg, params, tok, state, clen,
+                                            **dkw)
+            steps.append(logits)
+    return dict(last=last, prefill_state=pre, steps=steps,
+                state=flat(state), fed=torch.cat(fed, 1))
+
+
+def flat(state) -> list:
+    """The tensors of a serve state, depth first."""
+    if isinstance(state, (tuple, list)):
+        return [t for s in state for t in flat(s)]
+    return [state]
+
+
+def phase_parity_families() -> None:
+    """The families without an engine at ``.reduced()`` in f32, the card
+    (kernels) against the CPU (plain versions) on the same weights:
+    ``forward`` logits, ``train_loss``, ``prefill`` last logits and
+    state, 4 ``decode_step``s fed the CPU's greedy tokens (logits and
+    state); S = 16 and, for the scans, S = 70 (three chunks of 32, the
+    last padded). The hybrid's LoRA runs through the kernels
+    (``lora_backend="kernel"``). Within 1e-4 (``TOL["f32"]``); on the
+    card each family's kernels launch and no plain version runs."""
+    import importlib
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    stats = {n: importlib.import_module(f"repro_torch.kernels.{n}").STATS
+             for n in KERNELS}
+    atol, rtol = TOL["f32"]
+    bad = []
+    for name, path in FAMILIES.items():
+        cfg = get_config(name).reduced()
+        params = api.init_params(cfg, 0, torch.float32, device="cpu")
+        lora = (family_lora(cfg, 3, 8, torch.float32, "cpu", 5)
+                if path and "sgmv" in path else None)
+        for S in ((16, 70) if cfg.ssm_version else (16,)):
+            toks, kw = family_inputs(cfg, 2, S, 6, torch.float32, "cpu")
+            idx = torch.tensor([2, 0], dtype=torch.int32)
+            labels = toks.roll(-1, 1)
+            out, feed = {}, None
+            for dev in ("cpu", "cuda"):
+                mv = {k: v.to(dev) for k, v in params.items()}
+                lr = ({k: (a.to(dev), b.to(dev)) for k, (a, b) in
+                       lora.items()} if lora is not None else None)
+                t, k = toks.to(dev), {n: v.to(dev) for n, v in kw.items()}
+                for st in stats.values():
+                    st.reset()
+                with torch.no_grad():
+                    logits = api.forward(cfg, mv, t, **k)
+                    loss = api.train_loss(cfg, mv, t, labels.to(dev), **k)
+                res = serve_family(cfg, mv, t, k, 4, feed=feed, lora=lr,
+                                   idx=idx.to(dev), backend="kernel")
+                feed = res["fed"].to("cuda")
+                out[dev] = dict(
+                    tensors=[x.cpu() for x in (
+                        logits, loss, res["last"], *res["prefill_state"],
+                        *res["steps"], *res["state"])],
+                    launches={n: s.launches for n, s in stats.items()},
+                    plain={n: s.plain for n, s in stats.items()})
+            cpu, card = out["cpu"], out["cuda"]
+            errs, ok = [], True
+            for a, b in zip(card["tensors"], cpu["tensors"]):
+                diff = (a.float() - b.float()).abs()
+                errs.append(diff.max().item() if diff.numel() else 0.0)
+                ok &= bool(torch.isfinite(a).all()) and bool(
+                    (diff <= atol + rtol * b.float().abs()).all())
+            ok &= (all(card["launches"][n] > 0 for n in path)
+                   and not any(card["plain"].values()))
+            line = dict(phase="parity_family", model=name, S=S,
+                        weights="f32", lora="kernel" if lora else None,
+                        forward_logits_err=errs[0], train_loss_err=errs[1],
+                        prefill_logits_err=errs[2],
+                        max_state_and_decode_err=max(errs[3:]),
+                        atol=atol, rtol=rtol, launches=card["launches"],
+                        ok=ok)
+            emit(line)
+            if not ok:
+                bad.append((name, S))
+    check(not bad, f"card vs CPU family parity failed: {bad}")
+
+
+def state_bytes(state, rows: int) -> dict:
+    """Bytes of a serve state's tensors per batch row, by kind."""
+    return {k: nbytes(t) / rows for k, t in state.items()}
+
+
+def decode_timed(cfg, params, tok, state, S: int, n: int, dkw: dict,
+                 n_prof: int = 3):
+    """``n`` greedy decode steps from ``tok`` on the host clock (one
+    synchronise at the end), then ``n_prof`` more under torch.profiler.
+    Returns (ms a step, step logits list (the first ``n``), final state,
+    tokens (B, n), profile: launches, device ms and busy share a step,
+    the operations with the most device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import api
+    B = tok.shape[0]
+    steps, toks = [], []
+
+    def run(i, tok, state):
+        clen = torch.full((B,), S + i, dtype=torch.int32, device="cuda")
+        logits, state = api.decode_step(cfg, params, tok, state, clen,
+                                        **dkw)
+        return logits, state, logits.argmax(-1)[:, None].int()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(n):
+            toks.append(tok)
+            logits, state, tok = run(i, tok, state)
+            steps.append(logits)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as pr:
+        t0 = time.perf_counter()
+        for i in range(n, n + n_prof):
+            logits, state, tok = run(i, tok, state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in pr.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_us = sum(dev_us(e) for e in kernels)
+    prof = dict(steps=n_prof, ms_per_step=wall * 1e3 / n_prof,
+                launches_per_step=sum(e.count for e in kernels) / n_prof,
+                device_ms_per_step=busy_us * 1e-3 / n_prof,
+                device_busy_share=busy_us * 1e-6 / wall,
+                top_device=[dict(name=e.key[:70], calls=e.count,
+                                 us=dev_us(e))
+                            for e in sorted(kernels, key=dev_us,
+                                            reverse=True)[:6]])
+    return ms, steps, state, torch.cat(toks, 1), prof
+
+
+def timed_call(fn):
+    """(result, ms on the host clock with the card synchronised before
+    and after, ms between CUDA events around the call)."""
+    import torch
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    s.record()
+    out = fn()
+    e.record()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, s.elapsed_time(e)
+
+
+def family_params(name: str):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    cfg = get_config(name)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n = sum(v.numel() for v in params.values())
+    return cfg, params, dict(
+        model=name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        vocab_size=cfg.vocab_size, weights="bf16", params_b=n / 1e9,
+        weights_gb=sum(nbytes(v) for v in params.values()) / 1e9,
+        init_params_s=time.perf_counter() - t0)
+
+
+def run_falcon_mamba(stats) -> None:
+    """falcon-mamba-7b, all 64 layers: prefill (4, 2048) (and (4, 64)
+    first, which also warms the card up), 32 greedy decode steps; the
+    serve state's bytes at both lengths; the first decode step's logits
+    against ``forward`` over the S + 1 tokens (top-1 agreement and max
+    abs difference, reported)."""
+    import torch
+    from repro_torch.models import api
+    cfg, params, info = family_params("falcon-mamba-7b")
+    B, S, n_dec = 4, 2048, 32
+    toks, _ = family_inputs(cfg, B, S, 11, torch.bfloat16, "cuda")
+    with torch.no_grad():
+        _, st64 = api.prefill(cfg, params, toks[:, :64])
+    for st in stats.values():
+        st.reset()
+    torch.cuda.reset_peak_memory_stats()
+    (last, state), host_ms, dev_ms = timed_call(
+        lambda: api.prefill(cfg, params, toks))
+    prefill_peak = torch.cuda.max_memory_allocated() / 1e9
+    sizes = {S: state_bytes(dict(ssm=state[0], conv=state[1]), B),
+             64: state_bytes(dict(ssm=st64[0], conv=st64[1]), B)}
+    tok = last.argmax(-1)[:, None].int()
+    ms_step, steps, new_state, fed, prof = decode_timed(
+        cfg, params, tok, state, S, n_dec, {})
+    with torch.no_grad():
+        full = api.forward(cfg, params, torch.cat([toks, tok], 1))[:, -1]
+    launches = {n: s.launches for n, s in stats.items()}
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (last, full, *steps))
+    same_state = ([tuple(t.shape) for t in new_state]
+                  == [tuple(t.shape) for t in state]
+                  == [tuple(t.shape) for t in st64]
+                  and sizes[S] == sizes[64])
+    w_bytes = sum(nbytes(v) for v in params.values())
+    st_bytes = nbytes(*state)
+    b_ms, b_by = bound_ms(w_bytes + 2 * st_bytes, 0.0, "bf16")
+    emit(dict(phase="family", **info, B=B, S=S,
+              prefill_ms=host_ms, prefill_device_ms=dev_ms,
+              prefill_peak_gb=prefill_peak,
+              decode_steps=n_dec, ms_per_decode_step=ms_step,
+              decode_profile=prof,
+              decode_bound_ms=b_ms, decode_bound_by=b_by,
+              decode_bound_gb=(w_bytes + 2 * st_bytes) / 1e9,
+              state_bytes_per_row=sizes, state_constant=same_state,
+              top1_decode_vs_forward=int((steps[0].argmax(-1)
+                                          == full.argmax(-1)).sum()),
+              rows=B, max_abs_decode_vs_forward=(
+                  steps[0] - full).abs().max().item(),
+              finite=finite, launches=launches,
+              tokens_in_vocab=bool(((fed >= 0) & (fed < cfg.vocab_size))
+                                   .all())))
+    check(finite, "falcon-mamba-7b: non-finite logits")
+    check(same_state, f"falcon-mamba-7b: serve state changed: {sizes}")
+
+
+def run_zamba2(stats, flush, errs: dict) -> None:
+    """zamba2-1.2b at full width: the kernels at its shapes (flash
+    causal at (8, 512, 32, 64), sgmv at x (4096, 2048), bgmv at x (8,
+    2048)) held to their plain versions and timed; then prefill (8, 512)
+    and 32 greedy decode steps with 8 adapters through sgmv and bgmv,
+    and the same steps fed the same tokens with the plain LoRA (einsum).
+    The two routes' logits are compared at the LoRA kernels' bf16
+    tolerance and reported, not gated: 38 layers of bf16 activations
+    carry one-ulp differences of the LoRA sums further than one
+    kernel's tolerance (0.048 at reduced width on the CPU, where both
+    routes are plain PyTorch)."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+    bgmv = importlib.import_module("repro_torch.kernels.bgmv")
+    sgmv = importlib.import_module("repro_torch.kernels.sgmv")
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    cfg, params, info = family_params("zamba2-1.2b")
+    B, S, n_dec, n_slots, r_max, tile = 8, 512, 32, 8, 32, 128
+    lora = family_lora(cfg, n_slots, r_max, torch.bfloat16, "cuda", 21)
+    idx = torch.arange(n_slots, dtype=torch.int32, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(22)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").bfloat16()
+
+    # The kernels at the shapes this path gives them.
+    A, Bw = lora["q"][0][0], lora["q"][1][0]        # site 0, q
+    x = randn(B, cfg.d_model)
+    rows = {}
+    rows["bgmv"] = checked_and_timed(
+        "kernel_time_family", flush, errs, "bgmv",
+        f"zamba2 q: x {tuple(x.shape)} bf16, r {r_max}, {n_slots} slots",
+        lambda: bgmv.bgmv(x, A, Bw, idx),
+        lambda: bgmv.bgmv_plain(x, A, Bw, idx),
+        lambda: torch.bmm(torch.bmm(x[:, None], A[idx.long()]),
+                          Bw[idx.long()]), "lora_bf16",
+        bound_ms(nbytes(x, idx) + n_slots * nbytes(A[0], Bw[0])
+                 + nbytes(x), 2 * B * r_max * 2 * cfg.d_model, "bf16"))
+    xs = randn(B * S, cfg.d_model)
+    ts = idx.repeat_interleave(S // tile)
+    xt = xs.view(-1, tile, cfg.d_model)
+    sgmv.STATS.reset()
+    sgmv.sgmv(xs, A, Bw, ts, tile)
+    rows["sgmv"] = checked_and_timed(
+        "kernel_time_family", flush, errs, "sgmv",
+        f"zamba2 q: x {tuple(xs.shape)} bf16, r {r_max}, tile {tile}",
+        lambda: sgmv.sgmv(xs, A, Bw, ts, tile),
+        lambda: sgmv.sgmv_plain(xs, A, Bw, ts, tile),
+        lambda: torch.bmm(torch.bmm(xt, A[ts.long()]), Bw[ts.long()]),
+        "lora_bf16",
+        bound_ms(nbytes(xs, ts) + n_slots * nbytes(A[0], Bw[0])
+                 + nbytes(xs), 2 * B * S * r_max * 2 * cfg.d_model,
+                 "bf16"),
+        instance=launched(sgmv, sgmv.sgmv_instance(xs.dtype, A.dtype,
+                                                   r_max, tile)))
+    H, Kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = randn(B, S, H, dh), randn(B, S, Kh, dh), randn(B, S, Kh, dh)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    fa.STATS.reset()
+    fa.flash_attention(q, k, v, True)
+    rows["flash_attention"] = checked_and_timed(
+        "kernel_time_family", flush, errs, "flash_attention",
+        f"zamba2 causal, H {H}/Kh {Kh}, q {tuple(q.shape)} bf16",
+        lambda: fa.flash_attention(q, k, v, True),
+        lambda: fa.flash_attention_plain(q, k, v, True),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True),
+        "bf16_out", flash_bound(q, k, v, True),
+        extra=FLASH_P_ROUNDING * fa.flash_attention_plain(
+            q.float(), k.float(), v.float().abs(), True),
+        instance=launched(fa, fa.flash_instance(q.dtype, dh)))
+    del q, k, v, qt, kt, vt, xs, xt
+
+    toks, _ = family_inputs(cfg, B, S, 23, torch.bfloat16, "cuda")
+    from repro_torch.models import api
+    from repro_torch.models.lora_apply import EINSUM
+    for st in stats.values():
+        st.reset()
+    EINSUM.reset()
+    kw = dict(lora=lora, adapter_idx=idx)
+    (last, state), host_ms, dev_ms = timed_call(lambda: api.prefill(
+        cfg, params, toks, kv_max_len=S + n_dec, lora_backend="kernel",
+        **kw))
+    prefill_launches = {n: s.launches for n, s in stats.items()}
+    shapes0 = [tuple(t.shape) for t in flat(state)]
+    bytes0 = nbytes(*flat(state))
+    tok = last.argmax(-1)[:, None].int()
+    ms_step, steps, new_state, fed, prof = decode_timed(
+        cfg, params, tok, state, S, n_dec, dict(lora_backend="kernel", **kw))
+    launches = {n: s.launches for n, s in stats.items()}
+    instances = {n: dict(s.instances) for n, s in stats.items()}
+    plain = {n: s.plain for n, s in stats.items()}
+    einsum_calls = EINSUM.calls
+    # The plain LoRA (einsum) on the same tokens.
+    plain_run = serve_family(cfg, params, toks, {}, n_dec, feed=fed,
+                             lora=lora, idx=idx, backend="einsum")
+    atol, rtol = TOL["lora_bf16"]
+    pairs = [(last, plain_run["last"])] + list(zip(steps,
+                                                   plain_run["steps"]))
+    lerr = max((a - b).abs().max().item() for a, b in pairs)
+    logits_ok = all(bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+                    for a, b in pairs)
+    top1 = sum(int((a.argmax(-1) == b.argmax(-1)).sum()) for a, b in pairs)
+    finite = all(bool(torch.isfinite(t).all()) for t in (last, *steps))
+    same_state = ([tuple(t.shape) for t in flat(new_state)] == shapes0
+                  and nbytes(*flat(new_state)) == bytes0)
+    n_sites = cfg.n_layers // cfg.attn_every
+    w_bytes = sum(nbytes(v) for v in params.values())
+    kv_bytes = nbytes(*flat(state)[2:])
+    b_ms, b_by = bound_ms(w_bytes + 2 * nbytes(*flat(state)[:2])
+                          + kv_bytes + n_slots * sum(
+                              nbytes(a[0, 0], b[0, 0]) for a, b in
+                              lora.values()) * n_sites, 0.0, "bf16")
+    emit(dict(phase="family", **info, B=B, S=S, n_sites=n_sites,
+              tail_layers=cfg.n_layers - n_sites * cfg.attn_every,
+              adapters=n_slots, r_max=r_max, lora="kernel",
+              prefill_ms=host_ms, prefill_device_ms=dev_ms,
+              decode_steps=n_dec, ms_per_decode_step=ms_step,
+              decode_profile=prof,
+              decode_bound_ms=b_ms, decode_bound_by=b_by,
+              state_bytes=bytes0, state_constant=same_state,
+              finite=finite, prefill_launches=prefill_launches,
+              launches=launches, launches_by_instance=instances,
+              plain_calls=plain, einsum_calls=einsum_calls,
+              einsum_route_max_abs_err=lerr, einsum_route_atol=atol,
+              einsum_route_rtol=rtol, einsum_route_ok=logits_ok,
+              einsum_route_top1=top1, einsum_route_rows=len(pairs) * B,
+              kernel_rows={n: {k: r[k] for k in ("ms", "plain_ms",
+                                                  "library_ms", "bound_ms",
+                                                  "bound_by")}
+                           for n, r in rows.items()}))
+    check(finite, "zamba2-1.2b: non-finite logits")
+    check(same_state, "zamba2-1.2b: serve state changed shape")
+    check(prefill_launches["sgmv"] == 4 * n_sites
+          and prefill_launches["flash_attention"] == n_sites
+          and launches["bgmv"] == 4 * n_sites * (n_dec + prof["steps"]),
+          f"zamba2-1.2b: launches {prefill_launches} / {launches}, expected "
+          f"{4 * n_sites} sgmv and {n_sites} flash a prefill, "
+          f"{4 * n_sites} bgmv a decode step")
+    check(set(instances["sgmv"]) == set(instances["flash_attention"])
+          == {"tensor_cores"},
+          f"zamba2-1.2b: instances {instances}, expected tensor cores")
+    check(not any(plain.values()) and einsum_calls == 0,
+          f"zamba2-1.2b: a plain/einsum path ran on the kernel route: "
+          f"{plain}, einsum {einsum_calls}")
+
+
+def run_whisper(stats, flush, errs: dict) -> None:
+    """whisper-base at full width: 1500 encoder frames a row, 8 rows.
+    flash_attention full (non-causal) at the encoder's (8, 1500, 8, 64)
+    held to its plain version and timed; then prefill (the encoder, the
+    cross K/V and a 32-token decoder prompt) and 32 greedy decode
+    steps."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import api
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    cfg, params, info = family_params("whisper-base")
+    B, S, n_dec = 8, 32, 32
+    H, Kh, dh, Se = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.enc_ctx
+    g = torch.Generator(device="cuda").manual_seed(31)
+    q, k, v = (torch.randn((B, Se, h, dh), generator=g, device="cuda")
+               .bfloat16() for h in (H, Kh, Kh))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    fa.STATS.reset()
+    fa.flash_attention(q, k, v, False)
+    row = checked_and_timed(
+        "kernel_time_family", flush, errs, "flash_attention",
+        f"whisper encoder, full, H {H}/Kh {Kh}, q {tuple(q.shape)} bf16",
+        lambda: fa.flash_attention(q, k, v, False),
+        lambda: fa.flash_attention_plain(q, k, v, False),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                               enable_gqa=True),
+        "bf16_out", flash_bound(q, k, v, False),
+        extra=FLASH_P_ROUNDING * fa.flash_attention_plain(
+            q.float(), k.float(), v.float().abs(), False),
+        instance=launched(fa, fa.flash_instance(q.dtype, dh)))
+    del q, k, v, qt, kt, vt
+    toks, kw = family_inputs(cfg, B, S, 32, torch.bfloat16, "cuda")
+    for st in stats.values():
+        st.reset()
+    (last, state), host_ms, dev_ms = timed_call(
+        lambda: api.prefill(cfg, params, toks, **kw))
+    prefill_launches = {n: s.launches for n, s in stats.items()}
+    (kself, vself), cross = state
+    state = ((F.pad(kself, (0, 0, 0, 0, 0, n_dec)),
+              F.pad(vself, (0, 0, 0, 0, 0, n_dec))), cross)
+    shapes0 = [tuple(t.shape) for t in flat(state)]
+    tok = last.argmax(-1)[:, None].int()
+    ms_step, steps, new_state, fed, prof = decode_timed(
+        cfg, params, tok, state, S, n_dec, {})
+    launches = {n: s.launches for n, s in stats.items()}
+    instances = {n: dict(s.instances) for n, s in stats.items()}
+    finite = all(bool(torch.isfinite(t).all()) for t in (last, *steps))
+    same_state = [tuple(t.shape) for t in flat(new_state)] == shapes0
+    w_bytes = sum(nbytes(v) for v in params.values())
+    b_ms, b_by = bound_ms(w_bytes - nbytes(params["enc_pos"])
+                          + nbytes(*flat(state)), 0.0, "bf16")
+    n_fa = cfg.n_enc_layers + cfg.n_layers
+    emit(dict(phase="family", **info, B=B, S=S, enc_ctx=Se,
+              n_enc_layers=cfg.n_enc_layers, prefill_ms=host_ms,
+              prefill_device_ms=dev_ms, decode_steps=n_dec,
+              ms_per_decode_step=ms_step, decode_profile=prof,
+              decode_bound_ms=b_ms,
+              decode_bound_by=b_by, state_bytes=nbytes(*flat(state)),
+              state_constant=same_state, finite=finite,
+              prefill_launches=prefill_launches, launches=launches,
+              launches_by_instance=instances,
+              kernel_rows={"flash_attention": {
+                  k: row[k] for k in ("ms", "plain_ms", "library_ms",
+                                      "bound_ms", "bound_by")}}))
+    check(finite, "whisper-base: non-finite logits")
+    check(same_state, "whisper-base: serve state changed shape")
+    check(prefill_launches["flash_attention"] == n_fa
+          and set(instances["flash_attention"]) == {"tensor_cores"},
+          f"whisper-base: flash_attention launches {prefill_launches}, "
+          f"{instances}: expected {n_fa} tensor-core launches a prefill")
+
+
+def phase_families() -> None:
+    """The families without an engine at full published width on the
+    card, bf16 weights from the port's ``init_params``, one model at a
+    time, each freed before the next: ``run_falcon_mamba``,
+    ``run_zamba2``, ``run_whisper`` (one ``family`` line each, the
+    kernels at their shapes on ``kernel_time_family`` lines). Kernel
+    counts are zeroed just before each model's path and read just
+    after."""
+    import importlib
+
+    import torch
+    stats = {n: importlib.import_module(f"repro_torch.kernels.{n}").STATS
+             for n in KERNELS}
+    scratch = torch.empty(64 * MIB, dtype=torch.uint8, device="cuda")
+
+    def flush():
+        scratch.zero_()
+
+    errs = {}
+    for run in (lambda: run_falcon_mamba(stats),
+                lambda: run_zamba2(stats, flush, errs),
+                lambda: run_whisper(stats, flush, errs)):
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        emit(dict(phase="family_memory",
+                  peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        check(held < 1e9, f"{held / 1e9:.2f} GB still allocated after a "
+                          f"family was freed")
+
+
 KERNELS = {
     "bgmv": ("src/repro_torch/csrc/bgmv.cu", "src/repro/kernels/bgmv.py:39"),
     "sgmv": ("src/repro_torch/csrc/sgmv.cu", "src/repro/kernels/sgmv.py:37"),
@@ -2049,6 +2638,7 @@ def main() -> int:
         phase_parity_spec()
         phase_parity_moe()
         phase_parity_vlm()
+        phase_parity_families()
         from repro_torch.configs import get_config
         from repro_torch.models import api
         cfg = get_config("chameleon-llama-7b")
@@ -2063,6 +2653,12 @@ def main() -> int:
         check(held < 1e9, f"{held / 1e9:.2f} GB still allocated after "
                           f"the Llama engines and tiers were freed")
         phase_engine_moe(cfg.vocab_size, greedy_requests(cfg))
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        check(held < 1e9, f"{held / 1e9:.2f} GB still allocated after "
+                          f"the MoE engines were freed")
+        phase_families()
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

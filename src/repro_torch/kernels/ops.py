@@ -14,6 +14,11 @@ request) through sgmv with tile-aligned segments, and the einsum path
 stays available as the CPU route. The JAX wrappers pad din and
 dout to 128 for the TPU's tiling; the CUDA kernels mask ragged edges
 themselves, so nothing here pads them.
+
+The CUDA kernels have no backward pass yet: a wrapper given card
+tensors that require grad, with grad mode on, raises
+``NotImplementedError`` (``_no_autograd``) rather than return a tensor
+autograd cannot see through.
 """
 from __future__ import annotations
 
@@ -28,6 +33,28 @@ from .paged_attention import paged_attention as _paged_kernel
 from .sgmv import pack_segments, sgmv as _sgmv_kernel
 
 LORA_BACKENDS = ("auto", "einsum", "kernel")
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether a wrapper launches its CUDA kernel for ``t``."""
+    return t.device.type == "cuda"
+
+
+def _no_autograd(name: str, *ts: torch.Tensor) -> None:
+    """Refuse a kernel call autograd would need to see through.
+
+    The CUDA kernels launch through ``ctypes`` and record no autograd
+    graph, so their output would be a tensor cut off from its inputs
+    and a ``backward()`` would silently miss their gradients. Until the
+    training slice brings their backward passes, a card call with grad
+    mode on and an input that requires grad raises; CPU tensors run the
+    plain versions, where autograd works."""
+    if (torch.is_grad_enabled() and _on_card(ts[0])
+            and any(t.requires_grad for t in ts)):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel has no backward pass yet (it comes "
+            f"with the port's training slice); call it under "
+            f"torch.no_grad() or on CPU tensors")
 
 
 class DispatchMeter:
@@ -99,6 +126,7 @@ def resolve_lora_backend(backend: str | None,
 
 def lora_bgmv(x, A, B, idx):
     """Decode LoRA delta. x: (Bt, din) -> (Bt, dout)."""
+    _no_autograd("bgmv", x, A, B)
     return _bgmv_kernel(x, A, B, idx)
 
 
@@ -108,6 +136,7 @@ def lora_sgmv(x, A, B, seq_lens, adapter_slots, *, tile: int = 128):
     x: (T, din) tokens concatenated per request (seq_lens[i] each),
     adapter_slots[i] the adapter of request i. Returns (T, dout).
     """
+    _no_autograd("sgmv", x, A, B)
     perm, tile_slot, _ = pack_segments(seq_lens, adapter_slots, tile)
     perm_t = torch.as_tensor(perm, dtype=torch.long, device=x.device)
     valid = perm_t >= 0
@@ -150,6 +179,7 @@ def lora_delta_kernel(x, A, B, idx, *, scale: float = 1.0,
     adapter per token); prefill (S > 1) routes each request's
     contiguous token run through sgmv tiles. Returns (Bt, S, dout).
     """
+    _no_autograd("bgmv" if x.shape[1] == 1 else "sgmv", x, A, B)
     if x.shape[1] == 1:
         y = _bgmv_kernel(x[:, 0].contiguous(), A, B, idx)[:, None]
     else:
@@ -161,9 +191,11 @@ def lora_delta_kernel(x, A, B, idx, *, scale: float = 1.0,
 
 def paged_attention(q, k_pages, v_pages, page_table, lengths):
     """Decode attention over paged KV; see paged_attention.py."""
+    _no_autograd("paged_attention", q, k_pages, v_pages)
     return _paged_kernel(q, k_pages, v_pages, page_table, lengths)
 
 
 def flash_attention(q, k, v, causal: bool = True):
     """Prefill attention over a whole sequence; see flash_attention.py."""
+    _no_autograd("flash_attention", q, k, v)
     return _flash_kernel(q, k, v, causal)

@@ -1,11 +1,13 @@
-"""Family dispatcher: the serving surface of the port.
+"""Family dispatcher: the model surface of the port.
 
-Port of ``src/repro/models/api.py`` for the decoder-only families
-(dense, MoE, VLM), with the same gates: fused decode covers the dense
-and MoE families, paged KV the dense family. ``forward``, ``prefill``,
-``decode_step`` and ``init_serve_state`` raise ``NotImplementedError``
-naming any other family (SSM, hybrid, enc-dec are not ported yet).
-``verify`` and the speculative scans raise it for MoE: the reference's
+Port of ``src/repro/models/api.py``. ``forward``, ``train_loss``,
+``prefill``, ``decode_step`` and ``init_serve_state`` take every family
+with the JAX signatures: the decoder-only families (dense, MoE, VLM)
+through ``lm``, SSM through ``ssm_lm`` (``decode_step`` ignores
+``cache_len``), hybrid through ``hybrid`` and enc-dec through
+``encdec``. The gates are JAX's: fused decode covers the dense and MoE
+families, paged KV the dense family. ``verify`` and the speculative
+scans raise ``NotImplementedError`` for MoE: the reference's
 ``lm.verify`` runs the dense MLP on every layer and fails on an MoE
 model, so the port ports it for the dense family only.
 """
@@ -13,21 +15,20 @@ from __future__ import annotations
 
 import torch
 
-from . import lm
+from . import encdec, hybrid, lm, ssm_lm
 from .base import Family, ModelConfig
 from .lm import init_params  # shared: param_shapes covers every family
 from .lm import sample_tokens  # family-agnostic: operates on logits
 
 
-#: Families whose model functions the port has (``lm``).
-_LM_FAMILIES = (Family.DENSE, Family.MOE, Family.VLM)
-
-
-def _lm_only(cfg: ModelConfig, what: str) -> None:
-    if cfg.family not in _LM_FAMILIES:
-        raise NotImplementedError(
-            f"{what} is ported for the DENSE, MOE and VLM families only, "
-            f"not family {cfg.family.name}")
+def _mod(cfg: ModelConfig):
+    if cfg.family == Family.SSM:
+        return ssm_lm
+    if cfg.family == Family.HYBRID:
+        return hybrid
+    if cfg.family == Family.ENCDEC:
+        return encdec
+    return lm
 
 
 def _dense_only(cfg: ModelConfig, what: str) -> None:
@@ -41,28 +42,50 @@ def _dense_only(cfg: ModelConfig, what: str) -> None:
 
 
 def forward(cfg, params, tokens, **kw):
-    """Full-sequence logits (B, S, V)."""
-    _lm_only(cfg, "forward")
-    return lm.forward(cfg, params, tokens, **kw)
+    """Full-sequence logits (B, S, V) f32 (enc-dec: ``frames=``)."""
+    return _mod(cfg).forward(cfg, params, tokens, **kw)
+
+
+def train_loss(cfg, params, tokens, labels, **kw):
+    """Mean next-token NLL (+ the MoE aux term for ``lm``)."""
+    return _mod(cfg).train_loss(cfg, params, tokens, labels, **kw)
 
 
 def prefill(cfg, params, tokens, **kw):
-    """Whole-prompt prefill: (last-position logits, (k, v) stacks)."""
-    _lm_only(cfg, "prefill")
-    return lm.prefill(cfg, params, tokens, **kw)
+    """Whole-prompt prefill: (last-position logits, the family's serve
+    state)."""
+    return _mod(cfg).prefill(cfg, params, tokens, **kw)
 
 
 def decode_step(cfg, params, tokens, state, cache_len=None, **kw):
-    """One decode step over the dense KV slab ``state``."""
-    _lm_only(cfg, "decode_step")
-    return lm.decode_step(cfg, params, tokens, state, cache_len, **kw)
+    """One decode step over the family's serve state. KV slabs (every
+    family but SSM) are written in place."""
+    m = _mod(cfg)
+    if cfg.family == Family.SSM:
+        return m.decode_step(cfg, params, tokens, state, **kw)
+    return m.decode_step(cfg, params, tokens, state, cache_len, **kw)
 
 
 def init_serve_state(cfg: ModelConfig, batch: int, max_len: int,
                      dtype=torch.bfloat16,
                      device: torch.device | str | None = None):
-    """The dense KV slab (L, batch, max_len, Kh, Dh) ×2."""
-    _lm_only(cfg, "init_serve_state")
+    """The family's zeroed serve state: the dense KV slab
+    (L, batch, max_len, Kh, Dh) ×2 for the decoder-only families; SSM
+    (ssm, conv); hybrid (ssm, conv, (k, v)); enc-dec ((k, v), (kx, vx))
+    with cross K/V over ``enc_ctx`` frames. Where JAX returns one zero
+    array twice (enc-dec), the port returns two tensors, since decode
+    writes them in place."""
+    if cfg.family == Family.SSM:
+        return ssm_lm.init_serve_state(cfg, batch, dtype, device)
+    if cfg.family == Family.HYBRID:
+        return hybrid.init_serve_state(cfg, batch, max_len, dtype, device)
+    if cfg.family == Family.ENCDEC:
+        kv = lm.make_kv_caches(cfg, batch, max_len, dtype, device)
+        shape = (cfg.n_layers, batch, cfg.enc_ctx, cfg.n_kv_heads,
+                 cfg.head_dim)
+        dev = kv[0].device
+        return (kv, (torch.zeros(shape, dtype=dtype, device=dev),
+                     torch.zeros(shape, dtype=dtype, device=dev)))
     return lm.make_kv_caches(cfg, batch, max_len, dtype, device)
 
 
@@ -202,7 +225,8 @@ def prefill_paged(cfg, params, tokens, kv_pages, page_table, start,
 
 
 __all__ = ["supports_fused", "supports_paged", "init_params",
-           "sample_tokens", "forward", "prefill", "decode_step",
+           "sample_tokens", "forward", "train_loss", "prefill",
+           "decode_step",
            "decode_fused", "init_serve_state", "decode_fused_paged",
            "init_paged_serve_state", "decode_step_paged", "prefill_paged",
            "supports_spec_draft", "verify", "verify_paged",

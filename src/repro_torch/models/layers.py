@@ -1,5 +1,5 @@
-"""Core layer primitives: norms, RoPE (+M-RoPE), GQA attention, SwiGLU
-(PyTorch).
+"""Core layer primitives: norms, RoPE (+M-RoPE), GQA attention, SwiGLU,
+cross-entropy (PyTorch).
 
 Port of ``src/repro/models/layers.py`` with the JAX package's layouts at
 every public function. GQA never materialises repeated KV heads:
@@ -231,3 +231,17 @@ def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     to bf16 (greedy argmax would otherwise see bf16 ties).
     """
     return einsum_f32("bsd,dv->bsv", x, table)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token NLL in fp32. logits (B,S,V), labels (B,S) int; with
+    ``mask`` (B,S) the masked mean over ``max(mask.sum(), 1)``."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None]).squeeze(-1)
+    nll = lse - gold
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1)
+    return nll.mean()

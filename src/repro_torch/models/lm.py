@@ -1,6 +1,7 @@
 """Decoder-only LM: dense, MoE and VLM families (PyTorch).
 
-Port of the serving subset of ``src/repro/models/lm.py``: the
+Port of the serving subset of ``src/repro/models/lm.py`` and its
+``train_loss`` (cross-entropy plus the MoE aux term): the
 whole-sequence ``forward`` and ``prefill`` (attention through the
 flash_attention kernel) and decode over the dense slab
 (``decode_step``, ``decode_fused``) for the dense, MoE (supersteps of
@@ -35,8 +36,9 @@ from repro_torch.core.sampling import (SPEC_ACCEPT_FOLD, SPEC_DRAFT_FOLD,
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import flash_attention, paged_attention
 from repro_torch.models.base import Family, ModelConfig, param_shapes
-from repro_torch.models.layers import (apply_rope, decode_attention, einsum,
-                                       embed, gelu_mlp, head_rms_norm,
+from repro_torch.models.layers import (apply_rope, cross_entropy,
+                                       decode_attention, einsum, embed,
+                                       gelu_mlp, head_rms_norm,
                                        mrope_cos_sin, rms_norm, rope_cos_sin,
                                        suffix_attention, swiglu, unembed)
 from repro_torch.models.lora_apply import lora_delta
@@ -301,14 +303,15 @@ def _backbone(cfg: ModelConfig, params: dict, x: torch.Tensor, cos, sin,
     With ``kv_caches`` = (k, v) slabs (L, B, Smax, Kh, Dh) each layer
     decodes against its slab, written in place, and the slabs are
     returned; with ``collect_kv`` the fresh per-layer K/V are stacked
-    to (L, B, S, Kh, Dh) (prefill). Returns (hidden, kv or None).
-    MoE configs run ``_backbone_moe``.
+    to (L, B, S, Kh, Dh) (prefill). Returns (hidden, kv or None, aux):
+    MoE configs run ``_backbone_moe``, whose aux is the load-balance
+    loss summed over the MoE layers; the other families' aux is None
+    (JAX's 0).
     """
     if cfg.family == Family.MOE:
-        h, kv, _aux = _backbone_moe(cfg, params, x, cos, sin, kv_caches,
-                                    cache_len, lora, adapter_idx,
-                                    collect_kv, lora_backend)
-        return h, kv
+        return _backbone_moe(cfg, params, x, cos, sin, kv_caches,
+                             cache_len, lora, adapter_idx, collect_kv,
+                             lora_backend)
     ks, vs = [], []
     h = x
     for i, p, lr in _layers(cfg, params, lora):
@@ -321,8 +324,9 @@ def _backbone(cfg: ModelConfig, params: dict, x: torch.Tensor, cos, sin,
             ks.append(new_kv[0])
             vs.append(new_kv[1])
     if kv_caches is not None:
-        return h, kv_caches
-    return h, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
+        return h, kv_caches, None
+    return (h, (torch.stack(ks), torch.stack(vs)) if collect_kv else None,
+            None)
 
 
 def _backbone_moe(cfg: ModelConfig, params: dict, x: torch.Tensor, cos,
@@ -613,8 +617,19 @@ def forward(cfg: ModelConfig, params: dict, tokens,
     flash_attention. ``mrope_pos`` (3, B, S): M-RoPE positions (VLM)."""
     x = embed(tokens, params["embed/tok"])
     cos, sin = _positions(cfg, tokens, 0, mrope_pos)
-    h, _ = _backbone(cfg, params, x, cos, sin)
+    h, _, _ = _backbone(cfg, params, x, cos, sin)
     return _logits(cfg, params, h)
+
+
+def train_loss(cfg: ModelConfig, params: dict, tokens, labels,
+               mrope_pos=None, aux_weight: float = 0.01) -> torch.Tensor:
+    """Mean next-token NLL of ``labels`` (B, S) plus ``aux_weight`` times
+    the MoE load-balance loss (0 for the dense and VLM families)."""
+    x = embed(tokens, params["embed/tok"])
+    cos, sin = _positions(cfg, tokens, 0, mrope_pos)
+    h, _, aux = _backbone(cfg, params, x, cos, sin)
+    loss = cross_entropy(_logits(cfg, params, h), labels)
+    return loss if aux is None else loss + aux_weight * aux
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens, mrope_pos=None,
@@ -629,9 +644,9 @@ def prefill(cfg: ModelConfig, params: dict, tokens, mrope_pos=None,
     B, _ = tokens.shape
     x = embed(tokens, params["embed/tok"])
     cos, sin = _positions(cfg, tokens, 0, mrope_pos)
-    h, kv = _backbone(cfg, params, x, cos, sin, lora=lora,
-                      adapter_idx=adapter_idx, collect_kv=True,
-                      lora_backend=lora_backend)
+    h, kv, _ = _backbone(cfg, params, x, cos, sin, lora=lora,
+                         adapter_idx=adapter_idx, collect_kv=True,
+                         lora_backend=lora_backend)
     if last_pos is None:
         h_last = h[:, -1:]
     else:
@@ -653,9 +668,10 @@ def decode_step(cfg: ModelConfig, params: dict, tokens, kv_caches,
     """
     x = embed(tokens, params["embed/tok"])
     cos, sin = _positions(cfg, tokens, cache_len, mrope_pos)
-    h, kv = _backbone(cfg, params, x, cos, sin, kv_caches=kv_caches,
-                      cache_len=cache_len, lora=lora,
-                      adapter_idx=adapter_idx, lora_backend=lora_backend)
+    h, kv, _ = _backbone(cfg, params, x, cos, sin, kv_caches=kv_caches,
+                         cache_len=cache_len, lora=lora,
+                         adapter_idx=adapter_idx,
+                         lora_backend=lora_backend)
     return _head(cfg, params, h), kv
 
 

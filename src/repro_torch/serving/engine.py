@@ -104,12 +104,29 @@ class EngineConfig:
     spec_draft: str = "internlm2-1.8b"
 
 
+#: Why the engine refuses a family that has model functions: the
+#: reference engine cannot serve it either, and the port adds no feature
+#: the reference lacks.
+_WHY_NOT_SERVED = {
+    Family.VLM: " (the reference engine threads no M-RoPE positions)",
+    Family.SSM: " (the reference engine fails at construction: its "
+                "adapter catalog scales LoRA by q_dim ** -0.5 with "
+                "q_dim = 0)",
+    Family.HYBRID: " (the reference engine fails at its first prefill: "
+                   "the family's prefill takes no last_pos)",
+    Family.ENCDEC: " (the reference engine fails at its first prefill: "
+                   "the family's prefill takes no last_pos, and the "
+                   "engine passes no encoder frames)",
+}
+
+
 def _unsupported(cfg: ModelConfig, e: EngineConfig) -> list[str]:
     out = []
     if e.mesh_shape is not None:
         out.append(f"mesh_shape={e.mesh_shape}")
     if cfg.family not in (Family.DENSE, Family.MOE):
-        out.append(f"model family {cfg.family.name}")
+        out.append(f"model family {cfg.family.name}"
+                   + _WHY_NOT_SERVED.get(cfg.family, ""))
     if e.spec_decode and cfg.family == Family.MOE:
         # The reference engine builds and then fails at its first
         # verify: its lm.verify runs the dense MLP on every layer.
@@ -207,7 +224,7 @@ class ChameleonEngine:
         missing = _unsupported(cfg, e)
         if missing:
             raise NotImplementedError(
-                "not ported to the PyTorch engine yet: " + ", ".join(missing))
+                "the PyTorch engine does not serve: " + ", ".join(missing))
         if e.prefix_mode not in ("exact", "alora"):
             raise ValueError(f"unknown prefix_mode {e.prefix_mode!r}")
         self.device = dev = resolve_device(device)

@@ -43,7 +43,10 @@ mirror of ``tests/_paged_split.py`` at the same tolerance. bgmv runs as
 one CUDA kernel per call (torch.profiler counts it) at every cluster
 size, empty din and dout slices included. The seeded sampler's
 threefry bits on the card equal the CPU's exactly, its Gumbel noise
-within 1e-6 (the f32 logs may round one ulp apart).
+within 1e-6 (the f32 logs may round one ulp apart). The families
+without an engine (reduced falcon-mamba, zamba2 with kernel LoRA,
+whisper) and their scans give the CPU's numbers within 1e-4 in f32,
+and a kernel wrapper refuses card tensors that require grad.
 """
 import importlib
 
@@ -888,3 +891,121 @@ def test_reduced_moe_engine_on_the_card(card, name):
                                 "paged_attention": False}, launched
             assert all(st.plain == 0 for st in stats.values())
     assert out[("cuda", True)] == out[("cuda", False)] == out[("cpu", True)]
+
+
+@pytest.mark.parametrize("T", [16, 70])
+def test_ssm_scans_on_the_card(card, T):
+    """The Mamba1 fused scan and the Mamba2 SSD, f32, chunk 32: the card
+    within 1e-4 of the CPU on the same inputs."""
+    from repro_torch.models import ssm
+    g = torch.Generator().manual_seed(T)
+
+    def r(*s, lo=None, hi=None):
+        if lo is None:
+            return torch.randn(s, generator=g)
+        return lo + (hi - lo) * torch.rand(s, generator=g)
+    m1 = (r(2, T, 64, lo=0.01, hi=0.5), -r(64, 16, lo=1.0, hi=16.0),
+          r(2, T, 64), r(2, T, 16), r(2, T, 16), r(2, 64, 16))
+    m2 = (r(2, T, 4, 32), r(2, T, 4, lo=0.01, hi=2.0),
+          -r(4, lo=1.0, hi=16.0), r(2, T, 16), r(2, T, 16))
+    for fn, args in ((lambda *a: ssm._mamba1_fused_scan(*a, 32), m1),
+                     (lambda *a: ssm.ssd_chunked(*a, 32), m2)):
+        want = fn(*args)
+        got = fn(*(a.cuda() for a in args))
+        for g_, w in zip(got, want):
+            assert torch.isfinite(g_).all()
+            torch.testing.assert_close(g_.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["falcon-mamba-7b", "zamba2-1.2b",
+                                  "whisper-base"])
+def test_reduced_family_on_the_card(card, name):
+    """The families without an engine, reduced, f32: ``forward``,
+    ``train_loss``, ``prefill`` and 3 decode steps fed the CPU's greedy
+    tokens, the card within 1e-4 of the CPU; the hybrid's LoRA through
+    sgmv and bgmv, flash_attention in the hybrid and enc-dec prefill,
+    no plain version on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api, hybrid
+    from repro_torch.models.lora_apply import (init_lora_slots,
+                                               random_lora_weights,
+                                               write_adapter_to_slot)
+    cfg = get_config(name).reduced()
+    params = api.init_params(cfg, 0, torch.float32, device="cpu")
+    g = torch.Generator().manual_seed(3)
+    B, S, n = 2, 40, 3
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g).int()
+    kw, lora, idx = {}, None, torch.tensor([1, 0], dtype=torch.int32)
+    if name == "whisper-base":
+        kw["frames"] = torch.randn((B, cfg.enc_ctx, cfg.d_model),
+                                   generator=g)
+    if name == "zamba2-1.2b":
+        n_sites = len(hybrid.attn_sites(cfg))
+        lora = init_lora_slots(2, n_sites, cfg.d_model, cfg.q_dim,
+                               cfg.kv_dim, 8, dtype=torch.float32,
+                               device="cpu")
+        for i, rank in enumerate((4, 8)):
+            write_adapter_to_slot(lora, random_lora_weights(
+                g, rank, 8, n_sites, cfg.d_model, cfg.q_dim, cfg.kv_dim,
+                dtype=torch.float32), i)
+    stats = {"bgmv": bgmv_mod.STATS, "sgmv": sgmv_mod.STATS,
+             "flash_attention": fa_mod.STATS}
+    out, feed = {}, None
+    for dev in ("cpu", "cuda"):
+        mv = {k: v.to(dev) for k, v in params.items()}
+        k = {a: v.to(dev) for a, v in kw.items()}
+        t = toks.to(dev)
+        pkw = dict(k)
+        dkw = {}
+        if lora is not None:
+            lr = {p: (a.to(dev), b.to(dev)) for p, (a, b) in lora.items()}
+            dkw = dict(lora=lr, adapter_idx=idx.to(dev),
+                       lora_backend="kernel")
+            pkw.update(dkw, kv_max_len=S + n)
+        for st in stats.values():
+            st.reset()
+        with torch.no_grad():
+            res = [api.forward(cfg, mv, t, **k),
+                   api.train_loss(cfg, mv, t, t.roll(-1, 1), **k)]
+            last, state = api.prefill(cfg, mv, t, **pkw)
+            res.append(last)
+            if name == "whisper-base":
+                (ks, vs), cross = state
+                pad = (0, 0, 0, 0, 0, n)
+                state = ((torch.nn.functional.pad(ks, pad),
+                          torch.nn.functional.pad(vs, pad)), cross)
+            fed, logits = [], last
+            for i in range(n):
+                tok = (feed[:, i:i + 1].to(dev) if feed is not None
+                       else logits.argmax(-1)[:, None].int())
+                fed.append(tok.cpu())
+                logits, state = api.decode_step(
+                    cfg, mv, tok, state,
+                    torch.full((B,), S + i, dtype=torch.int32, device=dev),
+                    **dkw)
+                res.append(logits)
+        feed = torch.cat(fed, 1)
+        out[dev] = [x.cpu() for x in res]
+        if dev == "cuda":
+            want = {"falcon-mamba-7b": set(),
+                    "zamba2-1.2b": {"bgmv", "sgmv", "flash_attention"},
+                    "whisper-base": {"flash_attention"}}[name]
+            assert {n_ for n_, st in stats.items() if st.launches} == want
+            assert all(st.plain == 0 for st in stats.values())
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_kernel_wrappers_refuse_grad_on_the_card(card):
+    """A card call that autograd would need to see through raises; the
+    same call without grad runs the kernel."""
+    from repro_torch.kernels import ops
+    q = torch.randn((1, 64, 2, 32), device="cuda", requires_grad=True)
+    k = torch.randn((1, 64, 2, 32), device="cuda")
+    with pytest.raises(NotImplementedError, match="training slice"):
+        ops.flash_attention(q, k, k)
+    fa_mod.STATS.reset()
+    with torch.no_grad():
+        out = ops.flash_attention(q, k, k)
+    assert fa_mod.STATS.launches == 1 and torch.isfinite(out).all()

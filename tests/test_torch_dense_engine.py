@@ -50,7 +50,8 @@ from test_torch_engine import (BASE, N_ADAPTERS_USED, N_REQ,  # noqa: E402
                                shared_prefix_prompts)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
-#: Configs of the families with no model functions in the port yet.
+#: Configs of the families with model functions but no engine (SSM,
+#: hybrid, enc-dec): the reference engine cannot serve them either.
 UNPORTED_API = ("falcon-mamba-7b", "zamba2-1.2b", "whisper-base")
 R_MAX = 32
 RANKS = (8, 16, 32)
@@ -188,16 +189,35 @@ class TestDenseLM:
             close(t, j)
 
     def test_other_families_raise_naming_the_family(self):
-        """The families the port has no model functions for yet (MoE
-        and VLM have them: ``tests/test_torch_moe.py``)."""
+        """The SSM, hybrid and enc-dec families have model functions now
+        (held to JAX in ``tests/test_torch_families.py``): ``forward``,
+        ``prefill``, ``decode_step`` and ``init_serve_state`` run on
+        their reduced weights. The serving-only surfaces JAX gates to
+        the dense and MoE families (fused decode, paged KV) still raise
+        naming the family."""
         tok = torch.zeros((1, 4), dtype=torch.int32)
         for name in UNPORTED_API:
             cfg = get_config(name).reduced()
-            for call in (lambda: api.forward(cfg, {}, tok),
-                         lambda: api.prefill(cfg, {}, tok),
-                         lambda: api.decode_step(cfg, {}, tok, None, None),
-                         lambda: api.init_serve_state(cfg, 1, 8,
-                                                      device="cpu")):
+            params = lm.init_params(cfg, 0, torch.float32, device="cpu")
+            kw = {}
+            if cfg.family.name == "ENCDEC":
+                kw["frames"] = torch.zeros((1, cfg.enc_ctx, cfg.d_model))
+            logits = api.forward(cfg, params, tok, **kw)
+            assert logits.shape == (1, 4, cfg.vocab_size)
+            assert torch.isfinite(logits).all()
+            last, _ = api.prefill(cfg, params, tok, **kw)
+            assert torch.isfinite(last).all()
+            state = api.init_serve_state(cfg, 1, 8, torch.float32,
+                                         device="cpu")
+            step, _ = api.decode_step(cfg, params, tok[:, :1], state,
+                                      torch.zeros((1,), dtype=torch.int32))
+            assert step.shape == (1, cfg.vocab_size)
+            assert torch.isfinite(step).all()
+            for call in (lambda: api.decode_fused(
+                             cfg, params, tok, None, None, None, None, None,
+                             None, None, None, None, None),
+                         lambda: api.init_paged_serve_state(
+                             cfg, 4, 16, device="cpu")):
                 with pytest.raises(NotImplementedError,
                                    match=cfg.family.name):
                     call()
@@ -364,3 +384,30 @@ def test_unported_family_engine_raises_naming_the_family(name):
     with pytest.raises(NotImplementedError, match=cfg.family.name):
         engine.ChameleonEngine(cfg, {}, engine.EngineConfig(**BASE),
                                device="cpu")
+
+
+@pytest.mark.parametrize("name", UNPORTED_API)
+def test_reference_engine_fails_for_the_family(name):
+    """Why the port's engine refuses these families: the reference
+    engine cannot serve them. SSM fails at construction (its adapter
+    catalog scales LoRA-A by ``q_dim ** -0.5`` with ``q_dim == 0``);
+    hybrid and enc-dec build, then fail at their first prefill (their
+    ``prefill`` takes no ``last_pos``)."""
+    import warnings
+    jcfg = jget_config(name).reduced()
+    params = japi.init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
+    ecfg = jengine.EngineConfig(max_slots=2, max_len=64, n_lora_slots=2,
+                                n_adapters=2)
+    if name == "falcon-mamba-7b":
+        with pytest.raises(ZeroDivisionError):
+            jengine.ChameleonEngine(jcfg, params, ecfg)
+        return
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # hybrid: no fused path
+        eng = jengine.ChameleonEngine(jcfg, params, ecfg)
+    eng.submit(JRequest(input_len=8, output_len=2, adapter_id=0,
+                        prompt=list(range(1, 9))))
+    with pytest.raises(TypeError, match="last_pos"):
+        for _ in range(50):
+            land_jax_loads(eng)
+            eng.step()

@@ -129,7 +129,9 @@ print(json.dumps({"modules": names, "bad": bad}))
                  "repro_torch.kernels.sgmv",
                  "repro_torch.kernels.paged_attention",
                  "repro_torch.kernels.flash_attention",
-                 "repro_torch.models.lm", "repro_torch.bridge",
+                 "repro_torch.models.lm", "repro_torch.models.ssm",
+                 "repro_torch.models.ssm_lm", "repro_torch.models.hybrid",
+                 "repro_torch.models.encdec", "repro_torch.bridge",
                  "repro_torch.serving.cluster", "repro_torch.serving.disagg",
                  "repro_torch.serving.gateway",
                  "repro_torch.serving.simulator",
@@ -152,6 +154,7 @@ def _imported_names(tree):
 
 @pytest.mark.parametrize("path", [
     "chip_smoke.py", "chip_profile.py", "chip_prefill.py",
+    "chip_f32_agreement.py", "examples/torch_long_context_ssm.py",
     *sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))])
 def test_no_jax_or_reference_import_in_source(path):
     names = list(_imported_names(ast.parse((ROOT / path).read_text())))
@@ -180,6 +183,15 @@ def test_chip_prefill_fails_without_a_gpu():
         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode != 0
     assert "prefill_ms" not in out.stdout
+
+
+def test_chip_f32_agreement_fails_without_a_gpu():
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "chip_f32_agreement.py")],
+        capture_output=True, text=True, timeout=120, cwd=ROOT,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert '"agreement"' not in out.stdout
 
 
 def test_configs_equal_the_jax_package():
@@ -241,9 +253,15 @@ def _entry_points():
         "bridge.params_to_torch": lambda: bridge.params_to_torch(
             {"w": np.zeros(2)}),
         "explicit cuda": lambda: api.init_params(cfg, 0, device="cuda"),
+        **{f"init_serve_state {name}": (
+            lambda name=name: api.init_serve_state(
+                get_config(name).reduced(), 2, 16))
+           for name in FAMILY_CONFIGS},
     }
 
 
+#: The families served by model functions only (SSM, hybrid, enc-dec).
+FAMILY_CONFIGS = ("falcon-mamba-7b", "zamba2-1.2b", "whisper-base")
 ENTRY_POINTS = ("init_params", "make_paged_kv", "make_kv_caches",
                 "init_serve_state", "init_paged_serve_state",
                 "init_lora_slots", "AdapterCatalog", "ChameleonEngine",
@@ -251,7 +269,8 @@ ENTRY_POINTS = ("init_params", "make_paged_kv", "make_kv_caches",
                 "build_engine", "build_system", "build_system cluster",
                 "build_system disagg", "EngineCluster", "DisaggCluster",
                 "launch.serve engine", "bridge.to_torch",
-                "bridge.params_to_torch", "explicit cuda")
+                "bridge.params_to_torch", "explicit cuda",
+                *(f"init_serve_state {n}" for n in FAMILY_CONFIGS))
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

@@ -291,3 +291,55 @@ class TestPagedAttention:
         torch.testing.assert_close(
             got, ref.paged_attention_ref(qt, kt, vt, ptt, lt),
             rtol=2e-5, atol=2e-5)
+
+
+class TestAutogradGuard:
+    """The CUDA kernels record no autograd graph: a wrapper given card
+    tensors that require grad, with grad mode on, raises rather than
+    return a tensor cut off from its inputs. Shown on CPU tensors with
+    the wrappers' "on the card" predicate patched to say yes."""
+
+    def calls(self, grad):
+        rng = np.random.default_rng(0)
+
+        def t(*shape):
+            return torch.tensor(rng.standard_normal(shape),
+                                dtype=torch.float32, requires_grad=grad)
+        A, B = t(3, 16, 4), t(3, 4, 8)
+        idx = torch.tensor([2, 0], dtype=torch.int32)
+        table = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+        lens = torch.tensor([5, 9], dtype=torch.int32)
+        q, kv = t(1, 8, 2, 16), t(1, 8, 1, 16)
+        return {
+            "bgmv": lambda: ops.lora_bgmv(t(2, 16), A, B, idx),
+            "sgmv": lambda: ops.lora_sgmv(t(7, 16), A, B, [3, 4], [2, 0],
+                                          tile=8),
+            "lora_delta_kernel": lambda: ops.lora_delta_kernel(
+                t(2, 5, 16), A, B, idx),
+            "paged_attention": lambda: ops.paged_attention(
+                t(2, 2, 1, 16), t(5, 4, 2, 16), t(5, 4, 2, 16), table,
+                lens),
+            "flash_attention": lambda: ops.flash_attention(q, kv, kv),
+        }
+
+    @pytest.mark.parametrize("name", ["bgmv", "sgmv", "lora_delta_kernel",
+                                      "paged_attention", "flash_attention"])
+    def test_card_call_needing_grad_raises(self, name, monkeypatch):
+        monkeypatch.setattr(ops, "_on_card", lambda t: True)
+        with pytest.raises(NotImplementedError, match="training slice"):
+            self.calls(grad=True)[name]()
+        # No grad needed (grad mode off, or no input requires grad): the
+        # call goes on to the kernel wrapper (here its plain version).
+        with torch.no_grad():
+            self.calls(grad=True)[name]()
+        self.calls(grad=False)[name]()
+
+    def test_cpu_tensors_keep_autograd(self):
+        """On CPU tensors the plain versions run and gradients flow."""
+        rng = np.random.default_rng(1)
+        q = torch.tensor(rng.standard_normal((1, 6, 2, 8)),
+                         dtype=torch.float32, requires_grad=True)
+        out = ops.flash_attention(q, q[:, :, :1].detach(),
+                                  q[:, :, :1].detach())
+        out.sum().backward()
+        assert q.grad is not None and torch.isfinite(q.grad).all()
