@@ -143,6 +143,32 @@ of the JAX package. Phases, one JSON line each:
              (``kernel_time_family``). Gates: finite logits, constant
              state shapes, the kernels' outputs, and the launches of
              each model's path (counts zeroed just before it).
+7. train   — with the families freed: the flash_attention backward
+             kernel (``csrc/flash_attention_bwd.cu``) against its plain
+             version (autograd through ``flash_attention_plain`` on the
+             same values in f32; in bf16 one ulp plus what the bf16
+             output moves D by) at internlm2-1.8b's (8, 512, 16/8,
+             128), Llama's (8, 256) and (1, 2048), whisper's encoder
+             (8, 1500, 8, 64, full) and zamba2's block (8, 512, 32,
+             64), f32 and bf16, timed beside the plain version,
+             autograd through SDPA and the bound (``kernel_time_train``
+             lines; the forward at internlm2's f32 shape too); two
+             train steps of one reduced config a family in f32, card
+             against CPU (``parity_train``: loss, grad norm, moments
+             and params within 1e-4, forward and backward flash
+             launches equal, no plain version); a reduced checkpoint
+             of params and bf16 moments restored bit-exact; then
+             internlm2-1.8b at full width and depth (24 layers, V
+             92544, f32 params as the launcher keeps them) through the
+             launcher's loop (``launch.train.train``) for 5 steps of
+             SyntheticLM (8, 512) (``train``: losses, s/step,
+             tokens/s, peak memory; flash forward and backward 24
+             launches a step, nothing else, no plain version), one
+             step with ``microbatches=2``, one step under
+             torch.profiler (device busy share), the 7.6 GB params
+             checkpoint saved, restored bit-exact and deleted, and
+             ``examples/torch_train_with_recovery.py`` (two injected
+             failures, final loss below the first).
 
 A device-time profile of the same path is ``chip_profile.py``.
 
@@ -154,6 +180,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -2599,6 +2626,516 @@ def phase_families() -> None:
                           f"family was freed")
 
 
+# ------------------------------------------------------------ phase 7
+#: The flash backward's shapes on the training paths: internlm2-1.8b's
+#: attention at the launcher's full-width batch (the kernels line), the
+#: Llama prefill buckets, whisper's encoder (full attention) and
+#: zamba2's shared block.
+BWD_SHAPES = (("internlm2-1.8b", 8, 512, 16, 8, 128, True),
+              ("llama (8, 256)", 8, 256, 32, 32, 128, True),
+              ("llama (1, 2048)", 1, 2048, 32, 32, 128, True),
+              ("whisper encoder", 8, 1500, 8, 8, 64, False),
+              ("zamba2 shared block", 8, 512, 32, 32, 64, True))
+#: One reduced config a family for the card-against-CPU train steps.
+TRAIN_PARITY = ("internlm2-1.8b", "qwen3-moe-235b-a22b", "falcon-mamba-7b",
+                "zamba2-1.2b", "whisper-base", "qwen2-vl-7b")
+#: Train-step comparisons across backends, all f32 (TF32 off): loss,
+#: grad norm and lr of each step relative. Params after the first step
+#: absolute where f32 resolves the gradient element (|g| >=
+#: ``UNRESOLVED``): Adam's first step moves an element by
+#: lr * g / (|g| + eps), which depends on g only through eps / |g|;
+#: below it g's sign is rounding noise (the port's f32 step differs
+#: from its own f64 step by 2e-4 at |g| = 2e-8, reduced falcon-mamba,
+#: lr 1e-3) and the element may differ by lr. Later steps divide m by
+#: sqrt(v), which cancels where the steps' gradients do: params within
+#: lr a step, moments relative.
+TRAIN_TOL, UNRESOLVED = 1e-4, 1e-6
+#: The full-width run: internlm2-1.8b (24 layers, d 2048, 16/8 heads,
+#: ff 8192, V 92544; the JAX launcher's default arch) in f32 as the
+#: launcher keeps it, SyntheticLM batches of 8 x 512.
+FULL_ARCH, FULL_STEPS, FULL_BATCH, FULL_SEQ = "internlm2-1.8b", 5, 8, 512
+
+
+def flash_bwd_allowance(q, k, v, out, dout, causal, want) -> list:
+    """Per-gradient bound |got - want| may reach, ``want`` the plain
+    backward on the same values in f32 (bf16 widens exactly): 1e-4 +
+    1e-4 |want| in f32 (f32 sums in another order); in bf16 one ulp of
+    the gradient (2**-7 |want| + 1e-4) plus what the bf16 rounding of
+    ``out`` moves D = rowsum(dO * out) by, carried into dq
+    (scale * r * sum_j P |k_j|) and dk (scale * P^T (r |q|)), with
+    r = sum_d |dO| |out - out32| per query row."""
+    import importlib
+    import torch
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    if q.dtype == torch.float32:
+        return [1e-4 + 1e-4 * w.abs() for w in want]
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, dout))
+    scale = q.shape[-1] ** -0.5
+    o32 = fa.flash_attention_plain(q32, k32, v32, causal)
+    r = (do32.abs() * (out.float() - o32).abs()).sum(-1, keepdim=True)
+    extra_dq = scale * r * fa.flash_attention_plain(q32, k32, k32.abs(),
+                                                    causal)
+    _, _, extra_dk = fa.flash_attention_bwd_plain(q32, k32, v32, o32,
+                                                  r * q32.abs(), causal)
+    extra = [extra_dq, scale * extra_dk, 0.0]
+    return [1e-4 + 2 ** -7 * w.abs() + e for w, e in zip(want, extra)]
+
+
+def flash_bwd_bound(q, k, v, causal: bool) -> tuple:
+    """Bytes of q, k, v, out and dO read once and dq, dk, dv written
+    once; operations 2.5 times the forward's 4 * dh a (query head,
+    query, key) pair the mask keeps."""
+    B, S, H, dh = q.shape
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return bound_ms(2 * nbytes(q, k, v) + 2 * nbytes(q),
+                    2.5 * 4 * B * H * dh * pairs, op_type(q, k, v))
+
+
+def phase_train_kernels(flush) -> dict:
+    """flash_attention_bwd against its plain version at ``BWD_SHAPES``
+    in f32 and bf16 on the same card tensors (``flash_bwd_allowance``),
+    then timed beside the plain version, autograd through SDPA on the
+    same tensors (``library_ms``, never called by the port) and its
+    bound; one ``kernel_time_train`` line each. The forward at
+    internlm2's f32 shape too (the CUDA-core instance the train step
+    runs). Returns the kernels-line row (internlm2, f32)."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    g = torch.Generator(device="cuda").manual_seed(4321)
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    row = None
+    for label, B, S, H, Kh, dh, causal in BWD_SHAPES:
+        for dt, tname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            q, dout = randn(B, S, H, dh, dtype=dt), randn(B, S, H, dh,
+                                                         dtype=dt)
+            k, v = randn(B, S, Kh, dh, dtype=dt), randn(B, S, Kh, dh,
+                                                       dtype=dt)
+            out = fa.flash_attention(q, k, v, causal)
+            fa.BWD_STATS.reset()
+            got = fa.flash_attention_bwd(q, k, v, out, dout, causal)
+            torch.cuda.synchronize()
+            check(fa.BWD_STATS.launches == 1 and fa.BWD_STATS.plain == 0,
+                  f"flash_attention_bwd [{label}] did not launch once")
+            want = fa.flash_attention_bwd_plain(
+                *(t.float() for t in (q, k, v, out, dout)), causal)
+            bounds = flash_bwd_allowance(q, k, v, out, dout, causal, want)
+            errs, ok = {}, True
+            for name, gt, w, bd in zip(("dq", "dk", "dv"), got, want,
+                                       bounds):
+                diff = (gt.float() - w).abs()
+                errs[name] = diff.max().item()
+                ok &= bool(torch.isfinite(gt).all() and (diff <= bd).all())
+            # The plain version in the working dtype (bf16 rounds P, dP
+            # and the products): reported beside the gate.
+            same = fa.flash_attention_bwd_plain(q, k, v, out, dout, causal)
+            err_same = max((a.float() - b.float()).abs().max().item()
+                           for a, b in zip(got, same))
+            del same, want, bounds
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                          for t in (q, k, v))
+            lo = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                enable_gqa=True)
+            dot = dout.transpose(1, 2)
+            b_ms, by = flash_bwd_bound(q, k, v, causal)
+            line = dict(
+                phase="kernel_time_train", kernel="flash_attention_bwd",
+                case=f"{label}, q {tuple(q.shape)}, Kh {Kh}, {tname}, "
+                     f"{'causal' if causal else 'full'}",
+                max_abs_err=max(errs.values()), errs=errs,
+                max_abs_err_vs_same_dtype_plain=err_same, ok=ok,
+                ms=median_ms(lambda: fa.flash_attention_bwd(
+                    q, k, v, out, dout, causal), flush),
+                plain_ms=median_ms(lambda: fa.flash_attention_bwd_plain(
+                    q, k, v, out, dout, causal), flush),
+                library_ms=median_ms(lambda: torch.autograd.grad(
+                    lo, (qt, kt, vt), dot, retain_graph=True), flush),
+                library="autograd through SDPA (enable_gqa)",
+                bound_ms=b_ms, bound_by=by)
+            emit(line)
+            check(ok, f"flash_attention_bwd [{line['case']}] disagrees "
+                      f"with its plain version: {errs}")
+            if label == FULL_ARCH and tname == "f32":
+                row = line
+                # The forward the train step runs at this shape.
+                fwd = fa.flash_attention_plain(q, k, v, causal)
+                diff = (out - fwd).abs()
+                ok_f = bool((diff <= 1e-4 + 1e-4 * fwd.abs()).all())
+                fb = bound_ms(nbytes(q, k, v) + nbytes(q),
+                              4 * B * H * dh * S * (S + 1) // 2, "f32")
+                emit(dict(phase="kernel_time_train", kernel="flash_attention",
+                          case=f"{label}, q {tuple(q.shape)}, Kh {Kh}, f32, "
+                               f"causal (forward)",
+                          instance=fa.flash_instance(q.dtype, dh),
+                          max_abs_err=diff.max().item(), ok=ok_f,
+                          ms=median_ms(lambda: fa.flash_attention(
+                              q, k, v, causal), flush),
+                          plain_ms=median_ms(lambda: fa.flash_attention_plain(
+                              q, k, v, causal), flush),
+                          library_ms=median_ms(
+                              lambda: F.scaled_dot_product_attention(
+                                  qt, kt, vt, is_causal=causal,
+                                  enable_gqa=True), flush),
+                          bound_ms=fb[0], bound_by=fb[1]))
+                check(ok_f, "flash_attention forward at internlm2's f32 "
+                            "shape disagrees with its plain version")
+            del q, k, v, out, dout, got, qt, kt, vt, lo
+    return row
+
+
+def _train_stats() -> dict:
+    import importlib
+    stats = {n: importlib.import_module(f"repro_torch.kernels.{n}").STATS
+             for n in KERNELS}
+    stats["flash_attention_bwd"] = importlib.import_module(
+        "repro_torch.kernels.flash_attention").BWD_STATS
+    return stats
+
+
+def train_batch(cfg, i: int, B: int = 4, S: int = 16) -> dict:
+    """Batch ``i`` of the parity steps as numpy: tokens/labels (B, S),
+    ``frames`` (enc-dec), distinct t/h/w ``mrope_pos`` (VLM)."""
+    import numpy as np
+    rng = np.random.default_rng(1000 + i)
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    b = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family.name == "ENCDEC":
+        b["frames"] = rng.standard_normal(
+            (B, cfg.enc_ctx, cfg.d_model)).astype(np.float32)
+    if cfg.mrope:
+        pos = np.broadcast_to(np.arange(S, dtype=np.int32)[None, None],
+                              (3, B, S)).copy()
+        pos[1, :, S // 4:] += 2
+        pos[2, :, S // 2:] += 5
+        b["mrope_pos"] = pos
+    return b
+
+
+def first_step_close(ref, got, ocfg, m1) -> dict:
+    """Params (numpy) after one step from equal states: the largest
+    difference where the gradient, m1 / (1 - b1) from the reference's
+    f32 first moments, is resolved; the count of unresolved elements
+    past ``TRAIN_TOL`` and whether one differs by more than lr."""
+    import numpy as np
+    out = dict(param=0.0, unresolved=0, unresolved_over_lr=False)
+    for k in ref:
+        bad = np.abs(m1[k]) / (1 - ocfg.b1) < UNRESOLVED
+        d = np.abs(ref[k].astype(np.float64) - got[k])
+        if (~bad).any():
+            out["param"] = max(out["param"], float(d[~bad].max()))
+        out["unresolved"] += int(((d > TRAIN_TOL) & bad).sum())
+        out["unresolved_over_lr"] |= bool((d[bad] > ocfg.lr).any())
+    return out
+
+
+def final_close(ref, got, ocfg, steps: int) -> dict:
+    """After ``steps`` steps: the largest param difference in units of
+    lr a step, the largest relative moment difference."""
+    import numpy as np
+    (rp, ro), (gp, go) = ref, got
+    d = max(float(np.abs(rp[k].astype(np.float64) - gp[k]).max())
+            for k in rp)
+    opt = max(float((np.abs(ro[k].astype(np.float64) - go[k])
+                     / (1 + np.abs(ro[k]))).max()) for k in ro)
+    return dict(param_in_lr=d / (ocfg.lr * steps), opt=opt)
+
+
+def phase_train_parity() -> None:
+    """Two train steps of one reduced config a family (``TRAIN_PARITY``)
+    in f32 on the card and on the CPU port from the same seeded params
+    and numpy batches, f32 moments, clipping on, within ``TRAIN_TOL``:
+    loss, grad norm and lr of each step; params after the first
+    (``first_step_close``), params and moments after the second
+    (``final_close``); on the card every flash forward launch had its
+    backward launch (none for falcon-mamba) and no plain version ran."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.training import (AdamWConfig, init_opt_state,
+                                      make_train_step)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10,
+                       clip_norm=0.5)
+    stats = _train_stats()
+    bad = []
+
+    def host(tree):
+        return {k: v.detach().float().cpu().numpy().copy()
+                for k, v in tree.items()}
+
+    for name in TRAIN_PARITY:
+        cfg = get_config(name).reduced()
+        cpu = api.init_params(cfg, 0, torch.float32, device="cpu")
+        states = {"cpu": (cpu, init_opt_state(cpu, ocfg))}
+        card = {k: v.to("cuda") for k, v in cpu.items()}
+        states["cuda"] = (card, init_opt_state(card, ocfg))
+        step = make_train_step(cfg, ocfg)
+        metrics, after1 = {}, {}
+        for dev, (p, o) in states.items():
+            for st in stats.values():
+                st.reset()
+            metrics[dev] = []
+            for i in range(2):
+                b = {k: torch.from_numpy(v).to(dev)
+                     for k, v in train_batch(cfg, i).items()}
+                metrics[dev].append({k: float(v) for k, v in
+                                     step(p, o, b)[2].items()})
+                if i == 0:
+                    after1[dev] = (host(p), {k[2:]: v for k, v in
+                                             host(o).items()
+                                             if k.startswith("m/")})
+        metrics_err = max(abs(a[k] - b[k]) / max(abs(a[k]), 1.0)
+                          for a, b in zip(metrics["cpu"], metrics["cuda"])
+                          for k in a)
+        first = first_step_close(after1["cpu"][0], after1["cuda"][0], ocfg,
+                                 after1["cpu"][1])
+        final = final_close([host(t) for t in states["cpu"]],
+                            [host(t) for t in states["cuda"]], ocfg, 2)
+        launches = {n: st.launches for n, st in stats.items()}
+        plain = {n: st.plain for n, st in stats.items() if st.plain}
+        finite = all(torch.isfinite(v).all() for v in card.values())
+        # Every forward launch under grad has its backward launch (no
+        # second forward); only the SSM has no attention.
+        attn = launches["flash_attention_bwd"]
+        ok = (finite and metrics_err <= TRAIN_TOL
+              and first["param"] <= TRAIN_TOL
+              and not first["unresolved_over_lr"]
+              and final["param_in_lr"] <= 1.0 and final["opt"] <= TRAIN_TOL
+              and not plain and attn == launches["flash_attention"]
+              and (attn > 0) == (cfg.family.name != "SSM"))
+        emit(dict(phase="parity_train", model=name, steps=2, weights="f32",
+                  losses=[m["loss"] for m in metrics["cuda"]],
+                  metrics_err=metrics_err, first_step=first, final=final,
+                  tol=TRAIN_TOL, launches=launches, plain=plain, ok=ok))
+        if not ok:
+            bad.append(name)
+    check(not bad, f"card vs CPU train-step parity failed: {bad}")
+
+
+def check_reduced_checkpoint() -> None:
+    """The optimizer tree at reduced size: reduced internlm2 on the
+    card, one step with bf16 moments, then params (f32), moments (bf16)
+    and the int32 step saved and restored bit-exact."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.training import (AdamWConfig, init_train_state,
+                                      make_train_step, restore_checkpoint,
+                                      save_checkpoint)
+    cfg = get_config(FULL_ARCH).reduced()
+    ocfg = AdamWConfig(moment_dtype="bfloat16", warmup_steps=0)
+    params, opt = init_train_state(cfg, ocfg, 0, torch.float32)
+    b = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+         for k, v in train_batch(cfg, 0).items()}
+    make_train_step(cfg, ocfg)(params, opt, b)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        save_checkpoint(tmp, 1, {"params": params, "opt": opt})
+        step, trees = restore_checkpoint(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    exact = step == 1 and all(
+        trees[t][k].dtype == v.dtype and torch.equal(trees[t][k], v)
+        for t, tree in (("params", params), ("opt", opt))
+        for k, v in tree.items())
+    emit(dict(phase="train_checkpoint", model=cfg.name, size="reduced",
+              trees=["params", "opt"],
+              dtypes=sorted({str(v.dtype) for v in (*params.values(),
+                                                    *opt.values())}),
+              bit_exact=exact))
+    check(exact, "reduced checkpoint (params + bf16 moments) did not "
+                 "restore bit-exact")
+
+
+def phase_train_full() -> dict:
+    """internlm2-1.8b at full width and depth, f32 params, through the
+    port's launcher loop (``launch.train.train``): ``FULL_STEPS`` steps
+    of SyntheticLM (8, 512), then one step with ``microbatches=2``, then
+    one step under torch.profiler (device busy share), then the params
+    tree (7.6 GB) saved to a temporary directory, restored bit-exact and
+    deleted. Kernel counts are zeroed just before the launcher's steps
+    and read just after: flash_attention and its backward must launch
+    once a layer a step, nothing else and no plain version. Returns the
+    backward's launches on that run."""
+    import importlib
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launcher
+    from repro_torch.training import (DataConfig, SyntheticLM,
+                                      make_train_step, restore_checkpoint,
+                                      save_checkpoint)
+    cfg = get_config(FULL_ARCH)
+    stats = _train_stats()
+    tokens = FULL_BATCH * FULL_SEQ
+    for st in stats.values():
+        st.reset()
+    torch.cuda.reset_peak_memory_stats()
+    res = launcher.train(cfg, steps=FULL_STEPS, batch=FULL_BATCH,
+                         seq=FULL_SEQ, log=lambda s: None)
+    torch.cuda.synchronize()
+    launches = {n: st.launches for n, st in stats.items()}
+    plain = {n: st.plain for n, st in stats.items() if st.plain}
+    hist = res["history"]
+    params, opt, ocfg = res["params"], res["opt"], res["opt_cfg"]
+    steady = statistics.median(h["seconds"] for h in hist[1:])
+    want = {n: 0 for n in stats}
+    want["flash_attention"] = want["flash_attention_bwd"] = \
+        cfg.n_layers * FULL_STEPS
+    finite = all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                 for h in hist)
+    emit(dict(phase="train", model=cfg.name, n_layers=cfg.n_layers,
+              d_model=cfg.d_model, vocab_size=cfg.vocab_size,
+              params_b=sum(v.numel() for v in params.values()) / 1e9,
+              params_gb=sum(nbytes(v) for v in params.values()) / 1e9,
+              state_gb=sum(nbytes(v) for v in opt.values()) / 1e9,
+              weights="f32", batch=FULL_BATCH, seq=FULL_SEQ,
+              steps=len(hist), losses=[h["loss"] for h in hist],
+              grad_norms=[h["grad_norm"] for h in hist],
+              lrs=[h["lr"] for h in hist],
+              s_per_step=[h["seconds"] for h in hist],
+              s_per_step_steady=steady, tokens_per_s=tokens / steady,
+              peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+              launches=launches, plain=plain,
+              tf32=torch.backends.cuda.matmul.allow_tf32))
+    check(finite, f"{cfg.name}: non-finite loss or grad norm {hist}")
+    check(launches == want and not plain,
+          f"{cfg.name}: launches {launches} (want {want}), plain {plain}")
+
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=FULL_SEQ, global_batch=FULL_BATCH))
+
+    def batch(i):
+        return {k: torch.from_numpy(v).cuda()
+                for k, v in data.batch(i).items()}
+
+    for st in stats.values():
+        st.reset()
+    torch.cuda.reset_peak_memory_stats()
+    step2 = make_train_step(cfg, ocfg, microbatches=2)
+    b = batch(FULL_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, m = step2(params, opt, b)
+    loss2 = float(m["loss"])
+    s2 = time.perf_counter() - t0
+    mb_launches = {n: st.launches for n, st in stats.items()}
+    emit(dict(phase="train_microbatches", model=cfg.name, microbatches=2,
+              loss=loss2, grad_norm=float(m["grad_norm"]), s_per_step=s2,
+              tokens_per_s=tokens / s2,
+              peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+              launches=mb_launches))
+    check(math.isfinite(loss2) and mb_launches["flash_attention"]
+          == mb_launches["flash_attention_bwd"] == 2 * cfg.n_layers
+          and not any(st.plain for st in stats.values()),
+          f"{cfg.name} microbatches=2: loss {loss2}, launches "
+          f"{mb_launches}")
+
+    step1 = make_train_step(cfg, ocfg)
+    b = batch(FULL_STEPS + 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, m = step1(params, opt, b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_us = sum(dev_us(e) for e in kernels)
+    emit(dict(phase="train_profile", model=cfg.name, wall_s=wall,
+              device_busy_share=busy_us * 1e-6 / wall,
+              device_ms=busy_us * 1e-3,
+              launches=sum(e.count for e in kernels),
+              loss=float(m["loss"]),
+              top_device=[dict(name=e.key[:90], calls=e.count, us=dev_us(e))
+                          for e in sorted(kernels, key=dev_us,
+                                          reverse=True)[:12]]))
+    check(busy_us > 0, "train step: the profiler saw no device time")
+
+    need = sum(nbytes(v) for v in params.values())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        check(free > 1.2 * need, f"checkpoint: {free / 1e9:.1f} GB free "
+                                 f"under {tmp}, {need / 1e9:.1f} GB needed")
+        t0 = time.perf_counter()
+        save_checkpoint(tmp, FULL_STEPS, {"params": params})
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        step, trees = restore_checkpoint(tmp)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        exact = step == FULL_STEPS and all(
+            torch.equal(trees["params"][k], v) for k, v in params.items())
+        del trees
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(dict(phase="train_checkpoint", model=cfg.name, size="full",
+              trees=["params"], gb=need / 1e9, save_s=save_s,
+              restore_s=load_s, bit_exact=exact,
+              deleted=not Path(tmp).exists()))
+    check(exact, f"{cfg.name}: the params checkpoint did not restore "
+                 f"bit-exact")
+    return dict(launches=launches["flash_attention_bwd"])
+
+
+def run_train_example() -> None:
+    """``examples/torch_train_with_recovery.py`` on the card with its
+    defaults (200 steps, failures injected at 60 and 140): both
+    recoveries taken, the final loss below the first."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_with_recovery",
+        ROOT / "examples" / "torch_train_with_recovery.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    t0 = time.perf_counter()
+    out = mod.main([])
+    losses = out["losses"]
+    emit(dict(phase="train_example", steps_done=out["steps_done"],
+              recoveries=out["recoveries"], first_loss=losses[0],
+              final_loss=losses[-1], seconds=time.perf_counter() - t0))
+    check(out["steps_done"] == 200 and out["recoveries"] == 2
+          and losses[-1] < losses[0],
+          f"train example: {out['steps_done']} steps, "
+          f"{out['recoveries']} recoveries, loss {losses[0]} -> "
+          f"{losses[-1]}")
+
+
+def phase_train() -> dict:
+    """Phase 7: the backward kernel at its shapes, the families' reduced
+    train steps card against CPU, the reduced checkpoint, the full-width
+    run and the example. Returns the kernels-line row of
+    flash_attention_bwd."""
+    import torch
+    scratch = torch.empty(64 * MIB, dtype=torch.uint8, device="cuda")
+
+    def flush():
+        scratch.zero_()
+
+    row = phase_train_kernels(flush)
+    del scratch
+    phase_train_parity()
+    check_reduced_checkpoint()
+    full = phase_train_full()
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_train_example()
+    return dict(row, launches=full["launches"])
+
+
 KERNELS = {
     "bgmv": ("src/repro_torch/csrc/bgmv.cu", "src/repro/kernels/bgmv.py:39"),
     "sgmv": ("src/repro_torch/csrc/sgmv.cu", "src/repro/kernels/sgmv.py:37"),
@@ -2659,6 +3196,12 @@ def main() -> int:
         check(held < 1e9, f"{held / 1e9:.2f} GB still allocated after "
                           f"the MoE engines were freed")
         phase_families()
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        check(held < 1e9, f"{held / 1e9:.2f} GB still allocated after "
+                          f"the families were freed")
+        bwd = phase_train()
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2669,7 +3212,14 @@ def main() -> int:
              max_abs_err=rows[n]["max_abs_err"], ms=rows[n]["ms"],
              plain_ms=rows[n]["plain_ms"], bound_ms=rows[n]["bound_ms"],
              bound_by=rows[n]["bound_by"], library_ms=rows[n]["library_ms"])
-        for n in KERNELS]})
+        for n in KERNELS] + [
+        dict(name="flash_attention_bwd", route="cuda",
+             source="src/repro_torch/csrc/flash_attention_bwd.cu",
+             replaces=KERNELS["flash_attention"][1],
+             launches=bwd["launches"], max_abs_err=bwd["max_abs_err"],
+             ms=bwd["ms"], plain_ms=bwd["plain_ms"],
+             bound_ms=bwd["bound_ms"], bound_by=bwd["bound_by"],
+             library_ms=bwd["library_ms"])]})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,8 @@
 A second package beside the JAX reference ``repro``: the control plane
 (``core``, ``serving.handles``, ``serving.metrics``, ``configs``,
 ``models.base``) is a verbatim copy of the reference's framework-free
-modules; the data plane (``models``, ``kernels``, ``serving.engine``)
-runs on PyTorch, with the reference's Pallas TPU kernels replaced by
+modules; the data plane (``models``, ``kernels``, ``serving.engine``) and
+the training substrate (``training``) run on PyTorch, with the reference's Pallas TPU kernels replaced by
 hand-written CUDA kernels for Hopper (``csrc/``). Nothing here imports
 JAX or the ``repro`` package.
 

@@ -3,6 +3,9 @@
 Converts, with dtypes kept, the structures the engine and models take:
 the flat params dict, the LoRA slot dict ({proj: (A, B)}), an adapter
 catalog's weights ({adapter_id: {proj: (A, B)}}) and the paged KV pair.
+A JAX optimizer state is a flat dict too (``"step"``, ``m/<path>``,
+``v/<path>``): ``params_to_torch`` carries it as it is, the int32 step
+as a 0-dim int32 tensor and bf16 moments as bf16.
 The inputs only need ``np.asarray`` to work on them, so this module
 imports no array library besides numpy and torch. Like every entry
 point of the port, ``device=None`` means the card (and raises without

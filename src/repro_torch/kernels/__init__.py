@@ -5,7 +5,8 @@ sgmv  — prefill-time segmented LoRA matmul (csrc/sgmv.cu)
 paged_attention — decode attention over the paged KV pool
                   (csrc/paged_attention.cu)
 flash_attention — prefill attention over a whole sequence
-                  (csrc/flash_attention.cu)
+                  (csrc/flash_attention.cu), and its gradient for
+                  training (csrc/flash_attention_bwd.cu)
 
 Importing this package needs no CUDA toolkit: kernels build at first
 launch (see build.py).

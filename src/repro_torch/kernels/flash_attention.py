@@ -33,6 +33,18 @@ dtype and head_dim alone:
 ``flash_attention_plain`` is the function the kernel computes, in
 plain PyTorch: the port's ``gqa_attention``, which the JAX package's
 oracle also is; the wrapper uses it only for CPU tensors.
+
+The gradient (new in the port: the JAX package trains through einsum
+attention, which XLA differentiates, so no Pallas kernel has one):
+``flash_attention_bwd`` launches ``csrc/flash_attention_bwd.cu`` (f32
+arithmetic on CUDA cores for f32 and bf16; a dq kernel that rebuilds
+each row's log-sum-exp and D = rowsum(dO * o), then a dk/dv kernel
+that sums the GQA group inside its block), counted in ``BWD_STATS``;
+``flash_attention_bwd_plain`` is autograd through
+``flash_attention_plain``. ``FlashAttentionFn`` is the
+``torch.autograd.Function`` that ties the two kernels together: its
+forward launches the forward kernel and saves q, k, v and the output,
+its backward launches the backward kernel (no second forward).
 """
 from __future__ import annotations
 
@@ -47,10 +59,14 @@ from .build import (CUDA_CORES, TENSOR_CORES, KernelStats, check_launch,
 
 MAX_DH = 256
 STATS = KernelStats()
+BWD_STATS = KernelStats()
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
              + [ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                 + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 2
+                 + [ctypes.c_void_p])
 
 
 def flash_instance(dtype: torch.dtype, dh: int) -> str:
@@ -129,3 +145,87 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_launch("flash_attention", err)
     STATS.launched(inst)
     return out
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              dout: torch.Tensor, causal: bool = True
+                              ) -> tuple[torch.Tensor, ...]:
+    """What the backward kernel computes, in plain PyTorch: (dq, dk, dv)
+    by ``torch.autograd.grad`` through ``flash_attention_plain`` (which
+    recomputes the forward, so ``out`` is not read)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o = flash_attention_plain(*leaves, causal)
+        return torch.autograd.grad(o, leaves, dout)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor,
+                        causal: bool = True) -> tuple[torch.Tensor, ...]:
+    """Gradient of ``flash_attention``: q, k, v as the forward took them,
+    ``out`` its output and ``dout`` the output's gradient (both
+    (B, S, H, dh), q's dtype) -> (dq, dk, dv) in q's dtype.
+
+    CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (the shapes the
+    forward takes; strided views read in place when head_dim is
+    contiguous); CPU tensors take ``flash_attention_bwd_plain``.
+    """
+    _check(q, k, v)
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(
+                f"flash_attention_bwd: {name} must match q's shape, dtype "
+                f"and device {tuple(q.shape)}, {q.dtype}, {q.device}; got "
+                f"{tuple(t.shape)}, {t.dtype}, {t.device}")
+    if q.device.type == "cpu":
+        BWD_STATS.plain += 1
+        return flash_attention_bwd_plain(q, k, v, out, dout, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cuda or cpu, not "
+                         f"{q.device}")
+    B, S, H, dh = q.shape
+    Kh = k.shape[2]
+    flash_instance(q.dtype, dh)            # raises for a dh it cannot take
+    code = dtype_code(q, "q/k/v")
+    q, k, v, out, dout = (t if t.stride(-1) == 1 else t.contiguous()
+                          for t in (q, k, v, out, dout))
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if B == 0 or S == 0:
+        return dq, dk, dv
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    strides = (ctypes.c_longlong * 24)(*(
+        st for t in (q, k, v, out, dout, dq, dk, dv)
+        for st in t.stride()[:3]))
+    lib = library("flash_attention_bwd", _BWD_ARGTYPES)
+    err = lib.flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), B, S, H, Kh, dh, strides,
+        int(causal), code, stream_handle(q.device))
+    check_launch("flash_attention_bwd", err)
+    BWD_STATS.launched(CUDA_CORES)
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with the backward kernel as its gradient: the
+    forward launches the forward kernel and saves q, k, v and the
+    output; the backward launches ``flash_attention_bwd`` on them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        out = flash_attention(q, k, v, causal)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.to(out.dtype),
+                                         ctx.causal)
+        return dq, dk, dv, None

@@ -15,8 +15,10 @@ stays available as the CPU route. The JAX wrappers pad din and
 dout to 128 for the TPU's tiling; the CUDA kernels mask ragged edges
 themselves, so nothing here pads them.
 
-The CUDA kernels have no backward pass yet: a wrapper given card
-tensors that require grad, with grad mode on, raises
+flash_attention has a backward kernel: card tensors that require grad,
+with grad mode on, go through ``FlashAttentionFn`` (the training path).
+bgmv, sgmv and paged_attention have none, since LoRA and paged decode
+do not enter ``train_loss``: their wrappers, given such tensors, raise
 ``NotImplementedError`` (``_no_autograd``) rather than return a tensor
 autograd cannot see through.
 """
@@ -28,6 +30,7 @@ import time
 import torch
 
 from .bgmv import bgmv as _bgmv_kernel
+from .flash_attention import FlashAttentionFn
 from .flash_attention import flash_attention as _flash_kernel
 from .paged_attention import paged_attention as _paged_kernel
 from .sgmv import pack_segments, sgmv as _sgmv_kernel
@@ -45,16 +48,22 @@ def _no_autograd(name: str, *ts: torch.Tensor) -> None:
 
     The CUDA kernels launch through ``ctypes`` and record no autograd
     graph, so their output would be a tensor cut off from its inputs
-    and a ``backward()`` would silently miss their gradients. Until the
-    training slice brings their backward passes, a card call with grad
-    mode on and an input that requires grad raises; CPU tensors run the
-    plain versions, where autograd works."""
-    if (torch.is_grad_enabled() and _on_card(ts[0])
-            and any(t.requires_grad for t in ts)):
+    and a ``backward()`` would silently miss their gradients. bgmv, sgmv
+    and paged_attention have no backward kernel (no training path runs
+    them), so a card call with grad mode on and an input that requires
+    grad raises; CPU tensors run the plain versions, where autograd
+    works."""
+    if _needs_grad(*ts):
         raise NotImplementedError(
-            f"{name}: the CUDA kernel has no backward pass yet (it comes "
-            f"with the port's training slice); call it under "
+            f"{name}: the CUDA kernel has no backward pass (LoRA and "
+            f"paged decode are not on the training path); call it under "
             f"torch.no_grad() or on CPU tensors")
+
+
+def _needs_grad(*ts: torch.Tensor) -> bool:
+    """A card call autograd would have to differentiate."""
+    return (torch.is_grad_enabled() and _on_card(ts[0])
+            and any(t.requires_grad for t in ts))
 
 
 class DispatchMeter:
@@ -196,6 +205,9 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths):
 
 
 def flash_attention(q, k, v, causal: bool = True):
-    """Prefill attention over a whole sequence; see flash_attention.py."""
-    _no_autograd("flash_attention", q, k, v)
+    """Attention over a whole sequence; see flash_attention.py. Card
+    tensors that need a gradient go through ``FlashAttentionFn``, whose
+    backward is the flash_attention_bwd kernel."""
+    if _needs_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, causal)
     return _flash_kernel(q, k, v, causal)

@@ -1,1 +1,1 @@
-"""Launchers of the port (the serving launcher so far)."""
+"""Launchers of the port: serving (``serve``) and training (``train``)."""

@@ -1,0 +1,106 @@
+"""Training launcher: --arch <id> on the card (PyTorch).
+
+Port of ``src/repro/launch/train.py`` with the same flags and defaults:
+AdamW (``warmup_steps = min(20, steps // 5)``), f32 params from a
+seeded init, ``SyntheticLM`` batches, async checkpoints every
+``--checkpoint-every`` steps and a restore of the latest one at start.
+``--devices host`` trains on one card (``--device cpu`` asks for the
+CPU instead); the production meshes (``production``,
+``production-multipod``) are not ported yet and raise, naming the mesh.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \\
+        --reduced --steps 50 --batch 8 --seq 128
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.device import resolve_device
+from repro_torch.models.base import ModelConfig
+from repro_torch.training import (AdamWConfig, AsyncCheckpointer, DataConfig,
+                                  SyntheticLM, init_train_state, latest_step,
+                                  make_train_step, restore_checkpoint)
+
+
+def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
+          lr: float = 3e-4, checkpoint_dir: str | None = None,
+          checkpoint_every: int = 50, device=None, log=print) -> dict:
+    """Run the launcher's loop; returns dict(params, opt, opt_cfg,
+    history): the trained state and, for each step run, its step,
+    loss, grad norm, lr and host seconds (each step ends in a read of
+    its loss, which waits for the device)."""
+    device = resolve_device(device)
+    opt_cfg = AdamWConfig(lr=lr, warmup_steps=min(20, steps // 5),
+                          total_steps=steps)
+    params, opt = init_train_state(cfg, opt_cfg, 0, torch.float32,
+                                   device=device)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                  global_batch=batch))
+    step_fn = make_train_step(cfg, opt_cfg)
+    ck = AsyncCheckpointer(checkpoint_dir) if checkpoint_dir else None
+    start = 0
+    if ck and latest_step(checkpoint_dir) is not None:
+        start, trees = restore_checkpoint(checkpoint_dir, device=device)
+        params, opt = trees["params"], trees["opt"]
+        log(f"restored checkpoint at step {start}")
+
+    history = []
+    t0 = time.time()
+    for step in range(start, steps):
+        ts = time.perf_counter()
+        b = {k: torch.from_numpy(v).to(device)
+             for k, v in data.batch(step).items()}
+        params, opt, m = step_fn(params, opt, b)
+        rec = dict(step=step, loss=float(m["loss"]),
+                   grad_norm=float(m["grad_norm"]), lr=float(m["lr"]),
+                   seconds=time.perf_counter() - ts)
+        history.append(rec)
+        if step % 10 == 0 or step == steps - 1:
+            log(f"step {step:5d} loss {rec['loss']:.4f} "
+                f"gnorm {rec['grad_norm']:.3f} "
+                f"({(time.time()-t0)/(step-start+1):.2f}s/step)")
+        if ck and (step + 1) % checkpoint_every == 0:
+            ck.save(step + 1, {"params": params, "opt": opt})
+    if ck:
+        ck.save(steps, {"params": params, "opt": opt})
+        ck.wait()
+    return dict(params=params, opt=opt, opt_cfg=opt_cfg, history=history)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=50)
+    ap.add_argument("--devices", choices=("host", "production",
+                                          "production-multipod"),
+                    default="host")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: CUDA)")
+    args = ap.parse_args(argv)
+
+    if args.devices != "host":
+        raise NotImplementedError(
+            f"--devices {args.devices}: the production device mesh "
+            f"(sharded params and optimizer state) is not ported yet; "
+            f"train on one card with --devices host")
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
+          lr=args.lr, checkpoint_dir=args.checkpoint_dir,
+          checkpoint_every=args.checkpoint_every, device=args.device)
+    print("done")
+
+
+if __name__ == "__main__":
+    main()

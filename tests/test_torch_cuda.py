@@ -46,7 +46,15 @@ threefry bits on the card equal the CPU's exactly, its Gumbel noise
 within 1e-6 (the f32 logs may round one ulp apart). The families
 without an engine (reduced falcon-mamba, zamba2 with kernel LoRA,
 whisper) and their scans give the CPU's numbers within 1e-4 in f32,
-and a kernel wrapper refuses card tensors that require grad.
+and bgmv, sgmv and paged_attention refuse card tensors that require
+grad. The flash_attention backward kernel is held to its plain version
+(autograd through ``flash_attention_plain`` on the same values in f32)
+over ragged S, GQA, dh 4 to 256, causal and full: 1e-4 in f32; in bf16
+one ulp of the gradient plus what the bf16 rounding of the forward's
+output moves D = rowsum(dO * out) by (``flash_bwd_tol``). Attention
+under grad on the card runs one forward and one backward launch, and
+two train steps of one reduced config a family give the CPU port's
+loss, grad norm, params and moments (``tests/_port_training.py``).
 """
 import importlib
 
@@ -998,14 +1006,172 @@ def test_reduced_family_on_the_card(card, name):
 
 
 def test_kernel_wrappers_refuse_grad_on_the_card(card):
-    """A card call that autograd would need to see through raises; the
-    same call without grad runs the kernel."""
+    """bgmv, sgmv and paged_attention, called on card tensors that
+    require grad, raise (no backward kernel; the same calls without
+    grad run the kernel); flash_attention goes through its backward
+    kernel."""
     from repro_torch.kernels import ops
+    gen = torch.Generator().manual_seed(5)
+    x = randn(gen, (2, 64), torch.float32, card).requires_grad_(True)
+    A = randn(gen, (2, 64, 8), torch.float32, card)
+    Bw = randn(gen, (2, 8, 32), torch.float32, card)
+    idx = torch.tensor([1, 0], dtype=torch.int32, device=card)
+    qd = randn(gen, (2, 2, 1, 32), torch.float32, card).requires_grad_(True)
+    pages = randn(gen, (4, 16, 2, 32), torch.float32, card)
+    table = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32, device=card)
+    lens = torch.tensor([20, 9], dtype=torch.int32, device=card)
+    calls = {"bgmv": lambda: ops.lora_bgmv(x, A, Bw, idx),
+             "sgmv": lambda: ops.lora_delta_kernel(x[None], A, Bw,
+                                                   idx[:1]),
+             "paged_attention": lambda: ops.paged_attention(
+                 qd, pages, pages, table, lens)}
+    for name, call in calls.items():
+        with pytest.raises(NotImplementedError, match="no backward pass"):
+            call()
+        with torch.no_grad():
+            assert torch.isfinite(call()).all()
     q = torch.randn((1, 64, 2, 32), device="cuda", requires_grad=True)
     k = torch.randn((1, 64, 2, 32), device="cuda")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        ops.flash_attention(q, k, k)
     fa_mod.STATS.reset()
-    with torch.no_grad():
-        out = ops.flash_attention(q, k, k)
-    assert fa_mod.STATS.launches == 1 and torch.isfinite(out).all()
+    fa_mod.BWD_STATS.reset()
+    out = ops.flash_attention(q, k, k)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert (fa_mod.STATS.launches, fa_mod.BWD_STATS.launches) == (1, 1)
+    assert torch.isfinite(q.grad).all()
+
+
+def flash_bwd_tol(q, k, v, out, dout, causal, want):
+    """Per-gradient bound |got - want| may reach, ``want`` the plain
+    backward on the same values in f32: 1e-4 + 1e-4 |want| in f32; in
+    bf16 one ulp of the gradient (2**-7 |want| + 1e-4) plus what the
+    bf16 rounding of ``out`` moves D = rowsum(dO * out) by, carried
+    into dq (scale * r * sum_j P |k_j|) and dk (scale * P^T (r |q|)),
+    r = sum_d |dO| |out - out32| per query row."""
+    if q.dtype == torch.float32:
+        return [1e-4 + 1e-4 * w.abs() for w in want]
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, dout))
+    scale = q.shape[-1] ** -0.5
+    o32 = fa_mod.flash_attention_plain(q32, k32, v32, causal)
+    r = (do32.abs() * (out.float() - o32).abs()).sum(-1, keepdim=True)
+    extra_dq = scale * r * fa_mod.flash_attention_plain(
+        q32, k32, k32.abs(), causal)
+    _, _, extra_dk = fa_mod.flash_attention_bwd_plain(
+        q32, k32, v32, o32, r * q32.abs(), causal)
+    extra = [extra_dq, scale * extra_dk, 0.0]
+    return [1e-4 + 2 ** -7 * w.abs() + e for w, e in zip(want, extra)]
+
+
+def check_flash_bwd(q, k, v, causal):
+    """The backward kernel on (q, k, v, their forward's output, a random
+    dO) against the plain version on the same values in f32, within
+    ``flash_bwd_tol``; one launch, no plain call."""
+    gen = torch.Generator().manual_seed(q.shape[1] + 3)
+    out = fa_mod.flash_attention(q, k, v, causal)
+    dout = randn(gen, q.shape, q.dtype, q.device)
+    fa_mod.BWD_STATS.reset()
+    got = fa_mod.flash_attention_bwd(q, k, v, out, dout, causal)
+    torch.cuda.synchronize()
+    assert (fa_mod.BWD_STATS.launches, fa_mod.BWD_STATS.plain) == (1, 0)
+    want = fa_mod.flash_attention_bwd_plain(
+        *(t.float() for t in (q, k, v, out, dout)), causal)
+    for name, g, w, t, bound in zip(
+            "qkv", got, want, (q, k, v),
+            flash_bwd_tol(q, k, v, out, dout, causal, want)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        err = (g.float() - w).abs()
+        assert (err <= bound).all(), (name, err.max().item())
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,Kh,dh", [
+    (1, 1, 1, 1, 32), (2, 5, 4, 2, 4), (1, 100, 8, 8, 64),
+    (2, 100, 4, 1, 128), (1, 130, 40, 8, 128), (3, 64, 6, 3, 36),
+    (1, 300, 2, 2, 256), (2, 256, 32, 32, 128), (1, 129, 8, 2, 80)])
+def test_flash_attention_bwd_matches_plain(card, B, S, H, Kh, dh, causal,
+                                           dt):
+    gen = torch.Generator().manual_seed(S * 11 + H)
+    q = randn(gen, (B, S, H, dh), DT[dt], card)
+    k = randn(gen, (B, S, Kh, dh), DT[dt], card)
+    v = randn(gen, (B, S, Kh, dh), DT[dt], card)
+    check_flash_bwd(q, k, v, causal)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,Kh,dh,causal", [
+    (8, 512, 16, 8, 128, True),      # internlm2-1.8b, the launcher's batch
+    (8, 256, 32, 32, 128, True),     # Llama prefill bucket
+    (1, 2048, 32, 32, 128, True),
+    (8, 1500, 8, 8, 64, False),      # whisper's encoder
+    (8, 512, 32, 32, 64, True)])     # zamba2's shared block
+def test_flash_attention_bwd_at_the_training_shapes(card, B, S, H, Kh, dh,
+                                                    causal, dt):
+    gen = torch.Generator().manual_seed(S + H + dh)
+    q = randn(gen, (B, S, H, dh), DT[dt], card)
+    k = randn(gen, (B, S, Kh, dh), DT[dt], card)
+    v = randn(gen, (B, S, Kh, dh), DT[dt], card)
+    check_flash_bwd(q, k, v, causal)
+
+
+def test_flash_attention_bwd_reads_strided_views(card):
+    """q/k/v and dO as (B, H, S, dh) tensors viewed as (B, S, H, dh):
+    read in place, same gradients as contiguous copies."""
+    gen = torch.Generator().manual_seed(13)
+    q, k, v, dout = (randn(gen, (2, h, 70, 64), torch.float32, card)
+                     .transpose(1, 2) for h in (4, 2, 2, 4))
+    out = fa_mod.flash_attention(q, k, v)
+    got = fa_mod.flash_attention_bwd(q, k, v, out, dout)
+    want = fa_mod.flash_attention_bwd(*(t.contiguous()
+                                        for t in (q, k, v, out, dout)))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_attention_autograd_on_the_card(card, dt):
+    """``ops.flash_attention`` on card tensors that require grad: one
+    forward and one backward launch, no second forward, gradients
+    within ``flash_bwd_tol`` of plain autograd."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator().manual_seed(21)
+    q, k, v = (randn(gen, (2, 96, h, 64), DT[dt], card).requires_grad_(True)
+               for h in (8, 2, 2))
+    dout = randn(gen, q.shape, DT[dt], card)
+    fa_mod.STATS.reset()
+    fa_mod.BWD_STATS.reset()
+    out = ops.flash_attention(q, k, v)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert (fa_mod.STATS.launches, fa_mod.BWD_STATS.launches) == (1, 1)
+    assert fa_mod.STATS.plain == fa_mod.BWD_STATS.plain == 0
+    args = [t.detach() for t in (q, k, v, out)]
+    want = fa_mod.flash_attention_bwd_plain(
+        *(t.float() for t in args + [dout]), True)
+    for g, w, bound in zip(got, want, flash_bwd_tol(*args, dout, True,
+                                                     want)):
+        assert ((g.float() - w).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("name", [
+    "internlm2-1.8b", "qwen3-moe-235b-a22b", "falcon-mamba-7b",
+    "zamba2-1.2b", "whisper-base", "qwen2-vl-7b"])
+def test_reduced_train_steps_on_the_card(card, name):
+    """Two train steps of a reduced config in f32 on the card and on the
+    CPU port from the same params and batches, within the tolerances of
+    ``_port_training`` (loss, grad norm and lr 1e-4 relative; params
+    after the first step 1e-4 where f32 resolves the gradient; after
+    the second within lr a step, moments 1e-4); on the card every flash
+    forward launch had its backward launch (none for the SSM) and no
+    plain version ran."""
+    from repro_torch.training import AdamWConfig
+    from _port_training import TOL, card_vs_cpu_train_steps, states_ok
+    torch.backends.cudnn.allow_tf32 = False
+    out = card_vs_cpu_train_steps(name, AdamWConfig(
+        lr=1e-3, warmup_steps=1, total_steps=10, clip_norm=0.5))
+    assert out["metrics_err"] <= TOL, out
+    assert states_ok(out["first"], out["final"]), out
+    assert out["plain"] == 0, out
+    assert out["bwd_launches"] == out["fwd_launches"], out
+    assert (out["bwd_launches"] > 0) == (name != "falcon-mamba-7b"), out

@@ -40,7 +40,7 @@ COPIED = ([f"core/{n}.py" for n in (
     + [f"serving/{n}.py" for n in (
         "handles", "metrics", "trace", "cost_model", "simulator",
         "gateway")]
-    + ["models/base.py"]
+    + ["models/base.py", "training/data.py", "training/fault_tolerance.py"]
     + sorted(f"configs/{p.name}" for p in (REF / "configs").glob("*.py")))
 
 # Import statements and ``importlib.import_module`` calls.
@@ -136,7 +136,13 @@ print(json.dumps({"modules": names, "bad": bad}))
                  "repro_torch.serving.gateway",
                  "repro_torch.serving.simulator",
                  "repro_torch.distributed.elastic",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve", "repro_torch.launch.train",
+                 "repro_torch.training", "repro_torch.training.optimizer",
+                 "repro_torch.training.train_step",
+                 "repro_torch.training.checkpoint",
+                 "repro_torch.training.compression",
+                 "repro_torch.training.data",
+                 "repro_torch.training.fault_tolerance"):
         assert must in res["modules"]
 
 
@@ -155,6 +161,7 @@ def _imported_names(tree):
 @pytest.mark.parametrize("path", [
     "chip_smoke.py", "chip_profile.py", "chip_prefill.py",
     "chip_f32_agreement.py", "examples/torch_long_context_ssm.py",
+    "examples/torch_train_with_recovery.py",
     *sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))])
 def test_no_jax_or_reference_import_in_source(path):
     names = list(_imported_names(ast.parse((ROOT / path).read_text())))
@@ -220,8 +227,10 @@ def _entry_points():
     from repro_torch.configs import get_config
     from repro_torch.models import api, lm
     from repro_torch.models.lora_apply import init_lora_slots
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.serving import cluster, disagg, engine, systems
+    from repro_torch.training import (AdamWConfig, init_train_state,
+                                      restore_checkpoint)
     cfg = get_config("chameleon-llama-7b").reduced()
     params = lm.init_params(cfg, 0, torch.float32, device="cpu")
     return {
@@ -249,6 +258,9 @@ def _entry_points():
         "DisaggCluster": lambda: disagg.DisaggCluster(
             cfg, params, engine.EngineConfig(n_adapters=2)),
         "launch.serve engine": lambda: serve.main(["--backend", "engine"]),
+        "init_train_state": lambda: init_train_state(cfg, AdamWConfig()),
+        "launch.train": lambda: train.main(["--reduced", "--steps", "1"]),
+        "restore_checkpoint": lambda: restore_checkpoint(str(ROOT)),
         "bridge.to_torch": lambda: bridge.to_torch(np.zeros(2)),
         "bridge.params_to_torch": lambda: bridge.params_to_torch(
             {"w": np.zeros(2)}),
@@ -268,7 +280,8 @@ ENTRY_POINTS = ("init_params", "make_paged_kv", "make_kv_caches",
                 "ChameleonEngine paged=False",
                 "build_engine", "build_system", "build_system cluster",
                 "build_system disagg", "EngineCluster", "DisaggCluster",
-                "launch.serve engine", "bridge.to_torch",
+                "launch.serve engine", "init_train_state", "launch.train",
+                "restore_checkpoint", "bridge.to_torch",
                 "bridge.params_to_torch", "explicit cuda",
                 *(f"init_serve_state {n}" for n in FAMILY_CONFIGS))
 
@@ -288,3 +301,12 @@ def test_mesh_shape_raises_naming_the_mesh(tier):
                              device="cpu")
     with pytest.raises(ValueError, match="mesh_shape"):
         systems.build_system("chameleon", "sim", mesh_shape=(1, 1))
+
+
+@pytest.mark.parametrize("devices", ["production", "production-multipod"])
+def test_launch_train_production_raises_naming_the_mesh(devices):
+    """The production meshes are not ported: the launcher says so
+    before it builds anything."""
+    from repro_torch.launch import train
+    with pytest.raises(NotImplementedError, match="mesh"):
+        train.main(["--devices", devices, "--device", "cpu"])

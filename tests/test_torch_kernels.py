@@ -31,6 +31,7 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 # The kernels package re-exports functions named like its submodules
 # (as the JAX package does), so the modules are fetched by path.
 bgmv_mod = importlib.import_module("repro_torch.kernels.bgmv")
+fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
 pa_mod = importlib.import_module("repro_torch.kernels.paged_attention")
 sgmv_mod = importlib.import_module("repro_torch.kernels.sgmv")
 
@@ -294,10 +295,13 @@ class TestPagedAttention:
 
 
 class TestAutogradGuard:
-    """The CUDA kernels record no autograd graph: a wrapper given card
-    tensors that require grad, with grad mode on, raises rather than
-    return a tensor cut off from its inputs. Shown on CPU tensors with
-    the wrappers' "on the card" predicate patched to say yes."""
+    """The CUDA kernels record no autograd graph: bgmv, sgmv and
+    paged_attention, given card tensors that require grad with grad mode
+    on, raise rather than return a tensor cut off from its inputs;
+    flash_attention, which has a backward kernel, goes through
+    ``FlashAttentionFn`` instead. Shown on CPU tensors with the
+    wrappers' "on the card" predicate patched to say yes (the kernel
+    wrappers then serve both passes with their plain versions)."""
 
     def calls(self, grad):
         rng = np.random.default_rng(0)
@@ -326,13 +330,34 @@ class TestAutogradGuard:
                                       "paged_attention", "flash_attention"])
     def test_card_call_needing_grad_raises(self, name, monkeypatch):
         monkeypatch.setattr(ops, "_on_card", lambda t: True)
-        with pytest.raises(NotImplementedError, match="training slice"):
-            self.calls(grad=True)[name]()
+        if name == "flash_attention":
+            self.flash_goes_through_its_backward()
+        else:
+            with pytest.raises(NotImplementedError,
+                               match="no backward pass"):
+                self.calls(grad=True)[name]()
         # No grad needed (grad mode off, or no input requires grad): the
         # call goes on to the kernel wrapper (here its plain version).
         with torch.no_grad():
             self.calls(grad=True)[name]()
         self.calls(grad=False)[name]()
+
+    def flash_goes_through_its_backward(self):
+        """The flash call needing grad is ``FlashAttentionFn``'s, and its
+        gradients are plain autograd's through the same function."""
+        rng = np.random.default_rng(2)
+        q, k, v = (torch.tensor(rng.standard_normal(s), dtype=torch.float32,
+                                requires_grad=True)
+                   for s in ((1, 8, 2, 16), (1, 8, 1, 16), (1, 8, 1, 16)))
+        out = ops.flash_attention(q, k, v)
+        assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+        dout = torch.tensor(rng.standard_normal(out.shape),
+                            dtype=torch.float32)
+        got = torch.autograd.grad(out, (q, k, v), dout)
+        want = torch.autograd.grad(fa_mod.flash_attention_plain(q, k, v),
+                                   (q, k, v), dout)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
 
     def test_cpu_tensors_keep_autograd(self):
         """On CPU tensors the plain versions run and gradients flow."""
