@@ -1,0 +1,216 @@
+#!/usr/bin/env python3
+"""The mesh-sharded serving engine across several NVIDIA cards.
+
+Run from the root of a checkout on a host with 4 cards:
+    python3 chip_mesh.py
+
+``chip_smoke.py`` runs the mesh data plane on one card, where every
+position of a split mesh is the same device. This script builds meshes
+of distinct cards (``cuda:0 .. cuda:n-1`` through
+``EngineConfig.mesh_shape``), so shards live on their own cards and
+every gather is a copy between cards. Two phases, one JSON line each:
+
+1. ``mesh_parity`` — reduced ``chameleon-llama-7b`` in f32 (kernel
+   LoRA), the mixed greedy/sampled trace of
+   ``tests/test_torch_mesh_engine.py`` served by mesh engines at (1, 1),
+   (2, 1), (1, 2), (2, 2) and (4, 1) and by ``EngineConfig()``
+   on ``cuda:0``, paged fused, dense fused, paged seed loop and the
+   prefix cache, each on a step clock with its adapter loads landed
+   before every step (so the schedules agree): tokens must be identical.
+2. ``mesh_engine`` — ``chameleon-llama-7b`` at full width (seeded bf16
+   weights on ``cuda:0``), the ``chip_smoke.py`` phase-4 trace after its
+   warm-up, served on a step clock by ``EngineConfig()`` and by mesh
+   engines at (1, 1), (1, 2), (2, 2) and (1, 4), one at a time: host ms
+   a step, decode tokens/s, peak memory of each card, the shard gauges
+   (gathers a dispatch, gather time share), kernel launches, and greedy
+   and first-token agreement with ``EngineConfig()``.
+
+Then the ``nvidia-smi`` name and power limit of each card. Exits
+non-zero with fewer than 4 cards or when a check fails; imports nothing
+of JAX.
+"""
+from __future__ import annotations
+
+import gc
+import importlib
+import subprocess
+import sys
+import time
+
+from chip_smoke import (KERNELS, PhaseError, check, emit, greedy_agreement,
+                        greedy_requests, make_trace, phase_device, warm_up)
+
+N_CARDS = 4
+#: The reduced model has 2 KV heads, so its model axis stops at 2.
+PARITY_MESHES = ((1, 1), (2, 1), (1, 2), (2, 2), (4, 1))
+PARITY_CASES = {"fused_paged": dict(paged=True),
+                "fused_dense": dict(paged=False),
+                "seed": dict(fused_hotloop=False),
+                "prefix_off": dict(prefix_cache=False)}
+FULL_MESHES = (None, (1, 1), (1, 2), (2, 2), (1, 4))
+
+
+def serve_clocked(eng, requests) -> tuple:
+    """Submit ``requests`` ((Request, SamplingParams) pairs) and step to
+    the end on the engine's step clock, landing its side-stream loads
+    before every step. Returns (handles, steps, wall seconds)."""
+    import torch
+    handles = [eng.submit(r, sampling=sp) for r, sp in requests]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = 0
+    while eng.busy() and steps < 20_000:
+        for stream in eng._load_streams.values():
+            stream.synchronize()
+        eng.step()
+        eng._clock.t += 0.01
+        steps += 1
+    torch.cuda.synchronize()
+    check(not eng.busy(), "an engine failed to drain")
+    return handles, steps, time.perf_counter() - t0
+
+
+class StepClock:
+    def __init__(self) -> None:
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def mixed_trace(vocab: int):
+    """``tests/test_torch_mesh_engine.py``'s mixed trace: 8 requests of
+    8-39 tokens over 8 adapters, every third seeded-sampled."""
+    import numpy as np
+    from repro_torch.core import Request, SamplingParams
+    rng = np.random.default_rng(0)
+    out = []
+    for i in range(8):
+        L, n, a = (int(rng.integers(8, 40)), int(rng.integers(4, 12)),
+                   int(rng.integers(0, 8)))
+        sp = (SamplingParams(temperature=0.8, top_k=8, seed=i)
+              if i % 3 == 2 else None)
+        out.append((Request(input_len=L, output_len=n, adapter_id=a,
+                            prompt=[(7 * j + i) % vocab + 1
+                                    for j in range(L)]), sp))
+    return out
+
+
+def phase_parity() -> None:
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serving.engine import AdapterCatalog, EngineConfig
+    from repro_torch.serving.systems import build_engine
+    cfg = get_config("chameleon-llama-7b").reduced()
+    params = api.init_params(cfg, 0, torch.float32)
+    catalog = AdapterCatalog(cfg, 8, 32, seed=0)
+    base = dict(max_slots=4, max_len=128, n_lora_slots=4, n_adapters=8,
+                lora_backend="kernel")
+    for case, knobs in PARITY_CASES.items():
+        outs = {}
+        for shape in (None,) + PARITY_MESHES:
+            eng = build_engine("chameleon", cfg, params,
+                               EngineConfig(**base, **knobs,
+                                            mesh_shape=shape),
+                               catalog=catalog, clock=StepClock())
+            hs, steps, _ = serve_clocked(eng, mixed_trace(cfg.vocab_size))
+            outs[shape] = [h.tokens for h in hs]
+            del eng, hs
+        line = dict(phase="mesh_parity", model=cfg.name, weights="f32",
+                    case=case, knobs=knobs,
+                    identical={f"{s[0]}x{s[1]}": outs[s] == outs[None]
+                               for s in PARITY_MESHES})
+        line["ok"] = all(line["identical"].values())
+        emit(line)
+        check(line["ok"], f"mesh_parity {case}: tokens differ: {line}")
+
+
+def phase_full() -> None:
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ops import COLLECTIVE_METER
+    from repro_torch.models import api
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.systems import build_engine
+    stats = {n: importlib.import_module(f"repro_torch.kernels.{n}").STATS
+             for n in KERNELS}
+    cfg = get_config("chameleon-llama-7b")
+    params = api.init_params(cfg, seed=0, dtype=torch.bfloat16)
+    greedy = greedy_requests(cfg)
+    outs = {}
+    for shape in FULL_MESHES:
+        eng = build_engine("chameleon", cfg, params,
+                           EngineConfig(mesh_shape=shape),
+                           clock=StepClock())
+        warm_up(eng, cfg.vocab_size)
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.reset_peak_memory_stats(i)
+        for st in stats.values():
+            st.reset()
+        COLLECTIVE_METER.reset()
+        trace = make_trace(cfg.vocab_size)
+        hs, steps, wall = serve_clocked(eng, trace)
+        toks = [h.tokens for h in hs]
+        n_tok = sum(len(t) for t in toks)
+        name = "none" if shape is None else f"{shape[0]}x{shape[1]}"
+        outs[name] = toks
+        check(all(len(t) == r.output_len for t, (r, _) in zip(toks, trace))
+              and all(0 <= x < cfg.vocab_size for t in toks for x in t),
+              f"mesh_engine {name}: short output or token outside the "
+              f"vocabulary")
+        launches = {n: st.launches for n, st in stats.items()}
+        check(all(launches[n] > 0 for n in ("bgmv", "sgmv",
+                                            "paged_attention"))
+              and not any(st.plain for st in stats.values()),
+              f"mesh_engine {name}: a kernel never launched or a plain "
+              f"version ran: {launches}")
+        sh = eng.shard_stats()
+        emit(dict(phase="mesh_engine", model=cfg.name, weights="bf16",
+                  mesh_shape=None if shape is None else list(shape),
+                  steps=steps, wall_s=wall, ms_per_step=wall * 1e3 / steps,
+                  tokens=n_tok,
+                  decode_tok_per_s=(n_tok - len(toks)) / wall,
+                  peak_mem_gb_by_card=[
+                      torch.cuda.max_memory_allocated(i) / 1e9
+                      for i in range(torch.cuda.device_count())],
+                  gathers_per_dispatch=(
+                      COLLECTIVE_METER.gathers
+                      / max(COLLECTIVE_METER.dispatches, 1)),
+                  shard_stats=sh, launches=launches,
+                  greedy_vs_unsharded=(
+                      None if shape is None else
+                      greedy_agreement(toks, outs["none"], greedy))))
+        del eng, hs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_mesh: PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available() \
+            or torch.cuda.device_count() < N_CARDS:
+        print(f"chip_mesh: needs {N_CARDS} CUDA devices", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        phase_device()
+        phase_parity()
+        phase_full()
+    except PhaseError as exc:
+        print(f"chip_mesh: FAILED: {exc}", file=sys.stderr)
+        return 1
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout,
+        end="", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -108,6 +108,26 @@ of the JAX package. Phases, one JSON line each:
              exports must equal imports and be above 0; every replica
              must read the caller's weight tensors (no copy), and peak
              memory must stay under the fused engine's peak + 8 GB.
+   mesh    — the mesh data plane on the one card, where every position
+             of a split mesh is the same device (so no interconnect is
+             measured): reduced Llama in f32 through the step functions
+             (``prefill_paged``, two fused paged horizons, whole-prompt
+             ``prefill``) with weights, LoRA arena and pages placed by
+             ``ShardPlan`` on meshes (1, 1), (1, 2) and (2, 2) over
+             repeated positions (``mesh_steps`` lines: (1, 1) bit-exact
+             against the unsharded functions, the split meshes within
+             1e-4); bgmv, sgmv, paged_attention and flash_attention at a
+             2-way column's Llama-7B shapes (LoRA dout 2048, 16 heads)
+             against their plain versions, timed beside their bounds
+             (``kernel_time_mesh``); the same sweep at full width in
+             bf16 on the first 8 trace prompts (first-token and greedy
+             agreement, logits error, decode ms a step, peak memory);
+             then the phase-4 trace through ``EngineConfig()``,
+             ``EngineConfig(mesh_shape=(1, 1))`` and ``EngineConfig()``
+             again, each on a step clock with loads landed before each
+             step (``mesh_engine``: tokens must be identical; ms a step,
+             peak memory, shard gauges). Each run's kernel launches are
+             counted from zero and every kernel of its path must launch.
    engine  — (MoE) with Llama's weights freed (under 1 GB may stay
              allocated): ``qwen3-moe-235b-a22b`` at its published widths
              cut to 8 layers (42.3 GB of seeded bf16 weights drawn on
@@ -772,10 +792,10 @@ def phase_parity_engines() -> None:
         return eng, clock
 
     def step(eng, clock):
-        if eng._load_stream is not None:
+        for stream in eng._load_streams.values():
             # Land slot copies before the step polls them, as the CPU's
             # synchronous copies are: the schedules then agree.
-            eng._load_stream.synchronize()
+            stream.synchronize()
         eng.step()
         clock[0] += 0.01
 
@@ -908,8 +928,8 @@ def phase_parity_spec() -> None:
             for _ in range(5000):
                 if not eng.busy():
                     break
-                if eng._load_stream is not None:
-                    eng._load_stream.synchronize()
+                for stream in eng._load_streams.values():
+                    stream.synchronize()
                 eng.step()
                 clock[0] += 0.01
             check(not eng.busy(), f"parity_spec {name}: failed to drain")
@@ -996,8 +1016,8 @@ def phase_parity_moe() -> None:
             for _ in range(5000):
                 if not eng.busy():
                     break
-                if eng._load_stream is not None:
-                    eng._load_stream.synchronize()
+                for stream in eng._load_streams.values():
+                    stream.synchronize()
                 eng.step()
                 clock[0] += 0.01
             check(not eng.busy(), f"parity_moe {name}: failed to drain")
@@ -1622,6 +1642,461 @@ def run_tier(name, opts, cfg, params, fused, stats, greedy) -> None:
     check(peak < fused["peak_mem_gb"] + TIER_MEM_SLACK_GB,
           f"{name}: peak memory {peak:.2f} GB against the fused "
           f"engine's {fused['peak_mem_gb']:.2f} GB")
+
+
+# ------------------------------------------------- phase 5b, meshes
+#: Mesh shapes of the step-function sweep, over repeated positions of
+#: the one card (the fake-mesh pattern): (1, 1) must equal the
+#: unsharded functions bit for bit; (1, 2) and (2, 2) split heads, FFN
+#: and vocabulary into two columns, and (2, 2) splits pages over two
+#: data shards as well.
+MESH_SHAPES = ((1, 1), (1, 2), (2, 2))
+#: Kernels of the mesh paths: the paged step functions and the (1, 1)
+#: engine run bgmv, sgmv and paged_attention; the whole-prompt prefill
+#: runs flash_attention.
+MESH_PATH = ("bgmv", "sgmv", "paged_attention", "flash_attention")
+
+
+def repeated_mesh(shape, dev):
+    """A ("data", "model") mesh of ``shape`` whose every position is
+    ``dev``."""
+    import numpy as np
+    from repro_torch.launch.mesh import Mesh
+    grid = np.empty(shape[0] * shape[1], dtype=object)
+    grid[:] = [dev] * grid.size
+    return Mesh(grid.reshape(shape), ("data", "model"))
+
+
+def mesh_inputs(cfg, prompts, dev, seed: int, dtype):
+    """The step functions' inputs: right-padded prompts, a LoRA slot
+    arena holding 8 seeded adapters (one a row), and a page table of 16
+    pages a row drawn from a permutation of the pool, so every row's
+    pages lie on both data shards of a 2-way data axis."""
+    import torch
+    from repro_torch.models.lora_apply import (init_lora_slots,
+                                               random_lora_weights,
+                                               write_adapter_to_slot)
+    B = len(prompts)
+    S = 1 << max(3, (max(len(p) for p in prompts) - 1).bit_length())
+    toks = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p, dtype=torch.int32)
+    seq_len = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                           device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lora = init_lora_slots(8, cfg.n_layers, cfg.d_model, cfg.q_dim,
+                           cfg.kv_dim, 32, dtype, device=dev)
+    for s in range(8):
+        write_adapter_to_slot(lora, random_lora_weights(
+            g, 32, 32, cfg.n_layers, cfg.d_model, cfg.q_dim, cfg.kv_dim,
+            dtype), s)
+    P = 16
+    n_pages = B * P + 2                      # page 0 trash, even count
+    table = (1 + torch.randperm(n_pages - 1, generator=g, device=dev)
+             )[:B * P].view(B, P).int()
+    return dict(toks=toks, seq_len=seq_len, lora=lora, table=table,
+                n_pages=n_pages, aidx=torch.arange(B, dtype=torch.int32,
+                                                   device=dev) % 8)
+
+
+def mesh_steps(cfg, params, inp, shape, n_steps: int = 8) -> dict:
+    """``prefill_paged`` of the prompts, two fused greedy horizons of
+    ``n_steps`` decode steps over the pages (the second timed), and a
+    whole-prompt ``prefill``: unsharded (``shape`` None) or with the
+    weights, LoRA arena and pages placed by ``ShardPlan`` on a mesh of
+    ``shape`` over repeated positions of the card."""
+    import torch
+    from repro_torch.distributed.sharding import MeshParams
+    from repro_torch.models import api
+    from repro_torch.serving.shard_plan import ShardPlan
+    dev = inp["toks"].device
+    B = inp["toks"].shape[0]
+    kv_shape = (cfg.n_layers, inp["n_pages"], 16, cfg.n_kv_heads,
+                cfg.head_dim)
+    if shape is None:
+        p, lora = params, inp["lora"]
+        kv = api.init_paged_serve_state(cfg, inp["n_pages"], 16,
+                                        torch.float32, device=dev)
+    else:
+        mesh = repeated_mesh(shape, dev)
+        plan = ShardPlan(mesh, cfg)
+        sh = plan.params(params)
+        p = MeshParams(cfg, {k: plan.put(v, sh[k])
+                             for k, v in params.items()}, mesh)
+        lsh = plan.lora_slots(inp["lora"])
+        lora = {k: (plan.put(a, lsh[k][0]), plan.put(b, lsh[k][1]))
+                for k, (a, b) in inp["lora"].items()}
+        kv = tuple(plan.zeros_kv_pages(kv_shape, torch.float32)
+                   for _ in range(2))
+    kw = dict(lora=lora, adapter_idx=inp["aidx"], lora_backend="kernel")
+    i32 = torch.int32
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, kv = api.prefill_paged(
+        cfg, p, inp["toks"], kv, inp["table"],
+        torch.zeros(B, dtype=i32, device=dev), inp["seq_len"], **kw)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    tokens = torch.argmax(logits, dim=-1).to(i32)[:, None]
+    first = tokens[:, 0].clone()
+    # One decode step's logits from the prefilled state (the horizon
+    # below rewrites the same position with the same K/V).
+    step, kv = api.decode_step_paged(cfg, p, tokens, kv, inp["table"],
+                                     inp["seq_len"], **kw)
+    state = dict(cache_len=inp["seq_len"].clone(),
+                 active=torch.ones(B, dtype=torch.bool, device=dev),
+                 positions=torch.ones(B, dtype=i32, device=dev))
+    fixed = (torch.full((B,), 1 << 20, dtype=i32, device=dev),
+             torch.zeros((B, 0), dtype=i32, device=dev),
+             torch.zeros(B, device=dev), torch.zeros(B, dtype=i32,
+                                                     device=dev),
+             torch.ones(B, device=dev),
+             torch.zeros(B, dtype=torch.int64, device=dev))
+    blocks, ms = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, toks, _ = api.decode_fused_paged(
+            cfg, p, tokens, kv, inp["table"], state["cache_len"],
+            state["active"], state["positions"], *fixed, n_steps=n_steps,
+            all_greedy=True, max_ctx=1 << 20, **kw)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3 / n_steps)
+        tokens, kv, state["cache_len"], state["active"], \
+            state["positions"] = carry
+        blocks.append(toks)
+    dense, _ = api.prefill(cfg, p, inp["toks"],
+                           last_pos=(inp["seq_len"] - 1), **kw)
+    torch.cuda.synchronize()
+    return dict(logits=logits.float(), first=first, step=step.float(),
+                toks=torch.cat(blocks).T.cpu(), dense=dense.float(),
+                prefill_ms=prefill_ms, decode_ms_per_step=ms[1])
+
+
+def mesh_sweep(cfg, params, inp, tag: str, tol: float) -> dict:
+    """``mesh_steps`` unsharded, then at each of ``MESH_SHAPES``, then
+    unsharded again (host times vary from run to run: both unsharded
+    times are reported). (1, 1) must equal the unsharded run bit for
+    bit (same shapes, same kernels); the split meshes must hold the
+    prefill logits within ``tol`` of it (column GEMMs of other widths
+    may round differently) and are read for greedy and first-token
+    agreement. Each run's kernel launches are counted from zero and
+    every kernel of ``MESH_PATH`` must launch; its peak memory is
+    read."""
+    import importlib
+
+    import torch
+    stats = {n: importlib.import_module(f"repro_torch.kernels.{n}").STATS
+             for n in KERNELS}
+    base = mesh_steps(cfg, params, inp, None)
+    runs = {}
+    for shape in MESH_SHAPES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for st in stats.values():
+            st.reset()
+        runs[shape] = got = mesh_steps(cfg, params, inp, shape)
+        runs[shape]["launches"] = {n: st.launches for n, st in stats.items()}
+        runs[shape]["instances"] = {n: dict(st.instances)
+                                    for n, st in stats.items()}
+        runs[shape]["plain"] = {n: st.plain for n, st in stats.items()}
+        runs[shape]["peak"] = torch.cuda.max_memory_allocated() / 1e9
+    again = mesh_steps(cfg, params, inp, None)
+    out = {}
+    for shape, got in runs.items():
+        launches = got["launches"]
+        err = max((got[k] - base[k]).abs().max().item()
+                  for k in ("logits", "dense"))
+        step_err = (got["step"] - base["step"]).abs().max().item()
+        rows = base["toks"].shape[0]
+        line = dict(
+            phase="mesh_steps", model=cfg.name, weights=tag,
+            mesh_shape=list(shape), n_layers=cfg.n_layers,
+            d_model=cfg.d_model, rows=rows,
+            logits_max_abs_err=err, tol=0.0 if shape == (1, 1) else tol,
+            decode_logits_max_abs_err=step_err,
+            first_token_identical=int((got["first"] == base["first"])
+                                      .sum().item()),
+            greedy_identical=sum(bool(torch.equal(a, b)) for a, b in
+                                 zip(got["toks"], base["toks"])),
+            finite=bool(torch.isfinite(got["logits"]).all()
+                        and torch.isfinite(got["dense"]).all()),
+            prefill_ms=got["prefill_ms"],
+            prefill_ms_unsharded=[base["prefill_ms"], again["prefill_ms"]],
+            decode_ms_per_step=got["decode_ms_per_step"],
+            decode_ms_per_step_unsharded=[base["decode_ms_per_step"],
+                                          again["decode_ms_per_step"]],
+            peak_mem_gb=got["peak"], launches=launches,
+            launches_by_instance=got["instances"],
+            plain_calls=got["plain"])
+        emit(line)
+        check(line["finite"], f"mesh_steps {tag} {shape}: non-finite logits")
+        if shape == (1, 1):
+            check(err == 0.0 and step_err == 0.0
+                  and line["greedy_identical"] == rows,
+                  f"mesh_steps {tag} (1, 1) differs from the unsharded "
+                  f"step functions: {line}")
+        else:
+            check(err <= tol, f"mesh_steps {tag} {shape}: logits off by "
+                              f"{err} > {tol}")
+        check(all(launches[n] > 0 for n in MESH_PATH)
+              and not any(line["plain_calls"].values()),
+              f"mesh_steps {tag} {shape}: a kernel of the path never "
+              f"launched or a plain version ran: {line}")
+        out[shape] = line
+    return out
+
+
+def mesh_kernel_checks(cfg, record_to: dict) -> None:
+    """bgmv, sgmv, paged_attention and flash_attention at the shapes one
+    "model" column of a (·, 2) mesh gives them at Llama-7B width: LoRA
+    dout 2048 (q/k/v heads, o's output columns), 16 of 32 heads, bf16
+    activations, f32 pages; held to their plain versions at phase 2's
+    tolerances and timed beside their bounds, plain versions and a
+    PyTorch call (``kernel_time_mesh`` lines)."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+    bgmv = importlib.import_module("repro_torch.kernels.bgmv")
+    sgmv = importlib.import_module("repro_torch.kernels.sgmv")
+    pa = importlib.import_module("repro_torch.kernels.paged_attention")
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2020)
+    scratch = torch.empty(64 * MIB, dtype=torch.uint8, device=dev)
+    M = 2
+
+    def flush():
+        scratch.zero_()
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device=dev)
+                * scale).to(dtype)
+
+    def checked(*args, **kw):
+        checked_and_timed("kernel_time_mesh", flush, record_to, *args,
+                          mesh_model=M, **kw)
+
+    d, r, n_slots, Bt, S, tile = cfg.d_model, 32, 8, 8, 256, 128
+    idx = torch.randperm(n_slots, generator=g, device=dev)[:Bt].int()
+    ts = torch.randint(0, n_slots, (Bt * S // tile,), generator=g,
+                       device=dev).int()
+    for proj, din, dout in (("q/k/v", d, cfg.q_dim // M),
+                            ("o", cfg.q_dim, d // M)):
+        A = randn(n_slots, din, r, scale=din ** -0.5)
+        Bw = randn(n_slots, r, dout, scale=r ** -0.5)
+        x = randn(Bt, din)
+        checked("bgmv", f"{proj}: x {tuple(x.shape)}, dout {dout}",
+                lambda: bgmv.bgmv(x, A, Bw, idx),
+                lambda: bgmv.bgmv_plain(x, A, Bw, idx),
+                lambda: torch.bmm(torch.bmm(x[:, None], A[idx.long()]),
+                                  Bw[idx.long()]), "lora_bf16",
+                bound_ms(nbytes(x, idx) + idx.unique().numel()
+                         * nbytes(A[0], Bw[0]) + Bt * dout * 2,
+                         2 * Bt * r * (din + dout), "bf16"))
+        x = randn(Bt * S, din)
+        xt = x.view(-1, tile, din)
+        sgmv.STATS.reset()
+        sgmv.sgmv(x, A, Bw, ts, tile)
+        inst = launched(sgmv, sgmv.sgmv_instance(x.dtype, A.dtype, r, tile))
+        checked("sgmv", f"{proj}: x {tuple(x.shape)}, dout {dout}",
+                lambda: sgmv.sgmv(x, A, Bw, ts, tile),
+                lambda: sgmv.sgmv_plain(x, A, Bw, ts, tile),
+                lambda: torch.bmm(torch.bmm(xt, A[ts.long()]),
+                                  Bw[ts.long()]), "lora_bf16",
+                bound_ms(nbytes(x, ts) + ts.unique().numel()
+                         * nbytes(A[0], Bw[0]) + Bt * S * dout * 2,
+                         2 * Bt * S * r * (din + dout), "bf16"),
+                instance=inst)
+    # paged_attention: one column's 16 KV heads over the phase-2 pool.
+    Kh, dh, page, P, n_pages = cfg.n_kv_heads // M, cfg.head_dim, 16, 16, 161
+    G = cfg.n_heads // cfg.n_kv_heads
+    kp = randn(n_pages, page, Kh, dh, dtype=torch.float32)
+    vp = randn(n_pages, page, Kh, dh, dtype=torch.float32)
+    table = (1 + torch.randperm(n_pages - 1, generator=g, device=dev)
+             )[:Bt * P].view(Bt, P).int()
+    lens = torch.randint(32, P * page + 1, (Bt,), generator=g,
+                         device=dev).int()
+    q = randn(Bt, Kh, G, dh)
+
+    def sdpa():
+        k = kp[table.long()].permute(0, 3, 1, 2, 4).reshape(
+            Bt, Kh, P * page, dh)
+        v = vp[table.long()].permute(0, 3, 1, 2, 4).reshape(
+            Bt, Kh, P * page, dh)
+        mask = (torch.arange(P * page, device=dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        return F.scaled_dot_product_attention(
+            q.float().reshape(Bt, Kh * G, 1, dh), k, v, attn_mask=mask)
+    n_tok = int(lens.sum().item())
+    checked("paged_attention",
+            f"q {tuple(q.shape)} bf16, f32 pages, lengths 32-256",
+            lambda: pa.paged_attention(q, kp, vp, table, lens),
+            lambda: pa.paged_attention_plain(q, kp, vp, table, lens),
+            sdpa, "bf16_out",
+            bound_ms(nbytes(q, table, lens) + 2 * n_tok * Kh * dh * 4
+                     + nbytes(q), 4 * n_tok * Kh * G * dh, "f32"))
+    H = cfg.n_heads // M
+    q = randn(Bt, S, H, dh)
+    k, v = randn(Bt, S, Kh, dh), randn(Bt, S, Kh, dh)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    fa.STATS.reset()
+    fa.flash_attention(q, k, v, True)
+    inst = launched(fa, fa.flash_instance(q.dtype, dh))
+    checked("flash_attention", f"causal, H {H}/Kh {Kh}, q {tuple(q.shape)}",
+            lambda: fa.flash_attention(q, k, v, True),
+            lambda: fa.flash_attention_plain(q, k, v, True),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), "bf16_out",
+            flash_bound(q, k, v, True),
+            extra=FLASH_P_ROUNDING * fa.flash_attention_plain(
+                q.float(), k.float(), v.float().abs(), True),
+            instance=inst)
+
+
+def gemm_column_probe() -> dict:
+    """Whether a column block of a GEMM equals the same columns of the
+    whole GEMM on this card (cuBLAS may pick another kernel, and with it
+    another summation order, for the narrower output): bf16 x (rows,
+    4096) @ W (4096, 4096)[:, :2048] at decode (8 rows) and prefill
+    (2048 rows) shapes, and f32 at decode."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+    for rows, dtype, name in ((8, torch.bfloat16, "bf16_rows8"),
+                              (2048, torch.bfloat16, "bf16_rows2048"),
+                              (8, torch.float32, "f32_rows8")):
+        x = torch.randn(rows, 4096, generator=g, device=dev).to(dtype)
+        w = (torch.randn(4096, 4096, generator=g, device=dev)
+             * 4096 ** -0.5).to(dtype)
+        whole = x @ w
+        half = x @ w[:, :2048].contiguous()
+        out[name] = (half.float() - whole[:, :2048].float()).abs().max(
+            ).item()
+    return out
+
+
+def phase_mesh(cfg, params) -> dict:
+    """The mesh data plane on one card (no interconnect: every position
+    of a split mesh is the same card, so gathers are device copies).
+    First reduced Llama in f32 through the step functions
+    (``mesh_sweep``: (1, 1) bit-exact, split meshes within 1e-4); then
+    the kernels at a 2-way column's shapes (``mesh_kernel_checks``);
+    then full-width Llama-7B: the step functions on the first 8 trace
+    prompts at each mesh shape against the unsharded functions, and the
+    phase-4 trace served by ``EngineConfig()``, then
+    ``EngineConfig(mesh_shape=(1, 1))``, then ``EngineConfig()`` again
+    (host ms a step varies from run to run), each on a step clock with
+    its adapter loads landed before each step, so the schedules and
+    (same shapes, same kernels) the tokens are identical. Returns the
+    mesh engine's launches on its trace."""
+    import importlib
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.systems import build_engine
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    small = get_config("chameleon-llama-7b").reduced()
+    sparams = api.init_params(small, 0, torch.float32, device=dev)
+    rng_prompts = [[int(t) % small.vocab_size for t in r.prompt[:40]]
+                   for r, _ in make_trace(small.vocab_size)[:8]]
+    mesh_sweep(small, sparams, mesh_inputs(small, rng_prompts, dev, 7,
+                                           torch.float32), "f32", 1e-4)
+    del sparams
+    record = {}
+    mesh_kernel_checks(cfg, record)
+    trace = make_trace(cfg.vocab_size)
+    prompts = [r.prompt for r, _ in trace[:8]]
+    # bf16: a layout fault moves logits by their own scale (about 1).
+    full = mesh_sweep(cfg, params, mesh_inputs(cfg, prompts, dev, 8,
+                                               torch.bfloat16),
+                      "bf16", 2 ** -4)
+    stats = {n: importlib.import_module(f"repro_torch.kernels.{n}").STATS
+             for n in KERNELS}
+    served = {}
+    for name, shape in (("fused", None), ("mesh_1x1", (1, 1)),
+                        ("fused_again", None)):
+        clock = [0.0]
+        eng = build_engine("chameleon", cfg, params,
+                           EngineConfig(mesh_shape=shape),
+                           clock=lambda: clock[0])
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for st in stats.values():
+            st.reset()
+        handles = [eng.submit(r, sampling=sp) for r, sp in
+                   make_trace(cfg.vocab_size)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = 0
+        while eng.busy() and steps < 20_000:
+            for stream in eng._load_streams.values():
+                stream.synchronize()
+            eng.step()
+            clock[0] += 0.01
+            steps += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(not eng.busy(), f"mesh engine {name} failed to drain")
+        toks = [h.tokens for h in handles]
+        served[name] = dict(
+            outputs=toks, steps=steps, wall_s=wall,
+            ms_per_step=wall * 1e3 / steps,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            launches={n: st.launches for n, st in stats.items()},
+            plain={n: st.plain for n, st in stats.items()},
+            shard_stats=eng.shard_stats())
+        check(all(len(t) == r.output_len for t, (r, _) in zip(toks, trace))
+              and all(0 <= x < cfg.vocab_size for t in toks for x in t),
+              f"mesh engine {name}: short output or token outside the "
+              f"vocabulary")
+        del eng, handles
+        gc.collect()
+        torch.cuda.empty_cache()
+    mesh, base, again = (served[n] for n in ("mesh_1x1", "fused",
+                                             "fused_again"))
+    agree = greedy_agreement(mesh["outputs"], base["outputs"],
+                             greedy_requests(cfg))
+    line = dict(phase="mesh_engine", model=cfg.name, mesh_shape=[1, 1],
+                weights="bf16", requests=len(trace),
+                all_identical=(mesh["outputs"] == base["outputs"]
+                               == again["outputs"]),
+                greedy_vs_unsharded=agree,
+                steps=mesh["steps"], steps_unsharded=base["steps"],
+                ms_per_step=mesh["ms_per_step"],
+                ms_per_step_unsharded=[base["ms_per_step"],
+                                       again["ms_per_step"]],
+                peak_mem_gb=mesh["peak_mem_gb"],
+                peak_mem_gb_unsharded=base["peak_mem_gb"],
+                launches=mesh["launches"], shard_stats=mesh["shard_stats"],
+                steps_by_mesh={f"{s[0]}x{s[1]}": dict(
+                    decode_ms_per_step=v["decode_ms_per_step"],
+                    decode_ms_per_step_unsharded=v[
+                        "decode_ms_per_step_unsharded"],
+                    greedy_identical=v["greedy_identical"],
+                    decode_logits_max_abs_err=v["decode_logits_max_abs_err"],
+                    first_token_identical=v["first_token_identical"],
+                    logits_max_abs_err=v["logits_max_abs_err"],
+                    peak_mem_gb=v["peak_mem_gb"])
+                    for s, v in full.items()},
+                gemm_column_max_abs_err=gemm_column_probe(),
+                phase_s=time.perf_counter() - t_phase)
+    emit(line)
+    check(line["all_identical"],
+          f"mesh engine (1, 1) tokens differ from EngineConfig()'s: {agree}")
+    check(all(mesh["launches"][n] > 0
+              for n in ("bgmv", "sgmv", "paged_attention"))
+          and not any(mesh["plain"].values()),
+          f"mesh engine (1, 1): a kernel of its path never launched or a "
+          f"plain version ran: {mesh['launches']}, {mesh['plain']}")
+    return mesh["launches"]
 
 
 # ------------------------------------------------- phase 4, MoE engines
@@ -3182,6 +3657,7 @@ def main() -> int:
         params = api.init_params(cfg, seed=0, dtype=torch.bfloat16)
         engines = phase_engine(cfg, params)
         phase_tiers(cfg, params, engines["fused"])
+        phase_mesh(cfg, params)
         # Free Llama's 13.5 GB before the 42.3 GB of the MoE model.
         del params
         gc.collect()

@@ -1,9 +1,8 @@
 """Elastic scaling: re-mesh plans after node loss or scale events.
 
 Port of ``src/repro/distributed/elastic.py``. The planners are plain
-arithmetic and equal the JAX package's; ``MeshPlan.make`` builds no
-mesh yet: the port's distribution slice gives it
-``torch.distributed.device_mesh``.
+arithmetic and equal the JAX package's; ``MeshPlan.make`` builds the
+port's ``launch.mesh.Mesh``.
 
 At 1000+ nodes, failures are routine; the recovery loop needs a
 *plan*: given the surviving chip count, pick the largest valid mesh
@@ -15,6 +14,10 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import torch
+
+from repro_torch.launch.mesh import make_mesh
+
 
 @dataclass(frozen=True)
 class MeshPlan:
@@ -23,11 +26,10 @@ class MeshPlan:
     n_devices: int
     global_batch: int
 
-    def make(self):
-        raise NotImplementedError(
-            "MeshPlan.make: device meshes are not ported to PyTorch yet "
-            "(the distribution slice, ROADMAP Queue 1 item 9, builds "
-            "them with torch.distributed.device_mesh)")
+    def make(self, device: torch.device | str | None = None):
+        """The planned mesh (``launch.mesh.make_mesh``) on the platform
+        of ``device`` (the card by default)."""
+        return make_mesh(self.shape, self.axes, device)
 
 
 def plan_after_failure(current_shape: tuple, axes: tuple,

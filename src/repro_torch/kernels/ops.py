@@ -117,6 +117,36 @@ class DispatchMeter:
 DISPATCH_METER = DispatchMeter()
 
 
+class CollectiveMeter(DispatchMeter):
+    """DISPATCH_METER-style probe for the sharded data plane.
+
+    A mesh>1 engine ticks this once per sharded dispatch; the gather
+    points of ``distributed.act_sharding`` count each gather in
+    ``gathers`` and time it in ``sync()`` (host seconds: on the card
+    the launch of the copies, which then run in stream order), so
+    ``frac()`` reports the gather/wall time fraction the per-device
+    gauges export. ``reset()`` also restarts the wall clock the
+    fraction is taken over.
+    """
+
+    def __init__(self) -> None:
+        super().__init__()
+        self._t0 = time.perf_counter()
+
+    def reset(self) -> None:
+        super().reset()
+        self.gathers = 0
+        self._t0 = time.perf_counter()
+
+    def frac(self) -> float:
+        wall = time.perf_counter() - self._t0
+        return (self.sync_seconds / wall) if wall > 0 else 0.0
+
+
+#: Process-wide probe for sharded (mesh>1) engine dispatches.
+COLLECTIVE_METER = CollectiveMeter()
+
+
 def resolve_lora_backend(backend: str | None,
                          device: torch.device | str) -> str:
     """Resolve an ``EngineConfig.lora_backend`` knob to a concrete path.

@@ -223,6 +223,24 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return table[tokens.long()]
 
 
+def embed_sharded(tokens: torch.Tensor, tables: list) -> torch.Tensor:
+    """``embed`` over a vocab-sharded table: ``tables[i]`` holds the
+    i-th block of rows, on its own device. Each block looks up the ids
+    it holds (the others clamped, then masked) and a select keeps the
+    owner's row, on the first block's device. A row lookup is a copy, so
+    this equals ``embed`` on the whole table exactly."""
+    home = tables[0].device
+    tok = tokens.to(home).long()
+    out, lo = None, 0
+    for tab in tables:
+        n = tab.shape[0]
+        rows = tab[(tok.to(tab.device) - lo).clamp(0, n - 1)].to(home)
+        mine = ((tok >= lo) & (tok < lo + n))[..., None]
+        out = rows if out is None else torch.where(mine, rows, out)
+        lo += n
+    return out
+
+
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """x: (B, S, D); table: (D, V) -> f32 logits (B, S, V).
 

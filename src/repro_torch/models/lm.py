@@ -29,16 +29,22 @@ the JAX code does.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.sampling import (SPEC_ACCEPT_FOLD, SPEC_DRAFT_FOLD,
                                        SPEC_RESIDUAL_FOLD)
 from repro_torch.device import resolve_device
+from repro_torch.distributed import act_sharding as acts
+from repro_torch.distributed.sharding import MeshParams
 from repro_torch.kernels.ops import flash_attention, paged_attention
 from repro_torch.models.base import Family, ModelConfig, param_shapes
 from repro_torch.models.layers import (apply_rope, cross_entropy,
                                        decode_attention, einsum, embed,
-                                       gelu_mlp, head_rms_norm,
+                                       embed_sharded, gelu_mlp,
+                                       head_rms_norm,
                                        mrope_cos_sin, rms_norm, rope_cos_sin,
                                        suffix_attention, swiglu, unembed)
 from repro_torch.models.lora_apply import lora_delta
@@ -615,6 +621,7 @@ def forward(cfg: ModelConfig, params: dict, tokens,
             mrope_pos=None) -> torch.Tensor:
     """Full-sequence logits (B, S, V) f32, causal attention through
     flash_attention. ``mrope_pos`` (3, B, S): M-RoPE positions (VLM)."""
+    _refuse_mesh(params, "forward")
     x = embed(tokens, params["embed/tok"])
     cos, sin = _positions(cfg, tokens, 0, mrope_pos)
     h, _, _ = _backbone(cfg, params, x, cos, sin)
@@ -625,6 +632,7 @@ def train_loss(cfg: ModelConfig, params: dict, tokens, labels,
                mrope_pos=None, aux_weight: float = 0.01) -> torch.Tensor:
     """Mean next-token NLL of ``labels`` (B, S) plus ``aux_weight`` times
     the MoE load-balance loss (0 for the dense and VLM families)."""
+    _refuse_mesh(params, "train_loss")
     x = embed(tokens, params["embed/tok"])
     cos, sin = _positions(cfg, tokens, 0, mrope_pos)
     h, _, aux = _backbone(cfg, params, x, cos, sin)
@@ -641,6 +649,9 @@ def prefill(cfg: ModelConfig, params: dict, tokens, mrope_pos=None,
     activation dtype). ``lora_backend="kernel"`` routes the LoRA deltas
     through the sgmv kernel (each row is one contiguous token run).
     ``mrope_pos`` (3, B, S): M-RoPE positions (VLM)."""
+    if isinstance(params, MeshParams):
+        return _prefill_mesh(cfg, params, tokens, lora, adapter_idx,
+                             last_pos, lora_backend)
     B, _ = tokens.shape
     x = embed(tokens, params["embed/tok"])
     cos, sin = _positions(cfg, tokens, 0, mrope_pos)
@@ -666,6 +677,9 @@ def decode_step(cfg: ModelConfig, params: dict, tokens, kv_caches,
     kv_caches). ``lora_backend="kernel"`` routes the per-token LoRA
     deltas through the bgmv kernel.
     """
+    if isinstance(params, MeshParams):
+        return _decode_step_mesh(cfg, params, tokens, kv_caches, cache_len,
+                                 lora, adapter_idx, lora_backend)
     x = embed(tokens, params["embed/tok"])
     cos, sin = _positions(cfg, tokens, cache_len, mrope_pos)
     h, kv, _ = _backbone(cfg, params, x, cos, sin, kv_caches=kv_caches,
@@ -685,6 +699,10 @@ def decode_step_paged(cfg: ModelConfig, params: dict, tokens, kv_pages,
     ids per request; cache_len: (B,) valid lengths. Returns
     (logits (B, V) f32, kv_pages).
     """
+    if isinstance(params, MeshParams):
+        return _decode_step_paged_mesh(cfg, params, tokens, kv_pages,
+                                       page_table, cache_len, lora,
+                                       adapter_idx, lora_backend)
     x = embed(tokens, params["embed/tok"])
     cos, sin = _positions(cfg, tokens, cache_len)
     k_pages, v_pages = kv_pages
@@ -765,6 +783,10 @@ def prefill_paged(cfg: ModelConfig, params: dict, tokens, kv_pages,
     over it. Returns (last-valid-position logits (B, V) f32, kv_pages
     updated in place).
     """
+    if isinstance(params, MeshParams):
+        return _prefill_paged_mesh(cfg, params, tokens, kv_pages,
+                                   page_table, start, seq_len, lora,
+                                   adapter_idx, lora_backend)
     B, S = tokens.shape
     dev = tokens.device
     valid = torch.arange(S, device=dev)[None, :] < seq_len.long()[:, None]
@@ -790,6 +812,7 @@ def verify(cfg: ModelConfig, params: dict, tokens, kv_caches, cache_len,
     slab, so position j sees exactly the keys one ``decode_step`` would.
     Returns (logits (B, S, V) f32, kv_caches).
     """
+    _refuse_mesh(params, "verify")
     B, S = tokens.shape
     dev = tokens.device
     x = embed(tokens, params["embed/tok"])
@@ -821,6 +844,7 @@ def verify_paged(cfg: ModelConfig, params: dict, tokens, kv_pages,
     or past ``seq_len`` go to trash page 0), the page list is gathered
     back and attention is offset-causal (``_paged_layers``). Returns
     (logits (B, S, V) f32, kv_pages updated in place)."""
+    _refuse_mesh(params, "verify_paged")
     S = tokens.shape[1]
     dev = tokens.device
     ar = torch.arange(S, device=dev)[None, :]
@@ -1028,3 +1052,363 @@ def decode_spec_fused_paged(cfg: ModelConfig, params: dict,
                              active, positions, kv_pages, draft_kv,
                              budget, stop_ids, temperature, top_k, top_p,
                              seeds, max_ctx, n_rounds, spec_k, all_greedy)
+
+
+# ------------------------------------------------------ mesh data plane
+# The dense family's step functions on a device mesh (``MeshParams``):
+# the counterpart of the JAX engine's sharded jits in exact-reductions
+# mode. Each "model" column computes its block of q/k/v heads (the
+# column config ``col_cfg``), its pages' attention and its output
+# columns of o, gate/up and the vocabulary, on its own device; the
+# ``act_sharding.constrain_*`` points gather the merged heads before o,
+# the residual before each norm, the FFN hidden before the replicated
+# down projection and whole vocab rows before sampling, so no
+# contraction runs over a sharded dimension. Compute runs at full
+# batch: KV pages (or slab rows) and batch state are split over "data"
+# for storage only, so a layer's writes go to the shard that owns the
+# page or row, and its reads gather the data shards onto the column's
+# device. The page table stays global.
+
+
+def _mesh_scope(mp: MeshParams):
+    """The gather points' scope for ``mp`` (entered by the serving
+    engine around every dispatch; entered here for direct callers)."""
+    if acts.installed_mesh() is mp.mesh:
+        return contextlib.nullcontext()
+    return acts.activation_sharding((), mesh=mp.mesh,
+                                    exact_reductions=True)
+
+
+def _on(dev: torch.device):
+    """Make ``dev`` the current card while a column launches its kernels
+    (a launch goes to the current device); nothing on the CPU."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
+def _refuse_mesh(params, what: str) -> None:
+    if isinstance(params, MeshParams):
+        raise NotImplementedError(
+            f"{what} on a mesh: only the serving step functions (prefill, "
+            f"prefill_paged, decode_step[_paged], decode_fused[_paged]) "
+            f"are sharded; training and speculative passes come with "
+            f"later slices")
+
+
+class _MeshCall:
+    """One step function's per-column views: each column's layer
+    stacks, LoRA slots and replicated inputs."""
+
+    def __init__(self, mp: MeshParams, lora):
+        self.mp, self.M, self.ccfg = mp, mp.model_size, mp.col_cfg
+        self.stacks = [_slice_group(c, "layers/") for c in mp.cols]
+        self.lora = (mp.lora_cols(lora) if lora is not None
+                     else [None] * self.M)
+
+    def rep(self, *ts) -> list:
+        """Per column: the tuple of ``ts`` as that column's copies."""
+        cols = [acts.replicate(t) if t is not None else [None] * self.M
+                for t in ts]
+        return [tuple(c[m] for c in cols) for m in range(self.M)]
+
+    def layer(self, i: int):
+        ps = [{k: v[i] for k, v in st.items()} for st in self.stacks]
+        lrs = [({n: (a[i], b[i]) for n, (a, b) in lr.items()}
+                if lr is not None else None) for lr in self.lora]
+        return ps, lrs
+
+
+def _embed_mesh(mp: MeshParams, tokens: torch.Tensor) -> torch.Tensor:
+    """Token rows of the vocab-sharded table, on the first column's
+    device."""
+    return embed_sharded(tokens, [c["embed/tok"] for c in mp.cols])
+
+
+def _o_proj_mesh(call: _MeshCall, x, outs: list, ps, lrs, aidx,
+                 backend: str):
+    """Merged-head gather, column-parallel o (+ its LoRA columns), then
+    the residual gather: ``_o_proj`` with D over "model"."""
+    out = acts.constrain_attn_merged(outs)
+    outr = acts.replicate(out)
+    cols = []
+    for m in range(call.M):
+        with _on(outr[m].device):
+            o = einsum("bse,ed->bsd", outr[m], ps[m]["o"])
+            if lrs[m] is not None and "o" in lrs[m]:
+                o = o + lora_delta(outr[m], lrs[m]["o"], aidx[m][0],
+                                   backend=backend)
+        cols.append(o)
+    return x + acts.constrain_residual(cols)
+
+
+def _mlp_mesh(call: _MeshCall, x, ps):
+    """``_mlp`` with gate/up column-parallel, the hidden gathered and
+    the down projection replicated (on the first column's device)."""
+    cfg = call.ccfg
+    xr = acts.replicate(x)
+    hid = []
+    for m in range(call.M):
+        h = rms_norm(xr[m], ps[m]["mlp_norm"], cfg.norm_eps)
+        if cfg.gated_mlp:
+            hid.append(F.silu(einsum("bsd,df->bsf", h, ps[m]["gate"]))
+                       * einsum("bsd,df->bsf", h, ps[m]["up"]))
+        else:
+            hid.append(F.gelu(einsum("bsd,df->bsf", h, ps[m]["up"]),
+                              approximate="tanh"))
+    return x + einsum("bsf,fd->bsd", acts.constrain_ffn_hidden(hid),
+                      ps[0]["down"])
+
+
+def _head_mesh(call: _MeshCall, h) -> torch.Tensor:
+    """``_logits`` with the vocabulary column-parallel, gathered to
+    whole rows."""
+    cfg, cols = call.mp.cfg, call.mp.cols
+    hr = acts.replicate(h)
+    out = []
+    for m in range(call.M):
+        hm = rms_norm(hr[m], cols[m]["final_norm"], cfg.norm_eps)
+        table = (cols[m]["embed/tok"].T if cfg.tie_embeddings
+                 else cols[m]["lm_head"])
+        out.append(unembed(hm, table))
+    return acts.constrain_logits(out)
+
+
+def _page_targets(st, m: int, idx, off) -> list:
+    """Where column ``m`` writes pages ``idx`` (offsets ``off``) of a
+    paged KV stack ``st``: per data shard (the shard with its write
+    sink, local page, offset). A shard takes the pages it owns; the
+    others go to its sink (``ShardPlan.zeros_kv_pages``). The same for
+    every layer, so it is computed once a step."""
+    n = st.shape[1]
+    out = []
+    for lo, hi, ts in st.parts({"model": m}, 1):
+        for t in ts:
+            i, o = idx.to(t.device), off.to(t.device)
+            if lo == 0 and hi == n:
+                out.append((t, i, o))
+                continue
+            raw = st.raw(t)
+            if raw is t:
+                raise ValueError("KV pages split over 'data' need a write "
+                                 "sink: allocate them with "
+                                 "ShardPlan.zeros_kv_pages")
+            i = i - lo
+            out.append((raw, torch.where((i >= 0) & (i < hi - lo), i,
+                                         torch.full_like(i, hi - lo)), o))
+    return out
+
+
+def _kv_write(targets: list, layer: int, val) -> None:
+    """Write ``val`` into layer ``layer`` at each of ``targets``."""
+    for t, i, o in targets:
+        t[layer][i, o] = val.to(t.device, t.dtype)
+
+
+def _kv_read(st, layer: int, m: int, dim: int, device) -> torch.Tensor:
+    """Layer ``layer`` of column ``m``'s KV, its data shards gathered
+    along ``dim`` onto ``device``."""
+    blocks = []
+    for _, _, ts in st.parts({"model": m}, dim):
+        t = next((u for u in ts if u.device == device), ts[0])
+        blocks.append(t[layer])
+    return acts.gather_blocks(blocks, dim - 1, device)
+
+
+def _slab_write_mesh(kv, layer: int, m: int, new_kv, pos, keep) -> None:
+    """``_slab_write`` into column ``m``'s slab shards, rows split over
+    "data": each shard takes its block of rows."""
+    K, V = kv
+    for (lo, hi, ks), (_, _, vs) in zip(K.parts({"model": m}, 1),
+                                        V.parts({"model": m}, 1)):
+        for kt, vt in zip(ks, vs):
+            dev = kt.device
+            _slab_write((kt[layer], vt[layer]),
+                        tuple(x[lo:hi].to(dev) for x in new_kv),
+                        pos[lo:hi].to(dev), keep[lo:hi].to(dev))
+
+
+def _attn_columns(call: _MeshCall, h, cos, sin, i: int, aidx, backend,
+                  attend) -> list:
+    """q/k/v of every column for layer ``i`` and ``attend(m, q, k, v)``
+    on each: the columns' attention outputs (B, S, q_dim / M)."""
+    ps, lrs = call.layer(i)
+    hr = acts.replicate(h)
+    outs = []
+    for m in range(call.M):
+        with _on(hr[m].device):
+            _, q, k, v = _qkv_proj(call.ccfg, hr[m], ps[m], cos[m], sin[m],
+                                   lrs[m], aidx[m][0], lora_backend=backend)
+            outs.append(attend(m, q, k, v))
+    return outs, ps, lrs
+
+
+def _dense_layers_mesh(call: _MeshCall, h, cos, sin, aidx, backend,
+                       attend):
+    """The dense layer stack on the mesh: per layer the columns'
+    attention (``attend``), the o projection and the MLP."""
+    for i in range(call.mp.cfg.n_layers):
+        outs, ps, lrs = _attn_columns(call, h, cos, sin, i, aidx, backend,
+                                      lambda m, q, k, v, i=i:
+                                      attend(i, m, q, k, v))
+        h = _o_proj_mesh(call, h, outs, ps, lrs, aidx, backend)
+        h = _mlp_mesh(call, h, ps)
+    return h
+
+
+def _prefill_mesh(cfg, mp: MeshParams, tokens, lora, adapter_idx,
+                  last_pos, lora_backend):
+    """``prefill`` on the mesh; (k, v) come back as per-column lists of
+    (L, B, S, Kh/M, Dh) stacks (each column's kv heads)."""
+    with _mesh_scope(mp):
+        call = _MeshCall(mp, lora)
+        B, S = tokens.shape
+        x = _embed_mesh(mp, tokens)
+        cos, sin = _positions(cfg, tokens.to(mp.home), 0)
+        cos, sin = zip(*call.rep(cos, sin))
+        aidx = call.rep(adapter_idx)
+        ks = [[] for _ in range(call.M)]
+        vs = [[] for _ in range(call.M)]
+        qd = call.ccfg.q_dim
+
+        def attend(i, m, q, k, v):
+            ks[m].append(k)
+            vs[m].append(v)
+            return flash_attention(q, k, v, causal=True).reshape(B, S, qd)
+
+        h = _dense_layers_mesh(call, x, cos, sin, aidx, lora_backend,
+                               attend)
+        if last_pos is None:
+            h_last = h[:, -1:]
+        else:
+            rows = torch.arange(B, device=h.device)
+            h_last = h[rows, last_pos.to(h.device).long()][:, None]
+        kv = ([torch.stack(k) for k in ks], [torch.stack(v) for v in vs])
+        return _head_mesh(call, h_last)[:, 0], kv
+
+
+def _decode_step_mesh(cfg, mp: MeshParams, tokens, kv_caches, cache_len,
+                      lora, adapter_idx, lora_backend):
+    """``decode_step`` over the dense slab on the mesh: slab rows over
+    "data", kv heads over "model"."""
+    with _mesh_scope(mp):
+        call = _MeshCall(mp, lora)
+        B, S = tokens.shape
+        home = mp.home
+        tokens, cache_len = tokens.to(home), cache_len.to(home)
+        x = _embed_mesh(mp, tokens)
+        cos, sin = _positions(cfg, tokens, cache_len)
+        Smax = kv_caches[0].shape[2]
+        pos = (cache_len.long()[:, None]
+               + torch.arange(S, device=home)[None, :])
+        keep = pos < Smax
+        per = call.rep(cos, sin, cache_len, adapter_idx)
+        cos, sin = [p[0] for p in per], [p[1] for p in per]
+        aidx = [p[3:] for p in per]
+        qd = call.ccfg.q_dim
+        K, V = kv_caches
+
+        def attend(i, m, q, k, v):
+            dev = q.device
+            _slab_write_mesh(kv_caches, i, m, (k, v), pos, keep)
+            kc, vc = (_kv_read(t, i, m, 1, dev) for t in (K, V))
+            out = decode_attention(q, kc, vc, per[m][2] + S).to(q.dtype)
+            return out.reshape(B, S, qd)
+
+        h = _dense_layers_mesh(call, x, cos, sin, aidx, lora_backend,
+                               attend)
+        return _head_mesh(call, h)[:, 0], kv_caches
+
+
+def _paged_geometry(kv_pages, page_table, start, valid):
+    """Write page and offset of each of the rows' tokens at ``start``
+    (B,) .. (as in ``_paged_layers``; ``valid`` None = all)."""
+    S = valid.shape[1]
+    page = kv_pages[0].shape[2]
+    P = page_table.shape[1]
+    pt = page_table.long()
+    pos = start.long()[:, None] + torch.arange(S, device=pt.device)[None]
+    blk = torch.clamp(pos // page, max=P - 1)
+    page_idx = torch.where(valid, torch.gather(pt, 1, blk),
+                           torch.zeros_like(blk))
+    return pos, page_idx, pos % page
+
+
+def _paged_mesh(cfg, mp: MeshParams, tokens, kv_pages, page_table, start,
+                valid, lora, adapter_idx, lora_backend, decode: bool):
+    """The paged layer stack on the mesh (pages over "data", kv heads
+    over "model"): ``decode_step_paged`` (``decode``: one token a row,
+    through paged_attention) or the suffix pass of ``_paged_layers``.
+    Returns the hidden (B, S, D) on the first column's device."""
+    call = _MeshCall(mp, lora)
+    B, S = tokens.shape
+    home = mp.home
+    tokens, start, page_table, valid = (t.to(home) for t in
+                                        (tokens, start, page_table, valid))
+    x = _embed_mesh(mp, tokens)
+    cos, sin = _positions(cfg, tokens, start)
+    pos, page_idx, page_off = _paged_geometry(kv_pages, page_table, start,
+                                              valid)
+    per = call.rep(cos, sin, page_table, start, page_idx, page_off, pos,
+                   adapter_idx)
+    cos, sin = [p[0] for p in per], [p[1] for p in per]
+    aidx = [p[7:] for p in per]
+    c = call.ccfg
+    G = c.n_heads // c.n_kv_heads
+    page, P = kv_pages[0].shape[2], page_table.shape[1]
+    K, V = kv_pages
+
+    def targets(t, m):
+        pi, po = per[m][4:6]
+        if decode:
+            pi, po = pi[:, 0], po[:, 0]
+        return _page_targets(t, m, pi, po)
+
+    where = [(targets(K, m), targets(V, m)) for m in range(call.M)]
+
+    def attend(i, m, q, k, v):
+        dev = q.device
+        pt, st, _, _, ps_ = per[m][2:7]
+        if decode:
+            k, v = k[:, 0], v[:, 0]
+        _kv_write(where[m][0], i, k)
+        _kv_write(where[m][1], i, v)
+        kp, vp = (_kv_read(t, i, m, 1, dev) for t in (K, V))
+        if decode:
+            qh = q[:, 0].reshape(B, c.n_kv_heads, G, c.head_dim)
+            out = paged_attention(qh, kp, vp, pt, st + 1)
+        else:
+            pl = pt.long()
+            kf = kp[pl].reshape(B, P * page, c.n_kv_heads, c.head_dim)
+            vf = vp[pl].reshape(B, P * page, c.n_kv_heads, c.head_dim)
+            out = suffix_attention(q, kf, vf, ps_).to(q.dtype)
+        return out.reshape(B, S, c.q_dim)
+
+    return _dense_layers_mesh(call, x, cos, sin, aidx, lora_backend,
+                              attend), call
+
+
+def _decode_step_paged_mesh(cfg, mp, tokens, kv_pages, page_table,
+                            cache_len, lora, adapter_idx, lora_backend):
+    with _mesh_scope(mp):
+        valid = torch.ones(tokens.shape, dtype=torch.bool,
+                           device=tokens.device)
+        h, call = _paged_mesh(cfg, mp, tokens, kv_pages, page_table,
+                              cache_len, valid, lora, adapter_idx,
+                              lora_backend, decode=True)
+        return _head_mesh(call, h)[:, 0], kv_pages
+
+
+def _prefill_paged_mesh(cfg, mp, tokens, kv_pages, page_table, start,
+                        seq_len, lora, adapter_idx, lora_backend):
+    with _mesh_scope(mp):
+        B, S = tokens.shape
+        dev = tokens.device
+        seq_len = seq_len.to(dev)
+        valid = torch.arange(S, device=dev)[None, :] < seq_len.long()[:, None]
+        h, call = _paged_mesh(cfg, mp, tokens, kv_pages, page_table, start,
+                              valid, lora, adapter_idx, lora_backend,
+                              decode=False)
+        last = (seq_len.long().to(h.device) - 1).clamp(min=0)
+        h_last = h[torch.arange(B, device=h.device), last][:, None]
+        return _head_mesh(call, h_last)[:, 0], kv_pages

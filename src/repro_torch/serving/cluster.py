@@ -329,6 +329,21 @@ class EngineCluster:
 
         self.ccfg = ccfg or EngineClusterConfig()
         self.ecfg = ecfg or EngineConfig()
+        if self.ecfg.mesh_shape is not None:
+            # N sharded replicas need N x mesh.size devices' worth of
+            # hardware — reject over-subscription up front instead of
+            # letting replica 2 OOM replica 1's HBM. (Single-device
+            # replicas deliberately skip this: co-locating CPU replicas
+            # on one host device is the normal CI topology.)
+            from repro_torch.launch.mesh import device_count
+            d, m = self.ecfg.mesh_shape
+            need = self.ccfg.n_engines * d * m
+            have = device_count(device)
+            if need > have:
+                raise ValueError(
+                    f"EngineCluster: {self.ccfg.n_engines} replicas x "
+                    f"mesh {tuple(self.ecfg.mesh_shape)} need {need} "
+                    f"devices, only {have} available")
         self.catalog = AdapterCatalog(cfg, self.ecfg.n_adapters,
                                       self.ecfg.r_max, device=device,
                                       seed=self.ccfg.seed)

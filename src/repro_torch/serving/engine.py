@@ -41,13 +41,33 @@ The MoE family serves through the same engine as the dense one, from
 the dense KV slab whatever ``paged`` says (``api.supports_paged``), as
 the reference does.
 
+One engine can span a device **mesh** (``EngineConfig.mesh_shape =
+(data, model)``, resolved through ``launch.mesh.make_serving_mesh``),
+one Python process driving every position as the JAX engine's single
+controller does. ``serving/shard_plan.py`` places the weights and the
+LoRA B halves over "model" (LoRA A whole), KV pages (or slab rows) and
+the batch-state vectors over "data"; the page table stays global. The
+model functions run one "model" column per shard and gather at the
+``act_sharding.constrain_*`` points in exact-reductions mode (no
+contraction over a sharded dimension, compute at full batch), so a mesh
+engine emits the tokens of ``mesh_shape=None``. Physical pages round up
+to the data axis with the free-list order unchanged; KV and batch
+state are updated in place shard by shard; adapter uploads copy each
+device only its shard, on that device's side stream. ``shard_stats``
+reports per-shard pages, the arena bytes a device holds and the
+``COLLECTIVE_METER`` gather gauges. ``spec_decode=True`` warns and is
+ignored on a mesh, as in the reference.
+
 Not ported yet (each raises ``NotImplementedError`` at construction,
-naming the knob): ``mesh_shape``, the VLM, SSM, hybrid and enc-dec
-families (the reference engine cannot serve VLM either: it threads no
-M-RoPE positions), and ``spec_decode=True`` on an MoE model.
+naming the knob): the VLM, SSM, hybrid and enc-dec families (the
+reference engine cannot serve VLM either: it threads no M-RoPE
+positions), ``spec_decode=True`` on an MoE model, and an MoE model on
+a mesh (its expert-parallel block, ``models/moe_shard_map.py``, comes
+with the next slice).
 """
 from __future__ import annotations
 
+import contextlib
 import time
 import warnings
 from dataclasses import dataclass
@@ -62,7 +82,12 @@ from repro_torch.core import (AdapterCache, AdapterInfo, CacheStats,
                               PrefixCache, QueuedRequestPrefetcher, Request,
                               RequestState, SamplingParams)
 from repro_torch.device import resolve_device
-from repro_torch.kernels.ops import DISPATCH_METER, resolve_lora_backend
+from repro_torch.distributed.act_sharding import activation_sharding
+from repro_torch.distributed.sharding import (MeshParams, ShardedTensor,
+                                              mesh_unsupported)
+from repro_torch.kernels.ops import (COLLECTIVE_METER, DISPATCH_METER,
+                                     resolve_lora_backend)
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models import api
 from repro_torch.models.base import Family, ModelConfig
 from repro_torch.models.lora_apply import (init_lora_slots,
@@ -70,6 +95,7 @@ from repro_torch.models.lora_apply import (init_lora_slots,
                                            write_adapter_to_slot)
 from repro_torch.serving.handles import RequestHandle, prepare_request
 from repro_torch.serving.metrics import RequestRecord, RunMetrics
+from repro_torch.serving.shard_plan import ShardPlan
 
 
 @dataclass
@@ -122,8 +148,13 @@ _WHY_NOT_SERVED = {
 
 def _unsupported(cfg: ModelConfig, e: EngineConfig) -> list[str]:
     out = []
-    if e.mesh_shape is not None:
-        out.append(f"mesh_shape={e.mesh_shape}")
+    if e.mesh_shape is not None and cfg.family == Family.MOE:
+        out.append(f"mesh_shape={tuple(e.mesh_shape)} on model family MOE "
+                   f"(the expert-parallel MoE block, "
+                   f"models/moe_shard_map.py, is not ported yet)")
+    elif e.mesh_shape is not None and cfg.family == Family.DENSE:
+        out += [f"mesh_shape={tuple(e.mesh_shape)}: {why}"
+                for why in mesh_unsupported(cfg, e.mesh_shape[1])]
     if cfg.family not in (Family.DENSE, Family.MOE):
         out.append(f"model family {cfg.family.name}"
                    + _WHY_NOT_SERVED.get(cfg.family, ""))
@@ -209,7 +240,8 @@ class AdapterCatalog:
 
 
 class ChameleonEngine:
-    """Single-device engine over a real model (CUDA by default)."""
+    """Engine over a real model on one device (CUDA by default) or a
+    device mesh (``EngineConfig.mesh_shape``)."""
 
     def __init__(self, cfg: ModelConfig, params: dict,
                  ecfg: EngineConfig | None = None,
@@ -228,28 +260,63 @@ class ChameleonEngine:
         if e.prefix_mode not in ("exact", "alora"):
             raise ValueError(f"unknown prefix_mode {e.prefix_mode!r}")
         self.device = dev = resolve_device(device)
-        self.params = {k: v.to(dev) for k, v in params.items()}
+
+        # --- serving mesh: one engine across d*m devices ---
+        self.mesh = None
+        self.plan: Optional[ShardPlan] = None
+        self._collective = False      # mesh>1: COLLECTIVE_METER armed
+        if e.mesh_shape is not None:
+            d, m = e.mesh_shape
+            self.mesh = make_serving_mesh(d * m, m, device=dev)
+            self.plan = ShardPlan(self.mesh, cfg)
+            self.device = dev = self.mesh.devices[0, 0]
+            # Weights land sharded over "model" once, up front —
+            # resident, never re-gathered per step.
+            sh = self.plan.params(params)
+            self.params = MeshParams(
+                cfg, {k: self.plan.put(v, sh[k]) for k, v in params.items()},
+                self.mesh)
+            self._collective = self.mesh.size > 1
+        else:
+            self.params = {k: v.to(dev) for k, v in params.items()}
 
         # --- LoRA adapter catalog (host-side weights = "host memory") ---
         self.catalog = catalog or AdapterCatalog(cfg, e.n_adapters,
                                                  e.r_max, seed=e.seed,
                                                  device=dev)
         self.host_adapters = self.catalog.weights
-        # Device adapter-slot buffers, written in place by loads.
+        # Device adapter-slot buffers, written in place by loads. On a
+        # mesh the arena is in shard layout: A whole on every device, B
+        # dout over "model" (the LoRA delta adds to the column's
+        # projection output without a reshard), and host adapter
+        # weights upload straight into it — each device receives only
+        # its shard (``_adapter_sh``), never the whole B.
         self.lora = init_lora_slots(e.n_lora_slots, cfg.n_layers,
                                     cfg.d_model, cfg.q_dim, cfg.kv_dim,
                                     self.catalog.r_max, device=dev)
+        self._adapter_sh = None
+        self._host_blocks: dict = {}
+        if self.plan is not None:
+            lsh = self.plan.lora_slots(self.lora)
+            self.lora = {p: (lsh[p][0].zeros(tuple(a.shape), a.dtype),
+                             lsh[p][1].zeros(tuple(b.shape), b.dtype))
+                         for p, (a, b) in self.lora.items()}
+            if self.host_adapters:
+                self._adapter_sh = self.plan.adapter_weights(
+                    next(iter(self.host_adapters.values())))
         self.slot_of: dict[int, int] = {}       # adapter_id -> lora slot
         self.free_slots = list(range(e.n_lora_slots))
-        # adapter_id -> (copy-done event or None, modeled-ready time).
-        self._pending_loads: dict[int, tuple[Optional[torch.cuda.Event],
-                                             float]] = {}
-        self._load_stream = None
-        if dev.type == "cuda":
-            # Slot copies on the side stream must land after the zero
-            # fill just enqueued on the main stream.
-            self._load_stream = torch.cuda.Stream(dev)
-            self._load_stream.wait_stream(torch.cuda.current_stream(dev))
+        # adapter_id -> (copy-done events or None, modeled-ready time).
+        self._pending_loads: dict[int, tuple[Optional[list], float]] = {}
+        # One side stream per card the arena lives on.
+        self._load_streams: dict[torch.device, torch.cuda.Stream] = {}
+        for d in ({dev} if self.mesh is None else set(self.mesh.devices.flat)):
+            if d.type == "cuda":
+                # Slot copies on the side stream must land after the
+                # zero fill just enqueued on the main stream.
+                st = torch.cuda.Stream(d)
+                st.wait_stream(torch.cuda.current_stream(d))
+                self._load_streams[d] = st
         self.n_async_loads = 0
         self._lora_backend = resolve_lora_backend(e.lora_backend, dev)
 
@@ -260,8 +327,13 @@ class ChameleonEngine:
         # Paged KV for the dense family only; MoE serves from the slab
         # (the prefix cache and chunked prefill then stay off).
         self.paged = bool(e.paged) and api.supports_paged(cfg)
+        # Per-device sizing is telemetry (n_shards); the *accounting*
+        # stays global so admission/eviction decisions — and therefore
+        # emitted tokens — are identical at every mesh shape.
         self.pool = MemoryPool(capacity_tokens=cap,
-                               page_size=e.page_size if self.paged else 1)
+                               page_size=e.page_size if self.paged else 1,
+                               n_shards=(self.mesh.size
+                                         if self.mesh is not None else 1))
         self.cache = AdapterCache(self.pool, infos,
                                   enabled=cache_enabled,
                                   on_load=self._load_adapter,
@@ -288,14 +360,34 @@ class ChameleonEngine:
         if self.paged:
             ps = e.page_size
             self.n_pages = cap // ps + 1
+            if self.mesh is not None:
+                # Round physical pages up to the data-axis size so the
+                # page axis shards evenly. The pool still caps
+                # allocation at the unrounded capacity and pages pop
+                # off the free list in the same 1, 2, 3… order, so the
+                # extra pages are never allocated.
+                ds = self.mesh.shape["data"]
+                self.n_pages = -(-self.n_pages // ds) * ds
             self.pages_per_slot = -(-e.max_len // ps)
-            self.kv_pages = api.init_paged_serve_state(
-                cfg, self.n_pages, ps, torch.float32, device=dev)
+            if self.plan is not None:
+                shape = (cfg.n_layers, self.n_pages, ps, cfg.n_kv_heads,
+                         cfg.head_dim)
+                self.kv_pages = tuple(
+                    self.plan.zeros_kv_pages(shape, torch.float32)
+                    for _ in range(2))
+            else:
+                self.kv_pages = api.init_paged_serve_state(
+                    cfg, self.n_pages, ps, torch.float32, device=dev)
             self.page_table = np.zeros((e.max_slots, self.pages_per_slot),
                                        np.int32)
             self.slot_pages: list[list[int]] = [[] for _ in
                                                 range(e.max_slots)]
             self.free_pages = list(range(self.n_pages - 1, 0, -1))
+        elif self.plan is not None:
+            shape = (cfg.n_layers, e.max_slots, e.max_len, cfg.n_kv_heads,
+                     cfg.head_dim)
+            sh = self.plan.kv_dense(shape)
+            self.kv = tuple(sh.zeros(shape, torch.float32) for _ in range(2))
         else:
             self.kv = api.init_serve_state(cfg, e.max_slots, e.max_len,
                                            torch.float32, device=dev)
@@ -308,13 +400,11 @@ class ChameleonEngine:
         self.prefix_lookup_tokens = 0
         self.n_prefix_hits = 0
         self.n_cow_forks = 0
-        self.tokens = torch.zeros((e.max_slots, 1), dtype=torch.int32,
-                                  device=dev)
-        self.cache_len = torch.zeros((e.max_slots,), dtype=torch.int32,
-                                     device=dev)
+        # Per-slot batch state (over "data" on a mesh).
+        self.tokens = self._batch_zeros((e.max_slots, 1), torch.int32)
+        self.cache_len = self._batch_zeros((e.max_slots,), torch.int32)
         self.active = np.zeros((e.max_slots,), bool)
-        self.adapter_slot = torch.zeros((e.max_slots,), dtype=torch.int32,
-                                        device=dev)
+        self.adapter_slot = self._batch_zeros((e.max_slots,), torch.int32)
         self.slot_req: list[Optional[Request]] = [None] * e.max_slots
         self.t0 = time.monotonic()
         self._clock = clock
@@ -413,6 +503,13 @@ class ChameleonEngine:
                 f"the non-speculative loop", RuntimeWarning,
                 stacklevel=2)
             return
+        if self.mesh is not None:
+            warnings.warn(
+                "spec_decode=True ignored on a mesh-sharded engine: "
+                "the speculative passes are not sharded yet — running "
+                "the non-speculative fused loop",
+                RuntimeWarning, stacklevel=2)
+            return
         dev = self.device
         if draft_params is None:
             draft_params = api.init_params(draft_cfg, seed=e.seed + 1,
@@ -458,23 +555,59 @@ class ChameleonEngine:
         delay = (info.size_bytes / (e.h2d_gbps * 1e9)
                  if e.h2d_gbps > 0 else 0.0)
         if e.async_load:
-            event = None
-            if self._load_stream is not None:
-                with torch.cuda.stream(self._load_stream):
-                    write_adapter_to_slot(self.lora, weights, slot,
-                                          non_blocking=True)
-                    event = torch.cuda.Event()
-                    event.record(self._load_stream)
+            events = None
+            if self._load_streams:
+                events = []
+                for d, stream in self._load_streams.items():
+                    with torch.cuda.stream(stream):
+                        self._write_slot(info.adapter_id, weights, slot, d,
+                                         non_blocking=True)
+                        ev = torch.cuda.Event()
+                        ev.record(stream)
+                        events.append(ev)
             else:
-                write_adapter_to_slot(self.lora, weights, slot)
+                self._write_slot(info.adapter_id, weights, slot)
             self.cache.mark_loading(info.adapter_id)
-            self._pending_loads[info.adapter_id] = (event,
+            self._pending_loads[info.adapter_id] = (events,
                                                     self.now() + delay)
             self.n_async_loads += 1
         else:
-            write_adapter_to_slot(self.lora, weights, slot)
+            self._write_slot(info.adapter_id, weights, slot)
             if delay:
                 time.sleep(delay)   # modeled H2D stall blocks the loop
+
+    def _write_slot(self, aid: int, weights: dict, slot: int,
+                    device: Optional[torch.device] = None,
+                    non_blocking: bool = False) -> None:
+        """Copy one adapter's host weights into column ``slot`` of the
+        arena (on a mesh: of the shards on ``device``, or all). A mesh
+        device receives only its shard of each weight, from a pinned
+        contiguous host block cut once per adapter."""
+        if self.plan is None:
+            write_adapter_to_slot(self.lora, weights, slot,
+                                  non_blocking=non_blocking)
+            return
+        for proj, sts in self.lora.items():
+            for which, st in enumerate(sts):
+                host = weights[proj][which]
+                sh = self._adapter_sh[proj][which]
+                done = set()
+                for coords in np.ndindex(*self.mesh.devices.shape):
+                    t = st.local(coords)
+                    if id(t) in done or (device is not None
+                                         and t.device != device):
+                        continue
+                    done.add(id(t))
+                    slc = sh.index(coords, tuple(host.shape))
+                    key = (aid, proj, which,
+                           tuple((s.start, s.stop) for s in slc))
+                    blk = self._host_blocks.get(key)
+                    if blk is None:
+                        blk = host[slc]
+                        if not blk.is_contiguous():
+                            blk = _host_copy(blk.contiguous())
+                        self._host_blocks[key] = blk
+                    t[:, slot].copy_(blk, non_blocking=non_blocking)
 
     def _poll_loads(self) -> None:
         """Retire in-flight loads; runs every step, never blocks. A load
@@ -483,9 +616,9 @@ class ChameleonEngine:
         unfinished copy ends the scan."""
         now = self.now()
         for aid in list(self._pending_loads):
-            event, t_ready = self._pending_loads[aid]
-            if event is not None:
-                if not event.query():
+            events, t_ready = self._pending_loads[aid]
+            if events is not None:
+                if not all(ev.query() for ev in events):
                     break
                 self._pending_loads[aid] = (None, t_ready)
             if now >= t_ready:
@@ -496,8 +629,8 @@ class ChameleonEngine:
         """Barrier: block until every in-flight load lands."""
         if not self._pending_loads:
             return
-        if self._load_stream is not None:
-            self._load_stream.synchronize()
+        for stream in self._load_streams.values():
+            stream.synchronize()
         for aid in list(self._pending_loads):
             del self._pending_loads[aid]
             self.cache.mark_ready(aid)
@@ -689,6 +822,103 @@ class ChameleonEngine:
         """A fresh device tensor holding host data ``a``."""
         return torch.tensor(np.asarray(a), dtype=dtype, device=self.device)
 
+    # --------------------------------------------- sharded data plane
+    def _act_scope(self):
+        """The model code's gather points, armed only while a mesh
+        engine dispatches — scoped, not global, so single-device engines
+        in the same process (cluster replicas, A/B baselines) are
+        untouched. Batch axes are empty: compute runs at full batch (a
+        data-split batch would change every local matmul's shape and
+        with it the FP summation order); "data" shards storage only."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return activation_sharding((), mesh=self.mesh,
+                                   exact_reductions=True)
+
+    def _batch_zeros(self, shape: tuple, dtype) -> torch.Tensor:
+        """Zeroed per-slot state: leading dim over "data" on a mesh."""
+        if self.plan is None:
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+        return self.plan.batch(shape).zeros(shape, dtype)
+
+    def _batch_put(self, t: torch.Tensor):
+        """Per-slot state ``t`` in its mesh placement (itself off-mesh)."""
+        if self.plan is None:
+            return t
+        return self.plan.put(t, self.plan.batch(tuple(t.shape)))
+
+    def _full(self, t):
+        """A batch-state value as a dispatch reads it: gathered to full
+        batch on the first device on a mesh, else itself."""
+        return t.full(self.device) if isinstance(t, ShardedTensor) else t
+
+    def _keep(self, cur, new: torch.Tensor):
+        """A dispatch's output batch state: written into the shards in
+        place on a mesh (the counterpart of donation), else ``new``."""
+        if isinstance(cur, ShardedTensor):
+            return cur.copy_(new)
+        return new
+
+    def _pages_read(self, st, pages) -> torch.Tensor:
+        """Pages ``pages`` (host ids) of a paged KV stack, whole heads,
+        (L, n, page, Kh, Dh) on the first device."""
+        if not isinstance(st, ShardedTensor):
+            return st[:, self._tensor(pages, torch.long)]
+        pages = np.asarray(pages, np.int64)
+        out = torch.empty((st.shape[0], len(pages)) + st.shape[2:],
+                          dtype=st.dtype, device=self.device)
+        for slc, t in st.unique():
+            lo, hi = slc[1].start, slc[1].stop
+            sel = np.nonzero((pages >= lo) & (pages < hi))[0]
+            if len(sel):
+                idx = torch.as_tensor(pages[sel] - lo, device=t.device)
+                out[:, torch.as_tensor(sel, device=self.device), :,
+                    slc[3]] = t[:, idx].to(self.device)
+        return out
+
+    def _pages_write(self, st, pages, val: torch.Tensor,
+                     pos: slice = slice(None)) -> None:
+        """Write ``val`` (L, n, len(pos), Kh, Dh) into positions ``pos``
+        of pages ``pages`` (host ids), each page into the shards that
+        own it."""
+        if not isinstance(st, ShardedTensor):
+            st[:, self._tensor(pages, torch.long), pos] = \
+                val.to(st.device, st.dtype)
+            return
+        pages = np.asarray(pages, np.int64)
+        for slc, t in st.unique():
+            lo, hi = slc[1].start, slc[1].stop
+            sel = np.nonzero((pages >= lo) & (pages < hi))[0]
+            if len(sel):
+                idx = torch.as_tensor(pages[sel] - lo, device=t.device)
+                v = val[:, torch.as_tensor(sel, device=val.device)]
+                t[:, idx, pos] = v[..., slc[3], :].to(t.device, t.dtype)
+
+    def _rows_read(self, st, row: int, n: int) -> torch.Tensor:
+        """The first ``n`` positions of slab row ``row``, (L, n, Kh, Dh)
+        on the first device."""
+        if not isinstance(st, ShardedTensor):
+            return st[:, row, :n]
+        out = torch.empty((st.shape[0], n) + st.shape[3:], dtype=st.dtype,
+                          device=self.device)
+        for slc, t in st.unique():
+            if slc[1].start <= row < slc[1].stop:
+                out[:, :, slc[3]] = t[:, row - slc[1].start, :n].to(
+                    self.device)
+        return out
+
+    def _rows_write(self, st, row: int, val: torch.Tensor) -> None:
+        """Write ``val`` (L, n, Kh, Dh) at positions ``:n`` of slab row
+        ``row``, into every shard that holds the row."""
+        n = val.shape[1]
+        if not isinstance(st, ShardedTensor):
+            st[:, row, :n] = val.to(st.device, st.dtype)
+            return
+        for slc, t in st.unique():
+            if slc[1].start <= row < slc[1].stop:
+                t[:, row - slc[1].start, :n] = val[:, :, slc[3]].to(
+                    t.device, t.dtype)
+
     def _place_batch_prefix(self, reqs: list[Request]) -> None:
         """Prefix-cache admission: match each prompt against the radix
         tree, map the shared pages into the slot's page table, COW-fork
@@ -736,7 +966,9 @@ class ChameleonEngine:
                 # cached page into the request's first private page.
                 dst = self.slot_pages[slot][len(pages)]
                 for kv in self.kv_pages:
-                    kv[:, dst, :plen] = kv[:, ppage, :plen]
+                    self._pages_write(
+                        kv, [dst], self._pages_read(kv, [ppage])[:, :, :plen],
+                        slice(0, plen))
                 self.free_pages.extend(self.pool.release_shared([ppage]))
                 self.n_cow_forks += 1
                 start = m + plen
@@ -765,12 +997,14 @@ class ChameleonEngine:
             lslots[i] = self.slot_of[req.adapter_id]
             row_table[i] = self.page_table[slots[i]]
         i32 = torch.int32
-        logits, self.kv_pages = api.prefill_paged(
-            self.cfg, self.params, self._tensor(toks, i32), self.kv_pages,
-            self._tensor(row_table, i32), self._tensor(start_arr, i32),
-            self._tensor(seq_len, i32), lora=self._prefill_lora(),
-            adapter_idx=self._tensor(lslots, i32),
-            lora_backend=self._lora_backend)
+        with self._act_scope():
+            logits, self.kv_pages = api.prefill_paged(
+                self.cfg, self.params, self._tensor(toks, i32),
+                self.kv_pages, self._tensor(row_table, i32),
+                self._tensor(start_arr, i32), self._tensor(seq_len, i32),
+                lora=self._prefill_lora(),
+                adapter_idx=self._tensor(lslots, i32),
+                lora_backend=self._lora_backend)
         first_toks = self._first_tokens(logits, placed, B)
         now = self.now()
         for i, req in enumerate(placed):
@@ -832,11 +1066,13 @@ class ChameleonEngine:
             last_pos[i] = req.input_len - 1
             lslots[i] = self.slot_of[req.adapter_id]
         i32 = torch.int32
-        logits, (k_new, v_new) = api.prefill(
-            self.cfg, self.params, self._tensor(toks, i32),
-            lora=self._prefill_lora(), adapter_idx=self._tensor(lslots, i32),
-            last_pos=self._tensor(last_pos, i32),
-            lora_backend=self._lora_backend)
+        with self._act_scope():
+            logits, (k_new, v_new) = api.prefill(
+                self.cfg, self.params, self._tensor(toks, i32),
+                lora=self._prefill_lora(),
+                adapter_idx=self._tensor(lslots, i32),
+                last_pos=self._tensor(last_pos, i32),
+                lora_backend=self._lora_backend)
         first_toks = self._first_tokens(logits, reqs, B)
         self._write_prompt_kv(reqs, slots, k_new, v_new)
         now = self.now()
@@ -865,10 +1101,34 @@ class ChameleonEngine:
         else:
             dst = (np.repeat(np.asarray(slots), n), src_pos)
             targets = self.kv
+        if self.plan is not None:
+            return self._write_prompt_kv_mesh(targets, (k_new, v_new),
+                                              src_row, src_pos, dst)
         sr, sp, d0, d1 = (self._tensor(a, torch.long)
                           for a in (src_row, src_pos, *dst))
         for t, new in zip(targets, (k_new, v_new)):
             t[:, d0, d1] = new[:, sr, sp].to(t.dtype)
+
+    def _write_prompt_kv_mesh(self, targets, new_kv, src_row, src_pos,
+                              dst) -> None:
+        """``_write_prompt_kv`` on a mesh: the prefill's K/V are
+        per-column stacks (column m's kv heads), and each target shard
+        takes the entries of its column whose page (or slab row) it
+        owns."""
+        d0, d1 = dst
+        for st, cols in zip(targets, new_kv):
+            kh = cols[0].shape[3]
+            for slc, t in st.unique():
+                lo, hi = slc[1].start, slc[1].stop
+                sel = np.nonzero((d0 >= lo) & (d0 < hi))[0]
+                if not len(sel):
+                    continue
+                new = cols[slc[3].start // kh]
+                sr, sp = (torch.as_tensor(a[sel], device=new.device)
+                          for a in (src_row, src_pos))
+                i0, i1 = (torch.as_tensor(a, device=t.device)
+                          for a in (d0[sel] - lo, d1[sel]))
+                t[:, i0, i1] = new[:, sr, sp].to(t.device, t.dtype)
 
     def _first_tokens(self, logits: torch.Tensor, reqs: list[Request],
                       B: int) -> np.ndarray:
@@ -983,13 +1243,14 @@ class ChameleonEngine:
             toks = np.zeros((1, S), np.int32)
             toks[0, :n] = st["prompt"][done:done + n]
             lslot = self.slot_of[req.adapter_id]
-            logits, self.kv_pages = api.prefill_paged(
-                self.cfg, self.params, self._tensor(toks, i32),
-                self.kv_pages, self._tensor(st["table"][None, :], i32),
-                self._tensor([done], i32), self._tensor([n], i32),
-                lora=self._prefill_lora(),
-                adapter_idx=self._tensor([lslot], i32),
-                lora_backend=self._lora_backend)
+            with self._act_scope():
+                logits, self.kv_pages = api.prefill_paged(
+                    self.cfg, self.params, self._tensor(toks, i32),
+                    self.kv_pages, self._tensor(st["table"][None, :], i32),
+                    self._tensor([done], i32), self._tensor([n], i32),
+                    lora=self._prefill_lora(),
+                    adapter_idx=self._tensor([lslot], i32),
+                    lora_backend=self._lora_backend)
             st["done"] = done + n
             if st["done"] >= L:
                 del self._chunked[slot]
@@ -1024,10 +1285,10 @@ class ChameleonEngine:
         pending = int(self.tokens[slot, 0])
         if self.paged:
             pages = self.slot_pages[slot][:self.pool.pages_for(cache_len)]
-            idx = self._tensor(pages, torch.long)
-            k_pay, v_pay = (_payload(t[:, idx]) for t in self.kv_pages)
+            k_pay, v_pay = (_payload(self._pages_read(t, pages))
+                            for t in self.kv_pages)
         else:
-            k_pay, v_pay = (_payload(t[:, slot, :cache_len])
+            k_pay, v_pay = (_payload(self._rows_read(t, slot, cache_len))
                             for t in self.kv)
         rid = req.req_id
         shipment = {
@@ -1124,9 +1385,8 @@ class ChameleonEngine:
                 self.slot_req[slot] = None
                 self.cache.release(aid, now)
                 return False
-            idx = self._tensor(self.slot_pages[slot], torch.long)
             for t, pay in zip(self.kv_pages, (shipment["k"], shipment["v"])):
-                t.index_copy_(1, idx, pay.to(self.device))
+                self._pages_write(t, self.slot_pages[slot], pay)
         else:
             try:
                 self.pool.reserve_request(rid, need)
@@ -1136,7 +1396,7 @@ class ChameleonEngine:
                 return False
             req.reserved_tokens = need
             for t, pay in zip(self.kv, (shipment["k"], shipment["v"])):
-                t[:, slot, :cache_len] = pay.to(self.device)
+                self._rows_write(t, slot, pay)
         req.adapter_ref = True
         self.active[slot] = True
         self.tokens[slot, 0] = shipment["pending_token"]
@@ -1336,17 +1596,20 @@ class ChameleonEngine:
             return
         self.batch_occupancy.append(int(self.active.sum()))
         DISPATCH_METER.tick()
-        kw = dict(lora=self.lora, adapter_idx=self.adapter_slot,
+        if self._collective:
+            COLLECTIVE_METER.tick()
+        kw = dict(lora=self.lora, adapter_idx=self._full(self.adapter_slot),
                   lora_backend=self._lora_backend)
-        if self.paged:
-            logits, self.kv_pages = api.decode_step_paged(
-                self.cfg, self.params, self.tokens, self.kv_pages,
-                self._tensor(self.page_table, torch.int32), self.cache_len,
-                **kw)
-        else:
-            logits, self.kv = api.decode_step(
-                self.cfg, self.params, self.tokens, self.kv, self.cache_len,
-                **kw)
+        tokens, cache_len = self._full(self.tokens), self._full(self.cache_len)
+        with self._act_scope():
+            if self.paged:
+                logits, self.kv_pages = api.decode_step_paged(
+                    self.cfg, self.params, tokens, self.kv_pages,
+                    self._tensor(self.page_table, torch.int32), cache_len,
+                    **kw)
+            else:
+                logits, self.kv = api.decode_step(
+                    self.cfg, self.params, tokens, self.kv, cache_len, **kw)
         DISPATCH_METER.tick()
         if self._all_greedy(self.slot_req):
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -1354,9 +1617,9 @@ class ChameleonEngine:
             nxt = api.sample_tokens(
                 logits, *self._sampling_arrays(self.slot_req,
                                                self.ecfg.max_slots))
-        self.tokens = nxt[:, None]
-        self.cache_len = self.cache_len + self._tensor(self.active,
-                                                       torch.int32)
+        self.tokens = self._keep(self.tokens, nxt[:, None])
+        self.cache_len = self._keep(
+            self.cache_len, cache_len + self._tensor(self.active, torch.int32))
         now = self.now()
         with DISPATCH_METER.sync():
             nxt_host = nxt.cpu().numpy()
@@ -1407,10 +1670,13 @@ class ChameleonEngine:
                 stop[i, :len(r.sampling.stop_token_ids)] = \
                     r.sampling.stop_token_ids
         self._dev = dict(
-            active=self._tensor(self.active, torch.bool),
-            positions=pos, budget=self._tensor(budget, torch.int32),
-            stop=self._tensor(stop, torch.int32), temp=temp, topk=topk,
-            topp=topp, seeds=seeds, all_greedy=self._all_greedy(reqs))
+            active=self._batch_put(self._tensor(self.active, torch.bool)),
+            positions=self._batch_put(pos),
+            budget=self._batch_put(self._tensor(budget, torch.int32)),
+            stop=self._batch_put(self._tensor(stop, torch.int32)),
+            temp=self._batch_put(temp), topk=self._batch_put(topk),
+            topp=self._batch_put(topp), seeds=self._batch_put(seeds),
+            all_greedy=self._all_greedy(reqs))
         self._dev_epoch = self.batch_epoch
 
     def _host_lens(self) -> np.ndarray:
@@ -1647,24 +1913,31 @@ class ChameleonEngine:
             self._refresh_device_state()
         d = self._dev
         DISPATCH_METER.tick()
-        state = (d["active"], d["positions"], d["budget"], d["stop"],
-                 d["temp"], d["topk"], d["topp"], d["seeds"])
+        if self._collective:
+            COLLECTIVE_METER.tick()
+        state = tuple(self._full(d[k]) for k in (
+            "active", "positions", "budget", "stop", "temp", "topk", "topp",
+            "seeds"))
         kw = dict(n_steps=K, all_greedy=d["all_greedy"],
                   max_ctx=self.ecfg.max_len, lora=self.lora,
-                  adapter_idx=self.adapter_slot,
+                  adapter_idx=self._full(self.adapter_slot),
                   lora_backend=self._lora_backend)
-        if self.paged:
-            carry, toks, emits = api.decode_fused_paged(
-                self.cfg, self.params, self.tokens, self.kv_pages,
-                self._page_table_device(), self.cache_len, *state, **kw)
-            (self.tokens, self.kv_pages, self.cache_len,
-             d["active"], d["positions"]) = carry
-        else:
-            carry, toks, emits = api.decode_fused(
-                self.cfg, self.params, self.tokens, self.kv, self.cache_len,
-                *state, **kw)
-            (self.tokens, self.kv, self.cache_len,
-             d["active"], d["positions"]) = carry
+        tokens, cache_len = self._full(self.tokens), self._full(self.cache_len)
+        with self._act_scope():
+            if self.paged:
+                carry, toks, emits = api.decode_fused_paged(
+                    self.cfg, self.params, tokens, self.kv_pages,
+                    self._page_table_device(), cache_len, *state, **kw)
+                tokens, self.kv_pages, cache_len, active, positions = carry
+            else:
+                carry, toks, emits = api.decode_fused(
+                    self.cfg, self.params, tokens, self.kv, cache_len,
+                    *state, **kw)
+                tokens, self.kv, cache_len, active, positions = carry
+        self.tokens = self._keep(self.tokens, tokens)
+        self.cache_len = self._keep(self.cache_len, cache_len)
+        d["active"] = self._keep(d["active"], active)
+        d["positions"] = self._keep(d["positions"], positions)
         self._inflight = (self._to_host(toks), self._to_host(emits), K)
 
     def _drain_inflight(self) -> None:
@@ -1925,6 +2198,38 @@ class ChameleonEngine:
             "spec_k_eff": self._spec_k_eff(),
         }
 
+    def shard_stats(self) -> dict:
+        """Per-device data-plane gauges (empty dict off-mesh): physical
+        page occupancy per data shard, resident LoRA-arena bytes per
+        device, and the gather gauges of the COLLECTIVE_METER probe."""
+        if self.mesh is None:
+            return {}
+        out = {
+            "mesh_shape": [self.mesh.shape["data"],
+                           self.mesh.shape["model"]],
+            "n_devices": self.mesh.size,
+        }
+        if self.paged:
+            ds = self.mesh.shape["data"]
+            stride = self.n_pages // ds
+            per = [0] * ds
+            used = set(range(1, self.n_pages)) - set(self.free_pages)
+            for pid in used:
+                per[pid // stride] += 1
+            out["per_shard_pages_used"] = per
+            out["per_shard_pages_total"] = stride
+        # Actual bytes one device holds for the slot arena — with B
+        # sharded over "model" this is arena_bytes/model_size + the
+        # replicated A halves.
+        out["per_shard_lora_slot_bytes"] = sum(
+            a.nbytes_per_device() + b.nbytes_per_device()
+            for a, b in self.lora.values())
+        if self._collective:
+            out["collective_frac"] = round(COLLECTIVE_METER.frac(), 4)
+            out["collective_dispatches"] = COLLECTIVE_METER.dispatches
+            out["collective_gathers"] = COLLECTIVE_METER.gathers
+        return out
+
     def stats(self) -> dict:
         return {
             "completed": len(self.completed),
@@ -1944,6 +2249,7 @@ class ChameleonEngine:
             **self.handoff_stats(),
             **self.prefix_stats(),
             **self.spec_stats(),
+            **self.shard_stats(),
         }
 
     def metrics(self) -> RunMetrics:
@@ -1974,5 +2280,6 @@ class ChameleonEngine:
             **self.handoff_stats(),
             **self.prefix_stats(),
             **self.spec_stats(),
+            **self.shard_stats(),
         }
         return m

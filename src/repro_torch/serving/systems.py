@@ -186,8 +186,9 @@ def build_system(system: str = "chameleon", tier: str = "engine", *,
     ``stats``, ``metrics``. The engine tiers build a reduced model
     when ``model_cfg``/``params`` are not supplied.
 
-    ``mesh_shape`` ((data, model), real-engine tiers only): device
-    meshes are not ported yet, so it raises ``NotImplementedError``.
+    ``mesh_shape`` ((data, model), real-engine tiers only): every engine
+    replica spans a ("data", "model") mesh of d*m devices
+    (``EngineConfig.mesh_shape``); sim tiers reject it.
 
     ``device``: where the real-engine tiers run (the CUDA device by
     default; ``"cpu"`` on request). The sim tiers run no device code.
@@ -204,10 +205,6 @@ def build_system(system: str = "chameleon", tier: str = "engine", *,
                                                "disagg"):
         raise ValueError(
             f"mesh_shape applies to the real-engine tiers, not {tier!r}")
-    if mesh_shape is not None:
-        raise NotImplementedError(
-            f"mesh_shape={tuple(mesh_shape)}: device meshes are not ported "
-            f"to PyTorch yet")
 
     def _gated(sys_, cost=None):
         if not gateway:
@@ -229,6 +226,12 @@ def build_system(system: str = "chameleon", tier: str = "engine", *,
     device = resolve_device(device)
     if model_cfg is None or params is None:
         model_cfg, params = _default_model(device)
+    if mesh_shape is not None:
+        import dataclasses
+
+        from .engine import EngineConfig
+        ecfg = dataclasses.replace(ecfg or EngineConfig(),
+                                   mesh_shape=tuple(mesh_shape))
     if tier == "engine":
         return _gated(build_engine(system, model_cfg, params, ecfg,
                                    device=device))

@@ -535,11 +535,11 @@ def _serve(eng, trace, request_cls, t, dt=0.01):
     for _ in range(5000):
         if not eng.busy():
             break
-        if eng._load_stream is not None:
+        for stream in eng._load_streams.values():
             # Land side-stream slot copies before the step polls them,
             # as the CPU engine's synchronous copies are: the schedule
             # then does not depend on copy timing.
-            eng._load_stream.synchronize()
+            stream.synchronize()
         eng.step()
         t[0] += dt
     assert not eng.busy(), "engine failed to drain"
@@ -571,8 +571,8 @@ def _engine(model, dev, **kw):
 
 
 def _step(eng, t, dt=0.01):
-    if eng._load_stream is not None:
-        eng._load_stream.synchronize()
+    for stream in eng._load_streams.values():
+        stream.synchronize()
     eng.step()
     t[0] += dt
 

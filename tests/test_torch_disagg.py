@@ -380,7 +380,7 @@ def test_build_system_disagg_serves_with_handoff_gauges():
     assert not live - set(GAUGES), sorted(live - set(GAUGES))
 
 
-def test_role_autoscaler_and_elastic_planners_equal_jax():
+def test_role_autoscaler_and_elastic_planners_equal_jax(monkeypatch):
     for shape in ((4, 2), (2, 2, 2), (8, 1), (1, 4), (3, 2, 4)):
         axes = ("pod", "data", "model")[-len(shape):]
         for n in range(shape[-1], 2 * np.prod(shape) + 1):
@@ -392,8 +392,10 @@ def test_role_autoscaler_and_elastic_planners_equal_jax():
                         dataclasses.asdict(want), (fn, shape, n, batch)
     with pytest.raises(ValueError):
         elastic.plan_after_failure((2, 4), ("data", "model"), 3, 8)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        elastic.scale_out_plan((1, 1), ("data", "model"), 2, 2).make()
+    plan = elastic.scale_out_plan((1, 1), ("data", "model"), 2, 2)
+    monkeypatch.delenv("XLA_FLAGS", raising=False)
+    with pytest.raises(ValueError, match="devices"):
+        plan.make(device="cpu")          # one host device
     ours, ref = disagg.RoleAutoscaler(), jdisagg.RoleAutoscaler()
     demand = [(4000.0, 100.0)] * 8 + [(10.0, 5000.0)] * 16 + [(0, 0)]
     for i, (pre, dec) in enumerate(demand):

@@ -186,11 +186,16 @@ def test_alora_mode_matches_jax_engine(setup):
 
 
 @pytest.mark.parametrize("knob", [dict(mesh_shape=(1, 1))])
-def test_unported_knobs_raise_naming_the_knob(setup, knob):
+def test_unported_knobs_raise_naming_the_knob(knob):
+    """A mesh serves the dense family; on an MoE model it waits for the
+    expert-parallel block (``models/moe_shard_map.py``)."""
+    from repro_torch.models import lm
+    cfg = get_config("qwen3-moe-235b-a22b").reduced()
+    params = lm.init_params(cfg, 0, torch.float32, device="cpu")
     with pytest.raises(NotImplementedError, match=next(iter(knob))):
-        engine.ChameleonEngine(setup["cfg"], setup["params"],
+        engine.ChameleonEngine(cfg, params,
                                engine.EngineConfig(**BASE, **knob),
-                               catalog=setup["cat"], device="cpu")
+                               device="cpu")
 
 
 def test_spec_decode_builds_a_speculative_engine(setup):

@@ -8,7 +8,7 @@
   ``repro/core`` that the port misses fails here instead of diverging.
   ``serving/cluster.py`` and ``serving/disagg.py`` are near-copies:
   they differ only in import lines, lines that mention ``device`` and
-  the JAX cluster's mesh check (device meshes are not ported).
+  the cluster's mesh check, which counts devices each its own way.
 - Every config and its ``.reduced()`` form equal the JAX package's.
 - Entry points called without ``device=`` run on the GPU or raise;
   they never fall back to the CPU.
@@ -66,8 +66,9 @@ def test_copied_module_matches_jax_package(rel):
         f"change over (only import lines may differ)")
 
 
-#: The JAX ``EngineCluster``'s check of replicas × mesh size against the
-#: device count (it imports jax); the port raises for ``mesh_shape``.
+#: ``EngineCluster``'s check of replicas × mesh size against the device
+#: count: JAX counts ``jax.devices()``, the port ``launch.mesh``'s
+#: positions.
 MESH_CHECK = ("        if self.ecfg.mesh_shape is not None:",
               'f"devices, only {have} available")')
 #: A ``device=`` argument the port adds to a line of the JAX file.
@@ -85,9 +86,9 @@ def _without_mesh_check(lines: list[str]) -> list[str]:
 def test_near_copy_differs_only_in_imports_and_device(rel):
     import difflib
     ref = _normalised(REF / rel, "repro")
-    if rel == "serving/cluster.py":
-        ref = _without_mesh_check(ref)
     port = _normalised(PORT / rel, "repro_torch")
+    if rel == "serving/cluster.py":
+        ref, port = _without_mesh_check(ref), _without_mesh_check(port)
     sm = difflib.SequenceMatcher(a=ref, b=port, autojunk=False)
     bad = []
     for tag, i1, i2, j1, j2 in sm.get_opcodes():
@@ -136,6 +137,10 @@ print(json.dumps({"modules": names, "bad": bad}))
                  "repro_torch.serving.gateway",
                  "repro_torch.serving.simulator",
                  "repro_torch.distributed.elastic",
+                 "repro_torch.distributed.sharding",
+                 "repro_torch.distributed.act_sharding",
+                 "repro_torch.serving.shard_plan",
+                 "repro_torch.launch.mesh",
                  "repro_torch.launch.serve", "repro_torch.launch.train",
                  "repro_torch.training", "repro_torch.training.optimizer",
                  "repro_torch.training.train_step",
@@ -160,7 +165,8 @@ def _imported_names(tree):
 
 @pytest.mark.parametrize("path", [
     "chip_smoke.py", "chip_profile.py", "chip_prefill.py",
-    "chip_f32_agreement.py", "examples/torch_long_context_ssm.py",
+    "chip_f32_agreement.py", "chip_mesh.py",
+    "examples/torch_long_context_ssm.py",
     "examples/torch_train_with_recovery.py",
     *sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))])
 def test_no_jax_or_reference_import_in_source(path):
@@ -199,6 +205,15 @@ def test_chip_f32_agreement_fails_without_a_gpu():
         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode != 0
     assert '"agreement"' not in out.stdout
+
+
+def test_chip_mesh_fails_without_a_gpu():
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "chip_mesh.py")], capture_output=True,
+        text=True, timeout=120, cwd=ROOT,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert '"mesh_engine"' not in out.stdout
 
 
 def test_configs_equal_the_jax_package():
@@ -293,11 +308,14 @@ def test_entry_point_without_device_needs_the_gpu(no_cuda, name):
 
 
 @pytest.mark.parametrize("tier", ["engine", "cluster", "disagg"])
-def test_mesh_shape_raises_naming_the_mesh(tier):
-    """Device meshes are the one ``build_system`` option not ported."""
+def test_mesh_shape_raises_naming_the_mesh(tier, monkeypatch):
+    """A mesh larger than the host raises naming the mesh on every
+    real-engine tier — never a smaller mesh or ``mesh_shape=None`` —
+    and the sim tier rejects a mesh."""
     from repro_torch.serving import systems
-    with pytest.raises(NotImplementedError, match="mesh"):
-        systems.build_system("chameleon", tier, mesh_shape=(1, 1),
+    monkeypatch.delenv("XLA_FLAGS", raising=False)
+    with pytest.raises(ValueError, match="mesh"):
+        systems.build_system("chameleon", tier, mesh_shape=(2, 1),
                              device="cpu")
     with pytest.raises(ValueError, match="mesh_shape"):
         systems.build_system("chameleon", "sim", mesh_shape=(1, 1))
