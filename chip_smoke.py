@@ -164,15 +164,19 @@ of the JAX package. Phases, one JSON line each:
              state shapes, the kernels' outputs, and the launches of
              each model's path (counts zeroed just before it).
 7. train   — with the families freed: the flash_attention backward
-             kernel (``csrc/flash_attention_bwd.cu``) against its plain
-             version (autograd through ``flash_attention_plain`` on the
-             same values in f32; in bf16 one ulp plus what the bf16
-             output moves D by) at internlm2-1.8b's (8, 512, 16/8,
-             128), Llama's (8, 256) and (1, 2048), whisper's encoder
-             (8, 1500, 8, 64, full) and zamba2's block (8, 512, 32,
-             64), f32 and bf16, timed beside the plain version,
-             autograd through SDPA and the bound (``kernel_time_train``
-             lines; the forward at internlm2's f32 shape too); two
+             kernel (``csrc/flash_attention_bwd.cu``, given the
+             forward's log-sum-exp) against its plain version (autograd
+             through ``flash_attention_plain`` on the same values in
+             f32; in bf16 one ulp plus what the bf16 output moves D by)
+             at internlm2-1.8b's (8, 512, 16/8, 128), Llama's (8, 256)
+             and (1, 2048), whisper's encoder (8, 1500, 8, 64, full) and
+             zamba2's block (8, 512, 32, 64), f32 (``tf32x3``) and bf16
+             (``tensor_cores``), timed beside the plain version,
+             autograd through SDPA and the bound of the route's
+             arithmetic, with the CUDA-core f32 bound beside it
+             (``kernel_time_train`` lines); the forward with and
+             without the log-sum-exp at internlm2's f32 shape and at
+             (8, 256, 32, 128) bf16 (``kernel_time_train_fwd``); two
              train steps of one reduced config a family in f32, card
              against CPU (``parity_train``: loss, grad norm, moments
              and params within 1e-4, forward and backward flash
@@ -212,7 +216,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_FLOPS = {"bf16": 989e12,      # dense tensor-core bf16
-              "f32": 67e12}        # f32 outside the tensor cores
+              "f32": 67e12,        # f32 outside the tensor cores
+              # f32 as 3xTF32: three TF32 tensor-core products (495
+              # TFLOP/s dense) an f32 product
+              "tf32x3": 495e12 / 3}
 # (atol, rtol): |got - want| <= atol + rtol * |want| elementwise.
 TOL = {
     # Every rounding in f32: only the order of the f32 sums differs.
@@ -329,6 +336,13 @@ def kernel_resources() -> dict:
         dynamic[f"expand_tc<{rp}>"] = sg.sgmv_tc_smem_bytes(rp, 1)
     for dh in (32, 64, 128, 256):
         dynamic[f"flash_tc<{dh}>"] = fa.flash_attention_tc_smem_bytes(dh)
+    fb = build.library("flash_attention_bwd", importlib.import_module(
+        "repro_torch.kernels.flash_attention")._BWD_ARGTYPES)
+    for ops, code in (("Bf16Ops", 1), ("Tf32x3Ops", 0)):
+        for dh in (32, 64, 128, 256):
+            for kern, which in (("flash_bwd_dq", 0), ("flash_bwd_dkdv", 1)):
+                dynamic[f"{kern}<{ops}, {dh}>"] = \
+                    fb.flash_attention_bwd_smem_bytes(dh, code, which)
     out = {}
     for name in build.SOURCES:
         usage = build.ptxas_usage(name)
@@ -3156,24 +3170,31 @@ def flash_bwd_allowance(q, k, v, out, dout, causal, want) -> list:
     return [1e-4 + 2 ** -7 * w.abs() + e for w, e in zip(want, extra)]
 
 
-def flash_bwd_bound(q, k, v, causal: bool) -> tuple:
+def flash_bwd_bound(q, k, v, causal: bool, route: str | None = None
+                    ) -> tuple:
     """Bytes of q, k, v, out and dO read once and dq, dk, dv written
     once; operations 2.5 times the forward's 4 * dh a (query head,
-    query, key) pair the mask keeps."""
+    query, key) pair the mask keeps, at the peak of ``route``: by
+    default the arithmetic the kernel uses (bf16 tensor cores, f32 as
+    3xTF32), "f32" for f32 on CUDA cores."""
     B, S, H, dh = q.shape
     pairs = S * (S + 1) // 2 if causal else S * S
+    if route is None:
+        route = "bf16" if op_type(q, k, v) == "bf16" else "tf32x3"
     return bound_ms(2 * nbytes(q, k, v) + 2 * nbytes(q),
-                    2.5 * 4 * B * H * dh * pairs, op_type(q, k, v))
+                    2.5 * 4 * B * H * dh * pairs, route)
 
 
 def phase_train_kernels(flush) -> dict:
-    """flash_attention_bwd against its plain version at ``BWD_SHAPES``
-    in f32 and bf16 on the same card tensors (``flash_bwd_allowance``),
-    then timed beside the plain version, autograd through SDPA on the
-    same tensors (``library_ms``, never called by the port) and its
-    bound; one ``kernel_time_train`` line each. The forward at
-    internlm2's f32 shape too (the CUDA-core instance the train step
-    runs). Returns the kernels-line row (internlm2, f32)."""
+    """flash_attention_bwd, given the forward's log-sum-exp, against its
+    plain version at ``BWD_SHAPES`` in f32 and bf16 on the same card
+    tensors (``flash_bwd_allowance``), launching the instance
+    ``flash_bwd_instance`` names and the same bits twice, then timed
+    beside the plain version, autograd through SDPA on the same tensors
+    (``library_ms``, never called by the port) and its bound (the
+    route's arithmetic; f32 rows also carry the CUDA-core bound); one
+    ``kernel_time_train`` line each. Then ``time_forward_lse``. Returns
+    the kernels-line row (internlm2, f32)."""
     import importlib
 
     import torch
@@ -3191,12 +3212,19 @@ def phase_train_kernels(flush) -> dict:
                                                          dtype=dt)
             k, v = randn(B, S, Kh, dh, dtype=dt), randn(B, S, Kh, dh,
                                                        dtype=dt)
-            out = fa.flash_attention(q, k, v, causal)
+            out, lse = fa.flash_attention(q, k, v, causal, return_lse=True)
+            inst = fa.flash_bwd_instance(dt, dh)
             fa.BWD_STATS.reset()
-            got = fa.flash_attention_bwd(q, k, v, out, dout, causal)
+            got = fa.flash_attention_bwd(q, k, v, out, dout, causal, lse=lse)
+            again = fa.flash_attention_bwd(q, k, v, out, dout, causal,
+                                           lse=lse)
             torch.cuda.synchronize()
-            check(fa.BWD_STATS.launches == 1 and fa.BWD_STATS.plain == 0,
-                  f"flash_attention_bwd [{label}] did not launch once")
+            check(fa.BWD_STATS.instances == {inst: 2}
+                  and fa.BWD_STATS.plain == 0,
+                  f"flash_attention_bwd [{label}] launched "
+                  f"{fa.BWD_STATS.instances}, not {inst} twice")
+            same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
+            del again
             want = fa.flash_attention_bwd_plain(
                 *(t.float() for t in (q, k, v, out, dout)), causal)
             bounds = flash_bwd_allowance(q, k, v, out, dout, causal, want)
@@ -3218,49 +3246,93 @@ def phase_train_kernels(flush) -> dict:
                                                 enable_gqa=True)
             dot = dout.transpose(1, 2)
             b_ms, by = flash_bwd_bound(q, k, v, causal)
+            extra = {}
+            if tname == "f32":
+                extra["bound_ms_cuda_cores"] = flash_bwd_bound(
+                    q, k, v, causal, "f32")[0]
             line = dict(
                 phase="kernel_time_train", kernel="flash_attention_bwd",
                 case=f"{label}, q {tuple(q.shape)}, Kh {Kh}, {tname}, "
                      f"{'causal' if causal else 'full'}",
+                instance=inst, same_bits_twice=same_bits,
                 max_abs_err=max(errs.values()), errs=errs,
                 max_abs_err_vs_same_dtype_plain=err_same, ok=ok,
                 ms=median_ms(lambda: fa.flash_attention_bwd(
-                    q, k, v, out, dout, causal), flush),
+                    q, k, v, out, dout, causal, lse=lse), flush),
                 plain_ms=median_ms(lambda: fa.flash_attention_bwd_plain(
                     q, k, v, out, dout, causal), flush),
                 library_ms=median_ms(lambda: torch.autograd.grad(
                     lo, (qt, kt, vt), dot, retain_graph=True), flush),
                 library="autograd through SDPA (enable_gqa)",
-                bound_ms=b_ms, bound_by=by)
+                bound_ms=b_ms, bound_by=by, **extra)
             emit(line)
             check(ok, f"flash_attention_bwd [{line['case']}] disagrees "
                       f"with its plain version: {errs}")
+            check(same_bits, f"flash_attention_bwd [{line['case']}] gave "
+                             f"other bits on a second call")
             if label == FULL_ARCH and tname == "f32":
                 row = line
-                # The forward the train step runs at this shape.
-                fwd = fa.flash_attention_plain(q, k, v, causal)
-                diff = (out - fwd).abs()
-                ok_f = bool((diff <= 1e-4 + 1e-4 * fwd.abs()).all())
-                fb = bound_ms(nbytes(q, k, v) + nbytes(q),
-                              4 * B * H * dh * S * (S + 1) // 2, "f32")
-                emit(dict(phase="kernel_time_train", kernel="flash_attention",
-                          case=f"{label}, q {tuple(q.shape)}, Kh {Kh}, f32, "
-                               f"causal (forward)",
-                          instance=fa.flash_instance(q.dtype, dh),
-                          max_abs_err=diff.max().item(), ok=ok_f,
-                          ms=median_ms(lambda: fa.flash_attention(
-                              q, k, v, causal), flush),
-                          plain_ms=median_ms(lambda: fa.flash_attention_plain(
-                              q, k, v, causal), flush),
-                          library_ms=median_ms(
-                              lambda: F.scaled_dot_product_attention(
-                                  qt, kt, vt, is_causal=causal,
-                                  enable_gqa=True), flush),
-                          bound_ms=fb[0], bound_by=fb[1]))
-                check(ok_f, "flash_attention forward at internlm2's f32 "
-                            "shape disagrees with its plain version")
-            del q, k, v, out, dout, got, qt, kt, vt, lo
+            del q, k, v, out, dout, got, qt, kt, vt, lo, lse
+    time_forward_lse(flush, randn)
     return row
+
+
+#: The forward with and without its log-sum-exp: the train step's f32
+#: shape (internlm2-1.8b, the CUDA-core instance) and the dense
+#: prefill's bf16 bucket (the tensor-core instance).
+FWD_LSE_SHAPES = (("internlm2-1.8b", 8, 512, 16, 8, 128, "f32"),
+                  ("llama (8, 256)", 8, 256, 32, 32, 128, "bf16"))
+
+
+def time_forward_lse(flush, randn) -> None:
+    """flash_attention at ``FWD_LSE_SHAPES``, causal, with
+    ``return_lse`` off and on: the output against its plain version (f32
+    1e-4; bf16 one ulp plus ``FLASH_P_ROUNDING``), the same bits either
+    way, the log-sum-exp within 1e-5 of ``flash_attention_lse_plain``,
+    and both timed beside SDPA; one ``kernel_time_train_fwd`` line a
+    shape."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    for label, B, S, H, Kh, dh, tname in FWD_LSE_SHAPES:
+        dt = torch.float32 if tname == "f32" else torch.bfloat16
+        q = randn(B, S, H, dh, dtype=dt)
+        k, v = randn(B, S, Kh, dh, dtype=dt), randn(B, S, Kh, dh, dtype=dt)
+        out = fa.flash_attention(q, k, v)
+        out2, lse = fa.flash_attention(q, k, v, return_lse=True)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_plain(q, k, v)
+        atol, rtol = TOL["f32" if tname == "f32" else "bf16_out"]
+        bound = atol + rtol * want.float().abs()
+        if tname == "bf16":
+            bound = bound + FLASH_P_ROUNDING * fa.flash_attention_plain(
+                q.float(), k.float(), v.float().abs())
+        diff = (out.float() - want.float()).abs()
+        lse_want = fa.flash_attention_lse_plain(q, k)
+        lse_err = (lse - lse_want).abs()
+        ok = bool((diff <= bound).all() and torch.equal(out, out2)
+                  and (lse_err <= 1e-5 + 1e-5 * lse_want.abs()).all())
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        fb = bound_ms(nbytes(q, k, v) + nbytes(q),
+                      4 * B * H * dh * S * (S + 1) // 2, op_type(q, k, v))
+        emit(dict(phase="kernel_time_train_fwd", kernel="flash_attention",
+                  case=f"{label}, q {tuple(q.shape)}, Kh {Kh}, {tname}, "
+                       f"causal", instance=fa.flash_instance(dt, dh),
+                  max_abs_err=diff.max().item(),
+                  lse_max_abs_err=lse_err.max().item(), ok=ok,
+                  ms=median_ms(lambda: fa.flash_attention(q, k, v), flush),
+                  ms_with_lse=median_ms(lambda: fa.flash_attention(
+                      q, k, v, return_lse=True), flush),
+                  plain_ms=median_ms(lambda: fa.flash_attention_plain(
+                      q, k, v), flush),
+                  library_ms=median_ms(lambda: F.scaled_dot_product_attention(
+                      qt, kt, vt, is_causal=True, enable_gqa=True), flush),
+                  bound_ms=fb[0], bound_by=fb[1]))
+        check(ok, f"flash_attention forward [{label}, {tname}] with its "
+                  f"log-sum-exp disagrees with its plain version")
+        del q, k, v, out, out2, lse, want, bound, diff, qt, kt, vt
 
 
 def _train_stats() -> dict:
@@ -3690,6 +3762,7 @@ def main() -> int:
              bound_by=rows[n]["bound_by"], library_ms=rows[n]["library_ms"])
         for n in KERNELS] + [
         dict(name="flash_attention_bwd", route="cuda",
+             instance=bwd["instance"],
              source="src/repro_torch/csrc/flash_attention_bwd.cu",
              replaces=KERNELS["flash_attention"][1],
              launches=bwd["launches"], max_abs_err=bwd["max_abs_err"],

@@ -48,6 +48,12 @@
 //   buffer; q pre-scaled in f32 before the product. Tensor cores would
 //   change f32's arithmetic.
 //
+// Both instances can also write each query row's log-sum-exp of the
+// scaled, masked scores (m + log l of the online softmax, natural log,
+// f32, (B, H, S)) for the backward kernel (csrc/flash_attention_bwd.cu):
+// one f32 store a row when the caller passes the pointer, nothing when
+// it passes null (the engine's prefill).
+//
 // Strides in elements are passed for the batch, sequence and head axes
 // of every tensor; the head_dim axis is contiguous.
 #include "common.cuh"
@@ -105,9 +111,10 @@ __device__ __forceinline__ float row_sum(float v) {
 template <typename T, int NG>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int S, int G,
-             int dh, Strides qst, Strides kst, Strides vst, Strides ost,
-             int causal, float scale) {
+             const T* __restrict__ v, T* __restrict__ out,
+             float* __restrict__ lse, int S, int G, int dh, Strides qst,
+             Strides kst, Strides vst, Strides ost, int causal,
+             float scale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int ld = tile_ld(dh);
@@ -229,6 +236,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qpos = q0 + ty + 16 * i;
     if (qpos >= S) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * gridDim.y + h) * S + qpos] = m[i] + logf(den);
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
       const int d0 = 4 * tx + 64 * g;
@@ -245,9 +254,10 @@ size_t smem_bytes(int dh) {
 }
 
 template <typename T, int NG>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int H, int G, int dh, Strides qst, Strides kst,
-           Strides vst, Strides ost, int causal, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int S, int H, int G, int dh, Strides qst,
+           Strides kst, Strides vst, Strides ost, int causal,
+           cudaStream_t stream) {
   auto kernel = flash_kernel<T, NG>;
   const size_t smem = smem_bytes(dh);
   // Above 48 KB a block needs the opt-in; the largest dh fits in 227 KB.
@@ -257,22 +267,23 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((S + kTile - 1) / kTile, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, G, dh, qst, kst,
-      vst, ost, causal, 1.0f / sqrtf((float)dh));
+      static_cast<const T*>(v), static_cast<T*>(out), lse, S, G, dh, qst,
+      kst, vst, ost, causal, 1.0f / sqrtf((float)dh));
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_dh(const void* q, const void* k, const void* v, void* out, int B,
-              int S, int H, int G, int dh, Strides qst, Strides kst,
-              Strides vst, Strides ost, int causal, cudaStream_t st) {
+int launch_dh(const void* q, const void* k, const void* v, void* out,
+              float* lse, int B, int S, int H, int G, int dh, Strides qst,
+              Strides kst, Strides vst, Strides ost, int causal,
+              cudaStream_t st) {
   if (dh <= 64)
-    return launch<T, 1>(q, k, v, out, B, S, H, G, dh, qst, kst, vst, ost,
-                        causal, st);
+    return launch<T, 1>(q, k, v, out, lse, B, S, H, G, dh, qst, kst, vst,
+                        ost, causal, st);
   if (dh <= 128)
-    return launch<T, 2>(q, k, v, out, B, S, H, G, dh, qst, kst, vst, ost,
-                        causal, st);
-  return launch<T, 4>(q, k, v, out, B, S, H, G, dh, qst, kst, vst, ost,
+    return launch<T, 2>(q, k, v, out, lse, B, S, H, G, dh, qst, kst, vst,
+                        ost, causal, st);
+  return launch<T, 4>(q, k, v, out, lse, B, S, H, G, dh, qst, kst, vst, ost,
                       causal, st);
 }
 
@@ -340,15 +351,6 @@ __device__ void zero_pad(bf16* tiles, int n_tiles, int dh) {
                               (i % pad) * 8) = make_uint4(0, 0, 0, 0);
 }
 
-// Two probabilities as bf16 pairs hi = bf16(p) and lo = bf16(p - hi).
-__device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h2 = __floats2bfloat162_rn(p0, p1);
-  const float2 hf = __bfloat1622float2(h2);
-  hi = *reinterpret_cast<const uint32_t*>(&h2);
-  lo = tc::pack_bf16(p0 - hf.x, p1 - hf.y);
-}
-
 // Max and sum of a row's 16 values in this thread (s[j][2 h], s[j][2 h
 // + 1] for j < 8) as trees, then over the quad.
 __device__ __forceinline__ float row_max16(const float (&s)[8][4], int h) {
@@ -380,9 +382,10 @@ __device__ __forceinline__ float row_sum16(const float (&s)[8][4], int h) {
 template <int DH>
 __global__ void __launch_bounds__(kTcThreads, tc_q_in_regs(DH) ? 3 : 1)
 flash_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-         const bf16* __restrict__ v, bf16* __restrict__ out, int S, int G,
-         int dh, Strides qst, Strides kst, Strides vst, Strides ost,
-         int causal, float scale_log2, int vec) {
+         const bf16* __restrict__ v, bf16* __restrict__ out,
+         float* __restrict__ lse, int S, int G, int dh, Strides qst,
+         Strides kst, Strides vst, Strides ost, int causal,
+         float scale_log2, int vec) {
   constexpr int LD = DH + 8;
   constexpr int NK = DH / 16;          // 16-wide steps over dh
   constexpr bool kQRegs = tc_q_in_regs(DH);
@@ -518,10 +521,10 @@ flash_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       uint32_t ph[4], pl[4];
-      split_bf16(sc[2 * kk][0], sc[2 * kk][1], ph[0], pl[0]);
-      split_bf16(sc[2 * kk][2], sc[2 * kk][3], ph[1], pl[1]);
-      split_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1], ph[2], pl[2]);
-      split_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ph[3], pl[3]);
+      tc::split_bf16(sc[2 * kk][0], sc[2 * kk][1], ph[0], pl[0]);
+      tc::split_bf16(sc[2 * kk][2], sc[2 * kk][3], ph[1], pl[1]);
+      tc::split_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1], ph[2], pl[2]);
+      tc::split_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ph[3], pl[3]);
       // The lo products follow all hi ones, so no accumulator waits on
       // the product just issued into it; at DH 256 the V fragments of a
       // step would not fit in registers and are loaded twice.
@@ -554,6 +557,11 @@ flash_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
     l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
     l[hh] = fmaxf(l[hh], 1e-30f);
+    // m is in log2 units of the scaled scores: lse = (m + log2 l) ln 2.
+    const int qpos = row_lo + 8 * hh;
+    if (lse != nullptr && c2 == 0 && qpos < S)
+      lse[((long long)b * gridDim.y + h) * S + qpos] =
+          (m[hh] + log2f(l[hh])) * 0.6931471805599453f;
   }
   // The output goes through this warp's rows of the K buffer the last
   // tile did not use (read last in tile n_tiles - 2, before the last
@@ -590,9 +598,10 @@ bool aligned16(const void* p, Strides st) {
 }
 
 template <int DH>
-int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
-              int S, int H, int G, int dh, Strides qst, Strides kst,
-              Strides vst, Strides ost, int causal, cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* out,
+              float* lse, int B, int S, int H, int G, int dh, Strides qst,
+              Strides kst, Strides vst, Strides ost, int causal,
+              cudaStream_t stream) {
   auto kernel = flash_tc<DH>;
   const size_t smem = tc_smem_bytes(DH);
   cudaError_t err = cudaFuncSetAttribute(
@@ -605,8 +614,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((S + kTile - 1) / kTile, H, B);
   kernel<<<grid, kTcThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), S, G, dh, qst,
-      kst, vst, ost, causal, scale_log2, vec);
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, S, G, dh,
+      qst, kst, vst, ost, causal, scale_log2, vec);
   return (int)cudaGetLastError();
 }
 
@@ -615,43 +624,46 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
 // Strides are in elements; the head_dim axis of every tensor is
 // contiguous and dh is a multiple of 4. tensor_cores = 1 takes the
 // tensor-core instance, 0 the CUDA-core one: the wrapper's
-// flash_instance owns that rule (bf16 with dh % 16 == 0).
+// flash_instance owns that rule (bf16 with dh % 16 == 0). lse, when not
+// null, receives each row's log-sum-exp (f32, B * H * S contiguous).
 // Returns the CUDA error code of the launch.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int B, int S,
     int H, int Kh, int dh, long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh, long long vsb,
     long long vss, long long vsh, long long osb, long long oss,
-    long long osh, int causal, int dtype, int tensor_cores, void* stream) {
+    long long osh, int causal, int dtype, int tensor_cores, void* lse_out,
+    void* stream) {
   if (B < 1 || S < 1 || H < 1 || Kh < 1 || H % Kh || dh < 4 || dh > 256 ||
       dh % 4 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   const Strides qst{qsb, qss, qsh}, kst{ksb, kss, ksh}, vst{vsb, vss, vsh},
       ost{osb, oss, osh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   const int G = H / Kh;
   if (tensor_cores) {
     switch (tc_width(dh)) {
       case 32:
-        return launch_tc<32>(q, k, v, out, B, S, H, G, dh, qst, kst, vst,
-                             ost, causal, st);
+        return launch_tc<32>(q, k, v, out, lse, B, S, H, G, dh, qst, kst,
+                             vst, ost, causal, st);
       case 64:
-        return launch_tc<64>(q, k, v, out, B, S, H, G, dh, qst, kst, vst,
-                             ost, causal, st);
+        return launch_tc<64>(q, k, v, out, lse, B, S, H, G, dh, qst, kst,
+                             vst, ost, causal, st);
       case 128:
-        return launch_tc<128>(q, k, v, out, B, S, H, G, dh, qst, kst, vst,
-                              ost, causal, st);
+        return launch_tc<128>(q, k, v, out, lse, B, S, H, G, dh, qst, kst,
+                              vst, ost, causal, st);
       default:
-        return launch_tc<256>(q, k, v, out, B, S, H, G, dh, qst, kst, vst,
-                              ost, causal, st);
+        return launch_tc<256>(q, k, v, out, lse, B, S, H, G, dh, qst, kst,
+                              vst, ost, causal, st);
     }
   }
   if (dtype == DTYPE_F32)
-    return launch_dh<float>(q, k, v, out, B, S, H, G, dh, qst, kst, vst, ost,
-                            causal, st);
+    return launch_dh<float>(q, k, v, out, lse, B, S, H, G, dh, qst, kst, vst,
+                            ost, causal, st);
   if (dtype == DTYPE_BF16)
-    return launch_dh<__nv_bfloat16>(q, k, v, out, B, S, H, G, dh, qst, kst,
-                                    vst, ost, causal, st);
+    return launch_dh<__nv_bfloat16>(q, k, v, out, lse, B, S, H, G, dh, qst,
+                                    kst, vst, ost, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 

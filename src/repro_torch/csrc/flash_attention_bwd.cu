@@ -1,484 +1,775 @@
-// flash_attention_bwd — the gradient of flash_attention on Hopper.
+// flash_attention_bwd — the gradient of flash_attention on Hopper's
+// tensor cores.
 //
 // Given q (B, S, H, dh), k and v (B, S, Kh, dh), the forward's output
-// o and its gradient dO (both (B, S, H, dh)), writes dq, dk and dv in
-// the inputs' dtype. The function is the gradient of the forward
-// kernel's (csrc/flash_attention.cu, which replaces
-// src/repro/kernels/flash_attention.py::flash_attention): scores
-// scaled by dh^-0.5, causal positions kpos > qpos and keys past S
-// masked, GQA by h / G. Every product and sum is f32.
-//
-// With P = softmax(scale * q k^T) per row, dP = dO v^T and
-// D = rowsum(dO * o):
+// o, its gradient dO (both (B, S, H, dh)) and the forward's per-row
+// log-sum-exp lse (f32, (B, H, S)), writes dq, dk and dv in the inputs'
+// dtype. The function is the gradient of the forward kernel's
+// (csrc/flash_attention.cu, which replaces
+// src/repro/kernels/flash_attention.py::flash_attention; the JAX package
+// differentiates einsum attention with XLA, so no Pallas kernel has a
+// backward): scores scaled by dh^-0.5, causal positions kpos > qpos and
+// keys past S masked, GQA by h / G. With P = exp(scale q k^T - lse),
+// dP = dO v^T and D = rowsum(dO * o):
 //   dS = P * (dP - D),  dq = scale * dS k,  dk = scale * dS^T q,
 //   dv = P^T dO,
 // dk and dv summed over the G query heads of their kv head.
 //
-// Bound: operations. The gradient does about 2.5 times the forward's
-// 4 * B * H * S^2 * dh (halved when causal): the products Q K^T and
-// dO V^T once to rebuild P and dP for dq and once for dk and dv, then
-// dS K, dS^T Q and P^T dO.
+// Bound: the gradient does about 2.5 times the forward's
+// 4 * B * H * S^2 * dh operations (halved when causal), against the
+// bytes of q, k, v, o and dO read and dq, dk, dv written once: the
+// operations bound it from S about 1500 and in f32, the bytes in bf16
+// at S 256-512 (the training shapes). This design does 3.5 times the
+// forward's products (Q K^T and dO V^T once in each kernel, then dS K,
+// P^T dO and dS^T Q), 5 times in bf16 (P and dS split in two), all on
+// tensor cores: bf16 against 989 TFLOP/s, f32 as 3xTF32 (three TF32
+// products an f32 product) against 495.
 //
-// Design (FlashAttention-2's split, no atomics), two kernels on the
-// caller's stream, each a block of 256 threads over 64 x 64 tiles,
-// every thread a 4 x 4 block of scores from 16-byte shared-memory
-// reads (the forward's CUDA-core layout), operands staged as f32:
-// * dq kernel, one block per (64 query rows, h, b). D from the staged
-//   dO and o rows; a first walk over the key tiles (to the diagonal
-//   when causal) rebuilds each row's log-sum-exp with the forward's
-//   online max and sum; a second walk recomputes P = exp(s - lse) and
-//   dP, forms dS in shared memory and accumulates dq = dS k in
-//   registers. The log-sum-exp and D go to f32 scratch for the second
-//   kernel. So the forward kernel, its ABI and its timing stay as they
-//   are, and o is read once.
-// * dk/dv kernel, one block per (64 key rows, kv head, b), walking the
-//   G query heads of the group and their query tiles (from the
-//   diagonal when causal): P^T and dS^T of the tile through shared
-//   memory, dv += P^T dO and dk += dS^T q in registers, so the GQA sum
-//   stays inside the block.
-// Three 64-row tiles and one 64 x 68 tile of shared memory a block
-// (217,088 bytes at dh 256, 118,784 at dh 128): the key tile is staged again
-// for each query tile rather than held, which is what lets dh 256 fit.
-// Rows and keys past S are staged as zeros and masked. Tensor cores
-// are a later step.
+// Design (FlashAttention-2's split, no atomics: dq, dk and dv are the
+// same bits from run to run), two kernels on the caller's stream, each
+// block 4 slabs of 16 rows (a warp each; two warps each in f32 up to
+// DH 128, see Cfg::kSplit); every product is mma.sync, and a score
+// tile's C fragments become the A fragment of the next product in
+// registers (csrc/mma.cuh):
+// * dq kernel, one block per (64 query rows, h, b).
+//   Q and dO stay in shared memory for the whole walk; D comes from dO
+//   and o once and goes to f32 scratch for the second kernel. One walk
+//   over the key tiles (to the diagonal when causal, longest blocks
+//   first): S = Q K^T and dP = dO V^T, P = exp2(S scale log2e - lse
+//   log2e) from the forward's lse, dS = P (dP - D), dq += dS K. K and V
+//   tiles come through a cp.async double buffer: tile t + 1's copies
+//   are issued right after tile t's barrier.
+// * dk/dv kernel, one block per (64 key rows, kv head, b). K and V stay
+//   in shared memory for the whole walk over the G query heads of the
+//   group and their query tiles (from the diagonal when causal); Q, dO,
+//   lse and D tiles come through a cp.async double buffer. Per tile
+//   S^T = K Q^T, dP^T = V dO^T, P^T, dS^T = P^T (dP^T - D), then
+//   dv += P^T dO and dk += dS^T Q in registers, so the GQA sum stays
+//   inside the block.
+// Arithmetic by dtype (what holds the gradients within the f32 plain
+// version's tolerance):
+// * bf16: m16n8k16 with f32 accumulation, fragments by ldmatrix. q, k,
+//   v and dO are exact in bf16, so S and dP take one product; P and dS
+//   are f32 values, each split into bf16 hi + lo (about 16 significant
+//   bits) and both parts multiplied, as the forward does for P.
+// * f32: 3xTF32 on m16n8k8.tf32: every operand splits as hi = x with
+//   13 mantissa bits cleared and lo = x - hi (tc::split_tf32: an AND
+//   and an FADD, not the conversion unit), and each product is lo·hi +
+//   hi·lo + hi·hi (about 2^-20 relative; one TF32 product keeps
+//   2^-11, which misses the f32 gate). Fragments by scalar shared-memory
+//   loads from f32 tiles whose row stride is 4 words past a multiple of
+//   32, which keeps the row-major, N-major and (with k permuted,
+//   mma.cuh) K-major fragment loads free of bank conflicts. Its k loops
+//   unroll partly (Cfg::kUnroll): unrolled whole, the compiler hoisted
+//   many steps' loads and splits and spilled (255 registers and
+//   100-500 bytes of spills in every f32 instance).
+// Tiles by head width DH (dh rounded up to 32, 64, 128 or 256 and
+// zero-padded in shared memory): the dq kernel walks 64-key tiles up to
+// DH 128, 32-key tiles at bf16 DH 256 and 16-key tiles at f32 DH 256;
+// the dk/dv kernel holds 64 key rows up to DH 128 (4 slabs of 16 rows)
+// and walks 64-query tiles, 32 at bf16 DH 128 (64 ran slower there, at
+// 255 registers). At DH 256 its dk and dv accumulators would need 256
+// registers a thread, and resident K/V plus double-buffered Q/dO would
+// exceed 227 KB in f32: it holds 32 key rows, each warp pair splitting
+// the 256 columns (both compute the same 16 x 32 score tile), and walks
+// 32-query tiles. Any S: rows and keys past S are zero-filled and
+// masked; rows past S are not stored.
 //
 // Strides in elements are passed for the batch, sequence and head axes
 // of every tensor; the head_dim axis is contiguous.
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
-constexpr int kTile = 64;          // query rows / key positions per tile
-constexpr int kThreads = 256;      // 16 x 16 threads, 4 x 4 scores each
-constexpr int kPs = kTile + 4;     // row stride of the score tile
-constexpr float kNegInf = -1e30f;  // the forward's causal mask value
+using bf16 = __nv_bfloat16;
+constexpr int kRows = 64;          // query rows of a dq block: 4 slabs
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {
   long long b, s, h;
 };
 
-// Row stride of the staged tiles: a multiple of 4 floats (16-byte
-// rows) whose quarter is odd, so 8 consecutive rows start in 8
-// different 4-bank groups.
-__host__ __device__ __forceinline__ int tile_ld(int dh) {
-  return dh + ((dh / 4) % 2 == 0 ? 4 : 8);
-}
+// An A fragment (16 x KS) and a B fragment (KS x 8), with the lo parts
+// of split operands (unused for exact bf16 operands).
+struct AFrag {
+  uint32_t hi[4], lo[4];
+};
+struct BFrag {
+  uint32_t hi[2], lo[2];
+};
 
-// Stage rows [s0, s0 + kTile) of one head as f32 times mul (zeros past
-// S).
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
-                                      Strides st, int s0, int S, int dh,
-                                      int ld, float mul) {
-  for (int i = threadIdx.x; i < kTile * dh; i += kThreads) {
-    const int r = i / dh, d = i - r * dh;
-    const int s = s0 + r;
-    dst[r * ld + d] = s < S ? to_f32(src[(long long)s * st.s + d]) * mul : 0.f;
+// bf16 operands, m16n8k16, fragments by ldmatrix.
+struct Bf16Ops {
+  using E = bf16;
+  static constexpr int KS = 16;    // k step of one mma
+  static constexpr int kPad = 8;   // row stride DH + 8: odd 16-byte units
+
+  // Rows [0, 16) x k [k0, k0 + 16) of a row-major tile.
+  __device__ static void load_a(AFrag& a, const E* t, int ld, int k0,
+                                int lane) {
+    tc::ldsm_x4(a.hi, tc::smem_addr(t + tc::lane_off_rows16(ld, lane) + k0));
   }
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// Max / sum over the 16 threads of a half-warp (one tile row).
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// out[i][j] = sum_d a[ty + 16 i][d] * b[tx + 16 j][d] over staged tiles.
-__device__ __forceinline__ void tile_dot(const float* a, const float* b,
-                                         int dh, int ld, float (&out)[4][4]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < dh; d += 4) {
-    float4 x[4], y[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = ld4(a + (ty + 16 * i) * ld + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = ld4(b + (tx + 16 * j) * ld + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float s = out[i][j];
-        s = fmaf(x[i].x, y[j].x, s);
-        s = fmaf(x[i].y, y[j].y, s);
-        s = fmaf(x[i].z, y[j].z, s);
-        out[i][j] = fmaf(x[i].w, y[j].w, s);
-      }
+  // n-tiles n0 and n0 + 8 at k [k0, k0 + KS) of an N-major tile (row n
+  // holds k contiguous).
+  __device__ static void load_b_n(BFrag (&b)[2], const E* t, int ld, int n0,
+                                  int k0, int lane) {
+    uint32_t r[4];
+    tc::ldsm_x4(r, tc::smem_addr(t + n0 * ld + tc::lane_off_b_nmajor(ld, lane) +
+                                 k0));
+    b[0].hi[0] = r[0], b[0].hi[1] = r[1], b[1].hi[0] = r[2], b[1].hi[1] = r[3];
   }
-}
+  // The same of a K-major tile (row k holds n contiguous).
+  __device__ static void load_b_k(BFrag (&b)[2], const E* t, int ld, int n0,
+                                  int k0, int lane) {
+    uint32_t r[4];
+    tc::ldsm_x4_trans(
+        r, tc::smem_addr(t + tc::lane_off_rows16(ld, lane) + k0 * ld + n0));
+    b[0].hi[0] = r[0], b[0].hi[1] = r[1], b[1].hi[0] = r[2], b[1].hi[1] = r[3];
+  }
+  // k step kk of an f32 score tile held as C fragments (n-tiles 2 kk and
+  // 2 kk + 1), split into bf16 hi and lo.
+  template <int NT>
+  __device__ static void a_from_c(AFrag& a, const float (&c)[NT][4],
+                                  int kk) {
+    tc::split_bf16(c[2 * kk][0], c[2 * kk][1], a.hi[0], a.lo[0]);
+    tc::split_bf16(c[2 * kk][2], c[2 * kk][3], a.hi[1], a.lo[1]);
+    tc::split_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1], a.hi[2], a.lo[2]);
+    tc::split_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3], a.hi[3], a.lo[3]);
+  }
+  // Exact operands (q, k, v, dO): one product.
+  __device__ static void mma_exact(float (&d)[4], const AFrag& a,
+                                   const BFrag& b) {
+    tc::mma(d, a.hi, b.hi[0], b.hi[1]);
+  }
+  // A split (P, dS): hi and lo parts.
+  __device__ static void mma_split(float (&d)[4], const AFrag& a,
+                                   const BFrag& b) {
+    tc::mma(d, a.hi, b.hi[0], b.hi[1]);
+    tc::mma(d, a.lo, b.hi[0], b.hi[1]);
+  }
+};
 
-// acc[i][g][e] += sum_s p[ty + 16 i][s] * m[s][4 tx + 64 g + e] for the
-// kTile rows s of the staged tile m (row stride ld) and the score tile
-// p (row stride kPs).
-template <int NG>
-__device__ __forceinline__ void tile_acc(const float* p, const float* m,
-                                         int dh, int ld,
-                                         float (&acc)[4][NG][4]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll 2
-  for (int s = 0; s < kTile; s += 4) {
-    float pr[4][4];
+// f32 operands as 3xTF32 on m16n8k8, fragments by scalar loads.
+struct Tf32x3Ops {
+  using E = float;
+  static constexpr int KS = 8;
+  static constexpr int kPad = 4;   // row stride DH + 4: 4 mod 32 words
+
+  __device__ static void load_a(AFrag& a, const E* t, int ld, int k0,
+                                int lane) {
+    const float* p = t + (lane >> 2) * ld + k0 + (lane & 3);
+    tc::split_tf32(p[0], a.hi[0], a.lo[0]);
+    tc::split_tf32(p[8 * ld], a.hi[1], a.lo[1]);
+    tc::split_tf32(p[4], a.hi[2], a.lo[2]);
+    tc::split_tf32(p[8 * ld + 4], a.hi[3], a.lo[3]);
+  }
+  __device__ static void load_b_n(BFrag (&b)[2], const E* t, int ld, int n0,
+                                  int k0, int lane) {
+    const float* p = t + (n0 + (lane >> 2)) * ld + k0 + (lane & 3);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 p4 = ld4(p + (ty + 16 * i) * kPs + s);
-      pr[i][0] = p4.x; pr[i][1] = p4.y; pr[i][2] = p4.z; pr[i][3] = p4.w;
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-#pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        const int d0 = 4 * tx + 64 * g;
-        if (d0 < dh) {
-          const float4 mm = ld4(m + (s + e) * ld + d0);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[i][g][0] = fmaf(pr[i][e], mm.x, acc[i][g][0]);
-            acc[i][g][1] = fmaf(pr[i][e], mm.y, acc[i][g][1]);
-            acc[i][g][2] = fmaf(pr[i][e], mm.z, acc[i][g][2]);
-            acc[i][g][3] = fmaf(pr[i][e], mm.w, acc[i][g][3]);
-          }
-        }
-      }
+    for (int j = 0; j < 2; ++j) {
+      tc::split_tf32(p[8 * j * ld], b[j].hi[0], b[j].lo[0]);
+      tc::split_tf32(p[8 * j * ld + 4], b[j].hi[1], b[j].lo[1]);
     }
   }
-}
+  // K-major, k permuted as a_from_c permutes it: b0 from row k0 + 2t,
+  // b1 from row k0 + 2t + 1.
+  __device__ static void load_b_k(BFrag (&b)[2], const E* t, int ld, int n0,
+                                  int k0, int lane) {
+    const float* p = t + (k0 + 2 * (lane & 3)) * ld + n0 + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      tc::split_tf32(p[8 * j], b[j].hi[0], b[j].lo[0]);
+      tc::split_tf32(p[ld + 8 * j], b[j].hi[1], b[j].lo[1]);
+    }
+  }
+  // k step kk (n-tile kk): (c0, c2, c1, c3), see mma.cuh.
+  template <int NT>
+  __device__ static void a_from_c(AFrag& a, const float (&c)[NT][4],
+                                  int kk) {
+    tc::split_tf32(c[kk][0], a.hi[0], a.lo[0]);
+    tc::split_tf32(c[kk][2], a.hi[1], a.lo[1]);
+    tc::split_tf32(c[kk][1], a.hi[2], a.lo[2]);
+    tc::split_tf32(c[kk][3], a.hi[3], a.lo[3]);
+  }
+  // The small terms first, then hi·hi.
+  __device__ static void mma_split(float (&d)[4], const AFrag& a,
+                                   const BFrag& b) {
+    tc::mma_tf32(d, a.lo, b.hi[0], b.hi[1]);
+    tc::mma_tf32(d, a.hi, b.lo[0], b.lo[1]);
+    tc::mma_tf32(d, a.hi, b.hi[0], b.hi[1]);
+  }
+  __device__ static void mma_exact(float (&d)[4], const AFrag& a,
+                                   const BFrag& b) {
+    mma_split(d, a, b);
+  }
+};
 
-template <int NG>
-__device__ __forceinline__ void zero(float (&acc)[4][NG][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int g = 0; g < NG; ++g)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.f;
-}
+// Tile sizes of an instance (see the note at the top).
+template <class Op, int DH>
+struct Cfg {
+  using E = typename Op::E;
+  static constexpr bool kF32 = sizeof(E) == 4;
+  static constexpr int LD = DH + Op::kPad;
+  static constexpr int CH = 16 / sizeof(E);     // elements a 16-byte copy
+  // dq kernel: keys a tile.
+  static constexpr int BK = DH < 256 ? 64 : kF32 ? 16 : 32;
+  // dk/dv kernel: key rows held, column groups of warps, queries a tile.
+  static constexpr int KR = DH < 256 ? 64 : 32;
+  static constexpr int WC = DH < 256 ? 1 : 2;
+  static constexpr int NQ = DH <= 64 || (kF32 && DH == 128) ? 64 : 32;
+  static_assert((KR / 16) * WC == 4, "4 slabs of 16 rows (x WC columns)");
+  // Warps a slab: in f32 up to DH 128 two, each taking half of every
+  // walked tile (keys in the dq kernel, queries in the dk/dv kernel)
+  // with its own partial sums, added at the end (add_parts): one block
+  // fills the SM's shared memory there, and 4 warps left each scheduler
+  // one warp to hide its latencies with.
+  static constexpr int kSplit = kF32 && DH <= 128 ? 2 : 1;
+  static constexpr int kThreads = 128 * kSplit;
+  // Unrolling of the k loops: whole in bf16; in f32 by 8 at DH <= 64, 4
+  // at 128 and 1 at 256, where more hoisted the next steps' loads and
+  // splits into spills.
+  static constexpr int kUnroll = !kF32 ? 16 : DH <= 64 ? 8 : DH <= 128 ? 4 : 1;
+  static constexpr size_t dq_smem() {
+    return (size_t)(2 * kRows + 4 * BK) * LD * sizeof(E) +
+           kRows * sizeof(float);
+  }
+  static constexpr size_t dkdv_smem() {
+    return (size_t)(2 * KR + 4 * NQ) * LD * sizeof(E) +
+           4 * NQ * sizeof(float);
+  }
+};
 
-// Rows r0 + ty + 16 i (< S) of acc into dst, in dst's dtype.
-template <typename T, int NG>
-__device__ __forceinline__ void store_rows(T* __restrict__ dst, Strides st,
-                                           int r0, int S, int dh,
-                                           const float (&acc)[4][NG][4]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+// Rows [s0, s0 + R) of one head, the first dh values of each, into a
+// tile of row stride LD; rows past S are zero. One 16-byte column chunk
+// a thread and pass: with `vec` (16-byte aligned rows) by cp.async,
+// whose zero fill also covers a chunk that runs past dh, else by scalar
+// loads.
+template <class E, int DH, int LD, int R, int kThreads>
+__device__ __forceinline__ void copy_rows(E* dst, const E* __restrict__ src,
+                                          long long stride, int s0, int S,
+                                          int dh, bool vec) {
+  constexpr int CH = 16 / sizeof(E);
+  constexpr int kChunks = DH / CH;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty + 16 * i;
-    if (r >= S) continue;
+  for (int u = 0; u < (R * kChunks + kThreads - 1) / kThreads; ++u) {
+    const int i = threadIdx.x + u * kThreads;
+    const int r = i / kChunks, c = (i % kChunks) * CH;
+    if (r >= R || c >= dh) continue;
+    const int s = s0 + r, n = min(CH, dh - c);
+    E* d = dst + r * LD + c;
+    const E* p = src + (long long)s * stride + c;
+    if (vec) {
+      tc::cp_async16(d, s < S ? p : src + c, s < S ? n * (int)sizeof(E) : 0);
+    } else {
 #pragma unroll
-    for (int g = 0; g < NG; ++g) {
-      const int d0 = 4 * tx + 64 * g;
-      if (d0 >= dh) continue;
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        dst[(long long)r * st.s + d0 + e] = from_f32<T>(acc[i][g][e]);
+      for (int e = 0; e < CH; ++e)
+        d[e] = s < S && e < n ? p[e] : from_f32<E>(0.f);
     }
   }
 }
 
-// Whether key kpos is visible from query qpos (keys past S are not).
-__device__ __forceinline__ bool visible(int qpos, int kpos, int S,
-                                        int causal) {
-  return kpos < S && !(causal && kpos > qpos);
+// Zero the columns of `rows` rows that no copy writes (from dh rounded
+// up to a chunk to DH), once: the products over the padded width then
+// add zeros.
+template <class E, int DH, int LD, int kThreads>
+__device__ void zero_pad(E* tiles, int rows, int dh) {
+  constexpr int CH = 16 / sizeof(E);
+  const int first = (dh + CH - 1) / CH * CH;
+  const int pad = (DH - first) / CH;
+  for (int i = threadIdx.x; i < rows * pad; i += kThreads)
+    *reinterpret_cast<uint4*>(tiles + (i / pad) * LD + first +
+                              (i % pad) * CH) = make_uint4(0, 0, 0, 0);
+}
+
+// Columns col, col + 1 of a row: one 8- or 4-byte store with `vec`.
+__device__ __forceinline__ void store_pair(float* p, float a, float b,
+                                           bool vec) {
+  if (vec) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  } else {
+    p[0] = a;
+    p[1] = b;
+  }
+}
+__device__ __forceinline__ void store_pair(bf16* p, float a, float b,
+                                           bool vec) {
+  if (vec) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  } else {
+    p[0] = __float2bfloat16(a);
+    p[1] = __float2bfloat16(b);
+  }
+}
+
+// acc (16 rows from row0 x the n-tiles from col0) times mul into rows <
+// S and columns < dh of dst.
+template <class E, int NC>
+__device__ __forceinline__ void store_rows(E* __restrict__ dst,
+                                           long long stride, int row0,
+                                           int col0, int S, int dh,
+                                           const float (&acc)[NC][4],
+                                           float mul, bool vec) {
+  const int lane = threadIdx.x & 31;
+  const int r = row0 + (lane >> 2), c = col0 + (lane & 3) * 2;
+#pragma unroll
+  for (int n = 0; n < NC; ++n)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      if (r + 8 * hh < S && c + 8 * n < dh)
+        store_pair(dst + (long long)(r + 8 * hh) * stride + c + 8 * n,
+                   acc[n][2 * hh] * mul, acc[n][2 * hh + 1] * mul, vec);
+}
+
+// Adds the partial sums of the warps of part 1 to those of part 0 of
+// the same slab through shared memory (`buf`, 4 * NC * 128 floats), in
+// fragment order: conflict-free, and a fixed order of the two sums.
+template <int NC>
+__device__ __forceinline__ void add_parts(float (&acc)[NC][4], float* buf,
+                                          int slab, int part, int lane) {
+  float* b = buf + slab * NC * 128 + lane;
+  if (part == 1) {
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) b[(n * 4 + e) * 32] = acc[n][e];
+  }
+  __syncthreads();
+  if (part == 0) {
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += b[(n * 4 + e) * 32];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[i][e] = 0.f;
+}
+
+// sa[NT] = A_a · B_a^T and sb[NT] = A_b · B_b^T over DH: A_* 16
+// row-major rows of this warp, B_* N-major tiles of NT * 8 rows (the
+// score products Q K^T and dO V^T, or K Q^T and V dO^T).
+template <class Op, int DH, int LD, int NT, int UNROLL>
+__device__ __forceinline__ void scores(float (&sa)[NT][4],
+                                       float (&sb)[NT][4],
+                                       const typename Op::E* aa,
+                                       const typename Op::E* ab,
+                                       const typename Op::E* ba,
+                                       const typename Op::E* bb, int lane) {
+  zero(sa);
+  zero(sb);
+#pragma unroll(UNROLL)
+  for (int kk = 0; kk < DH / Op::KS; ++kk) {
+    AFrag fa, fb;
+    Op::load_a(fa, aa, LD, kk * Op::KS, lane);
+    Op::load_a(fb, ab, LD, kk * Op::KS, lane);
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) {
+      BFrag xa[2], xb[2];
+      Op::load_b_n(xa, ba, LD, 16 * j, kk * Op::KS, lane);
+      Op::load_b_n(xb, bb, LD, 16 * j, kk * Op::KS, lane);
+      Op::mma_exact(sa[2 * j], fa, xa[0]);
+      Op::mma_exact(sa[2 * j + 1], fa, xa[1]);
+      Op::mma_exact(sb[2 * j], fb, xb[0]);
+      Op::mma_exact(sb[2 * j + 1], fb, xb[1]);
+    }
+  }
+}
+
+// acc[NC] += c · M[:, col0 .. col0 + 8 NC): c a 16 x (NT * 8) score
+// tile in C fragments, M a K-major tile of NT * 8 rows.
+template <class Op, int LD, int NT, int NC, int UNROLL>
+__device__ __forceinline__ void accumulate(float (&acc)[NC][4],
+                                           const float (&c)[NT][4],
+                                           const typename Op::E* m,
+                                           int col0, int lane) {
+#pragma unroll(UNROLL)
+  for (int kk = 0; kk < NT * 8 / Op::KS; ++kk) {
+    AFrag a;
+    Op::a_from_c(a, c, kk);
+#pragma unroll
+    for (int n = 0; n < NC / 2; ++n) {
+      BFrag x[2];
+      Op::load_b_k(x, m, LD, col0 + 16 * n, kk * Op::KS, lane);
+      Op::mma_split(acc[2 * n], a, x[0]);
+      Op::mma_split(acc[2 * n + 1], a, x[1]);
+    }
+  }
 }
 
 // ------------------------------------------------------------ dq kernel
-// Grid (query tiles, H, B). Writes dq and, for rows < S, the row's
-// log-sum-exp of the scaled scores and D = rowsum(dO * o) into
-// lse / delta at ((b * H + h) * S + row).
-template <typename T, int NG>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const T* __restrict__ o,
-             const T* __restrict__ dout, T* __restrict__ dq,
-             float* __restrict__ lse_out, float* __restrict__ delta_out,
-             int S, int G, int dh, Strides qst, Strides kst, Strides vst,
-             Strides ost, Strides dost, Strides dqst, int causal,
-             float scale) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int ld = tile_ld(dh);
-  float* qs = smem;                    // kTile x ld, q * scale
-  float* dos = qs + kTile * ld;        // kTile x ld, dO
-  float* kv = dos + kTile * ld;        // kTile x ld: o, then K or V
-  float* ps = kv + kTile * ld;         // kTile x kPs: dS
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int H = gridDim.y, hk = h / G;
-  const T* qb = q + b * qst.b + h * qst.h;
-  const T* kb = k + b * kst.b + hk * kst.h;
-  const T* vb = v + b * vst.b + hk * vst.h;
-  stage(qs, qb, qst, q0, S, dh, ld, scale);
-  stage(dos, dout + b * dost.b + h * dost.h, dost, q0, S, dh, ld, 1.f);
-  stage(kv, o + b * ost.b + h * ost.h, ost, q0, S, dh, ld, 1.f);
+// Grid (query tiles, H, B). Writes dq and, for rows < S, D into
+// delta at ((b * H + h) * S + row).
+template <class Op, int DH>
+__global__ void __launch_bounds__(Cfg<Op, DH>::kThreads)
+flash_bwd_dq(const typename Op::E* __restrict__ q,
+             const typename Op::E* __restrict__ k,
+             const typename Op::E* __restrict__ v,
+             const typename Op::E* __restrict__ o,
+             const typename Op::E* __restrict__ dout,
+             const float* __restrict__ lse, typename Op::E* __restrict__ dq,
+             float* __restrict__ delta, int S, int G, int dh, Strides qst,
+             Strides kst, Strides vst, Strides ost, Strides dost,
+             Strides dqst, int causal, float scale, int vec) {
+  using E = typename Op::E;
+  using C = Cfg<Op, DH>;
+  constexpr int LD = C::LD, BK = C::BK, SP = C::kSplit, NTHR = C::kThreads;
+  constexpr int NT = BK / 8 / SP;          // n-tiles of a warp's keys
+  extern __shared__ uint4 smem_dq[];
+  E* qs = reinterpret_cast<E*>(smem_dq);   // kRows x LD
+  E* dos = qs + kRows * LD;                 // kRows x LD
+  E* kv = dos + kRows * LD;                 // 2 x (K: BK rows, V: BK rows)
+  float* dsm = reinterpret_cast<float*>(kv + 4 * BK * LD);   // kRows
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  const int slab = warp % 4, part = SP > 1 ? warp / 4 : 0;  // rows; keys
+  const int koff = part * (BK / SP);
+  // Causal blocks take (query tile + 1) key tiles: the longest first.
+  const int q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kRows;
+  const int h = blockIdx.y, b = blockIdx.z, H = gridDim.y, hk = h / G;
+  const E* kb = k + b * kst.b + hk * kst.h;
+  const E* vb = v + b * vst.b + hk * vst.h;
+  const int q_last = min(q0 + kRows, S) - 1;
+  const int n_tiles = causal ? q_last / BK + 1 : (S + BK - 1) / BK;
+
+  if (dh < DH) zero_pad<E, DH, LD, NTHR>(qs, 2 * kRows + 4 * BK, dh);
+  copy_rows<E, DH, LD, kRows, NTHR>(qs, q + b * qst.b + h * qst.h, qst.s,
+                                    q0, S, dh, vec);
+  copy_rows<E, DH, LD, kRows, NTHR>(dos, dout + b * dost.b + h * dost.h,
+                                    dost.s, q0, S, dh, vec);
+  copy_rows<E, DH, LD, BK, NTHR>(kv, kb, kst.s, 0, S, dh, vec);
+  copy_rows<E, DH, LD, BK, NTHR>(kv + BK * LD, vb, vst.s, 0, S, dh, vec);
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
   __syncthreads();
 
-  float delta[4], m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
+  // D = rowsum(dO * o), TPR neighbouring threads a row.
+  {
+    constexpr int TPR = NTHR / kRows;
+    const int r = tid / TPR, sub = tid % TPR;
     float s = 0.f;
-    for (int d = 4 * tx; d < dh; d += 64) {
-      const float4 a = ld4(dos + r * ld + d), c = ld4(kv + r * ld + d);
-      s = fmaf(a.x, c.x, fmaf(a.y, c.y, fmaf(a.z, c.z, fmaf(a.w, c.w, s))));
+    if (q0 + r < S) {
+      const E* orow = o + b * ost.b + h * ost.h + (long long)(q0 + r) * ost.s;
+      const E* drow = dos + r * LD;
+      for (int d = sub * C::CH; d < dh; d += TPR * C::CH)
+#pragma unroll
+        for (int e = 0; e < C::CH; ++e)
+          if (d + e < dh) s = fmaf(to_f32(drow[d + e]), to_f32(orow[d + e]), s);
     }
-    delta[i] = row_sum(s);
-    m[i] = kNegInf;
-    l[i] = 0.f;
-  }
-
-  const int q_last = min(q0 + kTile, S) - 1;
-  const int n_tiles = causal ? q_last / kTile + 1 : (S + kTile - 1) / kTile;
-  float sc[4][4], dp[4][4];
-  // Walk 1: each row's log-sum-exp, as the forward's online softmax.
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();
-    stage(kv, kb, kst, k0, S, dh, ld, 1.f);
-    __syncthreads();
-    tile_dot(qs, kv, dh, ld, sc);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        if (kpos >= S)
-          sc[i][j] = -INFINITY;
-        else if (causal && kpos > qpos)
-          sc[i][j] = kNegInf;
-        mx = fmaxf(mx, sc[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sum += expf(sc[i][j] - m_new);
-      l[i] = l[i] * expf(m[i] - m_new) + row_sum(sum);
-      m[i] = m_new;
+    for (int off = 1; off < TPR; off <<= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (sub == 0) {
+      dsm[r] = s;
+      if (q0 + r < S) delta[((long long)b * H + h) * S + q0 + r] = s;
     }
   }
-  float lse[4];
+  __syncthreads();
+  const int r_lo = slab * 16 + g;     // this thread's rows: +0, +8
+  float lse2[2], dd[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    lse[i] = m[i] + logf(l[i]);
-    const int qpos = q0 + ty + 16 * i;
-    if (tx == 0 && qpos < S) {
-      const long long at = ((long long)b * H + h) * S + qpos;
-      lse_out[at] = lse[i];
-      delta_out[at] = delta[i];
-    }
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = q0 + r_lo + 8 * hh;
+    lse2[hh] = row < S ? lse[((long long)b * H + h) * S + row] * kLog2e : 0.f;
+    dd[hh] = dsm[r_lo + 8 * hh];
   }
-
-  // Walk 2: dq = scale * dS k (q was staged times scale, so sc is the
-  // scaled score and dq takes the scale once at the store).
-  float acc[4][NG][4];
+  const float scale_log2 = scale * kLog2e;
+  const E* qw = qs + slab * 16 * LD;
+  const E* dow = dos + slab * 16 * LD;
+  float acc[DH / 8][4];
   zero(acc);
+
   for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();                   // last tile's K reads are done
-    stage(kv, vb, vst, k0, S, dh, ld, 1.f);
-    __syncthreads();
-    tile_dot(dos, kv, dh, ld, dp);
-    __syncthreads();
-    stage(kv, kb, kst, k0, S, dh, ld, 1.f);
-    __syncthreads();
-    tile_dot(qs, kv, dh, ld, sc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        const float p =
-            visible(qpos, kpos, S, causal) ? expf(sc[i][j] - lse[i]) : 0.f;
-        ps[(ty + 16 * i) * kPs + tx + 16 * j] = p * (dp[i][j] - delta[i]);
-      }
+    const int k0 = t * BK;
+    const E* ks = kv + (t & 1) * 2 * BK * LD;
+    const E* vs = ks + BK * LD;
+    if (t > 0) {                       // tile 0 came with Q
+      tc::cp_async_wait<0>();
+      __syncthreads();                 // also: tile t - 1's buffers free
     }
-    __syncthreads();
-    tile_acc(ps, kv, dh, ld, acc);
+    if (t + 1 < n_tiles) {
+      E* nk = kv + ((t + 1) & 1) * 2 * BK * LD;
+      copy_rows<E, DH, LD, BK, NTHR>(nk, kb, kst.s, k0 + BK, S, dh, vec);
+      copy_rows<E, DH, LD, BK, NTHR>(nk + BK * LD, vb, vst.s, k0 + BK, S, dh,
+                                     vec);
+    }
+    tc::cp_async_commit();
+
+    float sc[NT][4], dp[NT][4];
+    scores<Op, DH, LD, NT, C::kUnroll>(sc, dp, qw, dow, ks + koff * LD,
+                                       vs + koff * LD, lane);
+    // dS = P (dP - D) with P from the forward's lse; only the diagonal
+    // and the ragged last tile are masked.
+    const bool mask = (causal && k0 + BK - 1 > q0) || k0 + BK > S;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = tc::exp2_fast(fmaf(sc[j][e], scale_log2, -lse2[e >> 1]));
+        if (mask) {
+          const int kpos = k0 + koff + 8 * j + c2 + (e & 1);
+          if (kpos >= S || (causal && kpos > q0 + r_lo + 8 * (e >> 1)))
+            p = 0.f;
+        }
+        sc[j][e] = p * (dp[j][e] - dd[e >> 1]);
+      }
+    accumulate<Op, LD, NT, DH / 8, C::kUnroll>(acc, sc, ks + koff * LD, 0,
+                                               lane);
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int g = 0; g < NG; ++g)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][g][e] *= scale;
-  store_rows(dq + b * dqst.b + h * dqst.h, dqst, q0, S, dh, acc);
+  if (SP > 1) {                        // the two halves' sums, in Q's space
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    add_parts(acc, reinterpret_cast<float*>(qs), slab, part, lane);
+  }
+  if (part == 0)
+    store_rows(dq + b * dqst.b + h * dqst.h, dqst.s, q0 + slab * 16, 0, S,
+               dh, acc, scale, vec);
 }
 
 // --------------------------------------------------------- dk/dv kernel
-// Grid (key tiles, Kh, B). Reads the dq kernel's lse / delta.
-template <typename T, int NG>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const T* __restrict__ dout,
-               const float* __restrict__ lse_in,
-               const float* __restrict__ delta_in, T* __restrict__ dk,
-               T* __restrict__ dv, int S, int G, int dh, Strides qst,
-               Strides kst, Strides vst, Strides dost, Strides dkst,
-               Strides dvst, int causal, float scale) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int ld = tile_ld(dh);
-  float* kvs = smem;                   // kTile x ld: K, then V
-  float* qs = kvs + kTile * ld;        // kTile x ld, q * scale
-  float* dos = qs + kTile * ld;        // kTile x ld, dO
-  float* ps = dos + kTile * ld;        // kTile x kPs: P^T, then dS^T
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int k0 = blockIdx.x * kTile, hk = blockIdx.y, b = blockIdx.z;
+// Grid (key tiles, Kh, B). Reads the forward's lse and the dq kernel's
+// D.
+template <class Op, int DH>
+__global__ void __launch_bounds__(Cfg<Op, DH>::kThreads)
+flash_bwd_dkdv(const typename Op::E* __restrict__ q,
+               const typename Op::E* __restrict__ k,
+               const typename Op::E* __restrict__ v,
+               const typename Op::E* __restrict__ dout,
+               const float* __restrict__ lse,
+               const float* __restrict__ delta,
+               typename Op::E* __restrict__ dk,
+               typename Op::E* __restrict__ dv, int S, int G, int dh,
+               Strides qst, Strides kst, Strides vst, Strides dost,
+               Strides dkst, Strides dvst, int causal, float scale,
+               int vec) {
+  using E = typename Op::E;
+  using C = Cfg<Op, DH>;
+  constexpr int LD = C::LD, KR = C::KR, NQ = C::NQ, SP = C::kSplit;
+  constexpr int NTHR = C::kThreads, NT = NQ / 8 / SP;
+  constexpr int NC = DH / C::WC / 8;   // output n-tiles of a warp
+  extern __shared__ uint4 smem_dkdv[];
+  E* ks = reinterpret_cast<E*>(smem_dkdv);  // KR x LD
+  E* vs = ks + KR * LD;                      // KR x LD
+  E* qd = vs + KR * LD;                      // 2 x (Q: NQ rows, dO: NQ rows)
+  float* ld_s = reinterpret_cast<float*>(qd + 4 * NQ * LD);  // 2 x 2 x NQ
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  const int k0 = blockIdx.x * KR, hk = blockIdx.y, b = blockIdx.z;
   const int H = gridDim.y * G;
-  const T* kb = k + b * kst.b + hk * kst.h;
-  const T* vb = v + b * vst.b + hk * vst.h;
-  const int n_q = (S + kTile - 1) / kTile;
-  const int first = causal ? k0 / kTile : 0;
+  const int slab = warp % 4, part = SP > 1 ? warp / 4 : 0;  // rows; queries
+  const int kr = (slab / C::WC) * 16;          // this warp's key rows,
+  const int col0 = (slab % C::WC) * (DH / C::WC);  // columns
+  const int qoff = part * (NQ / SP);           // and queries of a tile
+  const int first = causal ? k0 / NQ : 0;
+  const int per = (S + NQ - 1) / NQ - first;   // query tiles a head
+  const int total = G * per;
 
-  float acc_k[4][NG][4], acc_v[4][NG][4];
+  // Tile i of the walk (head hk * G + i / per) into buffer `buf`.
+  auto load_tile = [&](int i, int buf) {
+    const int h = hk * G + i / per, q0 = (first + i % per) * NQ;
+    E* qt = qd + buf * 2 * NQ * LD;
+    copy_rows<E, DH, LD, NQ, NTHR>(qt, q + b * qst.b + h * qst.h, qst.s, q0,
+                                   S, dh, vec);
+    copy_rows<E, DH, LD, NQ, NTHR>(qt + NQ * LD,
+                                   dout + b * dost.b + h * dost.h, dost.s,
+                                   q0, S, dh, vec);
+    const long long at = ((long long)b * H + h) * S;
+    for (int x = tid; x < 2 * NQ; x += NTHR) {
+      const float* src = (x < NQ ? lse : delta) + at;
+      const int qpos = q0 + x % NQ;
+      tc::cp_async4(ld_s + buf * 2 * NQ + x, qpos < S ? src + qpos : src,
+                    qpos < S ? 4 : 0);
+    }
+  };
+
+  if (dh < DH) zero_pad<E, DH, LD, NTHR>(ks, 2 * KR + 4 * NQ, dh);
+  copy_rows<E, DH, LD, KR, NTHR>(ks, k + b * kst.b + hk * kst.h, kst.s, k0,
+                                 S, dh, vec);
+  copy_rows<E, DH, LD, KR, NTHR>(vs, v + b * vst.b + hk * vst.h, vst.s, k0,
+                                 S, dh, vec);
+  load_tile(0, 0);
+  tc::cp_async_commit();
+
+  const float scale_log2 = scale * kLog2e;
+  float acc_k[NC][4], acc_v[NC][4];
   zero(acc_k);
   zero(acc_v);
-  float sc[4][4];                      // key ty + 16 i, query tx + 16 j
-  for (int hh = 0; hh < G; ++hh) {
-    const int h = hk * G + hh;
-    const T* qb = q + b * qst.b + h * qst.h;
-    const T* dob = dout + b * dost.b + h * dost.h;
-    const float* lse_h = lse_in + ((long long)b * H + h) * S;
-    const float* delta_h = delta_in + ((long long)b * H + h) * S;
-    for (int qt = first; qt < n_q; ++qt) {
-      const int q0 = qt * kTile;
-      __syncthreads();                 // last tile's dS^T / q reads done
-      stage(kvs, kb, kst, k0, S, dh, ld, 1.f);
-      stage(qs, qb, qst, q0, S, dh, ld, scale);
-      __syncthreads();
-      tile_dot(kvs, qs, dh, ld, sc);
+  for (int i = 0; i < total; ++i) {
+    const int buf = i & 1, q0 = (first + i % per) * NQ;
+    tc::cp_async_wait<0>();
+    __syncthreads();                   // tile i in; tile i - 1's buffer free
+    if (i + 1 < total) load_tile(i + 1, buf ^ 1);
+    tc::cp_async_commit();
+    const E* qt = qd + buf * 2 * NQ * LD;
+    const E* dot = qt + NQ * LD;
+    const float* ls = ld_s + buf * 2 * NQ;   // lse, then D, of the tile
+
+    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x NQ queries.
+    float st[NT][4], dpt[NT][4];
+    scores<Op, DH, LD, NT, C::kUnroll>(st, dpt, ks + kr * LD, vs + kr * LD,
+                                       qt + qoff * LD, dot + qoff * LD,
+                                       lane);
+    const bool mask = (causal && q0 < k0 + KR - 1) || q0 + NQ > S;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qpos = q0 + tx + 16 * j;
-        const float lse_j = qpos < S ? lse_h[qpos] : 0.f;
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int kpos = k0 + ty + 16 * i;
-          ps[(ty + 16 * i) * kPs + tx + 16 * j] =
-              qpos < S && visible(qpos, kpos, S, causal)
-                  ? expf(sc[i][j] - lse_j)
-                  : 0.f;
+      for (int e = 0; e < 4; ++e) {
+        const int col = qoff + 8 * j + c2 + (e & 1);
+        float p = tc::exp2_fast(fmaf(st[j][e], scale_log2,
+                                     -ls[col] * kLog2e));
+        if (mask) {
+          const int qpos = q0 + col, kpos = k0 + kr + g + 8 * (e >> 1);
+          if (qpos >= S || (causal && kpos > qpos)) p = 0.f;
         }
+        st[j][e] = p;
+        dpt[j][e] = p * (dpt[j][e] - ls[NQ + col]);
       }
-      __syncthreads();                 // K reads done, P^T out
-      stage(kvs, vb, vst, k0, S, dh, ld, 1.f);
-      stage(dos, dob, dost, q0, S, dh, ld, 1.f);
-      __syncthreads();
-      tile_dot(kvs, dos, dh, ld, sc);  // dP^T
-      tile_acc(ps, dos, dh, ld, acc_v);
-      __syncthreads();                 // P^T reads done
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qpos = q0 + tx + 16 * j;
-        const float delta_j = qpos < S ? delta_h[qpos] : 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          ps[(ty + 16 * i) * kPs + tx + 16 * j] *= sc[i][j] - delta_j;
-      }
-      __syncthreads();
-      tile_acc(ps, qs, dh, ld, acc_k); // q staged times scale: dk's scale
-    }
+    accumulate<Op, LD, NT, NC, C::kUnroll>(acc_v, st, dot + qoff * LD, col0,
+                                           lane);
+    accumulate<Op, LD, NT, NC, C::kUnroll>(acc_k, dpt, qt + qoff * LD, col0,
+                                           lane);
   }
-  store_rows(dk + b * dkst.b + hk * dkst.h, dkst, k0, S, dh, acc_k);
-  store_rows(dv + b * dvst.b + hk * dvst.h, dvst, k0, S, dh, acc_v);
+  if (SP > 1) {                        // the two halves' sums, in K/V's space
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    float* buf = reinterpret_cast<float*>(ks);
+    add_parts(acc_k, buf, slab, part, lane);
+    add_parts(acc_v, buf + 4 * NC * 128, slab, part, lane);
+  }
+  if (part == 0) {
+    store_rows(dk + b * dkst.b + hk * dkst.h, dkst.s, k0 + kr, col0, S, dh,
+               acc_k, scale, vec);
+    store_rows(dv + b * dvst.b + hk * dvst.h, dvst.s, k0 + kr, col0, S, dh,
+               acc_v, 1.f, vec);
+  }
 }
 
-size_t smem_bytes(int dh) {
-  return sizeof(float) * (3 * kTile * tile_ld(dh) + kTile * kPs);
+template <class E>
+bool aligned16(const void* p, Strides st) {
+  constexpr long long ch = 16 / sizeof(E);
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && st.b % ch == 0 &&
+         st.s % ch == 0 && st.h % ch == 0;
 }
 
-template <typename T, int NG>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, void* dq, void* dk, void* dv, float* lse,
-           float* delta, int B, int S, int H, int Kh, int dh,
-           const Strides* st, int causal, cudaStream_t stream) {
-  auto kdq = flash_bwd_dq<T, NG>;
-  auto kdkdv = flash_bwd_dkdv<T, NG>;
-  const size_t smem = smem_bytes(dh);
-  // Above 48 KB a block needs the opt-in; dh 256 takes 217,088 bytes of
-  // the 232,448 a block may have.
+template <class Op, int DH>
+int launch(const void* const* ptrs, float* lse, float* delta, int B, int S,
+           int H, int Kh, int dh, const Strides* st, int causal,
+           cudaStream_t stream) {
+  using E = typename Op::E;
+  using C = Cfg<Op, DH>;
+  auto kdq = flash_bwd_dq<Op, DH>;
+  auto kdkdv = flash_bwd_dkdv<Op, DH>;
   cudaError_t err = cudaFuncSetAttribute(
-      kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::dq_smem());
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(
-      kdkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = cudaFuncSetAttribute(kdkdv,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)C::dkdv_smem());
   if (err != cudaSuccess) return (int)err;
+  // 16-byte copies and paired stores need 16-byte aligned rows in every
+  // tensor.
+  int vec = 1;
+  for (int i = 0; i < 8; ++i) vec &= aligned16<E>(ptrs[i], st[i]);
+  const E *q = static_cast<const E*>(ptrs[0]),
+          *k = static_cast<const E*>(ptrs[1]),
+          *v = static_cast<const E*>(ptrs[2]),
+          *o = static_cast<const E*>(ptrs[3]),
+          *dout = static_cast<const E*>(ptrs[4]);
+  E *dq = static_cast<E*>(const_cast<void*>(ptrs[5])),
+    *dk = static_cast<E*>(const_cast<void*>(ptrs[6])),
+    *dv = static_cast<E*>(const_cast<void*>(ptrs[7]));
   const int G = H / Kh;
   const float scale = 1.0f / sqrtf((float)dh);
-  const int n_tiles = (S + kTile - 1) / kTile;
-  kdq<<<dim3(n_tiles, H, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), static_cast<T*>(dq), lse, delta, S, G,
-      dh, st[0], st[1], st[2], st[3], st[4], st[5], causal, scale);
+  kdq<<<dim3((S + kRows - 1) / kRows, H, B), C::kThreads, C::dq_smem(),
+        stream>>>(q, k, v, o, dout, lse, dq, delta, S, G, dh, st[0], st[1],
+                  st[2], st[3], st[4], st[5], causal, scale, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  kdkdv<<<dim3(n_tiles, Kh, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), S, G, dh, st[0], st[1],
-      st[2], st[4], st[6], st[7], causal, scale);
+  kdkdv<<<dim3((S + C::KR - 1) / C::KR, Kh, B), C::kThreads,
+          C::dkdv_smem(),
+          stream>>>(q, k, v, dout, lse, delta, dk, dv, S, G, dh, st[0],
+                    st[1], st[2], st[4], st[6], st[7], causal, scale, vec);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_dh(const void* q, const void* k, const void* v, const void* o,
-              const void* dout, void* dq, void* dk, void* dv, float* lse,
-              float* delta, int B, int S, int H, int Kh, int dh,
-              const Strides* st, int causal, cudaStream_t stream) {
-  if (dh <= 64)
-    return launch<T, 1>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, S, H,
-                        Kh, dh, st, causal, stream);
-  if (dh <= 128)
-    return launch<T, 2>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, S, H,
-                        Kh, dh, st, causal, stream);
-  return launch<T, 4>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, S, H, Kh,
-                      dh, st, causal, stream);
+// The instance width for head_dim dh.
+int width(int dh) {
+  return dh <= 32 ? 32 : dh <= 64 ? 64 : dh <= 128 ? 128 : 256;
+}
+
+template <class Op>
+int launch_dh(const void* const* ptrs, float* lse, float* delta, int B,
+              int S, int H, int Kh, int dh, const Strides* st, int causal,
+              cudaStream_t s) {
+  switch (width(dh)) {
+    case 32:
+      return launch<Op, 32>(ptrs, lse, delta, B, S, H, Kh, dh, st, causal, s);
+    case 64:
+      return launch<Op, 64>(ptrs, lse, delta, B, S, H, Kh, dh, st, causal, s);
+    case 128:
+      return launch<Op, 128>(ptrs, lse, delta, B, S, H, Kh, dh, st, causal,
+                             s);
+    default:
+      return launch<Op, 256>(ptrs, lse, delta, B, S, H, Kh, dh, st, causal,
+                             s);
+  }
+}
+
+template <class Op>
+size_t smem_of(int dh, int kernel) {
+  switch (width(dh)) {
+    case 32:
+      return kernel ? Cfg<Op, 32>::dkdv_smem() : Cfg<Op, 32>::dq_smem();
+    case 64:
+      return kernel ? Cfg<Op, 64>::dkdv_smem() : Cfg<Op, 64>::dq_smem();
+    case 128:
+      return kernel ? Cfg<Op, 128>::dkdv_smem() : Cfg<Op, 128>::dq_smem();
+    default:
+      return kernel ? Cfg<Op, 256>::dkdv_smem() : Cfg<Op, 256>::dq_smem();
+  }
 }
 
 }  // namespace
 
 // Strides are in elements, (batch, sequence, head) for q, k, v, o, dO,
 // dq, dk and dv in that order (24 values); the head_dim axis of every
-// tensor is contiguous and dh is a multiple of 4. lse and delta are f32
-// scratch of B * H * S values each, written by the first kernel and
-// read by the second. Returns the CUDA error code of the launches.
+// tensor is contiguous and dh is a multiple of 4. lse is the forward's
+// log-sum-exp (f32, B * H * S contiguous); delta is f32 scratch of
+// B * H * S values, written by the first kernel and read by the second.
+// dtype DTYPE_BF16 runs the bf16 instance, DTYPE_F32 the 3xTF32 one.
+// Returns the CUDA error code of the launches.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, void* dq, void* dk, void* dv, void* lse, void* delta,
-    int B, int S, int H, int Kh, int dh, const long long* strides,
-    int causal, int dtype, void* stream) {
+    const void* dout, const void* lse, void* dq, void* dk, void* dv,
+    void* delta, int B, int S, int H, int Kh, int dh,
+    const long long* strides, int causal, int dtype, void* stream) {
   if (B < 1 || S < 1 || H < 1 || Kh < 1 || H % Kh || dh < 4 || dh > 256 ||
       dh % 4 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   Strides st[8];
   for (int i = 0; i < 8; ++i)
     st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  const void* ptrs[8] = {q, k, v, o, dout, dq, dk, dv};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
+  float* l = static_cast<float*>(const_cast<void*>(lse));
   float* dl = static_cast<float*>(delta);
   if (dtype == DTYPE_F32)
-    return launch_dh<float>(q, k, v, o, dout, dq, dk, dv, l, dl, B, S, H,
-                            Kh, dh, st, causal, s);
+    return launch_dh<Tf32x3Ops>(ptrs, l, dl, B, S, H, Kh, dh, st, causal, s);
   if (dtype == DTYPE_BF16)
-    return launch_dh<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, l, dl, B,
-                                    S, H, Kh, dh, st, causal, s);
+    return launch_dh<Bf16Ops>(ptrs, l, dl, B, S, H, Kh, dh, st, causal, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of the instance for (dh, dtype), in bytes:
+// kernel 0 the dq kernel, 1 the dk/dv kernel.
+extern "C" int flash_attention_bwd_smem_bytes(int dh, int dtype,
+                                              int kernel) {
+  return (int)(dtype == DTYPE_F32 ? smem_of<Tf32x3Ops>(dh, kernel)
+                                  : smem_of<Bf16Ops>(dh, kernel));
 }

@@ -1,6 +1,7 @@
-// Tensor-core building blocks shared by the port's bf16 kernels (sgmv,
-// flash_attention): 16-byte cp.async with zero fill, ldmatrix and the
-// m16n8k16 bf16 -> f32 mma.sync, as inline PTX for sm_90a.
+// Tensor-core building blocks shared by the port's kernels (sgmv,
+// flash_attention and its backward): cp.async with zero fill, ldmatrix,
+// the m16n8k16 bf16 -> f32 and m16n8k8 tf32 -> f32 mma.sync, as inline
+// PTX for sm_90a.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16), for lane l with
 // g = l / 4 and c = 2 * (l % 4):
@@ -12,6 +13,17 @@
 // k) index in the low half. The C fragments of two neighbouring n-tiles
 // are exactly the A fragment of one 16-wide k step, which is how a
 // score tile becomes the left operand of the next product in registers.
+//
+// Fragment layouts (PTX ISA, mma.m16n8k8 with .tf32), one value a
+// register, t = l % 4:
+//   A (16 x 8, row-major): a0 (g, t), a1 (g+8, t), a2 (g, t+4),
+//                          a3 (g+8, t+4)
+//   B (8 x 8, K x N):      b0 (k t, n g), b1 (k t+4, n g)
+//   C as for m16n8k16.
+// The C fragment of one n-tile holds columns 2t, 2t+1 where A wants t,
+// t+4: with k permuted so that A's k t is column 2t and its k t+4 is
+// column 2t+1, (c0, c2, c1, c3) is the A fragment of one 8-wide k step,
+// and the B fragment takes rows 2t and 2t+1 (b0, b1) of the same step.
 //
 // Shared-memory tiles are row-major with a row stride of (16 k + 8)
 // bf16 values for some k: an odd number of 16-byte units, so the eight
@@ -42,6 +54,15 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Copy 4 bytes global -> shared asynchronously, or 4 zero bytes when
+// src_bytes is 0.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
 }
 
 // 16 bytes global -> shared by cp.async, or 16 zero bytes when !valid
@@ -125,6 +146,41 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a · b, tf32 operands (f32 bit patterns with the low 13 mantissa
+// bits zero), f32 accumulator.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x as hi + lo for 3xTF32: hi = x with its low 13 mantissa bits
+// cleared (a tf32 value), lo = x - hi (exact in f32). The tf32 mma reads
+// the top 19 bits of a register, so lo enters truncated to tf32 as
+// well: hi + lo keeps about 21 of f32's 24 significant bits, and hi·hi
+// + hi·lo + lo·hi is an f32 product to about 2^-20 relative. One AND
+// and one FADD a value, where cvt.rna.tf32.f32 would take the
+// conversion unit twice.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// Two f32 values as bf16 pairs hi = bf16(x) and lo = bf16(x - hi), x0
+// in the low halves: hi + lo keeps about 16 significant bits.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h2 = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h2);
+  hi = *reinterpret_cast<const uint32_t*>(&h2);
+  const __nv_bfloat162 l2 = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  lo = *reinterpret_cast<const uint32_t*>(&l2);
 }
 
 // 2^x in one MUFU.EX2 (relative error about 2^-22; results below the

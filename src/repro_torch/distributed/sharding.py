@@ -544,8 +544,9 @@ def mesh_unsupported(cfg: ModelConfig, model_size: int) -> list[str]:
     out = []
     if cfg.family != Family.DENSE:
         out.append(f"model family {cfg.family.name} on a mesh"
-                   + (" (the expert-parallel MoE block, "
-                      "models/moe_shard_map.py, is not ported yet)"
+                   + (" (the MoE step functions on MeshParams, experts "
+                      "over \"data\" under exact_reductions=True, are "
+                      "not ported yet)"
                       if cfg.family == Family.MOE else ""))
         return out
     for name, n in (("n_heads", cfg.n_heads),

@@ -39,16 +39,19 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
-# Kernel instances of sgmv and flash_attention, chosen by dtype and shape.
+# Kernel instances of sgmv and flash_attention, chosen by dtype and shape;
+# the flash backward's f32 instance runs each f32 product as three TF32
+# tensor-core products.
 TENSOR_CORES = "tensor_cores"
 CUDA_CORES = "cuda_cores"
+TF32X3 = "tf32x3"
 
 
 class KernelStats:
     """Per-kernel counters: ``launches`` counts CUDA launches (added to
     only right after a successful launch), ``instances`` the same per
-    kernel instance (sgmv and flash_attention have two, the other
-    kernels one), ``plain`` counts calls the wrapper served with its
+    kernel instance (sgmv, flash_attention and its backward have two,
+    the other kernels one), ``plain`` counts calls the wrapper served with its
     plain PyTorch version (CPU tensors)."""
 
     def __init__(self) -> None:

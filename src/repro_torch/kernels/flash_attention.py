@@ -34,17 +34,25 @@ dtype and head_dim alone:
 plain PyTorch: the port's ``gqa_attention``, which the JAX package's
 oracle also is; the wrapper uses it only for CPU tensors.
 
+Both instances can also return each query row's log-sum-exp of the
+scaled, masked scores (``return_lse=True``; f32, (B, H, S)), which the
+backward reads instead of rebuilding it; ``flash_attention_lse_plain``
+is its plain version (``torch.logsumexp``).
+
 The gradient (new in the port: the JAX package trains through einsum
 attention, which XLA differentiates, so no Pallas kernel has one):
-``flash_attention_bwd`` launches ``csrc/flash_attention_bwd.cu`` (f32
-arithmetic on CUDA cores for f32 and bf16; a dq kernel that rebuilds
-each row's log-sum-exp and D = rowsum(dO * o), then a dk/dv kernel
-that sums the GQA group inside its block), counted in ``BWD_STATS``;
-``flash_attention_bwd_plain`` is autograd through
-``flash_attention_plain``. ``FlashAttentionFn`` is the
+``flash_attention_bwd`` launches ``csrc/flash_attention_bwd.cu`` on
+tensor cores (``flash_bwd_instance``: ``tensor_cores``, bf16 mma.sync,
+for bf16; ``tf32x3``, three TF32 products an f32 product, for f32): a
+dq kernel that walks the key tiles once with P from the forward's
+log-sum-exp and writes D = rowsum(dO * o), then a dk/dv kernel that
+holds its K/V rows for the whole walk and sums the GQA group inside its
+block, counted in ``BWD_STATS``; ``flash_attention_bwd_plain`` is
+autograd through ``flash_attention_plain``. ``FlashAttentionFn`` is the
 ``torch.autograd.Function`` that ties the two kernels together: its
-forward launches the forward kernel and saves q, k, v and the output,
-its backward launches the backward kernel (no second forward).
+forward launches the forward kernel with ``return_lse=True`` and saves
+q, k, v, the output and the log-sum-exp, its backward launches the
+backward kernel on them (no second forward).
 """
 from __future__ import annotations
 
@@ -54,8 +62,8 @@ import torch
 
 from repro_torch.models.layers import gqa_attention
 
-from .build import (CUDA_CORES, TENSOR_CORES, KernelStats, check_launch,
-                    dtype_code, library, stream_handle)
+from .build import (CUDA_CORES, TENSOR_CORES, TF32X3, KernelStats,
+                    check_launch, dtype_code, library, stream_handle)
 
 MAX_DH = 256
 STATS = KernelStats()
@@ -63,7 +71,7 @@ BWD_STATS = KernelStats()
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
-             + [ctypes.c_void_p])
+             + [ctypes.c_void_p] * 2)
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                  + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 2
                  + [ctypes.c_void_p])
@@ -81,6 +89,14 @@ def flash_instance(dtype: torch.dtype, dh: int) -> str:
     return CUDA_CORES
 
 
+def flash_bwd_instance(dtype: torch.dtype, dh: int) -> str:
+    """The backward kernel's instance: ``tensor_cores`` (bf16 mma.sync)
+    for bf16, ``tf32x3`` for f32, any dh the forward takes. Raises for a
+    dh it cannot take."""
+    flash_instance(dtype, dh)
+    return TENSOR_CORES if dtype == torch.bfloat16 else TF32X3
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, causal: bool = True
                           ) -> torch.Tensor:
@@ -88,6 +104,22 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     attention (``layers.gqa_attention``), exact softmax per row with the
     probabilities cast to v's dtype, query-chunked from 2048 rows."""
     return gqa_attention(q, k, v, causal=causal)
+
+
+def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor,
+                              causal: bool = True) -> torch.Tensor:
+    """The log-sum-exp the kernel returns with ``return_lse=True``, in
+    plain PyTorch: per (b, h, query row), ``torch.logsumexp`` of the
+    scores q·k / sqrt(dh) in f32, keys after the row masked when causal.
+    -> (B, H, S) f32."""
+    B, S, H, dh = q.shape
+    Kh = k.shape[2]
+    qg = q.float().reshape(B, S, Kh, H // Kh, dh)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * dh ** -0.5
+    if causal:
+        s = s.masked_fill(torch.ones(S, S, dtype=torch.bool, device=q.device)
+                          .triu(1), float("-inf"))
+    return torch.logsumexp(s, -1).reshape(B, H, S)
 
 
 def _check(q, k, v):
@@ -112,19 +144,23 @@ def _check(q, k, v):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, *, return_lse: bool = False):
     """q: (B, S, H, dh); k/v: (B, S, Kh, dh) with H a multiple of Kh
-    -> (B, S, H, dh) in q's dtype.
+    -> (B, S, H, dh) in q's dtype, and with ``return_lse`` also each
+    query row's log-sum-exp (B, H, S) f32, as (out, lse).
 
     CUDA tensors launch the kernel instance ``flash_instance`` names
     (any S, dh <= 256 a multiple of 4, q/k/v of one dtype, f32 or bf16;
     strided views are read in place as long as the head_dim axis is
-    contiguous); CPU tensors take ``flash_attention_plain``.
+    contiguous); CPU tensors take ``flash_attention_plain`` (and
+    ``flash_attention_lse_plain``).
     """
     _check(q, k, v)
     if q.device.type == "cpu":
         STATS.plain += 1
-        return flash_attention_plain(q, k, v, causal)
+        out = flash_attention_plain(q, k, v, causal)
+        return (out, flash_attention_lse_plain(q, k, causal)) if return_lse \
+            else out
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
@@ -134,17 +170,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     code = dtype_code(q, "q/k/v")
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     out = torch.empty((B, S, H, dh), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if B == 0 or S == 0:
-        return out
+        return (out, lse) if return_lse else out
     lib = library("flash_attention", _ARGTYPES)
     strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
         Kh, dh, *strides, int(causal), code, int(inst == TENSOR_CORES),
-        stream_handle(q.device))
+        lse.data_ptr() if return_lse else None, stream_handle(q.device))
     check_launch("flash_attention", err)
     STATS.launched(inst)
-    return out
+    return (out, lse) if return_lse else out
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -162,14 +200,20 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, dout: torch.Tensor,
-                        causal: bool = True) -> tuple[torch.Tensor, ...]:
+                        causal: bool = True, *,
+                        lse: torch.Tensor | None = None
+                        ) -> tuple[torch.Tensor, ...]:
     """Gradient of ``flash_attention``: q, k, v as the forward took them,
     ``out`` its output and ``dout`` the output's gradient (both
-    (B, S, H, dh), q's dtype) -> (dq, dk, dv) in q's dtype.
+    (B, S, H, dh), q's dtype), ``lse`` the log-sum-exp the forward
+    returned with ``return_lse=True`` -> (dq, dk, dv) in q's dtype.
 
-    CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (the shapes the
-    forward takes; strided views read in place when head_dim is
-    contiguous); CPU tensors take ``flash_attention_bwd_plain``.
+    CUDA tensors launch ``csrc/flash_attention_bwd.cu``, instance
+    ``flash_bwd_instance`` (the shapes the forward takes; strided views
+    read in place when head_dim is contiguous); without ``lse`` one
+    forward launch with ``return_lse=True`` (counted in ``STATS``)
+    supplies it first. CPU tensors take ``flash_attention_bwd_plain``,
+    which needs no ``lse``.
     """
     _check(q, k, v)
     for name, t in (("out", out), ("dout", dout)):
@@ -178,15 +222,22 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 f"flash_attention_bwd: {name} must match q's shape, dtype "
                 f"and device {tuple(q.shape)}, {q.dtype}, {q.device}; got "
                 f"{tuple(t.shape)}, {t.dtype}, {t.device}")
+    B, S, H, dh = q.shape
+    if lse is not None and (lse.shape != (B, H, S)
+                            or lse.dtype != torch.float32
+                            or lse.device != q.device):
+        raise ValueError(
+            f"flash_attention_bwd: lse must be float32 {(B, H, S)} on "
+            f"{q.device}; got {lse.dtype} {tuple(lse.shape)} on "
+            f"{lse.device}")
     if q.device.type == "cpu":
         BWD_STATS.plain += 1
         return flash_attention_bwd_plain(q, k, v, out, dout, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on cuda or cpu, not "
                          f"{q.device}")
-    B, S, H, dh = q.shape
     Kh = k.shape[2]
-    flash_instance(q.dtype, dh)            # raises for a dh it cannot take
+    inst = flash_bwd_instance(q.dtype, dh)  # raises for a dh it cannot take
     code = dtype_code(q, "q/k/v")
     q, k, v, out, dout = (t if t.stride(-1) == 1 else t.contiguous()
                           for t in (q, k, v, out, dout))
@@ -195,7 +246,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     if B == 0 or S == 0:
         return dq, dk, dv
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    if lse is None:
+        _, lse = flash_attention(q, k, v, causal, return_lse=True)
+    lse = lse.contiguous()
     delta = torch.empty_like(lse)
     strides = (ctypes.c_longlong * 24)(*(
         st for t in (q, k, v, out, dout, dq, dk, dv)
@@ -203,29 +256,30 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = library("flash_attention_bwd", _BWD_ARGTYPES)
     err = lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), B, S, H, Kh, dh, strides,
+        dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), delta.data_ptr(), B, S, H, Kh, dh, strides,
         int(causal), code, stream_handle(q.device))
     check_launch("flash_attention_bwd", err)
-    BWD_STATS.launched(CUDA_CORES)
+    BWD_STATS.launched(inst)
     return dq, dk, dv
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """``flash_attention`` with the backward kernel as its gradient: the
-    forward launches the forward kernel and saves q, k, v and the
-    output; the backward launches ``flash_attention_bwd`` on them."""
+    forward launches the forward kernel with ``return_lse=True`` and
+    saves q, k, v, the output and the log-sum-exp; the backward launches
+    ``flash_attention_bwd`` on them."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool):
-        out = flash_attention(q, k, v, causal)
+        out, lse = flash_attention(q, k, v, causal, return_lse=True)
         ctx.causal = causal
-        ctx.save_for_backward(q, k, v, out)
+        ctx.save_for_backward(q, k, v, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.to(out.dtype),
-                                         ctx.causal)
+                                         ctx.causal, lse=lse)
         return dq, dk, dv, None

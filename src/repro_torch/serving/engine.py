@@ -62,8 +62,9 @@ Not ported yet (each raises ``NotImplementedError`` at construction,
 naming the knob): the VLM, SSM, hybrid and enc-dec families (the
 reference engine cannot serve VLM either: it threads no M-RoPE
 positions), ``spec_decode=True`` on an MoE model, and an MoE model on
-a mesh (its expert-parallel block, ``models/moe_shard_map.py``, comes
-with the next slice).
+a mesh: the MoE step functions on ``MeshParams``, with the experts
+split over "data" as the reference engine runs ``moe_block`` under
+``exact_reductions=True``, are not ported yet.
 """
 from __future__ import annotations
 
@@ -150,8 +151,9 @@ def _unsupported(cfg: ModelConfig, e: EngineConfig) -> list[str]:
     out = []
     if e.mesh_shape is not None and cfg.family == Family.MOE:
         out.append(f"mesh_shape={tuple(e.mesh_shape)} on model family MOE "
-                   f"(the expert-parallel MoE block, "
-                   f"models/moe_shard_map.py, is not ported yet)")
+                   f"(the MoE step functions on MeshParams, experts over "
+                   f"\"data\" under exact_reductions=True, are not "
+                   f"ported yet)")
     elif e.mesh_shape is not None and cfg.family == Family.DENSE:
         out += [f"mesh_shape={tuple(e.mesh_shape)}: {why}"
                 for why in mesh_unsupported(cfg, e.mesh_shape[1])]

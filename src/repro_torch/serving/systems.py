@@ -2,8 +2,10 @@
 
 Port of ``src/repro/serving/systems.py``: the same system matrix and
 the same tiers, with PyTorch engines on the real-engine tiers (on the
-card unless ``device=`` names another device). Only ``mesh_shape``
-raises ``NotImplementedError``: device meshes are not ported yet.
+card unless ``device=`` names another device). ``mesh_shape`` is
+threaded to every real-engine tier (``engine``, ``cluster``,
+``disagg``) through ``EngineConfig.mesh_shape``; the sim tiers reject
+it.
 
 Names match the paper's evaluation:
 

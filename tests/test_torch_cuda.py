@@ -51,7 +51,12 @@ grad. The flash_attention backward kernel is held to its plain version
 (autograd through ``flash_attention_plain`` on the same values in f32)
 over ragged S, GQA, dh 4 to 256, causal and full: 1e-4 in f32; in bf16
 one ulp of the gradient plus what the bf16 rounding of the forward's
-output moves D = rowsum(dO * out) by (``flash_bwd_tol``). Attention
+output moves D = rowsum(dO * out) by (``flash_bwd_tol``, shared with
+``tests/test_torch_flash_bwd.py`` through ``tests/_port_flash.py``);
+each case asserts the instance that launched (``tensor_cores`` for bf16,
+``tf32x3`` for f32) and that a second call gives the same bits. The
+forward's log-sum-exp (``return_lse=True``) is held to
+``flash_attention_lse_plain`` within 1e-5 in both instances. Attention
 under grad on the card runs one forward and one backward launch, and
 two train steps of one reduced config a family give the CPU port's
 loss, grad norm, params and moments (``tests/_port_training.py``).
@@ -64,6 +69,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from _paged_split import paged_attention_split  # noqa: E402
+from _port_flash import flash_bwd_tol  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -1041,38 +1047,25 @@ def test_kernel_wrappers_refuse_grad_on_the_card(card):
     assert torch.isfinite(q.grad).all()
 
 
-def flash_bwd_tol(q, k, v, out, dout, causal, want):
-    """Per-gradient bound |got - want| may reach, ``want`` the plain
-    backward on the same values in f32: 1e-4 + 1e-4 |want| in f32; in
-    bf16 one ulp of the gradient (2**-7 |want| + 1e-4) plus what the
-    bf16 rounding of ``out`` moves D = rowsum(dO * out) by, carried
-    into dq (scale * r * sum_j P |k_j|) and dk (scale * P^T (r |q|)),
-    r = sum_d |dO| |out - out32| per query row."""
-    if q.dtype == torch.float32:
-        return [1e-4 + 1e-4 * w.abs() for w in want]
-    q32, k32, v32, do32 = (t.float() for t in (q, k, v, dout))
-    scale = q.shape[-1] ** -0.5
-    o32 = fa_mod.flash_attention_plain(q32, k32, v32, causal)
-    r = (do32.abs() * (out.float() - o32).abs()).sum(-1, keepdim=True)
-    extra_dq = scale * r * fa_mod.flash_attention_plain(
-        q32, k32, k32.abs(), causal)
-    _, _, extra_dk = fa_mod.flash_attention_bwd_plain(
-        q32, k32, v32, o32, r * q32.abs(), causal)
-    extra = [extra_dq, scale * extra_dk, 0.0]
-    return [1e-4 + 2 ** -7 * w.abs() + e for w, e in zip(want, extra)]
-
-
 def check_flash_bwd(q, k, v, causal):
-    """The backward kernel on (q, k, v, their forward's output, a random
-    dO) against the plain version on the same values in f32, within
-    ``flash_bwd_tol``; one launch, no plain call."""
+    """The backward kernel on (q, k, v, their forward's output and
+    log-sum-exp, a random dO) against the plain version on the same
+    values in f32, within ``flash_bwd_tol``; one launch of the instance
+    ``flash_bwd_instance`` names, no plain call, and a second call
+    returns the same bits (no atomics)."""
     gen = torch.Generator().manual_seed(q.shape[1] + 3)
-    out = fa_mod.flash_attention(q, k, v, causal)
+    out, lse = fa_mod.flash_attention(q, k, v, causal, return_lse=True)
     dout = randn(gen, q.shape, q.dtype, q.device)
     fa_mod.BWD_STATS.reset()
-    got = fa_mod.flash_attention_bwd(q, k, v, out, dout, causal)
+    got = fa_mod.flash_attention_bwd(q, k, v, out, dout, causal, lse=lse)
     torch.cuda.synchronize()
-    assert (fa_mod.BWD_STATS.launches, fa_mod.BWD_STATS.plain) == (1, 0)
+    inst = fa_mod.flash_bwd_instance(q.dtype, q.shape[-1])
+    assert inst == ("tf32x3" if q.dtype == torch.float32 else "tensor_cores")
+    assert fa_mod.BWD_STATS.instances == {inst: 1}
+    assert fa_mod.BWD_STATS.plain == 0
+    again = fa_mod.flash_attention_bwd(q, k, v, out, dout, causal, lse=lse)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
     want = fa_mod.flash_attention_bwd_plain(
         *(t.float() for t in (q, k, v, out, dout)), causal)
     for name, g, w, t, bound in zip(
@@ -1112,6 +1105,58 @@ def test_flash_attention_bwd_at_the_training_shapes(card, B, S, H, Kh, dh,
     k = randn(gen, (B, S, Kh, dh), DT[dt], card)
     v = randn(gen, (B, S, Kh, dh), DT[dt], card)
     check_flash_bwd(q, k, v, causal)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("dh", [8, 64, 128, 256])
+@pytest.mark.parametrize("S", [21, 37])
+def test_flash_attention_bwd_ragged_gqa(card, S, dh, G, causal, dt):
+    """Ragged S, every instance width (dh 8 zero-padded to 32; 256 with
+    its 32-row dk/dv blocks and, in f32, 16-key dq tiles) and GQA groups
+    up to 8 summed inside the dk/dv block."""
+    gen = torch.Generator().manual_seed(S * 31 + dh + G)
+    q = randn(gen, (2, S, 2 * G, dh), DT[dt], card)
+    k = randn(gen, (2, S, 2, dh), DT[dt], card)
+    v = randn(gen, (2, S, 2, dh), DT[dt], card)
+    check_flash_bwd(q, k, v, causal)
+
+
+def test_flash_attention_bwd_without_lse_runs_the_forward(card):
+    """Given no log-sum-exp, the wrapper takes it from one forward
+    launch (counted in ``STATS``): same bits as with the forward's."""
+    gen = torch.Generator().manual_seed(8)
+    q, k, v, dout = (randn(gen, (2, 50, h, 64), torch.float32, card)
+                     for h in (4, 2, 2, 4))
+    out, lse = fa_mod.flash_attention(q, k, v, return_lse=True)
+    want = fa_mod.flash_attention_bwd(q, k, v, out, dout, lse=lse)
+    fa_mod.STATS.reset()
+    fa_mod.BWD_STATS.reset()
+    got = fa_mod.flash_attention_bwd(q, k, v, out, dout)
+    torch.cuda.synchronize()
+    assert (fa_mod.STATS.launches, fa_mod.BWD_STATS.launches) == (1, 1)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh", [36, 64, 128])
+def test_flash_attention_forward_lse_matches_plain(card, dh, causal, dt):
+    """Both forward instances' log-sum-exp against
+    ``flash_attention_lse_plain`` on the same values (1e-5 abs+rel; the
+    scores and sums are f32 on both sides), and the output is the same
+    bits with and without it."""
+    gen = torch.Generator().manual_seed(dh + 5)
+    q, k, v = (randn(gen, (2, 77, h, dh), DT[dt], card) for h in (8, 2, 2))
+    fa_mod.STATS.reset()
+    out, lse = fa_mod.flash_attention(q, k, v, causal, return_lse=True)
+    torch.cuda.synchronize()
+    assert fa_mod.STATS.instances == {fa_mod.flash_instance(DT[dt], dh): 1}
+    assert torch.equal(out, fa_mod.flash_attention(q, k, v, causal))
+    want = fa_mod.flash_attention_lse_plain(q, k, causal)
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
 
 
 def test_flash_attention_bwd_reads_strided_views(card):

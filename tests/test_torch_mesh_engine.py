@@ -399,7 +399,8 @@ def test_moe_on_a_mesh_raises_naming_the_missing_piece():
     from repro_torch.serving.engine import ChameleonEngine, EngineConfig
     cfg = get_config("qwen3-moe-235b-a22b").reduced()
     params = lm.init_params(cfg, 0, torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="moe_shard_map"):
+    with pytest.raises(NotImplementedError,
+                       match="MoE step functions on MeshParams"):
         ChameleonEngine(cfg, params, EngineConfig(n_adapters=2,
                                                   mesh_shape=(1, 2)),
                         device="cpu")
