@@ -24,10 +24,27 @@ every gather is a copy between cards. Two phases, one JSON line each:
    a step, decode tokens/s, peak memory of each card, the shard gauges
    (gathers a dispatch, gather time share), kernel launches, and greedy
    and first-token agreement with ``EngineConfig()``.
+3. ``mesh_moe_parity`` — reduced ``qwen3-moe-235b-a22b`` and
+   ``llama4-maverick-400b-a17b`` in f32 (kernel LoRA), the mixed trace
+   fused and seed loop, served at (2, 1), (4, 1) and (2, 2) (experts
+   over "data": each card runs its own experts) and by
+   ``EngineConfig()`` on ``cuda:0``: tokens and prefill drops over
+   capacity must be identical.
+4. ``mesh_moe_a2a`` — one MoE layer of qwen3-moe at its published
+   widths over (8, 256) tokens through ``moe_block_a2a`` at (4, 1),
+   buckets copied between the cards, against ``moe_block`` on each
+   batch shard on ``cuda:0``; timed.
+5. ``mesh_moe_engine`` — qwen3-moe at its published widths cut to 8
+   layers (``chip_smoke.MOE_LAYERS``, seeded bf16 weights on
+   ``cuda:0``), the phase-4 trace after its warm-up served by
+   ``EngineConfig()`` and by mesh engines at (4, 1) and (1, 4): host ms
+   a step, decode tokens/s, peak memory of each card, gathers a
+   dispatch, launches, greedy agreement with ``EngineConfig()``.
 
-Then the ``nvidia-smi`` name and power limit of each card. Exits
-non-zero with fewer than 4 cards or when a check fails; imports nothing
-of JAX.
+``--phases`` picks phases by name (``parity``, ``full``, ``moe_parity``,
+``moe_a2a``, ``moe_full``; all by default). Then the ``nvidia-smi`` name
+and power limit of each card. Exits non-zero with fewer than 4 cards or
+when a check fails; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -37,8 +54,9 @@ import subprocess
 import sys
 import time
 
-from chip_smoke import (KERNELS, PhaseError, check, emit, greedy_agreement,
-                        greedy_requests, make_trace, phase_device, warm_up)
+from chip_smoke import (KERNELS, MIB, MOE_LAYERS, MOE_PATH, PhaseError,
+                        check, emit, greedy_agreement, greedy_requests,
+                        make_trace, median_ms, phase_device, warm_up)
 
 N_CARDS = 4
 #: The reduced model has 2 KV heads, so its model axis stops at 2.
@@ -48,6 +66,10 @@ PARITY_CASES = {"fused_paged": dict(paged=True),
                 "seed": dict(fused_hotloop=False),
                 "prefix_off": dict(prefix_cache=False)}
 FULL_MESHES = (None, (1, 1), (1, 2), (2, 2), (1, 4))
+MOE_CONFIGS = ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b")
+#: The reduced MoE configs have 8 experts: up to 4 data shards.
+MOE_PARITY_MESHES = ((2, 1), (4, 1), (2, 2))
+MOE_FULL_MESHES = (None, (4, 1), (1, 4))
 
 
 def serve_clocked(eng, requests) -> tuple:
@@ -186,6 +208,195 @@ def phase_full() -> None:
         torch.cuda.empty_cache()
 
 
+def phase_moe_parity() -> None:
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api, moe
+    from repro_torch.serving.engine import AdapterCatalog, EngineConfig
+    from repro_torch.serving.systems import build_engine
+    base = dict(max_slots=4, max_len=128, n_lora_slots=4, n_adapters=8,
+                lora_backend="kernel")
+    for name in MOE_CONFIGS:
+        cfg = get_config(name).reduced()
+        params = api.init_params(cfg, 0, torch.float32)
+        catalog = AdapterCatalog(cfg, 8, 32, seed=0)
+        for case, knobs in (("fused", {}),
+                            ("seed", dict(fused_hotloop=False))):
+            outs, drops = {}, {}
+            for shape in (None,) + MOE_PARITY_MESHES:
+                eng = build_engine("chameleon", cfg, params,
+                                   EngineConfig(**base, **knobs,
+                                                mesh_shape=shape),
+                                   catalog=catalog, clock=StepClock())
+                moe.STATS.reset()
+                hs, _, _ = serve_clocked(eng, mixed_trace(cfg.vocab_size))
+                outs[shape] = [h.tokens for h in hs]
+                drops[shape] = moe.STATS.dropped
+                if shape is not None:
+                    devs = {str(b["device"]) for b in eng.params.experts}
+                    check(len(devs) == shape[0],
+                          f"mesh_moe_parity {shape}: experts on {devs}")
+                del eng, hs
+            line = dict(phase="mesh_moe_parity", model=cfg.name,
+                        weights="f32", case=case,
+                        identical={f"{s[0]}x{s[1]}": outs[s] == outs[None]
+                                   for s in MOE_PARITY_MESHES},
+                        dropped={("none" if s is None else
+                                  f"{s[0]}x{s[1]}"): d
+                                 for s, d in drops.items()})
+            line["ok"] = (all(line["identical"].values())
+                          and len(set(drops.values())) == 1)
+            emit(line)
+            check(line["ok"], f"mesh_moe_parity {name} {case}: tokens or "
+                              f"drops differ: {line}")
+
+
+def moe_full_config():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("qwen3-moe-235b-a22b"),
+                               n_layers=MOE_LAYERS)
+
+
+def phase_moe_a2a() -> None:
+    """One MoE layer over (8, 256) tokens through ``moe_block_a2a`` at
+    (4, 1) over the 4 cards against ``moe_block`` on each batch shard
+    on ``cuda:0`` (within a few bf16 ulps of the largest output)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.moe import moe_block
+    from repro_torch.models.moe_shard_map import moe_block_a2a
+    cfg = moe_full_config()
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(99)
+    E, D, Fe = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
+
+    def w(*shape):
+        return (torch.randn(shape, generator=g, device=dev)
+                * shape[-2] ** -0.5).to(torch.bfloat16)
+    rw, wg, wu, wd = w(D, E), w(E, D, Fe), w(E, D, Fe), w(E, Fe, D)
+    x = torch.randn((8, 256, D), generator=g, device=dev).to(torch.bfloat16)
+    K, cf = cfg.top_k, cfg.capacity_factor
+    n = N_CARDS
+    grid = np.empty(n, dtype=object)
+    grid[:] = [torch.device("cuda", i) for i in range(n)]
+    mesh = Mesh(grid.reshape(n, 1), ("data", "model"))
+    blocks = [[t.to(f"cuda:{i}") for i, t in enumerate(b.chunk(n))]
+              for b in (wg, wu, wd)]
+    routers = [rw.to(f"cuda:{i}") for i in range(n)]
+    scratch = torch.empty(64 * MIB, dtype=torch.uint8, device=dev)
+
+    def a2a():
+        return moe_block_a2a(x, routers, *blocks, K, cf, mesh)[0]
+
+    def per_shard():
+        return torch.cat([moe_block(xs, rw, wg, wu, wd, K, cf)[0]
+                          for xs in x.chunk(n)])
+
+    def sync_all():
+        for i in range(n):
+            torch.cuda.synchronize(i)
+
+    def timed(fn):
+        fn()
+        sync_all()
+        ts = []
+        for _ in range(5):
+            scratch.zero_()
+            sync_all()
+            t0 = time.perf_counter()
+            fn()
+            sync_all()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return sorted(ts)[len(ts) // 2]
+    got, want = a2a(), per_shard()
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    line = dict(phase="mesh_moe_a2a", model=cfg.name, mesh_shape=[n, 1],
+                devices=[str(d) for d in grid], tokens=[8, 256],
+                max_abs_err=err, max_abs_want=scale, tol=2 ** -6 * scale,
+                host_ms=timed(a2a), per_shard_moe_block_host_ms=timed(
+                    per_shard),
+                per_shard_moe_block_device_ms=median_ms(
+                    per_shard, scratch.zero_, 1, 5))
+    emit(line)
+    check(bool(torch.isfinite(got).all()) and err <= line["tol"],
+          f"mesh_moe_a2a: off the per-shard moe_block: {line}")
+
+
+def phase_moe_full() -> None:
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ops import COLLECTIVE_METER
+    from repro_torch.models import api, moe
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.systems import build_engine
+    stats = {n: importlib.import_module(f"repro_torch.kernels.{n}").STATS
+             for n in KERNELS}
+    cfg = moe_full_config()
+    vocab = get_config("chameleon-llama-7b").vocab_size
+    greedy = greedy_requests(get_config("chameleon-llama-7b"))
+    params = api.init_params(cfg, seed=0, dtype=torch.bfloat16)
+    outs = {}
+    for shape in MOE_FULL_MESHES:
+        eng = build_engine("chameleon", cfg, params,
+                           EngineConfig(mesh_shape=shape),
+                           clock=StepClock())
+        warm_up(eng, vocab)
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.reset_peak_memory_stats(i)
+        for st in stats.values():
+            st.reset()
+        COLLECTIVE_METER.reset()
+        moe.STATS.reset()
+        trace = make_trace(vocab)
+        hs, steps, wall = serve_clocked(eng, trace)
+        toks = [h.tokens for h in hs]
+        n_tok = sum(len(t) for t in toks)
+        name = "none" if shape is None else f"{shape[0]}x{shape[1]}"
+        outs[name] = toks
+        check(all(len(t) == r.output_len for t, (r, _) in zip(toks, trace))
+              and all(0 <= x < cfg.vocab_size for t in toks for x in t),
+              f"mesh_moe_engine {name}: short output or token outside "
+              f"the vocabulary")
+        launches = {n: st.launches for n, st in stats.items()}
+        check(all(launches[n] > 0 for n in MOE_PATH)
+              and launches["paged_attention"] == 0
+              and not any(st.plain for st in stats.values()),
+              f"mesh_moe_engine {name}: a kernel never launched, "
+              f"paged_attention or a plain version ran: {launches}")
+        emit(dict(phase="mesh_moe_engine", model=cfg.name, weights="bf16",
+                  reduced=[f"n_layers 94 -> {cfg.n_layers}"],
+                  mesh_shape=None if shape is None else list(shape),
+                  steps=steps, wall_s=wall, ms_per_step=wall * 1e3 / steps,
+                  tokens=n_tok,
+                  decode_tok_per_s=(n_tok - len(toks)) / wall,
+                  peak_mem_gb_by_card=[
+                      torch.cuda.max_memory_allocated(i) / 1e9
+                      for i in range(torch.cuda.device_count())],
+                  expert_devices=(None if shape is None else
+                                  [str(b["device"])
+                                   for b in eng.params.experts]),
+                  gathers_per_dispatch=(
+                      COLLECTIVE_METER.gathers
+                      / max(COLLECTIVE_METER.dispatches, 1)),
+                  prefill_dropped=moe.STATS.dropped,
+                  shard_stats=eng.shard_stats(), launches=launches,
+                  greedy_vs_unsharded=(
+                      None if shape is None else
+                      greedy_agreement(toks, outs["none"], greedy))))
+        del eng, hs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+PHASES = {"parity": phase_parity, "full": phase_full,
+          "moe_parity": phase_moe_parity, "moe_a2a": phase_moe_a2a,
+          "moe_full": phase_moe_full}
+
+
 def main() -> int:
     try:
         import torch
@@ -198,10 +409,20 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    names = list(PHASES)
+    if "--phases" in sys.argv:
+        names = sys.argv[sys.argv.index("--phases") + 1].split(",")
+    if not set(names) <= set(PHASES):
+        print(f"chip_mesh: unknown phases {names}; known: {list(PHASES)}",
+              file=sys.stderr)
+        return 2
     try:
         phase_device()
-        phase_parity()
-        phase_full()
+        for name in names:
+            t0 = time.perf_counter()
+            PHASES[name]()
+            emit(dict(phase="phase_seconds", name=name,
+                      seconds=time.perf_counter() - t0))
     except PhaseError as exc:
         print(f"chip_mesh: FAILED: {exc}", file=sys.stderr)
         return 1

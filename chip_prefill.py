@@ -18,7 +18,10 @@ row.
 Each is the median of ``REPS`` (10) calls after two warm-up calls, from CUDA
 events around the call (its host gaps included). ``--src`` imports the
 port from another tree's ``src`` (an older checkout), so two versions
-can be compared in one run on one card: run them in turns. One JSON
+can be compared in one run on one card: run them in turns. ``--mesh
+D,M`` times the same calls with the weights, the LoRA slots and the
+pages placed by ``ShardPlan`` on a (D, M) mesh over repeated positions
+of the card (the mesh step functions; no interconnect). One JSON
 line, then the ``nvidia-smi`` name and power limit. Imports nothing of
 JAX; exits non-zero without a card.
 """
@@ -56,6 +59,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the tree whose repro_torch package is timed")
+    ap.add_argument("--mesh", default=None, metavar="D,M",
+                    help="time the calls on a (D, M) mesh over repeated "
+                         "positions of the card")
     args = ap.parse_args()
     src = Path(args.src).resolve()
     if not (src / "repro_torch").is_dir():
@@ -96,6 +102,27 @@ def main() -> int:
         rows, -1).int()
     start = torch.zeros(rows, dtype=torch.int32, device=dev)
     seq_len = torch.full((rows,), S, dtype=torch.int32, device=dev)
+    mesh_shape = None
+    if args.mesh:
+        import numpy as np
+        from repro_torch.distributed.sharding import MeshParams
+        from repro_torch.launch.mesh import Mesh
+        from repro_torch.serving.shard_plan import ShardPlan
+        mesh_shape = tuple(int(n) for n in args.mesh.split(","))
+        grid = np.empty(mesh_shape[0] * mesh_shape[1], dtype=object)
+        grid[:] = [torch.device("cuda", torch.cuda.current_device())
+                   ] * grid.size
+        mesh = Mesh(grid.reshape(mesh_shape), ("data", "model"))
+        plan = ShardPlan(mesh, cfg)
+        sh = plan.params(params)
+        params = MeshParams(cfg, {k: plan.put(v, sh[k])
+                                  for k, v in params.items()}, mesh)
+        lsh = plan.lora_slots(lora)
+        lora = {k: (plan.put(a, lsh[k][0]), plan.put(b, lsh[k][1]))
+                for k, (a, b) in lora.items()}
+        kv = tuple(plan.zeros_kv_pages(tuple(t.shape), t.dtype)
+                   for t in kv)
+        kw["lora"] = lora
     stats = {n: importlib.import_module(f"repro_torch.kernels.{n}").STATS
              for n in ("sgmv", "flash_attention")}
     with torch.no_grad():
@@ -113,6 +140,7 @@ def main() -> int:
                          text=True, timeout=60).stdout.strip()
     print(json.dumps(dict(
         src=str(src), bucket=list(BUCKET), model=cfg.name,
+        mesh_shape=mesh_shape,
         prefill_ms=dense_ms, prefill_paged_ms=paged_ms, reps=REPS,
         launches_per_prefill={
             n: getattr(st, "instances", None) or st.launches

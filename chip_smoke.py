@@ -116,7 +116,10 @@ of the JAX package. Phases, one JSON line each:
              ``ShardPlan`` on meshes (1, 1), (1, 2) and (2, 2) over
              repeated positions (``mesh_steps`` lines: (1, 1) bit-exact
              against the unsharded functions, the split meshes within
-             1e-4); bgmv, sgmv, paged_attention and flash_attention at a
+             1e-4); reduced granite-34b (MQA) at (1, 2) and (1, 4) and
+             reduced Llama at (1, 4), whose KV heads do not divide the
+             columns (same gates); bgmv, sgmv, paged_attention and
+             flash_attention at a
              2-way column's Llama-7B shapes (LoRA dout 2048, 16 heads)
              against their plain versions, timed beside their bounds
              (``kernel_time_mesh``); the same sweep at full width in
@@ -149,6 +152,25 @@ of the JAX package. Phases, one JSON line each:
              plain or einsum path run. ``engine_moe_ab`` reports greedy
              agreement between the two (not gated: bf16, and the
              capacity drops depend on which requests share a bucket).
+   mesh    — (MoE, ``phase_mesh_moe``) with the same weights loaded, the
+             experts over "data": bgmv, sgmv and flash_attention at one
+             column's shapes of a (·, 2) mesh (LoRA dout 4096 and 256,
+             32 of 64 heads over 2 KV heads; ``kernel_time_mesh_moe``);
+             the step functions (whole-prompt (8, 256) ``prefill``, one
+             ``decode_step`` and two fused horizons over the slab) at
+             (1, 1), (2, 1), (1, 2) and (2, 2) over repeated positions
+             (``mesh_moe_steps``: (1, 1) bit-exact, the split meshes'
+             prefill logits within 2**-4, first-token and greedy
+             agreement reported); one MoE layer through
+             ``moe_block_a2a`` at (2, 1) and (4, 1) against ``moe_block``
+             on each batch shard, timed (``mesh_moe_a2a``); the phase-4
+             trace through ``EngineConfig()``, ``EngineConfig(mesh_shape=
+             (1, 1))`` and ``(2, 1)`` on a step clock (``mesh_moe_engine``:
+             (1, 1) tokens identical, ms a step, peak memory, shard
+             gauges). bgmv, sgmv and flash_attention launch on tensor
+             cores; paged_attention, plain versions and the einsum LoRA
+             never run. A ``phase_mesh_moe`` line gives each part's
+             seconds.
 
 6. family  — with the MoE model freed, the families served by model
              functions only, at their published widths, bf16 weights
@@ -202,6 +224,7 @@ before the last line.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -1669,6 +1692,12 @@ MESH_SHAPES = ((1, 1), (1, 2), (2, 2))
 #: engine run bgmv, sgmv and paged_attention; the whole-prompt prefill
 #: runs flash_attention.
 MESH_PATH = ("bgmv", "sgmv", "paged_attention", "flash_attention")
+#: Reduced configs whose KV heads do not divide the model axis: MQA
+#: granite-34b (1 KV head) and Llama (2) on 4 columns. Columns that
+#: share a KV head read it whole from the pages, or from the slab's
+#: positions split over "model".
+UNEVEN_MESHES = {"granite-34b": ((1, 1), (1, 2), (1, 4)),
+                 "chameleon-llama-7b": ((1, 4),)}
 
 
 def repeated_mesh(shape, dev):
@@ -1787,8 +1816,9 @@ def mesh_steps(cfg, params, inp, shape, n_steps: int = 8) -> dict:
                 prefill_ms=prefill_ms, decode_ms_per_step=ms[1])
 
 
-def mesh_sweep(cfg, params, inp, tag: str, tol: float) -> dict:
-    """``mesh_steps`` unsharded, then at each of ``MESH_SHAPES``, then
+def mesh_sweep(cfg, params, inp, tag: str, tol: float,
+               shapes: tuple = MESH_SHAPES) -> dict:
+    """``mesh_steps`` unsharded, then at each of ``shapes``, then
     unsharded again (host times vary from run to run: both unsharded
     times are reported). (1, 1) must equal the unsharded run bit for
     bit (same shapes, same kernels); the split meshes must hold the
@@ -1804,7 +1834,7 @@ def mesh_sweep(cfg, params, inp, tag: str, tol: float) -> dict:
              for n in KERNELS}
     base = mesh_steps(cfg, params, inp, None)
     runs = {}
-    for shape in MESH_SHAPES:
+    for shape in shapes:
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1862,20 +1892,25 @@ def mesh_sweep(cfg, params, inp, tag: str, tol: float) -> dict:
     return out
 
 
-def mesh_kernel_checks(cfg, record_to: dict) -> None:
+def mesh_kernel_checks(cfg, record_to: dict,
+                       phase: str = "kernel_time_mesh",
+                       projs: tuple | None = None,
+                       paged: bool = True) -> None:
     """bgmv, sgmv, paged_attention and flash_attention at the shapes one
-    "model" column of a (·, 2) mesh gives them at Llama-7B width: LoRA
-    dout 2048 (q/k/v heads, o's output columns), 16 of 32 heads, bf16
-    activations, f32 pages; held to their plain versions at phase 2's
-    tolerances and timed beside their bounds, plain versions and a
-    PyTorch call (``kernel_time_mesh`` lines)."""
+    "model" column of a (·, 2) mesh gives them: at Llama-7B width LoRA
+    dout 2048 (q/k/v heads, o's output columns, the default ``projs``),
+    16 of 32 heads, bf16 activations, f32 pages; held to their plain
+    versions at phase 2's tolerances and timed beside their bounds,
+    plain versions and a PyTorch call (``phase`` lines). ``projs``:
+    (name, din, dout) of the LoRA cases; ``paged``: also
+    paged_attention (not on the MoE path, which decodes from the
+    slab)."""
     import importlib
 
     import torch
     import torch.nn.functional as F
     bgmv = importlib.import_module("repro_torch.kernels.bgmv")
     sgmv = importlib.import_module("repro_torch.kernels.sgmv")
-    pa = importlib.import_module("repro_torch.kernels.paged_attention")
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2020)
@@ -1890,15 +1925,15 @@ def mesh_kernel_checks(cfg, record_to: dict) -> None:
                 * scale).to(dtype)
 
     def checked(*args, **kw):
-        checked_and_timed("kernel_time_mesh", flush, record_to, *args,
+        checked_and_timed(phase, flush, record_to, *args,
                           mesh_model=M, **kw)
 
     d, r, n_slots, Bt, S, tile = cfg.d_model, 32, 8, 8, 256, 128
     idx = torch.randperm(n_slots, generator=g, device=dev)[:Bt].int()
     ts = torch.randint(0, n_slots, (Bt * S // tile,), generator=g,
                        device=dev).int()
-    for proj, din, dout in (("q/k/v", d, cfg.q_dim // M),
-                            ("o", cfg.q_dim, d // M)):
+    for proj, din, dout in projs or (("q/k/v", d, cfg.q_dim // M),
+                                     ("o", cfg.q_dim, d // M)):
         A = randn(n_slots, din, r, scale=din ** -0.5)
         Bw = randn(n_slots, r, dout, scale=r ** -0.5)
         x = randn(Bt, din)
@@ -1924,8 +1959,36 @@ def mesh_kernel_checks(cfg, record_to: dict) -> None:
                          * nbytes(A[0], Bw[0]) + Bt * S * dout * 2,
                          2 * Bt * S * r * (din + dout), "bf16"),
                 instance=inst)
-    # paged_attention: one column's 16 KV heads over the phase-2 pool.
-    Kh, dh, page, P, n_pages = cfg.n_kv_heads // M, cfg.head_dim, 16, 16, 161
+    Kh, dh = cfg.n_kv_heads // M, cfg.head_dim
+    if paged:
+        mesh_paged_check(cfg, checked, randn, g, dev, Bt, Kh, dh)
+    H = cfg.n_heads // M
+    q = randn(Bt, S, H, dh)
+    k, v = randn(Bt, S, Kh, dh), randn(Bt, S, Kh, dh)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    fa.STATS.reset()
+    fa.flash_attention(q, k, v, True)
+    inst = launched(fa, fa.flash_instance(q.dtype, dh))
+    checked("flash_attention", f"causal, H {H}/Kh {Kh}, q {tuple(q.shape)}",
+            lambda: fa.flash_attention(q, k, v, True),
+            lambda: fa.flash_attention_plain(q, k, v, True),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), "bf16_out",
+            flash_bound(q, k, v, True),
+            extra=FLASH_P_ROUNDING * fa.flash_attention_plain(
+                q.float(), k.float(), v.float().abs(), True),
+            instance=inst)
+
+
+def mesh_paged_check(cfg, checked, randn, g, dev, Bt, Kh, dh) -> None:
+    """paged_attention at one column's KV heads over the phase-2
+    pool."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+    pa = importlib.import_module("repro_torch.kernels.paged_attention")
+    page, P, n_pages = 16, 16, 161
     G = cfg.n_heads // cfg.n_kv_heads
     kp = randn(n_pages, page, Kh, dh, dtype=torch.float32)
     vp = randn(n_pages, page, Kh, dh, dtype=torch.float32)
@@ -1952,22 +2015,6 @@ def mesh_kernel_checks(cfg, record_to: dict) -> None:
             sdpa, "bf16_out",
             bound_ms(nbytes(q, table, lens) + 2 * n_tok * Kh * dh * 4
                      + nbytes(q), 4 * n_tok * Kh * G * dh, "f32"))
-    H = cfg.n_heads // M
-    q = randn(Bt, S, H, dh)
-    k, v = randn(Bt, S, Kh, dh), randn(Bt, S, Kh, dh)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    fa.STATS.reset()
-    fa.flash_attention(q, k, v, True)
-    inst = launched(fa, fa.flash_instance(q.dtype, dh))
-    checked("flash_attention", f"causal, H {H}/Kh {Kh}, q {tuple(q.shape)}",
-            lambda: fa.flash_attention(q, k, v, True),
-            lambda: fa.flash_attention_plain(q, k, v, True),
-            lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), "bf16_out",
-            flash_bound(q, k, v, True),
-            extra=FLASH_P_ROUNDING * fa.flash_attention_plain(
-                q.float(), k.float(), v.float().abs(), True),
-            instance=inst)
 
 
 def gemm_column_probe() -> dict:
@@ -2023,6 +2070,16 @@ def phase_mesh(cfg, params) -> dict:
     mesh_sweep(small, sparams, mesh_inputs(small, rng_prompts, dev, 7,
                                            torch.float32), "f32", 1e-4)
     del sparams
+    t_uneven = time.perf_counter()
+    for name, shapes in UNEVEN_MESHES.items():
+        c = get_config(name).reduced()
+        p = api.init_params(c, 0, torch.float32, device=dev)
+        mesh_sweep(c, p, mesh_inputs(c, [[t % c.vocab_size for t in pr]
+                                         for pr in rng_prompts], dev, 7,
+                                     torch.float32), "f32", 1e-4, shapes)
+        del p
+    emit(dict(phase="mesh_uneven_heads",
+              seconds=time.perf_counter() - t_uneven))
     record = {}
     mesh_kernel_checks(cfg, record)
     trace = make_trace(cfg.vocab_size)
@@ -2556,6 +2613,392 @@ def phase_engine_moe(trace_vocab: int, greedy: list) -> None:
               ms_per_decode_step={
                   n: r["decode_window"]["ms_per_decode_step"]
                   for n, r in results.items()}))
+    del results
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_mesh_moe(cfg, params, trace_vocab, greedy)
+
+
+# --------------------------------------------- phase 4b, MoE on meshes
+#: Mesh shapes of the MoE step-function sweep, over repeated positions
+#: of the card: (1, 1) must equal the unsharded functions bit for bit;
+#: (2, 1) splits the experts over two data shards, (1, 2) the heads,
+#: the shared FFN and the vocabulary over two columns, (2, 2) both.
+MOE_MESH_SHAPES = ((1, 1), (2, 1), (1, 2), (2, 2))
+#: Data-shard counts of the all-to-all layer check.
+MOE_A2A_SHAPES = ((2, 1), (4, 1))
+#: Engines of the MoE mesh trace: name -> mesh_shape.
+MOE_MESH_ENGINES = {"fused": None, "mesh_1x1": (1, 1), "mesh_2x1": (2, 1)}
+
+
+def write_prompt_slab(kv, k, v, mp) -> None:
+    """The whole-prompt prefill's K/V (unsharded stacks, or the mesh's
+    per-column stacks) into the first positions of every row of the
+    slab ``kv`` (plain tensors, or sharded in ``ShardPlan`` placement)."""
+    import torch
+    S = (k if mp is None else k[0]).shape[2]
+    for st, new in zip(kv, (k, v)):
+        if mp is None:
+            st[:, :, :S] = new.to(st.dtype)
+            continue
+        heads = []
+        for j in range(mp.cfg.n_kv_heads):
+            m = next(i for i, (a, b) in enumerate(mp.kv_heads)
+                     if a <= j < b)
+            heads.append(new[m][:, :, :, j - mp.kv_heads[m][0]])
+        whole = torch.stack(heads, dim=3)
+        full = st.full()
+        full[:, :, :S] = whole.to(full.device, full.dtype)
+        st.copy_(full)
+
+
+def moe_mesh_steps(cfg, params, inp, shape, n_steps: int = 8) -> dict:
+    """The MoE step functions as the engine runs them: a whole-prompt
+    ``prefill`` of the right-padded prompts (flash_attention, sgmv,
+    capacity buckets), its K/V copied into an f32 slab, one
+    ``decode_step`` and two fused greedy horizons of ``n_steps`` steps
+    over the slab (the second timed): unsharded (``shape`` None) or with
+    the weights, the LoRA arena and the slab placed by ``ShardPlan`` on
+    a mesh of ``shape`` over repeated positions of the card."""
+    import torch
+    from repro_torch.distributed.sharding import MeshParams
+    from repro_torch.models import api
+    from repro_torch.serving.shard_plan import ShardPlan
+    dev = inp["toks"].device
+    B, S = inp["toks"].shape
+    Smax = S + 4 * n_steps
+    slab = (cfg.n_layers, B, Smax, cfg.n_kv_heads, cfg.head_dim)
+    if shape is None:
+        p, lora, mp = params, inp["lora"], None
+        kv = api.init_serve_state(cfg, B, Smax, torch.float32, device=dev)
+    else:
+        mesh = repeated_mesh(shape, dev)
+        plan = ShardPlan(mesh, cfg)
+        sh = plan.params(params)
+        p = mp = MeshParams(cfg, {k: plan.put(v, sh[k])
+                                  for k, v in params.items()}, mesh)
+        lsh = plan.lora_slots(inp["lora"])
+        lora = {k: (plan.put(a, lsh[k][0]), plan.put(b, lsh[k][1]))
+                for k, (a, b) in inp["lora"].items()}
+        kv = tuple(plan.zeros_kv_dense(slab, torch.float32)
+                   for _ in range(2))
+    kw = dict(lora=lora, adapter_idx=inp["aidx"], lora_backend="kernel")
+    i32 = torch.int32
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, (k, v) = api.prefill(cfg, p, inp["toks"],
+                                 last_pos=inp["seq_len"] - 1, **kw)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    write_prompt_slab(kv, k, v, mp)
+    del k, v
+    tokens = torch.argmax(logits, dim=-1).to(i32)[:, None]
+    first = tokens[:, 0].clone()
+    step, kv = api.decode_step(cfg, p, tokens, kv, inp["seq_len"], **kw)
+    state = dict(cache_len=inp["seq_len"].clone(),
+                 active=torch.ones(B, dtype=torch.bool, device=dev),
+                 positions=torch.ones(B, dtype=i32, device=dev))
+    fixed = (torch.full((B,), 1 << 20, dtype=i32, device=dev),
+             torch.zeros((B, 0), dtype=i32, device=dev),
+             torch.zeros(B, device=dev), torch.zeros(B, dtype=i32,
+                                                     device=dev),
+             torch.ones(B, device=dev),
+             torch.zeros(B, dtype=torch.int64, device=dev))
+    blocks, ms = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, toks, _ = api.decode_fused(
+            cfg, p, tokens, kv, state["cache_len"], state["active"],
+            state["positions"], *fixed, n_steps=n_steps, all_greedy=True,
+            max_ctx=Smax, **kw)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3 / n_steps)
+        tokens, kv, state["cache_len"], state["active"], \
+            state["positions"] = carry
+        blocks.append(toks)
+    return dict(logits=logits.float(), first=first, step=step.float(),
+                toks=torch.cat(blocks).T.cpu(), prefill_ms=prefill_ms,
+                decode_ms_per_step=ms[1])
+
+
+def moe_mesh_sweep(cfg, params, inp, tol: float) -> None:
+    """``moe_mesh_steps`` unsharded, at each of ``MOE_MESH_SHAPES``, and
+    unsharded again (``mesh_moe_steps`` lines). (1, 1) must equal the
+    unsharded functions bit for bit; the split meshes must hold the
+    prefill logits within ``tol`` and are read for first-token and
+    greedy agreement and the decode logits' error. bgmv, sgmv and
+    flash_attention must launch, on tensor cores, and no plain
+    version, einsum LoRA or paged_attention may run."""
+    import importlib
+
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.lora_apply import EINSUM
+    stats = {n: importlib.import_module(f"repro_torch.kernels.{n}").STATS
+             for n in KERNELS}
+    base = moe_mesh_steps(cfg, params, inp, None)
+    runs = {}
+    for shape in MOE_MESH_SHAPES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for st in stats.values():
+            st.reset()
+        EINSUM.reset()
+        moe.STATS.reset()
+        got = moe_mesh_steps(cfg, params, inp, shape)
+        got.update(launches={n: st.launches for n, st in stats.items()},
+                   instances={n: dict(st.instances)
+                              for n, st in stats.items()},
+                   plain={n: st.plain for n, st in stats.items()},
+                   einsum=EINSUM.calls, dropped=moe.STATS.dropped,
+                   peak=torch.cuda.max_memory_allocated() / 1e9)
+        runs[shape] = got
+    again = moe_mesh_steps(cfg, params, inp, None)
+    rows = base["toks"].shape[0]
+    for shape, got in runs.items():
+        err = (got["logits"] - base["logits"]).abs().max().item()
+        step_err = (got["step"] - base["step"]).abs().max().item()
+        launches = got["launches"]
+        line = dict(
+            phase="mesh_moe_steps", model=cfg.name, weights="bf16",
+            mesh_shape=list(shape), n_layers=cfg.n_layers,
+            reduced=[f"n_layers 94 -> {cfg.n_layers}"],
+            prefill_shape=list(inp["toks"].shape), rows=rows,
+            logits_max_abs_err=err, tol=0.0 if shape == (1, 1) else tol,
+            decode_logits_max_abs_err=step_err,
+            first_token_identical=int((got["first"] == base["first"])
+                                      .sum().item()),
+            greedy_identical=sum(bool(torch.equal(a, b)) for a, b in
+                                 zip(got["toks"], base["toks"])),
+            greedy_tokens_identical=int((got["toks"] == base["toks"])
+                                        .sum().item()),
+            greedy_tokens=int(base["toks"].numel()),
+            finite=bool(torch.isfinite(got["logits"]).all()),
+            prefill_ms=got["prefill_ms"],
+            prefill_ms_unsharded=[base["prefill_ms"], again["prefill_ms"]],
+            decode_ms_per_step=got["decode_ms_per_step"],
+            decode_ms_per_step_unsharded=[base["decode_ms_per_step"],
+                                          again["decode_ms_per_step"]],
+            prefill_dropped=got["dropped"], peak_mem_gb=got["peak"],
+            launches=launches, launches_by_instance=got["instances"],
+            plain_calls=got["plain"], einsum_calls=got["einsum"])
+        emit(line)
+        check(line["finite"], f"mesh_moe_steps {shape}: non-finite logits")
+        if shape == (1, 1):
+            check(err == 0.0 and step_err == 0.0
+                  and line["greedy_identical"] == rows,
+                  f"mesh_moe_steps (1, 1) differs from the unsharded step "
+                  f"functions: {line}")
+        else:
+            check(err <= tol, f"mesh_moe_steps {shape}: prefill logits off "
+                              f"by {err} > {tol}")
+        check(all(launches[n] > 0 for n in MOE_PATH)
+              and launches["paged_attention"] == 0
+              and all(set(got["instances"][n]) == {"tensor_cores"}
+                      for n in ("sgmv", "flash_attention"))
+              and not any(got["plain"].values()) and got["einsum"] == 0,
+              f"mesh_moe_steps {shape}: a kernel of the path never "
+              f"launched, or another instance, a plain version, the "
+              f"einsum LoRA or paged_attention ran: {line}")
+
+
+def moe_a2a_layer(cfg, params) -> None:
+    """One MoE layer (layer 0's router and experts) over (8, 256)
+    tokens of normal hidden states, bf16: ``moe_block_a2a`` at each of
+    ``MOE_A2A_SHAPES`` over repeated positions of the card against
+    ``moe_block`` run on each batch shard (the same group-local
+    capacity, so the same drops), within a few bf16 ulps of the largest
+    output; timed beside the per-shard blocks and the unsharded
+    ``moe_block`` (``mesh_moe_a2a`` lines)."""
+    import torch
+    from repro_torch.models.moe import moe_block
+    from repro_torch.models.moe_shard_map import moe_block_a2a
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(99)
+    x = torch.randn((8, 256, cfg.d_model), generator=g,
+                    device=dev).to(torch.bfloat16)
+    w = [params[f"moe/{n}"][0] for n in ("router", "w_gate", "w_up",
+                                         "w_down")]
+    K, cf = cfg.top_k, cfg.capacity_factor
+    scratch = torch.empty(64 * MIB, dtype=torch.uint8, device=dev)
+    flush = scratch.zero_
+    whole_ms = median_ms(lambda: moe_block(x, *w, K, cf), flush, 1, 5)
+    for shape in MOE_A2A_SHAPES:
+        n = shape[0]
+        mesh = repeated_mesh(shape, dev)
+
+        def a2a():
+            return moe_block_a2a(x, *w, K, cf, mesh)[0]
+
+        def per_shard():
+            return torch.cat([moe_block(xs, *w, K, cf)[0]
+                              for xs in x.chunk(n)])
+        got, want = a2a(), per_shard()
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        tol = 2 ** -6 * scale
+        line = dict(phase="mesh_moe_a2a", model=cfg.name,
+                    mesh_shape=list(shape), tokens=[8, 256],
+                    max_abs_err=err, max_abs_want=scale, tol=tol,
+                    bitwise_equal=bool(torch.equal(got, want)),
+                    ms=median_ms(a2a, flush, 1, 5),
+                    per_shard_moe_block_ms=median_ms(per_shard, flush, 1, 5),
+                    unsharded_moe_block_ms=whole_ms)
+        emit(line)
+        check(bool(torch.isfinite(got).all()) and err <= tol,
+              f"mesh_moe_a2a {shape}: off the per-shard moe_block: {line}")
+
+
+@contextlib.contextmanager
+def repeated_positions():
+    """Engines built inside resolve ``EngineConfig.mesh_shape`` to a mesh
+    over repeated positions of the card (``repeated_mesh``), so a
+    split mesh fits on one card; the engine code is unchanged."""
+    import torch
+    from repro_torch.serving import engine
+    make = engine.make_serving_mesh
+    card = torch.device("cuda", torch.cuda.current_device())
+    engine.make_serving_mesh = lambda n, m, device=None: repeated_mesh(
+        (n // m, m), card)
+    try:
+        yield
+    finally:
+        engine.make_serving_mesh = make
+
+
+def moe_mesh_engines(cfg, params, trace_vocab: int, greedy: list) -> None:
+    """The phase-4 trace served by ``EngineConfig()`` and by
+    ``EngineConfig(mesh_shape=...)`` at each of ``MOE_MESH_ENGINES`` on
+    one step clock, adapter loads landed before each step, so the
+    schedules agree (one ``mesh_moe_engine`` line): (1, 1) must give
+    ``EngineConfig()``'s tokens; (2, 1) splits the experts over two data
+    shards at repeated positions of the card (``repeated_positions``)
+    and is read for greedy agreement. Host ms a
+    step, peak memory, shard gauges and launches; bgmv, sgmv and
+    flash_attention must launch on tensor cores, and no plain version,
+    einsum LoRA or paged_attention may run."""
+    import importlib
+
+    import torch
+    from repro_torch.kernels.ops import COLLECTIVE_METER
+    from repro_torch.models import moe
+    from repro_torch.models.lora_apply import EINSUM
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.systems import build_engine
+    stats = {n: importlib.import_module(f"repro_torch.kernels.{n}").STATS
+             for n in KERNELS}
+    served = {}
+    trace = make_trace(trace_vocab)
+    for name, shape in MOE_MESH_ENGINES.items():
+        clock = [0.0]
+        with repeated_positions():
+            eng = build_engine("chameleon", cfg, params,
+                               EngineConfig(mesh_shape=shape),
+                               clock=lambda: clock[0])
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for st in stats.values():
+            st.reset()
+        EINSUM.reset()
+        moe.STATS.reset()
+        COLLECTIVE_METER.reset()
+        handles = [eng.submit(r, sampling=sp) for r, sp in
+                   make_trace(trace_vocab)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = 0
+        while eng.busy() and steps < 20_000:
+            for stream in eng._load_streams.values():
+                stream.synchronize()
+            eng.step()
+            clock[0] += 0.01
+            steps += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(not eng.busy(), f"MoE mesh engine {name} failed to drain")
+        toks = [h.tokens for h in handles]
+        launches = {n: st.launches for n, st in stats.items()}
+        instances = {n: dict(st.instances) for n, st in stats.items()}
+        plain = {n: st.plain for n, st in stats.items()}
+        served[name] = dict(
+            outputs=toks, steps=steps, wall_s=wall,
+            ms_per_step=wall * 1e3 / steps,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            launches=launches, instances=instances, plain=plain,
+            einsum=EINSUM.calls, dropped=moe.STATS.dropped,
+            gathers_per_dispatch=(COLLECTIVE_METER.gathers
+                                  / max(COLLECTIVE_METER.dispatches, 1)),
+            shard_stats=eng.shard_stats())
+        check(all(len(t) == r.output_len for t, (r, _) in zip(toks, trace))
+              and all(0 <= x < cfg.vocab_size for t in toks for x in t),
+              f"MoE mesh engine {name}: short output or token outside "
+              f"the vocabulary")
+        check(all(launches[n] > 0 for n in MOE_PATH)
+              and launches["paged_attention"] == 0
+              and all(set(instances[n]) == {"tensor_cores"}
+                      for n in ("sgmv", "flash_attention"))
+              and not any(plain.values()) and EINSUM.calls == 0,
+              f"MoE mesh engine {name}: a kernel of the path never "
+              f"launched, or another instance, a plain version, the "
+              f"einsum LoRA or paged_attention ran: {launches}, "
+              f"{instances}, {plain}, einsum {EINSUM.calls}")
+        del eng, handles
+        gc.collect()
+        torch.cuda.empty_cache()
+    base = served["fused"]
+    line = dict(phase="mesh_moe_engine", model=cfg.name, weights="bf16",
+                requests=len(trace),
+                reduced=[f"n_layers 94 -> {cfg.n_layers}"],
+                identical_1x1=(served["mesh_1x1"]["outputs"]
+                               == base["outputs"]),
+                greedy_vs_unsharded={
+                    n: greedy_agreement(r["outputs"], base["outputs"],
+                                        greedy)
+                    for n, r in served.items() if n != "fused"},
+                **{n: {k: v for k, v in r.items() if k != "outputs"}
+                   for n, r in served.items()})
+    emit(line)
+    check(line["identical_1x1"],
+          f"MoE mesh engine (1, 1) tokens differ from EngineConfig()'s: "
+          f"{line['greedy_vs_unsharded']}")
+
+
+def phase_mesh_moe(cfg, params, trace_vocab: int, greedy: list) -> None:
+    """The MoE family on meshes over repeated positions of the card,
+    while ``qwen3-moe`` (``MOE_LAYERS`` layers, published widths) is
+    loaded: the kernels at one column's shapes
+    (``kernel_time_mesh_moe``), the step functions
+    (``moe_mesh_sweep``), the all-to-all layer (``moe_a2a_layer``) and
+    the trace through the engine (``moe_mesh_engines``); one
+    ``phase_mesh_moe`` line with each part's seconds."""
+    import torch
+    secs = {}
+    t = time.perf_counter()
+    errs = {}
+    M = 2
+    mesh_kernel_checks(cfg, errs, phase="kernel_time_mesh_moe",
+                       projs=(("q", cfg.d_model, cfg.q_dim // M),
+                              ("k/v", cfg.d_model, cfg.kv_dim // M)),
+                       paged=False)
+    secs["kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    prompts = [r.prompt for r, _ in make_trace(trace_vocab)[:8]]
+    # bf16: a layout fault moves logits by their own scale (about 1).
+    moe_mesh_sweep(cfg, params, mesh_inputs(cfg, prompts,
+                                            torch.device("cuda"), 9,
+                                            torch.bfloat16), 2 ** -4)
+    secs["steps"] = time.perf_counter() - t
+    t = time.perf_counter()
+    moe_a2a_layer(cfg, params)
+    secs["a2a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    moe_mesh_engines(cfg, params, trace_vocab, greedy)
+    secs["engines"] = time.perf_counter() - t
+    emit(dict(phase="phase_mesh_moe", seconds=secs,
+              kernel_max_abs_err_at_column_shapes=errs))
 
 
 # ------------------------------------------- phases 3 and 6, families

@@ -6,6 +6,8 @@ when the caller asks for it (``device="cpu"``), as the tests do.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -21,3 +23,12 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
         raise RuntimeError(f"device {dev} requested but CUDA is not "
                            f"available")
     return dev
+
+
+def on_device(dev: torch.device):
+    """Make ``dev`` the current card while a shard or column launches
+    its kernels (a launch goes to the current device); nothing on the
+    CPU."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()

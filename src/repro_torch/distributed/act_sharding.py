@@ -19,13 +19,25 @@ or norm that reduces over them, and logits are gathered to whole vocab
 rows before sampling. Compute runs at full batch; "data" shards only
 storage (KV pages, batch state).
 
+MoE (exact mode): the expert stacks lie over "data" (experts) with the
+FFN unsharded, as the serving rule table puts them. The four MoE
+anchors are where the single controller splits and gathers:
+``constrain_expert_ecd`` splits the capacity buckets (or the decode
+rows grouped by expert) by expert range onto each data shard's device,
+``constrain_expert_ecf`` keeps each shard's hidden on its device, and
+``constrain_moe_local`` gathers the expert outputs back onto the home
+device in the unsharded expert order, so the combine runs in the
+single-device FP order; ``constrain_moe_groups`` is the identity
+(compute at full batch). ``moe_token_parallel=True`` arms
+``moe_a2a_mesh()``: ``lm._moe`` then runs
+``models/moe_shard_map.moe_block_a2a`` (each data shard routes its own
+batch rows and exchanges buckets with the others).
+
 Not ported with this slice (each raises ``NotImplementedError``): the
-batch-sharded activations, the row-parallel (non-exact) mode, the
-sequence-parallel boundary (``seq_shard_boundary``) and MoE token
-parallelism (``moe_token_parallel``) — training and dry-run features —
-and with them the anchors only they use (``constrain_btd``,
-``constrain_boundary``, ``constrain_bd``, the MoE and SSM anchors,
-``moe_a2a_mesh``).
+batch-sharded activations, the row-parallel (non-exact) mode and the
+sequence-parallel boundary (``seq_shard_boundary``) — training
+features — and with them the anchors only they use (``constrain_btd``,
+``constrain_boundary``, ``constrain_bd``, the SSM anchors).
 """
 from __future__ import annotations
 
@@ -37,26 +49,27 @@ from repro_torch.kernels.ops import COLLECTIVE_METER
 
 _MESH = None
 _DEVICES: list = []          # the "model" columns' devices of _MESH
+_EXPERT_AXIS = "data"
+_MOE_TOKEN_PARALLEL = False
 
 
 @contextlib.contextmanager
 def activation_sharding(batch_axes: tuple, model_axis: str = "model",
+                        expert_axis: str = "data", model_size: int = 1,
                         seq_shard_boundary: bool = False,
                         moe_token_parallel: bool = False,
                         mesh=None, exact_reductions: bool = False):
     """Install ``mesh`` for the model code's gather points for the
     duration of the block (scoped, so single-device engines in the same
     process are untouched). The serving engine enters it around every
-    dispatch with ``batch_axes=()`` and ``exact_reductions=True``."""
+    dispatch with ``batch_axes=()`` and ``exact_reductions=True``;
+    ``moe_token_parallel`` arms ``moe_a2a_mesh``. ``model_size`` is
+    the JAX signature's; the columns here come from ``mesh``."""
     if seq_shard_boundary:
         raise NotImplementedError(
             "activation_sharding(seq_shard_boundary=True): sequence-"
             "parallel boundaries are a training feature, ported with the "
             "training-on-a-mesh slice")
-    if moe_token_parallel:
-        raise NotImplementedError(
-            "activation_sharding(moe_token_parallel=True): MoE token "
-            "parallelism needs models/moe_shard_map.py, not ported yet")
     if mesh is not None and batch_axes:
         raise NotImplementedError(
             f"activation_sharding(batch_axes={batch_axes!r}): batch-"
@@ -67,9 +80,10 @@ def activation_sharding(batch_axes: tuple, model_axis: str = "model",
             "activation_sharding(exact_reductions=False): the row-"
             "parallel mode (partial sums over a sharded contraction) is "
             "a training feature; the port serves in exact mode")
-    global _MESH, _DEVICES
-    prev = (_MESH, _DEVICES)
+    global _MESH, _DEVICES, _EXPERT_AXIS, _MOE_TOKEN_PARALLEL
+    prev = (_MESH, _DEVICES, _EXPERT_AXIS, _MOE_TOKEN_PARALLEL)
     _MESH, _DEVICES = mesh, []
+    _EXPERT_AXIS, _MOE_TOKEN_PARALLEL = expert_axis, moe_token_parallel
     if mesh is not None:
         from repro_torch.distributed.sharding import column_coords
         _DEVICES = [mesh.devices[column_coords(mesh, m)]
@@ -77,13 +91,21 @@ def activation_sharding(batch_axes: tuple, model_axis: str = "model",
     try:
         yield
     finally:
-        _MESH, _DEVICES = prev
+        _MESH, _DEVICES, _EXPERT_AXIS, _MOE_TOKEN_PARALLEL = prev
 
 
 def installed_mesh():
     """The mesh of the enclosing ``activation_sharding`` block, or
     None."""
     return _MESH
+
+
+def moe_a2a_mesh():
+    """(mesh, expert_axis) when the all-to-all MoE should run (token
+    parallelism under an installed mesh), else None."""
+    if _MOE_TOKEN_PARALLEL and _MESH is not None:
+        return _MESH, _EXPERT_AXIS
+    return None
 
 
 def _gather(x, dim: int, device=None):
@@ -100,11 +122,23 @@ def _gather(x, dim: int, device=None):
         return torch.cat([t.to(device) for t in x], dim=dim)
 
 
-def gather_blocks(blocks: list, dim: int, device) -> torch.Tensor:
-    """The data shards of a KV layer (pages or slab rows) gathered onto
-    the device that computes with them: every page a row reads has to
-    reach the column's device."""
-    return _gather(blocks, dim, device)
+def gather_region(pieces: list, device) -> torch.Tensor:
+    """The data (and, for a sequence-split slab, "model") shards of a KV
+    layer gathered onto the device that computes with them: ``pieces``
+    are ((rows slice, positions slice), block) covering the region;
+    one block is returned as is (moved if it lives elsewhere)."""
+    if len(pieces) == 1:
+        return pieces[0][1].to(device)
+    n = max(r.stop for (r, _), _ in pieces)
+    t = max(q.stop for (_, q), _ in pieces)
+    first = pieces[0][1]
+    with COLLECTIVE_METER.sync():
+        COLLECTIVE_METER.gathers += 1
+        out = torch.empty((n, t) + tuple(first.shape[2:]),
+                          dtype=first.dtype, device=device)
+        for (r, q), b in pieces:
+            out[r, q] = b.to(device)
+        return out
 
 
 def replicate(x: torch.Tensor) -> list:
@@ -155,3 +189,37 @@ def constrain_residual(x):
     projection leaves D model-sharded, and the next rms_norm reduces
     over D, so the shards are gathered here."""
     return _gather(x, -1)
+
+
+def constrain_moe_groups(x):
+    """Group-major MoE tensors (G, ...): groups follow the batch
+    sharding, and the serving plane computes at full batch
+    (``batch_axes=()``), so they stay whole on the home device."""
+    return x
+
+
+def constrain_expert_ecd(x: torch.Tensor, sizes: list, devices: list
+                         ) -> list:
+    """Expert-major MoE operands — the (E, G*C, D) capacity buckets, or
+    the decode rows grouped by expert — split along dim 0 into the data
+    shards' blocks (``sizes`` entries each) and each block moved to its
+    shard's device (``devices``): the dispatch half of the MoE
+    exchange. One block stays where it is."""
+    if len(sizes) == 1:
+        return [x.to(devices[0])]
+    with COLLECTIVE_METER.sync():
+        COLLECTIVE_METER.gathers += 1
+        return [b.to(d) for b, d in zip(torch.split(x, sizes), devices)]
+
+
+def constrain_expert_ecf(x):
+    """A data shard's expert hidden (E_d, n, F): the expert FFN is
+    unsharded in exact mode, so it stays on its shard's device."""
+    return x
+
+
+def constrain_moe_local(blocks: list, device) -> torch.Tensor:
+    """The data shards' expert outputs gathered onto ``device`` in the
+    unsharded expert order (concatenated along dim 0): the combine
+    half of the MoE exchange."""
+    return _gather(list(blocks), 0, device)

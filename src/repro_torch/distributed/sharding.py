@@ -22,7 +22,8 @@ spec, which splits a tensor into per-position shards) and
 process drives every position (single controller, as the JAX engine
 is): a shard is a plain tensor on its position's device.
 ``MeshParams`` holds placed weights with each "model" column's compute
-view, the operand the model functions take on a mesh.
+view and each "data" shard's MoE experts, the operand the model
+functions take on a mesh.
 """
 from __future__ import annotations
 
@@ -363,7 +364,9 @@ class NamedSharding:
         """Split ``x`` onto the mesh: each position gets its block,
         contiguous, on its device. Positions that hold the same block on
         the same device share one tensor (a block that already is ``x``
-        on that device is ``x`` itself, no copy)."""
+        on that device is ``x`` itself, no copy; so is a stacked block
+        on ``x``'s device whose layers are contiguous, a view of
+        ``x``)."""
         shards = np.empty(self.mesh.devices.shape, dtype=object)
         made: dict = {}
         for coords in np.ndindex(*self.mesh.devices.shape):
@@ -371,7 +374,15 @@ class NamedSharding:
             slc = self.index(coords, tuple(x.shape))
             key = (tuple((s.start, s.stop) for s in slc), str(dev))
             if key not in made:
-                made[key] = x[slc].to(dev).contiguous()
+                t = x[slc].to(dev)
+                # A stacked block on x's own device whose layers are each
+                # contiguous (experts split below the layer axis) stays a
+                # view: a second copy of a model's experts does not fit
+                # beside the first on one card.
+                if not (t.data_ptr() == x[slc].data_ptr() and t.dim() >= 3
+                        and t[0].is_contiguous()):
+                    t = t.contiguous()
+                made[key] = t
             shards[coords] = made[key]
         return ShardedTensor(self, tuple(x.shape), shards)
 
@@ -525,11 +536,21 @@ class ShardedTensor:
 
 # ------------------------------------------- weights as the model sees them
 #: The dimension each weight's compute splits over "model" (exact mode:
-#: column-parallel q/k/v/o/gate/up and the vocab); every other weight
-#: is used whole by each column.
+#: column-parallel q/k/v/o/gate/up, the shared expert's gate/up and the
+#: vocab); every other weight is used whole by each column.
 _COLUMN_DIM = {"embed/tok": 0, "lm_head": -1, "q": -1, "k": -1, "v": -1,
                "q_bias": -1, "k_bias": -1, "v_bias": -1, "o": -1,
-               "gate": -1, "up": -1}
+               "gate": -1, "up": -1, "shared_gate": -1, "shared_up": -1}
+
+#: Weights a column computes over its KV heads' block, which need not be
+#: the block that storage puts at the column when the KV heads do not
+#: split over "model".
+_KV_LEAVES = ("k", "v", "k_bias", "v_bias")
+
+#: The MoE expert stacks: split over "data" (experts) by the serving
+#: rule table and computed by their data shards (``MeshParams.experts``),
+#: never by a column.
+_EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 
 
 def column_coords(mesh: Mesh, m: int) -> tuple:
@@ -538,35 +559,67 @@ def column_coords(mesh: Mesh, m: int) -> tuple:
     return tuple(m if a == "model" else 0 for a in mesh.axis_names)
 
 
+def kv_heads_of_column(n_kv_heads: int, M: int, m: int) -> tuple:
+    """The KV heads [lo, hi) column ``m`` of ``M`` reads: its query
+    heads' groups (``h // G``). KV heads that split over the columns
+    give each column its block; fewer KV heads than columns give each
+    column the one head its query block reads, shared by ``M //
+    n_kv_heads`` columns (MQA: every column reads head 0)."""
+    if n_kv_heads % M == 0:
+        w = n_kv_heads // M
+        return m * w, (m + 1) * w
+    j = m // (M // n_kv_heads)
+    return j, j + 1
+
+
 def mesh_unsupported(cfg: ModelConfig, model_size: int) -> list[str]:
     """Why the mesh data plane cannot serve ``cfg`` with ``model_size``
     columns (empty when it can)."""
     out = []
-    if cfg.family != Family.DENSE:
-        out.append(f"model family {cfg.family.name} on a mesh"
-                   + (" (the MoE step functions on MeshParams, experts "
-                      "over \"data\" under exact_reductions=True, are "
-                      "not ported yet)"
-                      if cfg.family == Family.MOE else ""))
+    if cfg.family not in (Family.DENSE, Family.MOE):
+        out.append(f"model family {cfg.family.name} on a mesh")
         return out
-    for name, n in (("n_heads", cfg.n_heads),
-                    ("n_kv_heads", cfg.n_kv_heads),
-                    ("d_model", cfg.d_model), ("d_ff", cfg.d_ff),
-                    ("vocab_size", cfg.vocab_size)):
-        if n % model_size:
-            out.append(f"{name}={n} on a {model_size}-way model axis "
-                       f"(column compute needs even blocks)")
+    M = model_size
+    dims = [("n_heads", cfg.n_heads), ("d_model", cfg.d_model),
+            ("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)]
+    if cfg.family == Family.MOE:
+        dims.append(("shared_expert_ff", cfg.shared_expert_ff))
+    for name, n in dims:
+        if n % M:
+            out.append(f"{name}={n} on a {M}-way model axis (column "
+                       f"compute needs even blocks; uneven column splits "
+                       f"are not ported)")
+    Kh = cfg.n_kv_heads
+    if Kh % M and M % Kh:
+        out.append(f"n_kv_heads={Kh} on a {M}-way model axis (a column's "
+                   f"query heads would read parts of two KV groups)")
     return out
+
+
+def _split_axes(st: ShardedTensor) -> set:
+    return {a for e in st.sharding.spec if e is not None
+            for a in (e if isinstance(e, tuple) else (e,))}
 
 
 class MeshParams:
     """Weights placed on a mesh (``placed``: {path: ShardedTensor}) and
-    each "model" column's compute view: ``cols[m]`` is a flat param dict
-    on the column's device whose column-parallel weights hold block m
-    (q/k/v heads, o and gate/up output columns, vocab rows/columns) and
-    whose other weights are whole. ``col_cfg`` is the config one column
-    computes (n_heads/M, n_kv_heads/M). A weight whose storage is
-    replicated (a bias) is sliced once here."""
+    what each part of the mesh computes with:
+
+    - ``cols[m]``: "model" column m's flat param dict on the column's
+      device. Its column-parallel weights hold block m (q heads, o and
+      gate/up output columns, the shared expert's gate/up, vocab
+      rows/columns), k/v hold the KV heads its query heads read
+      (``kv_heads[m]``), and the other weights are whole. A block that
+      storage does not put at the column (replicated storage, or KV
+      heads shared by several columns) is sliced or gathered once
+      here.
+    - ``experts``: each "data" shard's MoE experts, for MoE configs:
+      its device, its expert range and its stacked ``w_gate``/``w_up``/
+      ``w_down`` blocks (``moe/`` stacks (n_moe, E_d, ...)) and router.
+      A shard's experts run on its device only.
+
+    ``col_cfg`` is the config one column computes (n_heads/M and its
+    KV heads)."""
 
     def __init__(self, cfg: ModelConfig, placed: dict, mesh: Mesh):
         M = mesh.shape["model"]
@@ -579,26 +632,120 @@ class MeshParams:
         self.coords = [column_coords(mesh, m) for m in range(M)]
         self.devices = [mesh.devices[c] for c in self.coords]
         self.home = self.devices[0]
+        self.kv_heads = [kv_heads_of_column(cfg.n_kv_heads, M, m)
+                         for m in range(M)]
+        #: Columns that read one KV head (1 when the heads split).
+        self.kv_share = (1 if cfg.n_kv_heads % M == 0
+                         else M // cfg.n_kv_heads)
+        lo, hi = self.kv_heads[0]
         self.col_cfg = dataclasses.replace(
-            cfg, n_heads=cfg.n_heads // M, n_kv_heads=cfg.n_kv_heads // M)
+            cfg, n_heads=cfg.n_heads // M, n_kv_heads=hi - lo)
         self.cols = [{path: self._column(path, st, m)
-                      for path, st in placed.items()} for m in range(M)]
+                      for path, st in placed.items()
+                      if path.split("/")[-1] not in _EXPERT_LEAVES
+                      or not path.startswith("moe/")}
+                     for m in range(M)]
+        self.experts = (expert_shards(placed)
+                        if "moe/w_gate" in placed else None)
+
+    def kv_range(self, m: int, width: int) -> tuple:
+        """Column ``m``'s KV heads as a [lo, hi) range of a dimension of
+        ``width`` = n_kv_heads * per-head entries."""
+        lo, hi = self.kv_heads[m]
+        per = width // self.cfg.n_kv_heads
+        return lo * per, hi * per
 
     def _column(self, path: str, st: ShardedTensor, m: int):
-        dim = _COLUMN_DIM.get(path, _COLUMN_DIM.get(path.split("/")[-1]))
+        split = _split_axes(st) - {"model"}
+        if split:
+            raise NotImplementedError(
+                f"{path} is split over {sorted(split)}: a column reads a "
+                f"weight whole or over 'model', and no data shard's block "
+                f"may stand for the others")
+        leaf = path.split("/")[-1]
+        dim = _COLUMN_DIM.get(path, _COLUMN_DIM.get(leaf))
+        if leaf in _KV_LEAVES and self.kv_share > 1:
+            lo, hi = self.kv_range(m, st.shape[-1])
+            return column_range(st, self.coords[m], -1, lo, hi)
         if dim is None or self.model_size == 1:
             return st.local(self.coords[m])
         return column_block(st, self.coords[m], dim, m, self.model_size)
 
     def lora_cols(self, lora: dict) -> list:
-        """Each column's LoRA slot arena: A whole, B's dout block m."""
+        """Each column's LoRA slot arena: A whole, B's dout block m (for
+        k/v: its KV heads' columns, gathered where the heads are shared
+        by several columns)."""
         out = []
         for m, c in enumerate(self.coords):
-            out.append({
-                proj: (a.local(c),
-                       column_block(b, c, -1, m, self.model_size))
-                for proj, (a, b) in lora.items()})
+            cols = {}
+            for proj, (a, b) in lora.items():
+                if proj in _KV_LEAVES and self.kv_share > 1:
+                    lo, hi = self.kv_range(m, b.shape[-1])
+                    bm = column_range(b, c, -1, lo, hi)
+                else:
+                    bm = column_block(b, c, -1, m, self.model_size)
+                cols[proj] = (a.local(c), bm)
+            out.append(cols)
         return out
+
+
+def expert_shards(placed: dict) -> list:
+    """Each "data" block of the MoE expert stacks (``moe/w_*``, experts
+    on dim 1): a dict of its expert range (``lo``, ``hi``), ``device``
+    and the stacked ``w_gate``/``w_up``/``w_down`` and the ``router``
+    it computes with, all on that device (the shard at the first
+    "model" column; a replicated stack is one block)."""
+    parts = {leaf: placed["moe/" + leaf].parts({"model": 0}, 1)
+             for leaf in _EXPERT_LEAVES}
+    router = placed["moe/router"]
+    out = []
+    for i, (lo, hi, ts) in enumerate(parts["w_gate"]):
+        dev = ts[0].device
+        blk = {"lo": lo, "hi": hi, "device": dev}
+        for leaf in _EXPERT_LEAVES:
+            blk[leaf] = next(u for u in parts[leaf][i][2] if u.device == dev)
+        blk["router"] = next(u for _, u in router.unique()
+                             if u.device == dev)
+        out.append(blk)
+    return out
+
+
+def column_range(st: ShardedTensor, coords: tuple, dim: int, lo: int,
+                 hi: int) -> torch.Tensor:
+    """Entries [lo, hi) of a weight along ``dim``, on the device of the
+    position ``coords``: its shard when storage puts exactly that block
+    there, a contiguous slice of it when storage is whole there, else
+    the blocks of the positions that share ``coords`` off "model",
+    gathered (counted in ``COLLECTIVE_METER``)."""
+    local = st.local(coords)
+    ndim = len(st.shape)
+    dim %= ndim
+    spec = list(st.sharding.spec) + [None] * (ndim - len(st.sharding.spec))
+    if spec[dim] is None:
+        if (lo, hi) == (0, st.shape[dim]):
+            return local
+        return local.narrow(dim, lo, hi - lo).contiguous()
+    if spec[dim] != "model":
+        raise NotImplementedError(
+            f"a weight of shape {st.shape} is split over {spec[dim]!r} "
+            f"along dim {dim}; column compute needs 'model' or nothing")
+    own = st.sharding.index(coords, st.shape)[dim]
+    if (own.start, own.stop) == (lo, hi):
+        return local
+    names = st.mesh.axis_names
+    fixed = {a: coords[i] for i, a in enumerate(names) if a != "model"}
+    pieces = []
+    for blo, bhi, ts in st.parts(fixed, dim):
+        a, b = max(lo, blo), min(hi, bhi)
+        if a < b:
+            t = next((u for u in ts if u.device == local.device), ts[0])
+            pieces.append(t.narrow(dim, a - blo, b - a).to(local.device))
+    if len(pieces) == 1:
+        return pieces[0].contiguous()
+    from repro_torch.kernels.ops import COLLECTIVE_METER
+    with COLLECTIVE_METER.sync():
+        COLLECTIVE_METER.gathers += 1
+        return torch.cat(pieces, dim=dim)
 
 
 def column_block(st: ShardedTensor, coords: tuple, dim: int, m: int,
@@ -606,15 +753,5 @@ def column_block(st: ShardedTensor, coords: tuple, dim: int, m: int,
     """Column ``m``'s block of a weight along ``dim``: the shard at
     ``coords`` when storage splits that dimension over "model", else a
     contiguous slice of the whole shard (replicated storage)."""
-    local = st.local(coords)
-    ndim = len(st.shape)
-    dim %= ndim
-    spec = list(st.sharding.spec) + [None] * (ndim - len(st.sharding.spec))
-    if spec[dim] == "model":
-        return local
-    if spec[dim] is not None:
-        raise NotImplementedError(
-            f"a weight of shape {st.shape} is split over {spec[dim]!r} "
-            f"along dim {dim}; column compute needs 'model' or nothing")
     w = st.shape[dim] // M
-    return local.narrow(dim, m * w, w).contiguous()
+    return column_range(st, coords, dim, m * w, (m + 1) * w)

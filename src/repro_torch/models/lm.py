@@ -31,12 +31,13 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.sampling import (SPEC_ACCEPT_FOLD, SPEC_DRAFT_FOLD,
                                        SPEC_RESIDUAL_FOLD)
-from repro_torch.device import resolve_device
+from repro_torch.device import on_device, resolve_device
 from repro_torch.distributed import act_sharding as acts
 from repro_torch.distributed.sharding import MeshParams
 from repro_torch.kernels.ops import flash_attention, paged_attention
@@ -49,6 +50,7 @@ from repro_torch.models.layers import (apply_rope, cross_entropy,
                                        suffix_attention, swiglu, unembed)
 from repro_torch.models.lora_apply import lora_delta
 from repro_torch.models.moe import moe_block, moe_block_gather
+from repro_torch.models.moe_shard_map import moe_block_a2a
 
 
 # ----------------------------------------------------------------- init
@@ -1055,19 +1057,26 @@ def decode_spec_fused_paged(cfg: ModelConfig, params: dict,
 
 
 # ------------------------------------------------------ mesh data plane
-# The dense family's step functions on a device mesh (``MeshParams``):
-# the counterpart of the JAX engine's sharded jits in exact-reductions
-# mode. Each "model" column computes its block of q/k/v heads (the
-# column config ``col_cfg``), its pages' attention and its output
-# columns of o, gate/up and the vocabulary, on its own device; the
+# The dense and MoE families' step functions on a device mesh
+# (``MeshParams``): the counterpart of the JAX engine's sharded jits in
+# exact-reductions mode. Each "model" column computes its block of
+# query heads with the KV heads they read (the column config
+# ``col_cfg``), its attention and its output columns of o, gate/up (the
+# shared expert's too) and the vocabulary, on its own device; the
 # ``act_sharding.constrain_*`` points gather the merged heads before o,
 # the residual before each norm, the FFN hidden before the replicated
 # down projection and whole vocab rows before sampling, so no
-# contraction runs over a sharded dimension. Compute runs at full
-# batch: KV pages (or slab rows) and batch state are split over "data"
-# for storage only, so a layer's writes go to the shard that owns the
-# page or row, and its reads gather the data shards onto the column's
-# device. The page table stays global.
+# contraction runs over a sharded dimension. An MoE layer routes on the
+# home device and each "data" shard runs its own experts on its device
+# (``models/moe.py``; the all-to-all of ``models/moe_shard_map.py``
+# under ``moe_token_parallel``). Compute runs at full batch: KV pages
+# (or slab rows) and batch state are split over "data" for storage, and
+# KV heads over "model" where they divide; where they do not, each
+# shard holds every KV head (pages, or a slab without a sequence split)
+# or a block of positions of every head (the slab split over "model"
+# along the sequence, ``kv_cache_spec``). A layer's writes go to every
+# shard that holds the written entry, and its reads gather the shards
+# onto the column's device. The page table stays global.
 
 
 def _mesh_scope(mp: MeshParams):
@@ -1077,14 +1086,6 @@ def _mesh_scope(mp: MeshParams):
         return contextlib.nullcontext()
     return acts.activation_sharding((), mesh=mp.mesh,
                                     exact_reductions=True)
-
-
-def _on(dev: torch.device):
-    """Make ``dev`` the current card while a column launches its kernels
-    (a launch goes to the current device); nothing on the CPU."""
-    if dev.type == "cuda":
-        return torch.cuda.device(dev)
-    return contextlib.nullcontext()
 
 
 def _refuse_mesh(params, what: str) -> None:
@@ -1098,11 +1099,15 @@ def _refuse_mesh(params, what: str) -> None:
 
 class _MeshCall:
     """One step function's per-column views: each column's layer
-    stacks, LoRA slots and replicated inputs."""
+    stacks (attention, llama4's dense MLP layers, the MoE layers'
+    whole and column-parallel weights), LoRA slots and replicated
+    inputs."""
 
     def __init__(self, mp: MeshParams, lora):
         self.mp, self.M, self.ccfg = mp, mp.model_size, mp.col_cfg
         self.stacks = [_slice_group(c, "layers/") for c in mp.cols]
+        self.dense = [_slice_group(c, "dense_mlp/") for c in mp.cols]
+        self.moe = [_slice_group(c, "moe/") for c in mp.cols]
         self.lora = (mp.lora_cols(lora) if lora is not None
                      else [None] * self.M)
 
@@ -1133,7 +1138,7 @@ def _o_proj_mesh(call: _MeshCall, x, outs: list, ps, lrs, aidx,
     outr = acts.replicate(out)
     cols = []
     for m in range(call.M):
-        with _on(outr[m].device):
+        with on_device(outr[m].device):
             o = einsum("bse,ed->bsd", outr[m], ps[m]["o"])
             if lrs[m] is not None and "o" in lrs[m]:
                 o = o + lora_delta(outr[m], lrs[m]["o"], aidx[m][0],
@@ -1142,22 +1147,65 @@ def _o_proj_mesh(call: _MeshCall, x, outs: list, ps, lrs, aidx,
     return x + acts.constrain_residual(cols)
 
 
-def _mlp_mesh(call: _MeshCall, x, ps):
-    """``_mlp`` with gate/up column-parallel, the hidden gathered and
-    the down projection replicated (on the first column's device)."""
-    cfg = call.ccfg
-    xr = acts.replicate(x)
+def _ffn_mesh(call: _MeshCall, hr: list, gates: list, ups: list, down,
+              gated: bool = True):
+    """``swiglu`` (``gelu_mlp`` without ``gated``) of each column's
+    normed input ``hr[m]``: gate/up column-parallel, the hidden
+    gathered and the down projection replicated (on the first
+    column's device)."""
     hid = []
     for m in range(call.M):
-        h = rms_norm(xr[m], ps[m]["mlp_norm"], cfg.norm_eps)
-        if cfg.gated_mlp:
-            hid.append(F.silu(einsum("bsd,df->bsf", h, ps[m]["gate"]))
-                       * einsum("bsd,df->bsf", h, ps[m]["up"]))
+        if gated:
+            hid.append(F.silu(einsum("bsd,df->bsf", hr[m], gates[m]))
+                       * einsum("bsd,df->bsf", hr[m], ups[m]))
         else:
-            hid.append(F.gelu(einsum("bsd,df->bsf", h, ps[m]["up"]),
+            hid.append(F.gelu(einsum("bsd,df->bsf", hr[m], ups[m]),
                               approximate="tanh"))
-    return x + einsum("bsf,fd->bsd", acts.constrain_ffn_hidden(hid),
-                      ps[0]["down"])
+    return einsum("bsf,fd->bsd", acts.constrain_ffn_hidden(hid), down)
+
+
+def _mlp_mesh(call: _MeshCall, x, ps):
+    """``_mlp`` on the mesh (``_ffn_mesh`` after each column's norm)."""
+    cfg = call.ccfg
+    hr = [rms_norm(xm, ps[m]["mlp_norm"], cfg.norm_eps)
+          for m, xm in enumerate(acts.replicate(x))]
+    return x + _ffn_mesh(call, hr, [p.get("gate") for p in ps],
+                         [p["up"] for p in ps], ps[0]["down"],
+                         cfg.gated_mlp)
+
+
+def _moe_mesh(call: _MeshCall, x, s: int):
+    """``_moe`` of MoE superstep ``s`` on the mesh: the norm and the
+    routing on the home device, each data shard's experts on its device
+    (``MeshParams.experts``) through the all-to-all when
+    ``moe_a2a_mesh()`` is set and E and B divide its axis, else the
+    decode gather (S == 1) or the capacity buckets; the shared expert
+    column-parallel."""
+    cfg, mp = call.mp.cfg, call.mp
+    p = [{k: v[s] for k, v in st.items()} for st in call.moe]
+    h = rms_norm(x, p[0]["norm"], cfg.norm_eps)
+    blocks = mp.experts
+    ws = [[b[leaf][s] for b in blocks]
+          for leaf in ("w_gate", "w_up", "w_down")]
+    B, S, _ = x.shape
+    a2a = acts.moe_a2a_mesh()
+    ns = a2a[0].shape[a2a[1]] if a2a is not None else 0
+    if a2a is not None and cfg.n_experts % ns == 0 and B % ns == 0 \
+            and len(blocks) == ns:
+        # Decode: dropless capacity (cf = E/k makes cap == Tg).
+        cf = cfg.n_experts / cfg.top_k if S == 1 else cfg.capacity_factor
+        y, _ = moe_block_a2a(h, [b["router"][s] for b in blocks], *ws,
+                             cfg.top_k, cf, a2a[0], expert_axis=a2a[1])
+    elif S == 1:
+        y, _ = moe_block_gather(h, p[0]["router"], *ws, cfg.top_k)
+    else:
+        y, _ = moe_block(h, p[0]["router"], *ws, cfg.top_k,
+                         cfg.capacity_factor)
+    if cfg.shared_expert_ff:
+        y = y + _ffn_mesh(call, acts.replicate(h),
+                          [q["shared_gate"] for q in p],
+                          [q["shared_up"] for q in p], p[0]["shared_down"])
+    return x + y
 
 
 def _head_mesh(call: _MeshCall, h) -> torch.Tensor:
@@ -1174,92 +1222,176 @@ def _head_mesh(call: _MeshCall, h) -> torch.Tensor:
     return acts.constrain_logits(out)
 
 
-def _page_targets(st, m: int, idx, off) -> list:
-    """Where column ``m`` writes pages ``idx`` (offsets ``off``) of a
-    paged KV stack ``st``: per data shard (the shard with its write
-    sink, local page, offset). A shard takes the pages it owns; the
-    others go to its sink (``ShardPlan.zeros_kv_pages``). The same for
-    every layer, so it is computed once a step."""
-    n = st.shape[1]
-    out = []
-    for lo, hi, ts in st.parts({"model": m}, 1):
-        for t in ts:
-            i, o = idx.to(t.device), off.to(t.device)
-            if lo == 0 and hi == n:
-                out.append((t, i, o))
-                continue
-            raw = st.raw(t)
-            if raw is t:
-                raise ValueError("KV pages split over 'data' need a write "
-                                 "sink: allocate them with "
-                                 "ShardPlan.zeros_kv_pages")
-            i = i - lo
-            out.append((raw, torch.where((i >= 0) & (i < hi - lo), i,
-                                         torch.full_like(i, hi - lo)), o))
+# KV on the mesh: a stack (L, N, T, Kh, Dh) — N slab rows or pages over
+# "data", T positions (the slab's over "model" when its KV heads do not
+# divide), Kh heads over "model" or whole. Column m computes KV heads
+# ``mp.kv_heads[m]``.
+def _kv_targets(mp: MeshParams, st, m: int) -> list:
+    """The shards column ``m`` writes: (shard with its write sink, the
+    shard, rows/pages slice, positions slice, head offset). A shard
+    takes the heads it holds of the column's block; where several
+    columns compute one KV head, shard (., m') takes it from the
+    column with m' = m modulo ``kv_share``, so every replica holds
+    every head. The same for every layer: computed once a step."""
+    mi = st.mesh.axis_names.index("model")
+    a, b = mp.kv_heads[m]
+    out, seen = [], set()
+    for coords in np.ndindex(*st.shards.shape):
+        if (coords[mi] - m) % mp.kv_share:
+            continue
+        slc = st.sharding.index(coords, st.shape)
+        t = st.shards[coords]
+        if id(t) in seen or not (slc[3].start <= a and b <= slc[3].stop):
+            continue
+        seen.add(id(t))
+        out.append((st.raw(t), t, slc[1], slc[2], a - slc[3].start))
     return out
 
 
-def _kv_write(targets: list, layer: int, val) -> None:
-    """Write ``val`` into layer ``layer`` at each of ``targets``."""
-    for t, i, o in targets:
-        t[layer][i, o] = val.to(t.device, t.dtype)
+def _sink(raw, t, i, lo: int, hi: int):
+    """Local index ``i - lo`` of a shard ``t`` holding [lo, hi) of a
+    split dimension, out-of-block entries sent to its write sink (the
+    entry past the block in ``raw``)."""
+    if raw is t:
+        raise ValueError("KV split over the mesh needs a write sink: "
+                         "allocate it with ShardPlan.zeros_kv_pages / "
+                         "zeros_kv_dense")
+    i = i - lo
+    return torch.where((i >= 0) & (i < hi - lo), i,
+                       torch.full_like(i, hi - lo))
 
 
-def _kv_read(st, layer: int, m: int, dim: int, device) -> torch.Tensor:
-    """Layer ``layer`` of column ``m``'s KV, its data shards gathered
-    along ``dim`` onto ``device``."""
-    blocks = []
-    for _, _, ts in st.parts({"model": m}, dim):
-        t = next((u for u in ts if u.device == device), ts[0])
-        blocks.append(t[layer])
-    return acts.gather_blocks(blocks, dim - 1, device)
+def _page_write_plan(mp: MeshParams, st, m: int, idx, off) -> list:
+    """Where column ``m`` writes pages ``idx`` (offsets ``off``) of a
+    paged KV stack: per target shard (tensor, local page, offset, head
+    offset); a shard's pages owned by another shard go to its sink."""
+    n = st.shape[1]
+    out = []
+    for raw, t, rows, _, h0 in _kv_targets(mp, st, m):
+        i, o = idx.to(t.device), off.to(t.device)
+        if (rows.start, rows.stop) == (0, n):
+            out.append((t, i, o, h0))
+        else:
+            out.append((raw, _sink(raw, t, i, rows.start, rows.stop),
+                        o, h0))
+    return out
 
 
-def _slab_write_mesh(kv, layer: int, m: int, new_kv, pos, keep) -> None:
-    """``_slab_write`` into column ``m``'s slab shards, rows split over
-    "data": each shard takes its block of rows."""
-    K, V = kv
-    for (lo, hi, ks), (_, _, vs) in zip(K.parts({"model": m}, 1),
-                                        V.parts({"model": m}, 1)):
-        for kt, vt in zip(ks, vs):
-            dev = kt.device
-            _slab_write((kt[layer], vt[layer]),
-                        tuple(x[lo:hi].to(dev) for x in new_kv),
-                        pos[lo:hi].to(dev), keep[lo:hi].to(dev))
+def _page_write(plan: list, layer: int, val) -> None:
+    """Write ``val`` (B, w, Dh) into layer ``layer`` at each target."""
+    w = val.shape[1]
+    for t, i, o, h0 in plan:
+        t[layer][i, o, h0:h0 + w] = val.to(t.device, t.dtype)
+
+
+def _slab_write_mesh(mp: MeshParams, st, layer: int, m: int, new, pos,
+                     keep) -> None:
+    """``_slab_write`` of column ``m``'s heads ``new`` (B, S, w, Dh)
+    into the slab shards that hold them: each takes its block of rows,
+    and where positions split over "model", the positions it holds
+    (the rest to its sink)."""
+    T = st.shape[2]
+    w = new.shape[2]
+    for raw, t, rows, seq, h0 in _kv_targets(mp, st, m):
+        dev = t.device
+        r0, r1 = rows.start, rows.stop
+        nb, p, k = (x[r0:r1].to(dev) for x in (new, pos, keep))
+        if (seq.start, seq.stop) == (0, T):
+            _slab_write((t[layer][:, :, h0:h0 + w],), (nb,), p, k)
+            continue
+        i = _sink(raw, t, torch.where(k, p, torch.full_like(p, -1)),
+                  seq.start, seq.stop)
+        rr = torch.arange(r1 - r0, device=dev)[:, None]
+        raw[layer][rr, i, h0:h0 + w] = nb.to(raw.dtype)
+
+
+def _kv_sources(mp: MeshParams, st, m: int, device) -> list:
+    """Where column ``m`` reads its KV heads from: per distinct block of
+    rows/pages and positions, (rows slice, positions slice, shard, head
+    offset) of one shard that holds them (on ``device`` when one
+    does)."""
+    mi = st.mesh.axis_names.index("model")
+    a, b = mp.kv_heads[m]
+    best: dict = {}
+    for coords in np.ndindex(*st.shards.shape):
+        slc = st.sharding.index(coords, st.shape)
+        if not (slc[3].start <= a and b <= slc[3].stop):
+            continue
+        t = st.shards[coords]
+        key = (slc[1].start, slc[1].stop, slc[2].start, slc[2].stop)
+        rank = (t.device != device, coords[mi] != m)
+        if key not in best or rank < best[key][0]:
+            best[key] = (rank, (slc[1], slc[2], t, a - slc[3].start))
+    return [v for _, v in sorted(best.values(), key=lambda e: (
+        e[1][0].start, e[1][1].start))]
+
+
+def _kv_read(sources: list, layer: int, w: int, device) -> torch.Tensor:
+    """Layer ``layer`` of a column's KV heads (N, T, w, Dh), its shards
+    gathered onto ``device``."""
+    pieces = [((r, sq), t[layer][:, :, h0:h0 + w])
+              for r, sq, t, h0 in sources]
+    return acts.gather_region(pieces, device)
 
 
 def _attn_columns(call: _MeshCall, h, cos, sin, i: int, aidx, backend,
-                  attend) -> list:
-    """q/k/v of every column for layer ``i`` and ``attend(m, q, k, v)``
-    on each: the columns' attention outputs (B, S, q_dim / M)."""
+                  attend, write=None) -> list:
+    """q/k/v of every column for layer ``i``, then ``write(m, k, v)``
+    on each (every column's KV writes land before any column reads:
+    a column may read positions another column wrote) and
+    ``attend(m, q, k, v)`` on each: the columns' attention outputs
+    (B, S, q_dim / M)."""
     ps, lrs = call.layer(i)
     hr = acts.replicate(h)
-    outs = []
+    qkv = []
     for m in range(call.M):
-        with _on(hr[m].device):
-            _, q, k, v = _qkv_proj(call.ccfg, hr[m], ps[m], cos[m], sin[m],
-                                   lrs[m], aidx[m][0], lora_backend=backend)
+        with on_device(hr[m].device):
+            qkv.append(_qkv_proj(call.ccfg, hr[m], ps[m], cos[m], sin[m],
+                                 lrs[m], aidx[m][0],
+                                 lora_backend=backend)[1:])
+    if write is not None:
+        for m, (_, k, v) in enumerate(qkv):
+            with on_device(k.device):
+                write(m, k, v)
+    outs = []
+    for m, (q, k, v) in enumerate(qkv):
+        with on_device(q.device):
             outs.append(attend(m, q, k, v))
     return outs, ps, lrs
 
 
-def _dense_layers_mesh(call: _MeshCall, h, cos, sin, aidx, backend,
-                       attend):
-    """The dense layer stack on the mesh: per layer the columns'
-    attention (``attend``), the o projection and the MLP."""
-    for i in range(call.mp.cfg.n_layers):
-        outs, ps, lrs = _attn_columns(call, h, cos, sin, i, aidx, backend,
-                                      lambda m, q, k, v, i=i:
-                                      attend(i, m, q, k, v))
+def _layers_mesh(call: _MeshCall, h, cos, sin, aidx, backend, attend,
+                 write=None):
+    """The layer stack on the mesh: per layer the columns' attention
+    (``attend``/``write`` take the layer index first), the o
+    projection, then the MLP, or for MoE configs the superstep's dense
+    MLP or MoE layer (as ``_backbone_moe`` indexes them)."""
+    cfg = call.mp.cfg
+    E = cfg.moe_every
+    for i in range(cfg.n_layers):
+        outs, ps, lrs = _attn_columns(
+            call, h, cos, sin, i, aidx, backend,
+            lambda m, q, k, v, i=i: attend(i, m, q, k, v),
+            None if write is None else
+            (lambda m, k, v, i=i: write(i, m, k, v)))
         h = _o_proj_mesh(call, h, outs, ps, lrs, aidx, backend)
-        h = _mlp_mesh(call, h, ps)
+        if cfg.family != Family.MOE:
+            h = _mlp_mesh(call, h, ps)
+            continue
+        s, e = divmod(i, E)
+        if e == E - 1:
+            h = _moe_mesh(call, h, s)
+        else:
+            j = s * (E - 1) + e
+            h = _mlp_mesh(call, h, [{k: v[j] for k, v in st.items()}
+                                    for st in call.dense])
     return h
 
 
 def _prefill_mesh(cfg, mp: MeshParams, tokens, lora, adapter_idx,
                   last_pos, lora_backend):
     """``prefill`` on the mesh; (k, v) come back as per-column lists of
-    (L, B, S, Kh/M, Dh) stacks (each column's kv heads)."""
+    (L, B, S, kv heads of the column, Dh) stacks."""
     with _mesh_scope(mp):
         call = _MeshCall(mp, lora)
         B, S = tokens.shape
@@ -1276,8 +1408,7 @@ def _prefill_mesh(cfg, mp: MeshParams, tokens, lora, adapter_idx,
             vs[m].append(v)
             return flash_attention(q, k, v, causal=True).reshape(B, S, qd)
 
-        h = _dense_layers_mesh(call, x, cos, sin, aidx, lora_backend,
-                               attend)
+        h = _layers_mesh(call, x, cos, sin, aidx, lora_backend, attend)
         if last_pos is None:
             h_last = h[:, -1:]
         else:
@@ -1290,7 +1421,8 @@ def _prefill_mesh(cfg, mp: MeshParams, tokens, lora, adapter_idx,
 def _decode_step_mesh(cfg, mp: MeshParams, tokens, kv_caches, cache_len,
                       lora, adapter_idx, lora_backend):
     """``decode_step`` over the dense slab on the mesh: slab rows over
-    "data", kv heads over "model"."""
+    "data", KV heads (or, when they do not divide, positions) over
+    "model"."""
     with _mesh_scope(mp):
         call = _MeshCall(mp, lora)
         B, S = tokens.shape
@@ -1305,18 +1437,22 @@ def _decode_step_mesh(cfg, mp: MeshParams, tokens, kv_caches, cache_len,
         per = call.rep(cos, sin, cache_len, adapter_idx)
         cos, sin = [p[0] for p in per], [p[1] for p in per]
         aidx = [p[3:] for p in per]
-        qd = call.ccfg.q_dim
-        K, V = kv_caches
+        c = call.ccfg
+        src = [[_kv_sources(mp, t, m, mp.devices[m]) for t in kv_caches]
+               for m in range(call.M)]
+
+        def write(i, m, k, v):
+            for t, new in zip(kv_caches, (k, v)):
+                _slab_write_mesh(mp, t, i, m, new, pos, keep)
 
         def attend(i, m, q, k, v):
             dev = q.device
-            _slab_write_mesh(kv_caches, i, m, (k, v), pos, keep)
-            kc, vc = (_kv_read(t, i, m, 1, dev) for t in (K, V))
+            kc, vc = (_kv_read(s_, i, c.n_kv_heads, dev) for s_ in src[m])
             out = decode_attention(q, kc, vc, per[m][2] + S).to(q.dtype)
-            return out.reshape(B, S, qd)
+            return out.reshape(B, S, c.q_dim)
 
-        h = _dense_layers_mesh(call, x, cos, sin, aidx, lora_backend,
-                               attend)
+        h = _layers_mesh(call, x, cos, sin, aidx, lora_backend, attend,
+                         write)
         return _head_mesh(call, h)[:, 0], kv_caches
 
 
@@ -1336,10 +1472,11 @@ def _paged_geometry(kv_pages, page_table, start, valid):
 
 def _paged_mesh(cfg, mp: MeshParams, tokens, kv_pages, page_table, start,
                 valid, lora, adapter_idx, lora_backend, decode: bool):
-    """The paged layer stack on the mesh (pages over "data", kv heads
-    over "model"): ``decode_step_paged`` (``decode``: one token a row,
-    through paged_attention) or the suffix pass of ``_paged_layers``.
-    Returns the hidden (B, S, D) on the first column's device."""
+    """The paged layer stack on the mesh (pages over "data", KV heads
+    over "model" or whole): ``decode_step_paged`` (``decode``: one token
+    a row, through paged_attention) or the suffix pass of
+    ``_paged_layers``. Returns the hidden (B, S, D) on the first
+    column's device."""
     call = _MeshCall(mp, lora)
     B, S = tokens.shape
     home = mp.home
@@ -1356,24 +1493,26 @@ def _paged_mesh(cfg, mp: MeshParams, tokens, kv_pages, page_table, start,
     c = call.ccfg
     G = c.n_heads // c.n_kv_heads
     page, P = kv_pages[0].shape[2], page_table.shape[1]
-    K, V = kv_pages
 
-    def targets(t, m):
+    def plan(t, m):
         pi, po = per[m][4:6]
         if decode:
             pi, po = pi[:, 0], po[:, 0]
-        return _page_targets(t, m, pi, po)
+        return _page_write_plan(mp, t, m, pi, po)
 
-    where = [(targets(K, m), targets(V, m)) for m in range(call.M)]
+    where = [[plan(t, m) for t in kv_pages] for m in range(call.M)]
+    src = [[_kv_sources(mp, t, m, mp.devices[m]) for t in kv_pages]
+           for m in range(call.M)]
 
-    def attend(i, m, q, k, v):
-        dev = q.device
-        pt, st, _, _, ps_ = per[m][2:7]
+    def write(i, m, k, v):
         if decode:
             k, v = k[:, 0], v[:, 0]
-        _kv_write(where[m][0], i, k)
-        _kv_write(where[m][1], i, v)
-        kp, vp = (_kv_read(t, i, m, 1, dev) for t in (K, V))
+        for pl, new in zip(where[m], (k, v)):
+            _page_write(pl, i, new)
+
+    def attend(i, m, q, k, v):
+        pt, st, _, _, ps_ = per[m][2:7]
+        kp, vp = (_kv_read(s_, i, c.n_kv_heads, q.device) for s_ in src[m])
         if decode:
             qh = q[:, 0].reshape(B, c.n_kv_heads, G, c.head_dim)
             out = paged_attention(qh, kp, vp, pt, st + 1)
@@ -1384,8 +1523,8 @@ def _paged_mesh(cfg, mp: MeshParams, tokens, kv_pages, page_table, start,
             out = suffix_attention(q, kf, vf, ps_).to(q.dtype)
         return out.reshape(B, S, c.q_dim)
 
-    return _dense_layers_mesh(call, x, cos, sin, aidx, lora_backend,
-                              attend), call
+    return _layers_mesh(call, x, cos, sin, aidx, lora_backend, attend,
+                        write), call
 
 
 def _decode_step_paged_mesh(cfg, mp, tokens, kv_pages, page_table,

@@ -17,14 +17,24 @@ ones compute; the tensors they build differ:
   expert multiplies its own rows against its weights in place, so every
   expert a step needs is read once. Dropless and exact.
 
-The expert-sharding constraints of the JAX package are the identity off
-a mesh and are left out (distribution is not ported).
+On a device mesh the expert weights come as per-data-shard blocks
+(lists of (E_d, D, F) tensors, each on its shard's device, in expert
+order; ``distributed.sharding.MeshParams.experts``): routing and
+bucketing run on the home device, ``act_sharding.constrain_expert_ecd``
+moves each block of buckets (or of decode rows grouped by expert) to
+its shard, each shard runs its own experts there, and
+``constrain_moe_local`` gathers the outputs back in the unsharded
+expert order before the combine. A batched product over a block of
+experts is the unsharded one's rows, so the result has the
+unsharded bits where the device type is the same.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import on_device
+from repro_torch.distributed import act_sharding as acts
 from repro_torch.models.layers import einsum_f32, promoted
 
 MOE_GROUP = 2048      # tokens per dispatch group (MaxText-style)
@@ -129,6 +139,70 @@ def _experts(expert_in: torch.Tensor, w_gate: torch.Tensor,
     return torch.bmm(act, wd)
 
 
+def _sharded(w) -> bool:
+    """Expert weights given as per-data-shard blocks."""
+    return isinstance(w, (list, tuple))
+
+
+def _experts_sharded(expert_in: torch.Tensor, w_gate: list, w_up: list,
+                     w_down: list) -> torch.Tensor:
+    """``_experts`` with the experts split into data-shard blocks: each
+    block of buckets runs on its shard's device against its weights,
+    and the outputs come back to ``expert_in``'s device in expert
+    order."""
+    blocks = acts.constrain_expert_ecd(
+        expert_in, [w.shape[0] for w in w_gate], [w.device for w in w_gate])
+    outs = []
+    for xb, wg, wu, wd in zip(blocks, w_gate, w_up, w_down):
+        with on_device(wg.device):
+            outs.append(acts.constrain_expert_ecf(_experts(xb, wg, wu, wd)))
+    return acts.constrain_moe_local(outs, expert_in.device)
+
+
+def bucket(xg: torch.Tensor, idx: torch.Tensor, weights: torch.Tensor,
+           n_experts: int, cap: int):
+    """Capacity buckets of one set of groups. xg: (G, Tg, D) tokens;
+    idx/weights: (G, Tg, K) routing. Each group gives each expert
+    ``cap`` slots, filled in the order of the group's flattened (token,
+    k) assignments; an assignment past its expert's slots is dropped.
+    Returns (expert_in (G, E*cap, D): the row filling each (expert,
+    slot) bucket, zero where empty; slot (G, Tg, K): each assignment's
+    bucket; w (G, Tg, K): its combine weight in ``xg.dtype``, 0 where
+    dropped; keep (G, Tg*K))."""
+    G, Tg, D = xg.shape
+    K = idx.shape[-1]
+    E, N = n_experts, Tg * K
+    flat_idx = idx.reshape(G, N)
+    pos, keep = capacity_slots(flat_idx, E, cap)
+    w = (weights.reshape(G, N) * keep).to(xg.dtype)
+    slot = flat_idx * cap + torch.clamp(pos, max=cap - 1)    # (G, N)
+
+    # Which token fills each (expert, slot) bucket; empty buckets read a
+    # zero row (index Tg), dropped assignments write a trash column.
+    dev = xg.device
+    tok = torch.arange(N, device=dev).div(K, rounding_mode="floor")
+    tok_of = torch.full((G, E * cap + 1), Tg, dtype=torch.long, device=dev)
+    tok_of.scatter_(1, torch.where(keep, slot, E * cap),
+                    tok.expand(G, N).contiguous())
+    xz = torch.cat([xg, xg.new_zeros((G, 1, D))], dim=1)
+    rows = torch.arange(G, device=dev)[:, None]
+    expert_in = xz[rows, tok_of[:, :E * cap]]               # (G, E*C, D)
+    return expert_in, slot.view(G, Tg, K), w.view(G, Tg, K), keep
+
+
+def combine(out: torch.Tensor, slot: torch.Tensor, w: torch.Tensor
+            ) -> torch.Tensor:
+    """Each token's kept assignments' outputs, weighted, summed in f32:
+    out (G, E*C, D), slot/w (G, Tg, K) -> (G, Tg, D) f32."""
+    G, Tg, K = slot.shape
+    rows = torch.arange(G, device=out.device)[:, None]
+    y = torch.zeros((G, Tg, out.shape[-1]), dtype=torch.float32,
+                    device=out.device)
+    for k in range(K):
+        y += out[rows, slot[:, :, k]].float() * w[:, :, k, None].float()
+    return y
+
+
 def moe_block(x: torch.Tensor, router_w: torch.Tensor,
               w_gate: torch.Tensor, w_up: torch.Tensor,
               w_down: torch.Tensor, top_k: int,
@@ -136,7 +210,8 @@ def moe_block(x: torch.Tensor, router_w: torch.Tensor,
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Capacity-bucketed MoE with group-local dispatch.
 
-    x: (B, S, D); w_*: (E, D, F) / (E, F, D). Returns (out, aux_loss).
+    x: (B, S, D); w_*: (E, D, F) / (E, F, D), or lists of per-data-
+    shard blocks (module docstring). Returns (out, aux_loss).
     Tokens split into groups of ``Tg = min(group_size, B*S)``; each
     group gives each expert ``C = Tg*K*cf/E`` slots, filled in the
     order of the group's flattened (token, k) assignments; an
@@ -153,36 +228,19 @@ def moe_block(x: torch.Tensor, router_w: torch.Tensor,
         raise ValueError(f"{T} tokens do not split into groups of {Tg}")
     G = T // Tg
     cap = _capacity(Tg, E, K, capacity_factor)
-    N = Tg * K
-
-    flat_idx = idx.reshape(G, N)
-    pos, keep = capacity_slots(flat_idx, E, cap)
-    STATS.capacity_call(G * N, (~keep).sum())
-    w = (weights.reshape(G, N) * keep).to(x.dtype)
-    slot = flat_idx * cap + torch.clamp(pos, max=cap - 1)    # (G, N)
-
-    # Which token fills each (expert, slot) bucket; empty buckets read a
-    # zero row (index Tg), dropped assignments write a trash column.
-    dev = x.device
-    tok = torch.arange(N, device=dev).div(K, rounding_mode="floor")
-    tok_of = torch.full((G, E * cap + 1), Tg, dtype=torch.long, device=dev)
-    tok_of.scatter_(1, torch.where(keep, slot, E * cap),
-                    tok.expand(G, N).contiguous())
-    xg = torch.cat([x.reshape(G, Tg, D), x.new_zeros((G, 1, D))], dim=1)
-    rows = torch.arange(G, device=dev)[:, None]
-    expert_in = xg[rows, tok_of[:, :E * cap]]               # (G, E*C, D)
+    xg = acts.constrain_moe_groups(x.reshape(G, Tg, D))
+    expert_in, slot, w, keep = bucket(xg, idx.reshape(G, Tg, K),
+                                      weights.reshape(G, Tg, K), E, cap)
+    STATS.capacity_call(G * Tg * K, (~keep).sum())
     expert_in = (expert_in.view(G, E, cap, D).transpose(0, 1)
                  .reshape(E, G * cap, D))
-    out = _experts(expert_in, w_gate, w_up, w_down)
+    if _sharded(w_gate):
+        out = _experts_sharded(expert_in, w_gate, w_up, w_down)
+    else:
+        out = _experts(expert_in, w_gate, w_up, w_down)
     out = (out.view(E, G, cap, D).transpose(0, 1)
            .reshape(G, E * cap, D))
-
-    # Combine: each token's kept assignments, weighted, summed in f32.
-    slot = slot.view(G, Tg, K)
-    w = w.view(G, Tg, K)
-    y = torch.zeros((G, Tg, D), dtype=torch.float32, device=dev)
-    for k in range(K):
-        y += out[rows, slot[:, :, k]].float() * w[:, :, k, None].float()
+    y = acts.constrain_moe_groups(combine(out, slot, w))
     return y.to(x.dtype).reshape(B, S, D), aux
 
 
@@ -195,7 +253,9 @@ def moe_block_gather(x: torch.Tensor, router_w: torch.Tensor,
     read of the sorted expert ids), and each distinct expert runs its
     SwiGLU over its own rows with its weights read in place. Each
     token's K outputs are summed with the combine weights (cast to
-    ``x.dtype``) in f32."""
+    ``x.dtype``) in f32. Per-data-shard weight blocks (module docstring)
+    run each shard's experts on its device; the host read stays one a
+    call."""
     B, S, D = x.shape
     K = top_k
     weights, idx, aux = route(x, router_w, K)
@@ -210,15 +270,48 @@ def moe_block_gather(x: torch.Tensor, router_w: torch.Tensor,
     xs = xf[order.div(K, rounding_mode="floor")]            # (T*K, D)
     dt = x.dtype
     for w in (w_gate, w_up, w_down):
-        dt = torch.promote_types(dt, w.dtype)
-    ys = xs.new_empty(xs.shape, dtype=dt)
-    start = 0
-    for e, n in zip(experts.tolist(), counts.tolist()):
-        xe, wg, wu = promoted(xs[start:start + n], w_gate[e], w_up[e])
-        act, wd = promoted(F.silu(xe @ wg) * (xe @ wu), w_down[e])
-        torch.mm(act, wd, out=ys[start:start + n])
-        start += n
+        dt = torch.promote_types(dt, (w[0] if _sharded(w) else w).dtype)
+    experts, counts = experts.tolist(), counts.tolist()
+    if not _sharded(w_gate):
+        ys = _gather_rows(xs, experts, counts, 0, w_gate, w_up, w_down, dt)
+    else:
+        # The rows are sorted by expert, so each data shard's experts
+        # own one run of them: split the runs to the shards, run each
+        # shard's experts there, gather the runs back in order.
+        lo, runs, groups = 0, [], []
+        for wg in w_gate:
+            hi = lo + wg.shape[0]
+            sel = [(e, n) for e, n in zip(experts, counts) if lo <= e < hi]
+            runs.append(sum(n for _, n in sel))
+            groups.append((lo, sel))
+            lo = hi
+        parts = acts.constrain_expert_ecd(xs, runs,
+                                          [w.device for w in w_gate])
+        outs = []
+        for xp, (base, sel), wg, wu, wd in zip(parts, groups, w_gate, w_up,
+                                               w_down):
+            with on_device(wg.device):
+                outs.append(acts.constrain_expert_ecf(_gather_rows(
+                    xp, [e for e, _ in sel], [n for _, n in sel], base, wg,
+                    wu, wd, dt)))
+        ys = acts.constrain_moe_local(outs, xs.device)
     yk = torch.empty_like(ys)
     yk[order] = ys                                          # (t, k) order
     y = (yk.view(T, K, D).float() * wf.float()[..., None]).sum(dim=1)
     return y.to(x.dtype).reshape(B, S, D), aux
+
+
+def _gather_rows(xs: torch.Tensor, experts: list, counts: list, base: int,
+                 w_gate, w_up, w_down, dt) -> torch.Tensor:
+    """Rows ``xs`` sorted by expert (``counts[i]`` rows of expert
+    ``experts[i]``, which is row ``experts[i] - base`` of the weight
+    stacks) through their experts' SwiGLU, in place of order."""
+    ys = xs.new_empty(xs.shape, dtype=dt)
+    start = 0
+    for e, n in zip(experts, counts):
+        xe, wg, wu = promoted(xs[start:start + n], w_gate[e - base],
+                              w_up[e - base])
+        act, wd = promoted(F.silu(xe @ wg) * (xe @ wu), w_down[e - base])
+        torch.mm(act, wd, out=ys[start:start + n])
+        start += n
+    return ys

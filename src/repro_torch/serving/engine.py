@@ -44,27 +44,34 @@ the reference does.
 One engine can span a device **mesh** (``EngineConfig.mesh_shape =
 (data, model)``, resolved through ``launch.mesh.make_serving_mesh``),
 one Python process driving every position as the JAX engine's single
-controller does. ``serving/shard_plan.py`` places the weights and the
-LoRA B halves over "model" (LoRA A whole), KV pages (or slab rows) and
-the batch-state vectors over "data"; the page table stays global. The
-model functions run one "model" column per shard and gather at the
-``act_sharding.constrain_*`` points in exact-reductions mode (no
-contraction over a sharded dimension, compute at full batch), so a mesh
-engine emits the tokens of ``mesh_shape=None``. Physical pages round up
-to the data axis with the free-list order unchanged; KV and batch
-state are updated in place shard by shard; adapter uploads copy each
-device only its shard, on that device's side stream. ``shard_stats``
-reports per-shard pages, the arena bytes a device holds and the
+controller does. ``serving/shard_plan.py`` places the weights through
+the serving rule table (q/k/v/o, gate/up and the vocab over "model",
+the MoE experts over "data" with their FFN whole), the LoRA B halves
+over "model" (LoRA A whole), KV pages (or slab rows) and the
+batch-state vectors over "data", KV heads over "model" where they
+divide (else whole in the pages, and the slab's positions over
+"model"); the page table stays global. The model functions run one
+"model" column per shard and one set of experts per "data" shard, and
+gather at the ``act_sharding.constrain_*`` points in exact-reductions
+mode (no contraction over a sharded dimension, compute at full batch),
+so a mesh engine emits the tokens of ``mesh_shape=None``; the MoE
+family serves from the slab there too. Physical pages round up to the
+data axis with the free-list order unchanged; KV and batch state are
+updated in place shard by shard; adapter uploads copy each device only
+its shard, on that device's side stream. ``shard_stats`` reports
+per-shard pages, the arena bytes a device holds and the
 ``COLLECTIVE_METER`` gather gauges. ``spec_decode=True`` warns and is
-ignored on a mesh, as in the reference.
+ignored on a mesh, as in the reference. A config whose ``n_heads``,
+``d_model``, ``d_ff``, ``vocab_size`` (or an MoE config's
+``shared_expert_ff``) does not divide the "model" axis, or whose query
+columns would read parts of two KV groups, is refused on that mesh
+(``distributed.sharding.mesh_unsupported``).
 
 Not ported yet (each raises ``NotImplementedError`` at construction,
 naming the knob): the VLM, SSM, hybrid and enc-dec families (the
 reference engine cannot serve VLM either: it threads no M-RoPE
-positions), ``spec_decode=True`` on an MoE model, and an MoE model on
-a mesh: the MoE step functions on ``MeshParams``, with the experts
-split over "data" as the reference engine runs ``moe_block`` under
-``exact_reductions=True``, are not ported yet.
+positions) and ``spec_decode=True`` on an MoE model (the reference's
+MoE verify fails).
 """
 from __future__ import annotations
 
@@ -149,12 +156,8 @@ _WHY_NOT_SERVED = {
 
 def _unsupported(cfg: ModelConfig, e: EngineConfig) -> list[str]:
     out = []
-    if e.mesh_shape is not None and cfg.family == Family.MOE:
-        out.append(f"mesh_shape={tuple(e.mesh_shape)} on model family MOE "
-                   f"(the MoE step functions on MeshParams, experts over "
-                   f"\"data\" under exact_reductions=True, are not "
-                   f"ported yet)")
-    elif e.mesh_shape is not None and cfg.family == Family.DENSE:
+    if e.mesh_shape is not None and cfg.family in (Family.DENSE,
+                                                   Family.MOE):
         out += [f"mesh_shape={tuple(e.mesh_shape)}: {why}"
                 for why in mesh_unsupported(cfg, e.mesh_shape[1])]
     if cfg.family not in (Family.DENSE, Family.MOE):
@@ -388,8 +391,8 @@ class ChameleonEngine:
         elif self.plan is not None:
             shape = (cfg.n_layers, e.max_slots, e.max_len, cfg.n_kv_heads,
                      cfg.head_dim)
-            sh = self.plan.kv_dense(shape)
-            self.kv = tuple(sh.zeros(shape, torch.float32) for _ in range(2))
+            self.kv = tuple(self.plan.zeros_kv_dense(shape, torch.float32)
+                            for _ in range(2))
         else:
             self.kv = api.init_serve_state(cfg, e.max_slots, e.max_len,
                                            torch.float32, device=dev)
@@ -904,22 +907,27 @@ class ChameleonEngine:
         out = torch.empty((st.shape[0], n) + st.shape[3:], dtype=st.dtype,
                           device=self.device)
         for slc, t in st.unique():
-            if slc[1].start <= row < slc[1].stop:
-                out[:, :, slc[3]] = t[:, row - slc[1].start, :n].to(
-                    self.device)
+            r, q = slc[1], slc[2]
+            hi = min(n, q.stop)
+            if r.start <= row < r.stop and q.start < hi:
+                out[:, q.start:hi, slc[3]] = t[
+                    :, row - r.start, :hi - q.start].to(self.device)
         return out
 
     def _rows_write(self, st, row: int, val: torch.Tensor) -> None:
         """Write ``val`` (L, n, Kh, Dh) at positions ``:n`` of slab row
-        ``row``, into every shard that holds the row."""
+        ``row``, into every shard that holds the row (and, for a slab
+        split along the positions, its positions)."""
         n = val.shape[1]
         if not isinstance(st, ShardedTensor):
             st[:, row, :n] = val.to(st.device, st.dtype)
             return
         for slc, t in st.unique():
-            if slc[1].start <= row < slc[1].stop:
-                t[:, row - slc[1].start, :n] = val[:, :, slc[3]].to(
-                    t.device, t.dtype)
+            r, q = slc[1], slc[2]
+            hi = min(n, q.stop)
+            if r.start <= row < r.stop and q.start < hi:
+                t[:, row - r.start, :hi - q.start] = val[
+                    :, q.start:hi, slc[3]].to(t.device, t.dtype)
 
     def _place_batch_prefix(self, reqs: list[Request]) -> None:
         """Prefix-cache admission: match each prompt against the radix
@@ -1114,22 +1122,37 @@ class ChameleonEngine:
     def _write_prompt_kv_mesh(self, targets, new_kv, src_row, src_pos,
                               dst) -> None:
         """``_write_prompt_kv`` on a mesh: the prefill's K/V are
-        per-column stacks (column m's kv heads), and each target shard
-        takes the entries of its column whose page (or slab row) it
-        owns."""
+        per-column stacks (column m's KV heads, ``MeshParams.kv_heads``),
+        and each target shard takes the entries whose page (or slab row,
+        and for a slab split along the positions, position) it owns, of
+        every KV head it holds, each head from a column that computed
+        it."""
         d0, d1 = dst
+        kv_heads = self.params.kv_heads
         for st, cols in zip(targets, new_kv):
-            kh = cols[0].shape[3]
             for slc, t in st.unique():
                 lo, hi = slc[1].start, slc[1].stop
-                sel = np.nonzero((d0 >= lo) & (d0 < hi))[0]
+                keep = (d0 >= lo) & (d0 < hi)
+                if not self.paged:
+                    keep &= (d1 >= slc[2].start) & (d1 < slc[2].stop)
+                sel = np.nonzero(keep)[0]
                 if not len(sel):
                     continue
-                new = cols[slc[3].start // kh]
+                h0, h1 = slc[3].start, slc[3].stop
+                src = [next(m for m, (a, b) in enumerate(kv_heads)
+                            if a <= j < b) for j in range(h0, h1)]
+                if len(set(src)) == 1:
+                    a = kv_heads[src[0]][0]
+                    new = cols[src[0]][:, :, :, h0 - a:h1 - a]
+                else:
+                    new = torch.stack(
+                        [cols[m][:, :, :, j - kv_heads[m][0]].to(self.device)
+                         for j, m in zip(range(h0, h1), src)], dim=3)
                 sr, sp = (torch.as_tensor(a[sel], device=new.device)
                           for a in (src_row, src_pos))
+                i1 = d1[sel] - (0 if self.paged else slc[2].start)
                 i0, i1 = (torch.as_tensor(a, device=t.device)
-                          for a in (d0[sel] - lo, d1[sel]))
+                          for a in (d0[sel] - lo, i1))
                 t[:, i0, i1] = new[:, sr, sp].to(t.device, t.dtype)
 
     def _first_tokens(self, logits: torch.Tensor, reqs: list[Request],

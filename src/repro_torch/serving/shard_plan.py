@@ -6,13 +6,14 @@ rule table in ``distributed/sharding.py`` into the concrete
 ``NamedSharding``s the engine needs (DESIGN §4):
 
 - weights           — "model" axis (tensor parallel; resident, never
-                      gathered per step)
+                      gathered per step), MoE experts over "data"
+                      (expert parallel, their FFN whole)
 - LoRA slot arena   — A replicated, B dout over "model" (the delta adds
                       to the projection output without a reshard)
 - dense KV caches   — batch over "data", kv heads over "model" when
-                      divisible
+                      divisible, else the positions over "model"
 - paged KV pool     — *pages* over "data" (per-device memory sizing),
-                      kv heads over "model"
+                      kv heads over "model" when divisible, else whole
 - batch state       — (B,)/(B, X) vectors over "data"
 - page tables       — host-side and global; uploaded whole (page ids
                       address the logical pool)
@@ -115,6 +116,16 @@ class ShardPlan:
         sh = self.kv_pages(shape)
         split = len(sh.spec) > 1 and sh.spec[1] is not None
         return sh.zeros(shape, dtype, sink_dim=1 if split else None)
+
+    def zeros_kv_dense(self, shape: tuple, dtype: torch.dtype
+                       ) -> ShardedTensor:
+        """A zeroed dense slab in :meth:`kv_dense` placement. Split along
+        the positions (KV heads that do not divide "model"), each shard
+        keeps one position past its block as the write sink for tokens
+        whose position another shard holds."""
+        sh = self.kv_dense(shape)
+        split = len(sh.spec) > 2 and sh.spec[2] is not None
+        return sh.zeros(shape, dtype, sink_dim=2 if split else None)
 
     # ------------------------------------------------------- batch state
     def batch(self, shape: tuple) -> NamedSharding:

@@ -4,8 +4,8 @@ Port of ``src/repro/serving/systems.py``: the same system matrix and
 the same tiers, with PyTorch engines on the real-engine tiers (on the
 card unless ``device=`` names another device). ``mesh_shape`` is
 threaded to every real-engine tier (``engine``, ``cluster``,
-``disagg``) through ``EngineConfig.mesh_shape``; the sim tiers reject
-it.
+``disagg``) through ``EngineConfig.mesh_shape``, for the dense and the
+MoE family (experts over "data"); the sim tiers reject it.
 
 Names match the paper's evaluation:
 
@@ -190,7 +190,8 @@ def build_system(system: str = "chameleon", tier: str = "engine", *,
 
     ``mesh_shape`` ((data, model), real-engine tiers only): every engine
     replica spans a ("data", "model") mesh of d*m devices
-    (``EngineConfig.mesh_shape``); sim tiers reject it.
+    (``EngineConfig.mesh_shape``), dense and MoE configs alike; sim
+    tiers reject it.
 
     ``device``: where the real-engine tiers run (the CUDA device by
     default; ``"cpu"`` on request). The sim tiers run no device code.

@@ -60,6 +60,11 @@ forward's log-sum-exp (``return_lse=True``) is held to
 under grad on the card runs one forward and one backward launch, and
 two train steps of one reduced config a family give the CPU port's
 loss, grad norm, params and moments (``tests/_port_training.py``).
+The mesh step functions over repeated positions of the card (MoE with
+its experts over "data", MQA granite-34b with its one KV head shared by
+both columns) give the unsharded CPU port's prefill and decode logits
+within 1e-4 in f32, and ``moe_block_a2a`` equals ``moe_block`` on each
+batch shard within 1e-4.
 """
 import importlib
 
@@ -905,6 +910,116 @@ def test_reduced_moe_engine_on_the_card(card, name):
                                 "paged_attention": False}, launched
             assert all(st.plain == 0 for st in stats.values())
     assert out[("cuda", True)] == out[("cuda", False)] == out[("cpu", True)]
+
+
+def _repeated_mesh(shape, dev):
+    from repro_torch.launch.mesh import Mesh
+    grid = np.empty(shape[0] * shape[1], dtype=object)
+    grid[:] = [dev] * grid.size
+    return Mesh(grid.reshape(shape), ("data", "model"))
+
+
+@pytest.mark.parametrize("name,shape", [("qwen3-moe-235b-a22b", (2, 1)),
+                                        ("llama4-maverick-400b-a17b",
+                                         (2, 1)),
+                                        ("qwen3-moe-235b-a22b", (2, 2)),
+                                        ("granite-34b", (1, 2))])
+def test_mesh_step_functions_on_the_card(card, name, shape):
+    """The step functions on a mesh over repeated positions of the card,
+    f32, against the unsharded CPU port on the same weights and inputs:
+    the whole-prompt prefill's logits and K/V, then one decode step over
+    the slab holding the CPU's prompt K/V (MoE: experts over "data";
+    granite-34b: one KV head shared by both columns, the slab split
+    along its positions), within 1e-4; flash_attention, sgmv and bgmv
+    launch, no plain version runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import MeshParams
+    from repro_torch.models import api
+    from repro_torch.serving.shard_plan import ShardPlan
+    cfg = get_config(name).reduced()
+    params = api.init_params(cfg, 0, torch.float32, device="cpu")
+    rng = np.random.default_rng(31)
+    B, S, Smax = 4, 24, 48
+    toks = torch.as_tensor(rng.integers(3, cfg.vocab_size, (B, S)),
+                           dtype=torch.int32)
+    nxt = torch.as_tensor(rng.integers(3, cfg.vocab_size, (B, 1)),
+                          dtype=torch.int32)
+    clen = torch.full((B,), S, dtype=torch.int32)
+    from repro_torch.models.lora_apply import (init_lora_slots,
+                                               random_lora_weights,
+                                               write_adapter_to_slot)
+    lora = init_lora_slots(4, cfg.n_layers, cfg.d_model, cfg.q_dim,
+                           cfg.kv_dim, 8, torch.float32, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    for i in range(4):
+        write_adapter_to_slot(lora, random_lora_weights(
+            gen, 8, 8, cfg.n_layers, cfg.d_model, cfg.q_dim, cfg.kv_dim,
+            torch.float32), i)
+    aidx = torch.arange(B, dtype=torch.int32)
+    kw = dict(adapter_idx=aidx, lora_backend="kernel")
+    want, (k, v) = api.prefill(cfg, params, toks, lora=lora, **kw)
+    slab = api.init_serve_state(cfg, B, Smax, torch.float32, device="cpu")
+    for t, new in zip(slab, (k, v)):
+        t[:, :, :S] = new
+    want_step, _ = api.decode_step(cfg, params, nxt,
+                                   tuple(t.clone() for t in slab), clen,
+                                   lora=lora, **kw)
+    mesh = _repeated_mesh(shape, card)
+    plan = ShardPlan(mesh, cfg)
+    sh = plan.params(params)
+    mp = MeshParams(cfg, {p: sh[p].shard(t.to(card))
+                          for p, t in params.items()}, mesh)
+    lsh = plan.lora_slots(lora)
+    mlora = {p: (lsh[p][0].shard(a.to(card)), lsh[p][1].shard(b.to(card)))
+             for p, (a, b) in lora.items()}
+    stats = [bgmv_mod.STATS, sgmv_mod.STATS, fa_mod.STATS, pa_mod.STATS]
+    for st in stats:
+        st.reset()
+    dkw = dict(adapter_idx=aidx.to(card), lora_backend="kernel")
+    got, _ = api.prefill(cfg, mp, toks.to(card), lora=mlora, **dkw)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    mslab = tuple(plan.zeros_kv_dense(tuple(t.shape), torch.float32)
+                  .copy_(t.to(card)) for t in slab)
+    got_step, mslab = api.decode_step(cfg, mp, nxt.to(card), mslab,
+                                      clen.to(card), lora=mlora, **dkw)
+    torch.testing.assert_close(got_step.cpu(), want_step, rtol=1e-4,
+                               atol=1e-4)
+    assert all(s.launches > 0 for s in stats[:3])
+    assert pa_mod.STATS.launches == 0
+    assert all(s.plain == 0 for s in stats)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_moe_a2a_on_the_card(card, n):
+    """``moe_block_a2a`` over n data shards at repeated positions of
+    the card, f32: within 1e-4 of ``moe_block`` run on each batch shard
+    on the card (the same group-local capacity, so the same drops) and
+    of the same a2a on the CPU."""
+    from repro_torch.models import moe
+    from repro_torch.models.moe_shard_map import moe_block_a2a
+    gen = torch.Generator().manual_seed(23)
+    B, S, D, E, F = 8, 32, 128, 8, 96
+    x = torch.randn(B, S, D, generator=gen)
+    w = [torch.randn(s, generator=gen) / s[-2] ** 0.5
+         for s in ((D, E), (E, D, F), (E, D, F), (E, F, D))]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        args = [t.to(dev) for t in (x, *w)]
+        mesh = _repeated_mesh((n, 1), torch.device(dev))
+        moe.STATS.reset()
+        y, aux = moe_block_a2a(*args, 2, 1.0, mesh, group_size=64)
+        out[dev] = (y.cpu(), aux.cpu(), moe.STATS.dropped)
+        if dev == "cuda":
+            per = [moe.moe_block(xs, *args[1:], 2, 1.0, group_size=64)
+                   for xs in args[0].chunk(n)]
+            torch.testing.assert_close(
+                y, torch.cat([p[0] for p in per]), rtol=1e-4, atol=1e-4)
+            torch.testing.assert_close(
+                aux, torch.stack([p[1] for p in per]).mean(), rtol=1e-5,
+                atol=1e-6)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4,
+                               atol=1e-4)
+    assert out["cuda"][2] == out["cpu"][2] > 0
 
 
 @pytest.mark.parametrize("T", [16, 70])

@@ -394,15 +394,30 @@ class TestClusterAndSystems:
 
 # ---------------------------------------------------------- not served
 def test_moe_on_a_mesh_raises_naming_the_missing_piece():
+    """What stays refused on a mesh: MoE with ``spec_decode`` (no MoE
+    verify pass, on a mesh or off it), and a config whose ``n_heads``
+    does not divide the "model" axis (uneven column splits are not
+    ported); each message names the missing piece."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.models import lm
     from repro_torch.serving.engine import ChameleonEngine, EngineConfig
     cfg = get_config("qwen3-moe-235b-a22b").reduced()
     params = lm.init_params(cfg, 0, torch.float32, device="cpu")
     with pytest.raises(NotImplementedError,
-                       match="MoE step functions on MeshParams"):
+                       match="spec_decode=True on model family MOE"):
         ChameleonEngine(cfg, params, EngineConfig(n_adapters=2,
-                                                  mesh_shape=(1, 2)),
+                                                  mesh_shape=(1, 2),
+                                                  spec_decode=True),
+                        draft=(cfg, params), device="cpu")
+    odd = dataclasses.replace(get_config("chameleon-llama-7b").reduced(),
+                              n_heads=6, n_kv_heads=2)
+    with pytest.raises(NotImplementedError,
+                       match="n_heads=6 on a 4-way model axis"):
+        ChameleonEngine(odd, lm.init_params(odd, 0, torch.float32,
+                                            device="cpu"),
+                        EngineConfig(n_adapters=2, mesh_shape=(1, 4)),
                         device="cpu")
 
 

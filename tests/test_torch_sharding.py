@@ -331,11 +331,9 @@ def test_kv_pages_zeros_keep_a_write_sink():
 # ------------------------------------------------ activation sharding
 def test_activation_sharding_refuses_unported_modes():
     _, tm = meshes("2x2")
-    for kw in (dict(seq_shard_boundary=True),
-               dict(moe_token_parallel=True)):
-        with pytest.raises(NotImplementedError):
-            with acts.activation_sharding((), **kw):
-                pass
+    with pytest.raises(NotImplementedError):
+        with acts.activation_sharding((), seq_shard_boundary=True):
+            pass
     with pytest.raises(NotImplementedError, match="batch"):
         with acts.activation_sharding(("data",), mesh=tm,
                                       exact_reductions=True):
