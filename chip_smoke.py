@@ -116,10 +116,10 @@ of the JAX package. Phases, one JSON line each:
              ``ShardPlan`` on meshes (1, 1), (1, 2) and (2, 2) over
              repeated positions (``mesh_steps`` lines: (1, 1) bit-exact
              against the unsharded functions, the split meshes within
-             1e-4); reduced granite-34b (MQA) at (1, 2) and (1, 4) and
-             reduced Llama at (1, 4), whose KV heads do not divide the
-             columns (same gates); bgmv, sgmv, paged_attention and
-             flash_attention at a
+             1e-4, prefill and decode logits); reduced granite-34b
+             (MQA) at (1, 2) and (1, 4) and reduced Llama at (1, 4),
+             whose KV heads do not divide the columns (same gates);
+             bgmv, sgmv, paged_attention and flash_attention at a
              2-way column's Llama-7B shapes (LoRA dout 2048, 16 heads)
              against their plain versions, timed beside their bounds
              (``kernel_time_mesh``); the same sweep at full width in
@@ -159,14 +159,15 @@ of the JAX package. Phases, one JSON line each:
              the step functions (whole-prompt (8, 256) ``prefill``, one
              ``decode_step`` and two fused horizons over the slab) at
              (1, 1), (2, 1), (1, 2) and (2, 2) over repeated positions
-             (``mesh_moe_steps``: (1, 1) bit-exact, the split meshes'
+             (``mesh_moe_steps``: (1, 1) and (2, 1) bit-exact in
+             prefill, decode and every greedy token, the column splits'
              prefill logits within 2**-4, first-token and greedy
              agreement reported); one MoE layer through
              ``moe_block_a2a`` at (2, 1) and (4, 1) against ``moe_block``
              on each batch shard, timed (``mesh_moe_a2a``); the phase-4
              trace through ``EngineConfig()``, ``EngineConfig(mesh_shape=
              (1, 1))`` and ``(2, 1)`` on a step clock (``mesh_moe_engine``:
-             (1, 1) tokens identical, ms a step, peak memory, shard
+             (1, 1) and (2, 1) tokens identical, ms a step, peak memory, shard
              gauges). bgmv, sgmv and flash_attention launch on tensor
              cores; paged_attention, plain versions and the einsum LoRA
              never run. A ``phase_mesh_moe`` line gives each part's
@@ -1823,10 +1824,10 @@ def mesh_sweep(cfg, params, inp, tag: str, tol: float,
     times are reported). (1, 1) must equal the unsharded run bit for
     bit (same shapes, same kernels); the split meshes must hold the
     prefill logits within ``tol`` of it (column GEMMs of other widths
-    may round differently) and are read for greedy and first-token
-    agreement. Each run's kernel launches are counted from zero and
-    every kernel of ``MESH_PATH`` must launch; its peak memory is
-    read."""
+    may round differently), in f32 the decode logits too, and are read
+    for greedy and first-token agreement. Each run's kernel launches
+    are counted from zero and every kernel of ``MESH_PATH`` must
+    launch; its peak memory is read."""
     import importlib
 
     import torch
@@ -1884,6 +1885,9 @@ def mesh_sweep(cfg, params, inp, tag: str, tol: float,
         else:
             check(err <= tol, f"mesh_steps {tag} {shape}: logits off by "
                               f"{err} > {tol}")
+            if tag == "f32":
+                check(step_err <= tol, f"mesh_steps {tag} {shape}: decode "
+                                       f"logits off by {step_err} > {tol}")
         check(all(launches[n] > 0 for n in MESH_PATH)
               and not any(line["plain_calls"].values()),
               f"mesh_steps {tag} {shape}: a kernel of the path never "
@@ -2724,10 +2728,13 @@ def moe_mesh_steps(cfg, params, inp, shape, n_steps: int = 8) -> dict:
 
 def moe_mesh_sweep(cfg, params, inp, tol: float) -> None:
     """``moe_mesh_steps`` unsharded, at each of ``MOE_MESH_SHAPES``, and
-    unsharded again (``mesh_moe_steps`` lines). (1, 1) must equal the
-    unsharded functions bit for bit; the split meshes must hold the
-    prefill logits within ``tol`` and are read for first-token and
-    greedy agreement and the decode logits' error. bgmv, sgmv and
+    unsharded again (``mesh_moe_steps`` lines). The meshes with whole
+    columns, (1, 1) and (2, 1) (experts split over "data", the same
+    products a block of experts at a time), must equal the unsharded
+    functions bit for bit: prefill and decode logits and every greedy
+    token. The column splits must hold the prefill logits within
+    ``tol`` and are read for first-token and greedy agreement and the
+    decode logits' error. bgmv, sgmv and
     flash_attention must launch, on tensor cores, and no plain
     version, einsum LoRA or paged_attention may run."""
     import importlib
@@ -2766,7 +2773,7 @@ def moe_mesh_sweep(cfg, params, inp, tol: float) -> None:
             mesh_shape=list(shape), n_layers=cfg.n_layers,
             reduced=[f"n_layers 94 -> {cfg.n_layers}"],
             prefill_shape=list(inp["toks"].shape), rows=rows,
-            logits_max_abs_err=err, tol=0.0 if shape == (1, 1) else tol,
+            logits_max_abs_err=err, tol=0.0 if shape[1] == 1 else tol,
             decode_logits_max_abs_err=step_err,
             first_token_identical=int((got["first"] == base["first"])
                                       .sum().item()),
@@ -2786,10 +2793,10 @@ def moe_mesh_sweep(cfg, params, inp, tol: float) -> None:
             plain_calls=got["plain"], einsum_calls=got["einsum"])
         emit(line)
         check(line["finite"], f"mesh_moe_steps {shape}: non-finite logits")
-        if shape == (1, 1):
+        if shape[1] == 1:
             check(err == 0.0 and step_err == 0.0
                   and line["greedy_identical"] == rows,
-                  f"mesh_moe_steps (1, 1) differs from the unsharded step "
+                  f"mesh_moe_steps {shape} differs from the unsharded step "
                   f"functions: {line}")
         else:
             check(err <= tol, f"mesh_moe_steps {shape}: prefill logits off "
@@ -2829,8 +2836,10 @@ def moe_a2a_layer(cfg, params) -> None:
         n = shape[0]
         mesh = repeated_mesh(shape, dev)
 
+        blocks = [list(t.chunk(n)) for t in w[1:]]
+
         def a2a():
-            return moe_block_a2a(x, *w, K, cf, mesh)[0]
+            return moe_block_a2a(x, w[0], *blocks, K, cf, mesh)[0]
 
         def per_shard():
             return torch.cat([moe_block(xs, *w, K, cf)[0]
@@ -2872,10 +2881,10 @@ def moe_mesh_engines(cfg, params, trace_vocab: int, greedy: list) -> None:
     """The phase-4 trace served by ``EngineConfig()`` and by
     ``EngineConfig(mesh_shape=...)`` at each of ``MOE_MESH_ENGINES`` on
     one step clock, adapter loads landed before each step, so the
-    schedules agree (one ``mesh_moe_engine`` line): (1, 1) must give
-    ``EngineConfig()``'s tokens; (2, 1) splits the experts over two data
-    shards at repeated positions of the card (``repeated_positions``)
-    and is read for greedy agreement. Host ms a
+    schedules agree (one ``mesh_moe_engine`` line): (1, 1) and (2, 1)
+    must give ``EngineConfig()``'s tokens; (2, 1) splits the experts
+    over two data shards at repeated positions of the card
+    (``repeated_positions``). Host ms a
     step, peak memory, shard gauges and launches; bgmv, sgmv and
     flash_attention must launch on tensor cores, and no plain version,
     einsum LoRA or paged_attention may run."""
@@ -2954,6 +2963,8 @@ def moe_mesh_engines(cfg, params, trace_vocab: int, greedy: list) -> None:
                 reduced=[f"n_layers 94 -> {cfg.n_layers}"],
                 identical_1x1=(served["mesh_1x1"]["outputs"]
                                == base["outputs"]),
+                identical_2x1=(served["mesh_2x1"]["outputs"]
+                               == base["outputs"]),
                 greedy_vs_unsharded={
                     n: greedy_agreement(r["outputs"], base["outputs"],
                                         greedy)
@@ -2961,9 +2972,9 @@ def moe_mesh_engines(cfg, params, trace_vocab: int, greedy: list) -> None:
                 **{n: {k: v for k, v in r.items() if k != "outputs"}
                    for n, r in served.items()})
     emit(line)
-    check(line["identical_1x1"],
-          f"MoE mesh engine (1, 1) tokens differ from EngineConfig()'s: "
-          f"{line['greedy_vs_unsharded']}")
+    check(line["identical_1x1"] and line["identical_2x1"],
+          f"MoE mesh engine (1, 1) or (2, 1) tokens differ from "
+          f"EngineConfig()'s: {line['greedy_vs_unsharded']}")
 
 
 def phase_mesh_moe(cfg, params, trace_vocab: int, greedy: list) -> None:

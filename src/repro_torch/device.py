@@ -25,6 +25,15 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
     return dev
 
 
+def indexed(dev: torch.device) -> torch.device:
+    """``dev`` with its card's index: a bare ``cuda`` names the current
+    card. A tensor reports an indexed device, so a device compared with
+    a tensor's, or a key looked up by one, must be indexed too."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def on_device(dev: torch.device):
     """Make ``dev`` the current card while a shard or column launches
     its kernels (a launch goes to the current device); nothing on the

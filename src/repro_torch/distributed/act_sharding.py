@@ -49,13 +49,11 @@ from repro_torch.kernels.ops import COLLECTIVE_METER
 
 _MESH = None
 _DEVICES: list = []          # the "model" columns' devices of _MESH
-_EXPERT_AXIS = "data"
 _MOE_TOKEN_PARALLEL = False
 
 
 @contextlib.contextmanager
 def activation_sharding(batch_axes: tuple, model_axis: str = "model",
-                        expert_axis: str = "data", model_size: int = 1,
                         seq_shard_boundary: bool = False,
                         moe_token_parallel: bool = False,
                         mesh=None, exact_reductions: bool = False):
@@ -63,8 +61,7 @@ def activation_sharding(batch_axes: tuple, model_axis: str = "model",
     duration of the block (scoped, so single-device engines in the same
     process are untouched). The serving engine enters it around every
     dispatch with ``batch_axes=()`` and ``exact_reductions=True``;
-    ``moe_token_parallel`` arms ``moe_a2a_mesh``. ``model_size`` is
-    the JAX signature's; the columns here come from ``mesh``."""
+    ``moe_token_parallel`` arms ``moe_a2a_mesh``."""
     if seq_shard_boundary:
         raise NotImplementedError(
             "activation_sharding(seq_shard_boundary=True): sequence-"
@@ -80,10 +77,9 @@ def activation_sharding(batch_axes: tuple, model_axis: str = "model",
             "activation_sharding(exact_reductions=False): the row-"
             "parallel mode (partial sums over a sharded contraction) is "
             "a training feature; the port serves in exact mode")
-    global _MESH, _DEVICES, _EXPERT_AXIS, _MOE_TOKEN_PARALLEL
-    prev = (_MESH, _DEVICES, _EXPERT_AXIS, _MOE_TOKEN_PARALLEL)
-    _MESH, _DEVICES = mesh, []
-    _EXPERT_AXIS, _MOE_TOKEN_PARALLEL = expert_axis, moe_token_parallel
+    global _MESH, _DEVICES, _MOE_TOKEN_PARALLEL
+    prev = (_MESH, _DEVICES, _MOE_TOKEN_PARALLEL)
+    _MESH, _DEVICES, _MOE_TOKEN_PARALLEL = mesh, [], moe_token_parallel
     if mesh is not None:
         from repro_torch.distributed.sharding import column_coords
         _DEVICES = [mesh.devices[column_coords(mesh, m)]
@@ -91,7 +87,7 @@ def activation_sharding(batch_axes: tuple, model_axis: str = "model",
     try:
         yield
     finally:
-        _MESH, _DEVICES, _EXPERT_AXIS, _MOE_TOKEN_PARALLEL = prev
+        _MESH, _DEVICES, _MOE_TOKEN_PARALLEL = prev
 
 
 def installed_mesh():
@@ -101,10 +97,11 @@ def installed_mesh():
 
 
 def moe_a2a_mesh():
-    """(mesh, expert_axis) when the all-to-all MoE should run (token
-    parallelism under an installed mesh), else None."""
+    """(mesh, "data") when the all-to-all MoE should run (token
+    parallelism under an installed mesh; the experts lie over "data"),
+    else None."""
     if _MOE_TOKEN_PARALLEL and _MESH is not None:
-        return _MESH, _EXPERT_AXIS
+        return _MESH, "data"
     return None
 
 

@@ -25,20 +25,24 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import indexed, resolve_device
 
 _HOST_COUNT = re.compile(r"--xla_force_host_platform_device_count=(\d+)")
 
 
 class Mesh:
-    """Named grid of device positions (``jax.sharding.Mesh``)."""
+    """Named grid of device positions (``jax.sharding.Mesh``). A bare
+    ``cuda`` position is held as the current card's index, the device
+    its shards' tensors report."""
 
     def __init__(self, devices, axis_names: tuple):
         devices = np.asarray(devices, dtype=object)
         if devices.ndim != len(axis_names):
             raise ValueError(f"mesh of shape {devices.shape} needs "
                              f"{devices.ndim} axis names, got {axis_names}")
-        self.devices = devices
+        grid = np.empty(devices.size, dtype=object)
+        grid[:] = [indexed(torch.device(d)) for d in devices.flat]
+        self.devices = grid.reshape(devices.shape)
         self.axis_names = tuple(axis_names)
         self.shape = OrderedDict(zip(self.axis_names, devices.shape))
         self.size = int(devices.size)

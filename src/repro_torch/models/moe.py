@@ -139,17 +139,18 @@ def _experts(expert_in: torch.Tensor, w_gate: torch.Tensor,
     return torch.bmm(act, wd)
 
 
-def _sharded(w) -> bool:
-    """Expert weights given as per-data-shard blocks."""
-    return isinstance(w, (list, tuple))
+def expert_blocks(w) -> list:
+    """Expert weights as per-data-shard blocks: a list as given, a
+    whole (E, ., .) stack as one block."""
+    return list(w) if isinstance(w, (list, tuple)) else [w]
 
 
 def _experts_sharded(expert_in: torch.Tensor, w_gate: list, w_up: list,
                      w_down: list) -> torch.Tensor:
-    """``_experts`` with the experts split into data-shard blocks: each
-    block of buckets runs on its shard's device against its weights,
-    and the outputs come back to ``expert_in``'s device in expert
-    order."""
+    """``_experts`` over per-data-shard blocks: each block of buckets
+    runs on its shard's device against its weights, and the outputs
+    come back to ``expert_in``'s device in expert order (one block
+    stays where it is)."""
     blocks = acts.constrain_expert_ecd(
         expert_in, [w.shape[0] for w in w_gate], [w.device for w in w_gate])
     outs = []
@@ -234,10 +235,8 @@ def moe_block(x: torch.Tensor, router_w: torch.Tensor,
     STATS.capacity_call(G * Tg * K, (~keep).sum())
     expert_in = (expert_in.view(G, E, cap, D).transpose(0, 1)
                  .reshape(E, G * cap, D))
-    if _sharded(w_gate):
-        out = _experts_sharded(expert_in, w_gate, w_up, w_down)
-    else:
-        out = _experts(expert_in, w_gate, w_up, w_down)
+    out = _experts_sharded(expert_in, *map(expert_blocks,
+                                           (w_gate, w_up, w_down)))
     out = (out.view(E, G, cap, D).transpose(0, 1)
            .reshape(G, E * cap, D))
     y = acts.constrain_moe_groups(combine(out, slot, w))
@@ -268,33 +267,30 @@ def moe_block_gather(x: torch.Tensor, router_w: torch.Tensor,
                                                return_counts=True)
     STATS.gather_call(len(experts))
     xs = xf[order.div(K, rounding_mode="floor")]            # (T*K, D)
+    w_gate, w_up, w_down = map(expert_blocks, (w_gate, w_up, w_down))
     dt = x.dtype
     for w in (w_gate, w_up, w_down):
-        dt = torch.promote_types(dt, (w[0] if _sharded(w) else w).dtype)
+        dt = torch.promote_types(dt, w[0].dtype)
+    # The rows are sorted by expert, so each data shard's experts own
+    # one run of them: split the runs to the shards, run each shard's
+    # experts there, gather the runs back in order.
     experts, counts = experts.tolist(), counts.tolist()
-    if not _sharded(w_gate):
-        ys = _gather_rows(xs, experts, counts, 0, w_gate, w_up, w_down, dt)
-    else:
-        # The rows are sorted by expert, so each data shard's experts
-        # own one run of them: split the runs to the shards, run each
-        # shard's experts there, gather the runs back in order.
-        lo, runs, groups = 0, [], []
-        for wg in w_gate:
-            hi = lo + wg.shape[0]
-            sel = [(e, n) for e, n in zip(experts, counts) if lo <= e < hi]
-            runs.append(sum(n for _, n in sel))
-            groups.append((lo, sel))
-            lo = hi
-        parts = acts.constrain_expert_ecd(xs, runs,
-                                          [w.device for w in w_gate])
-        outs = []
-        for xp, (base, sel), wg, wu, wd in zip(parts, groups, w_gate, w_up,
-                                               w_down):
-            with on_device(wg.device):
-                outs.append(acts.constrain_expert_ecf(_gather_rows(
-                    xp, [e for e, _ in sel], [n for _, n in sel], base, wg,
-                    wu, wd, dt)))
-        ys = acts.constrain_moe_local(outs, xs.device)
+    lo, runs, groups = 0, [], []
+    for wg in w_gate:
+        hi = lo + wg.shape[0]
+        sel = [(e, n) for e, n in zip(experts, counts) if lo <= e < hi]
+        runs.append(sum(n for _, n in sel))
+        groups.append((lo, sel))
+        lo = hi
+    parts = acts.constrain_expert_ecd(xs, runs, [w.device for w in w_gate])
+    outs = []
+    for xp, (base, sel), wg, wu, wd in zip(parts, groups, w_gate, w_up,
+                                           w_down):
+        with on_device(wg.device):
+            outs.append(acts.constrain_expert_ecf(_gather_rows(
+                xp, [e for e, _ in sel], [n for _, n in sel], base, wg, wu,
+                wd, dt)))
+    ys = acts.constrain_moe_local(outs, xs.device)
     yk = torch.empty_like(ys)
     yk[order] = ys                                          # (t, k) order
     y = (yk.view(T, K, D).float() * wf.float()[..., None]).sum(dim=1)

@@ -31,7 +31,7 @@ import torch
 from repro_torch.device import on_device
 from repro_torch.distributed import act_sharding as acts
 from repro_torch.models.moe import (MOE_GROUP, STATS, _capacity, _experts,
-                                    _sharded, bucket, combine, route)
+                                    bucket, combine, expert_blocks, route)
 
 
 def _group_buckets(xg: torch.Tensor, idx: torch.Tensor,
@@ -54,35 +54,28 @@ def _shard_devices(mesh, axis: str) -> list:
             for s in range(mesh.shape[axis])]
 
 
-def _blocks(w, n: int, devices: list) -> list:
-    """Per-shard blocks of an expert stack: as given when already split,
-    else ``w`` split along experts onto the shards' devices."""
-    if _sharded(w):
-        return list(w)
-    return [b.to(d) for b, d in zip(torch.chunk(w, n), devices)]
-
-
 def moe_block_a2a(x: torch.Tensor, router_w, w_gate, w_up, w_down,
                   top_k: int, capacity_factor: float, mesh,
                   expert_axis: str = "data", group_size: int = MOE_GROUP,
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) whole (its batch rows are split over ``expert_axis``
-    here); router_w (D, E), replicated (or one copy a shard, on its
-    device); w_gate/w_up (E, D, F), w_down
-    (E, F, D), whole or as per-shard blocks. Requires B % n_shards == 0
-    and E % n_shards == 0. Returns (out (B, S, D) on ``x``'s device, aux
-    scalar: the shards' mean)."""
-    E = (router_w[0] if _sharded(router_w) else router_w).shape[-1]
+    here); router_w (D, E), one copy for all shards or one a shard (on
+    its device); w_gate/w_up (E_l, D, F), w_down (E_l, F, D): lists of
+    the n shards' blocks of E_l = E/n experts, each on its shard's
+    device (``MeshParams.experts``). Requires B % n == 0. Returns (out
+    (B, S, D) on ``x``'s device, aux scalar: the shards' mean)."""
     n = mesh.shape[expert_axis]
+    routers = expert_blocks(router_w)
+    routers = routers * n if len(routers) == 1 else routers
+    E = routers[0].shape[-1]
     B, S, D = x.shape
     if E % n or B % n:
         raise ValueError(f"moe_block_a2a needs E={E} and B={B} divisible "
                          f"by the {n} shards of {expert_axis!r}")
     E_l, Bl, K = E // n, B // n, top_k
     devs = _shard_devices(mesh, expert_axis)
-    wg, wu, wd = (_blocks(w, n, devs) for w in (w_gate, w_up, w_down))
-    if any(b.shape[0] != E_l for b in wg):
-        raise ValueError(f"expert blocks {[b.shape[0] for b in wg]} are "
+    if len(w_gate) != n or any(b.shape[0] != E_l for b in w_gate):
+        raise ValueError(f"expert blocks {[b.shape[0] for b in w_gate]} are "
                          f"not {n} blocks of {E_l}")
     T = Bl * S
     Tg = min(group_size, T)
@@ -96,9 +89,7 @@ def moe_block_a2a(x: torch.Tensor, router_w, w_gate, w_up, w_down,
     sends, combs, auxes = [], [], []
     for s, dev in enumerate(devs):
         with on_device(dev):
-            rw = (router_w[s] if _sharded(router_w)
-                  else router_w).to(dev)
-            weights, idx, aux = route(xs[s], rw, K)
+            weights, idx, aux = route(xs[s], routers[s].to(dev), K)
             send, comb = _group_buckets(
                 xs[s].reshape(G, Tg, D), idx.reshape(G, Tg, K),
                 weights.reshape(G, Tg, K), E, cap, x.dtype)
@@ -117,8 +108,8 @@ def moe_block_a2a(x: torch.Tensor, router_w, w_gate, w_up, w_down,
     for t, dev in enumerate(devs):
         with on_device(dev):
             h_in = torch.cat(recv[t], dim=1)             # (E_l, n*G, C, D)
-            out = _experts(h_in.reshape(E_l, n * G * cap, D), wg[t], wu[t],
-                           wd[t]).view(E_l, n, G, cap, D)
+            out = _experts(h_in.reshape(E_l, n * G * cap, D), w_gate[t],
+                           w_up[t], w_down[t]).view(E_l, n, G, cap, D)
         for s in range(n):
             back[s][t] = out[:, s]
     # 6: each source combines its buckets' outputs locally.

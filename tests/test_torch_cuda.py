@@ -64,7 +64,9 @@ The mesh step functions over repeated positions of the card (MoE with
 its experts over "data", MQA granite-34b with its one KV head shared by
 both columns) give the unsharded CPU port's prefill and decode logits
 within 1e-4 in f32, and ``moe_block_a2a`` equals ``moe_block`` on each
-batch shard within 1e-4.
+batch shard within 1e-4. An MoE engine whose mesh holds bare ``cuda``
+devices loads every adapter into every shard of its arena and gives
+the tokens of ``EngineConfig()``.
 """
 import importlib
 
@@ -1007,7 +1009,9 @@ def test_moe_a2a_on_the_card(card, n):
         args = [t.to(dev) for t in (x, *w)]
         mesh = _repeated_mesh((n, 1), torch.device(dev))
         moe.STATS.reset()
-        y, aux = moe_block_a2a(*args, 2, 1.0, mesh, group_size=64)
+        blocks = [list(t.chunk(n)) for t in args[2:]]
+        y, aux = moe_block_a2a(*args[:2], *blocks, 2, 1.0, mesh,
+                               group_size=64)
         out[dev] = (y.cpu(), aux.cpu(), moe.STATS.dropped)
         if dev == "cuda":
             per = [moe.moe_block(xs, *args[1:], 2, 1.0, group_size=64)
@@ -1020,6 +1024,46 @@ def test_moe_a2a_on_the_card(card, n):
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4,
                                atol=1e-4)
     assert out["cuda"][2] == out["cpu"][2] > 0
+
+
+def test_moe_engine_on_a_mesh_of_bare_cuda_positions(card, monkeypatch):
+    """An engine whose mesh is built from bare ``cuda`` devices (two
+    data shards at repeated positions of the card), reduced qwen3-moe
+    in f32: every adapter it loads lands in every shard of its arena,
+    and it serves the tokens of ``EngineConfig()`` on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import Request
+    from repro_torch.models import api
+    from repro_torch.serving import engine
+    cfg = get_config("qwen3-moe-235b-a22b").reduced()
+    params = api.init_params(cfg, 0, torch.float32, device="cpu")
+    model = (cfg, params, engine.AdapterCatalog(cfg, 8, 32, seed=0,
+                                                device="cpu"))
+    monkeypatch.setattr(engine, "make_serving_mesh",
+                        lambda n, m, device=None: _repeated_mesh(
+                            (n // m, m), torch.device("cuda")))
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(1, 200, L).tolist() for L, _, _ in CHUNK_SPEC]
+    out = {}
+    for shape in (None, (2, 1)):
+        eng, t = _engine(model, "cuda", mesh_shape=shape)
+        hs = [eng.submit(Request(input_len=L, output_len=O + 6,
+                                 adapter_id=a, prompt=list(p)))
+              for (L, O, a), p in zip(CHUNK_SPEC, prompts)]
+        for _ in range(5000):
+            if not eng.busy():
+                break
+            _step(eng, t)
+        assert not eng.busy()
+        out[shape] = [h.tokens for h in hs]
+        if shape is not None:
+            assert eng._load_streams and all(
+                d.index is not None for d in eng._load_streams)
+            a, b = eng.lora["q"]
+            for slot in eng.slot_of.values():
+                assert all(bool(x[:, slot].abs().sum() > 0)
+                           for st in (a, b) for _, x in st.unique())
+    assert out[(2, 1)] == out[None]
 
 
 @pytest.mark.parametrize("T", [16, 70])

@@ -157,8 +157,8 @@ def test_a2a_matches_einsum_dispatch(n):
     x, rw, wg, wu, wd = operands()
     jy, _ = jmoe.moe_block(*map(J, (x, rw, wg, wu, wd)), top_k=2,
                            capacity_factor=8.0, group_size=64)
-    y, _ = moe_block_a2a(*map(T, (x, rw, wg, wu, wd)), 2, 8.0,
-                         cpu_mesh(n, 1), group_size=64)
+    mesh, blocks = expert_blocks(wg, wu, wd, rw, n)
+    y, _ = moe_block_a2a(T(x), T(rw), *blocks, 2, 8.0, mesh, group_size=64)
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-5,
                                atol=1e-5)
 
@@ -168,8 +168,9 @@ def test_a2a_dropless_decode_matches_gather(n):
     x, rw, wg, wu, wd = operands()
     x1 = x[:, :1]
     jy, _ = jmoe.moe_block_gather(*map(J, (x1, rw, wg, wu, wd)), top_k=2)
-    y, _ = moe_block_a2a(*map(T, (x1, rw, wg, wu, wd)), 2, 8 / 2,
-                         cpu_mesh(n, 1), group_size=64)
+    mesh, blocks = expert_blocks(wg, wu, wd, rw, n)
+    y, _ = moe_block_a2a(T(x1), T(rw), *blocks, 2, 8 / 2, mesh,
+                         group_size=64)
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-5,
                                atol=1e-5)
 
@@ -204,8 +205,9 @@ def test_a2a_one_shard_matches_jax_a2a():
         jy, jaux = jax.jit(lambda *a: jmoe_a2a(
             *a, top_k=2, capacity_factor=1.25, mesh=jm,
             group_size=64))(*map(J, (x, rw, wg, wu, wd)))
-    y, aux = moe_block_a2a(*map(T, (x, rw, wg, wu, wd)), 2, 1.25,
-                           cpu_mesh(1, 1), group_size=64)
+    mesh, blocks = expert_blocks(wg, wu, wd, rw, 1)
+    y, aux = moe_block_a2a(T(x), T(rw), *blocks, 2, 1.25, mesh,
+                           group_size=64)
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-5,
                                atol=1e-5)
     np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
@@ -214,8 +216,8 @@ def test_a2a_one_shard_matches_jax_a2a():
 def test_a2a_needs_experts_and_rows_to_divide():
     x, rw, wg, wu, wd = operands(B=3)
     with pytest.raises(ValueError, match="divisible"):
-        moe_block_a2a(*map(T, (x, rw, wg, wu, wd)), 2, 1.25,
-                      cpu_mesh(2, 1))
+        moe_block_a2a(T(x), T(rw), *expert_blocks(wg, wu, wd, rw, 2)[1], 2,
+                      1.25, cpu_mesh(2, 1))
 
 
 @pytest.mark.parametrize("d", [2, 4])
@@ -460,3 +462,19 @@ def test_expert_blocks_on_their_own_device_are_views():
     q = sh["layers/q"].shard(params["layers/q"])
     assert all(t.is_contiguous() for _, t in q.unique())
     assert len({t.untyped_storage().data_ptr() for _, t in q.unique()}) == 2
+
+
+def test_a_bare_cuda_position_is_held_as_the_current_card(monkeypatch):
+    """A mesh built from bare ``cuda`` devices holds each such position
+    as the current card's index, the device its shards' tensors report:
+    the engine keys its load streams by mesh device and writes an
+    adapter into the shards whose tensors lie on that device, so a bare
+    key would match no shard and skip every upload."""
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    grid = np.empty(4, dtype=object)
+    grid[:] = [torch.device("cuda")] * 3 + [torch.device("cuda", 0)]
+    mesh = Mesh(grid.reshape(2, 2), ("data", "model"))
+    assert [str(d) for d in mesh.devices.flat] == ["cuda:1"] * 3 + [
+        "cuda:0"]
+    assert all(d.index is not None for d in mesh.devices.flat)
+    assert cpu_mesh(2, 1).devices[1, 0] == torch.device("cpu")
