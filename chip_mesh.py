@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""The mesh-sharded serving engine across several NVIDIA cards.
+"""The mesh-sharded serving engine and train step across several
+NVIDIA cards.
 
 Run from the root of a checkout on a host with 4 cards:
     python3 chip_mesh.py
@@ -8,7 +9,7 @@ Run from the root of a checkout on a host with 4 cards:
 position of a split mesh is the same device. This script builds meshes
 of distinct cards (``cuda:0 .. cuda:n-1`` through
 ``EngineConfig.mesh_shape``), so shards live on their own cards and
-every gather is a copy between cards. Two phases, one JSON line each:
+every gather is a copy between cards. Phases, one JSON line each:
 
 1. ``mesh_parity`` — reduced ``chameleon-llama-7b`` in f32 (kernel
    LoRA), the mixed greedy/sampled trace of
@@ -41,8 +42,16 @@ every gather is a copy between cards. Two phases, one JSON line each:
    a step, decode tokens/s, peak memory of each card, gathers a
    dispatch, launches, greedy agreement with ``EngineConfig()``.
 
+6. ``mesh_train`` — the dense train step on meshes of distinct cards:
+   internlm2-1.8b at full width and depth in f32, two SyntheticLM
+   (8, 512) steps at (4, 1), (2, 2) and (1, 4) against the unsharded
+   step on ``cuda:0`` (loss, grad norm, params and moments, each card's
+   peak memory, s/step, launches); then ``python -m
+   repro_torch.launch.train --devices host`` for 5 steps over every card
+   (``mesh_train_launcher``).
+
 ``--phases`` picks phases by name (``parity``, ``full``, ``moe_parity``,
-``moe_a2a``, ``moe_full``; all by default). Then the ``nvidia-smi`` name
+``moe_a2a``, ``moe_full``, ``train``; all by default). Then the ``nvidia-smi`` name
 and power limit of each card. Exits non-zero with fewer than 4 cards or
 when a check fails; imports nothing of JAX.
 """
@@ -392,9 +401,56 @@ def phase_moe_full() -> None:
         torch.cuda.empty_cache()
 
 
+#: The train step's meshes of distinct cards.
+TRAIN_MESHES = ((4, 1), (2, 2), (1, 4))
+LAUNCHER_STEPS = 5
+
+
+def phase_train() -> None:
+    """``mesh_train``: internlm2-1.8b at full width and depth in f32,
+    two SyntheticLM (8, 512) steps on each of ``TRAIN_MESHES`` of
+    distinct cards, held to the unsharded step on ``cuda:0``
+    (``chip_smoke.train_mesh_run``: loss and grad norm, params and
+    moments after the last step, launches, s/step, each card's peak
+    memory); then ``python -m repro_torch.launch.train --devices host``
+    for ``LAUNCHER_STEPS`` steps over every card
+    (``mesh_train_launcher``)."""
+    import os
+
+    import torch
+    from chip_smoke import (ROOT, train_mesh_inputs, train_mesh_reference,
+                            train_mesh_run)
+    from repro_torch.launch.mesh import make_mesh
+    cfg, init, ocfg, batches = train_mesh_inputs()
+    ref = train_mesh_reference(cfg, ocfg, init, batches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for shape in TRAIN_MESHES:
+        train_mesh_run(cfg, ocfg, init, batches,
+                       make_mesh(shape, ("data", "model")), ref,
+                       "mesh_train")
+    del init, ref
+    gc.collect()
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--devices",
+         "host", "--steps", str(LAUNCHER_STEPS)],
+        capture_output=True, text=True, timeout=900, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    lines = out.stdout.splitlines()
+    emit(dict(phase="mesh_train_launcher", rc=out.returncode,
+              seconds=time.perf_counter() - t0, stdout=lines[-8:],
+              stderr=out.stderr.splitlines()[-8:]))
+    check(out.returncode == 0 and lines and lines[-1] == "done"
+          and any(f"{torch.cuda.device_count()} positions" in x
+                  for x in lines),
+          f"launch.train --devices host: rc {out.returncode}, "
+          f"{lines[-3:]}")
+
+
 PHASES = {"parity": phase_parity, "full": phase_full,
           "moe_parity": phase_moe_parity, "moe_a2a": phase_moe_a2a,
-          "moe_full": phase_moe_full}
+          "moe_full": phase_moe_full, "train": phase_train}
 
 
 def main() -> int:

@@ -216,6 +216,21 @@ of the JAX package. Phases, one JSON line each:
              checkpoint saved, restored bit-exact and deleted, and
              ``examples/torch_train_with_recovery.py`` (two injected
              failures, final loss below the first).
+8. train   — (mesh, ``phase_train_mesh``) with phase 7 freed: the
+             flash forward and backward in f32 at the per-shard
+             shapes of internlm2-1.8b's (8, 512) step on (2, 1), (1, 2)
+             and (2, 2) against their plain versions, timed
+             (``kernel_time_train_mesh[_fwd]``); the unsharded step
+             from seeded f32 params (kept on the host), then the state
+             placed by the train rule table on (1, 1), (2, 1), (1, 2)
+             and (2, 2) over repeated positions of the card and two
+             steps each (``train_mesh``): loss and grad norm within
+             1e-4 relative of the unsharded step's, params within lr a
+             step and moments within 1e-4 relative after the second,
+             flash forward and backward once a layer a position a step
+             (counts zeroed just before each mesh's steps), no plain
+             version; s/step, peak memory, gathers and reduce-scatters
+             a step.
 
 A device-time profile of the same path is ``chip_profile.py``.
 
@@ -3639,16 +3654,19 @@ def flash_bwd_bound(q, k, v, causal: bool, route: str | None = None
                     2.5 * 4 * B * H * dh * pairs, route)
 
 
-def phase_train_kernels(flush) -> dict:
+def phase_train_kernels(flush, shapes=None, dtypes=("f32", "bf16"),
+                        phase: str = "kernel_time_train",
+                        fwd_shapes=None) -> dict:
     """flash_attention_bwd, given the forward's log-sum-exp, against its
-    plain version at ``BWD_SHAPES`` in f32 and bf16 on the same card
-    tensors (``flash_bwd_allowance``), launching the instance
+    plain version at ``shapes`` (``BWD_SHAPES``) in ``dtypes`` on the
+    same card tensors (``flash_bwd_allowance``), launching the instance
     ``flash_bwd_instance`` names and the same bits twice, then timed
     beside the plain version, autograd through SDPA on the same tensors
     (``library_ms``, never called by the port) and its bound (the
     route's arithmetic; f32 rows also carry the CUDA-core bound); one
-    ``kernel_time_train`` line each. Then ``time_forward_lse``. Returns
-    the kernels-line row (internlm2, f32)."""
+    ``phase`` line each. Then ``time_forward_lse`` at ``fwd_shapes``
+    (``FWD_LSE_SHAPES``). Returns the kernels-line row (internlm2,
+    f32)."""
     import importlib
 
     import torch
@@ -3660,8 +3678,10 @@ def phase_train_kernels(flush) -> dict:
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
     row = None
-    for label, B, S, H, Kh, dh, causal in BWD_SHAPES:
+    for label, B, S, H, Kh, dh, causal in shapes or BWD_SHAPES:
         for dt, tname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            if tname not in dtypes:
+                continue
             q, dout = randn(B, S, H, dh, dtype=dt), randn(B, S, H, dh,
                                                          dtype=dt)
             k, v = randn(B, S, Kh, dh, dtype=dt), randn(B, S, Kh, dh,
@@ -3705,7 +3725,7 @@ def phase_train_kernels(flush) -> dict:
                 extra["bound_ms_cuda_cores"] = flash_bwd_bound(
                     q, k, v, causal, "f32")[0]
             line = dict(
-                phase="kernel_time_train", kernel="flash_attention_bwd",
+                phase=phase, kernel="flash_attention_bwd",
                 case=f"{label}, q {tuple(q.shape)}, Kh {Kh}, {tname}, "
                      f"{'causal' if causal else 'full'}",
                 instance=inst, same_bits_twice=same_bits,
@@ -3727,7 +3747,8 @@ def phase_train_kernels(flush) -> dict:
             if label == FULL_ARCH and tname == "f32":
                 row = line
             del q, k, v, out, dout, got, qt, kt, vt, lo, lse
-    time_forward_lse(flush, randn)
+    time_forward_lse(flush, randn, fwd_shapes or FWD_LSE_SHAPES,
+                     phase + "_fwd")
     return row
 
 
@@ -3738,19 +3759,18 @@ FWD_LSE_SHAPES = (("internlm2-1.8b", 8, 512, 16, 8, 128, "f32"),
                   ("llama (8, 256)", 8, 256, 32, 32, 128, "bf16"))
 
 
-def time_forward_lse(flush, randn) -> None:
-    """flash_attention at ``FWD_LSE_SHAPES``, causal, with
-    ``return_lse`` off and on: the output against its plain version (f32
-    1e-4; bf16 one ulp plus ``FLASH_P_ROUNDING``), the same bits either
-    way, the log-sum-exp within 1e-5 of ``flash_attention_lse_plain``,
-    and both timed beside SDPA; one ``kernel_time_train_fwd`` line a
-    shape."""
+def time_forward_lse(flush, randn, shapes, phase: str) -> None:
+    """flash_attention at ``shapes``, causal, with ``return_lse`` off
+    and on: the output against its plain version (f32 1e-4; bf16 one
+    ulp plus ``FLASH_P_ROUNDING``), the same bits either way, the
+    log-sum-exp within 1e-5 of ``flash_attention_lse_plain``, and both
+    timed beside SDPA; one ``phase`` line a shape."""
     import importlib
 
     import torch
     import torch.nn.functional as F
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
-    for label, B, S, H, Kh, dh, tname in FWD_LSE_SHAPES:
+    for label, B, S, H, Kh, dh, tname in shapes:
         dt = torch.float32 if tname == "f32" else torch.bfloat16
         q = randn(B, S, H, dh, dtype=dt)
         k, v = randn(B, S, Kh, dh, dtype=dt), randn(B, S, Kh, dh, dtype=dt)
@@ -3771,7 +3791,7 @@ def time_forward_lse(flush, randn) -> None:
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         fb = bound_ms(nbytes(q, k, v) + nbytes(q),
                       4 * B * H * dh * S * (S + 1) // 2, op_type(q, k, v))
-        emit(dict(phase="kernel_time_train_fwd", kernel="flash_attention",
+        emit(dict(phase=phase, kernel="flash_attention",
                   case=f"{label}, q {tuple(q.shape)}, Kh {Kh}, {tname}, "
                        f"causal", instance=fa.flash_instance(dt, dh),
                   max_abs_err=diff.max().item(),
@@ -4137,6 +4157,200 @@ def phase_train() -> dict:
     return dict(row, launches=full["launches"])
 
 
+# ------------------------------------------------------------ phase 8
+#: The meshes of the sharded train step on one card (repeated positions
+#: of ``cuda:0``), each held to the unsharded step; two steps each.
+TRAIN_MESHES = ((1, 1), (2, 1), (1, 2), (2, 2))
+TRAIN_MESH_STEPS = 2
+
+
+def train_mesh_shapes(meshes) -> tuple:
+    """flash_attention's per-shard shapes of the full-width train step
+    (internlm2-1.8b, (8, 512), 16/8 heads of 128) on each split mesh:
+    (8 / d, 512, 16 / m, 128) over 8 / m KV heads."""
+    cfg_b, cfg_s, h, kh, dh = FULL_BATCH, FULL_SEQ, 16, 8, 128
+    return tuple((f"{FULL_ARCH} shard of ({d}, {m})", cfg_b // d, cfg_s,
+                  h // m, kh // m, dh, True)
+                 for d, m in meshes if d * m > 1)
+
+
+def train_mesh_reference(cfg, ocfg, init: dict, batches: list) -> dict:
+    """The unsharded step on ``cuda:0`` from ``init`` (host tensors):
+    each step's loss, grad norm and seconds, and the params and
+    moments after the last step, on the host."""
+    import torch
+    from repro_torch.training import init_opt_state, make_train_step
+    params = {k: v.cuda() for k, v in init.items()}
+    opt = init_opt_state(params, ocfg)
+    step = make_train_step(cfg, ocfg)
+    hist = []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step(params, opt, b)
+        hist.append(dict(loss=float(m["loss"]),
+                         grad_norm=float(m["grad_norm"]),
+                         seconds=time.perf_counter() - t0))
+    return dict(history=hist,
+                params={k: v.cpu() for k, v in params.items()},
+                opt={k: v.cpu() for k, v in opt.items()})
+
+
+def train_mesh_run(cfg, ocfg, init: dict, batches: list, mesh, ref: dict,
+                   phase: str) -> dict:
+    """``init`` placed on ``mesh`` by the train rule table, then the
+    sharded step on ``batches`` with the kernel counts zeroed just
+    before and read just after: each step's loss and grad norm against
+    ``ref``'s (``TRAIN_TOL`` relative), the largest param difference
+    after the last step within lr a step and the largest moment
+    difference within ``TRAIN_TOL`` relative (``final_close``), flash
+    forward and backward once a layer a position a step and no plain
+    version; s/step, peak memory of each card, placed bytes. One
+    ``phase`` line."""
+    import torch
+    from repro_torch.distributed.sharding import (device_put,
+                                                  param_shardings)
+    from repro_torch.kernels.ops import COLLECTIVE_METER
+    from repro_torch.training import init_opt_state, make_train_step
+    cards = sorted({d.index for d in mesh.devices.flat})
+    params = device_put(init, param_shardings(cfg, init, mesh, "train"))
+    opt = init_opt_state(params, ocfg)
+    step = make_train_step(cfg, ocfg)
+    stats = _train_stats()
+    for i in cards:
+        torch.cuda.synchronize(i)
+        torch.cuda.reset_peak_memory_stats(i)
+    for st in stats.values():
+        st.reset()
+    COLLECTIVE_METER.reset()
+    hist = []
+    for b in batches:
+        t0 = time.perf_counter()
+        _, _, m = step(params, opt, b)
+        hist.append(dict(loss=float(m["loss"]),
+                         grad_norm=float(m["grad_norm"]),
+                         seconds=time.perf_counter() - t0))
+    for i in cards:
+        torch.cuda.synchronize(i)
+    launches = {n: st.launches for n, st in stats.items()}
+    plain = {n: st.plain for n, st in stats.items() if st.plain}
+    peak = [torch.cuda.max_memory_allocated(i) / 1e9 for i in cards]
+    gathers, reduces = COLLECTIVE_METER.gathers, COLLECTIVE_METER.reduces
+    metric_err = max(abs(g[k] - r[k]) / max(abs(r[k]), 1.0)
+                     for g, r in zip(hist, ref["history"])
+                     for k in ("loss", "grad_norm"))
+    home = mesh.devices.flat[0]
+    d_param = d_opt = 0.0
+    exact = True
+    for tree, want in ((params, ref["params"]), (opt, ref["opt"])):
+        for k, st in tree.items():
+            got = st.full(home).float()
+            w = want[k].to(home).float()
+            diff = (got - w).abs()
+            exact &= bool(torch.equal(got, w))
+            if tree is params:
+                d_param = max(d_param, diff.max().item())
+            else:
+                d_opt = max(d_opt, (diff / (1 + w.abs())).max().item())
+            del got, w, diff
+    n_steps = len(batches)
+    positions = mesh.size
+    want = {n: 0 for n in stats}
+    want["flash_attention"] = want["flash_attention_bwd"] = \
+        cfg.n_layers * positions * n_steps
+    line = dict(
+        phase=phase, model=cfg.name, n_layers=cfg.n_layers, weights="f32",
+        mesh_shape=[mesh.shape[a] for a in mesh.axis_names],
+        cards=cards, batch=FULL_BATCH, seq=FULL_SEQ, steps=n_steps,
+        losses=[h["loss"] for h in hist],
+        grad_norms=[h["grad_norm"] for h in hist],
+        ref_losses=[h["loss"] for h in ref["history"]],
+        ref_grad_norms=[h["grad_norm"] for h in ref["history"]],
+        metrics_rel_err=metric_err, max_param_err=d_param,
+        param_err_in_lr=d_param / (ocfg.lr * n_steps),
+        max_moment_rel_err=d_opt, bit_exact=exact,
+        s_per_step=[h["seconds"] for h in hist],
+        ref_s_per_step=[h["seconds"] for h in ref["history"]],
+        peak_gb_by_card=peak,
+        placed_gb=sum(t.numel() * t.element_size() for tree in (params, opt)
+                      for st in tree.values() for _, t in st.unique()) / 1e9,
+        launches_per_step={n: v / n_steps for n, v in launches.items()},
+        plain=plain, gathers_per_step=gathers / n_steps,
+        reduce_scatters_per_step=reduces / n_steps)
+    emit(line)
+    check(all(math.isfinite(h["loss"]) for h in hist)
+          and metric_err <= TRAIN_TOL,
+          f"{phase} {line['mesh_shape']}: losses {line['losses']} / grad "
+          f"norms {line['grad_norms']} against the unsharded "
+          f"{line['ref_losses']} / {line['ref_grad_norms']}")
+    check(d_param <= ocfg.lr * n_steps and d_opt <= TRAIN_TOL,
+          f"{phase} {line['mesh_shape']}: params {d_param} (lr a step "
+          f"{ocfg.lr}), moments {d_opt} apart from the unsharded step")
+    check(launches == want and not plain,
+          f"{phase} {line['mesh_shape']}: launches {launches} (want "
+          f"{want}), plain {plain}")
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def train_mesh_inputs():
+    """internlm2-1.8b at full width and depth, its seeded f32 params
+    (drawn on ``cuda:0``) on the host, the optimizer config and
+    ``TRAIN_MESH_STEPS`` SyntheticLM (8, 512) batches on ``cuda:0``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.training import AdamWConfig, DataConfig, SyntheticLM
+    cfg = get_config(FULL_ARCH)
+    init = {k: v.cpu() for k, v in api.init_params(
+        cfg, 0, torch.float32, device="cuda:0").items()}
+    ocfg = AdamWConfig(lr=3e-4, warmup_steps=0,
+                       total_steps=TRAIN_MESH_STEPS)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=FULL_SEQ, global_batch=FULL_BATCH))
+    batches = [{k: torch.from_numpy(v).cuda()
+                for k, v in data.batch(i).items()}
+               for i in range(TRAIN_MESH_STEPS)]
+    return cfg, init, ocfg, batches
+
+
+def phase_train_mesh() -> None:
+    """Phase 8: the dense train step on meshes over repeated positions
+    of ``cuda:0`` (one card: no interconnect measured). flash_attention
+    and its backward at the per-shard shapes against their plain
+    versions (``kernel_time_train_mesh``, f32), the unsharded step on
+    internlm2-1.8b at full width (``train_mesh_reference``), then each
+    of ``TRAIN_MESHES`` held to it (``train_mesh`` lines)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import Mesh
+    scratch = torch.empty(64 * MIB, dtype=torch.uint8, device="cuda")
+
+    def flush():
+        scratch.zero_()
+
+    shapes = train_mesh_shapes(TRAIN_MESHES)
+    phase_train_kernels(flush, shapes, ("f32",), "kernel_time_train_mesh",
+                        [s[:6] + ("f32",) for s in shapes])
+    del scratch
+    cfg, init, ocfg, batches = train_mesh_inputs()
+    t0 = time.perf_counter()
+    ref = train_mesh_reference(cfg, ocfg, init, batches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = torch.device("cuda", 0)
+    for shape in TRAIN_MESHES:
+        grid = np.empty(int(np.prod(shape)), dtype=object)
+        grid[:] = [card] * grid.size
+        train_mesh_run(cfg, ocfg, init, batches,
+                       Mesh(grid.reshape(shape), ("data", "model")), ref,
+                       "train_mesh")
+    emit(dict(phase="train_mesh_seconds",
+              seconds=time.perf_counter() - t0))
+
+
 KERNELS = {
     "bgmv": ("src/repro_torch/csrc/bgmv.cu", "src/repro/kernels/bgmv.py:39"),
     "sgmv": ("src/repro_torch/csrc/sgmv.cu", "src/repro/kernels/sgmv.py:37"),
@@ -4204,6 +4418,12 @@ def main() -> int:
         check(held < 1e9, f"{held / 1e9:.2f} GB still allocated after "
                           f"the families were freed")
         bwd = phase_train()
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        check(held < 1e9, f"{held / 1e9:.2f} GB still allocated after "
+                          f"the training phase")
+        phase_train_mesh()
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -1,7 +1,8 @@
 """Activation sharding: the gather points of the mesh data plane.
 
 Port of ``src/repro/distributed/act_sharding.py`` for the serving
-engine's exact-reductions mode. In the JAX package the model code calls
+engine's exact-reductions mode and the train step's row-parallel mode.
+In the JAX package the model code calls
 ``constrain_*`` at layer boundaries and GSPMD inserts the collectives;
 here one Python process drives every mesh position (single
 controller), the model code computes one "model" column per shard, and
@@ -33,11 +34,21 @@ single-device FP order; ``constrain_moe_groups`` is the identity
 ``models/moe_shard_map.moe_block_a2a`` (each data shard routes its own
 batch rows and exchanges buckets with the others).
 
-Not ported with this slice (each raises ``NotImplementedError``): the
-batch-sharded activations, the row-parallel (non-exact) mode and the
-sequence-parallel boundary (``seq_shard_boundary``) — training
-features — and with them the anchors only they use (``constrain_btd``,
-``constrain_boundary``, ``constrain_bd``, the SSM anchors).
+Training (``exact_reductions=False``, the row-parallel mode, with the
+batch axes installed): ``batch_shards`` (and the anchors
+``constrain_btd``, ``constrain_bd`` and ``constrain_boundary``, which
+call it) split the batch rows over the batch axes, every axis but
+"model", onto each position of the row's batch shard; each position
+computes its rows and its column (``lm``'s mesh train path). o and down
+are row-parallel there: each column's partial product is summed over
+the columns by ``psum_columns``, the all-reduce GSPMD inserts, whose
+gradient is the same all-reduce. The merged heads, the FFN hidden, the
+residual and the vocabulary stay split over the columns (those anchors
+pass a per-column list through).
+
+Not ported (raises ``NotImplementedError``): the sequence-parallel
+boundary (``seq_shard_boundary``), which only the dry-run tooling turns
+on, and with it the SSM anchors.
 """
 from __future__ import annotations
 
@@ -50,6 +61,9 @@ from repro_torch.kernels.ops import COLLECTIVE_METER
 _MESH = None
 _DEVICES: list = []          # the "model" columns' devices of _MESH
 _MOE_TOKEN_PARALLEL = False
+_EXACT = True
+_BATCH_AXES: tuple = ()
+_ROWS: list = []             # [batch shard][column] devices (training)
 
 
 @contextlib.contextmanager
@@ -61,33 +75,35 @@ def activation_sharding(batch_axes: tuple, model_axis: str = "model",
     duration of the block (scoped, so single-device engines in the same
     process are untouched). The serving engine enters it around every
     dispatch with ``batch_axes=()`` and ``exact_reductions=True``;
-    ``moe_token_parallel`` arms ``moe_a2a_mesh``."""
+    ``moe_token_parallel`` arms ``moe_a2a_mesh``. The mesh train step
+    enters it with the batch axes and ``exact_reductions=False``."""
     if seq_shard_boundary:
         raise NotImplementedError(
             "activation_sharding(seq_shard_boundary=True): sequence-"
-            "parallel boundaries are a training feature, ported with the "
-            "training-on-a-mesh slice")
-    if mesh is not None and batch_axes:
+            "parallel boundaries come with the dry-run tooling")
+    if mesh is not None and batch_axes and exact_reductions:
         raise NotImplementedError(
-            f"activation_sharding(batch_axes={batch_axes!r}): batch-"
-            f"sharded activations are a training feature; the serving "
-            f"data plane computes at full batch (batch_axes=())")
-    if mesh is not None and not exact_reductions:
-        raise NotImplementedError(
-            "activation_sharding(exact_reductions=False): the row-"
-            "parallel mode (partial sums over a sharded contraction) is "
-            "a training feature; the port serves in exact mode")
-    global _MESH, _DEVICES, _MOE_TOKEN_PARALLEL
-    prev = (_MESH, _DEVICES, _MOE_TOKEN_PARALLEL)
+            f"activation_sharding(batch_axes={batch_axes!r}, "
+            f"exact_reductions=True): the serving data plane computes at "
+            f"full batch (batch_axes=()); batch-sharded activations run "
+            f"in the row-parallel mode")
+    global _MESH, _DEVICES, _MOE_TOKEN_PARALLEL, _EXACT, _BATCH_AXES, _ROWS
+    prev = (_MESH, _DEVICES, _MOE_TOKEN_PARALLEL, _EXACT, _BATCH_AXES,
+            _ROWS)
     _MESH, _DEVICES, _MOE_TOKEN_PARALLEL = mesh, [], moe_token_parallel
+    _EXACT, _BATCH_AXES, _ROWS = exact_reductions, tuple(batch_axes), []
     if mesh is not None:
-        from repro_torch.distributed.sharding import column_coords
+        from repro_torch.distributed.sharding import (batch_rows,
+                                                      column_coords)
         _DEVICES = [mesh.devices[column_coords(mesh, m)]
                     for m in range(mesh.shape[model_axis])]
+        if _BATCH_AXES:
+            _ROWS = batch_rows(mesh, model_axis)
     try:
         yield
     finally:
-        _MESH, _DEVICES, _MOE_TOKEN_PARALLEL = prev
+        (_MESH, _DEVICES, _MOE_TOKEN_PARALLEL, _EXACT, _BATCH_AXES,
+         _ROWS) = prev
 
 
 def installed_mesh():
@@ -108,8 +124,8 @@ def moe_a2a_mesh():
 def _gather(x, dim: int, device=None):
     """Concatenate shards along ``dim`` onto ``device`` (the first
     shard's by default); one shard is returned as is (moved if it lives
-    elsewhere)."""
-    if not isinstance(x, (list, tuple)):
+    elsewhere). Outside exact mode a list of shards stays split."""
+    if not isinstance(x, (list, tuple)) or not _EXACT:
         return x
     device = x[0].device if device is None else device
     if len(x) == 1:
@@ -149,11 +165,81 @@ def replicate(x: torch.Tensor) -> list:
         return [x.to(d) for d in _DEVICES]
 
 
+def batch_shards(x):
+    """Split the batch rows (dim 0) of ``x`` over the installed batch
+    axes: [batch shard][column] blocks, each on its position's device
+    (the positions of one batch shard hold the same rows). A list (already
+    split) or no installed batch axes: ``x`` as it is. The rows must
+    split evenly, as a batch sharded over the batch axes must."""
+    if isinstance(x, (list, tuple)) or not _ROWS:
+        return x
+    nb = len(_ROWS)
+    if x.shape[0] % nb:
+        raise ValueError(
+            f"a batch of {x.shape[0]} rows does not split over the {nb} "
+            f"shards of the batch axes {_BATCH_AXES}")
+    return [[blk.to(d) for d in devs]
+            for blk, devs in zip(torch.chunk(x, nb), _ROWS)]
+
+
+def constrain_btd(x):
+    """(B, S, D) activations: batch over the batch axes."""
+    return batch_shards(x)
+
+
+def constrain_bd(x):
+    """(B, D) decode activations: batch over the batch axes."""
+    return batch_shards(x)
+
+
+def constrain_boundary(x):
+    """Inter-layer residual (B, S, D): batch over the batch axes (the
+    sequence split of ``seq_shard_boundary`` is not ported)."""
+    return batch_shards(x)
+
+
+class _SumColumns(torch.autograd.Function):
+    """The columns' partial products summed in column order on the first
+    column's device, a copy on every column's device; the gradient is
+    the same all-reduce of the copies' gradients (each column's copy
+    feeds that column only)."""
+
+    @staticmethod
+    def forward(ctx, *parts):
+        ctx.devices = [p.device for p in parts]
+        return _all_reduce(parts, ctx.devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return _all_reduce(grads, ctx.devices)
+
+
+def _all_reduce(parts, devices) -> tuple:
+    home = parts[0].device
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p.to(home)
+    with COLLECTIVE_METER.sync():
+        return tuple(total.to(d) if d != home else total.clone()
+                     for d in devices)
+
+
+def psum_columns(parts: list) -> list:
+    """The row-parallel mode's all-reduce over "model": one column's
+    (B, S, D) partial products each (o, down, the vocab-split
+    embedding), their sum on every column's device. One column: as
+    it is."""
+    if len(parts) == 1:
+        return list(parts)
+    return list(_SumColumns.apply(*parts))
+
+
 def constrain_logits(x):
     """(B, S, V) or (B, V) logits: exact mode gathers the vocab dim —
     sampling consumes these (sort / cumsum / top-k over V) and must see
     whole rows in single-device FP order; the unembedding still runs
-    column-parallel, the gather after it is elementwise."""
+    column-parallel, the gather after it is elementwise. Outside exact
+    mode the vocabulary stays split over the columns."""
     return _gather(x, -1)
 
 
@@ -170,7 +256,9 @@ def constrain_heads(x):
 
 def constrain_ffn_hidden(x):
     """(B, S, F) MLP hidden: exact mode gathers F, so the down
-    projection contracts an unsharded dim in single-device FP order."""
+    projection contracts an unsharded dim in single-device FP order;
+    outside it F stays over "model" (the down projection is then
+    row-parallel)."""
     return _gather(x, -1)
 
 

@@ -22,13 +22,19 @@ spec, which splits a tensor into per-position shards) and
 process drives every position (single controller, as the JAX engine
 is): a shard is a plain tensor on its position's device.
 ``MeshParams`` holds placed weights with each "model" column's compute
-view and each "data" shard's MoE experts, the operand the model
-functions take on a mesh.
+view and each "data" shard's MoE experts, the operand the serving step
+functions take on a mesh. A train state is placed leaf by leaf
+(``device_put``, {path: ShardedTensor}); ``TrainView`` is how the model
+computes with it, and ``FsdpStep`` carries one forward-backward's
+gathers and reduce-scatters (``all_gather``, ``reduce_scatter``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 import warnings
+import weakref
 
 import numpy as np
 import torch
@@ -354,19 +360,22 @@ class NamedSharding:
                 n *= mesh.shape[a]
             if dim % n:
                 raise ValueError(
-                    f"spec {self.spec} splits dim {dim} of {tuple(shape)} "
-                    f"into {n} uneven blocks; pass it through fit_spec")
+                    f"spec {self.spec} on {mesh!r} splits dim {dim} of "
+                    f"{tuple(shape)} into {n} uneven blocks; pass it "
+                    f"through fit_spec")
             step = dim // n
             out.append(slice(b * step, (b + 1) * step))
         return tuple(out)
 
-    def shard(self, x: torch.Tensor) -> "ShardedTensor":
+    def shard(self, x: torch.Tensor, copy: bool = False
+              ) -> "ShardedTensor":
         """Split ``x`` onto the mesh: each position gets its block,
         contiguous, on its device. Positions that hold the same block on
         the same device share one tensor (a block that already is ``x``
         on that device is ``x`` itself, no copy; so is a stacked block
         on ``x``'s device whose layers are contiguous, a view of
-        ``x``)."""
+        ``x``). ``copy``: every block is a fresh tensor, never a view
+        of ``x``."""
         shards = np.empty(self.mesh.devices.shape, dtype=object)
         made: dict = {}
         for coords in np.ndindex(*self.mesh.devices.shape):
@@ -375,12 +384,14 @@ class NamedSharding:
             key = (tuple((s.start, s.stop) for s in slc), str(dev))
             if key not in made:
                 t = x[slc].to(dev)
+                same = t.data_ptr() == x[slc].data_ptr()
+                if copy and same:
+                    t = t.clone(memory_format=torch.contiguous_format)
                 # A stacked block on x's own device whose layers are each
                 # contiguous (experts split below the layer axis) stays a
                 # view: a second copy of a model's experts does not fit
                 # beside the first on one card.
-                if not (t.data_ptr() == x[slc].data_ptr() and t.dim() >= 3
-                        and t[0].is_contiguous()):
+                elif not (same and t.dim() >= 3 and t[0].is_contiguous()):
                     t = t.contiguous()
                 made[key] = t
             shards[coords] = made[key]
@@ -429,6 +440,7 @@ class ShardedTensor:
         # Shards are written in place, never replaced: their layout is
         # computed once (the model code reads it every layer).
         self._unique = None
+        self._blocks = None
         self._parts: dict = {}
 
     @property
@@ -457,6 +469,18 @@ class ShardedTensor:
                     out.append((self.sharding.index(coords, self.shape), t))
             self._unique = out
         return self._unique
+
+    def blocks(self) -> list:
+        """(slices, [tensors]) of each distinct block, in position order,
+        with every distinct tensor that holds it (the copies of a
+        replicated block on several devices)."""
+        if self._blocks is None:
+            out: dict = {}
+            for slc, t in self.unique():
+                key = tuple((s.start, s.stop) for s in slc)
+                out.setdefault(key, (slc, []))[1].append(t)
+            self._blocks = list(out.values())
+        return self._blocks
 
     def parts(self, coords_fixed: dict, dim: int) -> list:
         """The blocks along ``dim`` seen from the positions whose
@@ -488,12 +512,7 @@ class ShardedTensor:
         (moved if it lives elsewhere)."""
         device = torch.device(device) if device is not None \
             else self.mesh.devices.flat[0]
-        pieces, done = [], set()
-        for slc, t in self.unique():
-            key = tuple((s.start, s.stop) for s in slc)
-            if key not in done:
-                done.add(key)
-                pieces.append((slc, t))
+        pieces = [(slc, ts[0]) for slc, ts in self.blocks()]
         if len(pieces) == 1:
             return pieces[0][1].to(device)
         out = torch.empty(self.shape, dtype=self.dtype, device=device)
@@ -551,6 +570,14 @@ _KV_LEAVES = ("k", "v", "k_bias", "v_bias")
 #: rule table and computed by their data shards (``MeshParams.experts``),
 #: never by a column.
 _EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def batch_rows(mesh: Mesh, model_axis: str = "model") -> list:
+    """The mesh's devices as [batch shard][column]: batch shard b is
+    row-major over every axis but ``model_axis`` (the batch axes, as
+    ``batch_spec`` splits the rows), column m its index on that axis."""
+    grid = np.moveaxis(mesh.devices, mesh.axis_names.index(model_axis), -1)
+    return grid.reshape(-1, grid.shape[-1]).tolist()
 
 
 def column_coords(mesh: Mesh, m: int) -> tuple:
@@ -755,3 +782,285 @@ def column_block(st: ShardedTensor, coords: tuple, dim: int, m: int,
     contiguous slice of the whole shard (replicated storage)."""
     w = st.shape[dim] // M
     return column_range(st, coords, dim, m * w, (m + 1) * w)
+
+
+# ------------------------------------------------ a train state on a mesh
+# The train rule table (``param_shardings(kind="train")``) splits every
+# weight's non-"model" dimension over the batch axes (FSDP) on top of
+# its "model" split, and ``opt_shardings`` puts the AdamW moments where
+# their parameter is. A position computes with the block its column
+# needs, gathered whole over the batch axes (``all_gather``); the
+# gradients of those blocks go back to each shard's owner summed over
+# the positions that computed with them (``reduce_scatter``). Both run
+# in position order, so a step's result does not depend on the order
+# in which autograd delivers the gradients.
+
+def device_put(tree: dict, shardings: dict) -> dict:
+    """``jax.device_put(tree, shardings)`` for a flat tree: each leaf
+    with a sharding becomes a ``ShardedTensor`` whose blocks are fresh
+    tensors (the train step updates them in place, so none may alias
+    the caller's tensor); a leaf without one is kept as it is."""
+    return {k: shardings[k].shard(v, copy=True) if k in shardings else v
+            for k, v in tree.items()}
+
+
+def _box(index: tuple, shape: tuple) -> list:
+    """``index`` (a slice or an int per leading dimension) as one slice
+    per dimension of ``shape``."""
+    index = tuple(index) + (slice(None),) * (len(shape) - len(index))
+    return [slice(i, i + 1) if isinstance(i, int)
+            else slice(*i.indices(n)[:2]) for i, n in zip(index, shape)]
+
+
+def _overlap(box: list, slc: tuple):
+    """(entries of the block ``slc`` local to it, the same entries local
+    to ``box``) where they overlap, or None."""
+    lo = [max(a.start, b.start) for a, b in zip(box, slc)]
+    hi = [min(a.stop, b.stop) for a, b in zip(box, slc)]
+    if any(a >= b for a, b in zip(lo, hi)):
+        return None
+    return (tuple(slice(a - s.start, b - s.start)
+                  for a, b, s in zip(lo, hi, slc)),
+            tuple(slice(a - s.start, b - s.start)
+                  for a, b, s in zip(lo, hi, box)))
+
+
+def all_gather(st: ShardedTensor, index: tuple, device) -> torch.Tensor:
+    """Entries ``index`` of ``st`` (a slice or an int per leading
+    dimension; an int drops its dimension) on ``device``, assembled from
+    the distinct blocks that hold them, each read from its copy on
+    ``device`` where there is one. When one block on ``device`` holds
+    them all, a view of it (no copy); else a fresh tensor (counted in
+    ``COLLECTIVE_METER.gathers``)."""
+    box = _box(index, st.shape)
+    shape = [s.stop - s.start for s in box]
+    keep = [n for n, i in zip(shape, tuple(index) + (None,) * len(shape))
+            if not isinstance(i, int)]
+    pieces = []
+    for slc, ts in st.blocks():
+        ov = _overlap(box, slc)
+        if ov is not None:
+            t = next((u for u in ts if u.device == device), ts[0])
+            pieces.append((ov[1], t[ov[0]]))
+    if len(pieces) == 1 and pieces[0][1].device == device:
+        return pieces[0][1].reshape(keep)
+    from repro_torch.kernels.ops import COLLECTIVE_METER
+    with COLLECTIVE_METER.sync():
+        COLLECTIVE_METER.gathers += 1
+        out = torch.empty(shape, dtype=st.dtype, device=device)
+        for dest, piece in pieces:
+            out[dest] = piece.to(device)
+    return out.reshape(keep)
+
+
+def reduce_scatter(out: ShardedTensor, parts: list) -> None:
+    """Add to each distinct block of ``out`` the sum of the gradients
+    ``parts`` hold of it: ``parts`` are (index, gradient) of the
+    positions that computed with entries ``index`` (``all_gather``'s)
+    of the leaf, in position order, and the sum runs in that order on
+    the block's first copy, then goes to its other copies (counted in
+    ``COLLECTIVE_METER.reduces``)."""
+    from repro_torch.kernels.ops import COLLECTIVE_METER
+    boxes = [(_box(i, out.shape), g) for i, g in parts]
+    with COLLECTIVE_METER.sync():
+        COLLECTIVE_METER.reduces += 1
+        for slc, ts in out.blocks():
+            acc, done = ts[0], []
+            for box, g in boxes:
+                ov = _overlap(box, slc)
+                if ov is None:
+                    continue
+                g = g.reshape([s.stop - s.start for s in box])
+                acc[ov[0]] += g[ov[1]].to(acc.device, acc.dtype)
+                done.append(ov[0])
+            for t in ts[1:]:
+                for local in done:
+                    t[local] = acc[local].to(t.device)
+
+
+#: The dimension each weight's compute splits over "model" in training:
+#: the serving table's column-parallel weights, with o and down
+#: row-parallel (each column takes a block of their input rows, and
+#: their products are partial sums over the columns).
+_TRAIN_COLUMN_DIM = {**_COLUMN_DIM, "o": -2, "down": -2}
+
+
+def train_unsupported(cfg: ModelConfig, mesh: Mesh) -> list[str]:
+    """Why a train step cannot run ``cfg`` on ``mesh`` (empty when it
+    can)."""
+    if cfg.family != Family.DENSE:
+        return [f"training the {cfg.family.name} family on a mesh of "
+                f"{mesh.size} positions (its sharded train step is not "
+                f"ported: ROADMAP Queue 1, the other families on a "
+                f"training mesh)"]
+    return mesh_unsupported(cfg, mesh.shape["model"])
+
+
+class TrainView:
+    """A placed train state ({path: ShardedTensor} under the train rule
+    table) as the model computes with it. Position (b, m) is batch
+    shard b and column m (``batch_rows``); it computes the column config ``col_cfg`` over its batch
+    rows with each weight's column block gathered over the batch axes
+    (``view``): q/k/v/gate/up/biases and the vocabulary (``embed/tok``
+    rows, ``lm_head`` columns) split over "model", o and down by input
+    rows, k/v over the KV heads its query heads read
+    (``kv_heads_of_column``), norms whole."""
+
+    def __init__(self, cfg: ModelConfig, placed: dict):
+        mesh = next(iter(placed.values())).mesh
+        bad = train_unsupported(cfg, mesh)
+        if bad:
+            raise NotImplementedError(
+                "the mesh train step does not run: " + ", ".join(bad))
+        self.cfg, self.placed, self.mesh = cfg, placed, mesh
+        self.M = M = mesh.shape["model"]
+        self.batch_axes = tuple(a for a in mesh.axis_names if a != "model")
+        self.rows = batch_rows(mesh)
+        self.n_batch = len(self.rows)
+        self.kv_heads = [kv_heads_of_column(cfg.n_kv_heads, M, m)
+                         for m in range(M)]
+        lo, hi = self.kv_heads[0]
+        self.col_cfg = dataclasses.replace(
+            cfg, n_heads=cfg.n_heads // M, n_kv_heads=hi - lo)
+        self.home = mesh.devices.flat[0]
+
+    def index(self, path: str, m: int, layer: int | None = None) -> tuple:
+        """The entries of leaf ``path`` column ``m`` computes with (of
+        layer ``layer`` for a stacked leaf)."""
+        shape = self.placed[path].shape
+        leaf = path.split("/")[-1]
+        out = [slice(None)] * len(shape)
+        if layer is not None:
+            out[0] = layer
+        dim = _TRAIN_COLUMN_DIM.get(path, _TRAIN_COLUMN_DIM.get(leaf))
+        if leaf in _KV_LEAVES:
+            lo, hi = self.kv_heads[m]
+            per = shape[-1] // self.cfg.n_kv_heads
+            out[-1] = slice(lo * per, hi * per)
+        elif dim is not None:
+            w = shape[dim] // self.M
+            out[dim] = slice(m * w, (m + 1) * w)
+        return tuple(out)
+
+    def view(self, path: str, b: int, m: int, layer: int | None = None
+             ) -> torch.Tensor:
+        """Position (b, m)'s block of ``path`` on its device: through the
+        recording ``FsdpStep`` when one is active (its gradient then
+        reaches the shards' owners), else a plain ``all_gather``."""
+        st, index = self.placed[path], self.index(path, m, layer)
+        dev = self.rows[b][m]
+        if _STEP is not None:
+            return _STEP.gather(path, st, index, dev)
+        return all_gather(st, index, dev)
+
+    def layer(self, i: int, b: int, m: int, leaves) -> dict:
+        return {leaf: self.view("layers/" + leaf, b, m, i)
+                for leaf in leaves if "layers/" + leaf in self.placed}
+
+
+_STEP = None           # the recording FsdpStep, if any
+
+
+def _address(t: torch.Tensor) -> tuple:
+    """Where ``t``'s memory lives: its device and storage address."""
+    return t.device, t.untyped_storage().data_ptr()
+
+
+class _Gathered(torch.autograd.Function):
+    """A position's gathered block as a node of the graph: its gradient
+    goes to the step's sink (``FsdpStep._deposit``), not to a tensor."""
+
+    @staticmethod
+    def forward(ctx, anchor, step, key, seq, st, index, device):
+        ctx.args = (step, key, seq, index)
+        w = all_gather(st, index, device)
+        # A fresh alias: autograd must not mark the shard itself.
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        step, key, seq, index = ctx.args
+        step._deposit(key, seq, index, g)
+        return (torch.zeros(0),) + (None,) * 6
+
+
+class FsdpStep:
+    """The gradient flow of one forward-backward over a placed state.
+
+    While ``recording()``, every block a position gathers
+    (``TrainView.view``) is a node of the graph whose gradient comes
+    back to ``_deposit``. Once every position that gathered a leaf's
+    layer has delivered its gradient, those gradients are reduce-
+    scattered in position order into ``grads`` (a ShardedTensor a leaf,
+    the parameter's sharding), so a layer's gradients live only until
+    its last position is done. A gathered copy is not kept for the
+    backward: autograd saves a handle to it (``saved_tensors_hooks``),
+    and the backward gathers it again, as FSDP frees a layer after its
+    forward. Gradients reach the graph's one leaf, ``anchor``:
+    differentiate the loss with respect to it, then ``finish()``."""
+
+    def __init__(self, placed: dict, grads: dict):
+        self.placed, self.grads = placed, grads
+        self.anchor = torch.zeros(0, requires_grad=True)
+        self._want: dict = {}
+        self._got: dict = {}
+        self._seq = 0
+        self._lock = threading.Lock()
+        self._saved: dict = {}     # storage address -> (st, index, device)
+        self._own = {_address(t) for st in placed.values()
+                     for _, t in st.unique()}
+
+    @contextlib.contextmanager
+    def recording(self):
+        global _STEP
+        prev, _STEP = _STEP, self
+        try:
+            with torch.autograd.graph.saved_tensors_hooks(self._pack,
+                                                          self._unpack):
+                yield self
+        finally:
+            _STEP = prev
+
+    def gather(self, path: str, st: ShardedTensor, index: tuple, device
+               ) -> torch.Tensor:
+        key = (path, index[0] if isinstance(index[0], int) else None)
+        self._want[key] = self._want.get(key, 0) + 1
+        self._seq += 1
+        out = _Gathered.apply(self.anchor, self, key, self._seq, st, index,
+                              device)
+        ptr = _address(out)
+        if ptr not in self._own:
+            self._saved[ptr] = (st, index, device)
+            weakref.finalize(out, self._saved.pop, ptr, None)
+        return out
+
+    def _pack(self, t: torch.Tensor):
+        rec = self._saved.get(_address(t))
+        if rec is None:
+            return t
+        return rec, tuple(t.shape), t.stride(), t.storage_offset()
+
+    @staticmethod
+    def _unpack(x):
+        if isinstance(x, torch.Tensor):
+            return x
+        (st, index, device), shape, stride, offset = x
+        return all_gather(st, index, device).as_strided(shape, stride, offset)
+
+    def _deposit(self, key, seq: int, index: tuple, g) -> None:
+        with self._lock:
+            got = self._got.setdefault(key, [])
+            got.append((seq, index, g))
+            if len(got) == self._want[key]:
+                self._reduce(key)
+
+    def _reduce(self, key) -> None:
+        got = sorted(self._got.pop(key), key=lambda e: e[0])
+        reduce_scatter(self.grads[key[0]], [(i, g) for _, i, g in got])
+
+    def finish(self) -> None:
+        """Reduce what arrived for layers some of whose positions sent
+        no gradient (a block that did not reach the loss: zero)."""
+        with self._lock:
+            for key in list(self._got):
+                self._reduce(key)

@@ -125,8 +125,10 @@ class CollectiveMeter(DispatchMeter):
     ``gathers`` and time it in ``sync()`` (host seconds: on the card
     the launch of the copies, which then run in stream order), so
     ``frac()`` reports the gather/wall time fraction the per-device
-    gauges export. ``reset()`` also restarts the wall clock the
-    fraction is taken over.
+    gauges export. The train step's FSDP collectives count here too
+    (``distributed.sharding.all_gather`` in ``gathers``,
+    ``reduce_scatter`` in ``reduces``). ``reset()`` also restarts the
+    wall clock the fraction is taken over.
     """
 
     def __init__(self) -> None:
@@ -136,6 +138,7 @@ class CollectiveMeter(DispatchMeter):
     def reset(self) -> None:
         super().reset()
         self.gathers = 0
+        self.reduces = 0
         self._t0 = time.perf_counter()
 
     def frac(self) -> float:

@@ -1,12 +1,18 @@
-"""Training launcher: --arch <id> on the card (PyTorch).
+"""Training launcher: --arch <id> on the host's cards or a forced mesh
+(PyTorch).
 
 Port of ``src/repro/launch/train.py`` with the same flags and defaults:
 AdamW (``warmup_steps = min(20, steps // 5)``), f32 params from a
 seeded init, ``SyntheticLM`` batches, async checkpoints every
 ``--checkpoint-every`` steps and a restore of the latest one at start.
-``--devices host`` trains on one card (``--device cpu`` asks for the
-CPU instead); the production meshes (``production``,
-``production-multipod``) are not ported yet and raise, naming the mesh.
+``--devices host`` trains over every visible card on the host mesh
+``(n, 1)``: params and AdamW moments FSDP-sharded over "data" by the
+train rule table, each card a batch shard (one card trains unsharded);
+``--device cpu`` asks for the CPU instead, whose positions
+``XLA_FLAGS=--xla_force_host_platform_device_count=N`` sets.
+``--devices production[-multipod]`` builds the 16x16 (2x16x16) mesh,
+which raises when the host has too few devices, as ``jax.make_mesh``
+does.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \\
         --reduced --steps 50 --batch 8 --seq 128
@@ -20,31 +26,49 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (device_put, opt_shardings,
+                                              param_shardings)
+from repro_torch.launch.mesh import Mesh, make_host_mesh, make_production_mesh
+from repro_torch.models import api
 from repro_torch.models.base import ModelConfig
 from repro_torch.training import (AdamWConfig, AsyncCheckpointer, DataConfig,
-                                  SyntheticLM, init_train_state, latest_step,
+                                  SyntheticLM, init_opt_state, latest_step,
                                   make_train_step, restore_checkpoint)
 
 
 def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
           lr: float = 3e-4, checkpoint_dir: str | None = None,
-          checkpoint_every: int = 50, device=None, log=print) -> dict:
+          checkpoint_every: int = 50, device=None, mesh: Mesh | None = None,
+          log=print) -> dict:
     """Run the launcher's loop; returns dict(params, opt, opt_cfg,
     history): the trained state and, for each step run, its step,
     loss, grad norm, lr and host seconds (each step ends in a read of
-    its loss, which waits for the device)."""
-    device = resolve_device(device)
+    its loss, which waits for the device). With ``mesh`` of more than
+    one position the state is placed on it (``param_shardings(kind=
+    "train")``, ``opt_shardings``) and restored onto it, and each batch
+    goes whole to the mesh's first position, the step splitting its
+    rows; a one-position mesh trains unsharded on its device."""
+    if mesh is not None and mesh.size == 1:
+        device, mesh = mesh.devices.flat[0], None
+    device = resolve_device(device) if mesh is None else mesh.devices.flat[0]
     opt_cfg = AdamWConfig(lr=lr, warmup_steps=min(20, steps // 5),
                           total_steps=steps)
-    params, opt = init_train_state(cfg, opt_cfg, 0, torch.float32,
-                                   device=device)
+    params = api.init_params(cfg, 0, torch.float32, device=device)
+    shardings = None
+    if mesh is not None:
+        p_sh = param_shardings(cfg, params, mesh, "train")
+        shardings = {"params": p_sh, "opt": opt_shardings(p_sh, mesh)}
+        params = device_put(params, p_sh)
+        log(f"mesh {dict(mesh.shape)}: {mesh.size} positions")
+    opt = init_opt_state(params, opt_cfg)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                   global_batch=batch))
     step_fn = make_train_step(cfg, opt_cfg)
     ck = AsyncCheckpointer(checkpoint_dir) if checkpoint_dir else None
     start = 0
     if ck and latest_step(checkpoint_dir) is not None:
-        start, trees = restore_checkpoint(checkpoint_dir, device=device)
+        start, trees = restore_checkpoint(checkpoint_dir,
+                                          shardings=shardings, device=device)
         params, opt = trees["params"], trees["opt"]
         log(f"restored checkpoint at step {start}")
 
@@ -88,17 +112,19 @@ def main(argv=None) -> None:
                     help="torch device (default: CUDA)")
     args = ap.parse_args(argv)
 
-    if args.devices != "host":
-        raise NotImplementedError(
-            f"--devices {args.devices}: the production device mesh "
-            f"(sharded params and optimizer state) is not ported yet; "
-            f"train on one card with --devices host")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.devices == "host":
+        mesh = make_host_mesh(args.device)
+    else:
+        mesh = make_production_mesh(
+            multi_pod=args.devices == "production-multipod",
+            device=args.device)
     train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
           lr=args.lr, checkpoint_dir=args.checkpoint_dir,
-          checkpoint_every=args.checkpoint_every, device=args.device)
+          checkpoint_every=args.checkpoint_every, device=args.device,
+          mesh=mesh)
     print("done")
 
 

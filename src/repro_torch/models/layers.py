@@ -241,6 +241,18 @@ def embed_sharded(tokens: torch.Tensor, tables: list) -> torch.Tensor:
     return out
 
 
+def embed_rows(tokens: torch.Tensor, table: torch.Tensor,
+               lo: int) -> torch.Tensor:
+    """Rows of a block of the embedding table holding ids [lo, lo + n):
+    the ids it holds looked up, the others zero. Summed over the blocks
+    (each id has one owner, the other terms are zeros) this is ``embed``
+    on the whole table, exactly."""
+    n = table.shape[0]
+    tok = tokens.long() - lo
+    mine = ((tok >= 0) & (tok < n))[..., None]
+    return torch.where(mine, table[tok.clamp(0, n - 1)], 0)
+
+
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """x: (B, S, D); table: (D, V) -> f32 logits (B, S, V).
 
@@ -263,3 +275,31 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         nll = nll * mask
         return nll.sum() / torch.clamp(mask.sum(), min=1)
     return nll.mean()
+
+
+def cross_entropy_columns(blocks: list, labels: torch.Tensor
+                          ) -> torch.Tensor:
+    """``cross_entropy`` of logits split over the vocabulary: ``blocks``
+    are (B, S, V_m) f32 blocks in vocabulary order, each on its own
+    device. Each block gives its exp-sum under the rows' shared maximum
+    and its label logits (zero where another block holds the label);
+    the sums run in block order on the first block's device. One block
+    is ``cross_entropy``."""
+    if len(blocks) == 1:
+        return cross_entropy(blocks[0], labels)
+    home = blocks[0].device
+    lab = labels.to(home).long()
+    # The shift cancels in the value and the gradient: no grad through it.
+    mx = torch.stack([b.detach().amax(-1).to(home) for b in blocks]).amax(0)
+    se = gold = None
+    lo = 0
+    for blk in blocks:
+        dev, n = blk.device, blk.shape[-1]
+        s = torch.exp(blk.float() - mx.to(dev)[..., None]).sum(-1).to(home)
+        i = lab.to(dev) - lo
+        mine = (i >= 0) & (i < n)
+        g = torch.gather(blk.float(), -1, i.clamp(0, n - 1)[..., None])
+        g = torch.where(mine, g.squeeze(-1), 0).to(home)
+        se, gold = (s, g) if se is None else (se + s, gold + g)
+        lo += n
+    return (torch.log(se) + mx - gold).mean()

@@ -39,12 +39,14 @@ from repro_torch.core.sampling import (SPEC_ACCEPT_FOLD, SPEC_DRAFT_FOLD,
                                        SPEC_RESIDUAL_FOLD)
 from repro_torch.device import on_device, resolve_device
 from repro_torch.distributed import act_sharding as acts
-from repro_torch.distributed.sharding import MeshParams
+from repro_torch.distributed.sharding import (MeshParams, ShardedTensor,
+                                              TrainView)
 from repro_torch.kernels.ops import flash_attention, paged_attention
 from repro_torch.models.base import Family, ModelConfig, param_shapes
 from repro_torch.models.layers import (apply_rope, cross_entropy,
+                                       cross_entropy_columns,
                                        decode_attention, einsum, embed,
-                                       embed_sharded, gelu_mlp,
+                                       embed_rows, embed_sharded, gelu_mlp,
                                        head_rms_norm,
                                        mrope_cos_sin, rms_norm, rope_cos_sin,
                                        suffix_attention, swiglu, unembed)
@@ -622,8 +624,12 @@ def decode_fused_paged(cfg: ModelConfig, params: dict, tokens, kv_pages,
 def forward(cfg: ModelConfig, params: dict, tokens,
             mrope_pos=None) -> torch.Tensor:
     """Full-sequence logits (B, S, V) f32, causal attention through
-    flash_attention. ``mrope_pos`` (3, B, S): M-RoPE positions (VLM)."""
+    flash_attention. ``mrope_pos`` (3, B, S): M-RoPE positions (VLM).
+    On a placed train state the dense family runs sharded, the logits
+    gathered onto the mesh's first position."""
     _refuse_mesh(params, "forward")
+    if _placed(params):
+        return _forward_train_mesh(cfg, params, tokens)
     x = embed(tokens, params["embed/tok"])
     cos, sin = _positions(cfg, tokens, 0, mrope_pos)
     h, _, _ = _backbone(cfg, params, x, cos, sin)
@@ -633,8 +639,12 @@ def forward(cfg: ModelConfig, params: dict, tokens,
 def train_loss(cfg: ModelConfig, params: dict, tokens, labels,
                mrope_pos=None, aux_weight: float = 0.01) -> torch.Tensor:
     """Mean next-token NLL of ``labels`` (B, S) plus ``aux_weight`` times
-    the MoE load-balance loss (0 for the dense and VLM families)."""
+    the MoE load-balance loss (0 for the dense and VLM families). On a
+    placed train state ({path: ShardedTensor}, the train rule table) the
+    dense family runs sharded (``_train_loss_mesh``)."""
     _refuse_mesh(params, "train_loss")
+    if _placed(params):
+        return _train_loss_mesh(cfg, params, tokens, labels)
     x = embed(tokens, params["embed/tok"])
     cos, sin = _positions(cfg, tokens, 0, mrope_pos)
     h, _, aux = _backbone(cfg, params, x, cos, sin)
@@ -1091,10 +1101,11 @@ def _mesh_scope(mp: MeshParams):
 def _refuse_mesh(params, what: str) -> None:
     if isinstance(params, MeshParams):
         raise NotImplementedError(
-            f"{what} on a mesh: only the serving step functions (prefill, "
-            f"prefill_paged, decode_step[_paged], decode_fused[_paged]) "
-            f"are sharded; training and speculative passes come with "
-            f"later slices")
+            f"{what} on serving MeshParams: they run the serving step "
+            f"functions (prefill, prefill_paged, decode_step[_paged], "
+            f"decode_fused[_paged]); speculative passes are not sharded, "
+            f"and forward/train_loss take a train state placed with "
+            f"sharding.device_put")
 
 
 class _MeshCall:
@@ -1551,3 +1562,108 @@ def _prefill_paged_mesh(cfg, mp, tokens, kv_pages, page_table, start,
         last = (seq_len.long().to(h.device) - 1).clamp(min=0)
         h_last = h[torch.arange(B, device=h.device), last][:, None]
         return _head_mesh(call, h_last)[:, 0], kv_pages
+
+
+# ------------------------------------------------- training on a mesh
+# The dense family's forward and train_loss on a placed train state
+# (``sharding.TrainView``): the counterpart of the JAX step under
+# ``activation_sharding(batch_axes)``. Position (b, m) runs batch shard
+# b's rows (``act_sharding.batch_shards``) through column m: its heads
+# with their KV heads (flash_attention forward, and backward under
+# autograd, per shard), its gate/up columns, its rows of the
+# row-parallel o and down, whose partial products ``psum_columns``
+# sums over the columns, and its vocabulary block (the embedding's
+# rows, summed likewise; the logits stay split and the cross-entropy
+# combines the blocks' exp-sums). Each weight is gathered over the
+# batch axes where a position computes with it (``TrainView.view``).
+# The loss is the mean of the batch shards' means: the global mean,
+# since the shards are equal.
+
+_MLP_LEAVES = ("mlp_norm", "gate", "up", "down")
+
+
+def _placed(params) -> bool:
+    return any(isinstance(v, ShardedTensor) for v in params.values())
+
+
+def _attn_leaves(tv: TrainView) -> list:
+    return [k[len("layers/"):] for k in tv.placed
+            if k.startswith("layers/")
+            and k[len("layers/"):] not in _MLP_LEAVES]
+
+
+def _layer_train(cfg, tv: TrainView, hb: list, rope: list, b: int, i: int,
+                 attn: list) -> list:
+    """Layer ``i`` of batch shard ``b``: ``hb`` its residual stream, a
+    copy on each column's device."""
+    c = tv.col_cfg
+    parts = []
+    for m, x in enumerate(hb):
+        with on_device(x.device):
+            p = tv.layer(i, b, m, attn)
+            _, q, k, v = _qkv_proj(c, x, p, *rope[m])
+            out = flash_attention(q, k, v, causal=True)
+            out = out.reshape(x.shape[0], x.shape[1], c.q_dim)
+            parts.append(einsum("bse,ed->bsd", out, p["o"]))
+    hb = [x + y for x, y in zip(hb, acts.psum_columns(parts))]
+    parts = []
+    for m, x in enumerate(hb):
+        with on_device(x.device):
+            p = tv.layer(i, b, m, _MLP_LEAVES)
+            h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+            parts.append(swiglu(h, p["gate"], p["up"], p["down"])
+                         if cfg.gated_mlp else
+                         gelu_mlp(h, p["up"], p["down"]))
+    return [x + y for x, y in zip(hb, acts.psum_columns(parts))]
+
+
+def _logits_train_mesh(cfg, tv: TrainView, tokens) -> list:
+    """[batch shard][column] f32 logits (B / n_batch, S, V / M)."""
+    toks = acts.batch_shards(tokens)
+    h, rope = [], []
+    for b, row in enumerate(toks):
+        parts = []
+        for m, t in enumerate(row):
+            tab = tv.view("embed/tok", b, m)
+            parts.append(embed(t, tab) if tv.M == 1 else
+                         embed_rows(t, tab, m * tab.shape[0]))
+        h.append(acts.psum_columns(parts))
+        rope.append([_positions(cfg, t, 0) for t in row])
+    attn = _attn_leaves(tv)
+    for i in range(cfg.n_layers):
+        for b in range(tv.n_batch):
+            h[b] = _layer_train(cfg, tv, h[b], rope[b], b, i, attn)
+    out = []
+    for b, hb in enumerate(h):
+        row = []
+        for m, x in enumerate(hb):
+            x = rms_norm(x, tv.view("final_norm", b, m), cfg.norm_eps)
+            table = (tv.view("embed/tok", b, m).T if cfg.tie_embeddings
+                     else tv.view("lm_head", b, m))
+            row.append(unembed(x, table))
+        out.append(row)
+    return out
+
+
+def _train_scope(tv: TrainView):
+    return acts.activation_sharding(tv.batch_axes, mesh=tv.mesh)
+
+
+def _train_loss_mesh(cfg, params: dict, tokens, labels) -> torch.Tensor:
+    tv = TrainView(cfg, params)
+    with _train_scope(tv):
+        logits = _logits_train_mesh(cfg, tv, tokens)
+        labs = acts.batch_shards(labels)
+        loss = None
+        for row, lab in zip(logits, labs):
+            nll = cross_entropy_columns(row, lab[0]).to(tv.home)
+            loss = nll if loss is None else loss + nll
+        return loss / tv.n_batch
+
+
+def _forward_train_mesh(cfg, params: dict, tokens) -> torch.Tensor:
+    tv = TrainView(cfg, params)
+    with _train_scope(tv):
+        rows = [torch.cat([t.to(tv.home) for t in row], dim=-1)
+                for row in _logits_train_mesh(cfg, tv, tokens)]
+        return torch.cat(rows, dim=0)

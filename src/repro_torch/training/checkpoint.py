@@ -24,8 +24,12 @@ immutable arrays to its thread, so ``save()`` copies every leaf to host
 memory before it returns; only the file writes run on the worker
 thread.
 
-Elastic restore onto a device mesh (the JAX ``shardings=``) is not
-ported yet; ``restore_checkpoint`` raises for it, naming the mesh.
+A state placed on a mesh (``ShardedTensor`` leaves) is saved as whole
+arrays, gathered leaf by leaf, so its files are byte-identical to an
+unsharded save of the same values. ``restore_checkpoint(shardings=)``
+places each leaf that has a ``NamedSharding`` onto its mesh, as JAX's
+``jax.make_array_from_callback`` does: save on one mesh, restore on
+another (elastic restore).
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import ShardedTensor
 
 #: The header descr the JAX package's ``np.save`` writes for bfloat16.
 BF16_DESCR = "<V2"
@@ -50,7 +55,10 @@ def _leaf_file(path: str) -> str:
 
 def _to_host(leaf) -> np.ndarray:
     """A leaf as a host array that owns its memory: bf16 tensors as
-    their uint16 bits, other tensors and arrays copied."""
+    their uint16 bits, other tensors and arrays copied; a placed leaf
+    gathered whole."""
+    if isinstance(leaf, ShardedTensor):
+        leaf = leaf.cpu()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         bf16 = t.dtype == torch.bfloat16
@@ -62,7 +70,8 @@ def _to_host(leaf) -> np.ndarray:
 
 
 def _dtype_name(leaf, arr: np.ndarray) -> str:
-    if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16:
+    if (isinstance(leaf, (torch.Tensor, ShardedTensor))
+            and leaf.dtype == torch.bfloat16):
         return "bfloat16"
     return str(arr.dtype)
 
@@ -116,7 +125,7 @@ def _snapshot(trees: dict[str, dict]) -> dict:
 def save_checkpoint(directory: str, step: int, trees: dict[str, dict],
                     extra: dict | None = None) -> str:
     """trees: {"params": flat dict, "opt": flat dict, ...} of tensors
-    (or arrays)."""
+    (or arrays, or placed ``ShardedTensor`` leaves)."""
     return _write(directory, step, _snapshot(trees), extra)
 
 
@@ -140,13 +149,12 @@ def restore_checkpoint(directory: str, step: int | None = None,
                        shardings: dict[str, dict] | None = None,
                        device: torch.device | str | None = None,
                        ) -> tuple[int, dict[str, dict]]:
-    """Returns (step, trees) with every leaf a tensor on ``device`` (the
-    card unless the caller asks otherwise)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore_checkpoint(shardings=...): elastic restore onto a "
-            "device mesh is not ported yet")
-    device = resolve_device(device)
+    """Returns (step, trees). ``shardings`` optionally maps tree/path ->
+    ``NamedSharding``: such a leaf comes back placed on its mesh
+    (``ShardedTensor``, each block a fresh tensor), every other leaf a
+    tensor on ``device`` (the card unless the caller asks otherwise)."""
+    if shardings is None:
+        device = resolve_device(device)
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -158,7 +166,12 @@ def restore_checkpoint(directory: str, step: int | None = None,
     for key, meta in manifest["index"].items():
         tree_name, path = key.split("/", 1)
         leaf = _load_leaf(os.path.join(src, meta["file"]), meta["dtype"])
-        trees.setdefault(tree_name, {})[path] = leaf.to(device)
+        sh = (shardings or {}).get(tree_name, {}).get(path)
+        if sh is not None:
+            leaf = sh.shard(leaf, copy=True)
+        else:
+            leaf = leaf.to(resolve_device(device))
+        trees.setdefault(tree_name, {})[path] = leaf
     return manifest["step"], trees
 
 

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import (FsdpStep, ShardedTensor,
+                                              train_unsupported)
 from repro_torch.models import api
 from repro_torch.models.base import Family, ModelConfig
 
@@ -31,6 +33,17 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     split on axis 0 (``mrope_pos`` on axis 1) and the microbatches run
     one after another, their gradients summed in f32, dividing peak
     activation memory by the factor.
+
+    A state placed on a mesh (``ShardedTensor`` leaves:
+    ``sharding.device_put`` with ``param_shardings(kind="train")``, and
+    ``init_opt_state`` of the placed params or ``opt_shardings``), as
+    JAX's jitted step takes it, trains the dense family sharded: each
+    microbatch's rows split over the batch axes, FSDP gathers and
+    reduce-scatters (``sharding.FsdpStep``), and each position updates
+    its shards. The batch stays whole (tensors on any device); its rows
+    must split evenly over the batch axes. On one position every family
+    trains on that position's tensors; on more, the other families
+    raise.
     """
 
     def loss_fn(params, batch):
@@ -52,22 +65,56 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             grads = torch.autograd.grad(loss, list(leaves.values()))
         return loss.detach(), dict(zip(leaves, grads))
 
+    def sharded_grads(params, batch):
+        """The loss and the f32 gradients of a placed state, each
+        placed like its parameter: one FSDP forward-backward a
+        microbatch, each reduce-scattering into the same gradients."""
+        grads = {k: st.sharding.zeros(st.shape, torch.float32)
+                 for k, st in params.items()}
+        loss = None
+        for mb in _microbatches(batch, microbatches):
+            fs = FsdpStep(params, grads)
+            with torch.enable_grad():
+                with fs.recording():
+                    loss_i = loss_fn(params, mb)
+                torch.autograd.grad(loss_i, [fs.anchor])
+            fs.finish()
+            loss_i = loss_i.detach()
+            loss = loss_i if loss is None else loss + loss_i
+        if microbatches > 1:
+            loss = loss / microbatches
+            for g in grads.values():
+                for _, t in g.unique():
+                    t /= microbatches
+        return loss, grads
+
     def step(params, opt_state, batch):
-        if microbatches == 1:
+        st = next(iter(params.values()))
+        if isinstance(st, ShardedTensor):
+            if cfg.family != Family.DENSE and st.mesh.size == 1:
+                # One position holds every leaf whole: the plain step on
+                # those tensors updates the placed state in place.
+                origin = (0,) * len(st.mesh.axis_names)
+                _, _, metrics = step(
+                    {k: v.local(origin) for k, v in params.items()},
+                    {k: v.local(origin) for k, v in opt_state.items()},
+                    batch)
+                return params, opt_state, metrics
+            bad = train_unsupported(cfg, st.mesh)
+            if bad:
+                raise NotImplementedError(
+                    "the mesh train step does not run: " + ", ".join(bad))
+            loss, grads = sharded_grads(params, batch)
+        elif microbatches == 1:
             loss, grads = grad_fn(params, batch)
         else:
-            def split(k, v):
-                axis = 1 if k == "mrope_pos" else 0  # (3, B, S)
-                return v.chunk(microbatches, dim=axis)
-            parts = {k: split(k, v) for k, v in batch.items()}
             loss = torch.zeros((), dtype=torch.float32,
                                device=batch["tokens"].device)
             grads = {k: torch.zeros(p.shape, dtype=torch.float32,
                                     device=p.device)
                      for k, p in params.items()}
-            for i in range(microbatches):
-                loss_i, grads_i = grad_fn(
-                    params, {k: v[i] for k, v in parts.items()})
+            for mb in _microbatches(batch, microbatches):
+                loss_i, grads_i = grad_fn(params, mb)
                 loss = loss + loss_i
                 for k, g in grads_i.items():
                     grads[k] += g
@@ -81,6 +128,18 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         return params, opt_state, metrics
 
     return step
+
+
+def _microbatches(batch: dict, n: int):
+    """The batch split into ``n`` microbatches on axis 0 (``mrope_pos``,
+    (3, B, S), on axis 1); one microbatch is the batch itself."""
+    if n == 1:
+        yield batch
+        return
+    parts = {k: v.chunk(n, dim=1 if k == "mrope_pos" else 0)
+             for k, v in batch.items()}
+    for i in range(n):
+        yield {k: v[i] for k, v in parts.items()}
 
 
 def init_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig, seed: int = 0,

@@ -94,13 +94,6 @@ def states_ok(first, final):
             and final["param_in_lr"] <= 1.0 and final["opt"] <= TOL)
 
 
-def m_leaves(opt_state):
-    """{path: first moment as f32 numpy} of an optimizer state (a copy:
-    the step updates in place)."""
-    return {k[2:]: host({k: v})[k]
-            for k, v in opt_state.items() if k.startswith("m/")}
-
-
 def all_stats():
     return {n: importlib.import_module(f"repro_torch.kernels.{n}").STATS
             for n in KERNELS}
@@ -112,19 +105,39 @@ def host(tree):
             for k, v in tree.items()}
 
 
-def card_vs_cpu_train_steps(name, opt_cfg, steps=2):
+def card_vs_cpu_train_steps(name, opt_cfg, steps=2, mesh_shape=None):
     """``steps`` train steps of reduced ``name`` in f32 on the card and
-    on the CPU from the port's seeded params. Returns the largest
-    relative difference of loss, grad norm and lr (``metrics_err``),
-    ``first_step_close`` and ``final_close`` readings, the card's flash
-    forward and backward launches and its plain calls."""
+    on the CPU from the port's seeded params; with ``mesh_shape`` the
+    card's state is placed by the train rule table on a ("data",
+    "model") mesh of that shape over repeated positions of the card.
+    Returns the largest relative difference of loss, grad norm and lr
+    (``metrics_err``), ``first_step_close`` and ``final_close``
+    readings, the card's flash forward and backward launches, its plain
+    calls and the card's mesh positions."""
+    from repro_torch.distributed.sharding import (ShardedTensor, device_put,
+                                                  param_shardings)
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.training import init_opt_state, make_train_step
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     cfg = get_config(name).reduced()
     cpu = api.init_params(cfg, 0, torch.float32, device="cpu")
-    card = {k: v.to("cuda") for k, v in cpu.items()}
+    positions = 1
+    if mesh_shape is None:
+        card = {k: v.to("cuda") for k, v in cpu.items()}
+    else:
+        grid = np.empty(int(np.prod(mesh_shape)), dtype=object)
+        grid[:] = [torch.device("cuda", torch.cuda.current_device())] \
+            * grid.size
+        mesh = Mesh(grid.reshape(mesh_shape), ("data", "model"))
+        card = device_put(cpu, param_shardings(cfg, cpu, mesh, "train"))
+        positions = mesh.size
     states = {"cpu": (cpu, init_opt_state(cpu, opt_cfg)),
               "cuda": (card, init_opt_state(card, opt_cfg))}
+
+    def whole(tree):
+        return host({k: v.full("cpu") if isinstance(v, ShardedTensor) else v
+                     for k, v in tree.items()})
+
     step = make_train_step(cfg, opt_cfg)
     stats = all_stats()
     ms, after1 = {}, {}
@@ -135,15 +148,18 @@ def card_vs_cpu_train_steps(name, opt_cfg, steps=2):
         for i in range(steps):
             ms[dev].append(step(p, o, to_tensors(batch_np(cfg, i), dev))[2])
             if i == 0:
-                after1[dev] = (host(p), m_leaves(o))
+                after1[dev] = (whole(p), {k[2:]: v for k, v in
+                                          whole(o).items()
+                                          if k.startswith("m/")})
     err = max(abs(float(a[k]) - float(b[k])) / max(abs(float(a[k])), 1.0)
               for a, b in zip(ms["cpu"], ms["cuda"])
               for k in ("loss", "grad_norm", "lr"))
     first = first_step_close(after1["cpu"][0], after1["cuda"][0], opt_cfg,
                              after1["cpu"][1])
-    final = final_close(*[tuple(host(t) for t in states[d])
+    final = final_close(*[tuple(whole(t) for t in states[d])
                           for d in ("cpu", "cuda")], opt_cfg, steps)
     plain = fa.BWD_STATS.plain + sum(st.plain for st in stats.values())
     return dict(metrics_err=err, first=first, final=final,
                 fwd_launches=stats["flash_attention"].launches,
-                bwd_launches=fa.BWD_STATS.launches, plain=plain)
+                bwd_launches=fa.BWD_STATS.launches, plain=plain,
+                positions=positions)

@@ -143,10 +143,21 @@ def test_latest_step_and_prune(tmp_path):
 
 
 def test_restore_onto_a_mesh_raises_naming_the_mesh(tmp_path):
-    tck.save_checkpoint(str(tmp_path), 1, {"params": {"w": torch.ones(2)}})
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tck.restore_checkpoint(str(tmp_path), shardings={"params": {}},
-                               device="cpu")
+    """Elastic restore places a leaf onto its sharding's mesh
+    (``tests/test_torch_train_mesh.py``); a leaf the mesh cannot split
+    evenly raises naming the mesh."""
+    import numpy as np
+
+    from repro_torch.distributed.sharding import NamedSharding, P
+    from repro_torch.launch.mesh import Mesh
+    tck.save_checkpoint(str(tmp_path), 1, {"params": {"w": torch.ones(3)}})
+    grid = np.empty(2, dtype=object)
+    grid[:] = [torch.device("cpu")] * 2
+    mesh = Mesh(grid, ("data",))
+    with pytest.raises(ValueError, match="Mesh"):
+        tck.restore_checkpoint(
+            str(tmp_path),
+            shardings={"params": {"w": NamedSharding(mesh, P("data"))}})
 
 
 def test_async_save_snapshots_before_an_in_place_update(tmp_path):

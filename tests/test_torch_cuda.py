@@ -66,7 +66,10 @@ both columns) give the unsharded CPU port's prefill and decode logits
 within 1e-4 in f32, and ``moe_block_a2a`` equals ``moe_block`` on each
 batch shard within 1e-4. An MoE engine whose mesh holds bare ``cuda``
 devices loads every adapter into every shard of its arena and gives
-the tokens of ``EngineConfig()``.
+the tokens of ``EngineConfig()``. The dense train step on a state
+placed over repeated positions of the card gives the unsharded CPU
+port's loss, grad norm, params and moments (``tests/_port_training.py``),
+with one flash forward and backward launch a layer a position a step.
 """
 import importlib
 
@@ -1379,3 +1382,24 @@ def test_reduced_train_steps_on_the_card(card, name):
     assert out["plain"] == 0, out
     assert out["bwd_launches"] == out["fwd_launches"], out
     assert (out["bwd_launches"] > 0) == (name != "falcon-mamba-7b"), out
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2), (2, 2)])
+@pytest.mark.parametrize("name", ["internlm2-1.8b", "granite-34b"])
+def test_sharded_train_steps_on_the_card(card, name, shape):
+    """Two train steps of a reduced dense config in f32 with the state
+    placed on a mesh over repeated positions of the card against the
+    unsharded CPU port (``_port_training`` tolerances)."""
+    from repro_torch.configs import get_config
+    from repro_torch.training import AdamWConfig
+    from _port_training import TOL, card_vs_cpu_train_steps, states_ok
+    torch.backends.cudnn.allow_tf32 = False
+    out = card_vs_cpu_train_steps(name, AdamWConfig(
+        lr=1e-3, warmup_steps=1, total_steps=10, clip_norm=0.5),
+        mesh_shape=shape)
+    assert out["metrics_err"] <= TOL, out
+    assert states_ok(out["first"], out["final"]), out
+    assert out["plain"] == 0, out
+    layers = get_config(name).reduced().n_layers
+    assert out["fwd_launches"] == out["bwd_launches"] \
+        == out["positions"] * layers * 2, out

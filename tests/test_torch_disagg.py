@@ -5,7 +5,7 @@ the JAX package, on the CPU.
   engine and imported into another (paged and dense) streams the JAX
   single engine's tokens, and its payload equals the JAX engine's own
   ``begin_migration`` payload on the same weights and prompt (within
-  1e-5, f32). An export taken while the source's pipelined horizon is
+  1e-5 of the payload's largest magnitude, f32). An export taken while the source's pipelined horizon is
   in flight ships the current position.
 - **Pool safety and lifecycle**: COW-shared prefix pages survive
   migration; cancel, expiry and abort after an import refusal leave
@@ -40,6 +40,15 @@ from repro_torch.serving import (GAUGES, ServingSystem,  # noqa: E402
 from repro_torch.serving import cluster as tcluster  # noqa: E402
 from repro_torch.serving import disagg, engine  # noqa: E402
 
+#: The payload tolerance, relative to the payload's largest magnitude.
+#: Each package's f32 payload differs from the port's payload with f64
+#: weights and KV by up to 1.3e-5 (port) and 8.6e-6 (JAX) absolute at
+#: magnitudes up to 6.3, about 20 f32 ulps of the largest value (the
+#: port's error is the smaller in mean and 99th percentile): GEMM
+#: summation order accumulates error with the rows' norms, not with
+#: each element. So the bound scales with the payload, 1e-5 of its
+#: largest magnitude (5.4e-5 for K, 6.3e-5 for V), over twice the sum
+#: of both sides' measured errors.
 PAYLOAD_TOL = 1e-5
 #: The migrated request of tests/test_disagg.py: 25 prompt tokens,
 #: 10 out, adapter 1, exported after 3 tokens.
@@ -140,8 +149,9 @@ def test_migrated_tokens_and_payload_match_jax(jax_oracle, paged):
         assert isinstance(ship[key], torch.Tensor)
         assert ship[key].device.type == "cpu"
         assert tuple(ship[key].shape) == jship[key].shape
+        atol = PAYLOAD_TOL * float(np.abs(jship[key]).max())
         np.testing.assert_allclose(ship[key].numpy(), jship[key], rtol=0,
-                                   atol=PAYLOAD_TOL)
+                                   atol=atol)
     assert land(src, dst, req, h, ship) == want["tokens"]
     assert src.n_kv_exports == 1 and dst.n_kv_imports == 1
     assert dst.kv_handoff_bytes == ship["nbytes"] > 0

@@ -323,8 +323,9 @@ def test_mesh_shape_raises_naming_the_mesh(tier, monkeypatch):
 
 @pytest.mark.parametrize("devices", ["production", "production-multipod"])
 def test_launch_train_production_raises_naming_the_mesh(devices):
-    """The production meshes are not ported: the launcher says so
-    before it builds anything."""
+    """The production meshes need 256 (512) devices: on fewer the
+    launcher raises ``make_mesh``'s device-count error, naming the mesh,
+    before it builds anything (as ``jax.make_mesh`` does)."""
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="mesh of shape .* devices"):
         train.main(["--devices", devices, "--device", "cpu"])

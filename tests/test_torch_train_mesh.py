@@ -1,0 +1,353 @@
+"""The port's train step on a device mesh against its unsharded step and
+the JAX package, on the CPU.
+
+Meshes are repeated ``cpu`` positions (one process drives every
+position, as on the card). Reduced configs in f32, two steps from the
+port's seeded params:
+
+- the sharded step (FSDP over the batch axes, q/k/v/gate/up column- and
+  o/down row-parallel over "model", vocab-split logits, sharded AdamW)
+  equals the unsharded port step within ``tests/_port_training.py``'s
+  tolerances at (1, 1), (2, 1), (1, 2), (2, 2) and a ("pod", "data",
+  "model") mesh, for internlm2-1.8b, granite-34b (MQA: its one KV head
+  split mid-head over "model" in storage) and qwen2.5-32b (q/k/v bias);
+  (1, 1) bit for bit. The (1, 1) step equals JAX's jitted step on the
+  same (bridged) weights;
+- every placed leaf's per-position block equals the JAX rule table's
+  ``NamedSharding`` index for that position;
+- ``microbatches=2`` on (2, 1) equals ``microbatches=1``; the forward
+  on a mesh equals the unsharded logits;
+- a checkpoint saved on (2, 1) is byte-identical to an unsharded save,
+  and restores with ``shardings=`` onto (1, 2) and onto one device to
+  continue equal to the uninterrupted run (the counterpart of
+  ``tests/test_training.py``'s elastic restore);
+- ``launch.train.train(mesh=make_host_mesh("cpu"))`` over a forced host
+  count of 2 trains the losses of one device;
+- the collectives and the row-parallel anchors on their own, and the
+  refusals: the other families on a split mesh, a batch that does not
+  split over the batch axes.
+"""
+import importlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# One intra-op thread: the suite runs several pytest workers on one
+# machine, and torch's default of one thread per core oversubscribes it.
+torch.set_num_threads(1)
+jax = pytest.importorskip("jax")
+# JAX reads XLA_FLAGS once, when its backend starts: start it now, so
+# the XLA_FLAGS a test sets for the port never reaches JAX.
+jax.devices()
+import jax.numpy as jnp  # noqa: E402
+from jax._src import op_shardings  # noqa: E402
+from jax.sharding import Mesh as JMesh  # noqa: E402
+
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.distributed import sharding as jsh  # noqa: E402
+from repro.models import api as japi  # noqa: E402
+from repro.training import optimizer as jopt  # noqa: E402
+from repro.training import train_step as jtrain  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.distributed import act_sharding as acts  # noqa: E402
+from repro_torch.distributed import sharding as tsh  # noqa: E402
+from repro_torch.launch.mesh import Mesh, make_host_mesh  # noqa: E402
+from repro_torch.models import api  # noqa: E402
+from repro_torch.training import (AdamWConfig, init_opt_state,  # noqa: E402
+                                  make_train_step, restore_checkpoint,
+                                  save_checkpoint)
+from repro_torch.training.optimizer import global_norm  # noqa: E402
+
+from _port_training import (TOL, batch_np, final_close,  # noqa: E402
+                            first_step_close, states_ok, to_tensors)
+
+fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
+
+OPT = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10, clip_norm=0.5)
+AXES = ("data", "model")
+MESHES = {"1x1": ((1, 1), AXES), "2x1": ((2, 1), AXES),
+          "1x2": ((1, 2), AXES), "2x2": ((2, 2), AXES),
+          "pod2x1x2": ((2, 1, 2), ("pod", "data", "model"))}
+NAMES = ("internlm2-1.8b", "granite-34b", "qwen2.5-32b")
+STEPS = 2
+
+
+def cpu_mesh(name):
+    shape, axes = MESHES[name]
+    grid = np.empty(int(np.prod(shape)), dtype=object)
+    grid[:] = [torch.device("cpu")] * grid.size
+    return Mesh(grid.reshape(shape), axes)
+
+
+def place(cfg, params, mesh):
+    """The params placed by the train rule table (copies) and their
+    moments placed alike."""
+    p = tsh.device_put(params, tsh.param_shardings(cfg, params, mesh,
+                                                   "train"))
+    return p, init_opt_state(p, OPT)
+
+
+def whole(tree):
+    """Leaves as f32 numpy copies, placed ones gathered."""
+    return {k: (v.cpu() if isinstance(v, tsh.ShardedTensor) else v)
+            .detach().float().numpy().copy() for k, v in tree.items()}
+
+
+def run(cfg, params, opt, steps=STEPS, microbatches=1, first=0):
+    """Steps ``first``.. of the port's step; the metrics of each, the
+    state after the first one (params, first moments) and at the end."""
+    step = make_train_step(cfg, OPT, microbatches)
+    ms, after1 = [], None
+    for i in range(first, first + steps):
+        m = step(params, opt, to_tensors(batch_np(cfg, i), "cpu"))[2]
+        ms.append({k: float(v) for k, v in m.items()})
+        if after1 is None:
+            after1 = (whole(params), {k[2:]: v for k, v in whole(opt).items()
+                                      if k.startswith("m/")})
+    return ms, after1, (whole(params), whole(opt))
+
+
+def assert_runs_close(ref, got):
+    (rm, r1, rend), (gm, g1, gend) = ref, got
+    for a, b in zip(rm, gm):
+        for k in ("loss", "grad_norm", "lr"):
+            assert abs(b[k] - a[k]) <= TOL * max(abs(a[k]), 1.0), (k, a, b)
+    first = first_step_close(r1[0], g1[0], OPT, r1[1])
+    final = final_close(rend, gend, OPT, len(rm))
+    assert states_ok(first, final), (first, final)
+
+
+def unsharded(cfg):
+    params = api.init_params(cfg, 0, torch.float32, device="cpu")
+    return params, run(cfg, {k: v.clone() for k, v in params.items()},
+                       init_opt_state(params, OPT))
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("name", NAMES)
+def test_sharded_step_equals_unsharded(name, mesh):
+    cfg = get_config(name).reduced()
+    params, ref = unsharded(cfg)
+    m = cpu_mesh(mesh)
+    fa_mod.STATS.reset()
+    got = run(cfg, *place(cfg, params, m))
+    assert_runs_close(ref, got)
+    if mesh == "1x1":
+        assert got[0] == ref[0]
+        for a, b in zip(ref[2], got[2]):
+            assert all(np.array_equal(a[k], b[k]) for k in a)
+    # Each position runs its shard's attention (on the CPU the plain
+    # version, differentiated by autograd).
+    assert fa_mod.STATS.plain == m.size * cfg.n_layers * STEPS
+
+
+def test_unit_mesh_step_matches_jax():
+    """(1, 1) against JAX's jitted step from JAX's weights."""
+    name = "internlm2-1.8b"
+    jcfg, cfg = jget_config(name).reduced(), get_config(name).reduced()
+    jparams = japi.init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
+    jocfg = jopt.AdamWConfig(lr=OPT.lr, warmup_steps=OPT.warmup_steps,
+                             total_steps=OPT.total_steps,
+                             clip_norm=OPT.clip_norm)
+    jstate = jopt.init_opt_state(jparams, jocfg)
+    jstep = jax.jit(jtrain.make_train_step(jcfg, jocfg))
+    jm, j1 = [], None
+    for i in range(STEPS):
+        b = {k: jnp.asarray(v) for k, v in batch_np(cfg, i).items()}
+        if i == 0:
+            params = bridge.params_to_torch(jparams, "cpu")
+        jparams, jstate, m = jstep(jparams, jstate, b)
+        jm.append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            j1 = ({k: np.asarray(v) for k, v in jparams.items()},
+                  {k[2:]: np.asarray(v) for k, v in jstate.items()
+                   if k.startswith("m/")})
+    ref = (jm, j1, ({k: np.asarray(v) for k, v in jparams.items()},
+                    {k: np.asarray(v, np.float32)
+                     for k, v in jstate.items()}))
+    assert_runs_close(ref, run(cfg, *place(cfg, params, cpu_mesh("1x1"))))
+
+
+@pytest.mark.parametrize("mesh", ["2x2", "pod2x1x2"])
+@pytest.mark.parametrize("name", ["internlm2-1.8b", "granite-34b"])
+def test_placed_blocks_are_the_jax_rule_tables(name, mesh):
+    """Each position's block of every param and moment is the JAX
+    ``NamedSharding``'s index for that position (over the mesh's
+    positions in order)."""
+    cfg, jcfg = get_config(name).reduced(), jget_config(name).reduced()
+    shape, axes = MESHES[mesh]
+    n = int(np.prod(shape))
+    jm = JMesh(np.asarray(jax.devices()[:1] * n).reshape(shape), axes)
+    params = api.init_params(cfg, 0, torch.float32, device="cpu")
+    shapes = {k: tuple(v.shape) for k, v in params.items()}
+    jp = jsh.param_shardings(jcfg, shapes, jm, "train")
+    p, opt = place(cfg, params, cpu_mesh(mesh))
+    jo = jsh.opt_shardings(jp, jm)
+    for tree, jtree, full in ((p, jp, params), (opt, jo, None)):
+        for k, st in tree.items():
+            ref = full[k] if full is not None else torch.zeros(
+                st.shape, dtype=st.dtype)
+            hlo = jtree[k]._to_xla_hlo_sharding(len(st.shape))
+            idx = op_shardings.op_sharding_to_indices(hlo, st.shape, n)
+            for pos, i in enumerate(idx):
+                assert torch.equal(st.shards.flat[pos], ref[i]), (k, pos)
+
+
+def test_microbatches_on_a_data_split_equal_one():
+    cfg = get_config("internlm2-1.8b").reduced()
+    params = api.init_params(cfg, 0, torch.float32, device="cpu")
+    m = cpu_mesh("2x1")
+    ref = run(cfg, *place(cfg, params, m))
+    assert_runs_close(ref, run(cfg, *place(cfg, params, m), microbatches=2))
+
+
+def test_forward_on_a_mesh_equals_unsharded():
+    cfg = get_config("qwen2.5-32b").reduced()
+    params = api.init_params(cfg, 0, torch.float32, device="cpu")
+    tokens = to_tensors(batch_np(cfg, 0), "cpu")["tokens"]
+    want = api.forward(cfg, params, tokens)
+    got = api.forward(cfg, place(cfg, params, cpu_mesh("2x2"))[0], tokens)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_elastic_restore(tmp_path):
+    """Save on (2, 1) after one step; restore onto (1, 2) and onto one
+    device and take the second step: each equals two steps on (2, 1),
+    and the files equal an unsharded save of the same values byte for
+    byte."""
+    cfg = get_config("internlm2-1.8b").reduced()
+    params = api.init_params(cfg, 0, torch.float32, device="cpu")
+    p, o = place(cfg, params, cpu_mesh("2x1"))
+    run(cfg, p, o, steps=1)
+    save_checkpoint(str(tmp_path / "mesh"), 1, {"params": p, "opt": o})
+    save_checkpoint(str(tmp_path / "flat"), 1,
+                    {"params": {k: v.cpu() for k, v in p.items()},
+                     "opt": {k: v.cpu() for k, v in o.items()}})
+    for f in sorted((tmp_path / "flat" / "step_00000001").iterdir()):
+        assert (tmp_path / "mesh" / "step_00000001" / f.name
+                ).read_bytes() == f.read_bytes(), f.name
+    ref = run(cfg, p, o, steps=1, first=1)
+
+    m = cpu_mesh("1x2")
+    p_sh = tsh.param_shardings(cfg, params, m, "train")
+    step, trees = restore_checkpoint(
+        str(tmp_path / "mesh"),
+        shardings={"params": p_sh, "opt": tsh.opt_shardings(p_sh, m)})
+    assert step == 1
+    for k, st in trees["params"].items():
+        assert isinstance(st, tsh.ShardedTensor) and st.mesh is m
+        assert tuple(st.sharding.spec) == tuple(p_sh[k].spec)
+    assert_runs_close(ref, run(cfg, trees["params"], trees["opt"], steps=1,
+                               first=1))
+    _, flat = restore_checkpoint(str(tmp_path / "mesh"), device="cpu")
+    assert all(isinstance(v, torch.Tensor) for v in flat["params"].values())
+    assert_runs_close(ref, run(cfg, flat["params"], flat["opt"], steps=1,
+                               first=1))
+
+
+def test_launcher_trains_over_the_host_mesh(monkeypatch):
+    from repro_torch.launch.train import train
+    cfg = get_config("internlm2-1.8b").reduced()
+    kw = dict(steps=3, batch=4, seq=16, device="cpu", log=lambda s: None)
+    ref = train(cfg, **kw)
+    monkeypatch.setenv("XLA_FLAGS",
+                       "--xla_force_host_platform_device_count=2")
+    mesh = make_host_mesh("cpu")
+    assert dict(mesh.shape) == {"data": 2, "model": 1}
+    got = train(cfg, mesh=mesh, **kw)
+    assert all(isinstance(v, tsh.ShardedTensor) and v.mesh is mesh
+               for v in got["params"].values())
+    for a, b in zip(ref["history"], got["history"]):
+        for k in ("loss", "grad_norm"):
+            assert abs(b[k] - a[k]) <= TOL * max(abs(a[k]), 1.0), (k, a, b)
+
+
+def test_collectives_gather_and_reduce_scatter_in_position_order():
+    """``all_gather`` assembles any block from the shards that hold it
+    (a view when one shard holds it); ``reduce_scatter`` adds each
+    position's gradient into the blocks it covers, every copy alike."""
+    m = cpu_mesh("2x2")
+    x = torch.arange(4 * 6 * 8, dtype=torch.float32).reshape(4, 6, 8)
+    st = tsh.NamedSharding(m, tsh.P(None, "data", "model")).shard(x)
+    assert torch.equal(tsh.all_gather(st, (1, slice(None), slice(2, 6)),
+                                      torch.device("cpu")), x[1, :, 2:6])
+    own = tsh.all_gather(st, (2, slice(0, 3), slice(0, 4)),
+                         torch.device("cpu"))
+    assert own.data_ptr() == st.local((0, 0))[2].data_ptr()
+    rep = tsh.NamedSharding(m, tsh.P()).zeros((4, 6, 8), torch.float32)
+    out = tsh.NamedSharding(m, tsh.P(None, "data")).zeros((4, 6, 8),
+                                                          torch.float32)
+    parts = [((1, slice(None), slice(0, 4)), torch.ones(6, 4)),
+             ((1, slice(None), slice(2, 8)), torch.full((6, 6), 2.0))]
+    want = torch.zeros(4, 6, 8)
+    want[1, :, 0:4] += 1
+    want[1, :, 2:8] += 2
+    for o in (rep, out):
+        tsh.reduce_scatter(o, parts)
+        assert torch.equal(o.cpu(), want)
+        assert all(torch.equal(t, want[s]) for s, t in o.unique())
+    g = {"w": out, "r": rep}
+    # A replicated leaf counts once, not once a position.
+    assert torch.equal(global_norm(g), global_norm(
+        {"w": want, "r": want.clone()}))
+
+
+def test_row_parallel_anchors_split_rows_and_sum_columns():
+    m = cpu_mesh("2x2")
+    x = torch.randn(4, 3, 8)
+    with acts.activation_sharding(("data",), mesh=m):
+        for f in (acts.constrain_btd, acts.constrain_bd,
+                  acts.constrain_boundary):
+            rows = f(x)
+            assert [[t.shape for t in r] for r in rows] == [[(2, 3, 8)] * 2] * 2
+            assert torch.equal(torch.cat([r[0] for r in rows]), x)
+            assert f(rows) is rows
+        parts = [torch.randn(2, 3, 8, requires_grad=True) for _ in range(2)]
+        sums = acts.psum_columns(parts)
+        assert all(torch.equal(s, parts[0] + parts[1]) for s in sums)
+        (sums[0] * 2 + sums[1] * 3).sum().backward()
+        assert all(torch.equal(p.grad, torch.full((2, 3, 8), 5.0))
+                   for p in parts)
+        for f in (acts.constrain_attn_merged, acts.constrain_ffn_hidden,
+                  acts.constrain_residual, acts.constrain_logits):
+            assert f(parts) is parts             # split over the columns
+        with pytest.raises(ValueError, match="3 rows"):
+            acts.batch_shards(torch.zeros(3, 2))
+
+
+def test_other_families_refuse_a_split_mesh():
+    """The MoE and SSM train steps and the VLM forward on a mesh of more
+    than one position raise naming the family and the ROADMAP item; on
+    one position the MoE and SSM steps train on its tensors, as
+    unsharded."""
+    for name in ("qwen3-moe-235b-a22b", "falcon-mamba-7b"):
+        cfg = get_config(name).reduced()
+        params = api.init_params(cfg, 0, torch.float32, device="cpu")
+        step = make_train_step(cfg, OPT)
+        b = to_tensors(batch_np(cfg, 0), "cpu")
+        p, o = place(cfg, params, cpu_mesh("2x1"))
+        with pytest.raises(NotImplementedError,
+                           match=f"{cfg.family.name} family on a mesh of "
+                                 f"2 positions.*ROADMAP"):
+            step(p, o, b)
+        p, o = place(cfg, params, cpu_mesh("1x1"))
+        got = step(p, o, b)[2]
+        want = step(params, init_opt_state(params, OPT), b)[2]
+        assert float(got["loss"]) == float(want["loss"])
+        assert torch.equal(p["final_norm"].cpu(), params["final_norm"])
+    cfg = get_config("qwen2-vl-7b").reduced()
+    params = api.init_params(cfg, 0, torch.float32, device="cpu")
+    p, _ = place(cfg, params, cpu_mesh("1x2"))
+    with pytest.raises(NotImplementedError, match="VLM family"):
+        api.forward(cfg, p, torch.zeros(2, 4, dtype=torch.int32))
+
+
+def test_a_batch_must_split_over_the_batch_axes():
+    cfg = get_config("internlm2-1.8b").reduced()
+    params = api.init_params(cfg, 0, torch.float32, device="cpu")
+    p, o = place(cfg, params, cpu_mesh("2x2"))
+    b = to_tensors(batch_np(cfg, 0, B=3), "cpu")
+    with pytest.raises(ValueError, match="3 rows does not split over the 2"):
+        make_train_step(cfg, OPT)(p, o, b)
