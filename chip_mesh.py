@@ -49,10 +49,19 @@ every gather is a copy between cards. Phases, one JSON line each:
    peak memory, s/step, launches); then ``python -m
    repro_torch.launch.train --devices host`` for 5 steps over every card
    (``mesh_train_launcher``).
+7. ``mesh_train_moe`` — the MoE train step on meshes of distinct cards:
+   qwen3-moe-235b-a22b at full width cut to 2 layers (6.2 B params,
+   99 GB of f32 state: about 25 GB a card), two SyntheticLM (4, 1024)
+   steps (T = 4096: two capacity groups of 2048, each over two batch
+   shards at (4, 1)) at (4, 1), (2, 2) and (1, 4), against the
+   unsharded step on the host's CPU (the state fits no card; MoE drops
+   equal); then ``python -m repro_torch.launch.train --arch
+   qwen3-moe-235b-a22b --reduced --devices host``
+   (``mesh_train_moe_launcher``).
 
 ``--phases`` picks phases by name (``parity``, ``full``, ``moe_parity``,
-``moe_a2a``, ``moe_full``, ``train``; all by default). Then the ``nvidia-smi`` name
-and power limit of each card. Exits non-zero with fewer than 4 cards or
+``moe_a2a``, ``moe_full``, ``train``, ``train_moe``; all by default).
+Then the ``nvidia-smi`` name and power limit of each card. Exits non-zero with fewer than 4 cards or
 when a check fails; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -404,6 +413,8 @@ def phase_moe_full() -> None:
 #: The train step's meshes of distinct cards.
 TRAIN_MESHES = ((4, 1), (2, 2), (1, 4))
 LAUNCHER_STEPS = 5
+#: The MoE train step across the cards: (arch, layers, (B, S)).
+TRAIN_MOE = ("qwen3-moe-235b-a22b", 2, (4, 1024))
 
 
 def phase_train() -> None:
@@ -415,42 +426,82 @@ def phase_train() -> None:
     memory); then ``python -m repro_torch.launch.train --devices host``
     for ``LAUNCHER_STEPS`` steps over every card
     (``mesh_train_launcher``)."""
-    import os
-
     import torch
-    from chip_smoke import (ROOT, train_mesh_inputs, train_mesh_reference,
+    from chip_smoke import (train_mesh_inputs, train_mesh_reference,
                             train_mesh_run)
     from repro_torch.launch.mesh import make_mesh
     cfg, init, ocfg, batches = train_mesh_inputs()
     ref = train_mesh_reference(cfg, ocfg, init, batches)
-    gc.collect()
-    torch.cuda.empty_cache()
     for shape in TRAIN_MESHES:
         train_mesh_run(cfg, ocfg, init, batches,
                        make_mesh(shape, ("data", "model")), ref,
                        "mesh_train")
     del init, ref
     gc.collect()
+    torch.cuda.empty_cache()
+    run_launcher("mesh_train_launcher", [])
+
+
+def phase_train_moe() -> None:
+    """``mesh_train_moe``: ``TRAIN_MOE`` (qwen3-moe at full width, 2
+    layers, f32) for two SyntheticLM steps on each of ``TRAIN_MESHES``
+    of distinct cards, held to the unsharded step on the host's CPU
+    (``chip_smoke.train_mesh_run``, MoE drops equal); then
+    ``launch.train --arch qwen3-moe-235b-a22b --reduced --devices host``
+    over every card (``mesh_train_moe_launcher``)."""
+    import os
+
+    import torch
+    from chip_smoke import (train_mesh_inputs, train_mesh_reference,
+                            train_mesh_run)
+    from repro_torch.launch.mesh import make_mesh
+    arch, n_layers, batch = TRAIN_MOE
+    cfg, init, ocfg, batches = train_mesh_inputs(arch, n_layers, batch)
+    torch.set_num_threads(os.cpu_count())
+    t0 = time.perf_counter()
+    ref = train_mesh_reference(cfg, ocfg, init, batches, device="cpu")
+    emit(dict(phase="mesh_train_moe_reference", device="cpu",
+              threads=torch.get_num_threads(),
+              seconds=time.perf_counter() - t0, history=ref["history"]))
+    for shape in TRAIN_MESHES:
+        train_mesh_run(cfg, ocfg, init, batches,
+                       make_mesh(shape, ("data", "model")), ref,
+                       "mesh_train_moe")
+    del init, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_launcher("mesh_train_moe_launcher", ["--arch", arch, "--reduced"])
+
+
+def run_launcher(phase: str, args: list) -> None:
+    """``python -m repro_torch.launch.train --devices host`` with
+    ``args`` for ``LAUNCHER_STEPS`` steps over every card: exit code 0,
+    "done" last and the mesh over every card logged."""
+    import os
+
+    import torch
+    from chip_smoke import ROOT
     t0 = time.perf_counter()
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--devices",
-         "host", "--steps", str(LAUNCHER_STEPS)],
+         "host", "--steps", str(LAUNCHER_STEPS), *args],
         capture_output=True, text=True, timeout=900, cwd=ROOT,
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
     lines = out.stdout.splitlines()
-    emit(dict(phase="mesh_train_launcher", rc=out.returncode,
+    emit(dict(phase=phase, args=args, rc=out.returncode,
               seconds=time.perf_counter() - t0, stdout=lines[-8:],
               stderr=out.stderr.splitlines()[-8:]))
     check(out.returncode == 0 and lines and lines[-1] == "done"
           and any(f"{torch.cuda.device_count()} positions" in x
                   for x in lines),
-          f"launch.train --devices host: rc {out.returncode}, "
+          f"launch.train --devices host {args}: rc {out.returncode}, "
           f"{lines[-3:]}")
 
 
 PHASES = {"parity": phase_parity, "full": phase_full,
           "moe_parity": phase_moe_parity, "moe_a2a": phase_moe_a2a,
-          "moe_full": phase_moe_full, "train": phase_train}
+          "moe_full": phase_moe_full, "train": phase_train,
+          "train_moe": phase_train_moe}
 
 
 def main() -> int:

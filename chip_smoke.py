@@ -218,19 +218,25 @@ of the JAX package. Phases, one JSON line each:
              failures, final loss below the first).
 8. train   — (mesh, ``phase_train_mesh``) with phase 7 freed: the
              flash forward and backward in f32 at the per-shard
-             shapes of internlm2-1.8b's (8, 512) step on (2, 1), (1, 2)
-             and (2, 2) against their plain versions, timed
-             (``kernel_time_train_mesh[_fwd]``); the unsharded step
-             from seeded f32 params (kept on the host), then the state
-             placed by the train rule table on (1, 1), (2, 1), (1, 2)
-             and (2, 2) over repeated positions of the card and two
-             steps each (``train_mesh``): loss and grad norm within
-             1e-4 relative of the unsharded step's, params within lr a
-             step and moments within 1e-4 relative after the second,
-             flash forward and backward once a layer a position a step
-             (counts zeroed just before each mesh's steps), no plain
-             version; s/step, peak memory, gathers and reduce-scatters
-             a step.
+             shapes of each model's split meshes below against their
+             plain versions, timed (``kernel_time_train_mesh[_fwd]``);
+             reduced llama4 (dense layers between MoE layers, a shared
+             expert) at (2, 2) against the CPU (``parity_train_mesh``);
+             then for internlm2-1.8b (full size, (8, 512)), qwen2-vl-7b
+             (full width, 2 layers, (8, 512), M-RoPE positions) and
+             qwen3-moe (full width, 1 layer, (2, 2048)), one at a time
+             and each freed after: the unsharded step from seeded f32
+             params (kept on the host), then the state placed by the
+             train rule table on (1, 1), (2, 1), (1, 2) and (2, 2)
+             (qwen3-moe: the first three) over repeated positions of
+             the card and two steps each (``train_mesh``): loss and
+             grad norm within 1e-4 relative of the unsharded step's,
+             params within lr a step and moments within 1e-4 relative
+             after the second, MoE capacity drops equal, flash forward
+             and backward once a layer a position a step (counts
+             zeroed just before each mesh's steps), no plain version;
+             s/step, peak memory, gathers, reduce-scatters and MoE
+             all-to-alls a step.
 
 A device-time profile of the same path is ``chip_profile.py``.
 
@@ -1103,12 +1109,26 @@ def phase_parity_moe() -> None:
     check(not bad, f"card vs CPU MoE engine parity failed: {bad}")
 
 
-def mrope_positions(B: int, S: int, start: int = 0):
-    """(3, B, S) int32 M-RoPE positions with distinct axes: t counts, h
-    and w walk a 4x4 grid (a patch raster)."""
+def mrope_positions(B: int, S: int, start: int = 0, image: bool = False):
+    """(3, B, S) int32 M-RoPE positions from ``start`` with distinct
+    axes: t counts, h and w walk a 4x4 grid (a patch raster). ``image``:
+    a text-image-text prompt instead: text positions on all three axes,
+    then a square patch grid from S/4 to 3S/4 (t fixed, h and w its
+    rows and columns), then text again after the grid's largest
+    position."""
     import torch
     t = start + torch.arange(S)
-    pos = torch.stack([t, t // 4, t % 4])
+    if not image:
+        pos = torch.stack([t, t // 4, t % 4])
+    else:
+        pos = torch.stack([t, t, t])
+        lo, hi = S // 4, 3 * S // 4
+        side = int((hi - lo) ** 0.5)
+        grid = torch.arange(hi - lo)
+        pos[0, lo:hi] = start + lo
+        pos[1, lo:hi] = start + lo + torch.clamp(grid // side, max=side - 1)
+        pos[2, lo:hi] = start + lo + grid % side
+        pos[:, hi:] = start + lo + side + torch.arange(S - hi)
     return pos[:, None].expand(3, B, S).int()
 
 
@@ -4162,38 +4182,107 @@ def phase_train() -> dict:
 #: of ``cuda:0``), each held to the unsharded step; two steps each.
 TRAIN_MESHES = ((1, 1), (2, 1), (1, 2), (2, 2))
 TRAIN_MESH_STEPS = 2
+#: The MoE and VLM families at their published widths, depth cut so
+#: that the unsharded f32 step (params, gradients and two moments, then
+#: the activations) fits one card: (arch, layers, (B, S), meshes).
+#: qwen3-moe: one layer is 2.49 B params (3.73 B with the untied
+#: embedding and head, 59.7 GB of f32 state); (2, 2048) makes T = 4096,
+#: two capacity groups of 2048, one a data shard at (2, 1). Its peak on
+#: an 80 GB card (79.2 GB at (1, 1)) is the state's, not the batch's:
+#: (2, 1024) peaked 0.1 GB higher. qwen2-vl-7b: two layers, 1.56 B
+#: params, 24.9 GB of state.
+TRAIN_MESH_MODELS = (
+    ("qwen3-moe-235b-a22b", 1, (2, 2048), ((1, 1), (2, 1), (1, 2))),
+    ("qwen2-vl-7b", 2, (8, 512), TRAIN_MESHES))
 
 
-def train_mesh_shapes(meshes) -> tuple:
-    """flash_attention's per-shard shapes of the full-width train step
-    (internlm2-1.8b, (8, 512), 16/8 heads of 128) on each split mesh:
-    (8 / d, 512, 16 / m, 128) over 8 / m KV heads."""
-    cfg_b, cfg_s, h, kh, dh = FULL_BATCH, FULL_SEQ, 16, 8, 128
-    return tuple((f"{FULL_ARCH} shard of ({d}, {m})", cfg_b // d, cfg_s,
-                  h // m, kh // m, dh, True)
-                 for d, m in meshes if d * m > 1)
+def train_mesh_shapes(cfg, batch: tuple, meshes) -> tuple:
+    """flash_attention's per-shard shapes of ``cfg``'s train step at
+    ``batch`` (B, S) on each split mesh: (B / d, S, H / m, dh) over the
+    column's KV heads."""
+    from repro_torch.distributed.sharding import kv_heads_of_column
+    B, S = batch
+    out = []
+    for d, m in meshes:
+        if d * m == 1:
+            continue
+        lo, hi = kv_heads_of_column(cfg.n_kv_heads, m, 0)
+        out.append((f"{cfg.name} shard of ({d}, {m})", B // d, S,
+                    cfg.n_heads // m, hi - lo, cfg.head_dim, True))
+    return tuple(out)
 
 
-def train_mesh_reference(cfg, ocfg, init: dict, batches: list) -> dict:
-    """The unsharded step on ``cuda:0`` from ``init`` (host tensors):
-    each step's loss, grad norm and seconds, and the params and
-    moments after the last step, on the host."""
+def train_mesh_inputs(arch: str = FULL_ARCH, n_layers: int | None = None,
+                      batch: tuple = (FULL_BATCH, FULL_SEQ)):
+    """``arch`` at full width (depth ``n_layers``, all when None), its
+    seeded f32 params (drawn on ``cuda:0``) on the host, the optimizer
+    config and ``TRAIN_MESH_STEPS`` SyntheticLM ``batch`` batches on
+    ``cuda:0`` (with ``mrope_positions`` of an image prompt for an
+    M-RoPE config)."""
+    import dataclasses
+
     import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.training import AdamWConfig, DataConfig, SyntheticLM
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    init = {k: v.cpu() for k, v in api.init_params(
+        cfg, 0, torch.float32, device="cuda:0").items()}
+    torch.cuda.empty_cache()
+    ocfg = AdamWConfig(lr=3e-4, warmup_steps=0,
+                       total_steps=TRAIN_MESH_STEPS)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=batch[1], global_batch=batch[0]))
+    batches = []
+    for i in range(TRAIN_MESH_STEPS):
+        b = {k: torch.from_numpy(v).cuda()
+             for k, v in data.batch(i).items()}
+        if cfg.mrope:
+            b["mrope_pos"] = mrope_positions(*batch, image=True).cuda()
+        batches.append(b)
+    return cfg, init, ocfg, batches
+
+
+def train_mesh_reference(cfg, ocfg, init: dict, batches: list,
+                         device="cuda:0") -> dict:
+    """The unsharded step on ``device`` from ``init`` (host tensors):
+    each step's loss, grad norm, MoE capacity drops and seconds, the
+    card's peak memory, and the params and moments after the last
+    step, on the host."""
+    import torch
+    from repro_torch.models import moe
     from repro_torch.training import init_opt_state, make_train_step
-    params = {k: v.cuda() for k, v in init.items()}
+    # A copy even on the host: the step updates its params in place.
+    params = {k: v.to(device, copy=True) for k, v in init.items()}
     opt = init_opt_state(params, ocfg)
     step = make_train_step(cfg, ocfg)
+    if device != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
     hist = []
     for b in batches:
-        torch.cuda.synchronize()
+        b = {k: v.to(device) for k, v in b.items()}
+        if device != "cpu":
+            torch.cuda.synchronize()
+        moe.STATS.reset()
         t0 = time.perf_counter()
         _, _, m = step(params, opt, b)
         hist.append(dict(loss=float(m["loss"]),
                          grad_norm=float(m["grad_norm"]),
+                         dropped=moe.STATS.dropped,
                          seconds=time.perf_counter() - t0))
-    return dict(history=hist,
-                params={k: v.cpu() for k, v in params.items()},
-                opt={k: v.cpu() for k, v in opt.items()})
+    peak = (torch.cuda.max_memory_allocated(device) / 1e9
+            if device != "cpu" else None)
+    out = dict(history=hist, peak_gb=peak,
+               params={k: v.cpu() for k, v in params.items()},
+               opt={k: v.cpu() for k, v in opt.items()})
+    del params, opt
+    gc.collect()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return out
 
 
 def train_mesh_run(cfg, ocfg, init: dict, batches: list, mesh, ref: dict,
@@ -4205,12 +4294,15 @@ def train_mesh_run(cfg, ocfg, init: dict, batches: list, mesh, ref: dict,
     after the last step within lr a step and the largest moment
     difference within ``TRAIN_TOL`` relative (``final_close``), flash
     forward and backward once a layer a position a step and no plain
-    version; s/step, peak memory of each card, placed bytes. One
-    ``phase`` line."""
+    version, the MoE capacity drops of each step equal to ``ref``'s;
+    s/step, peak memory of each card,
+    placed bytes, gathers, reduce-scatters and MoE all-to-alls a step.
+    One ``phase`` line."""
     import torch
     from repro_torch.distributed.sharding import (device_put,
                                                   param_shardings)
     from repro_torch.kernels.ops import COLLECTIVE_METER
+    from repro_torch.models import moe
     from repro_torch.training import init_opt_state, make_train_step
     cards = sorted({d.index for d in mesh.devices.flat})
     params = device_put(init, param_shardings(cfg, init, mesh, "train"))
@@ -4225,10 +4317,12 @@ def train_mesh_run(cfg, ocfg, init: dict, batches: list, mesh, ref: dict,
     COLLECTIVE_METER.reset()
     hist = []
     for b in batches:
+        moe.STATS.reset()
         t0 = time.perf_counter()
         _, _, m = step(params, opt, b)
         hist.append(dict(loss=float(m["loss"]),
                          grad_norm=float(m["grad_norm"]),
+                         dropped=moe.STATS.dropped,
                          seconds=time.perf_counter() - t0))
     for i in cards:
         torch.cuda.synchronize(i)
@@ -4236,6 +4330,7 @@ def train_mesh_run(cfg, ocfg, init: dict, batches: list, mesh, ref: dict,
     plain = {n: st.plain for n, st in stats.items() if st.plain}
     peak = [torch.cuda.max_memory_allocated(i) / 1e9 for i in cards]
     gathers, reduces = COLLECTIVE_METER.gathers, COLLECTIVE_METER.reduces
+    a2a = COLLECTIVE_METER.all_to_alls
     metric_err = max(abs(g[k] - r[k]) / max(abs(r[k]), 1.0)
                      for g, r in zip(hist, ref["history"])
                      for k in ("loss", "grad_norm"))
@@ -4258,10 +4353,13 @@ def train_mesh_run(cfg, ocfg, init: dict, batches: list, mesh, ref: dict,
     want = {n: 0 for n in stats}
     want["flash_attention"] = want["flash_attention_bwd"] = \
         cfg.n_layers * positions * n_steps
+    drops = [h["dropped"] for h in hist]
+    ref_drops = [h["dropped"] for h in ref["history"]]
+    B, S = batches[0]["tokens"].shape
     line = dict(
         phase=phase, model=cfg.name, n_layers=cfg.n_layers, weights="f32",
         mesh_shape=[mesh.shape[a] for a in mesh.axis_names],
-        cards=cards, batch=FULL_BATCH, seq=FULL_SEQ, steps=n_steps,
+        cards=cards, batch=B, seq=S, steps=n_steps,
         losses=[h["loss"] for h in hist],
         grad_norms=[h["grad_norm"] for h in hist],
         ref_losses=[h["loss"] for h in ref["history"]],
@@ -4269,86 +4367,126 @@ def train_mesh_run(cfg, ocfg, init: dict, batches: list, mesh, ref: dict,
         metrics_rel_err=metric_err, max_param_err=d_param,
         param_err_in_lr=d_param / (ocfg.lr * n_steps),
         max_moment_rel_err=d_opt, bit_exact=exact,
+        moe_dropped=drops, ref_moe_dropped=ref_drops,
         s_per_step=[h["seconds"] for h in hist],
         ref_s_per_step=[h["seconds"] for h in ref["history"]],
-        peak_gb_by_card=peak,
+        peak_gb_by_card=peak, ref_peak_gb=ref.get("peak_gb"),
         placed_gb=sum(t.numel() * t.element_size() for tree in (params, opt)
                       for st in tree.values() for _, t in st.unique()) / 1e9,
         launches_per_step={n: v / n_steps for n, v in launches.items()},
         plain=plain, gathers_per_step=gathers / n_steps,
-        reduce_scatters_per_step=reduces / n_steps)
+        reduce_scatters_per_step=reduces / n_steps,
+        moe_all_to_alls_per_step=a2a / n_steps)
     emit(line)
     check(all(math.isfinite(h["loss"]) for h in hist)
           and metric_err <= TRAIN_TOL,
-          f"{phase} {line['mesh_shape']}: losses {line['losses']} / grad "
-          f"norms {line['grad_norms']} against the unsharded "
-          f"{line['ref_losses']} / {line['ref_grad_norms']}")
+          f"{phase} {cfg.name} {line['mesh_shape']}: losses "
+          f"{line['losses']} / grad norms {line['grad_norms']} against the "
+          f"unsharded {line['ref_losses']} / {line['ref_grad_norms']}")
     check(d_param <= ocfg.lr * n_steps and d_opt <= TRAIN_TOL,
-          f"{phase} {line['mesh_shape']}: params {d_param} (lr a step "
-          f"{ocfg.lr}), moments {d_opt} apart from the unsharded step")
+          f"{phase} {cfg.name} {line['mesh_shape']}: params {d_param} (lr "
+          f"a step {ocfg.lr}), moments {d_opt} apart from the unsharded "
+          f"step")
     check(launches == want and not plain,
-          f"{phase} {line['mesh_shape']}: launches {launches} (want "
-          f"{want}), plain {plain}")
+          f"{phase} {cfg.name} {line['mesh_shape']}: launches {launches} "
+          f"(want {want}), plain {plain}")
+    check(drops == ref_drops,
+          f"{phase} {cfg.name} {line['mesh_shape']}: MoE drops {drops} "
+          f"against the unsharded {ref_drops}")
     del params, opt
     gc.collect()
     torch.cuda.empty_cache()
     return line
 
 
-def train_mesh_inputs():
-    """internlm2-1.8b at full width and depth, its seeded f32 params
-    (drawn on ``cuda:0``) on the host, the optimizer config and
-    ``TRAIN_MESH_STEPS`` SyntheticLM (8, 512) batches on ``cuda:0``."""
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.models import api
-    from repro_torch.training import AdamWConfig, DataConfig, SyntheticLM
-    cfg = get_config(FULL_ARCH)
-    init = {k: v.cpu() for k, v in api.init_params(
-        cfg, 0, torch.float32, device="cuda:0").items()}
-    ocfg = AdamWConfig(lr=3e-4, warmup_steps=0,
-                       total_steps=TRAIN_MESH_STEPS)
-    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
-                                  seq_len=FULL_SEQ, global_batch=FULL_BATCH))
-    batches = [{k: torch.from_numpy(v).cuda()
-                for k, v in data.batch(i).items()}
-               for i in range(TRAIN_MESH_STEPS)]
-    return cfg, init, ocfg, batches
-
-
-def phase_train_mesh() -> None:
-    """Phase 8: the dense train step on meshes over repeated positions
-    of ``cuda:0`` (one card: no interconnect measured). flash_attention
-    and its backward at the per-shard shapes against their plain
-    versions (``kernel_time_train_mesh``, f32), the unsharded step on
-    internlm2-1.8b at full width (``train_mesh_reference``), then each
-    of ``TRAIN_MESHES`` held to it (``train_mesh`` lines)."""
+def train_mesh_model(arch: str, n_layers, batch: tuple, meshes,
+                     phase: str = "train_mesh") -> None:
+    """``arch`` at full width: its unsharded step on ``cuda:0``
+    (``train_mesh_reference``), then each of ``meshes`` over repeated
+    positions of ``cuda:0`` held to it (``train_mesh_run``); the model
+    freed after, under 1 GB left allocated."""
     import numpy as np
     import torch
     from repro_torch.launch.mesh import Mesh
+    t0 = time.perf_counter()
+    cfg, init, ocfg, batches = train_mesh_inputs(arch, n_layers, batch)
+    ref = train_mesh_reference(cfg, ocfg, init, batches)
+    card = torch.device("cuda", 0)
+    for shape in meshes:
+        grid = np.empty(int(np.prod(shape)), dtype=object)
+        grid[:] = [card] * grid.size
+        train_mesh_run(cfg, ocfg, init, batches,
+                       Mesh(grid.reshape(shape), ("data", "model")), ref,
+                       phase)
+    del init, ref, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    check(held < 1e9, f"{held / 1e9:.2f} GB still allocated after the "
+                      f"{arch} train steps were freed")
+    emit(dict(phase="train_mesh_seconds", model=arch,
+              seconds=time.perf_counter() - t0))
+
+
+def train_parity_mesh(name: str, shape: tuple) -> None:
+    """Two steps of reduced ``name`` in f32 with the state placed on a
+    ``shape`` mesh over repeated positions of the card, against the
+    unsharded step on the CPU (``parity_train_mesh``: ``TRAIN_TOL`` on
+    loss, grad norm and moments, params within lr a step, equal MoE
+    drops, flash forward and backward once a layer a position a step)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import api
+    from repro_torch.training import AdamWConfig
+    cfg = get_config(name).reduced()
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10,
+                       clip_norm=0.5)
+    init = api.init_params(cfg, 0, torch.float32, device="cpu")
+    batches = [{k: torch.from_numpy(v) for k, v in
+                train_batch(cfg, i).items()} for i in range(2)]
+    ref = train_mesh_reference(cfg, ocfg, init, batches, device="cpu")
+    grid = np.empty(int(np.prod(shape)), dtype=object)
+    grid[:] = [torch.device("cuda", 0)] * grid.size
+    train_mesh_run(cfg, ocfg, init, [{k: v.cuda() for k, v in b.items()}
+                                     for b in batches],
+                   Mesh(grid.reshape(shape), ("data", "model")), ref,
+                   "parity_train_mesh")
+
+
+def phase_train_mesh() -> None:
+    """Phase 8: the train step on meshes over repeated positions of
+    ``cuda:0`` (one card: no interconnect measured). flash_attention and
+    its backward at the per-shard shapes against their plain versions
+    (``kernel_time_train_mesh``, f32), then for internlm2-1.8b at full
+    width and depth and for ``TRAIN_MESH_MODELS`` (qwen3-moe, one
+    layer; qwen2-vl-7b, two) the unsharded step and each mesh held to it
+    (``train_mesh`` lines), and reduced llama4 (dense layers between MoE
+    layers, a shared expert) at (2, 2) against the CPU
+    (``parity_train_mesh``)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
     scratch = torch.empty(64 * MIB, dtype=torch.uint8, device="cuda")
 
     def flush():
         scratch.zero_()
 
-    shapes = train_mesh_shapes(TRAIN_MESHES)
+    shapes = train_mesh_shapes(get_config(FULL_ARCH),
+                               (FULL_BATCH, FULL_SEQ), TRAIN_MESHES)
+    for arch, n_layers, batch, meshes in TRAIN_MESH_MODELS:
+        shapes += train_mesh_shapes(
+            dataclasses.replace(get_config(arch), n_layers=n_layers),
+            batch, meshes)
     phase_train_kernels(flush, shapes, ("f32",), "kernel_time_train_mesh",
                         [s[:6] + ("f32",) for s in shapes])
     del scratch
-    cfg, init, ocfg, batches = train_mesh_inputs()
-    t0 = time.perf_counter()
-    ref = train_mesh_reference(cfg, ocfg, init, batches)
-    gc.collect()
-    torch.cuda.empty_cache()
-    card = torch.device("cuda", 0)
-    for shape in TRAIN_MESHES:
-        grid = np.empty(int(np.prod(shape)), dtype=object)
-        grid[:] = [card] * grid.size
-        train_mesh_run(cfg, ocfg, init, batches,
-                       Mesh(grid.reshape(shape), ("data", "model")), ref,
-                       "train_mesh")
-    emit(dict(phase="train_mesh_seconds",
-              seconds=time.perf_counter() - t0))
+    train_parity_mesh("llama4-maverick-400b-a17b", (2, 2))
+    train_mesh_model(FULL_ARCH, None, (FULL_BATCH, FULL_SEQ), TRAIN_MESHES)
+    for arch, n_layers, batch, meshes in TRAIN_MESH_MODELS:
+        train_mesh_model(arch, n_layers, batch, meshes)
 
 
 KERNELS = {

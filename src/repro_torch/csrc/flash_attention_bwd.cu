@@ -46,6 +46,13 @@
 //   S^T = K Q^T, dP^T = V dO^T, P^T, dS^T = P^T (dP^T - D), then
 //   dv += P^T dO and dk += dS^T Q in registers, so the GQA sum stays
 //   inside the block.
+// * Both kernels take each dq, dk and dv product into fresh registers
+//   that an FADD adds to the accumulator: the tensor cores add into
+//   their accumulator with truncation, and over a walk of many k-steps
+//   that drifts the sum toward zero (the dk/dv walk has G * S / 8 of
+//   them; at qwen3-moe's 64/4 heads, G 16, S 1024, it read 6e-5
+//   relative in f32, past the f32 gate; the dq walk's S / 8 reaches as
+//   many at S 16384). An FADD rounds to nearest.
 // Arithmetic by dtype (what holds the gradients within the f32 plain
 // version's tolerance):
 // * bf16: m16n8k16 with f32 accumulation, fragments by ldmatrix. q, k,
@@ -383,7 +390,9 @@ __device__ __forceinline__ void scores(float (&sa)[NT][4],
 }
 
 // acc[NC] += c · M[:, col0 .. col0 + 8 NC): c a 16 x (NT * 8) score
-// tile in C fragments, M a K-major tile of NT * 8 rows.
+// tile in C fragments, M a K-major tile of NT * 8 rows. Each product
+// goes into fresh registers, then to acc by FADD (see the note at the
+// top).
 template <class Op, int LD, int NT, int NC, int UNROLL>
 __device__ __forceinline__ void accumulate(float (&acc)[NC][4],
                                            const float (&c)[NT][4],
@@ -397,8 +406,13 @@ __device__ __forceinline__ void accumulate(float (&acc)[NC][4],
     for (int n = 0; n < NC / 2; ++n) {
       BFrag x[2];
       Op::load_b_k(x, m, LD, col0 + 16 * n, kk * Op::KS, lane);
-      Op::mma_split(acc[2 * n], a, x[0]);
-      Op::mma_split(acc[2 * n + 1], a, x[1]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float p[4] = {0.f, 0.f, 0.f, 0.f};
+        Op::mma_split(p, a, x[h]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[2 * n + h][i] += p[i];
+      }
     }
   }
 }

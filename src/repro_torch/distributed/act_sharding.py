@@ -44,7 +44,12 @@ are row-parallel there: each column's partial product is summed over
 the columns by ``psum_columns``, the all-reduce GSPMD inserts, whose
 gradient is the same all-reduce. The merged heads, the FFN hidden, the
 residual and the vocabulary stay split over the columns (those anchors
-pass a per-column list through).
+pass a per-column list through). MoE in this mode (TP mode): the
+experts lie over "data" with their hidden over "model", as the train
+rule table puts them; ``moe_all_to_all`` moves each batch shard's
+capacity buckets to the expert blocks of its pod and
+``moe_all_to_all_back`` returns the outputs (the counterparts of
+``constrain_moe_local`` then ``constrain_expert_ecd``, and back).
 
 Not ported (raises ``NotImplementedError``): the sequence-parallel
 boundary (``seq_shard_boundary``), which only the dry-run tooling turns
@@ -165,21 +170,22 @@ def replicate(x: torch.Tensor) -> list:
         return [x.to(d) for d in _DEVICES]
 
 
-def batch_shards(x):
-    """Split the batch rows (dim 0) of ``x`` over the installed batch
-    axes: [batch shard][column] blocks, each on its position's device
-    (the positions of one batch shard hold the same rows). A list (already
-    split) or no installed batch axes: ``x`` as it is. The rows must
-    split evenly, as a batch sharded over the batch axes must."""
+def batch_shards(x, dim: int = 0):
+    """Split the batch rows (dimension ``dim``: 1 for M-RoPE positions
+    (3, B, S)) of ``x`` over the installed batch axes: [batch
+    shard][column] blocks, each on its position's device (the positions
+    of one batch shard hold the same rows). A list (already split) or no
+    installed batch axes: ``x`` as it is. The rows must split evenly, as
+    a batch sharded over the batch axes must."""
     if isinstance(x, (list, tuple)) or not _ROWS:
         return x
     nb = len(_ROWS)
-    if x.shape[0] % nb:
+    if x.shape[dim] % nb:
         raise ValueError(
-            f"a batch of {x.shape[0]} rows does not split over the {nb} "
+            f"a batch of {x.shape[dim]} rows does not split over the {nb} "
             f"shards of the batch axes {_BATCH_AXES}")
     return [[blk.to(d) for d in devs]
-            for blk, devs in zip(torch.chunk(x, nb), _ROWS)]
+            for blk, devs in zip(torch.chunk(x, nb, dim=dim), _ROWS)]
 
 
 def constrain_btd(x):
@@ -278,8 +284,10 @@ def constrain_residual(x):
 
 def constrain_moe_groups(x):
     """Group-major MoE tensors (G, ...): groups follow the batch
-    sharding, and the serving plane computes at full batch
-    (``batch_axes=()``), so they stay whole on the home device."""
+    sharding. The serving plane computes at full batch
+    (``batch_axes=()``), so they stay whole on the home device; the
+    train step's groups are already per batch shard (each shard buckets
+    the groups its rows touch, ``moe.moe_block_train``)."""
     return x
 
 
@@ -298,8 +306,9 @@ def constrain_expert_ecd(x: torch.Tensor, sizes: list, devices: list
 
 
 def constrain_expert_ecf(x):
-    """A data shard's expert hidden (E_d, n, F): the expert FFN is
-    unsharded in exact mode, so it stays on its shard's device."""
+    """A data shard's expert hidden (E_d, n, F): unsharded in exact mode
+    and over "model" in TP mode (the train step: each column computes
+    its block of F), so it stays on its position's device."""
     return x
 
 
@@ -308,3 +317,67 @@ def constrain_moe_local(blocks: list, device) -> torch.Tensor:
     unsharded expert order (concatenated along dim 0): the combine
     half of the MoE exchange."""
     return _gather(list(blocks), 0, device)
+
+
+# TP mode (the train step): the counterparts of ``constrain_moe_local``
+# then ``constrain_expert_ecd`` (the bucket tensor leaves its batch
+# shard for its expert block: the all-to-all over "data") and back, one
+# "model" column at a time. Position b of the column is batch shard b
+# and runs expert block ``b % n_data`` for the shards of its pod
+# (``b // n_data``), whose groups span [g0, g1) over all of them.
+
+def _pod(b: int, n_data: int, spans: list) -> tuple:
+    """(shards, g0, g1) of batch shard ``b``'s pod."""
+    shards = range(b // n_data * n_data, (b // n_data + 1) * n_data)
+    return (shards, min(spans[s][0] for s in shards),
+            max(spans[s][1] for s in shards))
+
+
+def moe_all_to_all(buckets: list, spans: list, n_data: int) -> list:
+    """``buckets[b]``: batch shard b's capacity buckets (n_g, E, C, D) of
+    the groups [g0, g1) = ``spans[b]`` its rows touch, zero where
+    another shard's token fills a slot, on the column's position b.
+    Returns, for each position b, the buckets of its expert block
+    (E / n_data experts) over its pod's groups, expert-major (E_d,
+    G_pod * C, D) on its device: the pod's shards' blocks, a group that
+    straddles shards summed over them (each slot has one owner, the
+    others add zeros)."""
+    E, C, D = buckets[0].shape[1:]
+    Ed = E // n_data
+    out = []
+    with COLLECTIVE_METER.sync():
+        COLLECTIVE_METER.all_to_alls += 1
+        for u, dst in enumerate(buckets):
+            d = u % n_data
+            shards, g0, g1 = _pod(u, n_data, spans)
+            rows = []
+            for g in range(g0, g1):
+                acc = None
+                for b in shards:
+                    lo, hi = spans[b]
+                    if lo <= g < hi:
+                        part = buckets[b][g - lo, d * Ed:(d + 1) * Ed] \
+                            .to(dst.device)
+                        acc = part if acc is None else acc + part
+                rows.append(acc)
+            out.append(torch.stack(rows, dim=1).reshape(Ed, -1, D))
+    return out
+
+
+def moe_all_to_all_back(outs: list, spans: list, n_data: int, cap: int,
+                        devices: list) -> list:
+    """The inverse of ``moe_all_to_all``: ``outs[u]`` position u's
+    expert outputs (E_d, G_pod * C, D). Returns, for each batch shard b,
+    its groups' rows of every expert block of its pod, in expert order,
+    group-major (n_g, E * C, D) on ``devices[b]``."""
+    Ed, _, D = outs[0].shape
+    back = []
+    with COLLECTIVE_METER.sync():
+        COLLECTIVE_METER.all_to_alls += 1
+        for b, dev in enumerate(devices):
+            shards, g0, g1 = _pod(b, n_data, spans)
+            lo, hi = spans[b][0] - g0, spans[b][1] - g0
+            x = torch.cat([outs[u].view(Ed, g1 - g0, cap, D)[:, lo:hi]
+                           .to(dev) for u in shards])
+            back.append(x.transpose(0, 1).reshape(hi - lo, -1, D))
+    return back

@@ -602,11 +602,14 @@ def kv_heads_of_column(n_kv_heads: int, M: int, m: int) -> tuple:
 def mesh_unsupported(cfg: ModelConfig, model_size: int) -> list[str]:
     """Why the mesh data plane cannot serve ``cfg`` with ``model_size``
     columns (empty when it can)."""
-    out = []
     if cfg.family not in (Family.DENSE, Family.MOE):
-        out.append(f"model family {cfg.family.name} on a mesh")
-        return out
-    M = model_size
+        return [f"model family {cfg.family.name} on a mesh"]
+    return _column_unsupported(cfg, model_size)
+
+
+def _column_unsupported(cfg: ModelConfig, M: int) -> list[str]:
+    """Why ``cfg``'s column compute cannot split over ``M`` columns."""
+    out = []
     dims = [("n_heads", cfg.n_heads), ("d_model", cfg.d_model),
             ("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)]
     if cfg.family == Family.MOE:
@@ -879,32 +882,53 @@ def reduce_scatter(out: ShardedTensor, parts: list) -> None:
 
 
 #: The dimension each weight's compute splits over "model" in training:
-#: the serving table's column-parallel weights, with o and down
-#: row-parallel (each column takes a block of their input rows, and
-#: their products are partial sums over the columns).
-_TRAIN_COLUMN_DIM = {**_COLUMN_DIM, "o": -2, "down": -2}
+#: the serving table's column-parallel weights, with o, down and the
+#: shared expert's down row-parallel (each column takes a block of their
+#: input rows, and their products are partial sums over the columns).
+_TRAIN_COLUMN_DIM = {**_COLUMN_DIM, "o": -2, "down": -2, "shared_down": -2}
+
+#: The expert stacks' hidden dimension, split over "model" in training
+#: (``w_gate``/``w_up`` by columns, ``w_down`` by rows).
+_EXPERT_HIDDEN_DIM = {"w_gate": -1, "w_up": -1, "w_down": -2}
+
+#: The families whose train step runs sharded on a mesh.
+TRAIN_MESH_FAMILIES = (Family.DENSE, Family.MOE, Family.VLM)
 
 
 def train_unsupported(cfg: ModelConfig, mesh: Mesh) -> list[str]:
     """Why a train step cannot run ``cfg`` on ``mesh`` (empty when it
     can)."""
-    if cfg.family != Family.DENSE:
+    if cfg.family not in TRAIN_MESH_FAMILIES:
         return [f"training the {cfg.family.name} family on a mesh of "
                 f"{mesh.size} positions (its sharded train step is not "
                 f"ported: ROADMAP Queue 1, the other families on a "
                 f"training mesh)"]
-    return mesh_unsupported(cfg, mesh.shape["model"])
+    M, n_data = mesh.shape["model"], mesh.shape["data"]
+    out = _column_unsupported(cfg, M)
+    if cfg.family == Family.MOE:
+        for name, n, k, axis in (("n_experts", cfg.n_experts, n_data, "data"),
+                                 ("d_ff_expert", cfg.d_ff_expert, M,
+                                  "model")):
+            if n % k:
+                out.append(f"{name}={n} on a {k}-way {axis} axis (the "
+                           f"train rule table would replicate it; uneven "
+                           f"splits are not ported: ROADMAP Queue 1)")
+    return out
 
 
 class TrainView:
     """A placed train state ({path: ShardedTensor} under the train rule
     table) as the model computes with it. Position (b, m) is batch
-    shard b and column m (``batch_rows``); it computes the column config ``col_cfg`` over its batch
-    rows with each weight's column block gathered over the batch axes
-    (``view``): q/k/v/gate/up/biases and the vocabulary (``embed/tok``
-    rows, ``lm_head`` columns) split over "model", o and down by input
-    rows, k/v over the KV heads its query heads read
-    (``kv_heads_of_column``), norms whole."""
+    shard b and column m (``batch_rows``); it computes the column config
+    ``col_cfg`` over its batch rows with each weight's column block
+    gathered over the batch axes (``view``): q/k/v/gate/up/biases, the
+    shared expert's gate/up and the vocabulary (``embed/tok`` rows,
+    ``lm_head`` columns) split over "model", o, down and shared_down by
+    input rows, k/v over the KV heads its query heads read
+    (``kv_heads_of_column``), norms and the router whole. MoE experts:
+    position (b, m) also runs expert block ``b % n_data`` (its "data"
+    coordinate) with column m's block of their hidden, D gathered over
+    "pod", for the batch shards of its pod (``b // n_data``)."""
 
     def __init__(self, cfg: ModelConfig, placed: dict):
         mesh = next(iter(placed.values())).mesh
@@ -914,6 +938,7 @@ class TrainView:
                 "the mesh train step does not run: " + ", ".join(bad))
         self.cfg, self.placed, self.mesh = cfg, placed, mesh
         self.M = M = mesh.shape["model"]
+        self.n_data = mesh.shape["data"]
         self.batch_axes = tuple(a for a in mesh.axis_names if a != "model")
         self.rows = batch_rows(mesh)
         self.n_batch = len(self.rows)
@@ -924,15 +949,20 @@ class TrainView:
             cfg, n_heads=cfg.n_heads // M, n_kv_heads=hi - lo)
         self.home = mesh.devices.flat[0]
 
-    def index(self, path: str, m: int, layer: int | None = None) -> tuple:
-        """The entries of leaf ``path`` column ``m`` computes with (of
-        layer ``layer`` for a stacked leaf)."""
+    def index(self, path: str, m: int, layer: int | None = None,
+              b: int = 0) -> tuple:
+        """The entries of leaf ``path`` position (``b``, ``m``) computes
+        with (of layer ``layer`` for a stacked leaf)."""
         shape = self.placed[path].shape
         leaf = path.split("/")[-1]
         out = [slice(None)] * len(shape)
         if layer is not None:
             out[0] = layer
         dim = _TRAIN_COLUMN_DIM.get(path, _TRAIN_COLUMN_DIM.get(leaf))
+        if path.startswith("moe/") and leaf in _EXPERT_HIDDEN_DIM:
+            d, e = b % self.n_data, shape[1] // self.n_data
+            out[1] = slice(d * e, (d + 1) * e)
+            dim = _EXPERT_HIDDEN_DIM[leaf]
         if leaf in _KV_LEAVES:
             lo, hi = self.kv_heads[m]
             per = shape[-1] // self.cfg.n_kv_heads
@@ -947,15 +977,16 @@ class TrainView:
         """Position (b, m)'s block of ``path`` on its device: through the
         recording ``FsdpStep`` when one is active (its gradient then
         reaches the shards' owners), else a plain ``all_gather``."""
-        st, index = self.placed[path], self.index(path, m, layer)
+        st, index = self.placed[path], self.index(path, m, layer, b)
         dev = self.rows[b][m]
         if _STEP is not None:
             return _STEP.gather(path, st, index, dev)
         return all_gather(st, index, dev)
 
-    def layer(self, i: int, b: int, m: int, leaves) -> dict:
-        return {leaf: self.view("layers/" + leaf, b, m, i)
-                for leaf in leaves if "layers/" + leaf in self.placed}
+    def layer(self, i: int, b: int, m: int, leaves,
+              prefix: str = "layers/") -> dict:
+        return {leaf: self.view(prefix + leaf, b, m, i)
+                for leaf in leaves if prefix + leaf in self.placed}
 
 
 _STEP = None           # the recording FsdpStep, if any

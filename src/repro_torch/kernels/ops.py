@@ -127,7 +127,8 @@ class CollectiveMeter(DispatchMeter):
     ``frac()`` reports the gather/wall time fraction the per-device
     gauges export. The train step's FSDP collectives count here too
     (``distributed.sharding.all_gather`` in ``gathers``,
-    ``reduce_scatter`` in ``reduces``). ``reset()`` also restarts the
+    ``reduce_scatter`` in ``reduces``, the MoE exchange each way in
+    ``all_to_alls``). ``reset()`` also restarts the
     wall clock the fraction is taken over.
     """
 
@@ -139,6 +140,7 @@ class CollectiveMeter(DispatchMeter):
         super().reset()
         self.gathers = 0
         self.reduces = 0
+        self.all_to_alls = 0
         self._t0 = time.perf_counter()
 
     def frac(self) -> float:

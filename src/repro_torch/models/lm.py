@@ -51,7 +51,8 @@ from repro_torch.models.layers import (apply_rope, cross_entropy,
                                        mrope_cos_sin, rms_norm, rope_cos_sin,
                                        suffix_attention, swiglu, unembed)
 from repro_torch.models.lora_apply import lora_delta
-from repro_torch.models.moe import moe_block, moe_block_gather
+from repro_torch.models.moe import (moe_block, moe_block_gather,
+                                    moe_block_train)
 from repro_torch.models.moe_shard_map import moe_block_a2a
 
 
@@ -625,11 +626,11 @@ def forward(cfg: ModelConfig, params: dict, tokens,
             mrope_pos=None) -> torch.Tensor:
     """Full-sequence logits (B, S, V) f32, causal attention through
     flash_attention. ``mrope_pos`` (3, B, S): M-RoPE positions (VLM).
-    On a placed train state the dense family runs sharded, the logits
-    gathered onto the mesh's first position."""
+    On a placed train state the dense, MoE and VLM families run sharded,
+    the logits gathered onto the mesh's first position."""
     _refuse_mesh(params, "forward")
     if _placed(params):
-        return _forward_train_mesh(cfg, params, tokens)
+        return _forward_train_mesh(cfg, params, tokens, mrope_pos)
     x = embed(tokens, params["embed/tok"])
     cos, sin = _positions(cfg, tokens, 0, mrope_pos)
     h, _, _ = _backbone(cfg, params, x, cos, sin)
@@ -641,10 +642,11 @@ def train_loss(cfg: ModelConfig, params: dict, tokens, labels,
     """Mean next-token NLL of ``labels`` (B, S) plus ``aux_weight`` times
     the MoE load-balance loss (0 for the dense and VLM families). On a
     placed train state ({path: ShardedTensor}, the train rule table) the
-    dense family runs sharded (``_train_loss_mesh``)."""
+    dense, MoE and VLM families run sharded (``_train_loss_mesh``)."""
     _refuse_mesh(params, "train_loss")
     if _placed(params):
-        return _train_loss_mesh(cfg, params, tokens, labels)
+        return _train_loss_mesh(cfg, params, tokens, labels, mrope_pos,
+                                aux_weight)
     x = embed(tokens, params["embed/tok"])
     cos, sin = _positions(cfg, tokens, 0, mrope_pos)
     h, _, aux = _backbone(cfg, params, x, cos, sin)
@@ -1565,21 +1567,28 @@ def _prefill_paged_mesh(cfg, mp, tokens, kv_pages, page_table, start,
 
 
 # ------------------------------------------------- training on a mesh
-# The dense family's forward and train_loss on a placed train state
-# (``sharding.TrainView``): the counterpart of the JAX step under
-# ``activation_sharding(batch_axes)``. Position (b, m) runs batch shard
-# b's rows (``act_sharding.batch_shards``) through column m: its heads
+# The dense, MoE and VLM families' forward and train_loss on a placed
+# train state (``sharding.TrainView``): the counterpart of the JAX step
+# under ``activation_sharding(batch_axes)``. Position (b, m) runs batch
+# shard b's rows (``act_sharding.batch_shards``; VLM M-RoPE positions
+# split with them on their dimension 1) through column m: its heads
 # with their KV heads (flash_attention forward, and backward under
 # autograd, per shard), its gate/up columns, its rows of the
 # row-parallel o and down, whose partial products ``psum_columns``
 # sums over the columns, and its vocabulary block (the embedding's
 # rows, summed likewise; the logits stay split and the cross-entropy
-# combines the blocks' exp-sums). Each weight is gathered over the
-# batch axes where a position computes with it (``TrainView.view``).
-# The loss is the mean of the batch shards' means: the global mean,
-# since the shards are equal.
+# combines the blocks' exp-sums). MoE supersteps put ``moe_every - 1``
+# dense layers (the ``dense_mlp/`` stack, row-parallel like the dense
+# MLP) before each MoE layer, whose experts run over "data" with their
+# hidden over "model" (``moe.moe_block_train``: capacity groups and the
+# aux loss of the global batch) and whose shared expert is
+# column/row-parallel. Each weight is gathered over the batch axes
+# where a position computes with it (``TrainView.view``). The loss is
+# the mean of the batch shards' means (the global mean, since the
+# shards are equal) plus ``aux_weight`` times the summed aux losses.
 
 _MLP_LEAVES = ("mlp_norm", "gate", "up", "down")
+_SHARED_LEAVES = ("shared_gate", "shared_up", "shared_down")
 
 
 def _placed(params) -> bool:
@@ -1592,10 +1601,10 @@ def _attn_leaves(tv: TrainView) -> list:
             and k[len("layers/"):] not in _MLP_LEAVES]
 
 
-def _layer_train(cfg, tv: TrainView, hb: list, rope: list, b: int, i: int,
-                 attn: list) -> list:
-    """Layer ``i`` of batch shard ``b``: ``hb`` its residual stream, a
-    copy on each column's device."""
+def _attn_train(tv: TrainView, hb: list, rope: list, b: int, i: int,
+                attn: list) -> list:
+    """Attention of layer ``i`` for batch shard ``b``: ``hb`` its
+    residual stream, a copy on each column's device."""
     c = tv.col_cfg
     parts = []
     for m, x in enumerate(hb):
@@ -1605,11 +1614,17 @@ def _layer_train(cfg, tv: TrainView, hb: list, rope: list, b: int, i: int,
             out = flash_attention(q, k, v, causal=True)
             out = out.reshape(x.shape[0], x.shape[1], c.q_dim)
             parts.append(einsum("bse,ed->bsd", out, p["o"]))
-    hb = [x + y for x, y in zip(hb, acts.psum_columns(parts))]
+    return [x + y for x, y in zip(hb, acts.psum_columns(parts))]
+
+
+def _mlp_train(cfg, tv: TrainView, hb: list, b: int, i: int,
+               prefix: str = "layers/") -> list:
+    """The MLP of entry ``i`` of the ``prefix`` stack for batch shard
+    ``b``."""
     parts = []
     for m, x in enumerate(hb):
         with on_device(x.device):
-            p = tv.layer(i, b, m, _MLP_LEAVES)
+            p = tv.layer(i, b, m, _MLP_LEAVES, prefix)
             h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
             parts.append(swiglu(h, p["gate"], p["up"], p["down"])
                          if cfg.gated_mlp else
@@ -1617,9 +1632,45 @@ def _layer_train(cfg, tv: TrainView, hb: list, rope: list, b: int, i: int,
     return [x + y for x, y in zip(hb, acts.psum_columns(parts))]
 
 
-def _logits_train_mesh(cfg, tv: TrainView, tokens) -> list:
-    """[batch shard][column] f32 logits (B / n_batch, S, V / M)."""
+def _moe_train(cfg, tv: TrainView, h: list, s: int):
+    """MoE superstep ``s``'s expert layer over every batch shard ``h[b]``
+    (the capacity groups and the aux loss span them). Returns (the
+    residual streams, the layer's aux loss)."""
+    hn, router, experts = [], [], []
+    for b, hb in enumerate(h):
+        row, exp = [], []
+        for m, x in enumerate(hb):
+            with on_device(x.device):
+                row.append(rms_norm(x, tv.view("moe/norm", b, m, s),
+                                    cfg.norm_eps))
+            exp.append(tuple(tv.view("moe/" + leaf, b, m, s)
+                             for leaf in ("w_gate", "w_up", "w_down")))
+        hn.append(row)
+        experts.append(exp)
+        router.append(tv.view("moe/router", b, 0, s))
+    ys, aux = moe_block_train(hn, router, experts, cfg.top_k,
+                              cfg.capacity_factor, tv.n_data)
+    out = []
+    for b, hb in enumerate(h):
+        parts = ys[b]
+        if cfg.shared_expert_ff:
+            parts = []
+            for m, y in enumerate(ys[b]):
+                with on_device(y.device):
+                    p = tv.layer(s, b, m, _SHARED_LEAVES, "moe/")
+                    parts.append(y + swiglu(hn[b][m], p["shared_gate"],
+                                            p["shared_up"],
+                                            p["shared_down"]))
+        out.append([x + y for x, y in zip(hb, acts.psum_columns(parts))])
+    return out, aux
+
+
+def _logits_train_mesh(cfg, tv: TrainView, tokens, mrope_pos=None):
+    """([batch shard][column] f32 logits (B / n_batch, S, V / M), the
+    summed MoE aux loss or None)."""
     toks = acts.batch_shards(tokens)
+    mpos = (acts.batch_shards(mrope_pos, dim=1) if mrope_pos is not None
+            else [[None] * tv.M] * tv.n_batch)
     h, rope = [], []
     for b, row in enumerate(toks):
         parts = []
@@ -1628,11 +1679,24 @@ def _logits_train_mesh(cfg, tv: TrainView, tokens) -> list:
             parts.append(embed(t, tab) if tv.M == 1 else
                          embed_rows(t, tab, m * tab.shape[0]))
         h.append(acts.psum_columns(parts))
-        rope.append([_positions(cfg, t, 0) for t in row])
+        rope.append([_positions(cfg, t, 0, mp)
+                     for t, mp in zip(row, mpos[b])])
     attn = _attn_leaves(tv)
+    E = cfg.moe_every if cfg.family == Family.MOE else 0
+    aux = None
     for i in range(cfg.n_layers):
-        for b in range(tv.n_batch):
-            h[b] = _layer_train(cfg, tv, h[b], rope[b], b, i, attn)
+        h = [_attn_train(tv, hb, rope[b], b, i, attn)
+             for b, hb in enumerate(h)]
+        if not E:
+            h = [_mlp_train(cfg, tv, hb, b, i) for b, hb in enumerate(h)]
+            continue
+        s, e = divmod(i, E)
+        if e == E - 1:
+            h, a = _moe_train(cfg, tv, h, s)
+            aux = a if aux is None else aux + a
+        else:
+            h = [_mlp_train(cfg, tv, hb, b, s * (E - 1) + e, "dense_mlp/")
+                 for b, hb in enumerate(h)]
     out = []
     for b, hb in enumerate(h):
         row = []
@@ -1642,28 +1706,32 @@ def _logits_train_mesh(cfg, tv: TrainView, tokens) -> list:
                      else tv.view("lm_head", b, m))
             row.append(unembed(x, table))
         out.append(row)
-    return out
+    return out, aux
 
 
 def _train_scope(tv: TrainView):
     return acts.activation_sharding(tv.batch_axes, mesh=tv.mesh)
 
 
-def _train_loss_mesh(cfg, params: dict, tokens, labels) -> torch.Tensor:
+def _train_loss_mesh(cfg, params: dict, tokens, labels, mrope_pos=None,
+                     aux_weight: float = 0.01) -> torch.Tensor:
     tv = TrainView(cfg, params)
     with _train_scope(tv):
-        logits = _logits_train_mesh(cfg, tv, tokens)
+        logits, aux = _logits_train_mesh(cfg, tv, tokens, mrope_pos)
         labs = acts.batch_shards(labels)
         loss = None
         for row, lab in zip(logits, labs):
             nll = cross_entropy_columns(row, lab[0]).to(tv.home)
             loss = nll if loss is None else loss + nll
-        return loss / tv.n_batch
+        loss = loss / tv.n_batch
+        return loss if aux is None else loss + aux_weight * aux
 
 
-def _forward_train_mesh(cfg, params: dict, tokens) -> torch.Tensor:
+def _forward_train_mesh(cfg, params: dict, tokens,
+                        mrope_pos=None) -> torch.Tensor:
     tv = TrainView(cfg, params)
     with _train_scope(tv):
+        logits, _ = _logits_train_mesh(cfg, tv, tokens, mrope_pos)
         rows = [torch.cat([t.to(tv.home) for t in row], dim=-1)
-                for row in _logits_train_mesh(cfg, tv, tokens)]
+                for row in logits]
         return torch.cat(rows, dim=0)

@@ -27,6 +27,11 @@ its shard, each shard runs its own experts there, and
 expert order before the combine. A batched product over a block of
 experts is the unsharded one's rows, so the result has the
 unsharded bits where the device type is the same.
+
+The train step on a mesh runs ``moe_block_train`` instead: the batch
+split over batch shards and the expert hidden over "model" columns
+(the train rule table's split), with the aux loss and the capacity
+groups of the global batch, so its result is ``moe_block``'s.
 """
 from __future__ import annotations
 
@@ -90,16 +95,23 @@ def top_k_lower_first(x: torch.Tensor, k: int
     return vals[..., :k], idx[..., :k]
 
 
-def route(x: torch.Tensor, router_w: torch.Tensor, top_k: int
-          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: (B, S, D); router_w: (D, E). Returns (weights (B, S, K) f32,
-    idx (B, S, K) int64, the Switch aux loss). The router runs in f32;
-    the selected weights are renormalised to sum to 1 (floor 1e-9)."""
+def _route(x: torch.Tensor, router_w: torch.Tensor, top_k: int):
+    """(probs (B, S, E) f32, renormalised top-k weights, their expert
+    ids) of ``route``."""
     logits = einsum_f32("bsd,de->bse", x, router_w)
     probs = torch.softmax(logits, dim=-1)
     weights, idx = top_k_lower_first(probs, top_k)
     weights = weights / torch.clamp(weights.sum(dim=-1, keepdim=True),
                                     min=1e-9)
+    return probs, weights, idx
+
+
+def route(x: torch.Tensor, router_w: torch.Tensor, top_k: int
+          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: (B, S, D); router_w: (D, E). Returns (weights (B, S, K) f32,
+    idx (B, S, K) int64, the Switch aux loss). The router runs in f32;
+    the selected weights are renormalised to sum to 1 (floor 1e-9)."""
+    probs, weights, idx = _route(x, router_w, top_k)
     # Switch aux loss: E * sum_e f_e * p_e (f_e: top-1 fraction).
     E = router_w.shape[-1]
     me = probs.mean(dim=(0, 1))
@@ -160,6 +172,31 @@ def _experts_sharded(expert_in: torch.Tensor, w_gate: list, w_up: list,
     return acts.constrain_moe_local(outs, expert_in.device)
 
 
+def dispatch(idx: torch.Tensor, weights: torch.Tensor, pos: torch.Tensor,
+             keep: torch.Tensor, grp: torch.Tensor, n_groups: int,
+             n_experts: int, cap: int, dtype: torch.dtype):
+    """Capacity dispatch of T tokens in row order. idx/weights (T, K):
+    each assignment's expert and weight; pos/keep (T, K): its rank in
+    its (group, expert) bucket and whether it fits (``capacity_slots``);
+    grp (T,): each token's group among ``n_groups``. Returns (slot
+    (T, K): each assignment's bucket within its group; w (T, K): its
+    combine weight in ``dtype``, 0 where dropped; tok_of (n_groups,
+    E*cap): the token filling each (group, expert, slot) bucket, T
+    (a zero row) where empty)."""
+    T, K = idx.shape
+    n_slot = n_experts * cap
+    dev = idx.device
+    slot = idx * cap + torch.clamp(pos, max=cap - 1)
+    w = (weights * keep).to(dtype)
+    # Dropped assignments write each group's trash column n_slot.
+    tok_of = torch.full((n_groups * (n_slot + 1),), T, dtype=torch.long,
+                        device=dev)
+    lin = grp[:, None] * (n_slot + 1) + torch.where(keep, slot, n_slot)
+    tok_of.scatter_(0, lin.reshape(-1),
+                    torch.arange(T, device=dev).repeat_interleave(K))
+    return slot, w, tok_of.view(n_groups, n_slot + 1)[:, :n_slot]
+
+
 def bucket(xg: torch.Tensor, idx: torch.Tensor, weights: torch.Tensor,
            n_experts: int, cap: int):
     """Capacity buckets of one set of groups. xg: (G, Tg, D) tokens;
@@ -172,35 +209,29 @@ def bucket(xg: torch.Tensor, idx: torch.Tensor, weights: torch.Tensor,
     dropped; keep (G, Tg*K))."""
     G, Tg, D = xg.shape
     K = idx.shape[-1]
-    E, N = n_experts, Tg * K
-    flat_idx = idx.reshape(G, N)
-    pos, keep = capacity_slots(flat_idx, E, cap)
-    w = (weights.reshape(G, N) * keep).to(xg.dtype)
-    slot = flat_idx * cap + torch.clamp(pos, max=cap - 1)    # (G, N)
-
-    # Which token fills each (expert, slot) bucket; empty buckets read a
-    # zero row (index Tg), dropped assignments write a trash column.
-    dev = xg.device
-    tok = torch.arange(N, device=dev).div(K, rounding_mode="floor")
-    tok_of = torch.full((G, E * cap + 1), Tg, dtype=torch.long, device=dev)
-    tok_of.scatter_(1, torch.where(keep, slot, E * cap),
-                    tok.expand(G, N).contiguous())
-    xz = torch.cat([xg, xg.new_zeros((G, 1, D))], dim=1)
-    rows = torch.arange(G, device=dev)[:, None]
-    expert_in = xz[rows, tok_of[:, :E * cap]]               # (G, E*C, D)
+    T = G * Tg
+    pos, keep = capacity_slots(idx.reshape(G, Tg * K), n_experts, cap)
+    grp = torch.arange(T, device=xg.device).div(Tg, rounding_mode="floor")
+    slot, w, tok_of = dispatch(idx.reshape(T, K), weights.reshape(T, K),
+                               pos.view(T, K), keep.view(T, K), grp, G,
+                               n_experts, cap, xg.dtype)
+    xz = torch.cat([xg.reshape(T, D), xg.new_zeros((1, D))])
+    expert_in = xz[tok_of]                                  # (G, E*C, D)
     return expert_in, slot.view(G, Tg, K), w.view(G, Tg, K), keep
 
 
-def combine(out: torch.Tensor, slot: torch.Tensor, w: torch.Tensor
-            ) -> torch.Tensor:
+def combine(out: torch.Tensor, slot: torch.Tensor, w: torch.Tensor,
+            group: torch.Tensor | None = None) -> torch.Tensor:
     """Each token's kept assignments' outputs, weighted, summed in f32:
-    out (G, E*C, D), slot/w (G, Tg, K) -> (G, Tg, D) f32."""
-    G, Tg, K = slot.shape
-    rows = torch.arange(G, device=out.device)[:, None]
-    y = torch.zeros((G, Tg, out.shape[-1]), dtype=torch.float32,
-                    device=out.device)
-    for k in range(K):
-        y += out[rows, slot[:, :, k]].float() * w[:, :, k, None].float()
+    out (G, E*C, D), slot/w (G, Tg, K) -> (G, Tg, D) f32. ``group``:
+    each token's group (its index into ``out``), for slot/w of any
+    leading shape (default: their first dimension is the group)."""
+    if group is None:
+        group = torch.arange(slot.shape[0], device=out.device)[:, None]
+    y = torch.zeros(slot.shape[:-1] + (out.shape[-1],),
+                    dtype=torch.float32, device=out.device)
+    for k in range(slot.shape[-1]):
+        y += out[group, slot[..., k]].float() * w[..., k, None].float()
     return y
 
 
@@ -311,3 +342,97 @@ def _gather_rows(xs: torch.Tensor, experts: list, counts: list, base: int,
         torch.mm(act, wd, out=ys[start:start + n])
         start += n
     return ys
+
+
+def moe_block_train(h: list, router: list, experts: list, top_k: int,
+                    capacity_factor: float = 1.25, n_data: int = 1
+                    ) -> tuple[list, torch.Tensor]:
+    """``moe_block`` of the global batch, split over batch shards and
+    "model" columns (the train step on a mesh, TP mode).
+
+    ``h[b][m]``: batch shard b's normed rows (B_b, S, D) on position
+    (b, m), equal B_b; ``router[b]``: (D, E) on position (b, 0);
+    ``experts[b][m]``: (w_gate (E_d, D, F_m), w_up, w_down (E_d, F_m,
+    D)) on position (b, m), expert block ``b % n_data`` and column m's
+    block of their hidden. Returns (``ys[b][m]``: position (b, m)'s
+    partial output (B_b, S, D), whose sum over the columns is
+    ``moe_block``'s rows of shard b; the aux loss of the global batch).
+
+    - Routing runs on each shard's first column. The aux loss's means
+      are over the global batch: each shard's sums of ``probs`` and of
+      the top-1 one-hot are added on position (0, 0), then the product
+      is taken (a mean of per-shard aux terms would differ).
+    - Capacity groups are ``moe_block``'s: ``Tg = min(MOE_GROUP, T)``
+      over the global T, group g the global tokens [g Tg, (g+1) Tg) of
+      the flattened (B, S) in row order. The ranks of every group's
+      assignments are counted over the whole group on position (0, 0)
+      (``capacity_slots`` of the gathered expert ids), so a group that
+      straddles batch shards keeps exactly the unsharded assignments.
+    - Each shard buckets its own tokens into the groups it touches
+      (zero rows where another shard's token fills the slot), and the
+      all-to-all over "data" (``act_sharding.moe_all_to_all``) gives
+      each expert block the buckets of its pod's shards, straddled
+      groups summed. Column m runs its hidden block; the rows go back
+      (``moe_all_to_all_back``) and each shard combines its own.
+    """
+    nb, M = len(h), len(h[0])
+    Bb, S, D = h[0][0].shape
+    Tb, E, K = Bb * S, router[0].shape[-1], top_k
+    T = nb * Tb
+    Tg = min(MOE_GROUP, T)
+    if T % Tg:
+        raise ValueError(f"{T} tokens do not split into groups of {Tg}")
+    cap = _capacity(Tg, E, K, capacity_factor)
+    home = h[0][0].device
+    routed, p_sum, f_sum = [], None, None
+    for b in range(nb):
+        x = h[b][0]
+        with on_device(x.device):
+            probs, weights, idx = _route(x, router[b], K)
+            ps = probs.sum(dim=(0, 1)).to(home)
+            fs = F.one_hot(idx[..., 0], E).float().sum(dim=(0, 1)).to(home)
+        routed.append((weights.reshape(Tb, K), idx.reshape(Tb, K)))
+        p_sum = ps if p_sum is None else p_sum + ps
+        f_sum = fs if f_sum is None else f_sum + fs
+    aux = E * torch.sum((p_sum / T) * (f_sum / T))
+
+    flat = torch.cat([idx.to(home) for _, idx in routed])
+    pos, keep = capacity_slots(flat.view(T // Tg, Tg * K), E, cap)
+    STATS.capacity_call(T * K, (~keep).sum())
+    pos, keep = pos.view(nb, Tb, K), keep.view(nb, Tb, K)
+    spans, plans = [], []
+    for b, (weights, idx) in enumerate(routed):
+        dev = idx.device
+        g0, g1 = b * Tb // Tg, ((b + 1) * Tb - 1) // Tg + 1
+        grp = torch.arange(b * Tb, (b + 1) * Tb, device=dev) // Tg - g0
+        slot, w, tok_of = dispatch(idx, weights, pos[b].to(dev),
+                                   keep[b].to(dev), grp, g1 - g0, E, cap,
+                                   h[b][0].dtype)
+        spans.append((g0, g1))
+        plans.append((grp, slot, w, tok_of))
+
+    ys = [[None] * M for _ in range(nb)]
+    for m in range(M):
+        sends = []
+        for b in range(nb):
+            x = h[b][m]
+            with on_device(x.device):
+                xz = torch.cat([x.reshape(Tb, D), x.new_zeros((1, D))])
+                sends.append(xz[plans[b][3].to(x.device)]
+                             .view(-1, E, cap, D))
+        ins = acts.moe_all_to_all(sends, spans, n_data)
+        outs = []
+        for b in range(nb):
+            wg, wu, wd = experts[b][m]
+            with on_device(wg.device):
+                outs.append(acts.constrain_expert_ecf(
+                    _experts(ins[b], wg, wu, wd)))
+        back = acts.moe_all_to_all_back(outs, spans, n_data, cap,
+                                        [h[b][m].device for b in range(nb)])
+        for b in range(nb):
+            grp, slot, w, _ = plans[b]
+            dev = h[b][m].device
+            with on_device(dev):
+                y = combine(back[b], slot.to(dev), w.to(dev), grp.to(dev))
+            ys[b][m] = y.to(h[b][m].dtype).view(Bb, S, D)
+    return ys, aux

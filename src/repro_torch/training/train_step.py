@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.distributed.sharding import (FsdpStep, ShardedTensor,
+from repro_torch.distributed.sharding import (TRAIN_MESH_FAMILIES,
+                                              FsdpStep, ShardedTensor,
                                               train_unsupported)
 from repro_torch.models import api
 from repro_torch.models.base import Family, ModelConfig
@@ -37,13 +38,13 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     A state placed on a mesh (``ShardedTensor`` leaves:
     ``sharding.device_put`` with ``param_shardings(kind="train")``, and
     ``init_opt_state`` of the placed params or ``opt_shardings``), as
-    JAX's jitted step takes it, trains the dense family sharded: each
-    microbatch's rows split over the batch axes, FSDP gathers and
-    reduce-scatters (``sharding.FsdpStep``), and each position updates
-    its shards. The batch stays whole (tensors on any device); its rows
-    must split evenly over the batch axes. On one position every family
-    trains on that position's tensors; on more, the other families
-    raise.
+    JAX's jitted step takes it, trains the dense, MoE and VLM families
+    sharded: each microbatch's rows split over the batch axes, FSDP
+    gathers and reduce-scatters (``sharding.FsdpStep``), and each
+    position updates its shards. The batch stays whole (tensors on any
+    device); its rows must split evenly over the batch axes. The other
+    families train on one position's tensors when the mesh has one
+    position, and raise on more.
     """
 
     def loss_fn(params, batch):
@@ -91,7 +92,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     def step(params, opt_state, batch):
         st = next(iter(params.values()))
         if isinstance(st, ShardedTensor):
-            if cfg.family != Family.DENSE and st.mesh.size == 1:
+            if cfg.family not in TRAIN_MESH_FAMILIES \
+                    and st.mesh.size == 1:
                 # One position holds every leaf whole: the plain step on
                 # those tensors updates the placed state in place.
                 origin = (0,) * len(st.mesh.axis_names)

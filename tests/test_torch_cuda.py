@@ -1259,7 +1259,11 @@ def test_flash_attention_bwd_matches_plain(card, B, S, H, Kh, dh, causal,
     (8, 256, 32, 32, 128, True),     # Llama prefill bucket
     (1, 2048, 32, 32, 128, True),
     (8, 1500, 8, 8, 64, False),      # whisper's encoder
-    (8, 512, 32, 32, 64, True)])     # zamba2's shared block
+    (8, 512, 32, 32, 64, True),      # zamba2's shared block
+    (1, 1024, 64, 4, 128, True),     # qwen3-moe's (2, 1) shard: G 16
+    (2, 1024, 32, 2, 128, True),     # qwen3-moe's (1, 2) shard
+    (4, 512, 28, 4, 128, True),      # qwen2-vl's (2, 1) shard: G 7
+    (1, 16384, 2, 1, 128, False)])   # dq walks 2048 k-steps, dk/dv 4096
 def test_flash_attention_bwd_at_the_training_shapes(card, B, S, H, Kh, dh,
                                                     causal, dt):
     gen = torch.Generator().manual_seed(S + H + dh)
@@ -1385,11 +1389,13 @@ def test_reduced_train_steps_on_the_card(card, name):
 
 
 @pytest.mark.parametrize("shape", [(2, 1), (1, 2), (2, 2)])
-@pytest.mark.parametrize("name", ["internlm2-1.8b", "granite-34b"])
+@pytest.mark.parametrize("name", ["internlm2-1.8b", "granite-34b",
+                                  "qwen3-moe-235b-a22b",
+                                  "llama4-maverick-400b-a17b", "qwen2-vl-7b"])
 def test_sharded_train_steps_on_the_card(card, name, shape):
-    """Two train steps of a reduced dense config in f32 with the state
-    placed on a mesh over repeated positions of the card against the
-    unsharded CPU port (``_port_training`` tolerances)."""
+    """Two train steps of a reduced dense, MoE or VLM config in f32 with
+    the state placed on a mesh over repeated positions of the card
+    against the unsharded CPU port (``_port_training`` tolerances)."""
     from repro_torch.configs import get_config
     from repro_torch.training import AdamWConfig
     from _port_training import TOL, card_vs_cpu_train_steps, states_ok

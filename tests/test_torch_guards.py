@@ -165,7 +165,7 @@ def _imported_names(tree):
 
 @pytest.mark.parametrize("path", [
     "chip_smoke.py", "chip_profile.py", "chip_prefill.py",
-    "chip_f32_agreement.py", "chip_mesh.py",
+    "chip_f32_agreement.py", "chip_mesh.py", "chip_flash_bwd.py",
     "examples/torch_long_context_ssm.py",
     "examples/torch_train_with_recovery.py",
     *sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))])

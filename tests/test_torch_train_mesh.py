@@ -14,7 +14,8 @@ port's seeded params:
   (1, 1) bit for bit. The (1, 1) step equals JAX's jitted step on the
   same (bridged) weights;
 - every placed leaf's per-position block equals the JAX rule table's
-  ``NamedSharding`` index for that position;
+  ``NamedSharding`` index for that position (the MoE and VLM configs'
+  too: their steps are ``tests/test_torch_train_mesh_moe.py``'s);
 - ``microbatches=2`` on (2, 1) equals ``microbatches=1``; the forward
   on a mesh equals the unsharded logits;
 - a checkpoint saved on (2, 1) is byte-identical to an unsharded save,
@@ -24,8 +25,8 @@ port's seeded params:
 - ``launch.train.train(mesh=make_host_mesh("cpu"))`` over a forced host
   count of 2 trains the losses of one device;
 - the collectives and the row-parallel anchors on their own, and the
-  refusals: the other families on a split mesh, a batch that does not
-  split over the batch axes.
+  refusals: the SSM, hybrid and enc-dec families on a split mesh, a
+  batch that does not split over the batch axes.
 """
 import importlib
 
@@ -40,89 +41,29 @@ jax = pytest.importorskip("jax")
 # JAX reads XLA_FLAGS once, when its backend starts: start it now, so
 # the XLA_FLAGS a test sets for the port never reaches JAX.
 jax.devices()
-import jax.numpy as jnp  # noqa: E402
 from jax._src import op_shardings  # noqa: E402
 from jax.sharding import Mesh as JMesh  # noqa: E402
 
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.distributed import sharding as jsh  # noqa: E402
-from repro.models import api as japi  # noqa: E402
-from repro.training import optimizer as jopt  # noqa: E402
-from repro.training import train_step as jtrain  # noqa: E402
-from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.distributed import act_sharding as acts  # noqa: E402
 from repro_torch.distributed import sharding as tsh  # noqa: E402
-from repro_torch.launch.mesh import Mesh, make_host_mesh  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models import api  # noqa: E402
-from repro_torch.training import (AdamWConfig, init_opt_state,  # noqa: E402
+from repro_torch.training import (init_opt_state,  # noqa: E402
                                   make_train_step, restore_checkpoint,
                                   save_checkpoint)
 from repro_torch.training.optimizer import global_norm  # noqa: E402
 
-from _port_training import (TOL, batch_np, final_close,  # noqa: E402
-                            first_step_close, states_ok, to_tensors)
+from _port_train_mesh import (MESHES, OPT, STEPS,  # noqa: E402
+                              assert_runs_close, cpu_mesh, jax_run, place,
+                              run, unsharded)
+from _port_training import TOL, batch_np, to_tensors  # noqa: E402
 
 fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
 
-OPT = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10, clip_norm=0.5)
-AXES = ("data", "model")
-MESHES = {"1x1": ((1, 1), AXES), "2x1": ((2, 1), AXES),
-          "1x2": ((1, 2), AXES), "2x2": ((2, 2), AXES),
-          "pod2x1x2": ((2, 1, 2), ("pod", "data", "model"))}
 NAMES = ("internlm2-1.8b", "granite-34b", "qwen2.5-32b")
-STEPS = 2
-
-
-def cpu_mesh(name):
-    shape, axes = MESHES[name]
-    grid = np.empty(int(np.prod(shape)), dtype=object)
-    grid[:] = [torch.device("cpu")] * grid.size
-    return Mesh(grid.reshape(shape), axes)
-
-
-def place(cfg, params, mesh):
-    """The params placed by the train rule table (copies) and their
-    moments placed alike."""
-    p = tsh.device_put(params, tsh.param_shardings(cfg, params, mesh,
-                                                   "train"))
-    return p, init_opt_state(p, OPT)
-
-
-def whole(tree):
-    """Leaves as f32 numpy copies, placed ones gathered."""
-    return {k: (v.cpu() if isinstance(v, tsh.ShardedTensor) else v)
-            .detach().float().numpy().copy() for k, v in tree.items()}
-
-
-def run(cfg, params, opt, steps=STEPS, microbatches=1, first=0):
-    """Steps ``first``.. of the port's step; the metrics of each, the
-    state after the first one (params, first moments) and at the end."""
-    step = make_train_step(cfg, OPT, microbatches)
-    ms, after1 = [], None
-    for i in range(first, first + steps):
-        m = step(params, opt, to_tensors(batch_np(cfg, i), "cpu"))[2]
-        ms.append({k: float(v) for k, v in m.items()})
-        if after1 is None:
-            after1 = (whole(params), {k[2:]: v for k, v in whole(opt).items()
-                                      if k.startswith("m/")})
-    return ms, after1, (whole(params), whole(opt))
-
-
-def assert_runs_close(ref, got):
-    (rm, r1, rend), (gm, g1, gend) = ref, got
-    for a, b in zip(rm, gm):
-        for k in ("loss", "grad_norm", "lr"):
-            assert abs(b[k] - a[k]) <= TOL * max(abs(a[k]), 1.0), (k, a, b)
-    first = first_step_close(r1[0], g1[0], OPT, r1[1])
-    final = final_close(rend, gend, OPT, len(rm))
-    assert states_ok(first, final), (first, final)
-
-
-def unsharded(cfg):
-    params = api.init_params(cfg, 0, torch.float32, device="cpu")
-    return params, run(cfg, {k: v.clone() for k, v in params.items()},
-                       init_opt_state(params, OPT))
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
@@ -146,36 +87,21 @@ def test_sharded_step_equals_unsharded(name, mesh):
 def test_unit_mesh_step_matches_jax():
     """(1, 1) against JAX's jitted step from JAX's weights."""
     name = "internlm2-1.8b"
-    jcfg, cfg = jget_config(name).reduced(), get_config(name).reduced()
-    jparams = japi.init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
-    jocfg = jopt.AdamWConfig(lr=OPT.lr, warmup_steps=OPT.warmup_steps,
-                             total_steps=OPT.total_steps,
-                             clip_norm=OPT.clip_norm)
-    jstate = jopt.init_opt_state(jparams, jocfg)
-    jstep = jax.jit(jtrain.make_train_step(jcfg, jocfg))
-    jm, j1 = [], None
-    for i in range(STEPS):
-        b = {k: jnp.asarray(v) for k, v in batch_np(cfg, i).items()}
-        if i == 0:
-            params = bridge.params_to_torch(jparams, "cpu")
-        jparams, jstate, m = jstep(jparams, jstate, b)
-        jm.append({k: float(v) for k, v in m.items()})
-        if i == 0:
-            j1 = ({k: np.asarray(v) for k, v in jparams.items()},
-                  {k[2:]: np.asarray(v) for k, v in jstate.items()
-                   if k.startswith("m/")})
-    ref = (jm, j1, ({k: np.asarray(v) for k, v in jparams.items()},
-                    {k: np.asarray(v, np.float32)
-                     for k, v in jstate.items()}))
+    params, ref = jax_run(name)
+    cfg = get_config(name).reduced()
     assert_runs_close(ref, run(cfg, *place(cfg, params, cpu_mesh("1x1"))))
 
 
 @pytest.mark.parametrize("mesh", ["2x2", "pod2x1x2"])
-@pytest.mark.parametrize("name", ["internlm2-1.8b", "granite-34b"])
+@pytest.mark.parametrize("name", ["internlm2-1.8b", "granite-34b",
+                                  "qwen3-moe-235b-a22b",
+                                  "llama4-maverick-400b-a17b", "qwen2-vl-7b"])
 def test_placed_blocks_are_the_jax_rule_tables(name, mesh):
     """Each position's block of every param and moment is the JAX
     ``NamedSharding``'s index for that position (over the mesh's
-    positions in order)."""
+    positions in order), the MoE stacks' ``moe/*`` (experts over
+    "data", their hidden over "model", D over "pod"), ``shared_*`` and
+    ``dense_mlp/*`` leaves included."""
     cfg, jcfg = get_config(name).reduced(), jget_config(name).reduced()
     shape, axes = MESHES[mesh]
     n = int(np.prod(shape))
@@ -195,8 +121,11 @@ def test_placed_blocks_are_the_jax_rule_tables(name, mesh):
                 assert torch.equal(st.shards.flat[pos], ref[i]), (k, pos)
 
 
-def test_microbatches_on_a_data_split_equal_one():
-    cfg = get_config("internlm2-1.8b").reduced()
+@pytest.mark.parametrize("name", ["internlm2-1.8b", "qwen2-vl-7b"])
+def test_microbatches_on_a_data_split_equal_one(name):
+    """Two microbatches on (2, 1) equal one (qwen2-vl: its M-RoPE
+    positions split on their dimension 1)."""
+    cfg = get_config(name).reduced()
     params = api.init_params(cfg, 0, torch.float32, device="cpu")
     m = cpu_mesh("2x1")
     ref = run(cfg, *place(cfg, params, m))
@@ -318,11 +247,10 @@ def test_row_parallel_anchors_split_rows_and_sum_columns():
 
 
 def test_other_families_refuse_a_split_mesh():
-    """The MoE and SSM train steps and the VLM forward on a mesh of more
-    than one position raise naming the family and the ROADMAP item; on
-    one position the MoE and SSM steps train on its tensors, as
-    unsharded."""
-    for name in ("qwen3-moe-235b-a22b", "falcon-mamba-7b"):
+    """The SSM, hybrid and enc-dec train steps on a mesh of more than
+    one position raise naming the family and the ROADMAP item; on one
+    position they train on its tensors, as unsharded."""
+    for name in ("falcon-mamba-7b", "zamba2-1.2b", "whisper-base"):
         cfg = get_config(name).reduced()
         params = api.init_params(cfg, 0, torch.float32, device="cpu")
         step = make_train_step(cfg, OPT)
@@ -337,11 +265,6 @@ def test_other_families_refuse_a_split_mesh():
         want = step(params, init_opt_state(params, OPT), b)[2]
         assert float(got["loss"]) == float(want["loss"])
         assert torch.equal(p["final_norm"].cpu(), params["final_norm"])
-    cfg = get_config("qwen2-vl-7b").reduced()
-    params = api.init_params(cfg, 0, torch.float32, device="cpu")
-    p, _ = place(cfg, params, cpu_mesh("1x2"))
-    with pytest.raises(NotImplementedError, match="VLM family"):
-        api.forward(cfg, p, torch.zeros(2, 4, dtype=torch.int32))
 
 
 def test_a_batch_must_split_over_the_batch_axes():
