@@ -59,8 +59,18 @@ every gather is a copy between cards. Phases, one JSON line each:
    qwen3-moe-235b-a22b --reduced --devices host``
    (``mesh_train_moe_launcher``).
 
+8. ``mesh_train_families`` — the hybrid train step on meshes of
+   distinct cards: zamba2-1.2b at its published widths and depth (38
+   layers, six shared-block sites) in f32, two SyntheticLM (8, 512)
+   steps at (4, 1), (2, 2) and (1, 4) against the unsharded step on
+   ``cuda:0`` as two microbatches (the whole batch's activations do not
+   fit beside the state on one card); then ``python -m
+   repro_torch.launch.train --arch zamba2-1.2b --reduced --devices
+   host`` (``mesh_train_families_launcher``).
+
 ``--phases`` picks phases by name (``parity``, ``full``, ``moe_parity``,
-``moe_a2a``, ``moe_full``, ``train``, ``train_moe``; all by default).
+``moe_a2a``, ``moe_full``, ``train``, ``train_moe``,
+``train_families``; all by default).
 Then the ``nvidia-smi`` name and power limit of each card. Exits non-zero with fewer than 4 cards or
 when a check fails; imports nothing of JAX.
 """
@@ -415,6 +425,12 @@ TRAIN_MESHES = ((4, 1), (2, 2), (1, 4))
 LAUNCHER_STEPS = 5
 #: The MoE train step across the cards: (arch, layers, (B, S)).
 TRAIN_MOE = ("qwen3-moe-235b-a22b", 2, (4, 1024))
+#: zamba2-1.2b at its published widths and depth: 38 Mamba2 layers and
+#: six sites of the shared attention block (1.17 B params, 18.7 GB of
+#: f32 state), SyntheticLM (8, 512). The unsharded step's activations
+#: at (8, 512) do not fit beside that state on one card, so the
+#: reference runs the same batch as two microbatches of (4, 512).
+TRAIN_FAMILIES = ("zamba2-1.2b", None, (8, 512), 2)
 
 
 def phase_train() -> None:
@@ -473,6 +489,38 @@ def phase_train_moe() -> None:
     run_launcher("mesh_train_moe_launcher", ["--arch", arch, "--reduced"])
 
 
+def phase_train_families() -> None:
+    """``mesh_train_families``: ``TRAIN_FAMILIES`` (zamba2-1.2b whole,
+    f32) for two SyntheticLM steps on each of ``TRAIN_MESHES`` of
+    distinct cards, held to the unsharded step on ``cuda:0`` (two
+    microbatches; ``chip_smoke.train_mesh_run``: loss and grad norm,
+    params and moments, six flash forward and backward launches a
+    position a step, each card's peak memory, s/step); then
+    ``launch.train --arch zamba2-1.2b --reduced --devices host`` over
+    every card (``mesh_train_families_launcher``)."""
+    import torch
+    from chip_smoke import (train_mesh_inputs, train_mesh_reference,
+                            train_mesh_run)
+    from repro_torch.launch.mesh import make_mesh
+    arch, n_layers, batch, micro = TRAIN_FAMILIES
+    cfg, init, ocfg, batches = train_mesh_inputs(arch, n_layers, batch)
+    t0 = time.perf_counter()
+    ref = train_mesh_reference(cfg, ocfg, init, batches,
+                               microbatches=micro)
+    emit(dict(phase="mesh_train_families_reference", device="cuda:0",
+              microbatches=micro, seconds=time.perf_counter() - t0,
+              peak_gb=ref["peak_gb"], history=ref["history"]))
+    for shape in TRAIN_MESHES:
+        train_mesh_run(cfg, ocfg, init, batches,
+                       make_mesh(shape, ("data", "model")), ref,
+                       "mesh_train_families")
+    del init, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_launcher("mesh_train_families_launcher",
+                 ["--arch", arch, "--reduced"])
+
+
 def run_launcher(phase: str, args: list) -> None:
     """``python -m repro_torch.launch.train --devices host`` with
     ``args`` for ``LAUNCHER_STEPS`` steps over every card: exit code 0,
@@ -501,7 +549,8 @@ def run_launcher(phase: str, args: list) -> None:
 PHASES = {"parity": phase_parity, "full": phase_full,
           "moe_parity": phase_moe_parity, "moe_a2a": phase_moe_a2a,
           "moe_full": phase_moe_full, "train": phase_train,
-          "train_moe": phase_train_moe}
+          "train_moe": phase_train_moe,
+          "train_families": phase_train_families}
 
 
 def main() -> int:

@@ -223,20 +223,26 @@ of the JAX package. Phases, one JSON line each:
              reduced llama4 (dense layers between MoE layers, a shared
              expert) at (2, 2) against the CPU (``parity_train_mesh``);
              then for internlm2-1.8b (full size, (8, 512)), qwen2-vl-7b
-             (full width, 2 layers, (8, 512), M-RoPE positions) and
-             qwen3-moe (full width, 1 layer, (2, 2048)), one at a time
-             and each freed after: the unsharded step from seeded f32
-             params (kept on the host), then the state placed by the
-             train rule table on (1, 1), (2, 1), (1, 2) and (2, 2)
-             (qwen3-moe: the first three) over repeated positions of
-             the card and two steps each (``train_mesh``): loss and
-             grad norm within 1e-4 relative of the unsharded step's,
-             params within lr a step and moments within 1e-4 relative
-             after the second, MoE capacity drops equal, flash forward
-             and backward once a layer a position a step (counts
-             zeroed just before each mesh's steps), no plain version;
-             s/step, peak memory, gathers, reduce-scatters and MoE
-             all-to-alls a step.
+             (full width, 2 layers, (8, 512), M-RoPE positions),
+             qwen3-moe (full width, 1 layer, (2, 2048)), falcon-mamba-7b
+             (full width, 2 layers, (2, 1024)), zamba2-1.2b (full
+             width, 12 layers: two shared-block sites, (8, 512)) and
+             whisper-base (whole, (8, 256) tokens over 1500 frames of
+             seeded noise), one at a time and each freed after: the
+             unsharded step from seeded f32 params (kept on the host),
+             then the state placed by the train rule table on (1, 1),
+             (2, 1), (1, 2) and (2, 2) (qwen3-moe: the first three)
+             over repeated positions of the card and two steps each
+             (``train_mesh``): loss and grad norm within 1e-4
+             relative of the unsharded step's (whether (1, 1) is
+             bit-identical is reported, with the leaves that are
+             not), params within lr a step and moments within 1e-4
+             relative after the second, MoE capacity drops equal,
+             flash forward and
+             backward once an attention layer a position a step
+             (counts zeroed just before each mesh's steps), no plain
+             version; s/step, peak memory, gathers, reduce-scatters and
+             MoE all-to-alls a step.
 
 A device-time profile of the same path is ``chip_profile.py``.
 
@@ -3780,7 +3786,8 @@ FWD_LSE_SHAPES = (("internlm2-1.8b", 8, 512, 16, 8, 128, "f32"),
 
 
 def time_forward_lse(flush, randn, shapes, phase: str) -> None:
-    """flash_attention at ``shapes``, causal, with ``return_lse`` off
+    """flash_attention at ``shapes`` (label, B, S, H, Kh, dh, dtype[,
+    causal]; causal unless it says otherwise), with ``return_lse`` off
     and on: the output against its plain version (f32 1e-4; bf16 one
     ulp plus ``FLASH_P_ROUNDING``), the same bits either way, the
     log-sum-exp within 1e-5 of ``flash_attention_lse_plain``, and both
@@ -3790,39 +3797,43 @@ def time_forward_lse(flush, randn, shapes, phase: str) -> None:
     import torch
     import torch.nn.functional as F
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
-    for label, B, S, H, Kh, dh, tname in shapes:
+    for label, B, S, H, Kh, dh, tname, *rest in shapes:
+        causal = rest[0] if rest else True
         dt = torch.float32 if tname == "f32" else torch.bfloat16
         q = randn(B, S, H, dh, dtype=dt)
         k, v = randn(B, S, Kh, dh, dtype=dt), randn(B, S, Kh, dh, dtype=dt)
-        out = fa.flash_attention(q, k, v)
-        out2, lse = fa.flash_attention(q, k, v, return_lse=True)
+        out = fa.flash_attention(q, k, v, causal)
+        out2, lse = fa.flash_attention(q, k, v, causal, return_lse=True)
         torch.cuda.synchronize()
-        want = fa.flash_attention_plain(q, k, v)
+        want = fa.flash_attention_plain(q, k, v, causal)
         atol, rtol = TOL["f32" if tname == "f32" else "bf16_out"]
         bound = atol + rtol * want.float().abs()
         if tname == "bf16":
             bound = bound + FLASH_P_ROUNDING * fa.flash_attention_plain(
-                q.float(), k.float(), v.float().abs())
+                q.float(), k.float(), v.float().abs(), causal)
         diff = (out.float() - want.float()).abs()
-        lse_want = fa.flash_attention_lse_plain(q, k)
+        lse_want = fa.flash_attention_lse_plain(q, k, causal)
         lse_err = (lse - lse_want).abs()
         ok = bool((diff <= bound).all() and torch.equal(out, out2)
                   and (lse_err <= 1e-5 + 1e-5 * lse_want.abs()).all())
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        fb = bound_ms(nbytes(q, k, v) + nbytes(q),
-                      4 * B * H * dh * S * (S + 1) // 2, op_type(q, k, v))
+        pairs = S * (S + 1) // 2 if causal else S * S
+        fb = bound_ms(nbytes(q, k, v) + nbytes(q), 4 * B * H * dh * pairs,
+                      op_type(q, k, v))
         emit(dict(phase=phase, kernel="flash_attention",
                   case=f"{label}, q {tuple(q.shape)}, Kh {Kh}, {tname}, "
-                       f"causal", instance=fa.flash_instance(dt, dh),
+                       f"{'causal' if causal else 'full'}",
+                  instance=fa.flash_instance(dt, dh),
                   max_abs_err=diff.max().item(),
                   lse_max_abs_err=lse_err.max().item(), ok=ok,
-                  ms=median_ms(lambda: fa.flash_attention(q, k, v), flush),
+                  ms=median_ms(lambda: fa.flash_attention(q, k, v, causal),
+                               flush),
                   ms_with_lse=median_ms(lambda: fa.flash_attention(
-                      q, k, v, return_lse=True), flush),
+                      q, k, v, causal, return_lse=True), flush),
                   plain_ms=median_ms(lambda: fa.flash_attention_plain(
-                      q, k, v), flush),
+                      q, k, v, causal), flush),
                   library_ms=median_ms(lambda: F.scaled_dot_product_attention(
-                      qt, kt, vt, is_causal=True, enable_gqa=True), flush),
+                      qt, kt, vt, is_causal=causal, enable_gqa=True), flush),
                   bound_ms=fb[0], bound_by=fb[1]))
         check(ok, f"flash_attention forward [{label}, {tname}] with its "
                   f"log-sum-exp disagrees with its plain version")
@@ -4194,21 +4205,50 @@ TRAIN_MESH_STEPS = 2
 TRAIN_MESH_MODELS = (
     ("qwen3-moe-235b-a22b", 1, (2, 2048), ((1, 1), (2, 1), (1, 2))),
     ("qwen2-vl-7b", 2, (8, 512), TRAIN_MESHES))
+#: The SSM, hybrid and enc-dec families at their published widths, after
+#: ``TRAIN_MESH_MODELS``: falcon-mamba-7b cut to 2 layers (0.743 B
+#: params, 11.9 GB of f32 state), zamba2-1.2b cut to 12 layers (two
+#: sites of the shared block; 0.505 B, 8.1 GB), whisper-base whole (6 +
+#: 6 layers, V 51865, 1500 frames; 2.0 GB).
+TRAIN_MESH_FAMILIES = (
+    ("falcon-mamba-7b", 2, (2, 1024), TRAIN_MESHES),
+    ("zamba2-1.2b", 12, (8, 512), TRAIN_MESHES),
+    ("whisper-base", None, (8, 256), TRAIN_MESHES))
+
+
+def attention_layers(cfg) -> int:
+    """flash_attention calls of one forward of ``cfg``: a layer each for
+    the decoder-only families, the shared block's sites (hybrid), the
+    encoder and decoder layers (enc-dec), none for the SSM family."""
+    family = cfg.family.name
+    if family == "SSM":
+        return 0
+    if family == "HYBRID":
+        return cfg.n_layers // cfg.attn_every
+    if family == "ENCDEC":
+        return cfg.n_enc_layers + cfg.n_layers
+    return cfg.n_layers
 
 
 def train_mesh_shapes(cfg, batch: tuple, meshes) -> tuple:
     """flash_attention's per-shard shapes of ``cfg``'s train step at
     ``batch`` (B, S) on each split mesh: (B / d, S, H / m, dh) over the
-    column's KV heads."""
+    column's KV heads, causal; enc-dec: the encoder's over ``enc_ctx``
+    frames (full) and the decoder's (causal); none for the SSM
+    family."""
     from repro_torch.distributed.sharding import kv_heads_of_column
     B, S = batch
+    parts = {"SSM": (), "ENCDEC": ((" encoder", cfg.enc_ctx, False),
+                                   (" decoder", S, True))}.get(
+        cfg.family.name, (("", S, True),))
     out = []
     for d, m in meshes:
         if d * m == 1:
             continue
         lo, hi = kv_heads_of_column(cfg.n_kv_heads, m, 0)
-        out.append((f"{cfg.name} shard of ({d}, {m})", B // d, S,
-                    cfg.n_heads // m, hi - lo, cfg.head_dim, True))
+        for part, s, causal in parts:
+            out.append((f"{cfg.name}{part} shard of ({d}, {m})", B // d, s,
+                        cfg.n_heads // m, hi - lo, cfg.head_dim, causal))
     return tuple(out)
 
 
@@ -4218,7 +4258,7 @@ def train_mesh_inputs(arch: str = FULL_ARCH, n_layers: int | None = None,
     seeded f32 params (drawn on ``cuda:0``) on the host, the optimizer
     config and ``TRAIN_MESH_STEPS`` SyntheticLM ``batch`` batches on
     ``cuda:0`` (with ``mrope_positions`` of an image prompt for an
-    M-RoPE config)."""
+    M-RoPE config, seeded ``enc_ctx`` frames of noise for enc-dec)."""
     import dataclasses
 
     import torch
@@ -4241,23 +4281,27 @@ def train_mesh_inputs(arch: str = FULL_ARCH, n_layers: int | None = None,
              for k, v in data.batch(i).items()}
         if cfg.mrope:
             b["mrope_pos"] = mrope_positions(*batch, image=True).cuda()
+        if cfg.family.name == "ENCDEC":
+            g = torch.Generator(device="cuda").manual_seed(1000 + i)
+            b["frames"] = torch.randn((batch[0], cfg.enc_ctx, cfg.d_model),
+                                      generator=g, device="cuda")
         batches.append(b)
     return cfg, init, ocfg, batches
 
 
 def train_mesh_reference(cfg, ocfg, init: dict, batches: list,
-                         device="cuda:0") -> dict:
-    """The unsharded step on ``device`` from ``init`` (host tensors):
-    each step's loss, grad norm, MoE capacity drops and seconds, the
-    card's peak memory, and the params and moments after the last
-    step, on the host."""
+                         device="cuda:0", microbatches: int = 1) -> dict:
+    """The unsharded step on ``device`` from ``init`` (host tensors),
+    over ``microbatches`` microbatches a step: each step's loss, grad
+    norm, MoE capacity drops and seconds, the card's peak memory, and
+    the params and moments after the last step, on the host."""
     import torch
     from repro_torch.models import moe
     from repro_torch.training import init_opt_state, make_train_step
     # A copy even on the host: the step updates its params in place.
     params = {k: v.to(device, copy=True) for k, v in init.items()}
     opt = init_opt_state(params, ocfg)
-    step = make_train_step(cfg, ocfg)
+    step = make_train_step(cfg, ocfg, microbatches)
     if device != "cpu":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
@@ -4293,8 +4337,8 @@ def train_mesh_run(cfg, ocfg, init: dict, batches: list, mesh, ref: dict,
     ``ref``'s (``TRAIN_TOL`` relative), the largest param difference
     after the last step within lr a step and the largest moment
     difference within ``TRAIN_TOL`` relative (``final_close``), flash
-    forward and backward once a layer a position a step and no plain
-    version, the MoE capacity drops of each step equal to ``ref``'s;
+    forward and backward once an attention layer (``attention_layers``)
+    a position a step and no plain version, the MoE capacity drops of each step equal to ``ref``'s;
     s/step, peak memory of each card,
     placed bytes, gathers, reduce-scatters and MoE all-to-alls a step.
     One ``phase`` line."""
@@ -4336,13 +4380,14 @@ def train_mesh_run(cfg, ocfg, init: dict, batches: list, mesh, ref: dict,
                      for k in ("loss", "grad_norm"))
     home = mesh.devices.flat[0]
     d_param = d_opt = 0.0
-    exact = True
+    inexact = []
     for tree, want in ((params, ref["params"]), (opt, ref["opt"])):
         for k, st in tree.items():
             got = st.full(home).float()
             w = want[k].to(home).float()
             diff = (got - w).abs()
-            exact &= bool(torch.equal(got, w))
+            if not torch.equal(got, w):
+                inexact.append(k)
             if tree is params:
                 d_param = max(d_param, diff.max().item())
             else:
@@ -4352,7 +4397,7 @@ def train_mesh_run(cfg, ocfg, init: dict, batches: list, mesh, ref: dict,
     positions = mesh.size
     want = {n: 0 for n in stats}
     want["flash_attention"] = want["flash_attention_bwd"] = \
-        cfg.n_layers * positions * n_steps
+        attention_layers(cfg) * positions * n_steps
     drops = [h["dropped"] for h in hist]
     ref_drops = [h["dropped"] for h in ref["history"]]
     B, S = batches[0]["tokens"].shape
@@ -4366,7 +4411,8 @@ def train_mesh_run(cfg, ocfg, init: dict, batches: list, mesh, ref: dict,
         ref_grad_norms=[h["grad_norm"] for h in ref["history"]],
         metrics_rel_err=metric_err, max_param_err=d_param,
         param_err_in_lr=d_param / (ocfg.lr * n_steps),
-        max_moment_rel_err=d_opt, bit_exact=exact,
+        max_moment_rel_err=d_opt, bit_exact=not inexact,
+        inexact_leaves=inexact[:8] if positions == 1 else None,
         moe_dropped=drops, ref_moe_dropped=ref_drops,
         s_per_step=[h["seconds"] for h in hist],
         ref_s_per_step=[h["seconds"] for h in ref["history"]],
@@ -4460,11 +4506,12 @@ def phase_train_mesh() -> None:
     ``cuda:0`` (one card: no interconnect measured). flash_attention and
     its backward at the per-shard shapes against their plain versions
     (``kernel_time_train_mesh``, f32), then for internlm2-1.8b at full
-    width and depth and for ``TRAIN_MESH_MODELS`` (qwen3-moe, one
-    layer; qwen2-vl-7b, two) the unsharded step and each mesh held to it
-    (``train_mesh`` lines), and reduced llama4 (dense layers between MoE
-    layers, a shared expert) at (2, 2) against the CPU
-    (``parity_train_mesh``)."""
+    width and depth, for ``TRAIN_MESH_MODELS`` (qwen3-moe, one layer;
+    qwen2-vl-7b, two) and for ``TRAIN_MESH_FAMILIES`` (falcon-mamba-7b,
+    zamba2-1.2b, whisper-base) the unsharded step and each mesh held to
+    it (``train_mesh`` lines), one model at a time, and reduced llama4
+    (dense layers between MoE layers, a shared expert) at (2, 2) against
+    the CPU (``parity_train_mesh``)."""
     import dataclasses
 
     import torch
@@ -4476,16 +4523,19 @@ def phase_train_mesh() -> None:
 
     shapes = train_mesh_shapes(get_config(FULL_ARCH),
                                (FULL_BATCH, FULL_SEQ), TRAIN_MESHES)
-    for arch, n_layers, batch, meshes in TRAIN_MESH_MODELS:
-        shapes += train_mesh_shapes(
-            dataclasses.replace(get_config(arch), n_layers=n_layers),
-            batch, meshes)
+    for arch, n_layers, batch, meshes in (TRAIN_MESH_MODELS
+                                          + TRAIN_MESH_FAMILIES):
+        cfg = get_config(arch)
+        if n_layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        shapes += train_mesh_shapes(cfg, batch, meshes)
     phase_train_kernels(flush, shapes, ("f32",), "kernel_time_train_mesh",
-                        [s[:6] + ("f32",) for s in shapes])
+                        [s[:6] + ("f32", s[6]) for s in shapes])
     del scratch
     train_parity_mesh("llama4-maverick-400b-a17b", (2, 2))
     train_mesh_model(FULL_ARCH, None, (FULL_BATCH, FULL_SEQ), TRAIN_MESHES)
-    for arch, n_layers, batch, meshes in TRAIN_MESH_MODELS:
+    for arch, n_layers, batch, meshes in (TRAIN_MESH_MODELS
+                                          + TRAIN_MESH_FAMILIES):
         train_mesh_model(arch, n_layers, batch, meshes)
 
 

@@ -51,9 +51,16 @@ capacity buckets to the expert blocks of its pod and
 ``moe_all_to_all_back`` returns the outputs (the counterparts of
 ``constrain_moe_local`` then ``constrain_expert_ecd``, and back).
 
+The SSM anchors (``constrain_ssm_channels``, ``_bthp``, ``_bth``) put
+the mixer's channels or heads over "model" with the sequence whole: the
+train step's columns compute their own block from the start (each
+column's in_proj, conv and scan run over its channels or heads), so
+the per-column lists they are given pass through, and a whole tensor
+is split onto the columns, as ``constrain_heads`` splits heads.
+
 Not ported (raises ``NotImplementedError``): the sequence-parallel
 boundary (``seq_shard_boundary``), which only the dry-run tooling turns
-on, and with it the SSM anchors.
+on.
 """
 from __future__ import annotations
 
@@ -253,11 +260,35 @@ def constrain_heads(x):
     """Attention head tensors — (B, S, H, D) q/k/v or (B, S, Kh, G, D)
     grouped query: heads over the model axis, one block per column
     device. A list (already per column) passes through."""
-    if isinstance(x, (list, tuple)) or not _DEVICES or x.ndim not in (4, 5):
+    if isinstance(x, (list, tuple)) or x.ndim not in (4, 5):
+        return x
+    return _columns(x, 2)
+
+
+def _columns(x, dim: int):
+    """``x`` split into one block a column along ``dim`` (each on its
+    column's device); a list, or no installed mesh: as it is."""
+    if isinstance(x, (list, tuple)) or not _DEVICES:
         return x
     M = len(_DEVICES)
     return [t.contiguous().to(d)
-            for t, d in zip(torch.chunk(x, M, dim=2), _DEVICES)]
+            for t, d in zip(torch.chunk(x, M, dim=dim), _DEVICES)]
+
+
+def constrain_ssm_channels(x):
+    """(B, S, C) SSM activations: channels over "model", S whole (the
+    recurrence runs along S)."""
+    return _columns(x, -1)
+
+
+def constrain_ssm_bthp(x):
+    """SSM activations (B, T, H, P): heads over "model"."""
+    return _columns(x, 2)
+
+
+def constrain_ssm_bth(x):
+    """(B, T, H) per-head scalars: heads over "model"."""
+    return _columns(x, 2)
 
 
 def constrain_ffn_hidden(x):

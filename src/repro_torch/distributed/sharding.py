@@ -885,34 +885,78 @@ def reduce_scatter(out: ShardedTensor, parts: list) -> None:
 #: the serving table's column-parallel weights, with o, down and the
 #: shared expert's down row-parallel (each column takes a block of their
 #: input rows, and their products are partial sums over the columns).
-_TRAIN_COLUMN_DIM = {**_COLUMN_DIM, "o": -2, "down": -2, "shared_down": -2}
+#: The SSM leaves split d_inner (Mamba1 channels, Mamba2 heads):
+#: ``x_proj`` and ``out_proj`` by rows, ``dt_proj`` and the Mamba1 conv
+#: by columns, the per-channel or per-head vectors on their dimension 1
+#: (after the layer axis), whatever storage does with them. Cross
+#: attention (enc-dec) splits its heads as self-attention does.
+_TRAIN_COLUMN_DIM = {**_COLUMN_DIM, "o": -2, "down": -2, "shared_down": -2,
+                     "out_proj": -2, "x_proj": -2, "dt_proj": -1,
+                     "conv_w": -1, "conv_b": -1, "A_log": 1, "ssm_D": 1,
+                     "dt_bias": 1, "gate_norm": 1, "xq": -1, "xo": -2}
+
+#: Weights a training column computes over its KV heads' block.
+_TRAIN_KV_LEAVES = _KV_LEAVES + ("xk", "xv")
 
 #: The expert stacks' hidden dimension, split over "model" in training
 #: (``w_gate``/``w_up`` by columns, ``w_down`` by rows).
 _EXPERT_HIDDEN_DIM = {"w_gate": -1, "w_up": -1, "w_down": -2}
 
-#: The families whose train step runs sharded on a mesh.
-TRAIN_MESH_FAMILIES = (Family.DENSE, Family.MOE, Family.VLM)
+
+def ssm_segments(cfg: ModelConfig, leaf: str) -> list | None:
+    """The segments (offset, width, split) of an SSM leaf whose last
+    dimension packs several tensors, or None: Mamba1's ``in_proj`` is
+    [x | z], Mamba2's [z | x | B | C | dt] and its conv [x | B | C].
+    A split segment (channels or heads) divides over the columns; B
+    and C (one group) are whole on every column."""
+    Di, N = cfg.d_inner, cfg.d_state
+    if cfg.ssm_version == 1 and leaf == "in_proj":
+        return [(0, Di, True), (Di, Di, True)]
+    if cfg.ssm_version == 2:
+        if leaf == "in_proj":
+            return [(0, Di, True), (Di, Di, True), (2 * Di, 2 * N, False),
+                    (2 * Di + 2 * N, cfg.n_ssm_heads, True)]
+        if leaf in ("conv_w", "conv_b"):
+            return [(0, Di, True), (Di, 2 * N, False)]
+    return None
+
+
+def column_segments(segments: list, m: int, M: int) -> list:
+    """Column ``m``'s ranges [lo, hi) of a packed dimension: its block of
+    each split segment, each whole one, adjacent ranges merged (one
+    column: the whole dimension)."""
+    out = []
+    for off, w, split in segments:
+        lo, hi = ((off + m * w // M, off + (m + 1) * w // M) if split
+                  else (off, off + w))
+        if out and out[-1][1] == lo:
+            out[-1] = (out[-1][0], hi)
+        else:
+            out.append((lo, hi))
+    return out
 
 
 def train_unsupported(cfg: ModelConfig, mesh: Mesh) -> list[str]:
     """Why a train step cannot run ``cfg`` on ``mesh`` (empty when it
-    can)."""
-    if cfg.family not in TRAIN_MESH_FAMILIES:
-        return [f"training the {cfg.family.name} family on a mesh of "
-                f"{mesh.size} positions (its sharded train step is not "
-                f"ported: ROADMAP Queue 1, the other families on a "
-                f"training mesh)"]
+    can): a head, channel or hidden count the "model" axis does not
+    divide, or MoE experts the "data" axis does not divide. A vocabulary
+    that "model" does not divide stays whole on every column."""
     M, n_data = mesh.shape["model"], mesh.shape["data"]
-    out = _column_unsupported(cfg, M)
+    out = [r for r in _column_unsupported(cfg, M)
+           if not r.startswith("vocab_size=")]
+    dims = []
+    if cfg.ssm_version:
+        dims.append(("d_inner", cfg.d_inner, M, "model"))
+        if cfg.ssm_version == 2:
+            dims.append(("n_ssm_heads", cfg.n_ssm_heads, M, "model"))
     if cfg.family == Family.MOE:
-        for name, n, k, axis in (("n_experts", cfg.n_experts, n_data, "data"),
-                                 ("d_ff_expert", cfg.d_ff_expert, M,
-                                  "model")):
-            if n % k:
-                out.append(f"{name}={n} on a {k}-way {axis} axis (the "
-                           f"train rule table would replicate it; uneven "
-                           f"splits are not ported: ROADMAP Queue 1)")
+        dims += [("n_experts", cfg.n_experts, n_data, "data"),
+                 ("d_ff_expert", cfg.d_ff_expert, M, "model")]
+    for name, n, k, axis in dims:
+        if n % k:
+            out.append(f"{name}={n} on a {k}-way {axis} axis (the "
+                       f"train rule table would replicate it; uneven "
+                       f"splits are not ported: ROADMAP Queue 1)")
     return out
 
 
@@ -925,10 +969,15 @@ class TrainView:
     shared expert's gate/up and the vocabulary (``embed/tok`` rows,
     ``lm_head`` columns) split over "model", o, down and shared_down by
     input rows, k/v over the KV heads its query heads read
-    (``kv_heads_of_column``), norms and the router whole. MoE experts:
-    position (b, m) also runs expert block ``b % n_data`` (its "data"
+    (``kv_heads_of_column``), norms and the router whole. A vocabulary
+    that "model" does not divide (the rule table leaves it unsplit,
+    ``whole_vocab``) is whole on every column. MoE experts: position
+    (b, m) also runs expert block ``b % n_data`` (its "data"
     coordinate) with column m's block of their hidden, D gathered over
-    "pod", for the batch shards of its pod (``b // n_data``)."""
+    "pod", for the batch shards of its pod (``b // n_data``). SSM
+    leaves: column m's block of d_inner (``_TRAIN_COLUMN_DIM``), a
+    packed leaf one segment at a time (``ssm_segments``). Cross
+    attention: heads as self-attention's, from replicated leaves."""
 
     def __init__(self, cfg: ModelConfig, placed: dict):
         mesh = next(iter(placed.values())).mesh
@@ -947,43 +996,53 @@ class TrainView:
         lo, hi = self.kv_heads[0]
         self.col_cfg = dataclasses.replace(
             cfg, n_heads=cfg.n_heads // M, n_kv_heads=hi - lo)
+        self.whole_vocab = cfg.vocab_size % M != 0
         self.home = mesh.devices.flat[0]
 
-    def index(self, path: str, m: int, layer: int | None = None,
-              b: int = 0) -> tuple:
+    def boxes(self, path: str, m: int, layer: int | None = None,
+              b: int = 0) -> list:
         """The entries of leaf ``path`` position (``b``, ``m``) computes
-        with (of layer ``layer`` for a stacked leaf)."""
+        with (of layer ``layer`` for a stacked leaf): one index (a slice
+        or an int per dimension), or one a range of a packed leaf's last
+        dimension, in order."""
         shape = self.placed[path].shape
         leaf = path.split("/")[-1]
         out = [slice(None)] * len(shape)
         if layer is not None:
             out[0] = layer
+        if path in ("embed/tok", "lm_head") and self.whole_vocab:
+            return [tuple(out)]
+        segs = ssm_segments(self.cfg, leaf)
+        if segs is not None:
+            return [tuple(out[:-1]) + (slice(lo, hi),)
+                    for lo, hi in column_segments(segs, m, self.M)]
         dim = _TRAIN_COLUMN_DIM.get(path, _TRAIN_COLUMN_DIM.get(leaf))
         if path.startswith("moe/") and leaf in _EXPERT_HIDDEN_DIM:
             d, e = b % self.n_data, shape[1] // self.n_data
             out[1] = slice(d * e, (d + 1) * e)
             dim = _EXPERT_HIDDEN_DIM[leaf]
-        if leaf in _KV_LEAVES:
+        if leaf in _TRAIN_KV_LEAVES:
             lo, hi = self.kv_heads[m]
             per = shape[-1] // self.cfg.n_kv_heads
             out[-1] = slice(lo * per, hi * per)
         elif dim is not None:
             w = shape[dim] // self.M
             out[dim] = slice(m * w, (m + 1) * w)
-        return tuple(out)
+        return [tuple(out)]
 
     def view(self, path: str, b: int, m: int, layer: int | None = None
              ) -> torch.Tensor:
         """Position (b, m)'s block of ``path`` on its device: through the
         recording ``FsdpStep`` when one is active (its gradient then
-        reaches the shards' owners), else a plain ``all_gather``."""
-        st, index = self.placed[path], self.index(path, m, layer, b)
-        dev = self.rows[b][m]
-        if _STEP is not None:
-            return _STEP.gather(path, st, index, dev)
-        return all_gather(st, index, dev)
+        reaches the shards' owners), else a plain ``all_gather``; a
+        packed leaf's ranges concatenated on its last dimension."""
+        st, dev = self.placed[path], self.rows[b][m]
+        parts = [_STEP.gather(path, st, i, dev) if _STEP is not None
+                 else all_gather(st, i, dev)
+                 for i in self.boxes(path, m, layer, b)]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
 
-    def layer(self, i: int, b: int, m: int, leaves,
+    def layer(self, i: int | None, b: int, m: int, leaves,
               prefix: str = "layers/") -> dict:
         return {leaf: self.view(prefix + leaf, b, m, i)
                 for leaf in leaves if prefix + leaf in self.placed}

@@ -5,9 +5,12 @@ Port of ``src/repro/launch/train.py`` with the same flags and defaults:
 AdamW (``warmup_steps = min(20, steps // 5)``), f32 params from a
 seeded init, ``SyntheticLM`` batches, async checkpoints every
 ``--checkpoint-every`` steps and a restore of the latest one at start.
-``--devices host`` trains over every visible card on the host mesh
-``(n, 1)``: params and AdamW moments FSDP-sharded over "data" by the
-train rule table, each card a batch shard (one card trains unsharded);
+``--devices host`` trains any ``--arch`` over every visible card on
+the host mesh ``(n, 1)``: params and AdamW moments FSDP-sharded over
+"data" by the train rule table, each card a batch shard (one card
+trains unsharded). ``SyntheticLM`` makes no ``frames`` (nor does the
+JAX package's), so the enc-dec family trains through
+``make_train_step`` with batches of its own;
 ``--device cpu`` asks for the CPU instead, whose positions
 ``XLA_FLAGS=--xla_force_host_platform_device_count=N`` sets.
 ``--devices production[-multipod]`` builds the 16x16 (2x16x16) mesh,

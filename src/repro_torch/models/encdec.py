@@ -19,17 +19,35 @@ decode attention over the self-attention slab.
 Serve path: ``prefill`` encodes the frames once and returns (self-KV,
 cross-KV); ``decode_step`` writes the token's self-attention K/V into
 the slab it is given, in place (the JAX function returns new arrays).
+
+On a placed train state (``sharding.device_put`` with the train rule
+table) ``forward`` and ``train_loss`` run sharded, as ``lm``'s mesh
+train path does, the frames split with the batch rows: the encoder's
+full and the decoder's causal self-attention through
+``lm._attn_train`` (flash_attention per shard), the MLPs through
+``lm._mlp_train``. The JAX rule table replicates every cross-attention
+leaf (``dec/x*``); each column computes its heads of the cross
+attention from its block of them (``TrainView``: xq and xk/xv by
+heads, xo by rows), and ``psum_columns`` sums the row-parallel xo
+products, so no head is counted twice. The positions tables are whole
+on every column.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.device import on_device
+from repro_torch.distributed import act_sharding as acts
+from repro_torch.distributed.sharding import TrainView
 from repro_torch.kernels.ops import flash_attention
 from repro_torch.models.base import ModelConfig
 from repro_torch.models.layers import (cross_entropy, decode_attention,
                                        einsum, embed, gqa_attention,
                                        rms_norm, swiglu)
-from repro_torch.models.lm import _head, _logits, _slab_write
+from repro_torch.models.lm import (_attn_train, _embed_train, _head,
+                                   _head_train, _logits, _mlp_train,
+                                   _placed, _slab_write, mesh_forward,
+                                   mesh_train_loss)
 
 
 def _grp(params, prefix):
@@ -139,6 +157,10 @@ def _dec_in(params, tokens, pos):
 def forward(cfg: ModelConfig, params: dict, tokens,
             frames: torch.Tensor) -> torch.Tensor:
     """Teacher-forced decoder logits (B, S, V) f32."""
+    if _placed(params):
+        tv = TrainView(cfg, params)
+        return mesh_forward(tv, lambda: _logits_mesh(cfg, tv, tokens,
+                                                      frames))
     enc_out = encode(cfg, params, frames)
     kx, vx = cross_kv(cfg, params, enc_out)
     x = _dec_in(params, tokens, slice(0, tokens.shape[1]))
@@ -148,7 +170,74 @@ def forward(cfg: ModelConfig, params: dict, tokens,
 
 def train_loss(cfg, params, tokens, labels, frames,
                aux_weight=0.0) -> torch.Tensor:
+    if _placed(params):
+        tv = TrainView(cfg, params)
+        return mesh_train_loss(
+            tv, lambda: _logits_mesh(cfg, tv, tokens, frames), labels)
     return cross_entropy(forward(cfg, params, tokens, frames), labels)
+
+
+# ------------------------------------------------- training on a mesh
+def _cross_kv_train(cfg, tv: TrainView, enc: list, b: int) -> list:
+    """Each column's cross K/V (L, B, Senc, Kh / M, Dh) of its KV heads,
+    from its copy of batch shard ``b``'s encoder output."""
+    out = []
+    for m, e in enumerate(enc):
+        with on_device(e.device):
+            k, v = (einsum("bsd,lde->lbse", e, tv.view(f"dec/x{n}", b, m))
+                    for n in "kv")
+            shape = (cfg.n_layers,) + tuple(e.shape[:2]) + (
+                tv.col_cfg.n_kv_heads, cfg.head_dim)
+            out.append((k.reshape(shape), v.reshape(shape)))
+    return out
+
+
+def _cross_train(cfg, tv: TrainView, hb: list, b: int, i: int,
+                 kvs: list) -> list:
+    """Cross attention of decoder layer ``i`` for batch shard ``b``: each
+    column's heads, their xo products summed over the columns."""
+    c = tv.col_cfg
+    parts = []
+    for m, x in enumerate(hb):
+        with on_device(x.device):
+            B, S, _ = x.shape
+            p = tv.layer(i, b, m, ("xattn_norm", "xq", "xo"), "dec/")
+            h = rms_norm(x, p["xattn_norm"], cfg.norm_eps)
+            q = einsum("bsd,de->bse", h, p["xq"]).reshape(
+                B, S, c.n_heads, c.head_dim)
+            kx, vx = kvs[m]
+            out = gqa_attention(q, kx[i], vx[i], causal=False)
+            parts.append(einsum("bse,ed->bsd", out.reshape(B, S, c.q_dim),
+                                p["xo"]))
+    return [x + y for x, y in zip(hb, acts.psum_columns(parts))]
+
+
+def _logits_mesh(cfg: ModelConfig, tv: TrainView, tokens, frames):
+    """([batch shard][column] f32 logits, None) on a placed state."""
+    toks = acts.batch_shards(tokens)
+    S = tokens.shape[1]
+    enc = [[f + tv.view("enc_pos", b, m)[None, :f.shape[1]]
+            for m, f in enumerate(row)]
+           for b, row in enumerate(acts.batch_shards(frames))]
+    for i in range(cfg.n_enc_layers):
+        enc = [_mlp_train(cfg, tv,
+                          _attn_train(tv, hb, None, b, i, "enc/",
+                                      causal=False), b, i, "enc/")
+               for b, hb in enumerate(enc)]
+    kvs = [_cross_kv_train(
+        cfg, tv, [rms_norm(x, tv.view("enc_final_norm", b, m), cfg.norm_eps)
+                  for m, x in enumerate(hb)], b)
+        for b, hb in enumerate(enc)]
+    del enc
+    h = [[x + tv.view("dec_pos", b, m)[:S] for m, x in enumerate(hb)]
+         for b, hb in enumerate(_embed_train(tv, toks))]
+    for i in range(cfg.n_layers):
+        h = [_attn_train(tv, hb, None, b, i, "dec/") for b, hb in
+             enumerate(h)]
+        h = [_cross_train(cfg, tv, hb, b, i, kvs[b])
+             for b, hb in enumerate(h)]
+        h = [_mlp_train(cfg, tv, hb, b, i, "dec/") for b, hb in enumerate(h)]
+    return _head_train(cfg, tv, h), None
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens, frames: torch.Tensor,

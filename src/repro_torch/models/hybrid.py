@@ -18,6 +18,15 @@ Serve state: (ssm (L,B,H,P,N) f32, conv (L,B,K-1,C), (k, v) each
 into the (k, v) tensors it is given, in place (``lm._attn``), where the
 JAX function returns new arrays; the ssm and conv stacks it returns are
 new tensors.
+
+On a placed train state (``sharding.device_put`` with the train rule
+table) ``forward`` and ``train_loss`` run sharded: each Mamba2 layer
+over the "model" columns (``ssm_lm._mixer_train``), and the shared
+block at each site through ``lm._attn_train``/``_mlp_train`` (causal
+flash_attention per shard, o and down row-parallel). The shared
+leaves are not stacked: every site gathers them again, and their
+gradient is reduced once, after the last site's backward
+(``sharding.FsdpStep`` waits for every gather of a key).
 """
 from __future__ import annotations
 
@@ -25,11 +34,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import act_sharding as acts
+from repro_torch.distributed.sharding import TrainView
 from repro_torch.models.base import ModelConfig
 from repro_torch.models.layers import cross_entropy, einsum, embed, rms_norm
-from repro_torch.models.lm import (_attn, _head, _logits, _mlp, _positions,
-                                   _slice_group)
+from repro_torch.models.lm import (_attn, _attn_train, _embed_train, _head,
+                                   _head_train, _logits, _mlp, _mlp_train,
+                                   _placed, _positions, _slice_group,
+                                   mesh_forward, mesh_train_loss)
 from repro_torch.models.ssm import mamba2_seq, mamba2_step
+from repro_torch.models.ssm_lm import _mixer_train
 
 
 def attn_sites(cfg: ModelConfig) -> list[int]:
@@ -121,6 +135,9 @@ def _run(cfg: ModelConfig, params: dict, x: torch.Tensor, cos, sin,
 def forward(cfg: ModelConfig, params: dict, tokens,
             mrope_pos=None) -> torch.Tensor:
     """Full-sequence logits (B, S, V) f32."""
+    if _placed(params):
+        tv = TrainView(cfg, params)
+        return mesh_forward(tv, lambda: _logits_mesh(cfg, tv, tokens))
     x = embed(tokens, params["embed/tok"])
     cos, sin = _positions(cfg, tokens, 0)
     x, *_ = _run(cfg, params, x, cos, sin, need_state=False)
@@ -129,7 +146,27 @@ def forward(cfg: ModelConfig, params: dict, tokens,
 
 def train_loss(cfg, params, tokens, labels, mrope_pos=None,
                aux_weight=0.0) -> torch.Tensor:
+    if _placed(params):
+        tv = TrainView(cfg, params)
+        return mesh_train_loss(tv, lambda: _logits_mesh(cfg, tv, tokens),
+                               labels)
     return cross_entropy(forward(cfg, params, tokens), labels)
+
+
+def _logits_mesh(cfg: ModelConfig, tv: TrainView, tokens):
+    """([batch shard][column] f32 logits, None) on a placed state."""
+    toks = acts.batch_shards(tokens)
+    h = _embed_train(tv, toks)
+    rope = [[_positions(cfg, t, 0) for t in row] for row in toks]
+    sites = set(attn_sites(cfg))
+    for i in range(cfg.n_layers):
+        h = [_mixer_train(cfg, tv, hb, b, i) for b, hb in enumerate(h)]
+        if i in sites:
+            h = [_mlp_train(cfg, tv,
+                            _attn_train(tv, hb, rope[b], b, None, "shared/"),
+                            b, None, "shared/")
+                 for b, hb in enumerate(h)]
+    return _head_train(cfg, tv, h), None
 
 
 def init_serve_state(cfg: ModelConfig, batch: int, max_len: int,

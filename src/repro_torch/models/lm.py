@@ -112,7 +112,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
 def _qkv_proj(cfg: ModelConfig, x: torch.Tensor, p: dict, cos, sin,
               lora=None, adapter_idx=None, prefix: str = "",
               lora_backend: str = "einsum"):
-    """Normed q/k/v projections (+bias, +LoRA, +qk-norm, +RoPE).
+    """Normed q/k/v projections (+bias, +LoRA, +qk-norm, +RoPE unless
+    ``cos`` is None: learned positions).
 
     Returns (h, q, k, v) with q (B,S,H,Dh), k/v (B,S,Kh,Dh); ``h`` is the
     post-norm hidden.
@@ -135,8 +136,9 @@ def _qkv_proj(cfg: ModelConfig, x: torch.Tensor, p: dict, cos, sin,
     if cfg.qk_norm:
         q = head_rms_norm(q, p[prefix + "q_norm"], cfg.norm_eps)
         k = head_rms_norm(k, p[prefix + "k_norm"], cfg.norm_eps)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if cos is not None:
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
     return h, q, k, v
 
 
@@ -626,8 +628,8 @@ def forward(cfg: ModelConfig, params: dict, tokens,
             mrope_pos=None) -> torch.Tensor:
     """Full-sequence logits (B, S, V) f32, causal attention through
     flash_attention. ``mrope_pos`` (3, B, S): M-RoPE positions (VLM).
-    On a placed train state the dense, MoE and VLM families run sharded,
-    the logits gathered onto the mesh's first position."""
+    On a placed train state it runs sharded, the logits gathered onto
+    the mesh's first position."""
     _refuse_mesh(params, "forward")
     if _placed(params):
         return _forward_train_mesh(cfg, params, tokens, mrope_pos)
@@ -641,8 +643,8 @@ def train_loss(cfg: ModelConfig, params: dict, tokens, labels,
                mrope_pos=None, aux_weight: float = 0.01) -> torch.Tensor:
     """Mean next-token NLL of ``labels`` (B, S) plus ``aux_weight`` times
     the MoE load-balance loss (0 for the dense and VLM families). On a
-    placed train state ({path: ShardedTensor}, the train rule table) the
-    dense, MoE and VLM families run sharded (``_train_loss_mesh``)."""
+    placed train state ({path: ShardedTensor}, the train rule table) it
+    runs sharded (``_train_loss_mesh``)."""
     _refuse_mesh(params, "train_loss")
     if _placed(params):
         return _train_loss_mesh(cfg, params, tokens, labels, mrope_pos,
@@ -1567,26 +1569,34 @@ def _prefill_paged_mesh(cfg, mp, tokens, kv_pages, page_table, start,
 
 
 # ------------------------------------------------- training on a mesh
-# The dense, MoE and VLM families' forward and train_loss on a placed
-# train state (``sharding.TrainView``): the counterpart of the JAX step
-# under ``activation_sharding(batch_axes)``. Position (b, m) runs batch
-# shard b's rows (``act_sharding.batch_shards``; VLM M-RoPE positions
-# split with them on their dimension 1) through column m: its heads
-# with their KV heads (flash_attention forward, and backward under
-# autograd, per shard), its gate/up columns, its rows of the
-# row-parallel o and down, whose partial products ``psum_columns``
-# sums over the columns, and its vocabulary block (the embedding's
-# rows, summed likewise; the logits stay split and the cross-entropy
-# combines the blocks' exp-sums). MoE supersteps put ``moe_every - 1``
-# dense layers (the ``dense_mlp/`` stack, row-parallel like the dense
-# MLP) before each MoE layer, whose experts run over "data" with their
-# hidden over "model" (``moe.moe_block_train``: capacity groups and the
-# aux loss of the global batch) and whose shared expert is
-# column/row-parallel. Each weight is gathered over the batch axes
-# where a position computes with it (``TrainView.view``). The loss is
-# the mean of the batch shards' means (the global mean, since the
-# shards are equal) plus ``aux_weight`` times the summed aux losses.
+# The forward and train_loss of every family on a placed train state
+# (``sharding.TrainView``): the counterpart of the JAX step under
+# ``activation_sharding(batch_axes)``. Position (b, m) runs batch shard
+# b's rows (``act_sharding.batch_shards``; VLM M-RoPE positions split
+# with them on their dimension 1, enc-dec frames with the rows)
+# through column m: its heads with their KV heads (flash_attention
+# forward, and backward under autograd, per shard), its gate/up
+# columns, its rows of the row-parallel o and down, whose partial
+# products ``psum_columns`` sums over the columns, and its vocabulary
+# block (the embedding's rows, summed likewise; the logits stay split
+# and the cross-entropy combines the blocks' exp-sums). A vocabulary
+# the columns do not divide stays whole: each column looks up whole
+# rows (its copy of the residual stream, as after ``psum_columns``)
+# and each batch shard's first column takes the logits and the
+# cross-entropy with the whole head. MoE supersteps put ``moe_every -
+# 1`` dense layers (the ``dense_mlp/`` stack, row-parallel like the
+# dense MLP) before each MoE layer, whose experts run over "data" with
+# their hidden over "model" (``moe.moe_block_train``: capacity groups
+# and the aux loss of the global batch) and whose shared expert is
+# column/row-parallel. The SSM, hybrid and enc-dec families build
+# their stacks from the same pieces (``ssm_lm``, ``hybrid``,
+# ``encdec``). Each weight is gathered over the batch axes where a
+# position computes with it (``TrainView.view``). The loss is the mean
+# of the batch shards' means (the global mean, since the shards are
+# equal) plus ``aux_weight`` times the summed aux losses.
 
+_ATTN_LEAVES = ("attn_norm", "q", "k", "v", "o", "q_bias", "k_bias",
+                "v_bias", "q_norm", "k_norm")
 _MLP_LEAVES = ("mlp_norm", "gate", "up", "down")
 _SHARED_LEAVES = ("shared_gate", "shared_up", "shared_down")
 
@@ -1595,29 +1605,27 @@ def _placed(params) -> bool:
     return any(isinstance(v, ShardedTensor) for v in params.values())
 
 
-def _attn_leaves(tv: TrainView) -> list:
-    return [k[len("layers/"):] for k in tv.placed
-            if k.startswith("layers/")
-            and k[len("layers/"):] not in _MLP_LEAVES]
-
-
-def _attn_train(tv: TrainView, hb: list, rope: list, b: int, i: int,
-                attn: list) -> list:
-    """Attention of layer ``i`` for batch shard ``b``: ``hb`` its
-    residual stream, a copy on each column's device."""
+def _attn_train(tv: TrainView, hb: list, rope: list | None, b: int,
+                i: int | None, prefix: str = "layers/",
+                causal: bool = True) -> list:
+    """Attention of entry ``i`` of the ``prefix`` stack (None: a block
+    that is not stacked) for batch shard ``b``: ``hb`` its residual
+    stream, a copy on each column's device; ``rope`` each column's
+    (cos, sin), or None for learned positions (enc-dec)."""
     c = tv.col_cfg
     parts = []
     for m, x in enumerate(hb):
         with on_device(x.device):
-            p = tv.layer(i, b, m, attn)
-            _, q, k, v = _qkv_proj(c, x, p, *rope[m])
-            out = flash_attention(q, k, v, causal=True)
+            p = tv.layer(i, b, m, _ATTN_LEAVES, prefix)
+            cos, sin = rope[m] if rope is not None else (None, None)
+            _, q, k, v = _qkv_proj(c, x, p, cos, sin)
+            out = flash_attention(q, k, v, causal=causal)
             out = out.reshape(x.shape[0], x.shape[1], c.q_dim)
             parts.append(einsum("bse,ed->bsd", out, p["o"]))
     return [x + y for x, y in zip(hb, acts.psum_columns(parts))]
 
 
-def _mlp_train(cfg, tv: TrainView, hb: list, b: int, i: int,
+def _mlp_train(cfg, tv: TrainView, hb: list, b: int, i: int | None,
                prefix: str = "layers/") -> list:
     """The MLP of entry ``i`` of the ``prefix`` stack for batch shard
     ``b``."""
@@ -1665,28 +1673,51 @@ def _moe_train(cfg, tv: TrainView, h: list, s: int):
     return out, aux
 
 
+def _embed_train(tv: TrainView, toks: list) -> list:
+    """[batch shard][column] residual streams of the batch-sharded
+    tokens ``toks``: the columns' vocabulary blocks looked up and summed
+    over the columns, or, for a vocabulary left whole, each column's
+    lookup in the whole table."""
+    h = []
+    for b, row in enumerate(toks):
+        parts = []
+        for m, t in enumerate(row):
+            tab = tv.view("embed/tok", b, m)
+            parts.append(embed(t, tab) if tv.M == 1 or tv.whole_vocab
+                         else embed_rows(t, tab, m * tab.shape[0]))
+        h.append(parts if tv.whole_vocab else acts.psum_columns(parts))
+    return h
+
+
+def _head_train(cfg, tv: TrainView, h: list) -> list:
+    """[batch shard][column] f32 logits (B / n_batch, S, V / M) of the
+    final hidden ``h``; a whole vocabulary: one block a batch shard,
+    from its first column."""
+    out = []
+    for b, hb in enumerate(h):
+        row = []
+        for m, x in enumerate(hb[:1] if tv.whole_vocab else hb):
+            x = rms_norm(x, tv.view("final_norm", b, m), cfg.norm_eps)
+            table = (tv.view("embed/tok", b, m).T if cfg.tie_embeddings
+                     else tv.view("lm_head", b, m))
+            row.append(unembed(x, table))
+        out.append(row)
+    return out
+
+
 def _logits_train_mesh(cfg, tv: TrainView, tokens, mrope_pos=None):
     """([batch shard][column] f32 logits (B / n_batch, S, V / M), the
     summed MoE aux loss or None)."""
     toks = acts.batch_shards(tokens)
     mpos = (acts.batch_shards(mrope_pos, dim=1) if mrope_pos is not None
             else [[None] * tv.M] * tv.n_batch)
-    h, rope = [], []
-    for b, row in enumerate(toks):
-        parts = []
-        for m, t in enumerate(row):
-            tab = tv.view("embed/tok", b, m)
-            parts.append(embed(t, tab) if tv.M == 1 else
-                         embed_rows(t, tab, m * tab.shape[0]))
-        h.append(acts.psum_columns(parts))
-        rope.append([_positions(cfg, t, 0, mp)
-                     for t, mp in zip(row, mpos[b])])
-    attn = _attn_leaves(tv)
+    h = _embed_train(tv, toks)
+    rope = [[_positions(cfg, t, 0, mp) for t, mp in zip(row, mpos[b])]
+            for b, row in enumerate(toks)]
     E = cfg.moe_every if cfg.family == Family.MOE else 0
     aux = None
     for i in range(cfg.n_layers):
-        h = [_attn_train(tv, hb, rope[b], b, i, attn)
-             for b, hb in enumerate(h)]
+        h = [_attn_train(tv, hb, rope[b], b, i) for b, hb in enumerate(h)]
         if not E:
             h = [_mlp_train(cfg, tv, hb, b, i) for b, hb in enumerate(h)]
             continue
@@ -1697,27 +1728,21 @@ def _logits_train_mesh(cfg, tv: TrainView, tokens, mrope_pos=None):
         else:
             h = [_mlp_train(cfg, tv, hb, b, s * (E - 1) + e, "dense_mlp/")
                  for b, hb in enumerate(h)]
-    out = []
-    for b, hb in enumerate(h):
-        row = []
-        for m, x in enumerate(hb):
-            x = rms_norm(x, tv.view("final_norm", b, m), cfg.norm_eps)
-            table = (tv.view("embed/tok", b, m).T if cfg.tie_embeddings
-                     else tv.view("lm_head", b, m))
-            row.append(unembed(x, table))
-        out.append(row)
-    return out, aux
+    return _head_train(cfg, tv, h), aux
 
 
 def _train_scope(tv: TrainView):
     return acts.activation_sharding(tv.batch_axes, mesh=tv.mesh)
 
 
-def _train_loss_mesh(cfg, params: dict, tokens, labels, mrope_pos=None,
-                     aux_weight: float = 0.01) -> torch.Tensor:
-    tv = TrainView(cfg, params)
+def mesh_train_loss(tv: TrainView, logits_fn, labels,
+                    aux_weight: float = 0.0) -> torch.Tensor:
+    """The mean NLL of ``labels`` over a placed state, plus
+    ``aux_weight`` times the aux loss: ``logits_fn()`` runs in the
+    train scope and returns ([batch shard][column] logits, aux or
+    None)."""
     with _train_scope(tv):
-        logits, aux = _logits_train_mesh(cfg, tv, tokens, mrope_pos)
+        logits, aux = logits_fn()
         labs = acts.batch_shards(labels)
         loss = None
         for row, lab in zip(logits, labs):
@@ -1727,11 +1752,26 @@ def _train_loss_mesh(cfg, params: dict, tokens, labels, mrope_pos=None,
         return loss if aux is None else loss + aux_weight * aux
 
 
-def _forward_train_mesh(cfg, params: dict, tokens,
-                        mrope_pos=None) -> torch.Tensor:
-    tv = TrainView(cfg, params)
+def mesh_forward(tv: TrainView, logits_fn) -> torch.Tensor:
+    """``logits_fn``'s logits gathered onto the mesh's first position
+    (B, S, V)."""
     with _train_scope(tv):
-        logits, _ = _logits_train_mesh(cfg, tv, tokens, mrope_pos)
+        logits, _ = logits_fn()
         rows = [torch.cat([t.to(tv.home) for t in row], dim=-1)
                 for row in logits]
         return torch.cat(rows, dim=0)
+
+
+def _train_loss_mesh(cfg, params: dict, tokens, labels, mrope_pos=None,
+                     aux_weight: float = 0.01) -> torch.Tensor:
+    tv = TrainView(cfg, params)
+    return mesh_train_loss(
+        tv, lambda: _logits_train_mesh(cfg, tv, tokens, mrope_pos), labels,
+        aux_weight)
+
+
+def _forward_train_mesh(cfg, params: dict, tokens,
+                        mrope_pos=None) -> torch.Tensor:
+    tv = TrainView(cfg, params)
+    return mesh_forward(
+        tv, lambda: _logits_train_mesh(cfg, tv, tokens, mrope_pos))

@@ -27,14 +27,31 @@ matrix, where JAX multiplies the overflowed exponential by it and gets
 NaN (see ``ssd_chunked``).
 
 Decode is the O(1) single-step update (``mamba1_step``,
-``mamba2_step``). The JAX module's activation-sharding constraints are
-identities without a device mesh and are left out here.
+``mamba2_step``).
+
+The train step on a device mesh runs each mixer over "model" columns
+(``mamba1_seq_columns``, ``mamba2_seq_columns``): column m holds its
+block of d_inner (Mamba1 channels, Mamba2 heads) and runs the scan over
+it. Mamba1's ``x_proj`` is row-parallel, so its dt/B/C are the
+columns' partial products summed (``psum_columns``) before
+``dt_proj``; Mamba2 computes B and C whole on every column (one group),
+and its gate norm, an RMS over all of d_inner, sums the columns' sums
+of squares before it scales (``gate_norm_columns``). Both return each
+column's partial ``out_proj`` product (row-parallel) for the caller to
+sum. The activation-sharding anchors of the JAX module mark the
+columns' lists at the same points; one column computes exactly what
+``mamba1_seq``/``mamba2_seq`` compute.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import on_device
+from repro_torch.distributed.act_sharding import (constrain_ssm_bth,
+                                                  constrain_ssm_bthp,
+                                                  constrain_ssm_channels,
+                                                  psum_columns)
 from repro_torch.models.layers import einsum, promoted, rms_norm
 
 
@@ -159,15 +176,50 @@ def conv1d_step(x_t: torch.Tensor, conv_state: torch.Tensor,
 
 
 # ------------------------------------------------------------- mamba1
-def _mamba1_dbc(x_conv, p, d_state, dt_rank, eq_x, eq_dt):
-    """x_proj / dt_proj of Mamba1: (dt f32, B f32, C f32)."""
-    dbc = einsum(eq_x, x_conv, p["x_proj"])
+def _mamba1_dt(dbc, p, d_state, dt_rank, eq_dt):
+    """dt, B and C of Mamba1 from the x_proj product ``dbc``: (dt f32,
+    B f32, C f32)."""
     dt_raw = dbc[..., :dt_rank]
     B_ssm = dbc[..., dt_rank:dt_rank + d_state].float()
     C_ssm = dbc[..., dt_rank + d_state:].float()
     dt = softplus(einsum(eq_dt, dt_raw, p["dt_proj"])
                   + p["dt_bias"]).float()
     return dt, B_ssm, C_ssm
+
+
+def _mamba1_dbc(x_conv, p, d_state, dt_rank, eq_x, eq_dt):
+    """x_proj / dt_proj of Mamba1: (dt f32, B f32, C f32)."""
+    return _mamba1_dt(einsum(eq_x, x_conv, p["x_proj"]), p, d_state,
+                      dt_rank, eq_dt)
+
+
+def _mamba1_front(x, p, conv_state=None):
+    """in_proj, the causal conv and SiLU: (x_conv, z, conv_tail)."""
+    xz = einsum("bsd,de->bse", x, p["in_proj"])
+    x_in, z = xz.chunk(2, dim=-1)                         # (B,S,Di)
+    if conv_state is not None:
+        x_cat = torch.cat(promoted(conv_state, x_in), dim=1)
+        x_conv = causal_conv1d(x_cat, p["conv_w"], p["conv_b"])[
+            :, conv_state.shape[1]:]
+    else:
+        x_conv = causal_conv1d(x_in, p["conv_w"], p["conv_b"])
+    x_conv = F.silu(x_conv)
+    conv_tail = x_in[:, -(p["conv_w"].shape[0] - 1):, :].clone(
+        memory_format=torch.contiguous_format)
+    return x_conv, z, conv_tail
+
+
+def _mamba1_gated(x, p, x_conv, z, dt, B_ssm, C_ssm, d_state, chunk, h0):
+    """The selective scan, the skip and the z gate: (y (B,S,Di) in x's
+    dtype, h_T)."""
+    A = -torch.exp(p["A_log"].float())                    # (Di,N)
+    if h0 is None:
+        h0 = torch.zeros((x.shape[0], A.shape[0], d_state),
+                         dtype=torch.float32, device=x.device)
+    xc32 = x_conv.float()
+    y, h_last = _mamba1_fused_scan(dt, A, xc32, B_ssm, C_ssm, h0, chunk)
+    y = y + xc32 * p["ssm_D"]
+    return (y * F.silu(z.float())).to(x.dtype), h_last
 
 
 def mamba1_seq(x: torch.Tensor, p: dict, d_state: int, dt_rank: int,
@@ -182,30 +234,41 @@ def mamba1_seq(x: torch.Tensor, p: dict, d_state: int, dt_rank: int,
     h_T, conv_tail): the tail is the last K-1 raw conv inputs (fewer
     when S < K-1, as in JAX), decode's conv state.
     """
-    B, S, _ = x.shape
-    xz = einsum("bsd,de->bse", x, p["in_proj"])
-    x_in, z = xz.chunk(2, dim=-1)                         # (B,S,Di)
-    if conv_state is not None:
-        x_cat = torch.cat(promoted(conv_state, x_in), dim=1)
-        x_conv = causal_conv1d(x_cat, p["conv_w"], p["conv_b"])[
-            :, conv_state.shape[1]:]
-    else:
-        x_conv = causal_conv1d(x_in, p["conv_w"], p["conv_b"])
-    x_conv = F.silu(x_conv)
-    conv_tail = x_in[:, -(p["conv_w"].shape[0] - 1):, :].clone(
-        memory_format=torch.contiguous_format)
+    x_conv, z, conv_tail = _mamba1_front(x, p, conv_state)
     dt, B_ssm, C_ssm = _mamba1_dbc(x_conv, p, d_state, dt_rank,
                                    "bsi,ie->bse", "bsr,ri->bsi")
-    A = -torch.exp(p["A_log"].float())                    # (Di,N)
-    if h0 is None:
-        h0 = torch.zeros((B, A.shape[0], d_state), dtype=torch.float32,
-                         device=x.device)
-    xc32 = x_conv.float()
-    y, h_last = _mamba1_fused_scan(dt, A, xc32, B_ssm, C_ssm, h0, chunk)
-    y = y + xc32 * p["ssm_D"]
-    y = (y * F.silu(z.float())).to(x.dtype)
+    y, h_last = _mamba1_gated(x, p, x_conv, z, dt, B_ssm, C_ssm, d_state,
+                              chunk, h0)
     out = einsum("bsi,id->bsd", y, p["out_proj"])
     return out, h_last, conv_tail
+
+
+def mamba1_seq_columns(xs: list, ps: list, d_state: int, dt_rank: int,
+                       chunk: int = 128) -> list:
+    """Mamba1 over "model" columns (the mesh train step). ``xs[m]``: the
+    normed input (B,S,D), column m's copy on its device; ``ps[m]``: its
+    blocks (``in_proj`` [x_m | z_m], the conv, ``x_proj`` rows,
+    ``dt_proj`` columns, ``dt_bias``/``A_log``/``ssm_D`` of its
+    channels, ``out_proj`` rows). Returns each column's partial
+    ``out_proj`` product (B,S,D), to be summed over the columns."""
+    convs, zs, dbcs = [], [], []
+    for x, p in zip(xs, ps):
+        with on_device(x.device):
+            x_conv, z, _ = _mamba1_front(x, p)
+            convs.append(x_conv)
+            zs.append(z)
+    for x_conv, p in zip(constrain_ssm_channels(convs), ps):
+        with on_device(x_conv.device):
+            dbcs.append(einsum("bsi,ie->bse", x_conv, p["x_proj"]))
+    ys = []
+    for x, p, x_conv, z, dbc in zip(xs, ps, convs, zs, psum_columns(dbcs)):
+        with on_device(x.device):
+            dt, B_ssm, C_ssm = _mamba1_dt(dbc, p, d_state, dt_rank,
+                                          "bsr,ri->bsi")
+            ys.append(_mamba1_gated(x, p, x_conv, z, dt, B_ssm, C_ssm,
+                                    d_state, chunk, None)[0])
+    return [einsum("bsi,id->bsd", y, p["out_proj"])
+            for y, p in zip(constrain_ssm_channels(ys), ps)]
 
 
 def mamba1_step(x_t: torch.Tensor, p: dict, d_state: int, dt_rank: int,
@@ -315,14 +378,9 @@ def _mamba2_xbc(xbc: torch.Tensor, d_inner: int, d_state: int):
     return xs, B_ssm, C_ssm
 
 
-def mamba2_seq(x: torch.Tensor, p: dict, d_state: int, head_dim: int,
-               chunk: int = 128, h0: torch.Tensor | None = None,
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence Mamba2 mixer (SSD chunked form).
-
-    x: (B,S,D). Returns (y (B,S,D), h_T (B,H,P,N)). The gate norm takes
-    the default eps 1e-5, as in JAX (not ``cfg.norm_eps``).
-    """
+def _mamba2_inputs(x, p, d_state, head_dim):
+    """in_proj, the conv over [x | B | C] and dt: (z, xh (B,S,H,P) f32,
+    dt (B,S,H) f32, B f32, C f32)."""
     B, S, _ = x.shape
     zxbcdt = einsum("bsd,de->bse", x, p["in_proj"])
     d_inner = p["out_proj"].shape[0]
@@ -331,16 +389,83 @@ def mamba2_seq(x: torch.Tensor, p: dict, d_state: int, head_dim: int,
     xbc = torch.cat([xs, B_ssm, C_ssm], dim=-1)
     xbc = F.silu(causal_conv1d(xbc, p["conv_w"], p["conv_b"]))
     xs, B_ssm, C_ssm = _mamba2_xbc(xbc, d_inner, d_state)
-
     dt = softplus(dt.float() + p["dt_bias"])                   # (B,S,H)
-    A = -torch.exp(p["A_log"].float())                         # (H,)
     xh = xs.reshape(B, S, H, head_dim).float()
+    return z, xh, dt, B_ssm, C_ssm
+
+
+def _mamba2_gated(p, z, xh, dt, B_ssm, C_ssm, chunk, h0):
+    """The SSD scan, the skip and the z gate: (y (B,S,Di) f32, h_T)."""
+    A = -torch.exp(p["A_log"].float())                         # (H,)
     y, h_last = ssd_chunked(xh, dt, A, B_ssm, C_ssm, chunk, h0)
     y = y + xh * p["ssm_D"][:, None]
-    y = y.reshape(B, S, d_inner)
-    y = y * F.silu(z.float())
+    y = y.reshape(z.shape)
+    return y * F.silu(z.float()), h_last
+
+
+def mamba2_seq(x: torch.Tensor, p: dict, d_state: int, head_dim: int,
+               chunk: int = 128, h0: torch.Tensor | None = None,
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence Mamba2 mixer (SSD chunked form).
+
+    x: (B,S,D). Returns (y (B,S,D), h_T (B,H,P,N)). The gate norm takes
+    the default eps 1e-5, as in JAX (not ``cfg.norm_eps``).
+    """
+    z, xh, dt, B_ssm, C_ssm = _mamba2_inputs(x, p, d_state, head_dim)
+    y, h_last = _mamba2_gated(p, z, xh, dt, B_ssm, C_ssm, chunk, h0)
     y = rms_norm(y.to(x.dtype), p["gate_norm"])
     return einsum("bsi,id->bsd", y, p["out_proj"]), h_last
+
+
+def gate_norm_columns(ys: list, ws: list, width: int,
+                      eps: float = 1e-5) -> list:
+    """``rms_norm`` over a dimension of ``width`` split over the
+    columns: ``ys[m]`` column m's block on its device, ``ws[m]`` its
+    block of the weight. The columns' sums of squares are summed
+    (``psum_columns``) before each block is scaled; one column is
+    ``rms_norm`` itself."""
+    if len(ys) == 1:
+        return [rms_norm(ys[0], ws[0], eps)]
+    sq = []
+    for y in ys:
+        with on_device(y.device):
+            y32 = y.float()
+            sq.append((y32 * y32).sum(dim=-1, keepdim=True))
+    out = []
+    for y, w, s in zip(ys, ws, psum_columns(sq)):
+        with on_device(y.device):
+            y32 = y.float() * torch.rsqrt(s / width + eps)
+            out.append((y32 * w.float()).to(y.dtype))
+    return out
+
+
+def mamba2_seq_columns(xs: list, ps: list, d_state: int, head_dim: int,
+                       chunk: int = 128) -> list:
+    """Mamba2 over "model" columns (the mesh train step). ``xs[m]``: the
+    normed input (B,S,D), column m's copy on its device; ``ps[m]``: its
+    blocks (``in_proj`` [z_m | x_m | B | C | dt_m], the conv over
+    [x_m | B | C], its heads' ``dt_bias``/``A_log``/``ssm_D``, its
+    block of ``gate_norm``, ``out_proj`` rows). Each column runs the
+    SSD scan over its heads with B and C whole. Returns each column's
+    partial ``out_proj`` product (B,S,D), to be summed over the
+    columns."""
+    ins = []
+    for x, p in zip(xs, ps):
+        with on_device(x.device):
+            ins.append(_mamba2_inputs(x, p, d_state, head_dim))
+    dts = constrain_ssm_bth([i[2] for i in ins])
+    xhs = constrain_ssm_bthp([i[1] for i in ins])
+    ys = []
+    for x, p, (z, _, _, B_ssm, C_ssm), xh, dt in zip(xs, ps, ins, xhs,
+                                                      dts):
+        with on_device(x.device):
+            y, _ = _mamba2_gated(p, z, xh, dt, B_ssm, C_ssm, chunk, None)
+            ys.append(y.to(x.dtype))
+    width = sum(y.shape[-1] for y in ys)
+    ys = gate_norm_columns(constrain_ssm_channels(ys),
+                           [p["gate_norm"] for p in ps], width)
+    return [einsum("bsi,id->bsd", y, p["out_proj"])
+            for y, p in zip(ys, ps)]
 
 
 def mamba2_step(x_t: torch.Tensor, p: dict, d_state: int, head_dim: int,

@@ -91,11 +91,14 @@ def _decay_mask(path: str, p: torch.Tensor) -> bool:
 
 
 def _sq_sum(g) -> torch.Tensor:
-    """Sum of squares of a gradient; of a placed one, each distinct
-    block counted once (a replicated block once, not once a position),
-    summed in block order on the mesh's first position."""
+    """Sum of squares of a gradient, over its entries in row-major order
+    whatever its strides (autograd hands some gradients over transposed,
+    enc-dec's cross K/V weights for one, and the order of a sum moves
+    its rounding); of a placed one, each distinct block counted once (a
+    replicated block once, not once a position), summed in block order
+    on the mesh's first position."""
     if not isinstance(g, ShardedTensor):
-        return torch.sum(torch.square(g.float()))
+        return torch.sum(torch.square(g.float().contiguous()))
     home = g.mesh.devices.flat[0]
     total = None
     for _, ts in g.blocks():

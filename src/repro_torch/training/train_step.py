@@ -12,8 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.distributed.sharding import (TRAIN_MESH_FAMILIES,
-                                              FsdpStep, ShardedTensor,
+from repro_torch.distributed.sharding import (FsdpStep, ShardedTensor,
                                               train_unsupported)
 from repro_torch.models import api
 from repro_torch.models.base import Family, ModelConfig
@@ -38,13 +37,13 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     A state placed on a mesh (``ShardedTensor`` leaves:
     ``sharding.device_put`` with ``param_shardings(kind="train")``, and
     ``init_opt_state`` of the placed params or ``opt_shardings``), as
-    JAX's jitted step takes it, trains the dense, MoE and VLM families
-    sharded: each microbatch's rows split over the batch axes, FSDP
+    JAX's jitted step takes it, trains every family sharded, on a mesh
+    of any size: each microbatch's rows split over the batch axes, FSDP
     gathers and reduce-scatters (``sharding.FsdpStep``), and each
     position updates its shards. The batch stays whole (tensors on any
-    device); its rows must split evenly over the batch axes. The other
-    families train on one position's tensors when the mesh has one
-    position, and raise on more.
+    device); its rows must split evenly over the batch axes. A config
+    whose heads, channels or experts the mesh axes do not divide raises
+    (``sharding.train_unsupported``).
     """
 
     def loss_fn(params, batch):
@@ -92,16 +91,6 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     def step(params, opt_state, batch):
         st = next(iter(params.values()))
         if isinstance(st, ShardedTensor):
-            if cfg.family not in TRAIN_MESH_FAMILIES \
-                    and st.mesh.size == 1:
-                # One position holds every leaf whole: the plain step on
-                # those tensors updates the placed state in place.
-                origin = (0,) * len(st.mesh.axis_names)
-                _, _, metrics = step(
-                    {k: v.local(origin) for k, v in params.items()},
-                    {k: v.local(origin) for k, v in opt_state.items()},
-                    batch)
-                return params, opt_state, metrics
             bad = train_unsupported(cfg, st.mesh)
             if bad:
                 raise NotImplementedError(

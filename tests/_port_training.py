@@ -48,6 +48,19 @@ def batch_np(cfg, i, B=B, S=S):
     return b
 
 
+def attention_layers(cfg) -> int:
+    """flash_attention calls of one forward of ``cfg``: a layer each for
+    the decoder-only families, the shared block's sites (hybrid), the
+    encoder and decoder layers (enc-dec), none for the SSM family."""
+    if cfg.family == Family.SSM:
+        return 0
+    if cfg.family == Family.HYBRID:
+        return cfg.n_layers // cfg.attn_every
+    if cfg.family == Family.ENCDEC:
+        return cfg.n_enc_layers + cfg.n_layers
+    return cfg.n_layers
+
+
 def to_tensors(b, device):
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in b.items()}

@@ -1263,7 +1263,12 @@ def test_flash_attention_bwd_matches_plain(card, B, S, H, Kh, dh, causal,
     (1, 1024, 64, 4, 128, True),     # qwen3-moe's (2, 1) shard: G 16
     (2, 1024, 32, 2, 128, True),     # qwen3-moe's (1, 2) shard
     (4, 512, 28, 4, 128, True),      # qwen2-vl's (2, 1) shard: G 7
-    (1, 16384, 2, 1, 128, False)])   # dq walks 2048 k-steps, dk/dv 4096
+    (1, 16384, 2, 1, 128, False),    # dq walks 2048 k-steps, dk/dv 4096
+    (4, 512, 32, 32, 64, True),      # zamba2's (2, 1) shard
+    (8, 512, 16, 16, 64, True),      # zamba2's (1, 2) shard
+    (4, 1500, 8, 8, 64, False),      # whisper's encoder, (2, 1) shard
+    (8, 1500, 4, 4, 64, False),      # whisper's encoder, (1, 2) shard
+    (4, 256, 4, 4, 64, True)])       # whisper's decoder, (2, 2) shard
 def test_flash_attention_bwd_at_the_training_shapes(card, B, S, H, Kh, dh,
                                                     causal, dt):
     gen = torch.Generator().manual_seed(S + H + dh)
@@ -1391,14 +1396,18 @@ def test_reduced_train_steps_on_the_card(card, name):
 @pytest.mark.parametrize("shape", [(2, 1), (1, 2), (2, 2)])
 @pytest.mark.parametrize("name", ["internlm2-1.8b", "granite-34b",
                                   "qwen3-moe-235b-a22b",
-                                  "llama4-maverick-400b-a17b", "qwen2-vl-7b"])
+                                  "llama4-maverick-400b-a17b", "qwen2-vl-7b",
+                                  "falcon-mamba-7b", "zamba2-1.2b",
+                                  "whisper-base"])
 def test_sharded_train_steps_on_the_card(card, name, shape):
-    """Two train steps of a reduced dense, MoE or VLM config in f32 with
-    the state placed on a mesh over repeated positions of the card
-    against the unsharded CPU port (``_port_training`` tolerances)."""
+    """Two train steps of a reduced config of any family in f32 with the
+    state placed on a mesh over repeated positions of the card against
+    the unsharded CPU port (``_port_training`` tolerances); flash
+    forward and backward once an attention layer a position a step."""
     from repro_torch.configs import get_config
     from repro_torch.training import AdamWConfig
-    from _port_training import TOL, card_vs_cpu_train_steps, states_ok
+    from _port_training import (TOL, attention_layers,
+                                card_vs_cpu_train_steps, states_ok)
     torch.backends.cudnn.allow_tf32 = False
     out = card_vs_cpu_train_steps(name, AdamWConfig(
         lr=1e-3, warmup_steps=1, total_steps=10, clip_norm=0.5),
@@ -1406,6 +1415,6 @@ def test_sharded_train_steps_on_the_card(card, name, shape):
     assert out["metrics_err"] <= TOL, out
     assert states_ok(out["first"], out["final"]), out
     assert out["plain"] == 0, out
-    layers = get_config(name).reduced().n_layers
+    layers = attention_layers(get_config(name).reduced())
     assert out["fwd_launches"] == out["bwd_launches"] \
         == out["positions"] * layers * 2, out

@@ -25,8 +25,9 @@ port's seeded params:
 - ``launch.train.train(mesh=make_host_mesh("cpu"))`` over a forced host
   count of 2 trains the losses of one device;
 - the collectives and the row-parallel anchors on their own, and the
-  refusals: the SSM, hybrid and enc-dec families on a split mesh, a
-  batch that does not split over the batch axes.
+  refusals: heads the "model" axis does not divide (no family is
+  refused for want of a sharded path), a batch that does not split over
+  the batch axes.
 """
 import importlib
 
@@ -247,24 +248,36 @@ def test_row_parallel_anchors_split_rows_and_sum_columns():
 
 
 def test_other_families_refuse_a_split_mesh():
-    """The SSM, hybrid and enc-dec train steps on a mesh of more than
-    one position raise naming the family and the ROADMAP item; on one
-    position they train on its tensors, as unsharded."""
+    """No family is refused for want of a sharded path any more: every
+    published config's reduced form trains on (2, 1) and (1, 2) with
+    nothing refused, the SSM, hybrid and enc-dec families included (their
+    steps are ``tests/test_torch_train_mesh_families.py``'s), and on one
+    position the mesh step equals the unsharded one; heads the "model"
+    axis does not divide are still refused, naming the dimension."""
+    from repro_torch.configs import ARCH_IDS
+    for name in ARCH_IDS:
+        cfg = get_config(name).reduced()
+        for mesh in ("2x1", "1x2"):
+            assert tsh.train_unsupported(cfg, cpu_mesh(mesh)) == [], name
     for name in ("falcon-mamba-7b", "zamba2-1.2b", "whisper-base"):
         cfg = get_config(name).reduced()
         params = api.init_params(cfg, 0, torch.float32, device="cpu")
         step = make_train_step(cfg, OPT)
         b = to_tensors(batch_np(cfg, 0), "cpu")
-        p, o = place(cfg, params, cpu_mesh("2x1"))
-        with pytest.raises(NotImplementedError,
-                           match=f"{cfg.family.name} family on a mesh of "
-                                 f"2 positions.*ROADMAP"):
-            step(p, o, b)
         p, o = place(cfg, params, cpu_mesh("1x1"))
         got = step(p, o, b)[2]
         want = step(params, init_opt_state(params, OPT), b)[2]
         assert float(got["loss"]) == float(want["loss"])
         assert torch.equal(p["final_norm"].cpu(), params["final_norm"])
+    grid = np.empty(8, dtype=object)
+    grid[:] = [torch.device("cpu")] * 8
+    m8 = tsh.Mesh(grid.reshape(1, 8), ("data", "model"))
+    cfg = get_config("whisper-base").reduced()
+    params = api.init_params(cfg, 0, torch.float32, device="cpu")
+    p, o = place(cfg, params, m8)
+    with pytest.raises(NotImplementedError,
+                       match="n_heads=4 on a 8-way model axis"):
+        make_train_step(cfg, OPT)(p, o, to_tensors(batch_np(cfg, 0), "cpu"))
 
 
 def test_a_batch_must_split_over_the_batch_axes():
