@@ -68,9 +68,19 @@ every gather is a copy between cards. Phases, one JSON line each:
    repro_torch.launch.train --arch zamba2-1.2b --reduced --devices
    host`` (``mesh_train_families_launcher``).
 
+9. ``mesh_serve_families`` — the VLM, SSM, hybrid and enc-dec families
+   served on meshes of distinct cards: ``chip_smoke.py`` phase 9's four
+   models (qwen2-vl-7b and falcon-mamba-7b at 4 layers, zamba2-1.2b at
+   12, whisper-base whole) in f32, the prefill case and 16 greedy decode
+   steps of ``launch.cases.build_case`` at (4, 1), (2, 2) and (1, 4)
+   under the dry-run's scope (batch rows over "data"), against the
+   unsharded case on ``cuda:0``: tokens equal, logits within 1e-4, ms a
+   prefill and a decode step (each case's second run), each card's peak
+   memory.
+
 ``--phases`` picks phases by name (``parity``, ``full``, ``moe_parity``,
 ``moe_a2a``, ``moe_full``, ``train``, ``train_moe``,
-``train_families``; all by default).
+``train_families``, ``serve_families``; all by default).
 Then the ``nvidia-smi`` name and power limit of each card. Exits non-zero with fewer than 4 cards or
 when a check fails; imports nothing of JAX.
 """
@@ -521,6 +531,69 @@ def phase_train_families() -> None:
                  ["--arch", arch, "--reduced"])
 
 
+#: The serving meshes of distinct cards for ``serve_families``.
+SERVE_FAMILY_MESHES = ((4, 1), (2, 2), (1, 4))
+
+
+def phase_serve_families() -> None:
+    """``mesh_serve_families``: ``chip_smoke.SERVE_MESH_MODELS`` (the
+    VLM, SSM, hybrid and enc-dec families, phase 9's cuts) in f32, the
+    prefill case and 16 greedy decode steps built by
+    ``launch.cases.build_case`` on each of ``SERVE_FAMILY_MESHES`` of
+    distinct cards under the dry-run's scope, held to the unsharded
+    case on ``cuda:0`` (tokens equal, logits within
+    ``chip_smoke.SERVE_TOL``): ms a prefill call, ms a decode step and
+    each card's peak memory."""
+    import dataclasses
+
+    import torch
+    from chip_smoke import (SERVE_MESH_MODELS, SERVE_TOL, serve_mesh_args,
+                            serve_mesh_run)
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    dev = torch.device("cuda", 0)
+    for arch, n_layers, B, S in SERVE_MESH_MODELS:
+        cfg = get_config(arch)
+        if n_layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        args = serve_mesh_args(cfg, B, S, torch.float32, dev)
+        # Each case runs twice and reports the second run's times: the
+        # first call on a card pays cuBLAS's and the allocator's warm-up.
+        base = [serve_mesh_run(cfg, arch, args, None, B, S)
+                for _ in range(2)][-1]
+        emit(dict(phase="mesh_serve_families_reference", model=cfg.name,
+                  device="cuda:0", prefill_ms=base["prefill_ms"],
+                  decode_ms_per_step=base["decode_ms"]))
+        for shape in SERVE_FAMILY_MESHES:
+            gc.collect()
+            for i in range(N_CARDS):
+                torch.cuda.reset_peak_memory_stats(i)
+            mesh = make_mesh(shape, ("data", "model"))
+            got = [serve_mesh_run(cfg, arch, args, mesh, B, S)
+                   for _ in range(2)][-1]
+            err = max(((g - w.to(g.device)).abs().max()
+                       / w.abs().max().clamp(min=1.0)).item()
+                      for g, w in zip(got["logits"], base["logits"]))
+            line = dict(
+                phase="mesh_serve_families", model=cfg.name,
+                mesh_shape=list(shape), n_layers=cfg.n_layers,
+                batch=[B, S], logits_max_rel_err=err, tol=SERVE_TOL,
+                tokens_identical=bool(torch.equal(got["tokens"],
+                                                  base["tokens"])),
+                prefill_ms=got["prefill_ms"],
+                decode_ms_per_step=got["decode_ms"],
+                prefill_ms_unsharded=base["prefill_ms"],
+                decode_ms_per_step_unsharded=base["decode_ms"],
+                peak_gb_per_card=[torch.cuda.max_memory_allocated(i) / 1e9
+                                  for i in range(N_CARDS)])
+            emit(line)
+            check(line["tokens_identical"] and err <= SERVE_TOL,
+                  f"mesh_serve_families {cfg.name} {shape}: {line}")
+        del args, base
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def run_launcher(phase: str, args: list) -> None:
     """``python -m repro_torch.launch.train --devices host`` with
     ``args`` for ``LAUNCHER_STEPS`` steps over every card: exit code 0,
@@ -550,7 +623,8 @@ PHASES = {"parity": phase_parity, "full": phase_full,
           "moe_parity": phase_moe_parity, "moe_a2a": phase_moe_a2a,
           "moe_full": phase_moe_full, "train": phase_train,
           "train_moe": phase_train_moe,
-          "train_families": phase_train_families}
+          "train_families": phase_train_families,
+          "serve_families": phase_serve_families}
 
 
 def main() -> int:

@@ -243,6 +243,30 @@ of the JAX package. Phases, one JSON line each:
              (counts zeroed just before each mesh's steps), no plain
              version; s/step, peak memory, gathers, reduce-scatters and
              MoE all-to-alls a step.
+9. serve   — (mesh, ``phase_serve_mesh``) the VLM, SSM, hybrid and
+             enc-dec families served on meshes, each model's prefill
+             and decode cases built by ``launch.cases.build_case``:
+             qwen2-vl-7b (full width, 4 layers, (8, 512), 8 adapters,
+             M-RoPE positions of text, a 16x16 patch grid, text),
+             falcon-mamba-7b (full width, 4 layers, (4, 1024)),
+             zamba2-1.2b (12 layers, (8, 512), 8 adapters) and
+             whisper-base (whole, 8 rows, a 32-token prompt over 1500
+             frames of seeded noise), one at a time and each freed
+             after. First flash_attention, sgmv and bgmv at the column
+             shapes of (2, 2) and (1, 4) against their plain versions,
+             timed beside their bounds and a PyTorch call
+             (``kernel_time_serve_mesh``). Then in f32 the unsharded
+             cases and the same on (1, 1), (2, 1), (1, 2), (2, 2) and
+             (1, 4) over repeated positions of the card, batch rows
+             over "data" (``serve_mesh``): greedy tokens over 16
+             decode steps equal, logits within 1e-4 relative, the
+             prefill's state in the layout of ``kv_cache_spec``,
+             ``ssm_state_spec`` and ``conv_state_spec``, each kernel
+             launched the counted number of times (counts zeroed just
+             before each mesh's run), no plain version; whether (1, 1)
+             is bit-identical is reported. Then in bf16 ms a prefill
+             call, ms a decode step and peak memory unsharded, at
+             (1, 1) and at (2, 2).
 
 A device-time profile of the same path is ``chip_profile.py``.
 
@@ -2678,22 +2702,15 @@ MOE_MESH_ENGINES = {"fused": None, "mesh_1x1": (1, 1), "mesh_2x1": (2, 1)}
 
 def write_prompt_slab(kv, k, v, mp) -> None:
     """The whole-prompt prefill's K/V (unsharded stacks, or the mesh's
-    per-column stacks) into the first positions of every row of the
-    slab ``kv`` (plain tensors, or sharded in ``ShardPlan`` placement)."""
-    import torch
-    S = (k if mp is None else k[0]).shape[2]
+    placed stacks) into the first positions of every row of the slab
+    ``kv`` (plain tensors, or sharded in ``ShardPlan`` placement)."""
+    S = k.shape[2]
     for st, new in zip(kv, (k, v)):
         if mp is None:
             st[:, :, :S] = new.to(st.dtype)
             continue
-        heads = []
-        for j in range(mp.cfg.n_kv_heads):
-            m = next(i for i, (a, b) in enumerate(mp.kv_heads)
-                     if a <= j < b)
-            heads.append(new[m][:, :, :, j - mp.kv_heads[m][0]])
-        whole = torch.stack(heads, dim=3)
         full = st.full()
-        full[:, :, :S] = whole.to(full.device, full.dtype)
+        full[:, :, :S] = new.full().to(full.device, full.dtype)
         st.copy_(full)
 
 
@@ -4539,6 +4556,379 @@ def phase_train_mesh() -> None:
         train_mesh_model(arch, n_layers, batch, meshes)
 
 
+# ------------------------------------------------------------ phase 9
+#: The families the serving mesh added, each built through
+#: ``launch.cases.build_case``: (arch, layers kept (None: all), batch,
+#: prompt length). qwen2-vl and falcon-mamba at their published widths
+#: cut to 4 layers, zamba2 to 12 (two shared-block sites), whisper whole
+#: (1500 frames of seeded noise).
+SERVE_MESH_MODELS = (("qwen2-vl-7b", 4, 8, 512),
+                     ("falcon-mamba-7b", 4, 4, 1024),
+                     ("zamba2-1.2b", 12, 8, 512),
+                     ("whisper-base", None, 8, 32))
+SERVE_MESHES = ((1, 1), (2, 1), (1, 2), (2, 2), (1, 4))
+SERVE_STEPS = 16
+#: Mesh logits against the unsharded step's, relative to the largest
+#: |logit|, in f32 (TF32 off).
+SERVE_TOL = 1e-4
+SERVE_KERNELS = ("flash_attention", "sgmv", "bgmv")
+
+
+def serve_mesh_counts(cfg, M: int, rows: int) -> dict:
+    """Launches of the path's kernels in one prefill and ``SERVE_STEPS``
+    decode steps with ``rows`` batch rows of ``M`` columns: flash per
+    attention layer a position, sgmv per LoRA projection a position
+    (prefill), bgmv likewise each decode step."""
+    from repro_torch.models.hybrid import attn_sites
+    fam = cfg.family.name
+    attn = {"VLM": cfg.n_layers, "ENCDEC": cfg.n_enc_layers + cfg.n_layers,
+            "SSM": 0}.get(fam) if fam != "HYBRID" else len(attn_sites(cfg))
+    lora = 4 * attn if fam in ("VLM", "HYBRID") else 0
+    pos = M * rows
+    return {"flash_attention": attn * pos, "sgmv": lora * pos,
+            "bgmv": lora * pos * SERVE_STEPS}
+
+
+def serve_mesh_args(cfg, B: int, S: int, dtype, dev, seed: int = 0):
+    """The prefill case's arguments on the card from a seed: params,
+    tokens, a LoRA arena of 8 random adapters at the case's rank (the
+    hybrid's over its sites), one adapter a row, M-RoPE positions of a
+    text-image-text prompt (a 16x16 patch grid at S 512), frames of
+    seeded noise."""
+    import torch
+    from repro_torch.launch import cases
+    from repro_torch.models import api, hybrid
+    from repro_torch.models.lora_apply import (init_lora_slots,
+                                               random_lora_weights,
+                                               write_adapter_to_slot)
+    params = api.init_params(cfg, seed, dtype, device=dev)
+    toks, kw = family_inputs(cfg, B, S, seed + 1, dtype, dev)
+    if cfg.mrope:
+        kw["mrope_pos"] = mrope_positions(B, S, image=True).to(dev)
+    lora, idx = (), ()
+    if cfg.family.name in ("VLM", "HYBRID"):
+        n = (len(hybrid.attn_sites(cfg)) if cfg.family.name == "HYBRID"
+             else cfg.n_layers)
+        r = cases.LORA_RMAX
+        lora = init_lora_slots(cases.LORA_SLOTS, n, cfg.d_model, cfg.q_dim,
+                               cfg.kv_dim, r, dtype, device=dev)
+        g = torch.Generator(device=dev).manual_seed(seed + 2)
+        for i in range(cases.LORA_SLOTS):
+            write_adapter_to_slot(lora, random_lora_weights(
+                g, 16 << (i % 3), r, n, cfg.d_model, cfg.q_dim, cfg.kv_dim,
+                dtype), i)
+        idx = torch.arange(B, dtype=torch.int32, device=dev) % 8
+    return params, toks, lora, idx, kw
+
+
+def _decode_state(state, dec_sds, dec_sh):
+    """The prefill's state as the decode case takes it: each stack
+    gathered, its positions zero-padded to the case's slab, placed as
+    the case's sharding says (``dec_sh`` None: whole)."""
+    import torch.nn.functional as F
+    from repro_torch.distributed.sharding import ShardedTensor
+    from repro_torch.launch.cases import _placed
+    if isinstance(state, (tuple, list)):
+        return tuple(_decode_state(s, d, None if dec_sh is None else h)
+                     for s, d, h in zip(state, dec_sds,
+                                        dec_sh or [None] * len(state)))
+    t = state.full() if isinstance(state, ShardedTensor) else state
+    if t.dim() == 5 and t.shape[2] < dec_sds.shape[2]:
+        t = F.pad(t, (0, 0, 0, 0, 0, dec_sds.shape[2] - t.shape[2]))
+    return t if dec_sh is None else _placed(t, dec_sh)
+
+
+def serve_mesh_run(cfg, arch: str, args: tuple, mesh, B: int,
+                   S: int) -> dict:
+    """The prefill case and ``SERVE_STEPS`` greedy steps of the decode
+    case (``build_case``, a slab of S + steps positions) on ``mesh``
+    (None: unsharded, the closures on the unplaced arguments), under the
+    dry-run's scope (batch rows over "data", exact reductions,
+    token-parallel MoE)."""
+    import contextlib
+
+    import torch
+    from repro_torch.distributed import act_sharding as acts
+    from repro_torch.launch import cases
+    dev = args[1].device
+    shape = None if mesh is None else tuple(mesh.shape.values())
+    mesh = mesh or repeated_mesh((1, 1), dev)
+    fn_p, _, sh_p = cases.build_case(arch, "prefill_32k", mesh, B,
+                                     config=cfg, seq_override=S)
+    fn_d, sds_d, sh_d = cases.build_case(arch, "decode_32k", mesh, B,
+                                         config=cfg,
+                                         seq_override=S + SERVE_STEPS)
+    if shape is None:
+        placed, scope = args, contextlib.nullcontext()
+    else:
+        placed = cases.place(cfg, "prefill", args, sh_p)
+        scope = acts.activation_sharding(("data",), mesh=mesh,
+                                         exact_reductions=True,
+                                         moe_token_parallel=True)
+    p, toks, lora, idx, extra = placed
+
+    def sync():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+    with torch.no_grad(), scope:
+        sync()
+        t0 = time.perf_counter()
+        logits, state = fn_p(*placed)
+        sync()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        specs = [tuple(t.sharding.spec) for t in flat(state)
+                 if hasattr(t, "sharding")]
+        dstate = _decode_state(state, sds_d[2],
+                               None if shape is None else sh_d[2])
+        del state
+        out, toks_out, ms = [logits.float()], [], []
+        start = (int(extra["mrope_pos"].max()) + 1 if cfg.mrope else S)
+        for i in range(SERVE_STEPS):
+            tok = logits.argmax(-1)[:, None].int()
+            toks_out.append(tok)
+            clen = torch.full((B,), S + i, dtype=torch.int32, device=dev)
+            dx = ({"mrope_pos": torch.full((3, B, 1), start + i,
+                                           dtype=torch.int32, device=dev)}
+                  if cfg.mrope else {})
+            sync()
+            t0 = time.perf_counter()
+            logits, dstate = fn_d(p, tok, dstate, clen, lora, idx, dx)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            out.append(logits.float())
+    return dict(logits=out, tokens=torch.cat(toks_out, 1).cpu(),
+                prefill_ms=pre_ms, decode_ms=statistics.median(ms[1:]),
+                specs=specs)
+
+
+def serve_mesh_state_specs(cfg, B: int, S: int, shape) -> list:
+    """The rule table's specs of the prefill's state stacks on a mesh of
+    ``shape``: ``kv_cache_spec`` for K/V, ``ssm_state_spec`` and
+    ``conv_state_spec`` for the SSM state."""
+    from repro_torch.distributed import sharding as shp
+    from repro_torch.models.hybrid import attn_sites
+    mesh = repeated_mesh(shape, "cpu")
+    L, fam = cfg.n_layers, cfg.family.name
+    kv = (L, B, S, cfg.n_kv_heads, cfg.head_dim)
+    if fam == "VLM":
+        return [shp.kv_cache_spec(mesh, kv)] * 2
+    if fam == "ENCDEC":
+        xkv = (L, B, cfg.enc_ctx, cfg.n_kv_heads, cfg.head_dim)
+        return ([shp.kv_cache_spec(mesh, kv)] * 2
+                + [shp.kv_cache_spec(mesh, xkv)] * 2)
+    if fam == "SSM":
+        return [shp.ssm_state_spec(mesh, (L, B, cfg.d_inner, cfg.d_state)),
+                shp.conv_state_spec(mesh, (L, B, cfg.d_conv - 1,
+                                           cfg.d_inner))]
+    n = len(attn_sites(cfg))
+    return [shp.ssm_state_spec(mesh, (L, B, cfg.n_ssm_heads,
+                                      cfg.ssm_head_dim, cfg.d_state)),
+            shp.conv_state_spec(mesh, (L, B, cfg.d_conv - 1,
+                                       cfg.d_inner + 2 * cfg.d_state))] + [
+        shp.kv_cache_spec(mesh, (n, B, S, cfg.n_kv_heads,
+                                 cfg.head_dim))] * 2
+
+
+def serve_mesh_kernels(cfg, B: int, S: int, record: dict) -> None:
+    """The model's kernels at the column shapes of (2, 2) and (1, 4)
+    against their plain versions, timed beside their bounds and a
+    PyTorch call (``kernel_time_serve_mesh`` lines): flash_attention
+    over a batch row's rows and a column's heads (causal; whisper's
+    encoder full over its 1500 frames), sgmv and bgmv at a column's
+    LoRA dout (the case's rank 64, 8 slots)."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.launch import cases
+    bgmv = importlib.import_module("repro_torch.kernels.bgmv")
+    sgmv = importlib.import_module("repro_torch.kernels.sgmv")
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2626)
+    scratch = torch.empty(64 * MIB, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev)
+                * scale).to(torch.bfloat16)
+
+    fam, dh = cfg.family.name, cfg.head_dim
+    if not cfg.n_heads:          # attention-free: no kernel on its path
+        return
+    for d, M in ((2, 2), (1, 4)):
+        Br = B // d
+        cases_fa = ([(Br, cfg.enc_ctx, False), (Br, S, True)]
+                    if fam == "ENCDEC" else [(Br, S, True)])
+        for Bt, T, causal in cases_fa:
+            H, Kh = cfg.n_heads // M, max(cfg.n_kv_heads // M, 1)
+            q = randn(Bt, T, H, dh)
+            k, v = randn(Bt, T, Kh, dh), randn(Bt, T, Kh, dh)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            fa.STATS.reset()
+            fa.flash_attention(q, k, v, causal)
+            inst = launched(fa, fa.flash_instance(q.dtype, dh))
+            checked_and_timed(
+                "kernel_time_serve_mesh", flush, record, "flash_attention",
+                f"{cfg.name} ({d}, {M}): {'causal' if causal else 'full'}"
+                f", H {H}/Kh {Kh}, q {tuple(q.shape)}",
+                lambda: fa.flash_attention(q, k, v, causal),
+                lambda: fa.flash_attention_plain(q, k, v, causal),
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True),
+                "bf16_out", flash_bound(q, k, v, causal),
+                extra=FLASH_P_ROUNDING * fa.flash_attention_plain(
+                    q.float(), k.float(), v.float().abs(), causal),
+                instance=inst, model=cfg.name, mesh_shape=[d, M])
+        if fam not in ("VLM", "HYBRID"):
+            continue
+        n, r, tile = cases.LORA_SLOTS, cases.LORA_RMAX, 128
+        idx = torch.arange(Br, device=dev).int() % n
+        ts = torch.randint(0, n, (Br * S // tile,), generator=g,
+                           device=dev).int()
+        projs = {("q", cfg.d_model, cfg.q_dim // M),
+                 ("k/v", cfg.d_model, max(cfg.kv_dim // M, dh)),
+                 ("o", cfg.q_dim, cfg.d_model // M)}
+        for proj, din, dout in sorted(projs):
+            A = randn(n, din, r, scale=din ** -0.5)
+            Bw = randn(n, r, dout, scale=r ** -0.5)
+            x = randn(Br, din)
+            checked_and_timed(
+                "kernel_time_serve_mesh", flush, record, "bgmv",
+                f"{cfg.name} ({d}, {M}) {proj}: x {tuple(x.shape)}, "
+                f"dout {dout}",
+                lambda: bgmv.bgmv(x, A, Bw, idx),
+                lambda: bgmv.bgmv_plain(x, A, Bw, idx),
+                lambda: torch.bmm(torch.bmm(x[:, None], A[idx.long()]),
+                                  Bw[idx.long()]), "lora_bf16",
+                bound_ms(nbytes(x, idx) + idx.unique().numel()
+                         * nbytes(A[0], Bw[0]) + Br * dout * 2,
+                         2 * Br * r * (din + dout), "bf16"),
+                model=cfg.name, mesh_shape=[d, M])
+            x = randn(Br * S, din)
+            xt = x.view(-1, tile, din)
+            sgmv.STATS.reset()
+            sgmv.sgmv(x, A, Bw, ts, tile)
+            inst = launched(sgmv, sgmv.sgmv_instance(x.dtype, A.dtype, r,
+                                                     tile))
+            checked_and_timed(
+                "kernel_time_serve_mesh", flush, record, "sgmv",
+                f"{cfg.name} ({d}, {M}) {proj}: x {tuple(x.shape)}, "
+                f"dout {dout}",
+                lambda: sgmv.sgmv(x, A, Bw, ts, tile),
+                lambda: sgmv.sgmv_plain(x, A, Bw, ts, tile),
+                lambda: torch.bmm(torch.bmm(xt, A[ts.long()]),
+                                  Bw[ts.long()]), "lora_bf16",
+                bound_ms(nbytes(x, ts) + ts.unique().numel()
+                         * nbytes(A[0], Bw[0]) + Br * S * dout * 2,
+                         2 * Br * S * r * (din + dout), "bf16"),
+                instance=inst, model=cfg.name, mesh_shape=[d, M])
+
+
+def serve_mesh_model(arch: str, n_layers, B: int, S: int,
+                     stats: dict) -> dict:
+    """One model of phase 9: its kernels at the column shapes, then the
+    f32 gates (each mesh's greedy tokens equal to the unsharded case's
+    over ``SERVE_STEPS`` steps, logits within ``SERVE_TOL``, the state
+    in the rule table's layout, the kernels launched the counted number
+    of times and no plain version), then bf16 ms a prefill, ms a decode
+    step and peak memory unsharded (first and last), at (1, 1) and
+    (2, 2). One ``serve_mesh`` line a mesh and dtype."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    t_start = time.perf_counter()
+    errs: dict = {}
+    serve_mesh_kernels(cfg, B, S, errs)
+    dev = torch.device("cuda")
+    args = serve_mesh_args(cfg, B, S, torch.float32, dev)
+    base = serve_mesh_run(cfg, arch, args, None, B, S)
+    for shape in SERVE_MESHES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for st in stats.values():
+            st.reset()
+        got = serve_mesh_run(cfg, arch, args, repeated_mesh(shape, dev),
+                             B, S)
+        launches = {n: st.launches for n, st in stats.items()}
+        plain = {n: st.plain for n, st in stats.items()}
+        want = serve_mesh_counts(cfg, shape[1], shape[0] if B % shape[0]
+                                 == 0 else 1)
+        err = max(((g - w).abs().max() / w.abs().max().clamp(min=1.0))
+                  .item() for g, w in zip(got["logits"], base["logits"]))
+        line = dict(
+            phase="serve_mesh", model=cfg.name, weights="f32",
+            mesh_shape=list(shape), n_layers=cfg.n_layers, batch=[B, S],
+            steps=SERVE_STEPS, logits_max_rel_err=err, tol=SERVE_TOL,
+            bit_identical=all(torch.equal(g, w) for g, w in
+                              zip(got["logits"], base["logits"])),
+            tokens_identical=bool(torch.equal(got["tokens"],
+                                              base["tokens"])),
+            state_specs_ok=[tuple(s) for s in serve_mesh_state_specs(
+                cfg, B, S, shape)] == got["specs"],
+            launches=launches, launches_expected=want, plain_calls=plain,
+            prefill_ms=got["prefill_ms"], decode_ms_per_step=got["decode_ms"],
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        emit(line)
+        check(line["tokens_identical"] and err <= SERVE_TOL
+              and line["state_specs_ok"],
+              f"serve_mesh {cfg.name} {shape}: {line}")
+        check(all(launches[n] == want[n] for n in SERVE_KERNELS)
+              and not any(plain.values()),
+              f"serve_mesh {cfg.name} {shape}: kernel launches {launches} "
+              f"(want {want}) or a plain version ran {plain}")
+    del args, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = serve_mesh_args(cfg, B, S, torch.bfloat16, dev)
+    # The unsharded case first and last: host times vary run to run.
+    for shape in (None, (1, 1), (2, 2), None):
+        torch.cuda.reset_peak_memory_stats()
+        got = serve_mesh_run(cfg, arch, args, shape and repeated_mesh(
+            shape, dev), B, S)
+        emit(dict(phase="serve_mesh", model=cfg.name, weights="bf16",
+                  mesh_shape=list(shape) if shape else None,
+                  n_layers=cfg.n_layers, batch=[B, S],
+                  prefill_ms=got["prefill_ms"],
+                  decode_ms_per_step=got["decode_ms"],
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                  finite=all(bool(torch.isfinite(x).all())
+                             for x in got["logits"])))
+    del args
+    return dict(seconds=time.perf_counter() - t_start, errs=errs)
+
+
+def phase_serve_mesh() -> None:
+    """Phase 9: the VLM, SSM, hybrid and enc-dec families served on
+    meshes over repeated positions of the card, through
+    ``launch.cases.build_case`` (``SERVE_MESH_MODELS``, one at a time,
+    each freed before the next), with a ``phase_serve_mesh`` line of
+    each model's seconds."""
+    import importlib
+
+    import torch
+    stats = {n: importlib.import_module(f"repro_torch.kernels.{n}").STATS
+             for n in SERVE_KERNELS}
+    secs = {}
+    for arch, n_layers, B, S in SERVE_MESH_MODELS:
+        secs[arch] = serve_mesh_model(arch, n_layers, B, S,
+                                      stats)["seconds"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        check(held < 1e9, f"{held / 1e9:.2f} GB still allocated after "
+                          f"{arch} was freed")
+    emit(dict(phase="phase_serve_mesh", seconds=secs))
+
+
 KERNELS = {
     "bgmv": ("src/repro_torch/csrc/bgmv.cu", "src/repro/kernels/bgmv.py:39"),
     "sgmv": ("src/repro_torch/csrc/sgmv.cu", "src/repro/kernels/sgmv.py:37"),
@@ -4612,6 +5002,9 @@ def main() -> int:
         check(held < 1e9, f"{held / 1e9:.2f} GB still allocated after "
                           f"the training phase")
         phase_train_mesh()
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_serve_mesh()
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

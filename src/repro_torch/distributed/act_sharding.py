@@ -17,8 +17,15 @@ Exact mode (``exact_reductions=True``, the serving engine's): no
 contraction runs over a sharded dimension — merged attention heads, the
 FFN hidden and the residual stream are gathered before the projection
 or norm that reduces over them, and logits are gathered to whole vocab
-rows before sampling. Compute runs at full batch; "data" shards only
-storage (KV pages, batch state).
+rows before sampling. The serving engine enters it with ``batch_axes=()``:
+compute runs at full batch and "data" shards only storage (KV pages,
+batch state). With the batch axes installed (``batch_axes=("data",)``
+or ``("pod", "data")``, as the dry-run's cases are run), each row of
+positions (``sharding.batch_rows``: every axis but "model") runs the
+exact-mode column step on its block of the batch (``row_spans``,
+``batch_row``), as GSPMD has each position compute its own batch rows;
+a batch the rows do not divide is computed whole by the first row, as
+``fit_spec`` replicates a B=1 bucket.
 
 MoE (exact mode): the expert stacks lie over "data" (experts) with the
 FFN unsharded, as the serving rule table puts them. The four MoE
@@ -87,18 +94,14 @@ def activation_sharding(batch_axes: tuple, model_axis: str = "model",
     duration of the block (scoped, so single-device engines in the same
     process are untouched). The serving engine enters it around every
     dispatch with ``batch_axes=()`` and ``exact_reductions=True``;
-    ``moe_token_parallel`` arms ``moe_a2a_mesh``. The mesh train step
-    enters it with the batch axes and ``exact_reductions=False``."""
+    ``moe_token_parallel`` arms ``moe_a2a_mesh``. With the batch axes
+    and ``exact_reductions=True`` the serving step functions compute
+    batch rows over them (``row_spans``). The mesh train step enters it
+    with the batch axes and ``exact_reductions=False``."""
     if seq_shard_boundary:
         raise NotImplementedError(
             "activation_sharding(seq_shard_boundary=True): sequence-"
             "parallel boundaries come with the dry-run tooling")
-    if mesh is not None and batch_axes and exact_reductions:
-        raise NotImplementedError(
-            f"activation_sharding(batch_axes={batch_axes!r}, "
-            f"exact_reductions=True): the serving data plane computes at "
-            f"full batch (batch_axes=()); batch-sharded activations run "
-            f"in the row-parallel mode")
     global _MESH, _DEVICES, _MOE_TOKEN_PARALLEL, _EXACT, _BATCH_AXES, _ROWS
     prev = (_MESH, _DEVICES, _MOE_TOKEN_PARALLEL, _EXACT, _BATCH_AXES,
             _ROWS)
@@ -118,6 +121,39 @@ def activation_sharding(batch_axes: tuple, model_axis: str = "model",
          _ROWS) = prev
 
 
+def exact_reductions() -> bool:
+    """Whether a mesh is installed in exact mode (the serving data
+    plane's: every reduction unsharded)."""
+    return _EXACT and _MESH is not None
+
+
+def row_spans(n: int) -> list:
+    """(row, lo, hi): the batch rows [lo, hi) of ``n`` that each row of
+    positions computes in exact mode with the batch axes installed (row
+    b of ``sharding.batch_rows``, block b); [(0, 0, n)] without them, or
+    when the rows do not divide ``n`` (computed whole by the first
+    row)."""
+    if not (_EXACT and _ROWS) or n % len(_ROWS):
+        return [(0, 0, n)]
+    w = n // len(_ROWS)
+    return [(b, b * w, (b + 1) * w) for b in range(len(_ROWS))]
+
+
+@contextlib.contextmanager
+def batch_row(b: int):
+    """Within the block, the exact-mode gather points (``replicate``,
+    the column splits) act on batch row ``b``'s positions (row 0's
+    outside batch rows)."""
+    global _DEVICES
+    prev = _DEVICES
+    if _ROWS:
+        _DEVICES = list(_ROWS[b])
+    try:
+        yield
+    finally:
+        _DEVICES = prev
+
+
 def installed_mesh():
     """The mesh of the enclosing ``activation_sharding`` block, or
     None."""
@@ -133,10 +169,12 @@ def moe_a2a_mesh():
     return None
 
 
-def _gather(x, dim: int, device=None):
-    """Concatenate shards along ``dim`` onto ``device`` (the first
-    shard's by default); one shard is returned as is (moved if it lives
-    elsewhere). Outside exact mode a list of shards stays split."""
+def gather_columns(x, dim: int = -1, device=None):
+    """The columns' blocks of a dimension split over "model"
+    concatenated along ``dim`` onto ``device`` (the first block's by
+    default): exact mode's gather before a contraction or norm over
+    it. One block is returned as is (moved if it lives elsewhere). A
+    plain tensor, or any list outside exact mode, stays as it is."""
     if not isinstance(x, (list, tuple)) or not _EXACT:
         return x
     device = x[0].device if device is None else device
@@ -253,7 +291,7 @@ def constrain_logits(x):
     whole rows in single-device FP order; the unembedding still runs
     column-parallel, the gather after it is elementwise. Outside exact
     mode the vocabulary stays split over the columns."""
-    return _gather(x, -1)
+    return gather_columns(x, -1)
 
 
 def constrain_heads(x):
@@ -296,21 +334,21 @@ def constrain_ffn_hidden(x):
     projection contracts an unsharded dim in single-device FP order;
     outside it F stays over "model" (the down projection is then
     row-parallel)."""
-    return _gather(x, -1)
+    return gather_columns(x, -1)
 
 
 def constrain_attn_merged(x):
     """(B, S, q_dim) attention output after heads merge, feeding the o
     projection: the head shards are gathered so the o-proj contraction
     runs unsharded."""
-    return _gather(x, -1)
+    return gather_columns(x, -1)
 
 
 def constrain_residual(x):
     """(B, S, D) residual stream mid-layer: the column-parallel o
     projection leaves D model-sharded, and the next rms_norm reduces
     over D, so the shards are gathered here."""
-    return _gather(x, -1)
+    return gather_columns(x, -1)
 
 
 def constrain_moe_groups(x):
@@ -347,7 +385,7 @@ def constrain_moe_local(blocks: list, device) -> torch.Tensor:
     """The data shards' expert outputs gathered onto ``device`` in the
     unsharded expert order (concatenated along dim 0): the combine
     half of the MoE exchange."""
-    return _gather(list(blocks), 0, device)
+    return gather_columns(list(blocks), 0, device)
 
 
 # TP mode (the train step): the counterparts of ``constrain_moe_local``

@@ -21,9 +21,10 @@ spec, which splits a tensor into per-position shards) and
 ``ShardedTensor`` (those shards, gathered back on demand). One Python
 process drives every position (single controller, as the JAX engine
 is): a shard is a plain tensor on its position's device.
-``MeshParams`` holds placed weights with each "model" column's compute
-view and each "data" shard's MoE experts, the operand the serving step
-functions take on a mesh. A train state is placed leaf by leaf
+``MeshParams`` holds placed weights with each position's compute view
+(a batch row's "model" columns) and each "data" shard's MoE experts,
+the operand the serving step functions take on a mesh; ``assemble``
+places a state the step functions computed in blocks. A train state is placed leaf by leaf
 (``device_put``, {path: ShardedTensor}); ``TrainView`` is how the model
 computes with it, and ``FsdpStep`` carries one forward-backward's
 gathers and reduce-scatters (``all_gather``, ``reduce_scatter``).
@@ -576,8 +577,17 @@ def batch_rows(mesh: Mesh, model_axis: str = "model") -> list:
     """The mesh's devices as [batch shard][column]: batch shard b is
     row-major over every axis but ``model_axis`` (the batch axes, as
     ``batch_spec`` splits the rows), column m its index on that axis."""
-    grid = np.moveaxis(mesh.devices, mesh.axis_names.index(model_axis), -1)
-    return grid.reshape(-1, grid.shape[-1]).tolist()
+    return [[mesh.devices[c] for c in row]
+            for row in row_coords(mesh, model_axis)]
+
+
+def row_coords(mesh: Mesh, model_axis: str = "model") -> list:
+    """The mesh coordinates of ``batch_rows``' grid: [batch row][column]."""
+    k = mesh.axis_names.index(model_axis)
+    others = [n for a, n in mesh.shape.items() if a != model_axis]
+    return [[rest[:k] + (m,) + rest[k:]
+             for m in range(mesh.shape[model_axis])]
+            for rest in np.ndindex(*others)]
 
 
 def column_coords(mesh: Mesh, m: int) -> tuple:
@@ -601,19 +611,24 @@ def kv_heads_of_column(n_kv_heads: int, M: int, m: int) -> tuple:
 
 def mesh_unsupported(cfg: ModelConfig, model_size: int) -> list[str]:
     """Why the mesh data plane cannot serve ``cfg`` with ``model_size``
-    columns (empty when it can)."""
-    if cfg.family not in (Family.DENSE, Family.MOE):
-        return [f"model family {cfg.family.name} on a mesh"]
+    columns (empty when it can). Every family serves; a vocabulary the
+    columns do not divide stays whole on every column."""
     return _column_unsupported(cfg, model_size)
 
 
 def _column_unsupported(cfg: ModelConfig, M: int) -> list[str]:
-    """Why ``cfg``'s column compute cannot split over ``M`` columns."""
+    """Why ``cfg``'s column compute cannot split over ``M`` columns: a
+    head, width, hidden, SSM channel or Mamba2 head count that ``M``
+    does not divide, or KV heads a column would read parts of."""
     out = []
     dims = [("n_heads", cfg.n_heads), ("d_model", cfg.d_model),
-            ("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)]
+            ("d_ff", cfg.d_ff)]
     if cfg.family == Family.MOE:
         dims.append(("shared_expert_ff", cfg.shared_expert_ff))
+    if cfg.ssm_version:
+        dims.append(("d_inner", cfg.d_inner))
+        if cfg.ssm_version == 2:
+            dims.append(("n_ssm_heads", cfg.n_ssm_heads))
     for name, n in dims:
         if n % M:
             out.append(f"{name}={n} on a {M}-way model axis (column "
@@ -631,18 +646,42 @@ def _split_axes(st: ShardedTensor) -> set:
             for a in (e if isinstance(e, tuple) else (e,))}
 
 
+#: The serving table's column dimensions of the SSM and cross-attention
+#: leaves (exact mode): ``out_proj`` and ``xo`` column-parallel over D
+#: (their input gathered whole first), ``dt_proj`` and the Mamba1 conv
+#: by channel, the per-channel or per-head vectors on dimension 1
+#: (after the layer axis), ``xq`` by heads. ``x_proj`` and
+#: ``gate_norm`` contract or reduce over d_inner, so a column holds
+#: them whole; a packed leaf goes by its segments (``ssm_segments``).
+_SERVE_COLUMN_DIM = {**_COLUMN_DIM, "out_proj": -1, "dt_proj": -1,
+                     "conv_w": -1, "conv_b": -1, "A_log": 1, "ssm_D": 1,
+                     "dt_bias": 1, "xq": -1, "xk": -1, "xv": -1,
+                     "xo": -1}
+
+#: Weights a serving column computes over its KV heads' block.
+_SERVE_KV_LEAVES = _KV_LEAVES + ("xk", "xv")
+
+
 class MeshParams:
     """Weights placed on a mesh (``placed``: {path: ShardedTensor}) and
     what each part of the mesh computes with:
 
-    - ``cols[m]``: "model" column m's flat param dict on the column's
-      device. Its column-parallel weights hold block m (q heads, o and
-      gate/up output columns, the shared expert's gate/up, vocab
-      rows/columns), k/v hold the KV heads its query heads read
-      (``kv_heads[m]``), and the other weights are whole. A block that
-      storage does not put at the column (replicated storage, or KV
-      heads shared by several columns) is sliced or gathered once
-      here.
+    - ``row_cols[b][m]``: the flat param dict that position (b, m)
+      computes with, on its device (batch row b, ``batch_rows``;
+      "model" column m); ``cols`` is row 0's. Under the serving rule
+      table every non-expert weight is replicated over the batch axes,
+      so each row of positions computes with its own copies (positions
+      of one device share them). Column-parallel weights hold block m
+      (q heads, o and gate/up output columns, the shared expert's
+      gate/up, vocab rows/columns; the SSM leaves by channel or head,
+      ``out_proj`` by output columns, a packed ``in_proj`` or Mamba2
+      conv by its segments; the cross attention's xq/xk/xv by heads and
+      xo by output columns), k/v hold the KV heads its query heads read
+      (``kv_heads[m]``), and the other weights are whole (``x_proj``
+      and ``gate_norm`` too: exact mode gathers d_inner before them). A
+      vocabulary the columns do not divide is whole on every column
+      (``whole_vocab``). A block that storage does not put at the
+      position is sliced or gathered once here.
     - ``experts``: each "data" shard's MoE experts, for MoE configs:
       its device, its expert range and its stacked ``w_gate``/``w_up``/
       ``w_down`` blocks (``moe/`` stacks (n_moe, E_d, ...)) and router.
@@ -659,7 +698,9 @@ class MeshParams:
                 "the mesh data plane does not serve: " + ", ".join(bad))
         self.cfg, self.placed, self.mesh = cfg, placed, mesh
         self.model_size = M
-        self.coords = [column_coords(mesh, m) for m in range(M)]
+        self.whole_vocab = cfg.vocab_size % M != 0
+        self.row_coords = row_coords(mesh)
+        self.coords = self.row_coords[0]
         self.devices = [mesh.devices[c] for c in self.coords]
         self.home = self.devices[0]
         self.kv_heads = [kv_heads_of_column(cfg.n_kv_heads, M, m)
@@ -670,11 +711,14 @@ class MeshParams:
         lo, hi = self.kv_heads[0]
         self.col_cfg = dataclasses.replace(
             cfg, n_heads=cfg.n_heads // M, n_kv_heads=hi - lo)
-        self.cols = [{path: self._column(path, st, m)
-                      for path, st in placed.items()
-                      if path.split("/")[-1] not in _EXPERT_LEAVES
-                      or not path.startswith("moe/")}
-                     for m in range(M)]
+        made: dict = {}
+        self.row_cols = [[{path: self._view(made, path, st, c, m)
+                           for path, st in placed.items()
+                           if path.split("/")[-1] not in _EXPERT_LEAVES
+                           or not path.startswith("moe/")}
+                          for m, c in enumerate(row)]
+                         for row in self.row_coords]
+        self.cols = self.row_cols[0]
         self.experts = (expert_shards(placed)
                         if "moe/w_gate" in placed else None)
 
@@ -685,7 +729,17 @@ class MeshParams:
         per = width // self.cfg.n_kv_heads
         return lo * per, hi * per
 
-    def _column(self, path: str, st: ShardedTensor, m: int):
+    def _view(self, made: dict, path: str, st: ShardedTensor,
+              coords: tuple, m: int):
+        """``_column`` once a (leaf, column, device): the rows of
+        positions on one device share a view."""
+        key = (path, m, str(self.mesh.devices[coords]))
+        if key not in made:
+            made[key] = self._column(path, st, coords, m)
+        return made[key]
+
+    def _column(self, path: str, st: ShardedTensor, coords: tuple,
+                m: int):
         split = _split_axes(st) - {"model"}
         if split:
             raise NotImplementedError(
@@ -693,30 +747,51 @@ class MeshParams:
                 f"weight whole or over 'model', and no data shard's block "
                 f"may stand for the others")
         leaf = path.split("/")[-1]
-        dim = _COLUMN_DIM.get(path, _COLUMN_DIM.get(leaf))
-        if leaf in _KV_LEAVES and self.kv_share > 1:
+        M = self.model_size
+        if leaf in _SERVE_KV_LEAVES and self.kv_share > 1:
             lo, hi = self.kv_range(m, st.shape[-1])
-            return column_range(st, self.coords[m], -1, lo, hi)
-        if dim is None or self.model_size == 1:
-            return st.local(self.coords[m])
-        return column_block(st, self.coords[m], dim, m, self.model_size)
+            return column_range(st, coords, -1, lo, hi)
+        segs = ssm_segments(self.cfg, leaf)
+        if segs is not None:
+            parts = [column_range(st, coords, -1, lo, hi)
+                     for lo, hi in column_segments(segs, m, M)]
+            return parts[0] if len(parts) == 1 else torch.cat(parts, -1)
+        dim = _SERVE_COLUMN_DIM.get(path, _SERVE_COLUMN_DIM.get(leaf))
+        if path in ("embed/tok", "lm_head") and self.whole_vocab:
+            dim = None
+        if dim is None or M == 1:
+            return whole_at(st, coords)
+        return column_block(st, coords, dim, m, M)
 
-    def lora_cols(self, lora: dict) -> list:
-        """Each column's LoRA slot arena: A whole, B's dout block m (for
-        k/v: its KV heads' columns, gathered where the heads are shared
-        by several columns)."""
+    def lora_cols(self, lora: dict, b: int = 0) -> list:
+        """Each column's LoRA slot arena on batch row ``b``'s positions:
+        A whole (gathered where storage splits its din, as the serving
+        cases place it), B's dout block m (for k/v: its KV heads'
+        columns, gathered where the heads are shared by several
+        columns)."""
         out = []
-        for m, c in enumerate(self.coords):
+        for m, c in enumerate(self.row_coords[b]):
             cols = {}
-            for proj, (a, b) in lora.items():
+            for proj, (a, bw) in lora.items():
                 if proj in _KV_LEAVES and self.kv_share > 1:
-                    lo, hi = self.kv_range(m, b.shape[-1])
-                    bm = column_range(b, c, -1, lo, hi)
+                    lo, hi = self.kv_range(m, bw.shape[-1])
+                    bm = column_range(bw, c, -1, lo, hi)
                 else:
-                    bm = column_block(b, c, -1, m, self.model_size)
-                cols[proj] = (a.local(c), bm)
+                    bm = column_block(bw, c, -1, m, self.model_size)
+                cols[proj] = (whole_at(a, c), bm)
             out.append(cols)
         return out
+
+
+def whole_at(st: ShardedTensor, coords: tuple) -> torch.Tensor:
+    """The whole weight on the device of position ``coords``: its shard
+    when storage does not split it there, else its "model" blocks
+    gathered (counted in ``COLLECTIVE_METER``)."""
+    spec = list(st.sharding.spec)
+    if "model" not in spec:
+        return st.local(coords)
+    dim = spec.index("model")
+    return column_range(st, coords, dim, 0, st.shape[dim])
 
 
 def expert_shards(placed: dict) -> list:
@@ -856,6 +931,64 @@ def all_gather(st: ShardedTensor, index: tuple, device) -> torch.Tensor:
     return out.reshape(keep)
 
 
+def assemble(sharding: NamedSharding, shape: tuple, pieces: list,
+             sink_dim: int | None = None) -> ShardedTensor:
+    """A tensor of global ``shape`` laid out by ``sharding`` from
+    computed ``pieces``: (box, tensor), a box a slice per dimension,
+    together covering the tensor (pieces with one box hold the same
+    values: replicas). Each position's shard is a piece itself where
+    one is exactly its block on its device (no copy), else its block
+    assembled from the pieces that overlap it, each read from its copy
+    on the position's device where there is one (counted in
+    ``COLLECTIVE_METER.gathers``). ``sink_dim``: every shard is a fresh
+    block with one extra entry past it along that dimension, its write
+    sink (as ``NamedSharding.zeros``)."""
+    by_box: dict = {}
+    for box, t in pieces:
+        by_box.setdefault(tuple((s.start, s.stop) for s in box),
+                          (list(box), []))[1].append(t)
+    shards = np.empty(sharding.mesh.devices.shape, dtype=object)
+    made: dict = {}
+    raws: dict = {}
+    for coords in np.ndindex(*sharding.mesh.devices.shape):
+        dev = sharding.mesh.devices[coords]
+        slc = sharding.index(coords, tuple(shape))
+        key = (tuple((s.start, s.stop) for s in slc), str(dev))
+        if key not in made:
+            made[key] = _assemble_block(by_box, list(slc), dev, sink_dim,
+                                        raws)
+        shards[coords] = made[key]
+    return ShardedTensor(sharding, tuple(shape), shards, raws)
+
+
+def _assemble_block(by_box: dict, want: list, dev, sink_dim, raws: dict
+                    ) -> torch.Tensor:
+    exact = by_box.get(tuple((s.start, s.stop) for s in want))
+    if exact is not None and sink_dim is None:
+        t = next((u for u in exact[1] if u.device == dev), None)
+        if t is not None:
+            return t
+    from repro_torch.kernels.ops import COLLECTIVE_METER
+    first = next(iter(by_box.values()))[1][0]
+    local = [s.stop - s.start for s in want]
+    with COLLECTIVE_METER.sync():
+        COLLECTIVE_METER.gathers += 1
+        if sink_dim is None:
+            out = torch.empty(local, dtype=first.dtype, device=dev)
+        else:
+            n = local[sink_dim]
+            local[sink_dim] += 1
+            raw = torch.zeros(local, dtype=first.dtype, device=dev)
+            out = raw.narrow(sink_dim, 0, n)
+            raws[id(out)] = raw
+        for box, ts in by_box.values():
+            ov = _overlap(want, tuple(box))
+            if ov is not None:
+                t = next((u for u in ts if u.device == dev), ts[0])
+                out[ov[1]] = t[ov[0]].to(dev)
+    return out
+
+
 def reduce_scatter(out: ShardedTensor, parts: list) -> None:
     """Add to each distinct block of ``out`` the sum of the gradients
     ``parts`` hold of it: ``parts`` are (index, gradient) of the
@@ -942,21 +1075,15 @@ def train_unsupported(cfg: ModelConfig, mesh: Mesh) -> list[str]:
     divide, or MoE experts the "data" axis does not divide. A vocabulary
     that "model" does not divide stays whole on every column."""
     M, n_data = mesh.shape["model"], mesh.shape["data"]
-    out = [r for r in _column_unsupported(cfg, M)
-           if not r.startswith("vocab_size=")]
-    dims = []
-    if cfg.ssm_version:
-        dims.append(("d_inner", cfg.d_inner, M, "model"))
-        if cfg.ssm_version == 2:
-            dims.append(("n_ssm_heads", cfg.n_ssm_heads, M, "model"))
+    out = _column_unsupported(cfg, M)
     if cfg.family == Family.MOE:
-        dims += [("n_experts", cfg.n_experts, n_data, "data"),
-                 ("d_ff_expert", cfg.d_ff_expert, M, "model")]
-    for name, n, k, axis in dims:
-        if n % k:
-            out.append(f"{name}={n} on a {k}-way {axis} axis (the "
-                       f"train rule table would replicate it; uneven "
-                       f"splits are not ported: ROADMAP Queue 1)")
+        for name, n, k, axis in (
+                ("n_experts", cfg.n_experts, n_data, "data"),
+                ("d_ff_expert", cfg.d_ff_expert, M, "model")):
+            if n % k:
+                out.append(f"{name}={n} on a {k}-way {axis} axis (the "
+                           f"train rule table would replicate it; uneven "
+                           f"splits are not ported: ROADMAP Queue 1)")
     return out
 
 

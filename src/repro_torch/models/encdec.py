@@ -31,6 +31,16 @@ attention from its block of them (``TrainView``: xq and xk/xv by
 heads, xo by rows), and ``psum_columns`` sums the row-parallel xo
 products, so no head is counted twice. The positions tables are whole
 on every column.
+
+On serving ``MeshParams`` ``prefill`` and ``decode_step`` run each
+batch row of positions on its rows (the frames with them), every
+attention by heads in exact mode: the encoder's full flash attention,
+the cross K/V (``cross_kv`` by KV heads, placed by ``kv_cache_spec``
+over ``enc_ctx``), the decoder's causal self attention (with its slab
+write when decoding), then cross attention by heads; xo, like o, is
+column-parallel after the heads' gather. A vocabulary the columns do
+not divide (whisper's 51865 at 2 or 4 columns) is whole on every
+column.
 """
 from __future__ import annotations
 
@@ -38,16 +48,20 @@ import torch
 
 from repro_torch.device import on_device
 from repro_torch.distributed import act_sharding as acts
-from repro_torch.distributed.sharding import TrainView
+from repro_torch.distributed.sharding import (MeshParams, TrainView,
+                                              all_gather)
 from repro_torch.kernels.ops import flash_attention
 from repro_torch.models.base import ModelConfig
 from repro_torch.models.layers import (cross_entropy, decode_attention,
                                        einsum, embed, gqa_attention,
                                        rms_norm, swiglu)
-from repro_torch.models.lm import (_attn_train, _embed_train, _head,
-                                   _head_train, _logits, _mlp_train,
-                                   _placed, _slab_write, mesh_forward,
-                                   mesh_train_loss)
+from repro_torch.models.lm import (_attn_sublayer, _attn_train,
+                                   _embed_mesh, _embed_train, _head,
+                                   _head_train, _heads, _logits,
+                                   _mesh_calls, _mesh_scope, _mlp_mesh,
+                                   _mlp_train, _o_proj_mesh, _placed,
+                                   _slab_ops, _slab_write, kv_placed,
+                                   mesh_forward, mesh_train_loss)
 
 
 def _grp(params, prefix):
@@ -244,6 +258,8 @@ def prefill(cfg: ModelConfig, params: dict, tokens, frames: torch.Tensor,
             lora=None, adapter_idx=None, lora_backend: str = "einsum"):
     """Returns (last logits (B,V), ((k, v) (L,B,S,Kh,Dh), (kx, vx))).
     ``lora`` is accepted and ignored, as in JAX."""
+    if isinstance(params, MeshParams):
+        return _serve_mesh(cfg, params, tokens, frames=frames)
     enc_out = encode(cfg, params, frames)
     kx, vx = cross_kv(cfg, params, enc_out)
     x = _dec_in(params, tokens, slice(0, tokens.shape[1]))
@@ -256,9 +272,127 @@ def decode_step(cfg: ModelConfig, params: dict, tokens, state, cache_len,
     """tokens (B,1); state = ((k, v) self slabs (L,B,Smax,Kh,Dh),
     (kx, vx)); cache_len (B,). The token's K/V is written into (k, v) in
     place. Returns (logits (B,V) f32, state)."""
+    if isinstance(params, MeshParams):
+        return _serve_mesh(cfg, params, tokens, state, cache_len)
     kv, (kx, vx) = state
     pos = cache_len.long().reshape(-1, 1)                  # (B, 1)
     x = _dec_in(params, tokens, pos)
     x, kv = _decoder(cfg, params, x, kx, vx, kv_caches=kv,
                      cache_len=cache_len)
     return _head(cfg, params, x), (kv, (kx, vx))
+
+
+# ------------------------------------------------- serving on a mesh
+def _cross_columns(cfg, call, h, ps: list, kxs: list, vxs: list):
+    """Cross attention of a batch row on its columns: column m's heads
+    over its cross K/V (``kxs[m]``: this layer's (n, Senc, Kh/M, Dh)),
+    the heads gathered, xo column-parallel, the residual gathered."""
+    c = call.ccfg
+    outs = []
+    for m, x in enumerate(acts.replicate(h)):
+        with on_device(x.device):
+            n, S, _ = x.shape
+            hm = rms_norm(x, ps[m]["attn_norm"], cfg.norm_eps)
+            q = einsum("bsd,de->bse", hm, ps[m]["q"]).reshape(
+                n, S, c.n_heads, c.head_dim)
+            out = gqa_attention(q, kxs[m], vxs[m], causal=False)
+            outs.append(out.reshape(n, S, c.q_dim))
+    return _o_proj_mesh(call, h, outs, ps, [None] * call.M,
+                        [(None,)] * call.M, "einsum")
+
+
+def _serve_mesh(cfg: ModelConfig, mp: MeshParams, tokens, state=None,
+                cache_len=None, frames=None):
+    """``prefill`` (``frames`` given: encode them, then the prompt) or
+    ``decode_step`` (``state``) on the mesh."""
+    with _mesh_scope(mp):
+        B, S = tokens.shape
+        calls = _mesh_calls(mp, None, B)
+        M = mp.model_size
+        dec = [[_grp(c, "dec/") for c in call.cols] for call in calls]
+        xdec = [[_grp_cross(c) for c in call.cols] for call in calls]
+        hs, kxs, vxs = [], [], []
+        for r, call in enumerate(calls):
+            with call.scope():
+                x = _embed_mesh(call, call.rows(tokens))
+                pos = (slice(0, S) if state is None
+                       else call.rows(cache_len).long().reshape(-1, 1))
+                hs.append(x + call.cols[0]["dec_pos"][pos])
+                if state is None:
+                    kx, vx = _encode_columns(cfg, call, call.rows(frames))
+                else:
+                    kx, vx = ([all_gather(t, (slice(None),
+                                               slice(call.lo, call.hi),
+                                               slice(None), slice(*hd)),
+                                           dev)
+                               for hd, dev in zip(mp.kv_heads,
+                                                  call.devices)]
+                              for t in state[1])
+            kxs.append(kx)
+            vxs.append(vx)
+        if state is None:
+            ks = [[[] for _ in range(M)] for _ in calls]
+            vs = [[[] for _ in range(M)] for _ in calls]
+
+            def attend(r, i, m, q, k, v):
+                ks[r][m].append(k)
+                vs[r][m].append(v)
+                return flash_attention(q, k, v, causal=True).reshape(
+                    q.shape[0], S, mp.col_cfg.q_dim)
+            write = None
+        else:
+            write, attend = _slab_ops(mp, calls, state[0], cache_len, S,
+                                      cast=False)
+        for i in range(cfg.n_layers):
+            for r, call in enumerate(calls):
+                with call.scope():
+                    ps = [{k: v[i] for k, v in d.items()} for d in dec[r]]
+                    h = _attn_sublayer(
+                        call, hs[r], ps,
+                        lambda m, q, k, v, r=r, i=i: attend(r, i, m, q, k,
+                                                            v),
+                        None if write is None else
+                        (lambda m, k, v, r=r, i=i: write(r, i, m, k, v)))
+                    px = [{k: v[i] for k, v in d.items()} for d in xdec[r]]
+                    h = _cross_columns(cfg, call, h, px,
+                                       [t[i] for t in kxs[r]],
+                                       [t[i] for t in vxs[r]])
+                    hs[r] = _mlp_mesh(call, h, ps, gated=True)
+        logits = _heads(mp, calls, [h[:, -1:] for h in hs])
+        if state is not None:
+            return logits, state
+        shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
+        xshape = (cfg.n_layers, B, frames.shape[1], cfg.n_kv_heads,
+                  cfg.head_dim)
+        kv = tuple(kv_placed(mp, calls, [[torch.stack(t) for t in row]
+                                         for row in x], shape)
+                   for x in (ks, vs))
+        cross = tuple(kv_placed(mp, calls, x, xshape) for x in (kxs, vxs))
+        return logits, (kv, cross)
+
+
+def _encode_columns(cfg, call, frames):
+    """A batch row's frames through the encoder by heads, then each
+    column's cross K/V (L, n, Senc, Kh/M, Dh) of its KV heads."""
+    enc = [_grp(c, "enc/") for c in call.cols]
+    S = frames.shape[1]
+    x = frames + call.cols[0]["enc_pos"][None, :S]
+
+    def attend(m, q, k, v):
+        return flash_attention(q, k, v, causal=False).reshape(
+            q.shape[0], S, call.ccfg.q_dim)
+
+    for i in range(cfg.n_enc_layers):
+        ps = [{k: v[i] for k, v in e.items()} for e in enc]
+        x = _mlp_mesh(call, _attn_sublayer(call, x, ps, attend), ps,
+                      gated=True)
+    x = rms_norm(x, call.cols[0]["enc_final_norm"], cfg.norm_eps)
+    kx, vx = [], []
+    for xm, c in zip(acts.replicate(x), call.cols):
+        with on_device(xm.device):
+            n, Se, _ = xm.shape
+            for out, leaf in ((kx, "dec/xk"), (vx, "dec/xv")):
+                out.append(einsum("bsd,lde->lbse", xm, c[leaf]).reshape(
+                    cfg.n_layers, n, Se, call.ccfg.n_kv_heads,
+                    cfg.head_dim))
+    return kx, vx

@@ -27,6 +27,14 @@ flash_attention per shard, o and down row-parallel). The shared
 leaves are not stacked: every site gathers them again, and their
 gradient is reduced once, after the last site's backward
 (``sharding.FsdpStep`` waits for every gather of a key).
+
+On serving ``MeshParams`` ``prefill`` and ``decode_step`` run each
+batch row of positions on its rows: the Mamba2 layers over the "model"
+columns in exact mode (``ssm_lm.mixer_columns``), the shared block at
+each site by heads (flash_attention, its LoRA through sgmv/bgmv at the
+column's dout, the site's LoRA and KV stack entry), the state placed as
+the serving cases place it (ssm and conv by ``ssm_lm.place_ssm_state``,
+K/V by ``kv_cache_spec`` over ``(n_sites, B, S, Kh, Dh)``).
 """
 from __future__ import annotations
 
@@ -35,15 +43,22 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed import act_sharding as acts
-from repro_torch.distributed.sharding import TrainView
+from repro_torch.distributed.sharding import (MeshParams, TrainView,
+                                              all_gather)
 from repro_torch.models.base import ModelConfig
 from repro_torch.models.layers import cross_entropy, einsum, embed, rms_norm
-from repro_torch.models.lm import (_attn, _attn_train, _embed_train, _head,
-                                   _head_train, _logits, _mlp, _mlp_train,
-                                   _placed, _positions, _slice_group,
-                                   mesh_forward, mesh_train_loss)
+from repro_torch.kernels.ops import flash_attention
+from repro_torch.models.lm import (_attn, _attn_sublayer, _attn_train,
+                                   _embed_train, _head, _head_train,
+                                   _heads, _logits, _mesh_calls,
+                                   _mesh_scope, _mlp, _mlp_mesh,
+                                   _mlp_train, _placed, _positions,
+                                   _row_inputs, _slab_ops, _slice_group,
+                                   kv_placed, mesh_forward,
+                                   mesh_train_loss)
 from repro_torch.models.ssm import mamba2_seq, mamba2_step
-from repro_torch.models.ssm_lm import _mixer_train
+from repro_torch.models.ssm_lm import (_mixer_train, mixer_columns,
+                                       place_ssm_state)
 
 
 def attn_sites(cfg: ModelConfig) -> list[int]:
@@ -195,6 +210,9 @@ def prefill(cfg: ModelConfig, params: dict, tokens,
     """Returns (last logits (B,V), (ssm, conv, (k, v))); the K/V are
     zero-padded along the sequence to ``kv_max_len`` when it exceeds
     S."""
+    if isinstance(params, MeshParams):
+        return _serve_mesh(cfg, params, tokens, None, None, kv_max_len,
+                           lora, adapter_idx, lora_backend)
     S = tokens.shape[1]
     x = embed(tokens, params["embed/tok"])
     cos, sin = _positions(cfg, tokens, 0)
@@ -214,6 +232,9 @@ def decode_step(cfg: ModelConfig, params: dict, tokens, state, cache_len,
     Writes the token's K/V into the state's (k, v) tensors in place
     (a caller that needs the old state clones it first). Returns
     (logits (B,V) f32, (new ssm, new conv, (k, v)))."""
+    if isinstance(params, MeshParams):
+        return _serve_mesh(cfg, params, tokens, state, cache_len, None,
+                           lora, adapter_idx, lora_backend)
     ssm, conv, kv = state
     x = embed(tokens, params["embed/tok"])
     cos, sin = _positions(cfg, tokens, cache_len)
@@ -223,3 +244,100 @@ def decode_step(cfg: ModelConfig, params: dict, tokens, state, cache_len,
                             adapter_idx=adapter_idx,
                             lora_backend=lora_backend)
     return _head(cfg, params, x), (ssm, conv, kv)
+
+
+# ------------------------------------------------- serving on a mesh
+def _read_state(cfg: ModelConfig, mp: MeshParams, call, ssm, conv):
+    """Batch row ``call``'s columns' (ssm (L, n, H/M, P, N), conv
+    (L, n, K-1, [x_m | B | C])) read from the state stacks."""
+    from repro_torch.distributed.sharding import (column_segments,
+                                                  ssm_segments)
+    M = mp.model_size
+    w = cfg.n_ssm_heads // M
+    rows = slice(call.lo, call.hi)
+    out = []
+    for m, dev in enumerate(call.devices):
+        s = all_gather(ssm, (slice(None), rows, slice(m * w, (m + 1) * w)),
+                        dev)
+        parts = [all_gather(conv, (slice(None), rows, slice(None),
+                                    slice(lo, hi)), dev)
+                 for lo, hi in column_segments(
+                     ssm_segments(cfg, "conv_w"), m, M)]
+        out.append((s, parts[0] if len(parts) == 1
+                    else torch.cat(parts, dim=-1)))
+    return out
+
+
+def _serve_mesh(cfg: ModelConfig, mp: MeshParams, tokens, state,
+                cache_len, kv_max_len, lora, adapter_idx, lora_backend):
+    """``prefill`` (``state`` None) or ``decode_step`` on the mesh."""
+    with _mesh_scope(mp):
+        B, S = tokens.shape
+        calls = _mesh_calls(mp, lora, B)
+        sites = attn_sites(cfg)
+        M = mp.model_size
+        hs, ropes, aidx, reads = [], [], [], []
+        for call in calls:
+            with call.scope():
+                x, rope, ai, _ = _row_inputs(
+                    call, cfg, tokens, 0 if state is None else cache_len,
+                    None, adapter_idx)
+            hs.append(x)
+            ropes.append(rope)
+            aidx.append(ai)
+            if state is not None:
+                reads.append(_read_state(cfg, mp, call, *state[:2]))
+        shared = [[_slice_group(c, "shared/") for c in call.cols]
+                  for call in calls]
+        if state is None:
+            ks = [[[] for _ in range(M)] for _ in calls]
+            vs = [[[] for _ in range(M)] for _ in calls]
+
+            def attend(r, j, m, q, k, v):
+                ks[r][m].append(k)
+                vs[r][m].append(v)
+                return flash_attention(q, k, v, causal=True).reshape(
+                    q.shape[0], S, mp.col_cfg.q_dim)
+            write = None
+        else:
+            write, attend = _slab_ops(mp, calls, state[2], cache_len, S)
+        new = [[[] for _ in range(M)] for _ in calls]
+        for i in range(cfg.n_layers):
+            for r, call in enumerate(calls):
+                with call.scope():
+                    ps = [{k: v[i] for k, v in st.items()}
+                          for st in call.stacks]
+                    h = hs[r] if state is None else hs[r][:, 0]
+                    h, st = mixer_columns(
+                        cfg, call, h, ps, None if state is None else
+                        [(s_[i], c_[i]) for s_, c_ in reads[r]])
+                    hs[r] = h if state is None else h[:, None]
+                for m, pair in enumerate(st):
+                    new[r][m].append(pair)
+            if i not in sites:
+                continue
+            j = sites.index(i)
+            for r, call in enumerate(calls):
+                with call.scope():
+                    lrs = [({n: (a[j], b[j]) for n, (a, b) in lr.items()}
+                            if lr is not None else None)
+                           for lr in call.lora]
+                    h = _attn_sublayer(
+                        call, hs[r], shared[r],
+                        lambda m, q, k, v, r=r, j=j: attend(r, j, m, q, k,
+                                                            v),
+                        None if write is None else
+                        (lambda m, k, v, r=r, j=j: write(r, j, m, k, v)),
+                        ropes[r], lrs, aidx[r], lora_backend)
+                    hs[r] = _mlp_mesh(call, h, shared[r])
+        logits = _heads(mp, calls, [h[:, -1:] for h in hs])
+        ssm, conv = place_ssm_state(cfg, mp, calls, new, B)
+        if state is not None:
+            return logits, (ssm, conv, state[2])
+        T = max(S, kv_max_len or 0)
+        shape = (len(sites), B, T, cfg.n_kv_heads, cfg.head_dim)
+        pad = (0, 0, 0, 0, 0, T - S)
+        kv = tuple(kv_placed(mp, calls, [[F.pad(torch.stack(t), pad)
+                                          for t in row] for row in x],
+                             shape) for x in (ks, vs))
+        return logits, (ssm, conv, kv)

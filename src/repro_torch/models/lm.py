@@ -39,8 +39,10 @@ from repro_torch.core.sampling import (SPEC_ACCEPT_FOLD, SPEC_DRAFT_FOLD,
                                        SPEC_RESIDUAL_FOLD)
 from repro_torch.device import on_device, resolve_device
 from repro_torch.distributed import act_sharding as acts
-from repro_torch.distributed.sharding import (MeshParams, ShardedTensor,
-                                              TrainView)
+from repro_torch.distributed.sharding import (MeshParams, NamedSharding, P,
+                                              ShardedTensor, TrainView,
+                                              all_gather, assemble,
+                                              kv_cache_spec)
 from repro_torch.kernels.ops import flash_attention, paged_attention
 from repro_torch.models.base import Family, ModelConfig, param_shapes
 from repro_torch.models.layers import (apply_rope, cross_entropy,
@@ -666,8 +668,8 @@ def prefill(cfg: ModelConfig, params: dict, tokens, mrope_pos=None,
     through the sgmv kernel (each row is one contiguous token run).
     ``mrope_pos`` (3, B, S): M-RoPE positions (VLM)."""
     if isinstance(params, MeshParams):
-        return _prefill_mesh(cfg, params, tokens, lora, adapter_idx,
-                             last_pos, lora_backend)
+        return _prefill_mesh(cfg, params, tokens, mrope_pos, lora,
+                             adapter_idx, last_pos, lora_backend)
     B, _ = tokens.shape
     x = embed(tokens, params["embed/tok"])
     cos, sin = _positions(cfg, tokens, 0, mrope_pos)
@@ -695,7 +697,8 @@ def decode_step(cfg: ModelConfig, params: dict, tokens, kv_caches,
     """
     if isinstance(params, MeshParams):
         return _decode_step_mesh(cfg, params, tokens, kv_caches, cache_len,
-                                 lora, adapter_idx, lora_backend)
+                                 mrope_pos, lora, adapter_idx,
+                                 lora_backend)
     x = embed(tokens, params["embed/tok"])
     cos, sin = _positions(cfg, tokens, cache_len, mrope_pos)
     h, kv, _ = _backbone(cfg, params, x, cos, sin, kv_caches=kv_caches,
@@ -1071,26 +1074,32 @@ def decode_spec_fused_paged(cfg: ModelConfig, params: dict,
 
 
 # ------------------------------------------------------ mesh data plane
-# The dense and MoE families' step functions on a device mesh
-# (``MeshParams``): the counterpart of the JAX engine's sharded jits in
-# exact-reductions mode. Each "model" column computes its block of
-# query heads with the KV heads they read (the column config
-# ``col_cfg``), its attention and its output columns of o, gate/up (the
-# shared expert's too) and the vocabulary, on its own device; the
-# ``act_sharding.constrain_*`` points gather the merged heads before o,
-# the residual before each norm, the FFN hidden before the replicated
-# down projection and whole vocab rows before sampling, so no
-# contraction runs over a sharded dimension. An MoE layer routes on the
-# home device and each "data" shard runs its own experts on its device
-# (``models/moe.py``; the all-to-all of ``models/moe_shard_map.py``
-# under ``moe_token_parallel``). Compute runs at full batch: KV pages
-# (or slab rows) and batch state are split over "data" for storage, and
-# KV heads over "model" where they divide; where they do not, each
-# shard holds every KV head (pages, or a slab without a sequence split)
-# or a block of positions of every head (the slab split over "model"
-# along the sequence, ``kv_cache_spec``). A layer's writes go to every
-# shard that holds the written entry, and its reads gather the shards
-# onto the column's device. The page table stays global.
+# The dense, MoE and VLM families' step functions on a device mesh
+# (``MeshParams``; the SSM, hybrid and enc-dec ones in ``ssm_lm``,
+# ``hybrid`` and ``encdec`` build on these pieces): the counterpart of
+# the JAX sharded jits in exact-reductions mode. Each "model" column
+# computes its block of query heads with the KV heads they read (the
+# column config ``col_cfg``), its attention and its output columns of
+# o, gate/up (the shared expert's too) and the vocabulary, on its own
+# device; the ``act_sharding.constrain_*`` points gather the merged
+# heads before o, the residual before each norm, the FFN hidden before
+# the replicated down projection and whole vocab rows before sampling,
+# so no contraction runs over a sharded dimension. An MoE layer routes
+# on the home device and each "data" shard runs its own experts on its
+# device (``models/moe.py``; the all-to-all of
+# ``models/moe_shard_map.py`` under ``moe_token_parallel``). Each batch
+# row of positions (``_MeshCall``) computes its block of the batch when
+# the batch axes are installed (``act_sharding.row_spans``), the whole
+# batch on the first row otherwise (the engine's scope) and for the
+# paged steps. KV pages (or slab rows) and batch state are split over
+# "data" for storage, and KV heads over "model" where they divide;
+# where they do not, each shard holds every KV head (pages, or a slab
+# without a sequence split) or a block of positions of every head (the
+# slab split over "model" along the sequence, ``kv_cache_spec``). A
+# layer's writes go to every shard that holds the written entry, and
+# its reads gather the shards onto the column's device. A prefill
+# returns its K/V placed as ``kv_cache_spec`` says (``kv_placed``). The
+# page table stays global.
 
 
 def _mesh_scope(mp: MeshParams):
@@ -1113,18 +1122,36 @@ def _refuse_mesh(params, what: str) -> None:
 
 
 class _MeshCall:
-    """One step function's per-column views: each column's layer
-    stacks (attention, llama4's dense MLP layers, the MoE layers'
-    whole and column-parallel weights), LoRA slots and replicated
-    inputs."""
+    """One batch row's share of a step function: row ``b`` of positions
+    (``MeshParams.row_cols[b]``, devices ``devices``, the first its
+    ``home``) computing batch rows [lo, hi): each column's layer stacks
+    (attention, llama4's dense MLP layers, the MoE layers' whole and
+    column-parallel weights, the hybrid's shared block), LoRA slots and
+    replicated inputs. Its gather points act on its positions inside
+    ``scope()``."""
 
-    def __init__(self, mp: MeshParams, lora):
+    def __init__(self, mp: MeshParams, lora, b: int = 0, lo: int = 0,
+                 hi: int | None = None):
         self.mp, self.M, self.ccfg = mp, mp.model_size, mp.col_cfg
-        self.stacks = [_slice_group(c, "layers/") for c in mp.cols]
-        self.dense = [_slice_group(c, "dense_mlp/") for c in mp.cols]
-        self.moe = [_slice_group(c, "moe/") for c in mp.cols]
-        self.lora = (mp.lora_cols(lora) if lora is not None
+        self.b, self.lo, self.hi = b, lo, hi
+        self.cols = mp.row_cols[b]
+        self.devices = [mp.mesh.devices[c] for c in mp.row_coords[b]]
+        self.home = self.devices[0]
+        self.stacks = [_slice_group(c, "layers/") for c in self.cols]
+        self.dense = [_slice_group(c, "dense_mlp/") for c in self.cols]
+        self.moe = [_slice_group(c, "moe/") for c in self.cols]
+        self.lora = (mp.lora_cols(lora, b) if lora is not None
                      else [None] * self.M)
+
+    def scope(self):
+        return acts.batch_row(self.b)
+
+    def rows(self, x, dim: int = 0):
+        """This row's block of a batch tensor (rows [lo, hi) along
+        ``dim``) on its home device; None stays None."""
+        if x is None:
+            return None
+        return x.narrow(dim, self.lo, self.hi - self.lo).to(self.home)
 
     def rep(self, *ts) -> list:
         """Per column: the tuple of ``ts`` as that column's copies."""
@@ -1139,10 +1166,27 @@ class _MeshCall:
         return ps, lrs
 
 
-def _embed_mesh(mp: MeshParams, tokens: torch.Tensor) -> torch.Tensor:
-    """Token rows of the vocab-sharded table, on the first column's
-    device."""
-    return embed_sharded(tokens, [c["embed/tok"] for c in mp.cols])
+def _mesh_calls(mp: MeshParams, lora, B: int, whole: bool = False
+                ) -> list:
+    """The step's batch rows (``act_sharding.row_spans``; one covering
+    the batch when ``whole``)."""
+    spans = [(0, 0, B)] if whole else acts.row_spans(B)
+    return [_MeshCall(mp, lora, b, lo, hi) for b, lo, hi in spans]
+
+
+def _cat_rows(xs: list, device) -> torch.Tensor:
+    """The rows' blocks (dim 0) concatenated on ``device``; one block as
+    it is."""
+    if len(xs) == 1:
+        return xs[0]
+    return torch.cat([x.to(device) for x in xs])
+
+
+def _embed_mesh(call: _MeshCall, tokens: torch.Tensor) -> torch.Tensor:
+    """Token rows of the vocab-sharded table (whole on the first column
+    when the columns do not divide it), on the row's home device."""
+    cols = call.cols[:1] if call.mp.whole_vocab else call.cols
+    return embed_sharded(tokens, [c["embed/tok"] for c in cols])
 
 
 def _o_proj_mesh(call: _MeshCall, x, outs: list, ps, lrs, aidx,
@@ -1179,23 +1223,24 @@ def _ffn_mesh(call: _MeshCall, hr: list, gates: list, ups: list, down,
     return einsum("bsf,fd->bsd", acts.constrain_ffn_hidden(hid), down)
 
 
-def _mlp_mesh(call: _MeshCall, x, ps):
+def _mlp_mesh(call: _MeshCall, x, ps, gated: bool | None = None):
     """``_mlp`` on the mesh (``_ffn_mesh`` after each column's norm)."""
     cfg = call.ccfg
     hr = [rms_norm(xm, ps[m]["mlp_norm"], cfg.norm_eps)
           for m, xm in enumerate(acts.replicate(x))]
     return x + _ffn_mesh(call, hr, [p.get("gate") for p in ps],
                          [p["up"] for p in ps], ps[0]["down"],
-                         cfg.gated_mlp)
+                         cfg.gated_mlp if gated is None else gated)
 
 
 def _moe_mesh(call: _MeshCall, x, s: int):
     """``_moe`` of MoE superstep ``s`` on the mesh: the norm and the
     routing on the home device, each data shard's experts on its device
     (``MeshParams.experts``) through the all-to-all when
-    ``moe_a2a_mesh()`` is set and E and B divide its axis, else the
-    decode gather (S == 1) or the capacity buckets; the shared expert
-    column-parallel."""
+    ``moe_a2a_mesh()`` is set and E and B divide its axis of more than
+    one shard (one shard exchanges nothing: it runs the single-device
+    blocks, bit for bit), else the decode gather (S == 1) or the
+    capacity buckets; the shared expert column-parallel."""
     cfg, mp = call.mp.cfg, call.mp
     p = [{k: v[s] for k, v in st.items()} for st in call.moe]
     h = rms_norm(x, p[0]["norm"], cfg.norm_eps)
@@ -1205,8 +1250,8 @@ def _moe_mesh(call: _MeshCall, x, s: int):
     B, S, _ = x.shape
     a2a = acts.moe_a2a_mesh()
     ns = a2a[0].shape[a2a[1]] if a2a is not None else 0
-    if a2a is not None and cfg.n_experts % ns == 0 and B % ns == 0 \
-            and len(blocks) == ns:
+    if a2a is not None and ns > 1 and cfg.n_experts % ns == 0 \
+            and B % ns == 0 and len(blocks) == ns:
         # Decode: dropless capacity (cf = E/k makes cap == Tg).
         cf = cfg.n_experts / cfg.top_k if S == 1 else cfg.capacity_factor
         y, _ = moe_block_a2a(h, [b["router"][s] for b in blocks], *ws,
@@ -1223,31 +1268,63 @@ def _moe_mesh(call: _MeshCall, x, s: int):
     return x + y
 
 
+def _moe_rows(calls: list, hs: list, s: int) -> list:
+    """MoE superstep ``s`` of every batch row: the rows' hidden gathered
+    on the first row's home device, where ``_moe_mesh`` splits it again
+    over the data shards (the all-to-all's token parallelism, each
+    shard routing its own rows), and the output split back to the
+    rows."""
+    first = calls[0]
+    with first.scope():
+        y = _moe_mesh(first, _cat_rows(hs, first.home), s)
+    if len(calls) == 1:
+        return [y]
+    return [y[c.lo - first.lo:c.hi - first.lo].to(c.home) for c in calls]
+
+
 def _head_mesh(call: _MeshCall, h) -> torch.Tensor:
     """``_logits`` with the vocabulary column-parallel, gathered to
-    whole rows."""
-    cfg, cols = call.mp.cfg, call.mp.cols
-    hr = acts.replicate(h)
+    whole rows (a vocabulary the columns do not divide: whole on the
+    first column)."""
+    cfg = call.mp.cfg
+    cols = call.cols[:1] if call.mp.whole_vocab else call.cols
+    hr = [h] if call.mp.whole_vocab else acts.replicate(h)
     out = []
-    for m in range(call.M):
-        hm = rms_norm(hr[m], cols[m]["final_norm"], cfg.norm_eps)
-        table = (cols[m]["embed/tok"].T if cfg.tie_embeddings
-                 else cols[m]["lm_head"])
-        out.append(unembed(hm, table))
+    for c, hm in zip(cols, hr):
+        hm = rms_norm(hm, c["final_norm"], cfg.norm_eps)
+        out.append(unembed(hm, c["embed/tok"].T if cfg.tie_embeddings
+                           else c["lm_head"]))
     return acts.constrain_logits(out)
+
+
+def _row_inputs(call: _MeshCall, cfg, tokens, offset, mrope_pos,
+                adapter_idx, *more):
+    """A row's embedded tokens and its per-column copies of the RoPE
+    angles (``offset``: an int or the row's (B,) offsets), the adapter
+    index and ``more`` (each a batch tensor of the row's rows)."""
+    tok = call.rows(tokens)
+    x = _embed_mesh(call, tok)
+    off = call.rows(offset) if torch.is_tensor(offset) else offset
+    cos, sin = _positions(cfg, tok, off, call.rows(mrope_pos, 1))
+    per = call.rep(cos, sin, call.rows(adapter_idx),
+                   *(call.rows(t) for t in more))
+    return x, [p[:2] for p in per], [p[2:3] for p in per], \
+        [p[3:] for p in per]
 
 
 # KV on the mesh: a stack (L, N, T, Kh, Dh) — N slab rows or pages over
 # "data", T positions (the slab's over "model" when its KV heads do not
 # divide), Kh heads over "model" or whole. Column m computes KV heads
-# ``mp.kv_heads[m]``.
-def _kv_targets(mp: MeshParams, st, m: int) -> list:
+# ``mp.kv_heads[m]``; a batch row computes slab rows [lo, hi).
+def _kv_targets(mp: MeshParams, st, m: int, lo: int = 0,
+                hi: int | None = None) -> list:
     """The shards column ``m`` writes: (shard with its write sink, the
     shard, rows/pages slice, positions slice, head offset). A shard
     takes the heads it holds of the column's block; where several
     columns compute one KV head, shard (., m') takes it from the
     column with m' = m modulo ``kv_share``, so every replica holds
-    every head. The same for every layer: computed once a step."""
+    every head. ``hi``: only the shards holding slab rows of [lo, hi).
+    The same for every layer: computed once a step."""
     mi = st.mesh.axis_names.index("model")
     a, b = mp.kv_heads[m]
     out, seen = [], set()
@@ -1257,6 +1334,9 @@ def _kv_targets(mp: MeshParams, st, m: int) -> list:
         slc = st.sharding.index(coords, st.shape)
         t = st.shards[coords]
         if id(t) in seen or not (slc[3].start <= a and b <= slc[3].stop):
+            continue
+        if hi is not None and not (slc[1].start < hi
+                                   and lo < slc[1].stop):
             continue
         seen.add(id(t))
         out.append((st.raw(t), t, slc[1], slc[2], a - slc[3].start))
@@ -1300,43 +1380,49 @@ def _page_write(plan: list, layer: int, val) -> None:
 
 
 def _slab_write_mesh(mp: MeshParams, st, layer: int, m: int, new, pos,
-                     keep) -> None:
-    """``_slab_write`` of column ``m``'s heads ``new`` (B, S, w, Dh)
-    into the slab shards that hold them: each takes its block of rows,
-    and where positions split over "model", the positions it holds
-    (the rest to its sink)."""
+                     keep, lo: int = 0) -> None:
+    """``_slab_write`` of column ``m``'s heads ``new`` (n, S, w, Dh) of
+    slab rows [lo, lo + n) into the slab shards that hold them: each
+    takes the rows it holds, and where positions split over "model",
+    the positions it holds (the rest to its sink)."""
     T = st.shape[2]
-    w = new.shape[2]
-    for raw, t, rows, seq, h0 in _kv_targets(mp, st, m):
+    n, _, w = new.shape[:3]
+    for raw, t, rows, seq, h0 in _kv_targets(mp, st, m, lo, lo + n):
         dev = t.device
-        r0, r1 = rows.start, rows.stop
-        nb, p, k = (x[r0:r1].to(dev) for x in (new, pos, keep))
+        a, b = max(rows.start, lo), min(rows.stop, lo + n)
+        nb, p, k = (x[a - lo:b - lo].to(dev) for x in (new, pos, keep))
+        r0, r1 = a - rows.start, b - rows.start
         if (seq.start, seq.stop) == (0, T):
-            _slab_write((t[layer][:, :, h0:h0 + w],), (nb,), p, k)
+            _slab_write((t[layer][r0:r1, :, h0:h0 + w],), (nb,), p, k)
             continue
         i = _sink(raw, t, torch.where(k, p, torch.full_like(p, -1)),
                   seq.start, seq.stop)
-        rr = torch.arange(r1 - r0, device=dev)[:, None]
+        rr = torch.arange(r0, r1, device=dev)[:, None]
         raw[layer][rr, i, h0:h0 + w] = nb.to(raw.dtype)
 
 
-def _kv_sources(mp: MeshParams, st, m: int, device) -> list:
-    """Where column ``m`` reads its KV heads from: per distinct block of
-    rows/pages and positions, (rows slice, positions slice, shard, head
-    offset) of one shard that holds them (on ``device`` when one
-    does)."""
+def _kv_sources(mp: MeshParams, st, m: int, device, lo: int = 0,
+                hi: int | None = None) -> list:
+    """Where column ``m`` reads its KV heads of slab rows (or pages)
+    [lo, hi) from: per distinct block of rows and positions, (rows
+    slice local to ``lo``, positions slice, shard, the shard's first
+    row of them, head offset) of one shard that holds them (on
+    ``device`` when one does)."""
     mi = st.mesh.axis_names.index("model")
     a, b = mp.kv_heads[m]
+    hi = st.shape[1] if hi is None else hi
     best: dict = {}
     for coords in np.ndindex(*st.shards.shape):
         slc = st.sharding.index(coords, st.shape)
-        if not (slc[3].start <= a and b <= slc[3].stop):
+        r0, r1 = max(slc[1].start, lo), min(slc[1].stop, hi)
+        if r0 >= r1 or not (slc[3].start <= a and b <= slc[3].stop):
             continue
         t = st.shards[coords]
-        key = (slc[1].start, slc[1].stop, slc[2].start, slc[2].stop)
+        key = (r0, r1, slc[2].start, slc[2].stop)
         rank = (t.device != device, coords[mi] != m)
         if key not in best or rank < best[key][0]:
-            best[key] = (rank, (slc[1], slc[2], t, a - slc[3].start))
+            best[key] = (rank, (slice(r0 - lo, r1 - lo), slc[2], t,
+                                r0 - slc[1].start, a - slc[3].start))
     return [v for _, v in sorted(best.values(), key=lambda e: (
         e[1][0].start, e[1][1].start))]
 
@@ -1344,26 +1430,51 @@ def _kv_sources(mp: MeshParams, st, m: int, device) -> list:
 def _kv_read(sources: list, layer: int, w: int, device) -> torch.Tensor:
     """Layer ``layer`` of a column's KV heads (N, T, w, Dh), its shards
     gathered onto ``device``."""
-    pieces = [((r, sq), t[layer][:, :, h0:h0 + w])
-              for r, sq, t, h0 in sources]
+    pieces = [((r, sq), t[layer][o:o + r.stop - r.start, :, h0:h0 + w])
+              for r, sq, t, o, h0 in sources]
     return acts.gather_region(pieces, device)
 
 
-def _attn_columns(call: _MeshCall, h, cos, sin, i: int, aidx, backend,
-                  attend, write=None) -> list:
-    """q/k/v of every column for layer ``i``, then ``write(m, k, v)``
-    on each (every column's KV writes land before any column reads:
-    a column may read positions another column wrote) and
+def kv_placed(mp: MeshParams, calls: list, cols: list, shape: tuple
+              ) -> ShardedTensor:
+    """A stack (L, B, S, Kh, Dh) of K or V computed by the rows' columns
+    (``cols[r][m]``: row r's rows, column m's KV heads) as a
+    ``ShardedTensor`` laid out as ``kv_cache_spec`` says: batch over the
+    batch axes, KV heads (or else positions) over "model". Positions
+    split over "model" keep one write sink a shard (as
+    ``ShardPlan.zeros_kv_dense``), so a decode can write into it."""
+    spec = kv_cache_spec(mp.mesh, shape)
+    split = len(spec) > 2 and spec[2] is not None
+    return assemble(NamedSharding(mp.mesh, spec), shape, [
+        (row_box(shape, call, 3, *mp.kv_heads[m]), t)
+        for call, row in zip(calls, cols) for m, t in enumerate(row)],
+        sink_dim=2 if split else None)
+
+
+def row_box(shape: tuple, call: _MeshCall, dim: int, lo: int, hi: int
+            ) -> tuple:
+    """The box of a state piece: batch row ``call``'s rows on dim 1,
+    [lo, hi) on ``dim``, the rest whole."""
+    box = [slice(0, n) for n in shape]
+    box[1], box[dim] = slice(call.lo, call.hi), slice(lo, hi)
+    return tuple(box)
+
+
+def _attn_columns(call: _MeshCall, h, rope: list, ps: list, lrs: list,
+                  aidx, backend, attend, write=None) -> list:
+    """q/k/v of every column (``ps[m]``/``lrs[m]``: column m's attention
+    weights and LoRA slots), then
+    ``write(m, k, v)`` on each (every column's KV writes land before any
+    column reads: a column may read positions another column wrote) and
     ``attend(m, q, k, v)`` on each: the columns' attention outputs
     (B, S, q_dim / M)."""
-    ps, lrs = call.layer(i)
     hr = acts.replicate(h)
     qkv = []
     for m in range(call.M):
         with on_device(hr[m].device):
-            qkv.append(_qkv_proj(call.ccfg, hr[m], ps[m], cos[m], sin[m],
-                                 lrs[m], aidx[m][0],
-                                 lora_backend=backend)[1:])
+            qkv.append(_qkv_proj(call.ccfg, hr[m], ps[m],
+                                 rope[m][0], rope[m][1], lrs[m],
+                                 aidx[m][0], lora_backend=backend)[1:])
     if write is not None:
         for m, (_, k, v) in enumerate(qkv):
             with on_device(k.device):
@@ -1372,103 +1483,166 @@ def _attn_columns(call: _MeshCall, h, cos, sin, i: int, aidx, backend,
     for m, (q, k, v) in enumerate(qkv):
         with on_device(q.device):
             outs.append(attend(m, q, k, v))
-    return outs, ps, lrs
+    return outs
 
 
-def _layers_mesh(call: _MeshCall, h, cos, sin, aidx, backend, attend,
-                 write=None):
-    """The layer stack on the mesh: per layer the columns' attention
-    (``attend``/``write`` take the layer index first), the o
-    projection, then the MLP, or for MoE configs the superstep's dense
-    MLP or MoE layer (as ``_backbone_moe`` indexes them)."""
-    cfg = call.mp.cfg
+def _attn_sublayer(call: _MeshCall, h, ps: list, attend, write=None,
+                   rope=None, lrs=None, aidx=None, backend="einsum"):
+    """One attention block of a batch row on its columns (``ps[m]``:
+    column m's attention weights; no RoPE, LoRA or adapter index unless
+    given): ``_attn_columns`` then ``_o_proj_mesh``."""
+    none = [(None, None)] * call.M
+    lrs = lrs or [None] * call.M
+    aidx = aidx or [(None,)] * call.M
+    outs = _attn_columns(call, h, rope or none, ps, lrs, aidx, backend,
+                         attend, write)
+    return _o_proj_mesh(call, h, outs, ps, lrs, aidx, backend)
+
+
+def _layers_mesh(calls: list, hs: list, ropes: list, aidx: list, backend,
+                 attend, write=None) -> list:
+    """The layer stack on the mesh, layer by layer over the batch rows
+    (``hs[r]``: row r's hidden): per row the columns' attention
+    (``attend``/``write`` take the row and the layer index first), the
+    o projection, then the MLP, or for MoE configs the superstep's
+    dense MLP or, over every row at once, its MoE layer (as
+    ``_backbone_moe`` indexes them)."""
+    cfg = calls[0].mp.cfg
     E = cfg.moe_every
     for i in range(cfg.n_layers):
-        outs, ps, lrs = _attn_columns(
-            call, h, cos, sin, i, aidx, backend,
-            lambda m, q, k, v, i=i: attend(i, m, q, k, v),
-            None if write is None else
-            (lambda m, k, v, i=i: write(i, m, k, v)))
-        h = _o_proj_mesh(call, h, outs, ps, lrs, aidx, backend)
-        if cfg.family != Family.MOE:
-            h = _mlp_mesh(call, h, ps)
-            continue
-        s, e = divmod(i, E)
-        if e == E - 1:
-            h = _moe_mesh(call, h, s)
-        else:
-            j = s * (E - 1) + e
-            h = _mlp_mesh(call, h, [{k: v[j] for k, v in st.items()}
-                                    for st in call.dense])
-    return h
+        s, e = divmod(i, E) if cfg.family == Family.MOE else (0, 0)
+        for r, call in enumerate(calls):
+            with call.scope():
+                ps, lrs = call.layer(i)
+                outs = _attn_columns(
+                    call, hs[r], ropes[r], ps, lrs, aidx[r], backend,
+                    lambda m, q, k, v, r=r, i=i: attend(r, i, m, q, k, v),
+                    None if write is None else
+                    (lambda m, k, v, r=r, i=i: write(r, i, m, k, v)))
+                hs[r] = _o_proj_mesh(call, hs[r], outs, ps, lrs, aidx[r],
+                                     backend)
+                if cfg.family != Family.MOE:
+                    hs[r] = _mlp_mesh(call, hs[r], ps)
+                elif e != E - 1:
+                    j = s * (E - 1) + e
+                    hs[r] = _mlp_mesh(call, hs[r], [
+                        {k: v[j] for k, v in st.items()}
+                        for st in call.dense])
+        if cfg.family == Family.MOE and e == E - 1:
+            hs = _moe_rows(calls, hs, s)
+    return hs
 
 
-def _prefill_mesh(cfg, mp: MeshParams, tokens, lora, adapter_idx,
-                  last_pos, lora_backend):
-    """``prefill`` on the mesh; (k, v) come back as per-column lists of
-    (L, B, S, kv heads of the column, Dh) stacks."""
+def _last(call: _MeshCall, h, last_pos):
+    """The row's hidden at each row's last position (``last_pos`` None:
+    S - 1), (n, 1, D)."""
+    if last_pos is None:
+        return h[:, -1:]
+    rows = torch.arange(h.shape[0], device=h.device)
+    return h[rows, call.rows(last_pos).long()][:, None]
+
+
+def _heads(mp: MeshParams, calls: list, hs: list) -> torch.Tensor:
+    """Each row's logits of its (n, 1, D) hidden, concatenated whole on
+    the first row's home device: (B, V) f32."""
+    out = []
+    for call, h in zip(calls, hs):
+        with call.scope():
+            out.append(_head_mesh(call, h)[:, 0])
+    return _cat_rows(out, mp.home)
+
+
+def _prefill_mesh(cfg, mp: MeshParams, tokens, mrope_pos, lora,
+                  adapter_idx, last_pos, lora_backend):
+    """``prefill`` on the mesh, each batch row's rows on its positions;
+    (k, v) come back as ``ShardedTensor`` stacks (L, B, S, Kh, Dh) in
+    ``kv_cache_spec`` layout."""
     with _mesh_scope(mp):
-        call = _MeshCall(mp, lora)
         B, S = tokens.shape
-        x = _embed_mesh(mp, tokens)
-        cos, sin = _positions(cfg, tokens.to(mp.home), 0)
-        cos, sin = zip(*call.rep(cos, sin))
-        aidx = call.rep(adapter_idx)
-        ks = [[] for _ in range(call.M)]
-        vs = [[] for _ in range(call.M)]
-        qd = call.ccfg.q_dim
+        calls = _mesh_calls(mp, lora, B)
+        hs, ropes, aidx = [], [], []
+        for call in calls:
+            with call.scope():
+                x, rope, ai, _ = _row_inputs(call, cfg, tokens, 0,
+                                             mrope_pos, adapter_idx)
+            hs.append(x)
+            ropes.append(rope)
+            aidx.append(ai)
+        ks = [[[] for _ in range(mp.model_size)] for _ in calls]
+        vs = [[[] for _ in range(mp.model_size)] for _ in calls]
+        qd = mp.col_cfg.q_dim
 
-        def attend(i, m, q, k, v):
-            ks[m].append(k)
-            vs[m].append(v)
-            return flash_attention(q, k, v, causal=True).reshape(B, S, qd)
+        def attend(r, i, m, q, k, v):
+            ks[r][m].append(k)
+            vs[r][m].append(v)
+            return flash_attention(q, k, v, causal=True).reshape(
+                q.shape[0], S, qd)
 
-        h = _layers_mesh(call, x, cos, sin, aidx, lora_backend, attend)
-        if last_pos is None:
-            h_last = h[:, -1:]
-        else:
-            rows = torch.arange(B, device=h.device)
-            h_last = h[rows, last_pos.to(h.device).long()][:, None]
-        kv = ([torch.stack(k) for k in ks], [torch.stack(v) for v in vs])
-        return _head_mesh(call, h_last)[:, 0], kv
+        hs = _layers_mesh(calls, hs, ropes, aidx, lora_backend, attend)
+        logits = _heads(mp, calls, [_last(c, h, last_pos)
+                                    for c, h in zip(calls, hs)])
+        shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
+        kv = tuple(kv_placed(mp, calls, [[torch.stack(t) for t in row]
+                                         for row in x], shape)
+                   for x in (ks, vs))
+        return logits, kv
+
+
+def _slab_ops(mp: MeshParams, calls: list, kv, cache_len, S: int,
+              cast: bool = True):
+    """``write(r, i, m, k, v)`` and ``attend(r, i, m, q, k, v)`` of a
+    decode over the placed dense slab ``kv`` (L, B, Smax, Kh, Dh): batch
+    row r writes its rows' tokens at ``cache_len`` into the shards that
+    hold them, and attends over its rows' slab, gathered onto the
+    column's device where it is not already there (``cast``: the
+    output in q's dtype, as ``_attn`` does)."""
+    c = mp.col_cfg
+    geo, src, clens = [], [], []
+    for call in calls:
+        with call.scope():
+            clen = call.rows(cache_len)
+            pos = (clen.long()[:, None]
+                   + torch.arange(S, device=call.home)[None, :])
+            clens.append([t[0] for t in call.rep(clen)])
+        geo.append((pos, pos < kv[0].shape[2]))
+        src.append([[_kv_sources(mp, t, m, call.devices[m], call.lo,
+                                 call.hi) for t in kv]
+                    for m in range(mp.model_size)])
+
+    def write(r, i, m, k, v):
+        for t, new in zip(kv, (k, v)):
+            _slab_write_mesh(mp, t, i, m, new, *geo[r], calls[r].lo)
+
+    def attend(r, i, m, q, k, v):
+        kc, vc = (_kv_read(s_, i, c.n_kv_heads, q.device)
+                  for s_ in src[r][m])
+        out = decode_attention(q, kc, vc, clens[r][m] + S)
+        return (out.to(q.dtype) if cast else out).reshape(
+            q.shape[0], S, c.q_dim)
+
+    return write, attend
 
 
 def _decode_step_mesh(cfg, mp: MeshParams, tokens, kv_caches, cache_len,
-                      lora, adapter_idx, lora_backend):
+                      mrope_pos, lora, adapter_idx, lora_backend):
     """``decode_step`` over the dense slab on the mesh: slab rows over
     "data", KV heads (or, when they do not divide, positions) over
-    "model"."""
+    "model"; each batch row reads and writes its rows."""
     with _mesh_scope(mp):
-        call = _MeshCall(mp, lora)
         B, S = tokens.shape
-        home = mp.home
-        tokens, cache_len = tokens.to(home), cache_len.to(home)
-        x = _embed_mesh(mp, tokens)
-        cos, sin = _positions(cfg, tokens, cache_len)
-        Smax = kv_caches[0].shape[2]
-        pos = (cache_len.long()[:, None]
-               + torch.arange(S, device=home)[None, :])
-        keep = pos < Smax
-        per = call.rep(cos, sin, cache_len, adapter_idx)
-        cos, sin = [p[0] for p in per], [p[1] for p in per]
-        aidx = [p[3:] for p in per]
-        c = call.ccfg
-        src = [[_kv_sources(mp, t, m, mp.devices[m]) for t in kv_caches]
-               for m in range(call.M)]
-
-        def write(i, m, k, v):
-            for t, new in zip(kv_caches, (k, v)):
-                _slab_write_mesh(mp, t, i, m, new, pos, keep)
-
-        def attend(i, m, q, k, v):
-            dev = q.device
-            kc, vc = (_kv_read(s_, i, c.n_kv_heads, dev) for s_ in src[m])
-            out = decode_attention(q, kc, vc, per[m][2] + S).to(q.dtype)
-            return out.reshape(B, S, c.q_dim)
-
-        h = _layers_mesh(call, x, cos, sin, aidx, lora_backend, attend,
-                         write)
-        return _head_mesh(call, h)[:, 0], kv_caches
+        calls = _mesh_calls(mp, lora, B)
+        hs, ropes, aidx = [], [], []
+        for call in calls:
+            with call.scope():
+                x, rope, ai, _ = _row_inputs(call, cfg, tokens, cache_len,
+                                             mrope_pos, adapter_idx)
+            hs.append(x)
+            ropes.append(rope)
+            aidx.append(ai)
+        write, attend = _slab_ops(mp, calls, kv_caches, cache_len, S)
+        hs = _layers_mesh(calls, hs, ropes, aidx, lora_backend, attend,
+                          write)
+        return _heads(mp, calls, hs), kv_caches
 
 
 def _paged_geometry(kv_pages, page_table, start, valid):
@@ -1488,29 +1662,27 @@ def _paged_geometry(kv_pages, page_table, start, valid):
 def _paged_mesh(cfg, mp: MeshParams, tokens, kv_pages, page_table, start,
                 valid, lora, adapter_idx, lora_backend, decode: bool):
     """The paged layer stack on the mesh (pages over "data", KV heads
-    over "model" or whole): ``decode_step_paged`` (``decode``: one token
-    a row, through paged_attention) or the suffix pass of
-    ``_paged_layers``. Returns the hidden (B, S, D) on the first
-    column's device."""
-    call = _MeshCall(mp, lora)
+    over "model" or whole), at full batch on the first batch row (pages
+    of one request lie on every data shard): ``decode_step_paged``
+    (``decode``: one token a row, through paged_attention) or the
+    suffix pass of ``_paged_layers``. Returns the hidden (B, S, D) on
+    the first column's device and the row's call."""
     B, S = tokens.shape
+    call, = _mesh_calls(mp, lora, B, whole=True)
     home = mp.home
     tokens, start, page_table, valid = (t.to(home) for t in
                                         (tokens, start, page_table, valid))
-    x = _embed_mesh(mp, tokens)
-    cos, sin = _positions(cfg, tokens, start)
     pos, page_idx, page_off = _paged_geometry(kv_pages, page_table, start,
                                               valid)
-    per = call.rep(cos, sin, page_table, start, page_idx, page_off, pos,
-                   adapter_idx)
-    cos, sin = [p[0] for p in per], [p[1] for p in per]
-    aidx = [p[7:] for p in per]
-    c = call.ccfg
+    x, rope, aidx, per = _row_inputs(call, cfg, tokens, start, None,
+                                     adapter_idx, page_table, start,
+                                     page_idx, page_off, pos)
+    c = mp.col_cfg
     G = c.n_heads // c.n_kv_heads
     page, P = kv_pages[0].shape[2], page_table.shape[1]
 
     def plan(t, m):
-        pi, po = per[m][4:6]
+        pi, po = per[m][2:4]
         if decode:
             pi, po = pi[:, 0], po[:, 0]
         return _page_write_plan(mp, t, m, pi, po)
@@ -1519,14 +1691,14 @@ def _paged_mesh(cfg, mp: MeshParams, tokens, kv_pages, page_table, start,
     src = [[_kv_sources(mp, t, m, mp.devices[m]) for t in kv_pages]
            for m in range(call.M)]
 
-    def write(i, m, k, v):
+    def write(r, i, m, k, v):
         if decode:
             k, v = k[:, 0], v[:, 0]
         for pl, new in zip(where[m], (k, v)):
             _page_write(pl, i, new)
 
-    def attend(i, m, q, k, v):
-        pt, st, _, _, ps_ = per[m][2:7]
+    def attend(r, i, m, q, k, v):
+        pt, st, _, _, ps_ = per[m]
         kp, vp = (_kv_read(s_, i, c.n_kv_heads, q.device) for s_ in src[m])
         if decode:
             qh = q[:, 0].reshape(B, c.n_kv_heads, G, c.head_dim)
@@ -1538,8 +1710,9 @@ def _paged_mesh(cfg, mp: MeshParams, tokens, kv_pages, page_table, start,
             out = suffix_attention(q, kf, vf, ps_).to(q.dtype)
         return out.reshape(B, S, c.q_dim)
 
-    return _layers_mesh(call, x, cos, sin, aidx, lora_backend, attend,
-                        write), call
+    h, = _layers_mesh([call], [x], [rope], [aidx], lora_backend, attend,
+                      write)
+    return h, call
 
 
 def _decode_step_paged_mesh(cfg, mp, tokens, kv_pages, page_table,
@@ -1550,7 +1723,8 @@ def _decode_step_paged_mesh(cfg, mp, tokens, kv_pages, page_table,
         h, call = _paged_mesh(cfg, mp, tokens, kv_pages, page_table,
                               cache_len, valid, lora, adapter_idx,
                               lora_backend, decode=True)
-        return _head_mesh(call, h)[:, 0], kv_pages
+        with call.scope():
+            return _head_mesh(call, h)[:, 0], kv_pages
 
 
 def _prefill_paged_mesh(cfg, mp, tokens, kv_pages, page_table, start,
@@ -1565,7 +1739,8 @@ def _prefill_paged_mesh(cfg, mp, tokens, kv_pages, page_table, start,
                               decode=False)
         last = (seq_len.long().to(h.device) - 1).clamp(min=0)
         h_last = h[torch.arange(B, device=h.device), last][:, None]
-        return _head_mesh(call, h_last)[:, 0], kv_pages
+        with call.scope():
+            return _head_mesh(call, h_last)[:, 0], kv_pages
 
 
 # ------------------------------------------------- training on a mesh

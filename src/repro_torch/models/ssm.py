@@ -51,7 +51,9 @@ from repro_torch.device import on_device
 from repro_torch.distributed.act_sharding import (constrain_ssm_bth,
                                                   constrain_ssm_bthp,
                                                   constrain_ssm_channels,
-                                                  psum_columns)
+                                                  exact_reductions,
+                                                  gather_columns,
+                                                  psum_columns, replicate)
 from repro_torch.models.layers import einsum, promoted, rms_norm
 
 
@@ -271,17 +273,19 @@ def mamba1_seq_columns(xs: list, ps: list, d_state: int, dt_rank: int,
             for y, p in zip(constrain_ssm_channels(ys), ps)]
 
 
-def mamba1_step(x_t: torch.Tensor, p: dict, d_state: int, dt_rank: int,
-                h: torch.Tensor, conv_state: torch.Tensor,
-                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Decode step. x_t: (B,D); h: (B,Di,N); conv_state: (B,K-1,Di)."""
+def _mamba1_step_front(x_t, p, conv_state):
+    """Decode in_proj, the conv step and SiLU: (x_conv, z, conv_state)."""
     xz = einsum("bd,de->be", x_t, p["in_proj"])
     x_in, z = xz.chunk(2, dim=-1)
     x_conv, conv_state = conv1d_step(x_in, conv_state, p["conv_w"],
                                      p["conv_b"])
-    x_conv = F.silu(x_conv)
-    dt, B_ssm, C_ssm = _mamba1_dbc(x_conv, p, d_state, dt_rank,
-                                   "bi,ie->be", "br,ri->bi")
+    return F.silu(x_conv), z, conv_state
+
+
+def _mamba1_step_scan(p, x_conv, z, dbc, h, d_state, dt_rank, dtype):
+    """One step of the recurrence from the x_proj product ``dbc``, the
+    skip and the z gate: (y (B,Di) in ``dtype``, h)."""
+    dt, B_ssm, C_ssm = _mamba1_dt(dbc, p, d_state, dt_rank, "br,ri->bi")
     A = -torch.exp(p["A_log"].float())
     decay = torch.exp(dt[..., None] * A)                  # (B,Di,N)
     xc32 = x_conv.float()
@@ -289,8 +293,91 @@ def mamba1_step(x_t: torch.Tensor, p: dict, d_state: int, dt_rank: int,
     h = decay * h + u
     y = torch.einsum("bin,bn->bi", h, C_ssm)
     y = y + xc32 * p["ssm_D"]
-    y = (y * F.silu(z.float())).to(x_t.dtype)
+    return (y * F.silu(z.float())).to(dtype), h
+
+
+def mamba1_step(x_t: torch.Tensor, p: dict, d_state: int, dt_rank: int,
+                h: torch.Tensor, conv_state: torch.Tensor,
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Decode step. x_t: (B,D); h: (B,Di,N); conv_state: (B,K-1,Di)."""
+    x_conv, z, conv_state = _mamba1_step_front(x_t, p, conv_state)
+    dbc = einsum("bi,ie->be", x_conv, p["x_proj"])
+    y, h = _mamba1_step_scan(p, x_conv, z, dbc, h, d_state, dt_rank,
+                             x_t.dtype)
     return einsum("bi,id->bd", y, p["out_proj"]), h, conv_state
+
+
+# The serving mesh (exact mode): column m computes its channels (Mamba1)
+# or heads (Mamba2) from its serving view (``MeshParams``: in_proj and
+# the Mamba2 conv by segments, ``out_proj`` by output columns, x_proj
+# and gate_norm whole). No contraction or norm runs over the split
+# d_inner: x_proj's input and the gated outputs are gathered whole
+# first, and out_proj's output columns are gathered to the residual.
+def _exact_contract(xs: list, w: torch.Tensor, eq: str) -> list:
+    """The columns' blocks ``xs`` of d_inner gathered whole on the first
+    column's device, contracted there with the whole weight ``w``; the
+    product a copy on each column."""
+    x = gather_columns(xs)
+    with on_device(x.device):
+        return replicate(einsum(eq, x, w))
+
+
+def _out_columns(yr: list, ps: list, eq: str) -> torch.Tensor:
+    """``out_proj`` column-parallel: column m's output columns of the
+    whole gated output ``yr[m]`` (its copy), gathered to (..., D) on the
+    first column's device."""
+    outs = []
+    for y, p in zip(yr, ps):
+        with on_device(y.device):
+            outs.append(einsum(eq, y, p["out_proj"]))
+    return gather_columns(outs)
+
+
+def mamba1_seq_mesh(xs: list, ps: list, d_state: int, dt_rank: int,
+                    chunk: int = 128) -> tuple:
+    """Mamba1 prefill over the serving mesh's columns. ``xs[m]``: the
+    normed input (B,S,D), column m's copy; ``ps[m]``: its view. Returns
+    (y (B,S,D) on the first column's device, [(h_T, conv_tail)] of each
+    column's channels)."""
+    fronts = []
+    for x, p in zip(xs, ps):
+        with on_device(x.device):
+            fronts.append(_mamba1_front(x, p))
+    dbcs = _exact_contract([f[0] for f in fronts], ps[0]["x_proj"],
+                           "bsi,ie->bse")
+    ys, states = [], []
+    for x, p, (x_conv, z, tail), dbc in zip(xs, ps, fronts, dbcs):
+        with on_device(x.device):
+            dt, B_ssm, C_ssm = _mamba1_dt(dbc, p, d_state, dt_rank,
+                                          "bsr,ri->bsi")
+            y, h = _mamba1_gated(x, p, x_conv, z, dt, B_ssm, C_ssm,
+                                 d_state, chunk, None)
+        ys.append(y)
+        states.append((h, tail))
+    return (_out_columns(replicate(gather_columns(ys)), ps, "bsi,id->bsd"),
+            states)
+
+
+def mamba1_step_mesh(xs: list, ps: list, d_state: int, dt_rank: int,
+                     hs: list, convs: list) -> tuple:
+    """``mamba1_step`` over the serving mesh's columns: ``hs[m]``
+    (B,Di/M,N) and ``convs[m]`` (B,K-1,Di/M) column m's state. Returns
+    (y (B,D) on the first column's device, [(h, conv)] a column)."""
+    fronts = []
+    for x, p, c in zip(xs, ps, convs):
+        with on_device(x.device):
+            fronts.append(_mamba1_step_front(x, p, c))
+    dbcs = _exact_contract([f[0] for f in fronts], ps[0]["x_proj"],
+                           "bi,ie->be")
+    ys, states = [], []
+    for x, p, (x_conv, z, conv), dbc, h in zip(xs, ps, fronts, dbcs, hs):
+        with on_device(x.device):
+            y, h = _mamba1_step_scan(p, x_conv, z, dbc, h, d_state,
+                                     dt_rank, x.dtype)
+        ys.append(y)
+        states.append((h, conv))
+    return (_out_columns(replicate(gather_columns(ys)), ps, "bi,id->bd"),
+            states)
 
 
 # ------------------------------------------------------------- mamba2
@@ -378,12 +465,13 @@ def _mamba2_xbc(xbc: torch.Tensor, d_inner: int, d_state: int):
     return xs, B_ssm, C_ssm
 
 
-def _mamba2_inputs(x, p, d_state, head_dim):
+def _mamba2_inputs(x, p, d_state, head_dim, d_inner=None):
     """in_proj, the conv over [x | B | C] and dt: (z, xh (B,S,H,P) f32,
-    dt (B,S,H) f32, B f32, C f32)."""
+    dt (B,S,H) f32, B f32, C f32). ``d_inner``: the width of z and x in
+    ``p``'s in_proj (``out_proj``'s rows by default)."""
     B, S, _ = x.shape
     zxbcdt = einsum("bsd,de->bse", x, p["in_proj"])
-    d_inner = p["out_proj"].shape[0]
+    d_inner = d_inner or p["out_proj"].shape[0]
     H = d_inner // head_dim
     z, xs, B_ssm, C_ssm, dt = _mamba2_split(zxbcdt, d_inner, d_state, H)
     xbc = torch.cat([xs, B_ssm, C_ssm], dim=-1)
@@ -423,9 +511,16 @@ def gate_norm_columns(ys: list, ws: list, width: int,
     columns: ``ys[m]`` column m's block on its device, ``ws[m]`` its
     block of the weight. The columns' sums of squares are summed
     (``psum_columns``) before each block is scaled; one column is
-    ``rms_norm`` itself."""
+    ``rms_norm`` itself. In exact mode (the serving mesh, ``ws[m]``
+    whole) the blocks are gathered and normed whole, so the reduction
+    keeps the single-device order, and each column gets a copy of the
+    whole normed output."""
     if len(ys) == 1:
         return [rms_norm(ys[0], ws[0], eps)]
+    if exact_reductions():
+        y = gather_columns(ys)
+        with on_device(y.device):
+            return replicate(rms_norm(y, ws[0], eps))
     sq = []
     for y in ys:
         with on_device(y.device):
@@ -468,13 +563,13 @@ def mamba2_seq_columns(xs: list, ps: list, d_state: int, head_dim: int,
             for y, p in zip(ys, ps)]
 
 
-def mamba2_step(x_t: torch.Tensor, p: dict, d_state: int, head_dim: int,
-                h: torch.Tensor, conv_state: torch.Tensor,
-                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Decode step. x_t: (B,D); h: (B,H,P,N); conv_state: (B,K-1,Ci)."""
+def _mamba2_step_core(x_t, p, d_state, head_dim, h, conv_state,
+                      d_inner=None):
+    """One step of Mamba2 up to the gate norm: (y * silu(z) (B,Di) f32,
+    h, conv_state). ``d_inner`` as in ``_mamba2_inputs``."""
     B = x_t.shape[0]
     zxbcdt = einsum("bd,de->be", x_t, p["in_proj"])
-    d_inner = p["out_proj"].shape[0]
+    d_inner = d_inner or p["out_proj"].shape[0]
     H = d_inner // head_dim
     z, xs, B_ssm, C_ssm, dt = _mamba2_split(zxbcdt, d_inner, d_state, H)
     xbc = torch.cat([xs, B_ssm, C_ssm], dim=-1)
@@ -491,6 +586,60 @@ def mamba2_step(x_t: torch.Tensor, p: dict, d_state: int, head_dim: int,
     y = torch.einsum("bhpn,bn->bhp", h, C_ssm)
     y = y + xh * p["ssm_D"][:, None]
     y = y.reshape(B, d_inner)
-    y = y * F.silu(z.float())
+    return y * F.silu(z.float()), h, conv_state
+
+
+def mamba2_step(x_t: torch.Tensor, p: dict, d_state: int, head_dim: int,
+                h: torch.Tensor, conv_state: torch.Tensor,
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Decode step. x_t: (B,D); h: (B,H,P,N); conv_state: (B,K-1,Ci)."""
+    y, h, conv_state = _mamba2_step_core(x_t, p, d_state, head_dim, h,
+                                         conv_state)
     y = rms_norm(y.to(x_t.dtype), p["gate_norm"])
     return einsum("bi,id->bd", y, p["out_proj"]), h, conv_state
+
+
+def _column_inner(p: dict, head_dim: int) -> int:
+    """A Mamba2 column's share of d_inner: its heads times their width."""
+    return p["dt_bias"].shape[-1] * head_dim
+
+
+def mamba2_seq_mesh(xs: list, ps: list, d_state: int, head_dim: int,
+                    chunk: int, d_conv: int) -> tuple:
+    """Mamba2 prefill over the serving mesh's columns (``xs``/``ps`` as
+    in ``mamba1_seq_mesh``): each column's heads through SSD with B and
+    C whole, the gate norm over the gathered d_inner
+    (``gate_norm_columns``). Returns (y (B,S,D) on the first column's
+    device, [(h_T (B,H/M,P,N), conv_tail [x_m | B | C] of the last K-1
+    raw inputs)] a column)."""
+    ys, states = [], []
+    for x, p in zip(xs, ps):
+        with on_device(x.device):
+            di = _column_inner(p, head_dim)
+            z, xh, dt, B_ssm, C_ssm = _mamba2_inputs(x, p, d_state,
+                                                     head_dim, di)
+            y, h = _mamba2_gated(p, z, xh, dt, B_ssm, C_ssm, chunk, None)
+            zx = einsum("bsd,de->bse", x[:, -(d_conv - 1):], p["in_proj"])
+        ys.append(y.to(x.dtype))
+        states.append((h, zx[..., di:2 * di + 2 * d_state]))
+    width = sum(y.shape[-1] for y in ys)
+    yr = gate_norm_columns(ys, [p["gate_norm"] for p in ps], width)
+    return _out_columns(yr, ps, "bsi,id->bsd"), states
+
+
+def mamba2_step_mesh(xs: list, ps: list, d_state: int, head_dim: int,
+                     hs: list, convs: list) -> tuple:
+    """``mamba2_step`` over the serving mesh's columns: ``hs[m]``
+    (B,H/M,P,N) and ``convs[m]`` (B,K-1,[x_m | B | C]) column m's state.
+    Returns (y (B,D) on the first column's device, [(h, conv)] a
+    column)."""
+    ys, states = [], []
+    for x, p, h, c in zip(xs, ps, hs, convs):
+        with on_device(x.device):
+            y, h, c = _mamba2_step_core(x, p, d_state, head_dim, h, c,
+                                        _column_inner(p, head_dim))
+        ys.append(y.to(x.dtype))
+        states.append((h, c))
+    width = sum(y.shape[-1] for y in ys)
+    yr = gate_norm_columns(ys, [p["gate_norm"] for p in ps], width)
+    return _out_columns(yr, ps, "bi,id->bd"), states

@@ -11,6 +11,15 @@ table) ``forward`` and ``train_loss`` run sharded, as ``lm``'s mesh
 train path does: each layer's mixer over the "model" columns
 (``ssm.mamba1_seq_columns``; ``_mixer_train``, which the hybrid's
 Mamba2 layers share), its output row-parallel.
+
+On serving ``MeshParams`` ``prefill`` and ``decode_step`` run each
+layer's mixer over the "model" columns in exact mode
+(``ssm.mamba1_seq_mesh``, ``mamba1_step_mesh``: x_proj after the
+channels' gather, out_proj column-parallel), each batch row of
+positions on its rows (``act_sharding.row_spans``); the state comes
+back placed, ssm over ``ssm_state_spec`` and conv over
+``conv_state_spec`` (batch over the batch axes, channels over
+"model").
 """
 from __future__ import annotations
 
@@ -18,14 +27,20 @@ import torch
 
 from repro_torch.device import on_device, resolve_device
 from repro_torch.distributed import act_sharding as acts
-from repro_torch.distributed.sharding import TrainView
+from repro_torch.distributed.sharding import (MeshParams, NamedSharding,
+                                              TrainView, all_gather,
+                                              assemble, conv_state_spec,
+                                              ssm_state_spec)
 from repro_torch.models.base import ModelConfig
 from repro_torch.models.layers import cross_entropy, embed, rms_norm
-from repro_torch.models.lm import (_embed_train, _head, _head_train,
-                                   _logits, _placed, _slice_group,
-                                   mesh_forward, mesh_train_loss)
+from repro_torch.models.lm import (_embed_mesh, _embed_train,
+                                   _head, _head_train, _heads, _logits,
+                                   _mesh_calls, _mesh_scope, _placed,
+                                   _slice_group, mesh_forward,
+                                   mesh_train_loss, row_box)
 from repro_torch.models.ssm import (mamba1_seq, mamba1_seq_columns,
-                                    mamba1_step, mamba2_seq_columns)
+                                    mamba1_seq_mesh, mamba1_step,
+                                    mamba1_step_mesh, mamba2_seq_columns)
 
 _SSM_LEAVES = ("ssm_norm", "in_proj", "conv_w", "conv_b", "x_proj",
                "dt_proj", "dt_bias", "A_log", "ssm_D", "gate_norm",
@@ -118,6 +133,8 @@ def prefill(cfg: ModelConfig, params: dict, tokens, lora=None,
     """Returns (last logits (B,V), (ssm_states, conv_states)). The
     family has no attention projections, so ``lora`` is ignored, as in
     JAX."""
+    if isinstance(params, MeshParams):
+        return _serve_mesh(cfg, params, tokens)
     x, state = _seq(cfg, params, tokens, need_state=True)
     return _head(cfg, params, x[:, -1:]), state
 
@@ -128,6 +145,8 @@ def decode_step(cfg: ModelConfig, params: dict, tokens, state,
     """tokens (B,1); state = (ssm (L,B,Di,N), conv (L,B,K-1,Di)).
     ``cache_len`` is ignored: the state carries the position. Returns
     (logits (B,V) f32, new (ssm, conv) stacks)."""
+    if isinstance(params, MeshParams):
+        return _serve_mesh(cfg, params, tokens, state)
     ssm, conv = state
     x = embed(tokens, params["embed/tok"])[:, 0]          # (B,D)
     new_ssm, new_conv = [], []
@@ -139,3 +158,105 @@ def decode_step(cfg: ModelConfig, params: dict, tokens, state,
         new_conv.append(c)
     logits = _head(cfg, params, x[:, None])
     return logits, (torch.stack(new_ssm), torch.stack(new_conv))
+
+
+# ------------------------------------------------- serving on a mesh
+def mixer_columns(cfg: ModelConfig, call, h, ps: list, state=None):
+    """One SSM layer's mixer and residual for a batch row on its columns
+    (``ps[m]``: column m's layer view): the whole-sequence mixer, or
+    with ``state`` (the columns' (ssm, conv) of this layer) one decode
+    step. Returns (h + y, [(ssm, conv)] a column)."""
+    xs = [rms_norm(x, p["ssm_norm"], cfg.norm_eps)
+          for x, p in zip(acts.replicate(h), ps)]
+    if cfg.ssm_version == 1 and state is None:
+        y, st = mamba1_seq_mesh(xs, ps, cfg.d_state, cfg.dt_rank,
+                                cfg.ssm_chunk)
+    elif cfg.ssm_version == 1:
+        y, st = mamba1_step_mesh(xs, ps, cfg.d_state, cfg.dt_rank,
+                                 *zip(*state))
+    else:
+        from repro_torch.models import ssm
+        if state is None:
+            y, st = ssm.mamba2_seq_mesh(xs, ps, cfg.d_state,
+                                        cfg.ssm_head_dim, cfg.ssm_chunk,
+                                        cfg.d_conv)
+        else:
+            y, st = ssm.mamba2_step_mesh(xs, ps, cfg.d_state,
+                                         cfg.ssm_head_dim, *zip(*state))
+    return h + y, st
+
+
+def _serve_mesh(cfg: ModelConfig, mp: MeshParams, tokens, state=None):
+    """``prefill`` (``state`` None) or ``decode_step`` on the mesh: each
+    batch row's rows through every layer's mixer on its columns (column
+    m: channels [m Di/M, (m+1) Di/M)); the state read from and returned
+    as placed stacks."""
+    with _mesh_scope(mp):
+        B = tokens.shape[0]
+        calls = _mesh_calls(mp, None, B)
+        w = cfg.d_inner // mp.model_size
+        hs, reads = [], []
+        for call in calls:
+            with call.scope():
+                x = _embed_mesh(call, call.rows(tokens))
+            hs.append(x if state is None else x[:, 0])
+            if state is not None:
+                ssm, conv = state
+                reads.append([(
+                    all_gather(ssm, (slice(None), slice(call.lo, call.hi),
+                                      slice(m * w, (m + 1) * w)), dev),
+                    all_gather(conv, (slice(None), slice(call.lo, call.hi),
+                                       slice(None),
+                                       slice(m * w, (m + 1) * w)), dev))
+                    for m, dev in enumerate(call.devices)])
+        new = [[[] for _ in range(mp.model_size)] for _ in calls]
+        for i in range(cfg.n_layers):
+            for r, call in enumerate(calls):
+                with call.scope():
+                    ps = [{k: v[i] for k, v in st.items()}
+                          for st in call.stacks]
+                    hs[r], st = mixer_columns(
+                        cfg, call, hs[r], ps,
+                        None if state is None else
+                        [(s_[i], c_[i]) for s_, c_ in reads[r]])
+                for m, pair in enumerate(st):
+                    new[r][m].append(pair)
+        logits = _heads(mp, calls, [h[:, -1:] if state is None
+                                    else h[:, None] for h in hs])
+        return logits, place_ssm_state(cfg, mp, calls, new, B)
+
+
+def place_ssm_state(cfg: ModelConfig, mp: MeshParams, calls: list,
+                    new: list, B: int, dims=None) -> tuple:
+    """The rows' columns' (ssm, conv) of every layer (``new[r][m]``: a
+    list a layer) as placed stacks: ssm (L, B, Di, N) — Mamba2 (L, B,
+    H, P, N) — over ``ssm_state_spec``, conv (L, B, K-1, C) over
+    ``conv_state_spec``; column m holds its block of channels or heads,
+    a Mamba2 conv its segments' ranges (``sharding.column_segments``)."""
+    from repro_torch.distributed.sharding import (column_segments,
+                                                  ssm_segments)
+    M = mp.model_size
+    ssm = [[torch.stack([p[0] for p in col]) for col in row] for row in new]
+    conv = [[torch.stack([p[1] for p in col]) for col in row] for row in new]
+    one = ssm[0][0].shape
+    sshape = (one[0], B, one[2] * M) + tuple(one[3:])
+    cshape = (conv[0][0].shape[0], B, conv[0][0].shape[2],
+              cfg.d_inner + (2 * cfg.d_state if cfg.ssm_version == 2
+                             else 0))
+    w = sshape[2] // M
+    spieces, cpieces = [], []
+    segs = ssm_segments(cfg, "conv_w") or [(0, cfg.d_inner, True)]
+    for r, call in enumerate(calls):
+        for m in range(M):
+            spieces.append((row_box(sshape, call, 2, m * w, (m + 1) * w),
+                            ssm[r][m]))
+            off = 0
+            for lo, hi in column_segments(segs, m, M):
+                cpieces.append((row_box(cshape, call, 3, lo, hi),
+                                conv[r][m][..., off:off + hi - lo]))
+                off += hi - lo
+    return (assemble(NamedSharding(mp.mesh, ssm_state_spec(mp.mesh, sshape)),
+                     sshape, spieces),
+            assemble(NamedSharding(mp.mesh, conv_state_spec(mp.mesh,
+                                                            cshape)),
+                     cshape, cpieces))

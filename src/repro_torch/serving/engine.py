@@ -62,10 +62,11 @@ its shard, on that device's side stream. ``shard_stats`` reports
 per-shard pages, the arena bytes a device holds and the
 ``COLLECTIVE_METER`` gather gauges. ``spec_decode=True`` warns and is
 ignored on a mesh, as in the reference. A config whose ``n_heads``,
-``d_model``, ``d_ff``, ``vocab_size`` (or an MoE config's
-``shared_expert_ff``) does not divide the "model" axis, or whose query
-columns would read parts of two KV groups, is refused on that mesh
-(``distributed.sharding.mesh_unsupported``).
+``d_model`` or ``d_ff`` (or an MoE config's ``shared_expert_ff``) does
+not divide the "model" axis, or whose query columns would read parts
+of two KV groups, is refused on that mesh
+(``distributed.sharding.mesh_unsupported``); a vocabulary the axis
+does not divide stays whole on every column.
 
 Not ported yet (each raises ``NotImplementedError`` at construction,
 naming the knob): the VLM, SSM, hybrid and enc-dec families (the
@@ -92,7 +93,7 @@ from repro_torch.core import (AdapterCache, AdapterInfo, CacheStats,
 from repro_torch.device import resolve_device
 from repro_torch.distributed.act_sharding import activation_sharding
 from repro_torch.distributed.sharding import (MeshParams, ShardedTensor,
-                                              mesh_unsupported)
+                                              all_gather, mesh_unsupported)
 from repro_torch.kernels.ops import (COLLECTIVE_METER, DISPATCH_METER,
                                      resolve_lora_backend)
 from repro_torch.launch.mesh import make_serving_mesh
@@ -1121,15 +1122,13 @@ class ChameleonEngine:
 
     def _write_prompt_kv_mesh(self, targets, new_kv, src_row, src_pos,
                               dst) -> None:
-        """``_write_prompt_kv`` on a mesh: the prefill's K/V are
-        per-column stacks (column m's KV heads, ``MeshParams.kv_heads``),
-        and each target shard takes the entries whose page (or slab row,
-        and for a slab split along the positions, position) it owns, of
-        every KV head it holds, each head from a column that computed
-        it."""
+        """``_write_prompt_kv`` on a mesh: the prefill's K/V are placed
+        stacks (``kv_cache_spec`` layout), and each target shard takes
+        the entries whose page (or slab row, and for a slab split along
+        the positions, position) it owns, of every KV head it holds,
+        gathered from the prefill's shards onto its device."""
         d0, d1 = dst
-        kv_heads = self.params.kv_heads
-        for st, cols in zip(targets, new_kv):
+        for st, new in zip(targets, new_kv):
             for slc, t in st.unique():
                 lo, hi = slc[1].start, slc[1].stop
                 keep = (d0 >= lo) & (d0 < hi)
@@ -1138,22 +1137,17 @@ class ChameleonEngine:
                 sel = np.nonzero(keep)[0]
                 if not len(sel):
                     continue
-                h0, h1 = slc[3].start, slc[3].stop
-                src = [next(m for m, (a, b) in enumerate(kv_heads)
-                            if a <= j < b) for j in range(h0, h1)]
-                if len(set(src)) == 1:
-                    a = kv_heads[src[0]][0]
-                    new = cols[src[0]][:, :, :, h0 - a:h1 - a]
-                else:
-                    new = torch.stack(
-                        [cols[m][:, :, :, j - kv_heads[m][0]].to(self.device)
-                         for j, m in zip(range(h0, h1), src)], dim=3)
-                sr, sp = (torch.as_tensor(a[sel], device=new.device)
-                          for a in (src_row, src_pos))
+                rows = src_row[sel]
+                r0, r1 = int(rows.min()), int(rows.max()) + 1
+                blk = all_gather(new, (slice(None), slice(r0, r1),
+                                       slice(None),
+                                       slice(slc[3].start, slc[3].stop)),
+                                 t.device)
                 i1 = d1[sel] - (0 if self.paged else slc[2].start)
-                i0, i1 = (torch.as_tensor(a, device=t.device)
-                          for a in (d0[sel] - lo, i1))
-                t[:, i0, i1] = new[:, sr, sp].to(t.device, t.dtype)
+                sr, sp, i0, i1 = (torch.as_tensor(a, device=t.device)
+                                  for a in (rows - r0, src_pos[sel],
+                                            d0[sel] - lo, i1))
+                t[:, i0, i1] = blk[:, sr, sp].to(t.dtype)
 
     def _first_tokens(self, logits: torch.Tensor, reqs: list[Request],
                       B: int) -> np.ndarray:
