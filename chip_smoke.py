@@ -209,10 +209,17 @@ of the JAX package. Phases, one JSON line each:
              92544, f32 params as the launcher keeps them) through the
              launcher's loop (``launch.train.train``) for 5 steps of
              SyntheticLM (8, 512) (``train``: losses, s/step,
-             tokens/s, peak memory; flash forward and backward 24
-             launches a step, nothing else, no plain version), one
+             tokens/s, peak memory; the published config rematerialises
+             each layer, so the flash forward launches 48 times a step
+             (the forward and the backward's recompute) and its
+             backward 24, nothing else, no plain version), one
              step with ``microbatches=2``, one step under
-             torch.profiler (device busy share), the 7.6 GB params
+             torch.profiler (device busy share), the remat A/B
+             (``train_remat_ab``: two steps from the trained state
+             with ``remat`` off, then the same two with it on, the
+             published setting; loss, grad norm and params
+             bit-identical; s/step and peak memory both ways), the
+             7.6 GB params
              checkpoint saved, restored bit-exact and deleted, and
              ``examples/torch_train_with_recovery.py`` (two injected
              failures, final loss below the first).
@@ -231,15 +238,18 @@ of the JAX package. Phases, one JSON line each:
              seeded noise), one at a time and each freed after: the
              unsharded step from seeded f32 params (kept on the host),
              then the state placed by the train rule table on (1, 1),
-             (2, 1), (1, 2) and (2, 2) (qwen3-moe: the first three)
-             over repeated positions of the card and two steps each
+             (2, 1), (1, 2) and (2, 2) (qwen3-moe: the first three;
+             qwen2-vl also (1, 8), whose 8 columns do not divide its 28
+             heads: the attention whole on the first column) over
+             repeated positions of the card and two steps each
              (``train_mesh``): loss and grad norm within 1e-4
              relative of the unsharded step's (whether (1, 1) is
              bit-identical is reported, with the leaves that are
              not), params within lr a step and moments within 1e-4
              relative after the second, MoE capacity drops equal,
-             flash forward and
-             backward once an attention layer a position a step
+             flash backward once an attention layer an attention
+             position a step and the forward twice (every model runs
+             its published remat: the backward recomputes each layer)
              (counts zeroed just before each mesh's steps), no plain
              version; s/step, peak memory, gathers, reduce-scatters and
              MoE all-to-alls a step.
@@ -255,9 +265,13 @@ of the JAX package. Phases, one JSON line each:
              after. First flash_attention, sgmv and bgmv at the column
              shapes of (2, 2) and (1, 4) against their plain versions,
              timed beside their bounds and a PyTorch call
-             (``kernel_time_serve_mesh``). Then in f32 the unsharded
+             (``kernel_time_serve_mesh``; for qwen2-vl at (1, 8) and
+             whisper at (1, 16), whose columns do not divide the heads,
+             at the whole block's shapes). Then in f32 the unsharded
              cases and the same on (1, 1), (2, 1), (1, 2), (2, 2) and
-             (1, 4) over repeated positions of the card, batch rows
+             (1, 4) (qwen2-vl also (1, 8), whisper (1, 16): the
+             attention whole on each row's first column) over
+             repeated positions of the card, batch rows
              over "data" (``serve_mesh``): greedy tokens over 16
              decode steps equal, logits within 1e-4 relative, the
              prefill's state in the layout of ``kv_cache_spec``,
@@ -266,7 +280,7 @@ of the JAX package. Phases, one JSON line each:
              before each mesh's run), no plain version; whether (1, 1)
              is bit-identical is reported. Then in bf16 ms a prefill
              call, ms a decode step and peak memory unsharded, at
-             (1, 1) and at (2, 2).
+             (1, 1), at (2, 2) and at the whole-head mesh.
 
 A device-time profile of the same path is ``chip_profile.py``.
 
@@ -4030,9 +4044,12 @@ def phase_train_full() -> dict:
     one step under torch.profiler (device busy share), then the params
     tree (7.6 GB) saved to a temporary directory, restored bit-exact and
     deleted. Kernel counts are zeroed just before the launcher's steps
-    and read just after: flash_attention and its backward must launch
-    once a layer a step, nothing else and no plain version. Returns the
-    backward's launches on that run."""
+    and read just after: the flash backward must launch once a layer a
+    step and the forward ``fwd_runs`` times (twice under the published
+    config's remat: the backward recomputes each layer), nothing else
+    and no plain version. Between the profile and the checkpoint, the
+    remat A/B (``train_remat_ab``). Returns the backward's launches on
+    the launcher's run."""
     import importlib
     import shutil
     import tempfile
@@ -4060,8 +4077,8 @@ def phase_train_full() -> dict:
     params, opt, ocfg = res["params"], res["opt"], res["opt_cfg"]
     steady = statistics.median(h["seconds"] for h in hist[1:])
     want = {n: 0 for n in stats}
-    want["flash_attention"] = want["flash_attention_bwd"] = \
-        cfg.n_layers * FULL_STEPS
+    want["flash_attention"] = fwd_runs(cfg) * cfg.n_layers * FULL_STEPS
+    want["flash_attention_bwd"] = cfg.n_layers * FULL_STEPS
     finite = all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
                  for h in hist)
     emit(dict(phase="train", model=cfg.name, n_layers=cfg.n_layers,
@@ -4076,7 +4093,7 @@ def phase_train_full() -> dict:
               s_per_step=[h["seconds"] for h in hist],
               s_per_step_steady=steady, tokens_per_s=tokens / steady,
               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-              launches=launches, plain=plain,
+              launches=launches, plain=plain, remat=cfg.remat,
               tf32=torch.backends.cuda.matmul.allow_tf32))
     check(finite, f"{cfg.name}: non-finite loss or grad norm {hist}")
     check(launches == want and not plain,
@@ -4106,7 +4123,8 @@ def phase_train_full() -> dict:
               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
               launches=mb_launches))
     check(math.isfinite(loss2) and mb_launches["flash_attention"]
-          == mb_launches["flash_attention_bwd"] == 2 * cfg.n_layers
+          == fwd_runs(cfg) * 2 * cfg.n_layers
+          and mb_launches["flash_attention_bwd"] == 2 * cfg.n_layers
           and not any(st.plain for st in stats.values()),
           f"{cfg.name} microbatches=2: loss {loss2}, launches "
           f"{mb_launches}")
@@ -4133,6 +4151,8 @@ def phase_train_full() -> dict:
                                           reverse=True)[:12]]))
     check(busy_us > 0, "train step: the profiler saw no device time")
 
+    train_remat_ab(cfg, params, opt, ocfg, batch, FULL_STEPS + 2)
+
     need = sum(nbytes(v) for v in params.values())
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
@@ -4158,6 +4178,87 @@ def phase_train_full() -> dict:
     check(exact, f"{cfg.name}: the params checkpoint did not restore "
                  f"bit-exact")
     return dict(launches=launches["flash_attention_bwd"])
+
+
+def fwd_runs(cfg) -> int:
+    """flash forward launches a layer a step: the forward's, and under
+    ``cfg.remat`` the backward's recompute of the layer."""
+    return 2 if cfg.remat else 1
+
+
+#: Steps of each side of the remat A/B (the last one timed as steady).
+REMAT_AB_STEPS = 2
+
+
+def train_remat_ab(cfg, params: dict, opt: dict, ocfg, batch,
+                   first: int) -> None:
+    """The remat A/B (``train_remat_ab``): from the trained state,
+    ``REMAT_AB_STEPS`` steps of ``cfg`` with remat off, then the same
+    steps from the same state (kept on the host) with remat on, the
+    published setting. Loss, grad norm and params must be bit-identical;
+    s/step (each step and the last) and the peak memory of each side,
+    and the flash launches of each, are reported."""
+    import dataclasses
+
+    import torch
+    from repro_torch.training import make_train_step
+    stats = _train_stats()
+    saved = [{k: v.to("cpu", copy=True) for k, v in t.items()}
+             for t in (params, opt)]
+    batches = [batch(first + i) for i in range(REMAT_AB_STEPS)]
+    sides = {}
+    for remat in (False, True):
+        for tree, host in zip((params, opt), saved):
+            for k, v in tree.items():
+                v.copy_(host[k])
+        step = make_train_step(dataclasses.replace(cfg, remat=remat), ocfg)
+        for st in stats.values():
+            st.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        hist = []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, m = step(params, opt, b)
+            loss, gn = float(m["loss"]), float(m["grad_norm"])
+            hist.append((loss, gn, time.perf_counter() - t0))
+        sides[remat] = dict(
+            hist=hist, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            launches={n: st.launches for n, st in stats.items()
+                      if st.launches},
+            params={k: v.to("cpu", copy=True) for k, v in params.items()})
+    off, on = sides[False], sides[True]
+    differ = [k for k in off["params"]
+              if not torch.equal(off["params"][k], on["params"][k])]
+    n = REMAT_AB_STEPS * cfg.n_layers
+    line = dict(
+        phase="train_remat_ab", model=cfg.name, weights="f32",
+        batch=FULL_BATCH, seq=FULL_SEQ, steps=REMAT_AB_STEPS,
+        losses_off=[h[0] for h in off["hist"]],
+        losses_on=[h[0] for h in on["hist"]],
+        grad_norms_off=[h[1] for h in off["hist"]],
+        grad_norms_on=[h[1] for h in on["hist"]],
+        s_per_step_off=[h[2] for h in off["hist"]],
+        s_per_step_on=[h[2] for h in on["hist"]],
+        s_steady_off=off["hist"][-1][2], s_steady_on=on["hist"][-1][2],
+        step_ratio=on["hist"][-1][2] / off["hist"][-1][2],
+        peak_gb_off=off["peak_gb"], peak_gb_on=on["peak_gb"],
+        peak_saved_gb=off["peak_gb"] - on["peak_gb"],
+        launches_off=off["launches"], launches_on=on["launches"],
+        params_differ=differ[:8], bit_identical=not differ and all(
+            a[:2] == b[:2] for a, b in zip(off["hist"], on["hist"])))
+    emit(line)
+    check(line["bit_identical"],
+          f"remat A/B: remat on and off part: {line}")
+    check(off["launches"].get("flash_attention") == n
+          and on["launches"].get("flash_attention") == 2 * n
+          and off["launches"].get("flash_attention_bwd")
+          == on["launches"].get("flash_attention_bwd") == n,
+          f"remat A/B: flash launches off {off['launches']}, on "
+          f"{on['launches']} (want {n} and {2 * n} forward, {n} "
+          f"backward)")
+    del saved, sides, off, on
 
 
 def run_train_example() -> None:
@@ -4218,10 +4319,11 @@ TRAIN_MESH_STEPS = 2
 #: two capacity groups of 2048, one a data shard at (2, 1). Its peak on
 #: an 80 GB card (79.2 GB at (1, 1)) is the state's, not the batch's:
 #: (2, 1024) peaked 0.1 GB higher. qwen2-vl-7b: two layers, 1.56 B
-#: params, 24.9 GB of state.
+#: params, 24.9 GB of state; also at (1, 8), whose 8 columns do not
+#: divide its 28 heads (the attention whole on the first column).
 TRAIN_MESH_MODELS = (
     ("qwen3-moe-235b-a22b", 1, (2, 2048), ((1, 1), (2, 1), (1, 2))),
-    ("qwen2-vl-7b", 2, (8, 512), TRAIN_MESHES))
+    ("qwen2-vl-7b", 2, (8, 512), TRAIN_MESHES + ((1, 8),)))
 #: The SSM, hybrid and enc-dec families at their published widths, after
 #: ``TRAIN_MESH_MODELS``: falcon-mamba-7b cut to 2 layers (0.743 B
 #: params, 11.9 GB of f32 state), zamba2-1.2b cut to 12 layers (two
@@ -4250,10 +4352,12 @@ def attention_layers(cfg) -> int:
 def train_mesh_shapes(cfg, batch: tuple, meshes) -> tuple:
     """flash_attention's per-shard shapes of ``cfg``'s train step at
     ``batch`` (B, S) on each split mesh: (B / d, S, H / m, dh) over the
-    column's KV heads, causal; enc-dec: the encoder's over ``enc_ctx``
+    column's KV heads (heads m does not divide: every head, on the
+    first column), causal; enc-dec: the encoder's over ``enc_ctx``
     frames (full) and the decoder's (causal); none for the SSM
     family."""
-    from repro_torch.distributed.sharding import kv_heads_of_column
+    from repro_torch.distributed.sharding import (kv_heads_of_column,
+                                                  whole_heads)
     B, S = batch
     parts = {"SSM": (), "ENCDEC": ((" encoder", cfg.enc_ctx, False),
                                    (" decoder", S, True))}.get(
@@ -4262,11 +4366,22 @@ def train_mesh_shapes(cfg, batch: tuple, meshes) -> tuple:
     for d, m in meshes:
         if d * m == 1:
             continue
-        lo, hi = kv_heads_of_column(cfg.n_kv_heads, m, 0)
+        whole = whole_heads(cfg, m)
+        lo, hi = ((0, cfg.n_kv_heads) if whole
+                  else kv_heads_of_column(cfg.n_kv_heads, m, 0))
         for part, s, causal in parts:
             out.append((f"{cfg.name}{part} shard of ({d}, {m})", B // d, s,
-                        cfg.n_heads // m, hi - lo, cfg.head_dim, causal))
+                        cfg.n_heads // (1 if whole else m), hi - lo,
+                        cfg.head_dim, causal))
     return tuple(out)
+
+
+def attention_positions(cfg, mesh) -> int:
+    """The positions that compute attention: every one, or when the
+    "model" axis does not divide the heads, each batch row's first."""
+    from repro_torch.distributed.sharding import whole_heads
+    M = mesh.shape["model"]
+    return mesh.size // M if whole_heads(cfg, M) else mesh.size
 
 
 def train_mesh_inputs(arch: str = FULL_ARCH, n_layers: int | None = None,
@@ -4353,9 +4468,11 @@ def train_mesh_run(cfg, ocfg, init: dict, batches: list, mesh, ref: dict,
     before and read just after: each step's loss and grad norm against
     ``ref``'s (``TRAIN_TOL`` relative), the largest param difference
     after the last step within lr a step and the largest moment
-    difference within ``TRAIN_TOL`` relative (``final_close``), flash
-    forward and backward once an attention layer (``attention_layers``)
-    a position a step and no plain version, the MoE capacity drops of each step equal to ``ref``'s;
+    difference within ``TRAIN_TOL`` relative (``final_close``), the
+    flash backward once an attention layer (``attention_layers``) an
+    attention position (``attention_positions``) a step, its forward
+    ``fwd_runs`` times, and no plain version, the MoE capacity drops of
+    each step equal to ``ref``'s;
     s/step, peak memory of each card,
     placed bytes, gathers, reduce-scatters and MoE all-to-alls a step.
     One ``phase`` line."""
@@ -4413,15 +4530,17 @@ def train_mesh_run(cfg, ocfg, init: dict, batches: list, mesh, ref: dict,
     n_steps = len(batches)
     positions = mesh.size
     want = {n: 0 for n in stats}
-    want["flash_attention"] = want["flash_attention_bwd"] = \
-        attention_layers(cfg) * positions * n_steps
+    want["flash_attention_bwd"] = (attention_layers(cfg)
+                                   * attention_positions(cfg, mesh) * n_steps)
+    want["flash_attention"] = fwd_runs(cfg) * want["flash_attention_bwd"]
     drops = [h["dropped"] for h in hist]
     ref_drops = [h["dropped"] for h in ref["history"]]
     B, S = batches[0]["tokens"].shape
     line = dict(
         phase=phase, model=cfg.name, n_layers=cfg.n_layers, weights="f32",
         mesh_shape=[mesh.shape[a] for a in mesh.axis_names],
-        cards=cards, batch=B, seq=S, steps=n_steps,
+        cards=cards, batch=B, seq=S, steps=n_steps, remat=cfg.remat,
+        attention_positions=attention_positions(cfg, mesh),
         losses=[h["loss"] for h in hist],
         grad_norms=[h["grad_norm"] for h in hist],
         ref_losses=[h["loss"] for h in ref["history"]],
@@ -4567,6 +4686,10 @@ SERVE_MESH_MODELS = (("qwen2-vl-7b", 4, 8, 512),
                      ("zamba2-1.2b", 12, 8, 512),
                      ("whisper-base", None, 8, 32))
 SERVE_MESHES = ((1, 1), (2, 1), (1, 2), (2, 2), (1, 4))
+#: Meshes whose "model" axis does not divide a model's heads (qwen2-vl's
+#: 28 on 8 columns, whisper's 8 on 16): the attention whole on each
+#: batch row's first column. Run after ``SERVE_MESHES``, in f32 and bf16.
+SERVE_WHOLE_HEADS = {"qwen2-vl-7b": (1, 8), "whisper-base": (1, 16)}
 SERVE_STEPS = 16
 #: Mesh logits against the unsharded step's, relative to the largest
 #: |logit|, in f32 (TF32 off).
@@ -4577,14 +4700,17 @@ SERVE_KERNELS = ("flash_attention", "sgmv", "bgmv")
 def serve_mesh_counts(cfg, M: int, rows: int) -> dict:
     """Launches of the path's kernels in one prefill and ``SERVE_STEPS``
     decode steps with ``rows`` batch rows of ``M`` columns: flash per
-    attention layer a position, sgmv per LoRA projection a position
-    (prefill), bgmv likewise each decode step."""
+    attention layer an attention position (every position, or each
+    row's first when the columns do not divide the heads), sgmv per
+    LoRA projection an attention position (prefill), bgmv likewise each
+    decode step."""
+    from repro_torch.distributed.sharding import whole_heads
     from repro_torch.models.hybrid import attn_sites
     fam = cfg.family.name
     attn = {"VLM": cfg.n_layers, "ENCDEC": cfg.n_enc_layers + cfg.n_layers,
             "SSM": 0}.get(fam) if fam != "HYBRID" else len(attn_sites(cfg))
     lora = 4 * attn if fam in ("VLM", "HYBRID") else 0
-    pos = M * rows
+    pos = (1 if cfg.n_heads and whole_heads(cfg, M) else M) * rows
     return {"flash_attention": attn * pos, "sgmv": lora * pos,
             "bgmv": lora * pos * SERVE_STEPS}
 
@@ -4730,13 +4856,15 @@ def serve_mesh_state_specs(cfg, B: int, S: int, shape) -> list:
                                  cfg.head_dim))] * 2
 
 
-def serve_mesh_kernels(cfg, B: int, S: int, record: dict) -> None:
-    """The model's kernels at the column shapes of (2, 2) and (1, 4)
-    against their plain versions, timed beside their bounds and a
-    PyTorch call (``kernel_time_serve_mesh`` lines): flash_attention
-    over a batch row's rows and a column's heads (causal; whisper's
-    encoder full over its 1500 frames), sgmv and bgmv at a column's
-    LoRA dout (the case's rank 64, 8 slots)."""
+def serve_mesh_kernels(cfg, B: int, S: int, record: dict,
+                       meshes=((2, 2), (1, 4))) -> None:
+    """The model's kernels at the column shapes of ``meshes`` against
+    their plain versions, timed beside their bounds and a PyTorch call
+    (``kernel_time_serve_mesh`` lines): flash_attention over a batch
+    row's rows and a column's heads (causal; whisper's encoder full over
+    its 1500 frames), sgmv and bgmv at a column's LoRA dout (the case's
+    rank 64, 8 slots); on a mesh whose columns do not divide the heads,
+    at the whole attention block's shapes (its first column's)."""
     import importlib
 
     import torch
@@ -4756,15 +4884,17 @@ def serve_mesh_kernels(cfg, B: int, S: int, record: dict) -> None:
         return (torch.randn(shape, generator=g, device=dev)
                 * scale).to(torch.bfloat16)
 
+    from repro_torch.distributed.sharding import whole_heads
     fam, dh = cfg.family.name, cfg.head_dim
     if not cfg.n_heads:          # attention-free: no kernel on its path
         return
-    for d, M in ((2, 2), (1, 4)):
+    for d, M in meshes:
         Br = B // d
+        Mh = 1 if whole_heads(cfg, M) else M      # the heads' columns
         cases_fa = ([(Br, cfg.enc_ctx, False), (Br, S, True)]
                     if fam == "ENCDEC" else [(Br, S, True)])
         for Bt, T, causal in cases_fa:
-            H, Kh = cfg.n_heads // M, max(cfg.n_kv_heads // M, 1)
+            H, Kh = cfg.n_heads // Mh, max(cfg.n_kv_heads // Mh, 1)
             q = randn(Bt, T, H, dh)
             k, v = randn(Bt, T, Kh, dh), randn(Bt, T, Kh, dh)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -4789,9 +4919,9 @@ def serve_mesh_kernels(cfg, B: int, S: int, record: dict) -> None:
         idx = torch.arange(Br, device=dev).int() % n
         ts = torch.randint(0, n, (Br * S // tile,), generator=g,
                            device=dev).int()
-        projs = {("q", cfg.d_model, cfg.q_dim // M),
-                 ("k/v", cfg.d_model, max(cfg.kv_dim // M, dh)),
-                 ("o", cfg.q_dim, cfg.d_model // M)}
+        projs = {("q", cfg.d_model, cfg.q_dim // Mh),
+                 ("k/v", cfg.d_model, max(cfg.kv_dim // Mh, dh)),
+                 ("o", cfg.q_dim, cfg.d_model // Mh)}
         for proj, din, dout in sorted(projs):
             A = randn(n, din, r, scale=din ** -0.5)
             Bw = randn(n, r, dout, scale=r ** -0.5)
@@ -4835,8 +4965,9 @@ def serve_mesh_model(arch: str, n_layers, B: int, S: int,
     over ``SERVE_STEPS`` steps, logits within ``SERVE_TOL``, the state
     in the rule table's layout, the kernels launched the counted number
     of times and no plain version), then bf16 ms a prefill, ms a decode
-    step and peak memory unsharded (first and last), at (1, 1) and
-    (2, 2). One ``serve_mesh`` line a mesh and dtype."""
+    step and peak memory unsharded (first and last), at (1, 1), (2, 2)
+    and its ``SERVE_WHOLE_HEADS`` mesh. One ``serve_mesh`` line a mesh
+    and dtype."""
     import dataclasses
 
     import torch
@@ -4846,11 +4977,13 @@ def serve_mesh_model(arch: str, n_layers, B: int, S: int,
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     t_start = time.perf_counter()
     errs: dict = {}
-    serve_mesh_kernels(cfg, B, S, errs)
+    extra = ((SERVE_WHOLE_HEADS[arch],) if arch in SERVE_WHOLE_HEADS
+             else ())
+    serve_mesh_kernels(cfg, B, S, errs, ((2, 2), (1, 4)) + extra)
     dev = torch.device("cuda")
     args = serve_mesh_args(cfg, B, S, torch.float32, dev)
     base = serve_mesh_run(cfg, arch, args, None, B, S)
-    for shape in SERVE_MESHES:
+    for shape in SERVE_MESHES + extra:
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -4890,7 +5023,7 @@ def serve_mesh_model(arch: str, n_layers, B: int, S: int,
     torch.cuda.empty_cache()
     args = serve_mesh_args(cfg, B, S, torch.bfloat16, dev)
     # The unsharded case first and last: host times vary run to run.
-    for shape in (None, (1, 1), (2, 2), None):
+    for shape in (None, (1, 1), (2, 2)) + extra + (None,):
         torch.cuda.reset_peak_memory_stats()
         got = serve_mesh_run(cfg, arch, args, shape and repeated_mesh(
             shape, dev), B, S)

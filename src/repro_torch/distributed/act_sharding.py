@@ -285,6 +285,33 @@ def psum_columns(parts: list) -> list:
     return list(_SumColumns.apply(*parts))
 
 
+class _BroadcastColumns(torch.autograd.Function):
+    """A value one column computed whole, a copy on every column's
+    device; the gradient is the copies' gradients summed in column
+    order on the value's device."""
+
+    @staticmethod
+    def forward(ctx, x, devices):
+        ctx.home = x.device
+        with COLLECTIVE_METER.sync():
+            return tuple(x.to(d) if d != x.device else x.clone()
+                         for d in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return _all_reduce(grads, [ctx.home])[0], None
+
+
+def broadcast_columns(x: torch.Tensor, devices: list) -> list:
+    """The row-parallel mode's copy of a block one column computed whole
+    (attention over heads the columns do not divide) onto every column's
+    ``devices``: each column's copy feeds that column only, so the
+    block's gradient is their sum. One column: as it is."""
+    if len(devices) == 1:
+        return [x]
+    return list(_BroadcastColumns.apply(x, list(devices)))
+
+
 def constrain_logits(x):
     """(B, S, V) or (B, V) logits: exact mode gathers the vocab dim —
     sampling consumes these (sort / cumsum / top-k over V) and must see

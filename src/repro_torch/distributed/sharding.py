@@ -596,6 +596,40 @@ def column_coords(mesh: Mesh, m: int) -> tuple:
     return tuple(m if a == "model" else 0 for a in mesh.axis_names)
 
 
+#: The leaves of an attention block (self, shared and cross attention):
+#: whole on a column when the "model" axis does not divide the heads.
+_HEAD_LEAVES = ("q", "k", "v", "o", "q_bias", "k_bias", "v_bias",
+                "xq", "xk", "xv", "xo")
+
+
+def whole_heads(cfg: ModelConfig, M: int) -> bool:
+    """Whether ``cfg``'s attention runs whole on ``M`` columns: the axis
+    does not divide its heads (the JAX table keeps a weight's split
+    where its dimension divides, 2.5 heads a column for 40 heads on 16,
+    and replicates the head activations). Each batch row's first column
+    then computes the block, all heads and all KV heads, with the
+    weights assembled from their stored blocks, and its output is the
+    row's residual (serving) or is copied to the row's other columns
+    (training, ``act_sharding.broadcast_columns``): M times fewer
+    FLOPs and activations than every column computing it, and each
+    stored shard gets the block's gradient from one position."""
+    return bool(cfg.n_heads) and cfg.n_heads % M != 0
+
+
+def _column_layout(cfg: ModelConfig, M: int) -> tuple:
+    """(whole heads, columns that compute attention, each column's KV
+    heads, columns that read one KV head, the config one column
+    computes)."""
+    whole = whole_heads(cfg, M)
+    if whole:
+        return (True, 1, [(0, cfg.n_kv_heads)] * M, 1, cfg)
+    kv = [kv_heads_of_column(cfg.n_kv_heads, M, m) for m in range(M)]
+    share = 1 if cfg.n_kv_heads % M == 0 else M // cfg.n_kv_heads
+    lo, hi = kv[0]
+    return (False, M, kv, share, dataclasses.replace(
+        cfg, n_heads=cfg.n_heads // M, n_kv_heads=hi - lo))
+
+
 def kv_heads_of_column(n_kv_heads: int, M: int, m: int) -> tuple:
     """The KV heads [lo, hi) column ``m`` of ``M`` reads: its query
     heads' groups (``h // G``). KV heads that split over the columns
@@ -612,17 +646,17 @@ def kv_heads_of_column(n_kv_heads: int, M: int, m: int) -> tuple:
 def mesh_unsupported(cfg: ModelConfig, model_size: int) -> list[str]:
     """Why the mesh data plane cannot serve ``cfg`` with ``model_size``
     columns (empty when it can). Every family serves; a vocabulary the
-    columns do not divide stays whole on every column."""
+    columns do not divide stays whole on every column, and heads they
+    do not divide run whole (``whole_heads``)."""
     return _column_unsupported(cfg, model_size)
 
 
 def _column_unsupported(cfg: ModelConfig, M: int) -> list[str]:
     """Why ``cfg``'s column compute cannot split over ``M`` columns: a
-    head, width, hidden, SSM channel or Mamba2 head count that ``M``
-    does not divide, or KV heads a column would read parts of."""
+    width, hidden, SSM channel or Mamba2 head count that ``M`` does not
+    divide, or KV heads a column would read parts of."""
     out = []
-    dims = [("n_heads", cfg.n_heads), ("d_model", cfg.d_model),
-            ("d_ff", cfg.d_ff)]
+    dims = [("d_model", cfg.d_model), ("d_ff", cfg.d_ff)]
     if cfg.family == Family.MOE:
         dims.append(("shared_expert_ff", cfg.shared_expert_ff))
     if cfg.ssm_version:
@@ -680,15 +714,19 @@ class MeshParams:
       (``kv_heads[m]``), and the other weights are whole (``x_proj``
       and ``gate_norm`` too: exact mode gathers d_inner before them). A
       vocabulary the columns do not divide is whole on every column
-      (``whole_vocab``). A block that storage does not put at the
-      position is sliced or gathered once here.
+      (``whole_vocab``); heads the columns do not divide make the
+      attention block's leaves whole on the first column
+      (``whole_heads``: one tensor a device, shared by its positions).
+      A block that storage does not put at the position is sliced or
+      gathered once here.
     - ``experts``: each "data" shard's MoE experts, for MoE configs:
       its device, its expert range and its stacked ``w_gate``/``w_up``/
       ``w_down`` blocks (``moe/`` stacks (n_moe, E_d, ...)) and router.
       A shard's experts run on its device only.
 
     ``col_cfg`` is the config one column computes (n_heads/M and its
-    KV heads)."""
+    KV heads; every head when ``whole_heads``), ``attn_cols`` the
+    columns that compute attention (1 when ``whole_heads``)."""
 
     def __init__(self, cfg: ModelConfig, placed: dict, mesh: Mesh):
         M = mesh.shape["model"]
@@ -703,14 +741,12 @@ class MeshParams:
         self.coords = self.row_coords[0]
         self.devices = [mesh.devices[c] for c in self.coords]
         self.home = self.devices[0]
-        self.kv_heads = [kv_heads_of_column(cfg.n_kv_heads, M, m)
-                         for m in range(M)]
-        #: Columns that read one KV head (1 when the heads split).
-        self.kv_share = (1 if cfg.n_kv_heads % M == 0
-                         else M // cfg.n_kv_heads)
-        lo, hi = self.kv_heads[0]
-        self.col_cfg = dataclasses.replace(
-            cfg, n_heads=cfg.n_heads // M, n_kv_heads=hi - lo)
+        #: ``whole_heads``, the columns that compute attention (1 when
+        #: whole), each column's KV heads, the columns that read one KV
+        #: head (1 when the heads split, or whole: the first column
+        #: writes every replica) and the config a column computes.
+        (self.whole_heads, self.attn_cols, self.kv_heads, self.kv_share,
+         self.col_cfg) = _column_layout(cfg, M)
         made: dict = {}
         self.row_cols = [[{path: self._view(made, path, st, c, m)
                            for path, st in placed.items()
@@ -733,7 +769,8 @@ class MeshParams:
               coords: tuple, m: int):
         """``_column`` once a (leaf, column, device): the rows of
         positions on one device share a view."""
-        key = (path, m, str(self.mesh.devices[coords]))
+        whole = self.whole_heads and path.split("/")[-1] in _HEAD_LEAVES
+        key = (path, None if whole else m, str(self.mesh.devices[coords]))
         if key not in made:
             made[key] = self._column(path, st, coords, m)
         return made[key]
@@ -748,6 +785,8 @@ class MeshParams:
                 f"may stand for the others")
         leaf = path.split("/")[-1]
         M = self.model_size
+        if self.whole_heads and leaf in _HEAD_LEAVES:
+            return whole_at(st, coords)
         if leaf in _SERVE_KV_LEAVES and self.kv_share > 1:
             lo, hi = self.kv_range(m, st.shape[-1])
             return column_range(st, coords, -1, lo, hi)
@@ -768,11 +807,16 @@ class MeshParams:
         A whole (gathered where storage splits its din, as the serving
         cases place it), B's dout block m (for k/v: its KV heads'
         columns, gathered where the heads are shared by several
-        columns)."""
+        columns). Whole heads: the attention projections' A and B whole
+        on the first column, on no other."""
         out = []
         for m, c in enumerate(self.row_coords[b]):
             cols = {}
             for proj, (a, bw) in lora.items():
+                if self.whole_heads and proj in _HEAD_LEAVES:
+                    if m == 0:
+                        cols[proj] = (whole_at(a, c), whole_at(bw, c))
+                    continue
                 if proj in _KV_LEAVES and self.kv_share > 1:
                     lo, hi = self.kv_range(m, bw.shape[-1])
                     bm = column_range(bw, c, -1, lo, hi)
@@ -1104,7 +1148,9 @@ class TrainView:
     "pod", for the batch shards of its pod (``b // n_data``). SSM
     leaves: column m's block of d_inner (``_TRAIN_COLUMN_DIM``), a
     packed leaf one segment at a time (``ssm_segments``). Cross
-    attention: heads as self-attention's, from replicated leaves."""
+    attention: heads as self-attention's, from replicated leaves. Heads
+    "model" does not divide (``whole_heads``): the attention leaves
+    whole, computed by the first column alone (``attn_cols`` 1)."""
 
     def __init__(self, cfg: ModelConfig, placed: dict):
         mesh = next(iter(placed.values())).mesh
@@ -1118,11 +1164,8 @@ class TrainView:
         self.batch_axes = tuple(a for a in mesh.axis_names if a != "model")
         self.rows = batch_rows(mesh)
         self.n_batch = len(self.rows)
-        self.kv_heads = [kv_heads_of_column(cfg.n_kv_heads, M, m)
-                         for m in range(M)]
-        lo, hi = self.kv_heads[0]
-        self.col_cfg = dataclasses.replace(
-            cfg, n_heads=cfg.n_heads // M, n_kv_heads=hi - lo)
+        (self.whole_heads, self.attn_cols, self.kv_heads, _,
+         self.col_cfg) = _column_layout(cfg, M)
         self.whole_vocab = cfg.vocab_size % M != 0
         self.home = mesh.devices.flat[0]
 
@@ -1137,7 +1180,8 @@ class TrainView:
         out = [slice(None)] * len(shape)
         if layer is not None:
             out[0] = layer
-        if path in ("embed/tok", "lm_head") and self.whole_vocab:
+        if path in ("embed/tok", "lm_head") and self.whole_vocab or (
+                self.whole_heads and leaf in _HEAD_LEAVES):
             return [tuple(out)]
         segs = ssm_segments(self.cfg, leaf)
         if segs is not None:
@@ -1164,7 +1208,9 @@ class TrainView:
         reaches the shards' owners), else a plain ``all_gather``; a
         packed leaf's ranges concatenated on its last dimension."""
         st, dev = self.placed[path], self.rows[b][m]
+        replay = getattr(_REPLAY, "step", None)
         parts = [_STEP.gather(path, st, i, dev) if _STEP is not None
+                 else replay.replay(st, i, dev) if replay is not None
                  else all_gather(st, i, dev)
                  for i in self.boxes(path, m, layer, b)]
         return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
@@ -1176,6 +1222,26 @@ class TrainView:
 
 
 _STEP = None           # the recording FsdpStep, if any
+_REPLAY = threading.local()   # the FsdpStep a recompute replays
+
+
+def recording_step():
+    """The recording ``FsdpStep``, or None."""
+    return _STEP
+
+
+@contextlib.contextmanager
+def replaying(step):
+    """Within the block, this thread's ``TrainView.view`` gathers as
+    ``step.replay`` does (a remat body's recompute, which runs in the
+    backward, after ``step`` stopped recording). ``step`` None: plain
+    gathers."""
+    prev = getattr(_REPLAY, "step", None)
+    _REPLAY.step = step
+    try:
+        yield
+    finally:
+        _REPLAY.step = prev
 
 
 def _address(t: torch.Tensor) -> tuple:
@@ -1197,7 +1263,8 @@ class _Gathered(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         step, key, seq, index = ctx.args
-        step._deposit(key, seq, index, g)
+        if key is not None:
+            step._deposit(key, seq, index, g)
         return (torch.zeros(0),) + (None,) * 6
 
 
@@ -1214,7 +1281,9 @@ class FsdpStep:
     backward: autograd saves a handle to it (``saved_tensors_hooks``),
     and the backward gathers it again, as FSDP frees a layer after its
     forward. Gradients reach the graph's one leaf, ``anchor``:
-    differentiate the loss with respect to it, then ``finish()``."""
+    differentiate the loss with respect to it, then ``finish()``. A
+    remat body's recompute, which runs in that backward, gathers its
+    blocks again through ``replay`` (``models/remat.py``)."""
 
     def __init__(self, placed: dict, grads: dict):
         self.placed, self.grads = placed, grads
@@ -1250,6 +1319,14 @@ class FsdpStep:
             self._saved[ptr] = (st, index, device)
             weakref.finalize(out, self._saved.pop, ptr, None)
         return out
+
+    def replay(self, st: ShardedTensor, index: tuple, device
+               ) -> torch.Tensor:
+        """``gather`` again for a remat body's recompute: the same block,
+        as a node of the recomputed graph (so the body saves what its
+        forward saved), which deposits nothing and is not waited for."""
+        return _Gathered.apply(self.anchor, self, None, 0, st, index,
+                               device)
 
     def _pack(self, t: torch.Tensor):
         rec = self._saved.get(_address(t))

@@ -56,12 +56,14 @@ from repro_torch.models.layers import (cross_entropy, decode_attention,
                                        einsum, embed, gqa_attention,
                                        rms_norm, swiglu)
 from repro_torch.models.lm import (_attn_sublayer, _attn_train,
-                                   _embed_mesh, _embed_train, _head,
-                                   _head_train, _heads, _logits,
+                                   _column_sums, _embed_mesh, _embed_train,
+                                   _head, _head_train, _heads, _logits,
                                    _mesh_calls, _mesh_scope, _mlp_mesh,
                                    _mlp_train, _o_proj_mesh, _placed,
                                    _slab_ops, _slab_write, kv_placed,
-                                   mesh_forward, mesh_train_loss)
+                                   mesh_forward, mesh_train_loss,
+                                   remat_rows)
+from repro_torch.models.remat import remat
 
 
 def _grp(params, prefix):
@@ -122,8 +124,12 @@ def encode(cfg: ModelConfig, params: dict,
     enc = _grp(params, "enc/")
     for i in range(cfg.n_enc_layers):
         p = {k: v[i] for k, v in enc.items()}
-        x, _ = _self_attn(cfg, x, p, causal=False)
-        x = _mlp(cfg, x, p)
+
+        def layer(x, p=p):
+            x, _ = _self_attn(cfg, x, p, causal=False)
+            return _mlp(cfg, x, p)
+
+        x = remat(layer, x, on=cfg.remat)
     return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
 
 
@@ -151,12 +157,17 @@ def _decoder(cfg, params, x, kx, vx, kv_caches=None, cache_len=None):
         p = {k: v[i] for k, v in dec.items()}
         kv = ((kv_caches[0][i], kv_caches[1][i])
               if kv_caches is not None else None)
-        x, new_kv = _self_attn(cfg, x, p, causal=True, kv_cache=kv,
-                               cache_len=cache_len)
         px = {"attn_norm": xdec["attn_norm"][i], "q": xdec["q"][i],
               "o": xdec["o"][i]}
-        x = _cross_attn(cfg, x, px, kx[i], vx[i])
-        x = _mlp(cfg, x, p)
+
+        def layer(x, p=p, kv=kv, px=px, i=i):
+            x, new_kv = _self_attn(cfg, x, p, causal=True, kv_cache=kv,
+                                   cache_len=cache_len)
+            x = _cross_attn(cfg, x, px, kx[i], vx[i])
+            return _mlp(cfg, x, p), new_kv
+
+        # Never over a slab written in place (decode).
+        x, new_kv = remat(layer, x, on=cfg.remat and kv_caches is None)
         ks.append(new_kv[0])
         vs.append(new_kv[1])
     if kv_caches is not None:
@@ -193,11 +204,13 @@ def train_loss(cfg, params, tokens, labels, frames,
 
 # ------------------------------------------------- training on a mesh
 def _cross_kv_train(cfg, tv: TrainView, enc: list, b: int) -> list:
-    """Each column's cross K/V (L, B, Senc, Kh / M, Dh) of its KV heads,
-    from its copy of batch shard ``b``'s encoder output."""
+    """Each attention column's cross K/V (L, B, Senc, Kh / M, Dh) of its
+    KV heads (whole heads: the first column's, every head), from its
+    copy of batch shard ``b``'s encoder output, normed here."""
     out = []
-    for m, e in enumerate(enc):
-        with on_device(e.device):
+    for m, x in enumerate(enc[:tv.attn_cols]):
+        with on_device(x.device):
+            e = rms_norm(x, tv.view("enc_final_norm", b, m), cfg.norm_eps)
             k, v = (einsum("bsd,lde->lbse", e, tv.view(f"dec/x{n}", b, m))
                     for n in "kv")
             shape = (cfg.n_layers,) + tuple(e.shape[:2]) + (
@@ -209,10 +222,11 @@ def _cross_kv_train(cfg, tv: TrainView, enc: list, b: int) -> list:
 def _cross_train(cfg, tv: TrainView, hb: list, b: int, i: int,
                  kvs: list) -> list:
     """Cross attention of decoder layer ``i`` for batch shard ``b``: each
-    column's heads, their xo products summed over the columns."""
+    column's heads, their xo products summed over the columns (whole
+    heads: the first column's, copied)."""
     c = tv.col_cfg
     parts = []
-    for m, x in enumerate(hb):
+    for m, x in enumerate(hb[:tv.attn_cols]):
         with on_device(x.device):
             B, S, _ = x.shape
             p = tv.layer(i, b, m, ("xattn_norm", "xq", "xo"), "dec/")
@@ -223,7 +237,7 @@ def _cross_train(cfg, tv: TrainView, hb: list, b: int, i: int,
             out = gqa_attention(q, kx[i], vx[i], causal=False)
             parts.append(einsum("bse,ed->bsd", out.reshape(B, S, c.q_dim),
                                 p["xo"]))
-    return [x + y for x, y in zip(hb, acts.psum_columns(parts))]
+    return [x + y for x, y in zip(hb, _column_sums(tv, hb, parts))]
 
 
 def _logits_mesh(cfg: ModelConfig, tv: TrainView, tokens, frames):
@@ -234,23 +248,25 @@ def _logits_mesh(cfg: ModelConfig, tv: TrainView, tokens, frames):
             for m, f in enumerate(row)]
            for b, row in enumerate(acts.batch_shards(frames))]
     for i in range(cfg.n_enc_layers):
-        enc = [_mlp_train(cfg, tv,
-                          _attn_train(tv, hb, None, b, i, "enc/",
-                                      causal=False), b, i, "enc/")
-               for b, hb in enumerate(enc)]
-    kvs = [_cross_kv_train(
-        cfg, tv, [rms_norm(x, tv.view("enc_final_norm", b, m), cfg.norm_eps)
-                  for m, x in enumerate(hb)], b)
-        for b, hb in enumerate(enc)]
+        enc, _ = remat_rows(lambda h, i=i: ([
+            _mlp_train(cfg, tv, _attn_train(tv, hb, None, b, i, "enc/",
+                                            causal=False), b, i, "enc/")
+            for b, hb in enumerate(h)], None), enc, cfg.remat)
+    kvs = [_cross_kv_train(cfg, tv, hb, b) for b, hb in enumerate(enc)]
     del enc
     h = [[x + tv.view("dec_pos", b, m)[:S] for m, x in enumerate(hb)]
          for b, hb in enumerate(_embed_train(tv, toks))]
-    for i in range(cfg.n_layers):
+
+    def layer(h, i):
         h = [_attn_train(tv, hb, None, b, i, "dec/") for b, hb in
              enumerate(h)]
         h = [_cross_train(cfg, tv, hb, b, i, kvs[b])
              for b, hb in enumerate(h)]
-        h = [_mlp_train(cfg, tv, hb, b, i, "dec/") for b, hb in enumerate(h)]
+        return [_mlp_train(cfg, tv, hb, b, i, "dec/")
+                for b, hb in enumerate(h)], None
+
+    for i in range(cfg.n_layers):
+        h, _ = remat_rows(lambda h, i=i: layer(h, i), h, cfg.remat)
     return _head_train(cfg, tv, h), None
 
 
@@ -289,7 +305,7 @@ def _cross_columns(cfg, call, h, ps: list, kxs: list, vxs: list):
     the heads gathered, xo column-parallel, the residual gathered."""
     c = call.ccfg
     outs = []
-    for m, x in enumerate(acts.replicate(h)):
+    for m, x in enumerate(call.heads_in(h)):
         with on_device(x.device):
             n, S, _ = x.shape
             hm = rms_norm(x, ps[m]["attn_norm"], cfg.norm_eps)
@@ -308,7 +324,6 @@ def _serve_mesh(cfg: ModelConfig, mp: MeshParams, tokens, state=None,
     with _mesh_scope(mp):
         B, S = tokens.shape
         calls = _mesh_calls(mp, None, B)
-        M = mp.model_size
         dec = [[_grp(c, "dec/") for c in call.cols] for call in calls]
         xdec = [[_grp_cross(c) for c in call.cols] for call in calls]
         hs, kxs, vxs = [], [], []
@@ -325,14 +340,15 @@ def _serve_mesh(cfg: ModelConfig, mp: MeshParams, tokens, state=None,
                                                slice(call.lo, call.hi),
                                                slice(None), slice(*hd)),
                                            dev)
-                               for hd, dev in zip(mp.kv_heads,
-                                                  call.devices)]
+                               for hd, dev in zip(
+                                  mp.kv_heads[:mp.attn_cols],
+                                  call.devices)]
                               for t in state[1])
             kxs.append(kx)
             vxs.append(vx)
         if state is None:
-            ks = [[[] for _ in range(M)] for _ in calls]
-            vs = [[[] for _ in range(M)] for _ in calls]
+            ks = [[[] for _ in range(mp.attn_cols)] for _ in calls]
+            vs = [[[] for _ in range(mp.attn_cols)] for _ in calls]
 
             def attend(r, i, m, q, k, v):
                 ks[r][m].append(k)
@@ -388,7 +404,7 @@ def _encode_columns(cfg, call, frames):
                       gated=True)
     x = rms_norm(x, call.cols[0]["enc_final_norm"], cfg.norm_eps)
     kx, vx = [], []
-    for xm, c in zip(acts.replicate(x), call.cols):
+    for xm, c in zip(call.heads_in(x), call.cols):
         with on_device(xm.device):
             n, Se, _ = xm.shape
             for out, leaf in ((kx, "dec/xk"), (vx, "dec/xv")):

@@ -55,7 +55,8 @@ from repro_torch.models.lm import (_attn, _attn_sublayer, _attn_train,
                                    _mlp_train, _placed, _positions,
                                    _row_inputs, _slab_ops, _slice_group,
                                    kv_placed, mesh_forward,
-                                   mesh_train_loss)
+                                   mesh_train_loss, remat_rows)
+from repro_torch.models.remat import remat
 from repro_torch.models.ssm import mamba2_seq, mamba2_step
 from repro_torch.models.ssm_lm import (_mixer_train, mixer_columns,
                                        place_ssm_state)
@@ -112,22 +113,31 @@ def _run(cfg: ModelConfig, params: dict, x: torch.Tensor, cos, sin,
     serving = ssm_states is not None
     new_ssm, new_conv, ks, vs = [], [], [], []
     for i in range(n_per):
-        for e in range(E):
-            layer = i * E + e
-            p = {k: v[i, e] for k, v in scanned.items()}
-            x, h, c = _mamba_block(
-                cfg, x, p, decode,
-                ssm_states[layer] if serving else None,
-                conv_states[layer] if serving else None)
-            new_ssm.append(h)
-            new_conv.append(c)
-        kv = ((kv_caches[0][i], kv_caches[1][i])
-              if kv_caches is not None else None)
-        lr = ({proj: (a[i], b[i]) for proj, (a, b) in lora.items()}
-              if lora is not None else None)
-        x, kv_new = _attn(cfg, x, shared, cos, sin, kv, cache_len, lr,
-                          adapter_idx, lora_backend=lora_backend)
-        x = _mlp(cfg, x, shared)
+
+        def period(x, i=i):
+            """Period ``i``: E Mamba2 layers, then the shared block."""
+            hs, cs = [], []
+            for e in range(E):
+                layer = i * E + e
+                p = {k: v[i, e] for k, v in scanned.items()}
+                x, h, c = _mamba_block(
+                    cfg, x, p, decode,
+                    ssm_states[layer] if serving else None,
+                    conv_states[layer] if serving else None)
+                hs.append(h)
+                cs.append(c)
+            kv = ((kv_caches[0][i], kv_caches[1][i])
+                  if kv_caches is not None else None)
+            lr = ({proj: (a[i], b[i]) for proj, (a, b) in lora.items()}
+                  if lora is not None else None)
+            x, kv_new = _attn(cfg, x, shared, cos, sin, kv, cache_len, lr,
+                              adapter_idx, lora_backend=lora_backend)
+            return _mlp(cfg, x, shared), hs, cs, kv_new
+
+        # The JAX period body's ``jax.checkpoint``, not on decode.
+        x, hs, cs, kv_new = remat(period, x, on=cfg.remat and not decode)
+        new_ssm += hs
+        new_conv += cs
         if need_state and kv_caches is None:
             ks.append(kv_new[0])
             vs.append(kv_new[1])
@@ -173,14 +183,23 @@ def _logits_mesh(cfg: ModelConfig, tv: TrainView, tokens):
     toks = acts.batch_shards(tokens)
     h = _embed_train(tv, toks)
     rope = [[_positions(cfg, t, 0) for t in row] for row in toks]
-    sites = set(attn_sites(cfg))
-    for i in range(cfg.n_layers):
-        h = [_mixer_train(cfg, tv, hb, b, i) for b, hb in enumerate(h)]
-        if i in sites:
-            h = [_mlp_train(cfg, tv,
-                            _attn_train(tv, hb, rope[b], b, None, "shared/"),
-                            b, None, "shared/")
+    E = cfg.attn_every
+    n_per = cfg.n_layers // E
+
+    def period(h, i):
+        """Period ``i``: its Mamba2 layers, then the shared block."""
+        for layer in range(i * E, (i + 1) * E):
+            h = [_mixer_train(cfg, tv, hb, b, layer)
                  for b, hb in enumerate(h)]
+        return [_mlp_train(cfg, tv,
+                           _attn_train(tv, hb, rope[b], b, None, "shared/"),
+                           b, None, "shared/")
+                for b, hb in enumerate(h)], None
+
+    for i in range(n_per):
+        h, _ = remat_rows(lambda h, i=i: period(h, i), h, cfg.remat)
+    for layer in range(n_per * E, cfg.n_layers):     # the tail: no site
+        h = [_mixer_train(cfg, tv, hb, b, layer) for b, hb in enumerate(h)]
     return _head_train(cfg, tv, h), None
 
 
@@ -290,8 +309,8 @@ def _serve_mesh(cfg: ModelConfig, mp: MeshParams, tokens, state,
         shared = [[_slice_group(c, "shared/") for c in call.cols]
                   for call in calls]
         if state is None:
-            ks = [[[] for _ in range(M)] for _ in calls]
-            vs = [[[] for _ in range(M)] for _ in calls]
+            ks = [[[] for _ in range(mp.attn_cols)] for _ in calls]
+            vs = [[[] for _ in range(mp.attn_cols)] for _ in calls]
 
             def attend(r, j, m, q, k, v):
                 ks[r][m].append(k)

@@ -17,6 +17,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.remat import remat
+
 NEG_INF = -1e30
 
 
@@ -160,8 +162,11 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if Sq < Q_CHUNK_THRESHOLD or Sq % Q_CHUNK != 0:
         out = _attn_block(qg, k, v, q_offset, kv_len, causal, scale)
         return out.reshape(B, Sq, H, D)
-    outs = [_attn_block(qg[:, c:c + Q_CHUNK], k, v, q_offset + c, kv_len,
-                        causal, scale)
+    # Each chunk's body rematerialised, as the reference's: without it
+    # the backward keeps every chunk's probs, the (Sq, Sk) memory the
+    # chunking exists to avoid.
+    outs = [remat(_attn_block, qg[:, c:c + Q_CHUNK], k, v, q_offset + c,
+                  kv_len, causal, scale)
             for c in range(0, Sq, Q_CHUNK)]
     return torch.cat(outs, dim=1).reshape(B, Sq, H, D)
 

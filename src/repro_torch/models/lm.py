@@ -56,6 +56,7 @@ from repro_torch.models.lora_apply import lora_delta
 from repro_torch.models.moe import (moe_block, moe_block_gather,
                                     moe_block_train)
 from repro_torch.models.moe_shard_map import moe_block_a2a
+from repro_torch.models.remat import remat
 
 
 # ----------------------------------------------------------------- init
@@ -332,9 +333,15 @@ def _backbone(cfg: ModelConfig, params: dict, x: torch.Tensor, cos, sin,
     for i, p, lr in _layers(cfg, params, lora):
         kv = ((kv_caches[0][i], kv_caches[1][i])
               if kv_caches is not None else None)
-        h, new_kv = _attn(cfg, h, p, cos, sin, kv, cache_len, lr,
-                          adapter_idx, lora_backend)
-        h = _mlp(cfg, h, p)
+
+        def layer(h, p=p, lr=lr, kv=kv):
+            h, new_kv = _attn(cfg, h, p, cos, sin, kv, cache_len, lr,
+                              adapter_idx, lora_backend)
+            return _mlp(cfg, h, p), new_kv
+
+        # The JAX scan body's ``jax.checkpoint``; never over a slab
+        # written in place (decode).
+        h, new_kv = remat(layer, h, on=cfg.remat and kv_caches is None)
         if kv_caches is None and collect_kv:
             ks.append(new_kv[0])
             vs.append(new_kv[1])
@@ -356,24 +363,39 @@ def _backbone_moe(cfg: ModelConfig, params: dict, x: torch.Tensor, cos,
     E = cfg.moe_every
     moe_stack = _slice_group(params, "moe/")
     dense_stack = _slice_group(params, "dense_mlp/")
+    layers = list(_layers(cfg, params, lora))
     ks, vs = [], []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = x
-    for i, p, lr in _layers(cfg, params, lora):
-        s, e = divmod(i, E)                    # superstep, layer in it
-        kv = ((kv_caches[0][i], kv_caches[1][i])
-              if kv_caches is not None else None)
-        h, new_kv = _attn(cfg, h, p, cos, sin, kv, cache_len, lr,
-                          adapter_idx, lora_backend)
+    for s in range(cfg.n_layers // E):
+
+        def superstep(h, s=s):
+            """Superstep ``s``: (hidden, its MoE aux loss, its K/V)."""
+            a, kvs = None, []
+            for i, p, lr in layers[s * E:(s + 1) * E]:
+                e = i - s * E
+                kv = ((kv_caches[0][i], kv_caches[1][i])
+                      if kv_caches is not None else None)
+                h, new_kv = _attn(cfg, h, p, cos, sin, kv, cache_len, lr,
+                                  adapter_idx, lora_backend)
+                kvs.append(new_kv)
+                if e == E - 1:
+                    h, a = _moe(cfg, h, {k: v[s]
+                                         for k, v in moe_stack.items()})
+                else:
+                    j = s * (E - 1) + e
+                    h = _mlp(cfg, h, {k: v[j]
+                                      for k, v in dense_stack.items()})
+            return h, a, kvs
+
+        # The JAX superstep body's ``jax.checkpoint``: its aux loss
+        # comes out of the body and is summed here, in layer order.
+        h, a, kvs = remat(superstep, h,
+                          on=cfg.remat and kv_caches is None)
+        aux = aux + a
         if kv_caches is None and collect_kv:
-            ks.append(new_kv[0])
-            vs.append(new_kv[1])
-        if e == E - 1:
-            h, a = _moe(cfg, h, {k: v[s] for k, v in moe_stack.items()})
-            aux = aux + a
-        else:
-            j = s * (E - 1) + e
-            h = _mlp(cfg, h, {k: v[j] for k, v in dense_stack.items()})
+            ks += [kv[0] for kv in kvs]
+            vs += [kv[1] for kv in kvs]
     if kv_caches is not None:
         return h, kv_caches, aux
     return (h, (torch.stack(ks), torch.stack(vs)) if collect_kv else None,
@@ -1153,6 +1175,11 @@ class _MeshCall:
             return None
         return x.narrow(dim, self.lo, self.hi - self.lo).to(self.home)
 
+    def heads_in(self, h) -> list:
+        """The row's hidden as the attention columns' copies (one, on
+        the home device, when the heads are whole)."""
+        return acts.replicate(h) if self.mp.attn_cols > 1 else [h]
+
     def rep(self, *ts) -> list:
         """Per column: the tuple of ``ts`` as that column's copies."""
         cols = [acts.replicate(t) if t is not None else [None] * self.M
@@ -1192,7 +1219,12 @@ def _embed_mesh(call: _MeshCall, tokens: torch.Tensor) -> torch.Tensor:
 def _o_proj_mesh(call: _MeshCall, x, outs: list, ps, lrs, aidx,
                  backend: str):
     """Merged-head gather, column-parallel o (+ its LoRA columns), then
-    the residual gather: ``_o_proj`` with D over "model"."""
+    the residual gather: ``_o_proj`` with D over "model". Whole heads:
+    ``_o_proj`` on the first column, whose output is the residual."""
+    if call.mp.whole_heads:
+        with on_device(x.device):
+            return _o_proj(call.ccfg, x, outs[0], ps[0], lrs[0], aidx[0][0],
+                           lora_backend=backend)
     out = acts.constrain_attn_merged(outs)
     outr = acts.replicate(out)
     cols = []
@@ -1467,10 +1499,10 @@ def _attn_columns(call: _MeshCall, h, rope: list, ps: list, lrs: list,
     ``write(m, k, v)`` on each (every column's KV writes land before any
     column reads: a column may read positions another column wrote) and
     ``attend(m, q, k, v)`` on each: the columns' attention outputs
-    (B, S, q_dim / M)."""
-    hr = acts.replicate(h)
+    (B, S, q_dim / M); whole heads: the first column's alone."""
+    hr = call.heads_in(h)
     qkv = []
-    for m in range(call.M):
+    for m in range(len(hr)):
         with on_device(hr[m].device):
             qkv.append(_qkv_proj(call.ccfg, hr[m], ps[m],
                                  rope[m][0], rope[m][1], lrs[m],
@@ -1568,8 +1600,8 @@ def _prefill_mesh(cfg, mp: MeshParams, tokens, mrope_pos, lora,
             hs.append(x)
             ropes.append(rope)
             aidx.append(ai)
-        ks = [[[] for _ in range(mp.model_size)] for _ in calls]
-        vs = [[[] for _ in range(mp.model_size)] for _ in calls]
+        ks = [[[] for _ in range(mp.attn_cols)] for _ in calls]
+        vs = [[[] for _ in range(mp.attn_cols)] for _ in calls]
         qd = mp.col_cfg.q_dim
 
         def attend(r, i, m, q, k, v):
@@ -1607,7 +1639,7 @@ def _slab_ops(mp: MeshParams, calls: list, kv, cache_len, S: int,
         geo.append((pos, pos < kv[0].shape[2]))
         src.append([[_kv_sources(mp, t, m, call.devices[m], call.lo,
                                  call.hi) for t in kv]
-                    for m in range(mp.model_size)])
+                    for m in range(mp.attn_cols)])
 
     def write(r, i, m, k, v):
         for t, new in zip(kv, (k, v)):
@@ -1687,9 +1719,9 @@ def _paged_mesh(cfg, mp: MeshParams, tokens, kv_pages, page_table, start,
             pi, po = pi[:, 0], po[:, 0]
         return _page_write_plan(mp, t, m, pi, po)
 
-    where = [[plan(t, m) for t in kv_pages] for m in range(call.M)]
+    where = [[plan(t, m) for t in kv_pages] for m in range(mp.attn_cols)]
     src = [[_kv_sources(mp, t, m, mp.devices[m]) for t in kv_pages]
-           for m in range(call.M)]
+           for m in range(mp.attn_cols)]
 
     def write(r, i, m, k, v):
         if decode:
@@ -1786,10 +1818,12 @@ def _attn_train(tv: TrainView, hb: list, rope: list | None, b: int,
     """Attention of entry ``i`` of the ``prefix`` stack (None: a block
     that is not stacked) for batch shard ``b``: ``hb`` its residual
     stream, a copy on each column's device; ``rope`` each column's
-    (cos, sin), or None for learned positions (enc-dec)."""
+    (cos, sin), or None for learned positions (enc-dec). Whole heads:
+    the first column computes every head, its output copied to the
+    other columns."""
     c = tv.col_cfg
     parts = []
-    for m, x in enumerate(hb):
+    for m, x in enumerate(hb[:tv.attn_cols]):
         with on_device(x.device):
             p = tv.layer(i, b, m, _ATTN_LEAVES, prefix)
             cos, sin = rope[m] if rope is not None else (None, None)
@@ -1797,7 +1831,16 @@ def _attn_train(tv: TrainView, hb: list, rope: list | None, b: int,
             out = flash_attention(q, k, v, causal=causal)
             out = out.reshape(x.shape[0], x.shape[1], c.q_dim)
             parts.append(einsum("bse,ed->bsd", out, p["o"]))
-    return [x + y for x, y in zip(hb, acts.psum_columns(parts))]
+    return [x + y for x, y in zip(hb, _column_sums(tv, hb, parts))]
+
+
+def _column_sums(tv: TrainView, hb: list, parts: list) -> list:
+    """The attention output on every column's device: the row-parallel
+    partial products summed, or the whole block's (``whole_heads``)
+    copied."""
+    if tv.whole_heads:
+        return acts.broadcast_columns(parts[0], [x.device for x in hb])
+    return acts.psum_columns(parts)
 
 
 def _mlp_train(cfg, tv: TrainView, hb: list, b: int, i: int | None,
@@ -1889,21 +1932,49 @@ def _logits_train_mesh(cfg, tv: TrainView, tokens, mrope_pos=None):
     h = _embed_train(tv, toks)
     rope = [[_positions(cfg, t, 0, mp) for t, mp in zip(row, mpos[b])]
             for b, row in enumerate(toks)]
-    E = cfg.moe_every if cfg.family == Family.MOE else 0
+    moe = cfg.family == Family.MOE
+    E = cfg.moe_every if moe else 1
     aux = None
-    for i in range(cfg.n_layers):
-        h = [_attn_train(tv, hb, rope[b], b, i) for b, hb in enumerate(h)]
-        if not E:
-            h = [_mlp_train(cfg, tv, hb, b, i) for b, hb in enumerate(h)]
-            continue
-        s, e = divmod(i, E)
-        if e == E - 1:
-            h, a = _moe_train(cfg, tv, h, s)
-            aux = a if aux is None else aux + a
-        else:
-            h = [_mlp_train(cfg, tv, hb, b, s * (E - 1) + e, "dense_mlp/")
+
+    def unit(h, s):
+        """Superstep ``s`` (one layer outside MoE) of every batch
+        shard: (the residual streams, its MoE aux loss or None)."""
+        a = None
+        for e in range(E):
+            i = s * E + e
+            h = [_attn_train(tv, hb, rope[b], b, i)
                  for b, hb in enumerate(h)]
+            if not moe:
+                h = [_mlp_train(cfg, tv, hb, b, i) for b, hb in enumerate(h)]
+            elif e == E - 1:
+                h, a = _moe_train(cfg, tv, h, s)
+            else:
+                h = [_mlp_train(cfg, tv, hb, b, s * (E - 1) + e,
+                                "dense_mlp/") for b, hb in enumerate(h)]
+        return h, a
+
+    for s in range(cfg.n_layers // E):
+        h, a = remat_rows(lambda h, s=s: unit(h, s), h, cfg.remat)
+        if a is not None:
+            aux = a if aux is None else aux + a
     return _head_train(cfg, tv, h), aux
+
+
+def remat_rows(fn, h: list, on: bool):
+    """``fn(h)`` -> (residual streams, extra) over the [batch
+    shard][column] residual streams ``h``, as one ``remat`` body whose
+    inputs are the streams (one checkpoint over every position's share
+    of the layer, as the reference's ``jax.checkpoint`` of the layer
+    body spans the mesh)."""
+    n = len(h[0])
+
+    def body(*flat):
+        out, extra = fn([list(flat[i:i + n])
+                         for i in range(0, len(flat), n)])
+        return [t for row in out for t in row], extra
+
+    flat, extra = remat(body, *[t for row in h for t in row], on=on)
+    return [flat[i:i + n] for i in range(0, len(flat), n)], extra
 
 
 def _train_scope(tv: TrainView):

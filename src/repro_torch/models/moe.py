@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from repro_torch.device import on_device
 from repro_torch.distributed import act_sharding as acts
 from repro_torch.models.layers import einsum_f32, promoted
+from repro_torch.models.remat import recomputing
 
 MOE_GROUP = 2048      # tokens per dispatch group (MaxText-style)
 
@@ -63,6 +64,8 @@ class MoeStats:
 
     def capacity_call(self, assignments: int,
                       dropped: torch.Tensor) -> None:
+        if recomputing():       # a remat body's second run: counted once
+            return
         self.capacity_calls += 1
         self.assignments += assignments
         self._dropped = self._dropped + dropped

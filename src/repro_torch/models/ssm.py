@@ -55,6 +55,7 @@ from repro_torch.distributed.act_sharding import (constrain_ssm_bth,
                                                   gather_columns,
                                                   psum_columns, replicate)
 from repro_torch.models.layers import einsum, promoted, rms_norm
+from repro_torch.models.remat import remat
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -137,19 +138,24 @@ def _mamba1_fused_scan(dt, A, xc, B_ssm, C_ssm, h0, chunk):
     pad = (-T) % chunk
     dt, xc, B_ssm, C_ssm = (_pad_time(a, pad) for a in (dt, xc, B_ssm,
                                                           C_ssm))
-    h = h0
-    ys = []
-    for c in range(0, T + pad, chunk):
-        dt_c, x_c = dt[:, c:c + chunk], xc[:, c:c + chunk]
-        b_c, c_c = B_ssm[:, c:c + chunk], C_ssm[:, c:c + chunk]
+
+    def step(h, dt_c, x_c, b_c, c_c):
         decay = torch.exp(dt_c[..., None] * A)               # (B,Q,Di,N)
         u = (dt_c * x_c)[..., None] * b_c[:, :, None, :]
         dd, uu = _scan_chunk(decay, u)
         del decay, u
         h_all = dd * h[:, None] + uu
         del dd, uu
-        ys.append(torch.einsum("bqin,bqn->bqi", h_all, c_c))
-        h = _last(h_all)
+        return torch.einsum("bqin,bqn->bqi", h_all, c_c), _last(h_all)
+
+    h = h0
+    ys = []
+    for c in range(0, T + pad, chunk):
+        # Always rematerialised, as the reference's chunk step: the
+        # backward recomputes the chunk's (B, Q, Di, N) tensors.
+        y, h = remat(step, h, dt[:, c:c + chunk], xc[:, c:c + chunk],
+                     B_ssm[:, c:c + chunk], C_ssm[:, c:c + chunk])
+        ys.append(y)
     return torch.cat(ys, dim=1)[:, :T], h
 
 

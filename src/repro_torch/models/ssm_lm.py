@@ -37,10 +37,11 @@ from repro_torch.models.lm import (_embed_mesh, _embed_train,
                                    _head, _head_train, _heads, _logits,
                                    _mesh_calls, _mesh_scope, _placed,
                                    _slice_group, mesh_forward,
-                                   mesh_train_loss, row_box)
+                                   mesh_train_loss, remat_rows, row_box)
 from repro_torch.models.ssm import (mamba1_seq, mamba1_seq_columns,
                                     mamba1_seq_mesh, mamba1_step,
                                     mamba1_step_mesh, mamba2_seq_columns)
+from repro_torch.models.remat import remat
 
 _SSM_LEAVES = ("ssm_norm", "in_proj", "conv_w", "conv_b", "x_proj",
                "dt_proj", "dt_bias", "A_log", "ssm_D", "gate_norm",
@@ -59,10 +60,14 @@ def _seq(cfg: ModelConfig, params: dict, tokens, need_state: bool):
     x = embed(tokens, params["embed/tok"])
     ssm, conv = [], []
     for p in _layers(cfg, params):
-        y, h_last, conv_tail = mamba1_seq(
-            rms_norm(x, p["ssm_norm"], cfg.norm_eps), p, cfg.d_state,
-            cfg.dt_rank, cfg.ssm_chunk)
-        x = x + y
+
+        def layer(x, p=p):
+            y, h_last, conv_tail = mamba1_seq(
+                rms_norm(x, p["ssm_norm"], cfg.norm_eps), p, cfg.d_state,
+                cfg.dt_rank, cfg.ssm_chunk)
+            return x + y, h_last, conv_tail
+
+        x, h_last, conv_tail = remat(layer, x, on=cfg.remat)
         if need_state:
             ssm.append(h_last)
             conv.append(conv_tail)
@@ -112,7 +117,9 @@ def _logits_mesh(cfg: ModelConfig, tv: TrainView, tokens):
     """([batch shard][column] f32 logits, None) on a placed state."""
     h = _embed_train(tv, acts.batch_shards(tokens))
     for i in range(cfg.n_layers):
-        h = [_mixer_train(cfg, tv, hb, b, i) for b, hb in enumerate(h)]
+        h, _ = remat_rows(lambda h, i=i: (
+            [_mixer_train(cfg, tv, hb, b, i) for b, hb in enumerate(h)],
+            None), h, cfg.remat)
     return _head_train(cfg, tv, h), None
 
 

@@ -61,12 +61,14 @@ updated in place shard by shard; adapter uploads copy each device only
 its shard, on that device's side stream. ``shard_stats`` reports
 per-shard pages, the arena bytes a device holds and the
 ``COLLECTIVE_METER`` gather gauges. ``spec_decode=True`` warns and is
-ignored on a mesh, as in the reference. A config whose ``n_heads``,
-``d_model`` or ``d_ff`` (or an MoE config's ``shared_expert_ff``) does
-not divide the "model" axis, or whose query columns would read parts
-of two KV groups, is refused on that mesh
+ignored on a mesh, as in the reference. A config whose ``d_model`` or
+``d_ff`` (or an MoE config's ``shared_expert_ff``) does not divide the
+"model" axis, or whose query columns would read parts of two KV
+groups, is refused on that mesh
 (``distributed.sharding.mesh_unsupported``); a vocabulary the axis
-does not divide stays whole on every column.
+does not divide stays whole on every column, and heads it does not
+divide run whole on each batch row's first column
+(``distributed.sharding.whole_heads``).
 
 Not ported yet (each raises ``NotImplementedError`` at construction,
 naming the knob): the VLM, SSM, hybrid and enc-dec families (the

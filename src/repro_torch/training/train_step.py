@@ -41,9 +41,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     of any size: each microbatch's rows split over the batch axes, FSDP
     gathers and reduce-scatters (``sharding.FsdpStep``), and each
     position updates its shards. The batch stays whole (tensors on any
-    device); its rows must split evenly over the batch axes. A config
-    whose heads, channels or experts the mesh axes do not divide raises
-    (``sharding.train_unsupported``).
+    device); its rows must split evenly over the batch axes. Heads the
+    "model" axis does not divide run whole on each batch row's first
+    column; a config whose widths, channels or experts the mesh axes do
+    not divide raises (``sharding.train_unsupported``). With
+    ``cfg.remat`` each layer body is recomputed in the backward
+    (``models/remat.py``).
     """
 
     def loss_fn(params, batch):

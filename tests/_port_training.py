@@ -118,11 +118,13 @@ def host(tree):
             for k, v in tree.items()}
 
 
-def card_vs_cpu_train_steps(name, opt_cfg, steps=2, mesh_shape=None):
-    """``steps`` train steps of reduced ``name`` in f32 on the card and
-    on the CPU from the port's seeded params; with ``mesh_shape`` the
-    card's state is placed by the train rule table on a ("data",
-    "model") mesh of that shape over repeated positions of the card.
+def card_vs_cpu_train_steps(name, opt_cfg, steps=2, mesh_shape=None,
+                            **overrides):
+    """``steps`` train steps of reduced ``name`` (with ``overrides`` of
+    the reduced config: ``remat``, heads) in f32 on the card and on the
+    CPU from the port's seeded params; with ``mesh_shape`` the card's
+    state is placed by the train rule table on a ("data", "model") mesh
+    of that shape over repeated positions of the card.
     Returns the largest relative difference of loss, grad norm and lr
     (``metrics_err``), ``first_step_close`` and ``final_close``
     readings, the card's flash forward and backward launches, its plain
@@ -132,7 +134,7 @@ def card_vs_cpu_train_steps(name, opt_cfg, steps=2, mesh_shape=None):
     from repro_torch.launch.mesh import Mesh
     from repro_torch.training import init_opt_state, make_train_step
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
-    cfg = get_config(name).reduced()
+    cfg = get_config(name).reduced(**overrides)
     cpu = api.init_params(cfg, 0, torch.float32, device="cpu")
     positions = 1
     if mesh_shape is None:

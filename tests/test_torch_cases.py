@@ -17,9 +17,13 @@ and its closures run on a mesh, on the CPU.
   against the prefills of each data shard's rows, as token parallelism
   routes them), the decode's written slab too; the train step's loss
   and grad norm within 1e-4 and its params within twice the step's lr.
+  Also each kind of a dense config whose 6 heads the 4 columns of
+  (1, 4) do not divide (the attention whole on the first column).
 - The batch-chunked MoE prefill puts its chunks' K/V back in
   ``kv_cache_spec`` layout over the whole batch.
 """
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -77,6 +81,9 @@ def test_build_case_equals_reference(arch, shape, multi):
 
 # ------------------------------------------------------ running a case
 RUN = [(f, k) for f in FAMILIES for k in ("train", "prefill", "decode")]
+#: Heads the "model" axis does not divide (6 on 4 columns), each kind:
+#: the attention whole on the first column.
+UNEVEN = [("dense", k) for k in ("train", "prefill", "decode")]
 SHAPE = {"train": "train_4k", "prefill": "prefill_32k",
          "decode": "decode_32k"}
 B, S = 4, 8
@@ -108,12 +115,18 @@ def moe_rows(fn, args, n):
 
 
 @pytest.mark.filterwarnings("ignore:fit_spec")
-@pytest.mark.parametrize("family,kind", RUN,
-                         ids=[f"{f}-{k}" for f, k in RUN])
-def test_case_runs_on_a_mesh(family, kind):
+@pytest.mark.parametrize(
+    "family,kind,heads",
+    [(f, k, None) for f, k in RUN] + [(f, k, 6) for f, k in UNEVEN],
+    ids=[f"{f}-{k}" for f, k in RUN] + [f"{f}-{k}-6heads-1x4"
+                                        for f, k in UNEVEN])
+def test_case_runs_on_a_mesh(family, kind, heads):
     arch = FAMILIES[family]
     cfg = get_config(arch).reduced()
     mesh = cpu_mesh((2, 2))
+    if heads is not None:
+        cfg = dataclasses.replace(cfg, n_heads=heads, n_kv_heads=2)
+        mesh = cpu_mesh((1, 4))
     # Train: qwen3-moe's 8 microbatches of 2 rows (one a data shard).
     fn, args, sh = cases.build_case(arch, SHAPE[kind], mesh,
                                     16 if kind == "train" else B,

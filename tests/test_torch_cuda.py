@@ -69,7 +69,9 @@ devices loads every adapter into every shard of its arena and gives
 the tokens of ``EngineConfig()``. The dense train step on a state
 placed over repeated positions of the card gives the unsharded CPU
 port's loss, grad norm, params and moments (``tests/_port_training.py``),
-with one flash forward and backward launch a layer a position a step.
+with one flash forward and backward launch a layer a position a step;
+with ``remat=True`` two forward launches a layer a step; with heads the
+"model" axis does not divide, one a layer a batch row.
 """
 import importlib
 
@@ -1418,3 +1420,53 @@ def test_sharded_train_steps_on_the_card(card, name, shape):
     layers = attention_layers(get_config(name).reduced())
     assert out["fwd_launches"] == out["bwd_launches"] \
         == out["positions"] * layers * 2, out
+
+
+@pytest.mark.parametrize("name", ["internlm2-1.8b", "qwen3-moe-235b-a22b",
+                                  "zamba2-1.2b", "whisper-base"])
+def test_remat_train_steps_on_the_card(card, name):
+    """Two train steps with ``remat=True`` on the card against the CPU
+    port (``_port_training`` tolerances): each layer body recomputed in
+    the backward, so the flash forward launches twice a layer a step and
+    its backward once."""
+    from repro_torch.configs import get_config
+    from repro_torch.training import AdamWConfig
+    from _port_training import (TOL, attention_layers,
+                                card_vs_cpu_train_steps, states_ok)
+    torch.backends.cudnn.allow_tf32 = False
+    out = card_vs_cpu_train_steps(name, AdamWConfig(
+        lr=1e-3, warmup_steps=1, total_steps=10, clip_norm=0.5),
+        remat=True)
+    assert out["metrics_err"] <= TOL, out
+    assert states_ok(out["first"], out["final"]), out
+    assert out["plain"] == 0, out
+    layers = attention_layers(get_config(name).reduced())
+    assert out["fwd_launches"] == 2 * out["bwd_launches"] \
+        == 2 * layers * 2, out
+
+
+@pytest.mark.parametrize("name,heads,shape", [
+    ("internlm2-1.8b", dict(n_heads=6, n_kv_heads=2), (2, 4)),
+    ("qwen2-vl-7b", dict(n_heads=6, n_kv_heads=2), (1, 4)),
+    ("zamba2-1.2b", dict(n_heads=6, n_kv_heads=2), (1, 4)),
+    ("whisper-base", dict(n_heads=4), (1, 8))])
+def test_whole_heads_train_steps_on_the_card(card, name, heads, shape):
+    """Heads the "model" axis does not divide, the state placed over
+    repeated positions of the card, against the unsharded CPU port: the
+    attention whole on each batch row's first column, so the flash
+    forward and backward launch once an attention layer a batch row a
+    step."""
+    from repro_torch.configs import get_config
+    from repro_torch.training import AdamWConfig
+    from _port_training import (TOL, attention_layers,
+                                card_vs_cpu_train_steps, states_ok)
+    torch.backends.cudnn.allow_tf32 = False
+    out = card_vs_cpu_train_steps(name, AdamWConfig(
+        lr=1e-3, warmup_steps=1, total_steps=10, clip_norm=0.5),
+        mesh_shape=shape, **heads)
+    assert out["metrics_err"] <= TOL, out
+    assert states_ok(out["first"], out["final"]), out
+    assert out["plain"] == 0, out
+    layers = attention_layers(get_config(name).reduced(**heads))
+    assert out["fwd_launches"] == out["bwd_launches"] \
+        == shape[0] * layers * 2, out

@@ -29,6 +29,7 @@ port's seeded params:
   refused for want of a sharded path), a batch that does not split over
   the batch axes.
 """
+import dataclasses
 import importlib
 
 import numpy as np
@@ -253,7 +254,9 @@ def test_other_families_refuse_a_split_mesh():
     nothing refused, the SSM, hybrid and enc-dec families included (their
     steps are ``tests/test_torch_train_mesh_families.py``'s), and on one
     position the mesh step equals the unsharded one; heads the "model"
-    axis does not divide are still refused, naming the dimension."""
+    axis does not divide train (the attention whole on each batch row's
+    first column), while a hidden it does not divide is still refused,
+    naming the dimension."""
     from repro_torch.configs import ARCH_IDS
     for name in ARCH_IDS:
         cfg = get_config(name).reduced()
@@ -274,10 +277,20 @@ def test_other_families_refuse_a_split_mesh():
     m8 = tsh.Mesh(grid.reshape(1, 8), ("data", "model"))
     cfg = get_config("whisper-base").reduced()
     params = api.init_params(cfg, 0, torch.float32, device="cpu")
+    b = to_tensors(batch_np(cfg, 0), "cpu")
     p, o = place(cfg, params, m8)
+    got = make_train_step(cfg, OPT)(p, o, b)[2]
+    want = make_train_step(cfg, OPT)(
+        {k: v.clone() for k, v in params.items()},
+        init_opt_state(params, OPT), b)[2]
+    for k in ("loss", "grad_norm"):
+        assert abs(float(got[k]) - float(want[k])) <= TOL * float(want[k])
+    odd = dataclasses.replace(cfg, d_ff=250)
+    p, o = place(odd, api.init_params(odd, 0, torch.float32, device="cpu"),
+                 m8)
     with pytest.raises(NotImplementedError,
-                       match="n_heads=4 on a 8-way model axis"):
-        make_train_step(cfg, OPT)(p, o, to_tensors(batch_np(cfg, 0), "cpu"))
+                       match="d_ff=250 on a 8-way model axis"):
+        make_train_step(odd, OPT)(p, o, b)
 
 
 def test_a_batch_must_split_over_the_batch_axes():
