@@ -281,6 +281,25 @@ of the JAX package. Phases, one JSON line each:
              is bit-identical is reported. Then in bf16 ms a prefill
              call, ms a decode step and peak memory unsharded, at
              (1, 1), at (2, 2) and at the whole-head mesh.
+10. dryrun — (``phase_dryrun``) the dry-run against measured steps:
+             internlm2-1.8b at full width cut to ``DRYRUN_LAYERS``
+             layers, its train, prefill and decode cases built by
+             ``launch.cases.build_case`` at (1, 1) on the card in the
+             cases' dtypes (bf16, bf16 moments), each counted by the
+             dry-run's counter on ``meta`` (``launch.dryrun``) and
+             timed on the card (CUDA events, median of
+             ``DRYRUN_REPS`` calls): a ``dryrun_vs_step`` line with
+             the counted FLOPs and bytes, the roofline bound at the
+             H100 datasheet constants of ``roofline/analysis.py``
+             (FLOPs over the bf16 peak, or the bytes the step cannot
+             avoid, the weights it reads (and, training, the params
+             and moments AdamW reads and writes), over the HBM rate),
+             the measured seconds and their ratio, which must be at
+             least 1. Then the train step at (1, 2) over repeated
+             positions of the card with ``seq_shard_boundary`` off
+             and on (``seq_shard_ab``): two steps each from the same
+             state, loss, grad norm and every parameter and moment
+             bit-identical (gated), s/step and peak GB each way.
 
 A device-time profile of the same path is ``chip_profile.py``.
 
@@ -5062,6 +5081,175 @@ def phase_serve_mesh() -> None:
     emit(dict(phase="phase_serve_mesh", seconds=secs))
 
 
+DRYRUN_ARCH = "internlm2-1.8b"
+DRYRUN_LAYERS = 4
+# (batch, sequence): the train and prefill cases' rows, and the decode
+# case's rows and slab positions
+DRYRUN_SHAPES = {"train_4k": (4, 2048), "prefill_32k": (4, 2048),
+                 "decode_32k": (16, 4096)}
+DRYRUN_REPS = 3
+
+
+def dryrun_inputs(cfg, kind: str, args: tuple, dev, seed: int) -> tuple:
+    """A case's arguments (``build_case``'s meta tensors) drawn on
+    ``dev`` from a seed in their dtypes: weights N(0, 0.02), zero
+    moments, tokens in the vocabulary, adapter slots below the arena's,
+    cache lengths inside the slab, LoRA and slab N(0, 1) scaled."""
+    import torch
+    from repro_torch.launch import cases
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def fill(t, name=""):
+        shape = tuple(t.shape)
+        if t.dtype == torch.int32:
+            hi = cases.LORA_SLOTS if name == "adapter" else cfg.vocab_size
+            return torch.randint(0, hi, shape, generator=g, device=dev,
+                                 dtype=torch.int32)
+        return (torch.randn(shape, generator=g, device=dev) * 0.02) \
+            .to(t.dtype)
+
+    def tree(x, name=""):
+        if isinstance(x, dict):
+            return {k: tree(v, k) for k, v in x.items()}
+        if isinstance(x, tuple):
+            return tuple(tree(v, name) for v in x)
+        return fill(x, name)
+
+    if kind == "train":
+        return (tree(args[0]), {k: torch.zeros(tuple(v.shape), dtype=v.dtype,
+                                               device=dev)
+                                for k, v in args[1].items()}, tree(args[2]))
+    if kind == "prefill":
+        params, tok, lora, idx, extra = args
+        return (tree(params), fill(tok), tree(lora), fill(idx, "adapter"),
+                tree(extra))
+    params, tok, state, clen, lora, idx, extra = args
+    S = state[0].shape[2]
+    clen = torch.randint(S // 2, S - 1, tuple(clen.shape), generator=g,
+                         device=dev, dtype=torch.int32)
+    return (tree(params), fill(tok), tree(state), clen, tree(lora),
+            fill(idx, "adapter"), tree(extra))
+
+
+def step_bytes_lb(kind: str, placed: tuple) -> int:
+    """Bytes the step cannot avoid: every weight read once (the
+    embedding table only where training updates it: serving looks up
+    rows), and in training the params and both moments AdamW reads and
+    writes back."""
+    def leaves(tree):
+        return [t for _, t in tree.unique()] if hasattr(tree, "unique") \
+            else [tree]
+    if kind == "train":
+        params, opt, _ = placed
+        return 2 * sum(nbytes(*leaves(v)) for v in params.values()) + \
+            2 * sum(nbytes(*leaves(v)) for k, v in opt.items()
+                    if k != "step")
+    mp = placed[0]
+    return sum(nbytes(*leaves(st)) for k, st in mp.placed.items()
+               if k != "embed/tok")
+
+
+def phase_dryrun() -> None:
+    """Phase 10 (module docstring): the dry-run's count against the
+    measured step, and the sequence-parallel boundary A/B."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import SHAPE_BY_NAME, get_config
+    from repro_torch.distributed import act_sharding as acts
+    from repro_torch.launch import cases, dryrun
+    from repro_torch.roofline import analysis
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(get_config(DRYRUN_ARCH),
+                              n_layers=DRYRUN_LAYERS)
+    mesh = repeated_mesh((1, 1), dev)
+    for shape, (B, S) in DRYRUN_SHAPES.items():
+        kind = SHAPE_BY_NAME[shape].kind
+        rec = dryrun.count_cell(DRYRUN_ARCH, shape,
+                                dryrun.meta_mesh((1, 1), ("data", "model")),
+                                config=cfg, seq_override=S,
+                                batch_override=B, depth="full")
+        fn, args, sh = cases.build_case(DRYRUN_ARCH, shape, mesh, B,
+                                        config=cfg, seq_override=S)
+        placed = cases.place(cfg, kind, dryrun_inputs(cfg, kind, args,
+                                                      dev, 0), sh)
+        lb = step_bytes_lb(kind, placed)
+        grad = contextlib.nullcontext() if kind == "train" \
+            else torch.no_grad()
+
+        def call():
+            with dryrun.scope(mesh, kind), grad:
+                return fn(*placed)
+
+        call()
+        times = []
+        for _ in range(DRYRUN_REPS):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            call()
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e) / 1e3)
+        step_s = statistics.median(times)
+        flops = rec["cost"]["flops"]
+        bound = max(flops / analysis.PEAK_FLOPS, lb / analysis.HBM_BPS)
+        emit(dict(phase="dryrun_vs_step", arch=DRYRUN_ARCH, shape=shape,
+                  kind=kind, layers=DRYRUN_LAYERS, batch=B, seq=S,
+                  flops=flops, bytes_accessed=rec["cost"]["bytes_accessed"],
+                  bytes_lb=lb, bound_s=bound,
+                  bound_by="operations" if flops / analysis.PEAK_FLOPS
+                  >= lb / analysis.HBM_BPS else "bytes",
+                  step_s=step_s, ratio=step_s / bound,
+                  flops_by_op=rec["cost"]["flops_by_op"],
+                  count_s=rec["count_s"]))
+        check(step_s >= bound, f"dryrun_vs_step {shape}: the measured "
+                               f"{step_s:.4g} s is below the bound "
+                               f"{bound:.4g} s: the count misses work")
+        del placed, fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    # seq_shard_boundary A/B at (1, 2) over repeated positions
+    B, S = DRYRUN_SHAPES["train_4k"]
+    mesh = repeated_mesh((1, 2), dev)
+    fn, args, sh = cases.build_case(DRYRUN_ARCH, "train_4k", mesh, B,
+                                    config=cfg, seq_override=S)
+    runs = {}
+    for seq in (False, True):
+        params, opt, batch = cases.place(
+            cfg, "train", dryrun_inputs(cfg, "train", args, dev, 0), sh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        metrics, secs = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            with acts.activation_sharding(("data",), mesh=mesh,
+                                          seq_shard_boundary=seq):
+                _, _, m = fn(params, opt, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - ts)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[seq] = dict(
+            metrics=metrics, s_per_step=secs,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            state={k: v.full().cpu()
+                   for k, v in {**params, **opt}.items()})
+        del params, opt, batch
+    same = runs[False]["metrics"] == runs[True]["metrics"] and all(
+        torch.equal(a, runs[True]["state"][k])
+        for k, a in runs[False]["state"].items())
+    emit(dict(phase="seq_shard_ab", arch=DRYRUN_ARCH, mesh=[1, 2],
+              layers=DRYRUN_LAYERS, batch=B, seq=S, bit_identical=same,
+              **{f"{'on' if k else 'off'}_{f}": runs[k][f]
+                 for k in runs for f in ("metrics", "s_per_step",
+                                         "peak_gb")}))
+    check(same, "seq_shard_ab: the train step with seq_shard_boundary "
+                "is not bit-identical to the step without it")
+    emit(dict(phase="phase_dryrun", seconds=time.perf_counter() - t0))
+
+
 KERNELS = {
     "bgmv": ("src/repro_torch/csrc/bgmv.cu", "src/repro/kernels/bgmv.py:39"),
     "sgmv": ("src/repro_torch/csrc/sgmv.cu", "src/repro/kernels/sgmv.py:37"),
@@ -5138,6 +5326,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase_serve_mesh()
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_dryrun()
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

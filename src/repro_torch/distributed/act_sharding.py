@@ -48,10 +48,11 @@ call it) split the batch rows over the batch axes, every axis but
 "model", onto each position of the row's batch shard; each position
 computes its rows and its column (``lm``'s mesh train path). o and down
 are row-parallel there: each column's partial product is summed over
-the columns by ``psum_columns``, the all-reduce GSPMD inserts, whose
-gradient is the same all-reduce. The merged heads, the FFN hidden, the
-residual and the vocabulary stay split over the columns (those anchors
-pass a per-column list through). MoE in this mode (TP mode): the
+the columns onto the residual stream (``residual_add``, below); inside
+a mixer ``psum_columns`` is the all-reduce GSPMD inserts, whose
+gradient is the same all-reduce. The merged heads, the FFN hidden and
+the vocabulary stay split over the columns (those anchors pass a
+per-column list through). MoE in this mode (TP mode): the
 experts lie over "data" with their hidden over "model", as the train
 rule table puts them; ``moe_all_to_all`` moves each batch shard's
 capacity buckets to the expert blocks of its pod and
@@ -65,9 +66,27 @@ column's in_proj, conv and scan run over its channels or heads), so
 the per-column lists they are given pass through, and a whole tensor
 is split onto the columns, as ``constrain_heads`` splits heads.
 
-Not ported (raises ``NotImplementedError``): the sequence-parallel
-boundary (``seq_shard_boundary``), which only the dry-run tooling turns
-on.
+The train step's residual stream (every family): the layer bodies take
+and return one batch shard's residual as a list of pieces, entered with
+``residual_in`` (the embedding's column partial products summed) and
+carried by ``residual_add`` (a sublayer's partial products added);
+``columns_in`` gives each column the whole sequence it computes on.
+Without ``seq_shard_boundary`` the residual is one tensor on the batch
+shard's first column: ``columns_in`` copies it to the columns (its
+gradient: the copies' gradients summed in column order) and
+``residual_add`` sums the partial products onto it in column order
+(each part's gradient: the sum's). With ``seq_shard_boundary=True``
+(the reference's sequence-parallel boundary, which the dry-run turns
+on for train cells) and a sequence the "model" axis divides, the
+residual is one S/M block a column: ``columns_in`` all-gathers the
+blocks over the columns (gradient: a reduce-scatter in column order)
+and ``residual_add`` reduce-scatters the partial products in column
+order (gradient: an all-gather). Both modes add the same terms in the
+same order in the forward and in the backward (each residual piece
+feeds exactly its residual add and ``columns_in``, two gradient terms,
+whose sum does not depend on their order), so a step is bit-identical
+either way; the residual kept for a remat body's recompute falls from
+S to S/M positions a column.
 """
 from __future__ import annotations
 
@@ -76,6 +95,7 @@ import contextlib
 import torch
 
 from repro_torch.kernels.ops import COLLECTIVE_METER
+from repro_torch.roofline import hlo_stats
 
 _MESH = None
 _DEVICES: list = []          # the "model" columns' devices of _MESH
@@ -83,6 +103,7 @@ _MOE_TOKEN_PARALLEL = False
 _EXACT = True
 _BATCH_AXES: tuple = ()
 _ROWS: list = []             # [batch shard][column] devices (training)
+_SEQ = False                 # seq_shard_boundary
 
 
 @contextlib.contextmanager
@@ -97,16 +118,16 @@ def activation_sharding(batch_axes: tuple, model_axis: str = "model",
     ``moe_token_parallel`` arms ``moe_a2a_mesh``. With the batch axes
     and ``exact_reductions=True`` the serving step functions compute
     batch rows over them (``row_spans``). The mesh train step enters it
-    with the batch axes and ``exact_reductions=False``."""
-    if seq_shard_boundary:
-        raise NotImplementedError(
-            "activation_sharding(seq_shard_boundary=True): sequence-"
-            "parallel boundaries come with the dry-run tooling")
-    global _MESH, _DEVICES, _MOE_TOKEN_PARALLEL, _EXACT, _BATCH_AXES, _ROWS
+    with the batch axes and ``exact_reductions=False``;
+    ``seq_shard_boundary`` splits its residual stream's sequence over
+    the columns (module docstring). Serving never sets it."""
+    global _MESH, _DEVICES, _MOE_TOKEN_PARALLEL, _EXACT, _BATCH_AXES, \
+        _ROWS, _SEQ
     prev = (_MESH, _DEVICES, _MOE_TOKEN_PARALLEL, _EXACT, _BATCH_AXES,
-            _ROWS)
+            _ROWS, _SEQ)
     _MESH, _DEVICES, _MOE_TOKEN_PARALLEL = mesh, [], moe_token_parallel
     _EXACT, _BATCH_AXES, _ROWS = exact_reductions, tuple(batch_axes), []
+    _SEQ = seq_shard_boundary
     if mesh is not None:
         from repro_torch.distributed.sharding import (batch_rows,
                                                       column_coords)
@@ -118,7 +139,13 @@ def activation_sharding(batch_axes: tuple, model_axis: str = "model",
         yield
     finally:
         (_MESH, _DEVICES, _MOE_TOKEN_PARALLEL, _EXACT, _BATCH_AXES,
-         _ROWS) = prev
+         _ROWS, _SEQ) = prev
+
+
+def seq_shard_boundary() -> bool:
+    """Whether the enclosing scope splits the train step's residual
+    sequence over "model"."""
+    return _SEQ
 
 
 def exact_reductions() -> bool:
@@ -182,7 +209,13 @@ def gather_columns(x, dim: int = -1, device=None):
         return x[0].to(device)
     with COLLECTIVE_METER.sync():
         COLLECTIVE_METER.gathers += 1
-        return torch.cat([t.to(device) for t in x], dim=dim)
+        out = torch.cat([t.to(device) for t in x], dim=dim)
+    rec = hlo_stats.recorder()
+    if rec is not None:
+        rec.add("all-gather", len(x), hlo_stats.nbytes(out),
+                [t.device for t in x] + [device],
+                hlo_stats.moved(device, x), "gathers", dst=device)
+    return out
 
 
 def gather_region(pieces: list, device) -> torch.Tensor:
@@ -201,7 +234,13 @@ def gather_region(pieces: list, device) -> torch.Tensor:
                           dtype=first.dtype, device=device)
         for (r, q), b in pieces:
             out[r, q] = b.to(device)
-        return out
+    rec = hlo_stats.recorder()
+    if rec is not None:
+        rec.add("all-gather", len(pieces), hlo_stats.nbytes(out),
+                [b.device for _, b in pieces] + [device],
+                hlo_stats.moved(device, [b for _, b in pieces]), "gathers",
+                dst=device)
+    return out
 
 
 def replicate(x: torch.Tensor) -> list:
@@ -209,6 +248,11 @@ def replicate(x: torch.Tensor) -> list:
     per column device (the same tensor where devices repeat)."""
     if not _DEVICES:
         return [x]
+    rec = hlo_stats.recorder()
+    if rec is not None and len(_DEVICES) > 1:
+        rec.add("collective-broadcast", len(_DEVICES), hlo_stats.nbytes(x),
+                _DEVICES, hlo_stats.nbytes(x)
+                * len({d for d in _DEVICES if d != x.device}))
     if all(d == x.device for d in _DEVICES):
         return [x] * len(_DEVICES)
     with COLLECTIVE_METER.sync():
@@ -229,8 +273,16 @@ def batch_shards(x, dim: int = 0):
         raise ValueError(
             f"a batch of {x.shape[dim]} rows does not split over the {nb} "
             f"shards of the batch axes {_BATCH_AXES}")
+    blocks = torch.chunk(x, nb, dim=dim)
+    rec = hlo_stats.recorder()
+    if rec is not None:
+        devs = [d for row in _ROWS for d in row]
+        rec.add("collective-permute", len(devs), hlo_stats.nbytes(blocks[0]),
+                devs, sum(hlo_stats.nbytes(blk) * len({d for d in row
+                                                       if d != x.device})
+                          for blk, row in zip(blocks, _ROWS)))
     return [[blk.to(d) for d in devs]
-            for blk, devs in zip(torch.chunk(x, nb, dim=dim), _ROWS)]
+            for blk, devs in zip(blocks, _ROWS)]
 
 
 def constrain_btd(x):
@@ -244,9 +296,168 @@ def constrain_bd(x):
 
 
 def constrain_boundary(x):
-    """Inter-layer residual (B, S, D): batch over the batch axes (the
-    sequence split of ``seq_shard_boundary`` is not ported)."""
+    """Inter-layer residual (B, S, D): batch over the batch axes; the
+    sequence split of ``seq_shard_boundary`` is the train step's
+    residual layout (``residual_in``, ``residual_add``)."""
     return batch_shards(x)
+
+
+# ------------------------------------------- the train step's residual
+def _blocks(S: int, M: int) -> list:
+    w = S // M
+    return [slice(m * w, (m + 1) * w) for m in range(M)]
+
+
+def _col_sum(parts, sl, device):
+    """parts' entries ``sl`` of dim 1 summed in column order on
+    ``device`` (a fresh tensor)."""
+    total = parts[0][:, sl].to(device, copy=len(parts) == 1)
+    for p in parts[1:]:
+        total = total + p[:, sl].to(device)
+    return total
+
+
+def _record(op: str, k: int, b: int, devices, moved: float,
+            dst=None) -> None:
+    rec = hlo_stats.recorder()
+    if rec is not None:
+        rec.add(op, k, b, devices, moved, dst=dst)
+
+
+class _SumTo(torch.autograd.Function):
+    """The columns' partial products summed in column order on
+    ``device``; each part's gradient is the sum's, on its device."""
+
+    @staticmethod
+    def forward(ctx, device, *parts):
+        ctx.devices = [p.device for p in parts]
+        _record("reduce", len(parts), hlo_stats.nbytes(parts[0]),
+                ctx.devices + [device], hlo_stats.moved(device, parts))
+        with COLLECTIVE_METER.sync():
+            return _col_sum(parts, slice(None), device)
+
+    @staticmethod
+    def backward(ctx, g):
+        _record("collective-broadcast", len(ctx.devices), hlo_stats.nbytes(g),
+                ctx.devices, hlo_stats.nbytes(g)
+                * len({d for d in ctx.devices if d != g.device}))
+        with COLLECTIVE_METER.sync():
+            return (None,) + tuple(g.to(d) for d in ctx.devices)
+
+
+class _ReduceScatterSeq(torch.autograd.Function):
+    """The columns' (B, S, D) partial products summed in column order,
+    block m of S on ``devices[m]``; each part's gradient is the blocks'
+    gradients gathered along S on its device."""
+
+    @staticmethod
+    def forward(ctx, devices, *parts):
+        ctx.devices = [p.device for p in parts]
+        sls = _blocks(parts[0].shape[1], len(devices))
+        blk = hlo_stats.nbytes(parts[0]) // len(devices)
+        _record("reduce-scatter", len(devices), blk,
+                ctx.devices + list(devices),
+                sum(blk for p in parts for d in devices if d != p.device))
+        with COLLECTIVE_METER.sync():
+            return tuple(_col_sum(parts, sl, d)
+                         for sl, d in zip(sls, devices))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        _record("all-gather", len(grads),
+                hlo_stats.nbytes(grads[0]) * len(grads),
+                [g.device for g in grads] + ctx.devices,
+                sum(hlo_stats.moved(d, grads) for d in ctx.devices))
+        with COLLECTIVE_METER.sync():
+            return (None,) + tuple(torch.cat([g.to(d) for g in grads], dim=1)
+                                   for d in ctx.devices)
+
+
+class _GatherSeq(torch.autograd.Function):
+    """The S blocks (one a column) gathered whole onto each of
+    ``devices``; block m's gradient is the copies' gradients of its
+    entries summed in column order on its device."""
+
+    @staticmethod
+    def forward(ctx, devices, *blocks):
+        ctx.devices = [b.device for b in blocks]
+        ctx.devs = list(devices)
+        whole = hlo_stats.nbytes(blocks[0]) * len(blocks)
+        _record("all-gather", len(blocks), whole,
+                ctx.devices + ctx.devs,
+                sum(hlo_stats.moved(d, blocks) for d in devices),
+                dst=devices[0] if len(devices) == 1 else None)
+        with COLLECTIVE_METER.sync():
+            return tuple(torch.cat([b.to(d) for b in blocks], dim=1)
+                         for d in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        sls = _blocks(grads[0].shape[1], len(ctx.devices))
+        _record("reduce-scatter", len(ctx.devices),
+                hlo_stats.nbytes(grads[0]) // len(ctx.devices),
+                ctx.devs + ctx.devices,
+                sum(hlo_stats.nbytes(grads[0]) // len(ctx.devices)
+                    for g in grads for d in ctx.devices if d != g.device))
+        with COLLECTIVE_METER.sync():
+            return (None,) + tuple(_col_sum(grads, sl, d)
+                                   for sl, d in zip(sls, ctx.devices))
+
+
+def _split(S: int, M: int) -> bool:
+    """Whether a residual of S positions splits over M columns."""
+    return _SEQ and M > 1 and S % M == 0
+
+
+def residual_in(parts: list, devices: list) -> list:
+    """A batch shard's residual stream from its columns' partial
+    products (the vocab-split embedding; one part: a value computed
+    whole), ``devices`` the shard's columns: their sum in column order,
+    one tensor on the first column, or its S blocks over the columns
+    under ``seq_shard_boundary`` (M dividing S)."""
+    return residual_add(None, parts, devices)
+
+
+def residual_add(h, parts: list, devices: list) -> list:
+    """``h`` (a residual from ``residual_in``; None: zero) plus the sum
+    of the columns' (B, S, D) partial products ``parts`` (one: a block
+    one column computed whole), in ``h``'s layout."""
+    if _split(parts[0].shape[1], len(devices)):
+        ys = _ReduceScatterSeq.apply(devices, *parts)
+    elif len(parts) == 1 and parts[0].device == devices[0]:
+        ys = parts
+    else:
+        ys = [_SumTo.apply(devices[0], *parts)]
+    return list(ys) if h is None else [x + y for x, y in zip(h, ys)]
+
+
+def residual_pieces(row: list) -> list:
+    """A whole per-column value ``row`` (a copy on each column, as
+    ``batch_shards`` gives it) in the residual's layout: the first
+    column's copy, or each column's S block of its copy."""
+    if not _split(row[0].shape[1], len(row)):
+        return row[:1]
+    return [x[:, sl].contiguous()
+            for x, sl in zip(row, _blocks(row[0].shape[1], len(row)))]
+
+
+def residual_spans(h: list) -> list:
+    """(lo, hi): the positions of S each piece of residual ``h``
+    holds."""
+    w = h[0].shape[1]
+    return [(m * w, (m + 1) * w) for m in range(len(h))]
+
+
+def columns_in(h: list, devices: list) -> list:
+    """The whole (B, S, D) residual ``h`` on each of ``devices`` (the
+    first columns of its batch shard): copies of the one tensor, or the
+    S blocks all-gathered. Their gradients are summed back in column
+    order. One column holding the whole residual: ``h`` itself."""
+    if len(h) > 1:
+        return list(_GatherSeq.apply(devices, *h))
+    if len(devices) == 1 and devices[0] == h[0].device:
+        return list(h)
+    return list(broadcast_columns(h[0], devices))
 
 
 class _SumColumns(torch.autograd.Function):
@@ -267,6 +478,13 @@ class _SumColumns(torch.autograd.Function):
 
 def _all_reduce(parts, devices) -> tuple:
     home = parts[0].device
+    rec = hlo_stats.recorder()
+    if rec is not None:
+        b = hlo_stats.nbytes(parts[0])
+        rec.add("all-reduce" if len(devices) > 1 else "reduce",
+                len(parts), b, [p.device for p in parts] + list(devices),
+                hlo_stats.moved(home, parts)
+                + b * len({d for d in devices if d != home}))
     total = parts[0]
     for p in parts[1:]:
         total = total + p.to(home)
@@ -293,6 +511,11 @@ class _BroadcastColumns(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, devices):
         ctx.home = x.device
+        rec = hlo_stats.recorder()
+        if rec is not None:
+            rec.add("collective-broadcast", len(devices),
+                    hlo_stats.nbytes(x), devices, hlo_stats.nbytes(x)
+                    * len({d for d in devices if d != x.device}))
         with COLLECTIVE_METER.sync():
             return tuple(x.to(d) if d != x.device else x.clone()
                          for d in devices)
@@ -396,9 +619,17 @@ def constrain_expert_ecd(x: torch.Tensor, sizes: list, devices: list
     exchange. One block stays where it is."""
     if len(sizes) == 1:
         return [x.to(devices[0])]
+    blocks = torch.split(x, sizes)
+    rec = hlo_stats.recorder()
+    if rec is not None:
+        rec.add("all-to-all", len(sizes),
+                max(hlo_stats.nbytes(b) for b in blocks),
+                [x.device] + list(devices),
+                sum(hlo_stats.nbytes(b) for b, d in zip(blocks, devices)
+                    if d != x.device), "gathers")
     with COLLECTIVE_METER.sync():
         COLLECTIVE_METER.gathers += 1
-        return [b.to(d) for b, d in zip(torch.split(x, sizes), devices)]
+        return [b.to(d) for b, d in zip(blocks, devices)]
 
 
 def constrain_expert_ecf(x):
@@ -457,7 +688,26 @@ def moe_all_to_all(buckets: list, spans: list, n_data: int) -> list:
                         acc = part if acc is None else acc + part
                 rows.append(acc)
             out.append(torch.stack(rows, dim=1).reshape(Ed, -1, D))
+    _record_a2a(buckets, out, n_data)
     return out
+
+
+def _record_a2a(src: list, dst: list, n_data: int) -> None:
+    """One leg of the MoE exchange: every position's blocks (``src``)
+    to every position's (``dst``) within a pod of ``n_data`` shards.
+    Moved: the bytes each destination gathers from the other positions
+    of its pod."""
+    rec = hlo_stats.recorder()
+    if rec is None:
+        return
+    moved = 0.0
+    for u, t in enumerate(dst):
+        pod = range(u // n_data * n_data, (u // n_data + 1) * n_data)
+        others = sum(1 for s in pod if src[s].device != t.device)
+        moved += hlo_stats.nbytes(t) * others / n_data
+    rec.add("all-to-all", n_data, max(hlo_stats.nbytes(t) for t in dst),
+            [t.device for t in src] + [t.device for t in dst], moved,
+            "all_to_alls")
 
 
 def moe_all_to_all_back(outs: list, spans: list, n_data: int, cap: int,
@@ -476,4 +726,5 @@ def moe_all_to_all_back(outs: list, spans: list, n_data: int, cap: int,
             x = torch.cat([outs[u].view(Ed, g1 - g0, cap, D)[:, lo:hi]
                            .to(dev) for u in shards])
             back.append(x.transpose(0, 1).reshape(hi - lo, -1, D))
+    _record_a2a(outs, back, n_data)
     return back

@@ -42,6 +42,7 @@ import torch
 
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.base import Family, ModelConfig
+from repro_torch.roofline import hlo_stats
 
 
 class PartitionSpec(tuple):
@@ -883,18 +884,21 @@ def column_range(st: ShardedTensor, coords: tuple, dim: int, lo: int,
         return local
     names = st.mesh.axis_names
     fixed = {a: coords[i] for i, a in enumerate(names) if a != "model"}
-    pieces = []
+    read = []
     for blo, bhi, ts in st.parts(fixed, dim):
         a, b = max(lo, blo), min(hi, bhi)
         if a < b:
             t = next((u for u in ts if u.device == local.device), ts[0])
-            pieces.append(t.narrow(dim, a - blo, b - a).to(local.device))
+            read.append(t.narrow(dim, a - blo, b - a))
+    pieces = [t.to(local.device) for t in read]
     if len(pieces) == 1:
         return pieces[0].contiguous()
     from repro_torch.kernels.ops import COLLECTIVE_METER
     with COLLECTIVE_METER.sync():
         COLLECTIVE_METER.gathers += 1
-        return torch.cat(pieces, dim=dim)
+        out = torch.cat(pieces, dim=dim)
+    _record_gather(len(pieces), out, read, local.device)
+    return out
 
 
 def column_block(st: ShardedTensor, coords: tuple, dim: int, m: int,
@@ -972,7 +976,21 @@ def all_gather(st: ShardedTensor, index: tuple, device) -> torch.Tensor:
         out = torch.empty(shape, dtype=st.dtype, device=device)
         for dest, piece in pieces:
             out[dest] = piece.to(device)
+    _record_gather(len(pieces), out, [p for _, p in pieces], device)
     return out.reshape(keep)
+
+
+def _record_gather(k: int, out: torch.Tensor, pieces: list, device
+                   ) -> None:
+    """An all-gather of ``k`` blocks into ``out`` on ``device`` for the
+    installed ``hlo_stats`` recorder: moved, the blocks read from
+    another device (their bytes, at most ``out``'s)."""
+    rec = hlo_stats.recorder()
+    if rec is not None:
+        rec.add("all-gather", k, hlo_stats.nbytes(out),
+                [p.device for p in pieces] + [device],
+                min(hlo_stats.moved(device, pieces),
+                    float(hlo_stats.nbytes(out))), "gathers", dst=device)
 
 
 def assemble(sharding: NamedSharding, shape: tuple, pieces: list,
@@ -1025,23 +1043,31 @@ def _assemble_block(by_box: dict, want: list, dev, sink_dim, raws: dict
             raw = torch.zeros(local, dtype=first.dtype, device=dev)
             out = raw.narrow(sink_dim, 0, n)
             raws[id(out)] = raw
+        read = []
         for box, ts in by_box.values():
             ov = _overlap(want, tuple(box))
             if ov is not None:
                 t = next((u for u in ts if u.device == dev), ts[0])
-                out[ov[1]] = t[ov[0]].to(dev)
+                read.append(t[ov[0]])
+                out[ov[1]] = read[-1].to(dev)
+    _record_gather(len(read), out, read, dev)
     return out
 
 
-def reduce_scatter(out: ShardedTensor, parts: list) -> None:
+def reduce_scatter(out: ShardedTensor, parts: list,
+                   group: int | None = None) -> None:
     """Add to each distinct block of ``out`` the sum of the gradients
     ``parts`` hold of it: ``parts`` are (index, gradient) of the
     positions that computed with entries ``index`` (``all_gather``'s)
     of the leaf, in position order, and the sum runs in that order on
     the block's first copy, then goes to its other copies (counted in
-    ``COLLECTIVE_METER.reduces``)."""
+    ``COLLECTIVE_METER.reduces``). ``group``: the positions that sum the
+    first part's entries, for ``hlo_stats`` (by default the distinct
+    devices that do)."""
     from repro_torch.kernels.ops import COLLECTIVE_METER
     boxes = [(_box(i, out.shape), g) for i, g in parts]
+    rec = hlo_stats.recorder()
+    moved = 0.0
     with COLLECTIVE_METER.sync():
         COLLECTIVE_METER.reduces += 1
         for slc, ts in out.blocks():
@@ -1051,11 +1077,24 @@ def reduce_scatter(out: ShardedTensor, parts: list) -> None:
                 if ov is None:
                     continue
                 g = g.reshape([s.stop - s.start for s in box])
-                acc[ov[0]] += g[ov[1]].to(acc.device, acc.dtype)
+                piece = g[ov[1]]
+                if rec is not None and piece.device != acc.device:
+                    moved += hlo_stats.nbytes(piece)
+                acc[ov[0]] += piece.to(acc.device, acc.dtype)
                 done.append(ov[0])
             for t in ts[1:]:
                 for local in done:
+                    if rec is not None and t.device != acc.device:
+                        moved += hlo_stats.nbytes(acc[local])
                     t[local] = acc[local].to(t.device)
+    if rec is not None:
+        # the positions that sum the same entries (the first part's),
+        # each member's result its 1/k of them
+        k = group or len({g.device for i, g in parts if i == parts[0][0]})
+        rec.add("reduce-scatter", k, hlo_stats.nbytes(parts[0][1]) / k,
+                [g.device for _, g in parts]
+                + [t.device for _, ts in out.blocks() for t in ts], moved,
+                "reduces")
 
 
 #: The dimension each weight's compute splits over "model" in training:
@@ -1209,7 +1248,7 @@ class TrainView:
         packed leaf's ranges concatenated on its last dimension."""
         st, dev = self.placed[path], self.rows[b][m]
         replay = getattr(_REPLAY, "step", None)
-        parts = [_STEP.gather(path, st, i, dev) if _STEP is not None
+        parts = [_STEP.gather(path, st, i, dev, (b, m)) if _STEP is not None
                  else replay.replay(st, i, dev) if replay is not None
                  else all_gather(st, i, dev)
                  for i in self.boxes(path, m, layer, b)]
@@ -1245,8 +1284,55 @@ def replaying(step):
 
 
 def _address(t: torch.Tensor) -> tuple:
-    """Where ``t``'s memory lives: its device and storage address."""
-    return t.device, t.untyped_storage().data_ptr()
+    """Where ``t``'s memory lives: its device and storage address (a
+    meta tensor, which has no memory: its storage object's)."""
+    s = t.untyped_storage()
+    return t.device, s._cdata if t.device.type == "meta" else s.data_ptr()
+
+
+class SavedBytes:
+    """The storage a train step keeps for its backward, by mesh position
+    (``hlo_stats.position``): ``kept`` all of it, ``boundary`` the part
+    that is a remat body's inputs (the residual at layer boundaries),
+    each {position: {storage: bytes}}."""
+
+    def __init__(self) -> None:
+        self.kept: dict = {}
+        self.boundary: dict = {}
+
+    def add(self, t: torch.Tensor, boundary: bool) -> None:
+        for d in (self.kept, self.boundary) if boundary else (self.kept,):
+            d.setdefault(hlo_stats.position(t.device), {})[
+                _address(t)] = t.untyped_storage().nbytes()
+
+    @staticmethod
+    def per_position(d: dict) -> dict:
+        return {p: float(sum(v.values())) for p, v in d.items()}
+
+
+_SAVED: SavedBytes | None = None     # the installed probe, if any
+
+
+@contextlib.contextmanager
+def saved_probe():
+    """Within the block, count what a train step keeps for its backward
+    (a ``SavedBytes``): what ``FsdpStep``'s ``saved_tensors_hooks``
+    keep (not the handles to gathered weights, which the backward
+    gathers again, nor the shards themselves) and the inputs a remat
+    body keeps to recompute from (``note_saved``)."""
+    global _SAVED
+    prev, _SAVED = _SAVED, SavedBytes()
+    try:
+        yield _SAVED
+    finally:
+        _SAVED = prev
+
+
+def note_saved(t: torch.Tensor, boundary: bool = False) -> None:
+    """Count ``t``'s storage in the installed saved-bytes probe
+    (``boundary``: a remat body's input)."""
+    if _SAVED is not None:
+        _SAVED.add(t, boundary)
 
 
 class _Gathered(torch.autograd.Function):
@@ -1293,6 +1379,7 @@ class FsdpStep:
         self._seq = 0
         self._lock = threading.Lock()
         self._saved: dict = {}     # storage address -> (st, index, device)
+        self._pos: dict = {}       # gather seq -> mesh position
         self._own = {_address(t) for st in placed.values()
                      for _, t in st.unique()}
 
@@ -1307,11 +1394,15 @@ class FsdpStep:
         finally:
             _STEP = prev
 
-    def gather(self, path: str, st: ShardedTensor, index: tuple, device
-               ) -> torch.Tensor:
+    def gather(self, path: str, st: ShardedTensor, index: tuple, device,
+               pos=None) -> torch.Tensor:
+        """Entries ``index`` of leaf ``path`` on ``device`` for mesh
+        position ``pos`` (which ``hlo_stats`` counts the reduce-scatter's
+        members by)."""
         key = (path, index[0] if isinstance(index[0], int) else None)
         self._want[key] = self._want.get(key, 0) + 1
         self._seq += 1
+        self._pos[self._seq] = pos
         out = _Gathered.apply(self.anchor, self, key, self._seq, st, index,
                               device)
         ptr = _address(out)
@@ -1329,8 +1420,11 @@ class FsdpStep:
                                device)
 
     def _pack(self, t: torch.Tensor):
-        rec = self._saved.get(_address(t))
+        addr = _address(t)
+        rec = self._saved.get(addr)
         if rec is None:
+            if addr not in self._own:      # a shard is kept anyway
+                note_saved(t)
             return t
         return rec, tuple(t.shape), t.stride(), t.storage_offset()
 
@@ -1350,7 +1444,10 @@ class FsdpStep:
 
     def _reduce(self, key) -> None:
         got = sorted(self._got.pop(key), key=lambda e: e[0])
-        reduce_scatter(self.grads[key[0]], [(i, g) for _, i, g in got])
+        pos = {s: self._pos.pop(s, None) for s, _, _ in got}
+        group = len({pos[s] for s, i, _ in got if i == got[0][1]})
+        reduce_scatter(self.grads[key[0]], [(i, g) for _, i, g in got],
+                       group)
 
     def finish(self) -> None:
         """Reduce what arrived for layers some of whose positions sent

@@ -25,6 +25,7 @@ import ctypes
 
 import torch
 
+from . import meta
 from .build import (CUDA_CORES, KernelStats, check_launch, dtype_code,
                     library, stream_handle)
 
@@ -75,12 +76,15 @@ def bgmv(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     """x: (Bt, din); A: (n, din, r); B: (n, r, dout); idx: (Bt,) ints.
 
     CUDA tensors launch the kernel with ``splits`` blocks (one cluster)
-    per token row, 1..16; CPU tensors take ``bgmv_plain``.
+    per token row, 1..16; CPU tensors take ``bgmv_plain``; meta tensors
+    (the dry-run) its shapes and operation count (``meta.bgmv``).
     """
     _check(x, A, B, idx)
     if x.device.type == "cpu":
         STATS.plain += 1
         return bgmv_plain(x, A, B, idx)
+    if x.device.type == "meta":
+        return meta.bgmv(x, A, B, idx)
     if x.device.type != "cuda":
         raise ValueError(f"bgmv runs on cuda or cpu, not {x.device}")
     if not 1 <= splits <= MAX_SPLITS:

@@ -62,6 +62,7 @@ import torch
 
 from repro_torch.models.layers import gqa_attention
 
+from . import meta
 from .build import (CUDA_CORES, TENSOR_CORES, TF32X3, KernelStats,
                     check_launch, dtype_code, library, stream_handle)
 
@@ -153,7 +154,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (any S, dh <= 256 a multiple of 4, q/k/v of one dtype, f32 or bf16;
     strided views are read in place as long as the head_dim axis is
     contiguous); CPU tensors take ``flash_attention_plain`` (and
-    ``flash_attention_lse_plain``).
+    ``flash_attention_lse_plain``); meta tensors (the dry-run) its shapes
+    and operation count (``meta.flash_attention``).
     """
     _check(q, k, v)
     if q.device.type == "cpu":
@@ -161,6 +163,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out = flash_attention_plain(q, k, v, causal)
         return (out, flash_attention_lse_plain(q, k, causal)) if return_lse \
             else out
+    if q.device.type == "meta":
+        out, lse = meta.flash_attention(q, k, v, causal)
+        return (out, lse) if return_lse else out
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
@@ -213,7 +218,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     read in place when head_dim is contiguous); without ``lse`` one
     forward launch with ``return_lse=True`` (counted in ``STATS``)
     supplies it first. CPU tensors take ``flash_attention_bwd_plain``,
-    which needs no ``lse``.
+    which needs no ``lse``; meta tensors (the dry-run) its shapes and
+    operation count (``meta.flash_attention_bwd``).
     """
     _check(q, k, v)
     for name, t in (("out", out), ("dout", dout)):
@@ -233,6 +239,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         BWD_STATS.plain += 1
         return flash_attention_bwd_plain(q, k, v, out, dout, causal)
+    if q.device.type == "meta":
+        if lse is None:
+            _, lse = meta.flash_attention(q, k, v, causal)
+        return meta.flash_attention_bwd(q, k, v, out, dout, lse, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on cuda or cpu, not "
                          f"{q.device}")

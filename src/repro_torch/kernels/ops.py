@@ -66,6 +66,14 @@ def _needs_grad(*ts: torch.Tensor) -> bool:
             and any(t.requires_grad for t in ts))
 
 
+def _meta_grad(*ts: torch.Tensor) -> bool:
+    """A meta call (the dry-run) autograd would have to differentiate:
+    it takes the card's autograd path, with the meta ops in place of the
+    launches."""
+    return (torch.is_grad_enabled() and ts[0].device.type == "meta"
+            and any(t.requires_grad for t in ts))
+
+
 class DispatchMeter:
     """Hot-loop observability: device dispatches and host-sync wall time.
 
@@ -242,7 +250,8 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths):
 def flash_attention(q, k, v, causal: bool = True):
     """Attention over a whole sequence; see flash_attention.py. Card
     tensors that need a gradient go through ``FlashAttentionFn``, whose
-    backward is the flash_attention_bwd kernel."""
-    if _needs_grad(q, k, v):
+    backward is the flash_attention_bwd kernel; meta tensors that need
+    one take the same path through the meta ops (the dry-run)."""
+    if _needs_grad(q, k, v) or _meta_grad(q, k, v):
         return FlashAttentionFn.apply(q, k, v, causal)
     return _flash_kernel(q, k, v, causal)

@@ -39,6 +39,7 @@ import ctypes
 import numpy as np
 import torch
 
+from . import meta
 from .build import (CUDA_CORES, TENSOR_CORES, KernelStats, check_launch,
                     dtype_code, library, lora_splits, stream_handle)
 
@@ -127,12 +128,15 @@ def sgmv(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     """x: (T, din), T % tile == 0; tile_slot: (T/tile,) adapter slots.
 
     CUDA tensors launch the kernel instance ``sgmv_instance`` names;
-    CPU tensors take ``sgmv_plain``.
+    CPU tensors take ``sgmv_plain``; meta tensors (the dry-run) its
+    shapes and operation count (``meta.sgmv``).
     """
     _check(x, A, B, tile_slot, tile)
     if x.device.type == "cpu":
         STATS.plain += 1
         return sgmv_plain(x, A, B, tile_slot, tile)
+    if x.device.type == "meta":
+        return meta.sgmv(x, A, B, tile_slot, tile)
     if x.device.type != "cuda":
         raise ValueError(f"sgmv runs on cuda or cpu, not {x.device}")
     xc, wc = dtype_code(x, "x"), dtype_code(A, "A/B")

@@ -28,7 +28,7 @@ full and the decoder's causal self-attention through
 ``lm._mlp_train``. The JAX rule table replicates every cross-attention
 leaf (``dec/x*``); each column computes its heads of the cross
 attention from its block of them (``TrainView``: xq and xk/xv by
-heads, xo by rows), and ``psum_columns`` sums the row-parallel xo
+heads, xo by rows), and ``act_sharding.residual_add`` sums the row-parallel xo
 products, so no head is counted twice. The positions tables are whole
 on every column.
 
@@ -56,7 +56,7 @@ from repro_torch.models.layers import (cross_entropy, decode_attention,
                                        einsum, embed, gqa_attention,
                                        rms_norm, swiglu)
 from repro_torch.models.lm import (_attn_sublayer, _attn_train,
-                                   _column_sums, _embed_mesh, _embed_train,
+                                   _embed_mesh, _embed_train,
                                    _head, _head_train, _heads, _logits,
                                    _mesh_calls, _mesh_scope, _mlp_mesh,
                                    _mlp_train, _o_proj_mesh, _placed,
@@ -208,7 +208,7 @@ def _cross_kv_train(cfg, tv: TrainView, enc: list, b: int) -> list:
     KV heads (whole heads: the first column's, every head), from its
     copy of batch shard ``b``'s encoder output, normed here."""
     out = []
-    for m, x in enumerate(enc[:tv.attn_cols]):
+    for m, x in enumerate(acts.columns_in(enc, tv.rows[b][:tv.attn_cols])):
         with on_device(x.device):
             e = rms_norm(x, tv.view("enc_final_norm", b, m), cfg.norm_eps)
             k, v = (einsum("bsd,lde->lbse", e, tv.view(f"dec/x{n}", b, m))
@@ -226,7 +226,7 @@ def _cross_train(cfg, tv: TrainView, hb: list, b: int, i: int,
     heads: the first column's, copied)."""
     c = tv.col_cfg
     parts = []
-    for m, x in enumerate(hb[:tv.attn_cols]):
+    for m, x in enumerate(acts.columns_in(hb, tv.rows[b][:tv.attn_cols])):
         with on_device(x.device):
             B, S, _ = x.shape
             p = tv.layer(i, b, m, ("xattn_norm", "xq", "xo"), "dec/")
@@ -237,15 +237,21 @@ def _cross_train(cfg, tv: TrainView, hb: list, b: int, i: int,
             out = gqa_attention(q, kx[i], vx[i], causal=False)
             parts.append(einsum("bse,ed->bsd", out.reshape(B, S, c.q_dim),
                                 p["xo"]))
-    return [x + y for x, y in zip(hb, _column_sums(tv, hb, parts))]
+    return acts.residual_add(hb, parts, tv.rows[b])
+
+
+def _with_positions(tv: TrainView, hb: list, path: str, b: int) -> list:
+    """Residual ``hb`` of batch shard ``b`` plus the learned positions
+    ``path`` of the positions each piece holds (piece m on column m)."""
+    return [x + tv.view(path, b, m)[None, lo:hi]
+            for m, (x, (lo, hi)) in enumerate(
+                zip(hb, acts.residual_spans(hb)))]
 
 
 def _logits_mesh(cfg: ModelConfig, tv: TrainView, tokens, frames):
     """([batch shard][column] f32 logits, None) on a placed state."""
     toks = acts.batch_shards(tokens)
-    S = tokens.shape[1]
-    enc = [[f + tv.view("enc_pos", b, m)[None, :f.shape[1]]
-            for m, f in enumerate(row)]
+    enc = [_with_positions(tv, acts.residual_pieces(row), "enc_pos", b)
            for b, row in enumerate(acts.batch_shards(frames))]
     for i in range(cfg.n_enc_layers):
         enc, _ = remat_rows(lambda h, i=i: ([
@@ -254,7 +260,7 @@ def _logits_mesh(cfg: ModelConfig, tv: TrainView, tokens, frames):
             for b, hb in enumerate(h)], None), enc, cfg.remat)
     kvs = [_cross_kv_train(cfg, tv, hb, b) for b, hb in enumerate(enc)]
     del enc
-    h = [[x + tv.view("dec_pos", b, m)[:S] for m, x in enumerate(hb)]
+    h = [_with_positions(tv, hb, "dec_pos", b)
          for b, hb in enumerate(_embed_train(tv, toks))]
 
     def layer(h, i):

@@ -60,8 +60,8 @@ def rope_freqs(head_dim: int, theta: float,
                device: torch.device | str = "cpu") -> torch.Tensor:
     half = head_dim // 2
     exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                      device=device), exps)
 
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,

@@ -292,9 +292,10 @@ def _positions(cfg: ModelConfig, tokens: torch.Tensor, offset,
             raise AssertionError("VLM needs (3,B,S) M-RoPE positions")
         return mrope_cos_sin(mrope_pos, cfg.head_dim, cfg.rope_theta,
                              cfg.mrope_sections)
-    offset = torch.as_tensor(offset, device=tokens.device)
-    pos = (torch.arange(S, device=tokens.device)[None, :]
-           + offset.reshape(-1, 1).long())
+    pos = torch.arange(S, device=tokens.device)[None, :]
+    if not torch.is_tensor(offset):     # an int: no tensor made of it
+        return rope_cos_sin(pos + int(offset), cfg.head_dim, cfg.rope_theta)
+    pos = pos + offset.reshape(-1, 1).long()
     return rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
 
 
@@ -1784,13 +1785,16 @@ def _prefill_paged_mesh(cfg, mp, tokens, kv_pages, page_table, start,
 # through column m: its heads with their KV heads (flash_attention
 # forward, and backward under autograd, per shard), its gate/up
 # columns, its rows of the row-parallel o and down, whose partial
-# products ``psum_columns`` sums over the columns, and its vocabulary
-# block (the embedding's rows, summed likewise; the logits stay split
-# and the cross-entropy combines the blocks' exp-sums). A vocabulary
-# the columns do not divide stays whole: each column looks up whole
-# rows (its copy of the residual stream, as after ``psum_columns``)
-# and each batch shard's first column takes the logits and the
-# cross-entropy with the whole head. MoE supersteps put ``moe_every -
+# products ``act_sharding.residual_add`` sums over the columns onto
+# the batch shard's residual stream, and its vocabulary block (the
+# embedding's rows, summed likewise by ``residual_in``; the logits stay
+# split and the cross-entropy combines the blocks' exp-sums). The
+# residual is one tensor on the shard's first column, or one S block
+# a column under ``seq_shard_boundary``; ``columns_in`` gives each
+# column the whole sequence its sublayer computes on. A vocabulary
+# the columns do not divide stays whole: the first column looks up
+# whole rows, and each batch shard's first column takes the logits and
+# the cross-entropy with the whole head. MoE supersteps put ``moe_every -
 # 1`` dense layers (the ``dense_mlp/`` stack, row-parallel like the
 # dense MLP) before each MoE layer, whose experts run over "data" with
 # their hidden over "model" (``moe.moe_block_train``: capacity groups
@@ -1817,13 +1821,12 @@ def _attn_train(tv: TrainView, hb: list, rope: list | None, b: int,
                 causal: bool = True) -> list:
     """Attention of entry ``i`` of the ``prefix`` stack (None: a block
     that is not stacked) for batch shard ``b``: ``hb`` its residual
-    stream, a copy on each column's device; ``rope`` each column's
+    stream (``act_sharding.residual_in``); ``rope`` each column's
     (cos, sin), or None for learned positions (enc-dec). Whole heads:
-    the first column computes every head, its output copied to the
-    other columns."""
+    the first column computes every head."""
     c = tv.col_cfg
     parts = []
-    for m, x in enumerate(hb[:tv.attn_cols]):
+    for m, x in enumerate(acts.columns_in(hb, tv.rows[b][:tv.attn_cols])):
         with on_device(x.device):
             p = tv.layer(i, b, m, _ATTN_LEAVES, prefix)
             cos, sin = rope[m] if rope is not None else (None, None)
@@ -1831,16 +1834,7 @@ def _attn_train(tv: TrainView, hb: list, rope: list | None, b: int,
             out = flash_attention(q, k, v, causal=causal)
             out = out.reshape(x.shape[0], x.shape[1], c.q_dim)
             parts.append(einsum("bse,ed->bsd", out, p["o"]))
-    return [x + y for x, y in zip(hb, _column_sums(tv, hb, parts))]
-
-
-def _column_sums(tv: TrainView, hb: list, parts: list) -> list:
-    """The attention output on every column's device: the row-parallel
-    partial products summed, or the whole block's (``whole_heads``)
-    copied."""
-    if tv.whole_heads:
-        return acts.broadcast_columns(parts[0], [x.device for x in hb])
-    return acts.psum_columns(parts)
+    return acts.residual_add(hb, parts, tv.rows[b])
 
 
 def _mlp_train(cfg, tv: TrainView, hb: list, b: int, i: int | None,
@@ -1848,14 +1842,14 @@ def _mlp_train(cfg, tv: TrainView, hb: list, b: int, i: int | None,
     """The MLP of entry ``i`` of the ``prefix`` stack for batch shard
     ``b``."""
     parts = []
-    for m, x in enumerate(hb):
+    for m, x in enumerate(acts.columns_in(hb, tv.rows[b])):
         with on_device(x.device):
             p = tv.layer(i, b, m, _MLP_LEAVES, prefix)
             h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
             parts.append(swiglu(h, p["gate"], p["up"], p["down"])
                          if cfg.gated_mlp else
                          gelu_mlp(h, p["up"], p["down"]))
-    return [x + y for x, y in zip(hb, acts.psum_columns(parts))]
+    return acts.residual_add(hb, parts, tv.rows[b])
 
 
 def _moe_train(cfg, tv: TrainView, h: list, s: int):
@@ -1865,7 +1859,7 @@ def _moe_train(cfg, tv: TrainView, h: list, s: int):
     hn, router, experts = [], [], []
     for b, hb in enumerate(h):
         row, exp = [], []
-        for m, x in enumerate(hb):
+        for m, x in enumerate(acts.columns_in(hb, tv.rows[b])):
             with on_device(x.device):
                 row.append(rms_norm(x, tv.view("moe/norm", b, m, s),
                                     cfg.norm_eps))
@@ -1887,34 +1881,35 @@ def _moe_train(cfg, tv: TrainView, h: list, s: int):
                     parts.append(y + swiglu(hn[b][m], p["shared_gate"],
                                             p["shared_up"],
                                             p["shared_down"]))
-        out.append([x + y for x, y in zip(hb, acts.psum_columns(parts))])
+        out.append(acts.residual_add(hb, parts, tv.rows[b]))
     return out, aux
 
 
 def _embed_train(tv: TrainView, toks: list) -> list:
-    """[batch shard][column] residual streams of the batch-sharded
-    tokens ``toks``: the columns' vocabulary blocks looked up and summed
-    over the columns, or, for a vocabulary left whole, each column's
-    lookup in the whole table."""
+    """The batch shards' residual streams (``act_sharding.residual_in``)
+    of the batch-sharded tokens ``toks``: the columns' vocabulary blocks
+    looked up and summed over the columns, or, for a vocabulary left
+    whole, the first column's lookup in the whole table."""
     h = []
     for b, row in enumerate(toks):
         parts = []
-        for m, t in enumerate(row):
+        for m, t in enumerate(row[:1] if tv.whole_vocab else row):
             tab = tv.view("embed/tok", b, m)
             parts.append(embed(t, tab) if tv.M == 1 or tv.whole_vocab
                          else embed_rows(t, tab, m * tab.shape[0]))
-        h.append(parts if tv.whole_vocab else acts.psum_columns(parts))
+        h.append(acts.residual_in(parts, tv.rows[b]))
     return h
 
 
 def _head_train(cfg, tv: TrainView, h: list) -> list:
     """[batch shard][column] f32 logits (B / n_batch, S, V / M) of the
-    final hidden ``h``; a whole vocabulary: one block a batch shard,
-    from its first column."""
+    final residual streams ``h``; a whole vocabulary: one block a batch
+    shard, from its first column."""
     out = []
     for b, hb in enumerate(h):
         row = []
-        for m, x in enumerate(hb[:1] if tv.whole_vocab else hb):
+        cols = tv.rows[b][:1] if tv.whole_vocab else tv.rows[b]
+        for m, x in enumerate(acts.columns_in(hb, cols)):
             x = rms_norm(x, tv.view("final_norm", b, m), cfg.norm_eps)
             table = (tv.view("embed/tok", b, m).T if cfg.tie_embeddings
                      else tv.view("lm_head", b, m))
@@ -1961,11 +1956,11 @@ def _logits_train_mesh(cfg, tv: TrainView, tokens, mrope_pos=None):
 
 
 def remat_rows(fn, h: list, on: bool):
-    """``fn(h)`` -> (residual streams, extra) over the [batch
-    shard][column] residual streams ``h``, as one ``remat`` body whose
-    inputs are the streams (one checkpoint over every position's share
-    of the layer, as the reference's ``jax.checkpoint`` of the layer
-    body spans the mesh)."""
+    """``fn(h)`` -> (residual streams, extra) over the batch shards'
+    residual streams ``h`` (each a list of pieces), as one ``remat``
+    body whose inputs are the streams (one checkpoint over every
+    position's share of the layer, as the reference's
+    ``jax.checkpoint`` of the layer body spans the mesh)."""
     n = len(h[0])
 
     def body(*flat):
@@ -1978,7 +1973,11 @@ def remat_rows(fn, h: list, on: bool):
 
 
 def _train_scope(tv: TrainView):
-    return acts.activation_sharding(tv.batch_axes, mesh=tv.mesh)
+    """The train step's scope on ``tv``'s mesh, keeping the caller's
+    ``seq_shard_boundary``."""
+    return acts.activation_sharding(
+        tv.batch_axes, mesh=tv.mesh,
+        seq_shard_boundary=acts.seq_shard_boundary())
 
 
 def mesh_train_loss(tv: TrainView, logits_fn, labels,

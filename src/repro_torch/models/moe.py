@@ -283,7 +283,8 @@ def moe_block_gather(x: torch.Tensor, router_w: torch.Tensor,
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Dropless MoE for decode (S == 1, few tokens): each token's top-k
     experts, exact. The assignments are grouped by expert (one host
-    read of the sorted expert ids), and each distinct expert runs its
+    read of the sorted expert ids; meta tensors, which hold no ids,
+    spread them evenly, ``_balanced``), and each distinct expert runs its
     SwiGLU over its own rows with its weights read in place. Each
     token's K outputs are summed with the combine weights (cast to
     ``x.dtype``) in f32. Per-data-shard weight blocks (module docstring)
@@ -297,8 +298,12 @@ def moe_block_gather(x: torch.Tensor, router_w: torch.Tensor,
     e_flat = idx.reshape(T * K)
     wf = weights.reshape(T, K).to(x.dtype)
     order = torch.argsort(e_flat, stable=True)
-    experts, counts = torch.unique_consecutive(e_flat[order].cpu(),
-                                               return_counts=True)
+    if x.device.type == "meta":
+        experts, counts = _balanced(T * K, router_w)
+    else:
+        experts, counts = torch.unique_consecutive(e_flat[order].cpu(),
+                                                   return_counts=True)
+        experts, counts = experts.tolist(), counts.tolist()
     STATS.gather_call(len(experts))
     xs = xf[order.div(K, rounding_mode="floor")]            # (T*K, D)
     w_gate, w_up, w_down = map(expert_blocks, (w_gate, w_up, w_down))
@@ -308,7 +313,6 @@ def moe_block_gather(x: torch.Tensor, router_w: torch.Tensor,
     # The rows are sorted by expert, so each data shard's experts own
     # one run of them: split the runs to the shards, run each shard's
     # experts there, gather the runs back in order.
-    experts, counts = experts.tolist(), counts.tolist()
     lo, runs, groups = 0, [], []
     for wg in w_gate:
         hi = lo + wg.shape[0]
@@ -329,6 +333,16 @@ def moe_block_gather(x: torch.Tensor, router_w: torch.Tensor,
     yk[order] = ys                                          # (t, k) order
     y = (yk.view(T, K, D).float() * wf.float()[..., None]).sum(dim=1)
     return y.to(x.dtype).reshape(B, S, D), aux
+
+
+def _balanced(n: int, router_w) -> tuple[list, list]:
+    """The expert ids and counts of ``n`` assignments spread evenly over
+    the experts: the meta path's stand-in (the dry-run has no data to
+    route) for the host read of the sorted ids."""
+    E = expert_blocks(router_w)[0].shape[-1]
+    used = min(E, n)
+    return (list(range(used)),
+            [n // used + (e < n % used) for e in range(used)])
 
 
 def _gather_rows(xs: torch.Tensor, experts: list, counts: list, base: int,

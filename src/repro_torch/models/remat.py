@@ -18,7 +18,9 @@ is gathered again as a graph node like the forward's, whose gradient
 goes nowhere (the recomputed graph only supplies saved tensors; the
 gradient flows through the forward's nodes, and each leaf is
 reduce-scattered once). ``recomputing()`` tells a counter of a step's
-events (the MoE drops) that a body runs a second time.
+events (the MoE drops) that a body runs a second time. A body's tensor
+inputs are what the checkpoint keeps for the backward: they count in
+an installed ``sharding.saved_probe``.
 """
 from __future__ import annotations
 
@@ -45,6 +47,9 @@ def remat(fn, *args, on: bool = True):
     outlives it."""
     if not (on and torch.is_grad_enabled()):
         return fn(*args)
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            sharding.note_saved(a, boundary=True)
     step = sharding.recording_step()
     ran = []
 

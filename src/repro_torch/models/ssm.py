@@ -438,7 +438,7 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     mask = (ar[:, None] >= ar[None, :])[None, None, :, :, None]
     ddecay = torch.exp(torch.where(
         mask, L[:, :, :, None, :] - L[:, :, None, :, :],
-        torch.tensor(float("-inf"), device=xh.device)))
+        torch.full((), float("-inf"), device=xh.device)))
     W = CB[..., None] * ddecay
     del ddecay
     xdt = xc * dtc[..., None]                      # (B,nc,Q,H,P)

@@ -97,9 +97,9 @@ def train_loss(cfg, params, tokens, labels, mrope_pos=None,
 def _mixer_train(cfg: ModelConfig, tv: TrainView, hb: list, b: int,
                  i: int) -> list:
     """SSM layer ``i`` (norm, mixer, residual) of batch shard ``b``:
-    ``hb`` its residual stream, a copy on each column's device."""
+    ``hb`` its residual stream (``act_sharding.residual_in``)."""
     xs, ps = [], []
-    for m, x in enumerate(hb):
+    for m, x in enumerate(acts.columns_in(hb, tv.rows[b])):
         with on_device(x.device):
             p = tv.layer(i, b, m, _SSM_LEAVES)
             xs.append(rms_norm(x, p["ssm_norm"], cfg.norm_eps))
@@ -110,7 +110,7 @@ def _mixer_train(cfg: ModelConfig, tv: TrainView, hb: list, b: int,
     else:
         parts = mamba2_seq_columns(xs, ps, cfg.d_state, cfg.ssm_head_dim,
                                    cfg.ssm_chunk)
-    return [x + y for x, y in zip(hb, acts.psum_columns(parts))]
+    return acts.residual_add(hb, parts, tv.rows[b])
 
 
 def _logits_mesh(cfg: ModelConfig, tv: TrainView, tokens):

@@ -135,8 +135,8 @@ def adamw_update(params: dict, grads: dict, state: dict,
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     stepf = step.float()
-    b1c = 1 - torch.pow(torch.tensor(cfg.b1, device=stepf.device), stepf)
-    b2c = 1 - torch.pow(torch.tensor(cfg.b2, device=stepf.device), stepf)
+    b1c = 1 - torch.pow(torch.full((), cfg.b1, device=stepf.device), stepf)
+    b2c = 1 - torch.pow(torch.full((), cfg.b2, device=stepf.device), stepf)
     consts: dict = {}
 
     def on(dev):

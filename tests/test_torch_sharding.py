@@ -330,14 +330,16 @@ def test_kv_pages_zeros_keep_a_write_sink():
 
 # ------------------------------------------------ activation sharding
 def test_activation_sharding_refuses_unported_modes():
-    """The sequence-parallel boundary is not ported; the serving exact
-    mode with the batch axes computes batch rows (one a row of
-    positions, a batch they do not divide whole on the first row), and
-    the row-parallel mode with the batch axes (training) is ported."""
+    """The sequence-parallel boundary is ported (the scope installs it
+    for the train step's residual); the serving exact mode with the
+    batch axes computes batch rows (one a row of positions, a batch
+    they do not divide whole on the first row), and the row-parallel
+    mode with the batch axes (training) is ported."""
     _, tm = meshes("2x2")
-    with pytest.raises(NotImplementedError):
-        with acts.activation_sharding((), seq_shard_boundary=True):
-            pass
+    with acts.activation_sharding(("data",), mesh=tm,
+                                  seq_shard_boundary=True):
+        assert acts.seq_shard_boundary()
+    assert not acts.seq_shard_boundary()
     with acts.activation_sharding(("data",), mesh=tm,
                                   exact_reductions=True):
         assert acts.row_spans(4) == [(0, 0, 2), (1, 2, 4)]
