@@ -229,7 +229,8 @@ of the JAX package. Phases, one JSON line each:
              plain versions, timed (``kernel_time_train_mesh[_fwd]``);
              reduced llama4 (dense layers between MoE layers, a shared
              expert) at (2, 2) against the CPU (``parity_train_mesh``);
-             then for internlm2-1.8b (full size, (8, 512)), qwen2-vl-7b
+             then for internlm2-1.8b (full width, 12 of its 24 layers
+             since PR 29, (8, 512)), qwen2-vl-7b
              (full width, 2 layers, (8, 512), M-RoPE positions),
              qwen3-moe (full width, 1 layer, (2, 2048)), falcon-mamba-7b
              (full width, 2 layers, (2, 1024)), zamba2-1.2b (full
@@ -300,6 +301,27 @@ of the JAX package. Phases, one JSON line each:
              and on (``seq_shard_ab``): two steps each from the same
              state, loss, grad norm and every parameter and moment
              bit-identical (gated), s/step and peak GB each way.
+11. uneven — (``phase_uneven``) configs on meshes whose "model" axis
+             divides none of their blocks, each block whole on each
+             batch row's first column (``sharding.whole_blocks``):
+             internlm2-1.8b at full width cut to 4 layers and
+             zamba2-1.2b cut to 6 (the shared block's one site and
+             Mamba2), each at (1, 3) and (2, 3) over repeated
+             positions of the card. In f32 a prefill of (4, 512) with
+             8 adapters through ``launch.cases.build_case`` and 8
+             greedy decode steps (``uneven_serve``): tokens equal to
+             the unsharded case's, logits within 1e-4 relative, the
+             state in the rule table's layout, flash_attention, sgmv
+             and bgmv launched as often as the unsharded case a batch
+             row (the whole column's; none on the others) and no plain
+             version; ms a prefill, ms a decode step and peak memory
+             beside the unsharded case's. Then one train step under
+             the published remat on (4, 512) (``uneven_train``, as
+             phase 8's ``train_mesh``): loss and grad norm within
+             1e-4, params within lr, moments within 1e-4 of the
+             unsharded step, flash forward and backward launched on
+             each batch row's first column only; s/step and peak GB
+             beside the unsharded step's.
 
 A device-time profile of the same path is ``chip_profile.py``.
 
@@ -317,6 +339,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -4330,6 +4353,9 @@ def phase_train() -> dict:
 #: of ``cuda:0``), each held to the unsharded step; two steps each.
 TRAIN_MESHES = ((1, 1), (2, 1), (1, 2), (2, 2))
 TRAIN_MESH_STEPS = 2
+#: internlm2-1.8b's depth in phase 8 (phase 7 trains all 24 layers): cut
+#: to keep the smoke inside its time limit as phases were added.
+TRAIN_MESH_FULL_LAYERS = 12
 #: The MoE and VLM families at their published widths, depth cut so
 #: that the unsharded f32 step (params, gradients and two moments, then
 #: the activations) fits one card: (arch, layers, (B, S), meshes).
@@ -4376,7 +4402,7 @@ def train_mesh_shapes(cfg, batch: tuple, meshes) -> tuple:
     frames (full) and the decoder's (causal); none for the SSM
     family."""
     from repro_torch.distributed.sharding import (kv_heads_of_column,
-                                                  whole_heads)
+                                                  whole_blocks)
     B, S = batch
     parts = {"SSM": (), "ENCDEC": ((" encoder", cfg.enc_ctx, False),
                                    (" decoder", S, True))}.get(
@@ -4385,7 +4411,7 @@ def train_mesh_shapes(cfg, batch: tuple, meshes) -> tuple:
     for d, m in meshes:
         if d * m == 1:
             continue
-        whole = whole_heads(cfg, m)
+        whole = "attn" in whole_blocks(cfg, m, d, train=True)
         lo, hi = ((0, cfg.n_kv_heads) if whole
                   else kv_heads_of_column(cfg.n_kv_heads, m, 0))
         for part, s, causal in parts:
@@ -4397,10 +4423,11 @@ def train_mesh_shapes(cfg, batch: tuple, meshes) -> tuple:
 
 def attention_positions(cfg, mesh) -> int:
     """The positions that compute attention: every one, or when the
-    "model" axis does not divide the heads, each batch row's first."""
-    from repro_torch.distributed.sharding import whole_heads
+    "model" axis does not divide the heads (the attention block whole),
+    each batch row's first."""
+    from repro_torch.distributed.sharding import whole_blocks
     M = mesh.shape["model"]
-    return mesh.size // M if whole_heads(cfg, M) else mesh.size
+    return mesh.size // M if "attn" in whole_blocks(cfg, M) else mesh.size
 
 
 def train_mesh_inputs(arch: str = FULL_ARCH, n_layers: int | None = None,
@@ -4661,8 +4688,9 @@ def phase_train_mesh() -> None:
     ``cuda:0`` (one card: no interconnect measured). flash_attention and
     its backward at the per-shard shapes against their plain versions
     (``kernel_time_train_mesh``, f32), then for internlm2-1.8b at full
-    width and depth, for ``TRAIN_MESH_MODELS`` (qwen3-moe, one layer;
-    qwen2-vl-7b, two) and for ``TRAIN_MESH_FAMILIES`` (falcon-mamba-7b,
+    width (``TRAIN_MESH_FULL_LAYERS`` layers), for
+    ``TRAIN_MESH_MODELS`` (qwen3-moe, one layer; qwen2-vl-7b, two) and
+    for ``TRAIN_MESH_FAMILIES`` (falcon-mamba-7b,
     zamba2-1.2b, whisper-base) the unsharded step and each mesh held to
     it (``train_mesh`` lines), one model at a time, and reduced llama4
     (dense layers between MoE layers, a shared expert) at (2, 2) against
@@ -4688,7 +4716,8 @@ def phase_train_mesh() -> None:
                         [s[:6] + ("f32", s[6]) for s in shapes])
     del scratch
     train_parity_mesh("llama4-maverick-400b-a17b", (2, 2))
-    train_mesh_model(FULL_ARCH, None, (FULL_BATCH, FULL_SEQ), TRAIN_MESHES)
+    train_mesh_model(FULL_ARCH, TRAIN_MESH_FULL_LAYERS,
+                     (FULL_BATCH, FULL_SEQ), TRAIN_MESHES)
     for arch, n_layers, batch, meshes in (TRAIN_MESH_MODELS
                                           + TRAIN_MESH_FAMILIES):
         train_mesh_model(arch, n_layers, batch, meshes)
@@ -4716,22 +4745,28 @@ SERVE_TOL = 1e-4
 SERVE_KERNELS = ("flash_attention", "sgmv", "bgmv")
 
 
-def serve_mesh_counts(cfg, M: int, rows: int) -> dict:
-    """Launches of the path's kernels in one prefill and ``SERVE_STEPS``
+def serve_mesh_counts(cfg, M: int, rows: int,
+                      steps: int = SERVE_STEPS) -> dict:
+    """Launches of the path's kernels in one prefill and ``steps``
     decode steps with ``rows`` batch rows of ``M`` columns: flash per
     attention layer an attention position (every position, or each
-    row's first when the columns do not divide the heads), sgmv per
-    LoRA projection an attention position (prefill), bgmv likewise each
+    row's first when the attention block is whole), sgmv per LoRA
+    projection a position that computes it (prefill: q/k/v on the
+    attention positions, o there too unless a D the columns do not
+    divide makes it whole on each row's first), bgmv likewise each
     decode step."""
-    from repro_torch.distributed.sharding import whole_heads
+    from repro_torch.distributed.sharding import whole_blocks
     from repro_torch.models.hybrid import attn_sites
     fam = cfg.family.name
-    attn = {"VLM": cfg.n_layers, "ENCDEC": cfg.n_enc_layers + cfg.n_layers,
-            "SSM": 0}.get(fam) if fam != "HYBRID" else len(attn_sites(cfg))
-    lora = 4 * attn if fam in ("VLM", "HYBRID") else 0
-    pos = (1 if cfg.n_heads and whole_heads(cfg, M) else M) * rows
-    return {"flash_attention": attn * pos, "sgmv": lora * pos,
-            "bgmv": lora * pos * SERVE_STEPS}
+    attn = {"ENCDEC": cfg.n_enc_layers + cfg.n_layers, "SSM": 0}.get(
+        fam, cfg.n_layers) if fam != "HYBRID" else len(attn_sites(cfg))
+    whole = whole_blocks(cfg, M)
+    pos = (1 if "attn" in whole else M) * rows
+    o_pos = (1 if {"attn", "out"} & whole else M) * rows
+    lora = attn * (3 * pos + o_pos) if fam in ("DENSE", "VLM",
+                                               "HYBRID") else 0
+    return {"flash_attention": attn * pos, "sgmv": lora,
+            "bgmv": lora * steps}
 
 
 def serve_mesh_args(cfg, B: int, S: int, dtype, dev, seed: int = 0):
@@ -4751,7 +4786,7 @@ def serve_mesh_args(cfg, B: int, S: int, dtype, dev, seed: int = 0):
     if cfg.mrope:
         kw["mrope_pos"] = mrope_positions(B, S, image=True).to(dev)
     lora, idx = (), ()
-    if cfg.family.name in ("VLM", "HYBRID"):
+    if cfg.family.name in ("DENSE", "VLM", "HYBRID"):
         n = (len(hybrid.attn_sites(cfg)) if cfg.family.name == "HYBRID"
              else cfg.n_layers)
         r = cases.LORA_RMAX
@@ -4784,9 +4819,9 @@ def _decode_state(state, dec_sds, dec_sh):
 
 
 def serve_mesh_run(cfg, arch: str, args: tuple, mesh, B: int,
-                   S: int) -> dict:
-    """The prefill case and ``SERVE_STEPS`` greedy steps of the decode
-    case (``build_case``, a slab of S + steps positions) on ``mesh``
+                   S: int, steps: int = SERVE_STEPS) -> dict:
+    """The prefill case and ``steps`` greedy steps of the decode case
+    (``build_case``, a slab of S + steps positions) on ``mesh``
     (None: unsharded, the closures on the unplaced arguments), under the
     dry-run's scope (batch rows over "data", exact reductions,
     token-parallel MoE)."""
@@ -4802,7 +4837,7 @@ def serve_mesh_run(cfg, arch: str, args: tuple, mesh, B: int,
                                      config=cfg, seq_override=S)
     fn_d, sds_d, sh_d = cases.build_case(arch, "decode_32k", mesh, B,
                                          config=cfg,
-                                         seq_override=S + SERVE_STEPS)
+                                         seq_override=S + steps)
     if shape is None:
         placed, scope = args, contextlib.nullcontext()
     else:
@@ -4829,7 +4864,7 @@ def serve_mesh_run(cfg, arch: str, args: tuple, mesh, B: int,
         del state
         out, toks_out, ms = [logits.float()], [], []
         start = (int(extra["mrope_pos"].max()) + 1 if cfg.mrope else S)
-        for i in range(SERVE_STEPS):
+        for i in range(steps):
             tok = logits.argmax(-1)[:, None].int()
             toks_out.append(tok)
             clen = torch.full((B,), S + i, dtype=torch.int32, device=dev)
@@ -4856,7 +4891,7 @@ def serve_mesh_state_specs(cfg, B: int, S: int, shape) -> list:
     mesh = repeated_mesh(shape, "cpu")
     L, fam = cfg.n_layers, cfg.family.name
     kv = (L, B, S, cfg.n_kv_heads, cfg.head_dim)
-    if fam == "VLM":
+    if fam in ("DENSE", "MOE", "VLM"):
         return [shp.kv_cache_spec(mesh, kv)] * 2
     if fam == "ENCDEC":
         xkv = (L, B, cfg.enc_ctx, cfg.n_kv_heads, cfg.head_dim)
@@ -4903,13 +4938,15 @@ def serve_mesh_kernels(cfg, B: int, S: int, record: dict,
         return (torch.randn(shape, generator=g, device=dev)
                 * scale).to(torch.bfloat16)
 
-    from repro_torch.distributed.sharding import whole_heads
+    from repro_torch.distributed.sharding import whole_blocks
     fam, dh = cfg.family.name, cfg.head_dim
     if not cfg.n_heads:          # attention-free: no kernel on its path
         return
     for d, M in meshes:
         Br = B // d
-        Mh = 1 if whole_heads(cfg, M) else M      # the heads' columns
+        whole = whole_blocks(cfg, M)
+        Mh = 1 if "attn" in whole else M           # the heads' columns
+        Mo = 1 if {"attn", "out"} & whole else M   # o's output columns
         cases_fa = ([(Br, cfg.enc_ctx, False), (Br, S, True)]
                     if fam == "ENCDEC" else [(Br, S, True)])
         for Bt, T, causal in cases_fa:
@@ -4940,7 +4977,7 @@ def serve_mesh_kernels(cfg, B: int, S: int, record: dict,
                            device=dev).int()
         projs = {("q", cfg.d_model, cfg.q_dim // Mh),
                  ("k/v", cfg.d_model, max(cfg.kv_dim // Mh, dh)),
-                 ("o", cfg.q_dim, cfg.d_model // Mh)}
+                 ("o", cfg.q_dim, cfg.d_model // Mo)}
         for proj, din, dout in sorted(projs):
             A = randn(n, din, r, scale=din ** -0.5)
             Bw = randn(n, r, dout, scale=r ** -0.5)
@@ -5250,6 +5287,125 @@ def phase_dryrun() -> None:
     emit(dict(phase="phase_dryrun", seconds=time.perf_counter() - t0))
 
 
+# ----------------------------------------------------------- phase 11
+#: Configs on meshes whose "model" axis divides none of their blocks
+#: (``sharding.whole_blocks``): internlm2-1.8b (d_model 2048, d_ff 8192,
+#: 16 heads, 8 KV heads; its vocabulary of 92544 splits) cut to 4
+#: layers and zamba2-1.2b (d_inner 4096, 64 Mamba2 heads, 32 heads,
+#: d_ff 8192; vocabulary 32000 whole) cut to 6, so that the shared
+#: block's one site and Mamba2 both run: (arch, layers, serving (B, S),
+#: train (B, S)).
+UNEVEN_SPLIT_MODELS = (("internlm2-1.8b", 4, (4, 512), (4, 512)),
+                       ("zamba2-1.2b", 6, (4, 512), (4, 512)))
+UNEVEN_SPLIT_MESHES = ((1, 3), (2, 3))
+UNEVEN_SPLIT_STEPS = 8
+
+
+def phase_uneven() -> None:
+    """Phase 11 (module docstring): ``UNEVEN_SPLIT_MODELS`` served and
+    trained on ``UNEVEN_SPLIT_MESHES`` over repeated positions of the
+    card against the unsharded step, one model at a time. The unsharded
+    case and step run once before their timed run, so that neither
+    times a first call's set-up; the rule table's warning for each
+    weight it leaves whole is silenced."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="fit_spec")
+        _phase_uneven()
+
+
+def _phase_uneven() -> None:
+    import dataclasses
+    import importlib
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import whole_blocks
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    stats = {n: importlib.import_module(f"repro_torch.kernels.{n}").STATS
+             for n in SERVE_KERNELS}
+    steps = UNEVEN_SPLIT_STEPS
+    secs = {}
+    for arch, n_layers, (B, S), train_batch_shape in UNEVEN_SPLIT_MODELS:
+        t1 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+        args = serve_mesh_args(cfg, B, S, torch.float32, dev)
+        serve_mesh_run(cfg, arch, args, None, B, S, steps)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for st in stats.values():
+            st.reset()
+        base = serve_mesh_run(cfg, arch, args, None, B, S, steps)
+        base_peak = torch.cuda.max_memory_allocated() / 1e9
+        one = {n: st.launches for n, st in stats.items()}
+        check(one == serve_mesh_counts(cfg, 1, 1, steps),
+              f"uneven_serve {cfg.name} unsharded: launches {one}")
+        for shape in UNEVEN_SPLIT_MESHES:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            for st in stats.values():
+                st.reset()
+            got = serve_mesh_run(cfg, arch, args, repeated_mesh(shape, dev),
+                                 B, S, steps)
+            launches = {n: st.launches for n, st in stats.items()}
+            plain = {n: st.plain for n, st in stats.items()}
+            rows = shape[0] if B % shape[0] == 0 else 1
+            want = serve_mesh_counts(cfg, shape[1], rows, steps)
+            err = max(((g - w).abs().max() / w.abs().max().clamp(min=1.0))
+                      .item() for g, w in zip(got["logits"], base["logits"]))
+            line = dict(
+                phase="uneven_serve", model=cfg.name, weights="f32",
+                mesh_shape=list(shape), n_layers=cfg.n_layers,
+                batch=[B, S], steps=steps,
+                whole=sorted(whole_blocks(cfg, shape[1])),
+                logits_max_rel_err=err, tol=SERVE_TOL,
+                tokens_identical=bool(torch.equal(got["tokens"],
+                                                  base["tokens"])),
+                state_specs_ok=[tuple(x) for x in serve_mesh_state_specs(
+                    cfg, B, S, shape)] == got["specs"],
+                launches=launches, launches_expected=want,
+                launches_unsharded=one, plain_calls=plain,
+                prefill_ms=got["prefill_ms"],
+                decode_ms_per_step=got["decode_ms"],
+                ref_prefill_ms=base["prefill_ms"],
+                ref_decode_ms_per_step=base["decode_ms"],
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                ref_peak_mem_gb=base_peak)
+            emit(line)
+            check(line["tokens_identical"] and err <= SERVE_TOL
+                  and line["state_specs_ok"],
+                  f"uneven_serve {cfg.name} {shape}: {line}")
+            # every block whole: each batch row's first column launches
+            # what the unsharded step does, the other columns nothing
+            check(launches == want and want == {n: rows * v for n, v in
+                                                one.items()}
+                  and not any(plain.values()),
+                  f"uneven_serve {cfg.name} {shape}: kernel launches "
+                  f"{launches} (want {want}), plain {plain}")
+        del args, base
+        gc.collect()
+        torch.cuda.empty_cache()
+        tcfg, init, ocfg, batches = train_mesh_inputs(arch, n_layers,
+                                                      train_batch_shape)
+        batches = batches[:1]
+        train_mesh_reference(tcfg, ocfg, init, batches)
+        ref = train_mesh_reference(tcfg, ocfg, init, batches)
+        for shape in UNEVEN_SPLIT_MESHES:
+            train_mesh_run(tcfg, ocfg, init, batches,
+                           repeated_mesh(shape, dev), ref, "uneven_train")
+        del init, ref, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        check(held < 1e9, f"{held / 1e9:.2f} GB still allocated after "
+                          f"{arch} was freed")
+        secs[arch] = time.perf_counter() - t1
+    emit(dict(phase="phase_uneven", seconds=secs,
+              total_s=time.perf_counter() - t0))
+
+
 KERNELS = {
     "bgmv": ("src/repro_torch/csrc/bgmv.cu", "src/repro/kernels/bgmv.py:39"),
     "sgmv": ("src/repro_torch/csrc/sgmv.cu", "src/repro/kernels/sgmv.py:37"),
@@ -5329,6 +5485,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase_dryrun()
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_uneven()
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

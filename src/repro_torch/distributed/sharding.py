@@ -597,37 +597,86 @@ def column_coords(mesh: Mesh, m: int) -> tuple:
     return tuple(m if a == "model" else 0 for a in mesh.axis_names)
 
 
-#: The leaves of an attention block (self, shared and cross attention):
-#: whole on a column when the "model" axis does not divide the heads.
-_HEAD_LEAVES = ("q", "k", "v", "o", "q_bias", "k_bias", "v_bias",
-                "xq", "xk", "xv", "xo")
+#: The leaves of each block a mesh axis may leave whole (``whole_blocks``):
+#: attention (self, shared and cross), the output projections of D
+#: (serving), the MLP (the layers', llama4's dense, the hybrid's shared
+#: and the enc-dec stacks' MLPs), the MoE shared expert and the SSM
+#: mixer. The MoE expert stacks go by ``TrainView.boxes``.
+_BLOCK_LEAVES = {
+    "attn": ("q", "k", "v", "o", "q_bias", "k_bias", "v_bias", "xq", "xk",
+             "xv", "xo"),
+    "out": ("o", "xo", "out_proj"),
+    "mlp": ("gate", "up", "down"),
+    "shared": ("shared_gate", "shared_up", "shared_down"),
+    "mixer": ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias",
+              "A_log", "ssm_D", "gate_norm", "out_proj"),
+}
 
 
-def whole_heads(cfg: ModelConfig, M: int) -> bool:
-    """Whether ``cfg``'s attention runs whole on ``M`` columns: the axis
-    does not divide its heads (the JAX table keeps a weight's split
-    where its dimension divides, 2.5 heads a column for 40 heads on 16,
-    and replicates the head activations). Each batch row's first column
-    then computes the block, all heads and all KV heads, with the
-    weights assembled from their stored blocks, and its output is the
-    row's residual (serving) or is copied to the row's other columns
-    (training, ``act_sharding.broadcast_columns``): M times fewer
-    FLOPs and activations than every column computing it, and each
-    stored shard gets the block's gradient from one position."""
-    return bool(cfg.n_heads) and cfg.n_heads % M != 0
+def whole_blocks(cfg: ModelConfig, M: int, n_data: int = 1,
+                 train: bool = False) -> frozenset:
+    """The blocks of ``cfg`` that run whole on ``M`` "model" columns
+    (and ``n_data`` "data" shards): those with a dimension the axis
+    does not divide. The JAX table passes every spec through
+    ``fit_spec``, which replicates a weight along such an axis, and so
+    its compute; here each batch row's first column computes the block,
+    with the weights assembled from their stored blocks, and its output
+    is the row's (serving: its residual; training: the row's only
+    partial product, ``act_sharding.residual_add`` of one part). That
+    costs M times fewer FLOPs and activations than every column
+    computing it, and each stored shard gets the block's gradient from
+    one position. The blocks:
+
+    - ``attn``: heads the axis does not divide, or KV heads that
+      neither divide it nor are divided by it (a column's query heads
+      would read parts of two KV groups): all heads and KV heads;
+    - ``out`` (serving): a ``d_model`` the axis does not divide, whose
+      column-parallel output projections (o, xo, out_proj) run whole
+      on the gathered heads or channels (training splits no D over
+      "model");
+    - ``mlp``: ``d_ff``; ``shared``: the MoE ``shared_expert_ff``;
+    - ``mixer``: the SSM ``d_inner`` or Mamba2 heads (in_proj, conv,
+      scan, gate norm and out_proj);
+    - ``expert_ff`` (training): ``d_ff_expert``, the expert hidden;
+    - ``experts`` (training): ``n_experts`` that "data" does not
+      divide: each batch shard runs every expert on its own tokens,
+      with no exchange over "data".
+    """
+    out = set()
+    Kh = cfg.n_kv_heads
+    if cfg.n_heads and (cfg.n_heads % M or Kh % M and M % Kh):
+        out.add("attn")
+    if not train and cfg.d_model % M:
+        out.add("out")
+    if cfg.d_ff % M:
+        out.add("mlp")
+    if cfg.family == Family.MOE and cfg.shared_expert_ff % M:
+        out.add("shared")
+    if cfg.ssm_version and (cfg.d_inner % M or cfg.ssm_version == 2
+                            and cfg.n_ssm_heads % M):
+        out.add("mixer")
+    if train and cfg.family == Family.MOE:
+        if cfg.d_ff_expert % M:
+            out.add("expert_ff")
+        if cfg.n_experts % n_data:
+            out.add("experts")
+    return frozenset(out)
 
 
-def _column_layout(cfg: ModelConfig, M: int) -> tuple:
-    """(whole heads, columns that compute attention, each column's KV
-    heads, columns that read one KV head, the config one column
-    computes)."""
-    whole = whole_heads(cfg, M)
-    if whole:
-        return (True, 1, [(0, cfg.n_kv_heads)] * M, 1, cfg)
+def leaf_whole(whole: frozenset, leaf: str) -> bool:
+    """Whether weight ``leaf`` belongs to a block of ``whole``."""
+    return any(leaf in _BLOCK_LEAVES.get(b, ()) for b in whole)
+
+
+def _column_layout(cfg: ModelConfig, M: int, whole: frozenset) -> tuple:
+    """(each column's KV heads, columns that read one KV head, the config
+    one column computes)."""
+    if "attn" in whole:
+        return ([(0, cfg.n_kv_heads)] * M, 1, cfg)
     kv = [kv_heads_of_column(cfg.n_kv_heads, M, m) for m in range(M)]
     share = 1 if cfg.n_kv_heads % M == 0 else M // cfg.n_kv_heads
     lo, hi = kv[0]
-    return (False, M, kv, share, dataclasses.replace(
+    return (kv, share, dataclasses.replace(
         cfg, n_heads=cfg.n_heads // M, n_kv_heads=hi - lo))
 
 
@@ -642,38 +691,6 @@ def kv_heads_of_column(n_kv_heads: int, M: int, m: int) -> tuple:
         return m * w, (m + 1) * w
     j = m // (M // n_kv_heads)
     return j, j + 1
-
-
-def mesh_unsupported(cfg: ModelConfig, model_size: int) -> list[str]:
-    """Why the mesh data plane cannot serve ``cfg`` with ``model_size``
-    columns (empty when it can). Every family serves; a vocabulary the
-    columns do not divide stays whole on every column, and heads they
-    do not divide run whole (``whole_heads``)."""
-    return _column_unsupported(cfg, model_size)
-
-
-def _column_unsupported(cfg: ModelConfig, M: int) -> list[str]:
-    """Why ``cfg``'s column compute cannot split over ``M`` columns: a
-    width, hidden, SSM channel or Mamba2 head count that ``M`` does not
-    divide, or KV heads a column would read parts of."""
-    out = []
-    dims = [("d_model", cfg.d_model), ("d_ff", cfg.d_ff)]
-    if cfg.family == Family.MOE:
-        dims.append(("shared_expert_ff", cfg.shared_expert_ff))
-    if cfg.ssm_version:
-        dims.append(("d_inner", cfg.d_inner))
-        if cfg.ssm_version == 2:
-            dims.append(("n_ssm_heads", cfg.n_ssm_heads))
-    for name, n in dims:
-        if n % M:
-            out.append(f"{name}={n} on a {M}-way model axis (column "
-                       f"compute needs even blocks; uneven column splits "
-                       f"are not ported)")
-    Kh = cfg.n_kv_heads
-    if Kh % M and M % Kh:
-        out.append(f"n_kv_heads={Kh} on a {M}-way model axis (a column's "
-                   f"query heads would read parts of two KV groups)")
-    return out
 
 
 def _split_axes(st: ShardedTensor) -> set:
@@ -715,26 +732,26 @@ class MeshParams:
       (``kv_heads[m]``), and the other weights are whole (``x_proj``
       and ``gate_norm`` too: exact mode gathers d_inner before them). A
       vocabulary the columns do not divide is whole on every column
-      (``whole_vocab``); heads the columns do not divide make the
-      attention block's leaves whole on the first column
-      (``whole_heads``: one tensor a device, shared by its positions).
-      A block that storage does not put at the position is sliced or
-      gathered once here.
+      (``whole_vocab``); a block with a dimension the columns do not
+      divide (``whole_blocks``: heads, D of the output projections,
+      d_ff, the shared expert's hidden, the SSM channels or Mamba2
+      heads) has its leaves whole, one tensor a device shared by its
+      positions, and the row's first column computes it. A block that
+      storage does not put at the position is sliced or gathered once
+      here.
     - ``experts``: each "data" shard's MoE experts, for MoE configs:
       its device, its expert range and its stacked ``w_gate``/``w_up``/
       ``w_down`` blocks (``moe/`` stacks (n_moe, E_d, ...)) and router.
       A shard's experts run on its device only.
 
-    ``col_cfg`` is the config one column computes (n_heads/M and its
-    KV heads; every head when ``whole_heads``), ``attn_cols`` the
-    columns that compute attention (1 when ``whole_heads``)."""
+    ``whole`` is ``whole_blocks(cfg, M)``, ``n_cols(block)`` the
+    columns that compute a block (1 when it is whole), ``col_cfg`` the
+    config one column computes (n_heads/M and its KV heads; every head
+    when the attention block is whole). Every config serves on every
+    mesh."""
 
     def __init__(self, cfg: ModelConfig, placed: dict, mesh: Mesh):
         M = mesh.shape["model"]
-        bad = mesh_unsupported(cfg, M)
-        if bad:
-            raise NotImplementedError(
-                "the mesh data plane does not serve: " + ", ".join(bad))
         self.cfg, self.placed, self.mesh = cfg, placed, mesh
         self.model_size = M
         self.whole_vocab = cfg.vocab_size % M != 0
@@ -742,12 +759,12 @@ class MeshParams:
         self.coords = self.row_coords[0]
         self.devices = [mesh.devices[c] for c in self.coords]
         self.home = self.devices[0]
-        #: ``whole_heads``, the columns that compute attention (1 when
-        #: whole), each column's KV heads, the columns that read one KV
-        #: head (1 when the heads split, or whole: the first column
-        #: writes every replica) and the config a column computes.
-        (self.whole_heads, self.attn_cols, self.kv_heads, self.kv_share,
-         self.col_cfg) = _column_layout(cfg, M)
+        self.whole = whole_blocks(cfg, M)
+        #: Each column's KV heads, the columns that read one KV head (1
+        #: when the heads split, or whole: the first column writes every
+        #: replica) and the config a column computes.
+        self.kv_heads, self.kv_share, self.col_cfg = _column_layout(
+            cfg, M, self.whole)
         made: dict = {}
         self.row_cols = [[{path: self._view(made, path, st, c, m)
                            for path, st in placed.items()
@@ -758,6 +775,10 @@ class MeshParams:
         self.cols = self.row_cols[0]
         self.experts = (expert_shards(placed)
                         if "moe/w_gate" in placed else None)
+
+    def n_cols(self, block: str) -> int:
+        """The columns that compute ``block`` (1 when it is whole)."""
+        return 1 if block in self.whole else self.model_size
 
     def kv_range(self, m: int, width: int) -> tuple:
         """Column ``m``'s KV heads as a [lo, hi) range of a dimension of
@@ -770,7 +791,7 @@ class MeshParams:
               coords: tuple, m: int):
         """``_column`` once a (leaf, column, device): the rows of
         positions on one device share a view."""
-        whole = self.whole_heads and path.split("/")[-1] in _HEAD_LEAVES
+        whole = leaf_whole(self.whole, path.split("/")[-1])
         key = (path, None if whole else m, str(self.mesh.devices[coords]))
         if key not in made:
             made[key] = self._column(path, st, coords, m)
@@ -786,7 +807,7 @@ class MeshParams:
                 f"may stand for the others")
         leaf = path.split("/")[-1]
         M = self.model_size
-        if self.whole_heads and leaf in _HEAD_LEAVES:
+        if leaf_whole(self.whole, leaf):
             return whole_at(st, coords)
         if leaf in _SERVE_KV_LEAVES and self.kv_share > 1:
             lo, hi = self.kv_range(m, st.shape[-1])
@@ -808,13 +829,13 @@ class MeshParams:
         A whole (gathered where storage splits its din, as the serving
         cases place it), B's dout block m (for k/v: its KV heads'
         columns, gathered where the heads are shared by several
-        columns). Whole heads: the attention projections' A and B whole
-        on the first column, on no other."""
+        columns). A projection of a whole block (``whole_blocks``): A
+        and B whole on the first column, on no other."""
         out = []
         for m, c in enumerate(self.row_coords[b]):
             cols = {}
             for proj, (a, bw) in lora.items():
-                if self.whole_heads and proj in _HEAD_LEAVES:
+                if leaf_whole(self.whole, proj):
                     if m == 0:
                         cols[proj] = (whole_at(a, c), whole_at(bw, c))
                     continue
@@ -1152,24 +1173,6 @@ def column_segments(segments: list, m: int, M: int) -> list:
     return out
 
 
-def train_unsupported(cfg: ModelConfig, mesh: Mesh) -> list[str]:
-    """Why a train step cannot run ``cfg`` on ``mesh`` (empty when it
-    can): a head, channel or hidden count the "model" axis does not
-    divide, or MoE experts the "data" axis does not divide. A vocabulary
-    that "model" does not divide stays whole on every column."""
-    M, n_data = mesh.shape["model"], mesh.shape["data"]
-    out = _column_unsupported(cfg, M)
-    if cfg.family == Family.MOE:
-        for name, n, k, axis in (
-                ("n_experts", cfg.n_experts, n_data, "data"),
-                ("d_ff_expert", cfg.d_ff_expert, M, "model")):
-            if n % k:
-                out.append(f"{name}={n} on a {k}-way {axis} axis (the "
-                           f"train rule table would replicate it; uneven "
-                           f"splits are not ported: ROADMAP Queue 1)")
-    return out
-
-
 class TrainView:
     """A placed train state ({path: ShardedTensor} under the train rule
     table) as the model computes with it. Position (b, m) is batch
@@ -1187,26 +1190,34 @@ class TrainView:
     "pod", for the batch shards of its pod (``b // n_data``). SSM
     leaves: column m's block of d_inner (``_TRAIN_COLUMN_DIM``), a
     packed leaf one segment at a time (``ssm_segments``). Cross
-    attention: heads as self-attention's, from replicated leaves. Heads
-    "model" does not divide (``whole_heads``): the attention leaves
-    whole, computed by the first column alone (``attn_cols`` 1)."""
+    attention: heads as self-attention's, from replicated leaves. A
+    block with a dimension the mesh does not divide (``whole_blocks``:
+    heads, d_ff, the shared expert's or the experts' hidden, the SSM
+    channels or Mamba2 heads) has its leaves whole, computed by each
+    batch shard's first column alone (``n_cols(block)`` 1); experts
+    that "data" does not divide are all run by every batch shard on its
+    own tokens (``expert_shards`` 1). Every config trains on every
+    mesh."""
 
     def __init__(self, cfg: ModelConfig, placed: dict):
         mesh = next(iter(placed.values())).mesh
-        bad = train_unsupported(cfg, mesh)
-        if bad:
-            raise NotImplementedError(
-                "the mesh train step does not run: " + ", ".join(bad))
         self.cfg, self.placed, self.mesh = cfg, placed, mesh
         self.M = M = mesh.shape["model"]
         self.n_data = mesh.shape["data"]
         self.batch_axes = tuple(a for a in mesh.axis_names if a != "model")
         self.rows = batch_rows(mesh)
         self.n_batch = len(self.rows)
-        (self.whole_heads, self.attn_cols, self.kv_heads, _,
-         self.col_cfg) = _column_layout(cfg, M)
+        self.whole = whole_blocks(cfg, M, self.n_data, train=True)
+        #: The "data" blocks of the experts (1: every batch shard runs
+        #: every expert, no exchange over "data").
+        self.expert_shards = 1 if "experts" in self.whole else self.n_data
+        self.kv_heads, _, self.col_cfg = _column_layout(cfg, M, self.whole)
         self.whole_vocab = cfg.vocab_size % M != 0
         self.home = mesh.devices.flat[0]
+
+    def n_cols(self, block: str) -> int:
+        """The columns that compute ``block`` (1 when it is whole)."""
+        return 1 if block in self.whole else self.M
 
     def boxes(self, path: str, m: int, layer: int | None = None,
               b: int = 0) -> list:
@@ -1219,8 +1230,8 @@ class TrainView:
         out = [slice(None)] * len(shape)
         if layer is not None:
             out[0] = layer
-        if path in ("embed/tok", "lm_head") and self.whole_vocab or (
-                self.whole_heads and leaf in _HEAD_LEAVES):
+        if path in ("embed/tok", "lm_head") and self.whole_vocab or \
+                leaf_whole(self.whole, leaf):
             return [tuple(out)]
         segs = ssm_segments(self.cfg, leaf)
         if segs is not None:
@@ -1228,9 +1239,11 @@ class TrainView:
                     for lo, hi in column_segments(segs, m, self.M)]
         dim = _TRAIN_COLUMN_DIM.get(path, _TRAIN_COLUMN_DIM.get(leaf))
         if path.startswith("moe/") and leaf in _EXPERT_HIDDEN_DIM:
-            d, e = b % self.n_data, shape[1] // self.n_data
+            n = self.expert_shards
+            d, e = b % n, shape[1] // n
             out[1] = slice(d * e, (d + 1) * e)
-            dim = _EXPERT_HIDDEN_DIM[leaf]
+            dim = (None if "expert_ff" in self.whole
+                   else _EXPERT_HIDDEN_DIM[leaf])
         if leaf in _TRAIN_KV_LEAVES:
             lo, hi = self.kv_heads[m]
             per = shape[-1] // self.cfg.n_kv_heads

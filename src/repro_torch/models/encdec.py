@@ -208,7 +208,8 @@ def _cross_kv_train(cfg, tv: TrainView, enc: list, b: int) -> list:
     KV heads (whole heads: the first column's, every head), from its
     copy of batch shard ``b``'s encoder output, normed here."""
     out = []
-    for m, x in enumerate(acts.columns_in(enc, tv.rows[b][:tv.attn_cols])):
+    cols = tv.rows[b][:tv.n_cols("attn")]
+    for m, x in enumerate(acts.columns_in(enc, cols)):
         with on_device(x.device):
             e = rms_norm(x, tv.view("enc_final_norm", b, m), cfg.norm_eps)
             k, v = (einsum("bsd,lde->lbse", e, tv.view(f"dec/x{n}", b, m))
@@ -226,7 +227,7 @@ def _cross_train(cfg, tv: TrainView, hb: list, b: int, i: int,
     heads: the first column's, copied)."""
     c = tv.col_cfg
     parts = []
-    for m, x in enumerate(acts.columns_in(hb, tv.rows[b][:tv.attn_cols])):
+    for m, x in enumerate(acts.columns_in(hb, tv.rows[b][:tv.n_cols("attn")])):
         with on_device(x.device):
             B, S, _ = x.shape
             p = tv.layer(i, b, m, ("xattn_norm", "xq", "xo"), "dec/")
@@ -311,7 +312,7 @@ def _cross_columns(cfg, call, h, ps: list, kxs: list, vxs: list):
     the heads gathered, xo column-parallel, the residual gathered."""
     c = call.ccfg
     outs = []
-    for m, x in enumerate(call.heads_in(h)):
+    for m, x in enumerate(call.ins(h)):
         with on_device(x.device):
             n, S, _ = x.shape
             hm = rms_norm(x, ps[m]["attn_norm"], cfg.norm_eps)
@@ -347,14 +348,14 @@ def _serve_mesh(cfg: ModelConfig, mp: MeshParams, tokens, state=None,
                                                slice(None), slice(*hd)),
                                            dev)
                                for hd, dev in zip(
-                                  mp.kv_heads[:mp.attn_cols],
+                                  mp.kv_heads[:mp.n_cols("attn")],
                                   call.devices)]
                               for t in state[1])
             kxs.append(kx)
             vxs.append(vx)
         if state is None:
-            ks = [[[] for _ in range(mp.attn_cols)] for _ in calls]
-            vs = [[[] for _ in range(mp.attn_cols)] for _ in calls]
+            ks = [[[] for _ in range(mp.n_cols("attn"))] for _ in calls]
+            vs = [[[] for _ in range(mp.n_cols("attn"))] for _ in calls]
 
             def attend(r, i, m, q, k, v):
                 ks[r][m].append(k)
@@ -410,7 +411,7 @@ def _encode_columns(cfg, call, frames):
                       gated=True)
     x = rms_norm(x, call.cols[0]["enc_final_norm"], cfg.norm_eps)
     kx, vx = [], []
-    for xm, c in zip(call.heads_in(x), call.cols):
+    for xm, c in zip(call.ins(x), call.cols):
         with on_device(xm.device):
             n, Se, _ = xm.shape
             for out, leaf in ((kx, "dec/xk"), (vx, "dec/xv")):

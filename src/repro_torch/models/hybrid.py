@@ -267,15 +267,16 @@ def decode_step(cfg: ModelConfig, params: dict, tokens, state, cache_len,
 
 # ------------------------------------------------- serving on a mesh
 def _read_state(cfg: ModelConfig, mp: MeshParams, call, ssm, conv):
-    """Batch row ``call``'s columns' (ssm (L, n, H/M, P, N), conv
-    (L, n, K-1, [x_m | B | C])) read from the state stacks."""
+    """Batch row ``call``'s mixer columns' (ssm (L, n, H/M, P, N), conv
+    (L, n, K-1, [x_m | B | C])) read from the state stacks (a whole
+    mixer: the first column's, every head)."""
     from repro_torch.distributed.sharding import (column_segments,
                                                   ssm_segments)
-    M = mp.model_size
+    M = mp.n_cols("mixer")
     w = cfg.n_ssm_heads // M
     rows = slice(call.lo, call.hi)
     out = []
-    for m, dev in enumerate(call.devices):
+    for m, dev in enumerate(call.devices[:M]):
         s = all_gather(ssm, (slice(None), rows, slice(m * w, (m + 1) * w)),
                         dev)
         parts = [all_gather(conv, (slice(None), rows, slice(None),
@@ -294,7 +295,7 @@ def _serve_mesh(cfg: ModelConfig, mp: MeshParams, tokens, state,
         B, S = tokens.shape
         calls = _mesh_calls(mp, lora, B)
         sites = attn_sites(cfg)
-        M = mp.model_size
+        M = mp.n_cols("mixer")
         hs, ropes, aidx, reads = [], [], [], []
         for call in calls:
             with call.scope():
@@ -309,8 +310,8 @@ def _serve_mesh(cfg: ModelConfig, mp: MeshParams, tokens, state,
         shared = [[_slice_group(c, "shared/") for c in call.cols]
                   for call in calls]
         if state is None:
-            ks = [[[] for _ in range(mp.attn_cols)] for _ in calls]
-            vs = [[[] for _ in range(mp.attn_cols)] for _ in calls]
+            ks = [[[] for _ in range(mp.n_cols("attn"))] for _ in calls]
+            vs = [[[] for _ in range(mp.n_cols("attn"))] for _ in calls]
 
             def attend(r, j, m, q, k, v):
                 ks[r][m].append(k)

@@ -1176,10 +1176,10 @@ class _MeshCall:
             return None
         return x.narrow(dim, self.lo, self.hi - self.lo).to(self.home)
 
-    def heads_in(self, h) -> list:
-        """The row's hidden as the attention columns' copies (one, on
-        the home device, when the heads are whole)."""
-        return acts.replicate(h) if self.mp.attn_cols > 1 else [h]
+    def ins(self, h, block: str = "attn") -> list:
+        """The row's hidden as the copies of the columns that compute
+        ``block`` (one, on the home device, when it is whole)."""
+        return acts.replicate(h) if self.mp.n_cols(block) > 1 else [h]
 
     def rep(self, *ts) -> list:
         """Per column: the tuple of ``ts`` as that column's copies."""
@@ -1220,11 +1220,13 @@ def _embed_mesh(call: _MeshCall, tokens: torch.Tensor) -> torch.Tensor:
 def _o_proj_mesh(call: _MeshCall, x, outs: list, ps, lrs, aidx,
                  backend: str):
     """Merged-head gather, column-parallel o (+ its LoRA columns), then
-    the residual gather: ``_o_proj`` with D over "model". Whole heads:
-    ``_o_proj`` on the first column, whose output is the residual."""
-    if call.mp.whole_heads:
+    the residual gather: ``_o_proj`` with D over "model". Whole heads,
+    or a D the columns do not divide: ``_o_proj`` of the gathered heads
+    on the first column, whose output is the residual."""
+    if {"attn", "out"} & call.mp.whole:
+        out = acts.constrain_attn_merged(outs)
         with on_device(x.device):
-            return _o_proj(call.ccfg, x, outs[0], ps[0], lrs[0], aidx[0][0],
+            return _o_proj(call.ccfg, x, out, ps[0], lrs[0], aidx[0][0],
                            lora_backend=backend)
     out = acts.constrain_attn_merged(outs)
     outr = acts.replicate(out)
@@ -1241,17 +1243,17 @@ def _o_proj_mesh(call: _MeshCall, x, outs: list, ps, lrs, aidx,
 
 def _ffn_mesh(call: _MeshCall, hr: list, gates: list, ups: list, down,
               gated: bool = True):
-    """``swiglu`` (``gelu_mlp`` without ``gated``) of each column's
-    normed input ``hr[m]``: gate/up column-parallel, the hidden
-    gathered and the down projection replicated (on the first
-    column's device)."""
+    """``swiglu`` (``gelu_mlp`` without ``gated``) of each computing
+    column's normed input ``hr[m]`` (one: the block whole on the first
+    column): gate/up column-parallel, the hidden gathered and the down
+    projection replicated (on the first column's device)."""
     hid = []
-    for m in range(call.M):
+    for m, h in enumerate(hr):
         if gated:
-            hid.append(F.silu(einsum("bsd,df->bsf", hr[m], gates[m]))
-                       * einsum("bsd,df->bsf", hr[m], ups[m]))
+            hid.append(F.silu(einsum("bsd,df->bsf", h, gates[m]))
+                       * einsum("bsd,df->bsf", h, ups[m]))
         else:
-            hid.append(F.gelu(einsum("bsd,df->bsf", hr[m], ups[m]),
+            hid.append(F.gelu(einsum("bsd,df->bsf", h, ups[m]),
                               approximate="tanh"))
     return einsum("bsf,fd->bsd", acts.constrain_ffn_hidden(hid), down)
 
@@ -1260,7 +1262,7 @@ def _mlp_mesh(call: _MeshCall, x, ps, gated: bool | None = None):
     """``_mlp`` on the mesh (``_ffn_mesh`` after each column's norm)."""
     cfg = call.ccfg
     hr = [rms_norm(xm, ps[m]["mlp_norm"], cfg.norm_eps)
-          for m, xm in enumerate(acts.replicate(x))]
+          for m, xm in enumerate(call.ins(x, "mlp"))]
     return x + _ffn_mesh(call, hr, [p.get("gate") for p in ps],
                          [p["up"] for p in ps], ps[0]["down"],
                          cfg.gated_mlp if gated is None else gated)
@@ -1295,7 +1297,7 @@ def _moe_mesh(call: _MeshCall, x, s: int):
         y, _ = moe_block(h, p[0]["router"], *ws, cfg.top_k,
                          cfg.capacity_factor)
     if cfg.shared_expert_ff:
-        y = y + _ffn_mesh(call, acts.replicate(h),
+        y = y + _ffn_mesh(call, call.ins(h, "shared"),
                           [q["shared_gate"] for q in p],
                           [q["shared_up"] for q in p], p[0]["shared_down"])
     return x + y
@@ -1501,7 +1503,7 @@ def _attn_columns(call: _MeshCall, h, rope: list, ps: list, lrs: list,
     column reads: a column may read positions another column wrote) and
     ``attend(m, q, k, v)`` on each: the columns' attention outputs
     (B, S, q_dim / M); whole heads: the first column's alone."""
-    hr = call.heads_in(h)
+    hr = call.ins(h)
     qkv = []
     for m in range(len(hr)):
         with on_device(hr[m].device):
@@ -1601,8 +1603,8 @@ def _prefill_mesh(cfg, mp: MeshParams, tokens, mrope_pos, lora,
             hs.append(x)
             ropes.append(rope)
             aidx.append(ai)
-        ks = [[[] for _ in range(mp.attn_cols)] for _ in calls]
-        vs = [[[] for _ in range(mp.attn_cols)] for _ in calls]
+        ks = [[[] for _ in range(mp.n_cols("attn"))] for _ in calls]
+        vs = [[[] for _ in range(mp.n_cols("attn"))] for _ in calls]
         qd = mp.col_cfg.q_dim
 
         def attend(r, i, m, q, k, v):
@@ -1640,7 +1642,7 @@ def _slab_ops(mp: MeshParams, calls: list, kv, cache_len, S: int,
         geo.append((pos, pos < kv[0].shape[2]))
         src.append([[_kv_sources(mp, t, m, call.devices[m], call.lo,
                                  call.hi) for t in kv]
-                    for m in range(mp.attn_cols)])
+                    for m in range(mp.n_cols("attn"))])
 
     def write(r, i, m, k, v):
         for t, new in zip(kv, (k, v)):
@@ -1720,9 +1722,9 @@ def _paged_mesh(cfg, mp: MeshParams, tokens, kv_pages, page_table, start,
             pi, po = pi[:, 0], po[:, 0]
         return _page_write_plan(mp, t, m, pi, po)
 
-    where = [[plan(t, m) for t in kv_pages] for m in range(mp.attn_cols)]
+    where = [[plan(t, m) for t in kv_pages] for m in range(mp.n_cols("attn"))]
     src = [[_kv_sources(mp, t, m, mp.devices[m]) for t in kv_pages]
-           for m in range(mp.attn_cols)]
+           for m in range(mp.n_cols("attn"))]
 
     def write(r, i, m, k, v):
         if decode:
@@ -1826,7 +1828,7 @@ def _attn_train(tv: TrainView, hb: list, rope: list | None, b: int,
     the first column computes every head."""
     c = tv.col_cfg
     parts = []
-    for m, x in enumerate(acts.columns_in(hb, tv.rows[b][:tv.attn_cols])):
+    for m, x in enumerate(acts.columns_in(hb, tv.rows[b][:tv.n_cols("attn")])):
         with on_device(x.device):
             p = tv.layer(i, b, m, _ATTN_LEAVES, prefix)
             cos, sin = rope[m] if rope is not None else (None, None)
@@ -1840,9 +1842,10 @@ def _attn_train(tv: TrainView, hb: list, rope: list | None, b: int,
 def _mlp_train(cfg, tv: TrainView, hb: list, b: int, i: int | None,
                prefix: str = "layers/") -> list:
     """The MLP of entry ``i`` of the ``prefix`` stack for batch shard
-    ``b``."""
+    ``b`` (a d_ff "model" does not divide: whole on the first
+    column)."""
     parts = []
-    for m, x in enumerate(acts.columns_in(hb, tv.rows[b])):
+    for m, x in enumerate(acts.columns_in(hb, tv.rows[b][:tv.n_cols("mlp")])):
         with on_device(x.device):
             p = tv.layer(i, b, m, _MLP_LEAVES, prefix)
             h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
@@ -1854,33 +1857,42 @@ def _mlp_train(cfg, tv: TrainView, hb: list, b: int, i: int | None,
 
 def _moe_train(cfg, tv: TrainView, h: list, s: int):
     """MoE superstep ``s``'s expert layer over every batch shard ``h[b]``
-    (the capacity groups and the aux loss span them). Returns (the
+    (the capacity groups and the aux loss span them). The experts'
+    hidden, or the shared expert's, that "model" does not divide runs
+    whole on the first column; experts that "data" does not divide run
+    on every batch shard (``TrainView.expert_shards``). Returns (the
     residual streams, the layer's aux loss)."""
+    ne = tv.n_cols("expert_ff")
+    ns = tv.n_cols("shared") if cfg.shared_expert_ff else 0
     hn, router, experts = [], [], []
     for b, hb in enumerate(h):
         row, exp = [], []
-        for m, x in enumerate(acts.columns_in(hb, tv.rows[b])):
+        for m, x in enumerate(acts.columns_in(hb,
+                                              tv.rows[b][:max(ne, ns)])):
             with on_device(x.device):
                 row.append(rms_norm(x, tv.view("moe/norm", b, m, s),
                                     cfg.norm_eps))
-            exp.append(tuple(tv.view("moe/" + leaf, b, m, s)
-                             for leaf in ("w_gate", "w_up", "w_down")))
+            if m < ne:
+                exp.append(tuple(tv.view("moe/" + leaf, b, m, s)
+                                 for leaf in ("w_gate", "w_up", "w_down")))
         hn.append(row)
         experts.append(exp)
         router.append(tv.view("moe/router", b, 0, s))
-    ys, aux = moe_block_train(hn, router, experts, cfg.top_k,
-                              cfg.capacity_factor, tv.n_data)
+    ys, aux = moe_block_train([row[:ne] for row in hn], router, experts,
+                              cfg.top_k, cfg.capacity_factor,
+                              tv.expert_shards)
     out = []
     for b, hb in enumerate(h):
-        parts = ys[b]
-        if cfg.shared_expert_ff:
-            parts = []
-            for m, y in enumerate(ys[b]):
-                with on_device(y.device):
+        parts = []
+        for m, x in enumerate(hn[b]):
+            y = ys[b][m] if m < ne else None
+            if m < ns:
+                with on_device(x.device):
                     p = tv.layer(s, b, m, _SHARED_LEAVES, "moe/")
-                    parts.append(y + swiglu(hn[b][m], p["shared_gate"],
-                                            p["shared_up"],
-                                            p["shared_down"]))
+                    f = swiglu(x, p["shared_gate"], p["shared_up"],
+                               p["shared_down"])
+                    y = f if y is None else y + f
+            parts.append(y)
         out.append(acts.residual_add(hb, parts, tv.rows[b]))
     return out, aux
 

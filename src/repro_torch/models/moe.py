@@ -390,7 +390,10 @@ def moe_block_train(h: list, router: list, experts: list, top_k: int,
       all-to-all over "data" (``act_sharding.moe_all_to_all``) gives
       each expert block the buckets of its pod's shards, straddled
       groups summed. Column m runs its hidden block; the rows go back
-      (``moe_all_to_all_back``) and each shard combines its own.
+      (``moe_all_to_all_back``) and each shard combines its own. With
+      ``n_data`` 1 (one expert block: experts "data" does not divide)
+      each shard runs every expert on its own buckets and exchanges
+      nothing; with one column, the whole hidden.
     """
     nb, M = len(h), len(h[0])
     Bb, S, D = h[0][0].shape

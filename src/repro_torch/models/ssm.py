@@ -322,16 +322,21 @@ def mamba1_step(x_t: torch.Tensor, p: dict, d_state: int, dt_rank: int,
 def _exact_contract(xs: list, w: torch.Tensor, eq: str) -> list:
     """The columns' blocks ``xs`` of d_inner gathered whole on the first
     column's device, contracted there with the whole weight ``w``; the
-    product a copy on each column."""
+    product a copy on each column (one column: the mixer whole)."""
     x = gather_columns(xs)
     with on_device(x.device):
-        return replicate(einsum(eq, x, w))
+        y = einsum(eq, x, w)
+    return replicate(y) if len(xs) > 1 else [y]
 
 
-def _out_columns(yr: list, ps: list, eq: str) -> torch.Tensor:
+def _out_columns(yr: list, ps: list, eq: str,
+                 whole_out: bool = False) -> torch.Tensor:
     """``out_proj`` column-parallel: column m's output columns of the
     whole gated output ``yr[m]`` (its copy), gathered to (..., D) on the
-    first column's device."""
+    first column's device. ``whole_out`` (a D the columns do not
+    divide): the first column's whole ``out_proj`` alone."""
+    if whole_out:
+        yr, ps = yr[:1], ps[:1]
     outs = []
     for y, p in zip(yr, ps):
         with on_device(y.device):
@@ -339,12 +344,20 @@ def _out_columns(yr: list, ps: list, eq: str) -> torch.Tensor:
     return gather_columns(outs)
 
 
+def _whole_in(ys: list, whole_out: bool) -> list:
+    """The columns' gated outputs gathered whole: a copy on each column,
+    or on the first column alone for a whole ``out_proj``."""
+    y = gather_columns(ys)
+    return [y] if whole_out or len(ys) == 1 else replicate(y)
+
+
 def mamba1_seq_mesh(xs: list, ps: list, d_state: int, dt_rank: int,
-                    chunk: int = 128) -> tuple:
+                    chunk: int = 128, whole_out: bool = False) -> tuple:
     """Mamba1 prefill over the serving mesh's columns. ``xs[m]``: the
-    normed input (B,S,D), column m's copy; ``ps[m]``: its view. Returns
-    (y (B,S,D) on the first column's device, [(h_T, conv_tail)] of each
-    column's channels)."""
+    normed input (B,S,D), column m's copy; ``ps[m]``: its view (one
+    column: the mixer whole). ``whole_out``: out_proj whole on the
+    first column (``_out_columns``). Returns (y (B,S,D) on the first
+    column's device, [(h_T, conv_tail)] of each column's channels)."""
     fronts = []
     for x, p in zip(xs, ps):
         with on_device(x.device):
@@ -360,12 +373,13 @@ def mamba1_seq_mesh(xs: list, ps: list, d_state: int, dt_rank: int,
                                  d_state, chunk, None)
         ys.append(y)
         states.append((h, tail))
-    return (_out_columns(replicate(gather_columns(ys)), ps, "bsi,id->bsd"),
-            states)
+    return (_out_columns(_whole_in(ys, whole_out), ps, "bsi,id->bsd",
+                         whole_out), states)
 
 
 def mamba1_step_mesh(xs: list, ps: list, d_state: int, dt_rank: int,
-                     hs: list, convs: list) -> tuple:
+                     hs: list, convs: list, whole_out: bool = False
+                     ) -> tuple:
     """``mamba1_step`` over the serving mesh's columns: ``hs[m]``
     (B,Di/M,N) and ``convs[m]`` (B,K-1,Di/M) column m's state. Returns
     (y (B,D) on the first column's device, [(h, conv)] a column)."""
@@ -382,8 +396,8 @@ def mamba1_step_mesh(xs: list, ps: list, d_state: int, dt_rank: int,
                                      dt_rank, x.dtype)
         ys.append(y)
         states.append((h, conv))
-    return (_out_columns(replicate(gather_columns(ys)), ps, "bi,id->bd"),
-            states)
+    return (_out_columns(_whole_in(ys, whole_out), ps, "bi,id->bd",
+                         whole_out), states)
 
 
 # ------------------------------------------------------------- mamba2
@@ -611,7 +625,8 @@ def _column_inner(p: dict, head_dim: int) -> int:
 
 
 def mamba2_seq_mesh(xs: list, ps: list, d_state: int, head_dim: int,
-                    chunk: int, d_conv: int) -> tuple:
+                    chunk: int, d_conv: int, whole_out: bool = False
+                    ) -> tuple:
     """Mamba2 prefill over the serving mesh's columns (``xs``/``ps`` as
     in ``mamba1_seq_mesh``): each column's heads through SSD with B and
     C whole, the gate norm over the gathered d_inner
@@ -630,11 +645,12 @@ def mamba2_seq_mesh(xs: list, ps: list, d_state: int, head_dim: int,
         states.append((h, zx[..., di:2 * di + 2 * d_state]))
     width = sum(y.shape[-1] for y in ys)
     yr = gate_norm_columns(ys, [p["gate_norm"] for p in ps], width)
-    return _out_columns(yr, ps, "bsi,id->bsd"), states
+    return _out_columns(yr, ps, "bsi,id->bsd", whole_out), states
 
 
 def mamba2_step_mesh(xs: list, ps: list, d_state: int, head_dim: int,
-                     hs: list, convs: list) -> tuple:
+                     hs: list, convs: list, whole_out: bool = False
+                     ) -> tuple:
     """``mamba2_step`` over the serving mesh's columns: ``hs[m]``
     (B,H/M,P,N) and ``convs[m]`` (B,K-1,[x_m | B | C]) column m's state.
     Returns (y (B,D) on the first column's device, [(h, conv)] a
@@ -648,4 +664,4 @@ def mamba2_step_mesh(xs: list, ps: list, d_state: int, head_dim: int,
         states.append((h, c))
     width = sum(y.shape[-1] for y in ys)
     yr = gate_norm_columns(ys, [p["gate_norm"] for p in ps], width)
-    return _out_columns(yr, ps, "bi,id->bd"), states
+    return _out_columns(yr, ps, "bi,id->bd", whole_out), states

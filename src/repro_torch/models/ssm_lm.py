@@ -97,9 +97,11 @@ def train_loss(cfg, params, tokens, labels, mrope_pos=None,
 def _mixer_train(cfg: ModelConfig, tv: TrainView, hb: list, b: int,
                  i: int) -> list:
     """SSM layer ``i`` (norm, mixer, residual) of batch shard ``b``:
-    ``hb`` its residual stream (``act_sharding.residual_in``)."""
+    ``hb`` its residual stream (``act_sharding.residual_in``); a whole
+    mixer on the first column alone."""
     xs, ps = [], []
-    for m, x in enumerate(acts.columns_in(hb, tv.rows[b])):
+    for m, x in enumerate(acts.columns_in(hb,
+                                          tv.rows[b][:tv.n_cols("mixer")])):
         with on_device(x.device):
             p = tv.layer(i, b, m, _SSM_LEAVES)
             xs.append(rms_norm(x, p["ssm_norm"], cfg.norm_eps))
@@ -170,38 +172,44 @@ def decode_step(cfg: ModelConfig, params: dict, tokens, state,
 # ------------------------------------------------- serving on a mesh
 def mixer_columns(cfg: ModelConfig, call, h, ps: list, state=None):
     """One SSM layer's mixer and residual for a batch row on its columns
-    (``ps[m]``: column m's layer view): the whole-sequence mixer, or
-    with ``state`` (the columns' (ssm, conv) of this layer) one decode
-    step. Returns (h + y, [(ssm, conv)] a column)."""
+    (``ps[m]``: column m's layer view; one column, the first, when the
+    mixer is whole): the whole-sequence mixer, or with ``state`` (the
+    columns' (ssm, conv) of this layer) one decode step. Returns
+    (h + y, [(ssm, conv)] a computing column)."""
     xs = [rms_norm(x, p["ssm_norm"], cfg.norm_eps)
-          for x, p in zip(acts.replicate(h), ps)]
+          for x, p in zip(call.ins(h, "mixer"), ps)]
+    ps = ps[:len(xs)]
+    out = "out" in call.mp.whole
     if cfg.ssm_version == 1 and state is None:
         y, st = mamba1_seq_mesh(xs, ps, cfg.d_state, cfg.dt_rank,
-                                cfg.ssm_chunk)
+                                cfg.ssm_chunk, out)
     elif cfg.ssm_version == 1:
         y, st = mamba1_step_mesh(xs, ps, cfg.d_state, cfg.dt_rank,
-                                 *zip(*state))
+                                 *zip(*state), out)
     else:
         from repro_torch.models import ssm
         if state is None:
             y, st = ssm.mamba2_seq_mesh(xs, ps, cfg.d_state,
                                         cfg.ssm_head_dim, cfg.ssm_chunk,
-                                        cfg.d_conv)
+                                        cfg.d_conv, out)
         else:
             y, st = ssm.mamba2_step_mesh(xs, ps, cfg.d_state,
-                                         cfg.ssm_head_dim, *zip(*state))
+                                         cfg.ssm_head_dim, *zip(*state),
+                                         out)
     return h + y, st
 
 
 def _serve_mesh(cfg: ModelConfig, mp: MeshParams, tokens, state=None):
     """``prefill`` (``state`` None) or ``decode_step`` on the mesh: each
     batch row's rows through every layer's mixer on its columns (column
-    m: channels [m Di/M, (m+1) Di/M)); the state read from and returned
+    m: channels [m Di/M, (m+1) Di/M); the first column alone, every
+    channel, when the mixer is whole); the state read from and returned
     as placed stacks."""
     with _mesh_scope(mp):
         B = tokens.shape[0]
         calls = _mesh_calls(mp, None, B)
-        w = cfg.d_inner // mp.model_size
+        M = mp.n_cols("mixer")
+        w = cfg.d_inner // M
         hs, reads = [], []
         for call in calls:
             with call.scope():
@@ -215,8 +223,8 @@ def _serve_mesh(cfg: ModelConfig, mp: MeshParams, tokens, state=None):
                     all_gather(conv, (slice(None), slice(call.lo, call.hi),
                                        slice(None),
                                        slice(m * w, (m + 1) * w)), dev))
-                    for m, dev in enumerate(call.devices)])
-        new = [[[] for _ in range(mp.model_size)] for _ in calls]
+                    for m, dev in enumerate(call.devices[:M])])
+        new = [[[] for _ in range(M)] for _ in calls]
         for i in range(cfg.n_layers):
             for r, call in enumerate(calls):
                 with call.scope():
@@ -239,10 +247,11 @@ def place_ssm_state(cfg: ModelConfig, mp: MeshParams, calls: list,
     list a layer) as placed stacks: ssm (L, B, Di, N) — Mamba2 (L, B,
     H, P, N) — over ``ssm_state_spec``, conv (L, B, K-1, C) over
     ``conv_state_spec``; column m holds its block of channels or heads,
-    a Mamba2 conv its segments' ranges (``sharding.column_segments``)."""
+    a Mamba2 conv its segments' ranges (``sharding.column_segments``);
+    a whole mixer's first column holds all of them."""
     from repro_torch.distributed.sharding import (column_segments,
                                                   ssm_segments)
-    M = mp.model_size
+    M = mp.n_cols("mixer")
     ssm = [[torch.stack([p[0] for p in col]) for col in row] for row in new]
     conv = [[torch.stack([p[1] for p in col]) for col in row] for row in new]
     one = ssm[0][0].shape

@@ -61,14 +61,13 @@ updated in place shard by shard; adapter uploads copy each device only
 its shard, on that device's side stream. ``shard_stats`` reports
 per-shard pages, the arena bytes a device holds and the
 ``COLLECTIVE_METER`` gather gauges. ``spec_decode=True`` warns and is
-ignored on a mesh, as in the reference. A config whose ``d_model`` or
-``d_ff`` (or an MoE config's ``shared_expert_ff``) does not divide the
-"model" axis, or whose query columns would read parts of two KV
-groups, is refused on that mesh
-(``distributed.sharding.mesh_unsupported``); a vocabulary the axis
-does not divide stays whole on every column, and heads it does not
-divide run whole on each batch row's first column
-(``distributed.sharding.whole_heads``).
+ignored on a mesh, as in the reference. Every config serves on every
+mesh: a vocabulary the "model" axis does not divide stays whole on
+every column, and a block with a dimension it does not divide (heads,
+KV heads a column's query heads would read parts of, the D of o, d_ff,
+an MoE config's ``shared_expert_ff``) runs whole on each batch row's
+first column (``distributed.sharding.whole_blocks``), as the reference's
+``fit_spec`` replicates it.
 
 Not ported yet (each raises ``NotImplementedError`` at construction,
 naming the knob): the VLM, SSM, hybrid and enc-dec families (the
@@ -95,7 +94,7 @@ from repro_torch.core import (AdapterCache, AdapterInfo, CacheStats,
 from repro_torch.device import resolve_device
 from repro_torch.distributed.act_sharding import activation_sharding
 from repro_torch.distributed.sharding import (MeshParams, ShardedTensor,
-                                              all_gather, mesh_unsupported)
+                                              all_gather)
 from repro_torch.kernels.ops import (COLLECTIVE_METER, DISPATCH_METER,
                                      resolve_lora_backend)
 from repro_torch.launch.mesh import make_serving_mesh
@@ -159,10 +158,6 @@ _WHY_NOT_SERVED = {
 
 def _unsupported(cfg: ModelConfig, e: EngineConfig) -> list[str]:
     out = []
-    if e.mesh_shape is not None and cfg.family in (Family.DENSE,
-                                                   Family.MOE):
-        out += [f"mesh_shape={tuple(e.mesh_shape)}: {why}"
-                for why in mesh_unsupported(cfg, e.mesh_shape[1])]
     if cfg.family not in (Family.DENSE, Family.MOE):
         out.append(f"model family {cfg.family.name}"
                    + _WHY_NOT_SERVED.get(cfg.family, ""))

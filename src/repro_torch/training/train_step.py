@@ -12,8 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.distributed.sharding import (FsdpStep, ShardedTensor,
-                                              train_unsupported)
+from repro_torch.distributed.sharding import FsdpStep, ShardedTensor
 from repro_torch.models import api
 from repro_torch.models.base import Family, ModelConfig
 
@@ -41,10 +40,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     of any size: each microbatch's rows split over the batch axes, FSDP
     gathers and reduce-scatters (``sharding.FsdpStep``), and each
     position updates its shards. The batch stays whole (tensors on any
-    device); its rows must split evenly over the batch axes. Heads the
-    "model" axis does not divide run whole on each batch row's first
-    column; a config whose widths, channels or experts the mesh axes do
-    not divide raises (``sharding.train_unsupported``). With
+    device); its rows must split evenly over the batch axes. Every
+    config trains on every mesh: a block with a dimension the "model"
+    axis does not divide (heads, d_ff, the SSM channels, an expert
+    hidden) runs whole on each batch row's first column, and experts
+    the "data" axis does not divide run on every batch row
+    (``sharding.whole_blocks``). With
     ``cfg.remat`` each layer body is recomputed in the backward
     (``models/remat.py``).
     """
@@ -94,10 +95,6 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     def step(params, opt_state, batch):
         st = next(iter(params.values()))
         if isinstance(st, ShardedTensor):
-            bad = train_unsupported(cfg, st.mesh)
-            if bad:
-                raise NotImplementedError(
-                    "the mesh train step does not run: " + ", ".join(bad))
             loss, grads = sharded_grads(params, batch)
         elif microbatches == 1:
             loss, grads = grad_fn(params, batch)

@@ -12,13 +12,10 @@ import functools
 import numpy as np
 import torch
 
-from _port_cases import (B, N_DECODE, S, cpu_mesh, decode_kw, inputs,
-                         pad_slab, place_params, slab_from_prefill)
 from _port_serving import ENGINE, StepClock
+from _port_uneven import REL, rel_err, serve_mesh, serve_unsharded  # noqa
 from repro_torch.configs import get_config
-from repro_torch.distributed import act_sharding as acts
 from repro_torch.models import api
-from repro_torch.models.base import Family
 
 #: family: (reduced config, its heads and KV heads, meshes). 6 heads on
 #: 4 columns: q (128, 192) splits into blocks of 1.5 heads; whisper's 4
@@ -35,7 +32,6 @@ ODD = {
     "encdec": ("whisper-base", dict(n_heads=4, n_kv_heads=4),
                [(1, 8)]),
 }
-REL = 1e-5            # mesh logits vs the unsharded port, f32
 #: Eight mesh positions for the port on the CPU (read at call time).
 FORCE8 = "--xla_force_host_platform_device_count=8"
 
@@ -51,68 +47,18 @@ def odd_params(family: str):
     return cfg, api.init_params(cfg, 0, torch.float32, device="cpu")
 
 
-def _prefill_kw(cfg) -> dict:
-    return ({"kv_max_len": S + N_DECODE} if cfg.family == Family.HYBRID
-            else {})
-
-
 @functools.lru_cache(maxsize=None)
 def unsharded(family: str):
     """The port's unsharded prefill and ``N_DECODE`` greedy decode
     steps: (logits list, greedy tokens list)."""
-    cfg, params = odd_params(family)
-    toks, kw = inputs(cfg)
-    logits, state = api.prefill(
-        cfg, params, torch.from_numpy(toks),
-        **{a: torch.from_numpy(v) for a, v in kw.items()}, **_prefill_kw(cfg))
-    state = pad_slab(cfg, state, lambda t: torch.nn.functional.pad(
-        t, (0, 0, 0, 0, 0, N_DECODE)))
-    out, tokens = [logits], []
-    for step in range(N_DECODE):
-        nxt = torch.argmax(out[-1], -1).to(torch.int32)[:, None]
-        tokens.append(nxt)
-        clen = torch.full((B,), S + step, dtype=torch.int32)
-        lg, state = api.decode_step(cfg, params, nxt, state, clen,
-                                    **decode_kw(cfg, step, torch.from_numpy))
-        out.append(lg)
-    return out, tokens
+    return serve_unsharded(*odd_params(family))
 
 
 def mesh_steps(family: str, shape: tuple):
     """The same on a mesh of ``shape``, teacher-forced with the
-    unsharded tokens, batch rows over "data" in exact mode (MoE routes
-    the whole batch, as the unsharded prefill does): (logits list, the
+    unsharded tokens (``_port_uneven.serve_mesh``): (logits list, the
     prefill's state, MeshParams)."""
-    cfg, params = odd_params(family)
-    _, tokens = unsharded(family)
-    mesh = cpu_mesh(shape)
-    mp, plan = place_params(cfg, params, mesh)
-    toks, kw = inputs(cfg)
-    with acts.activation_sharding(("data",), mesh=mesh,
-                                  exact_reductions=True):
-        logits, state0 = api.prefill(
-            cfg, mp, torch.from_numpy(toks),
-            **{a: torch.from_numpy(v) for a, v in kw.items()},
-            **_prefill_kw(cfg))
-        out = [logits]
-        if cfg.family in (Family.DENSE, Family.MOE, Family.VLM):
-            state = slab_from_prefill(cfg, plan, state0)
-        elif cfg.family == Family.ENCDEC:
-            state = (slab_from_prefill(cfg, plan, state0[0]), state0[1])
-        else:
-            state = state0
-        for step, nxt in enumerate(tokens):
-            clen = torch.full((B,), S + step, dtype=torch.int32)
-            lg, state = api.decode_step(cfg, mp, nxt, state, clen,
-                                        **decode_kw(cfg, step,
-                                                    torch.from_numpy))
-            out.append(lg)
-    return out, state0, mp
-
-
-def rel_err(got, want) -> float:
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1.0))
+    return serve_mesh(*odd_params(family), unsharded(family)[1], shape)
 
 
 def trace(n=8, seed=0):

@@ -185,19 +185,27 @@ def test_alora_mode_matches_jax_engine(setup):
     assert eng.prefix_hit_tokens > 0
 
 
+@pytest.mark.filterwarnings("ignore:fit_spec")
 @pytest.mark.parametrize("knob", [dict(mesh_shape=(1, 3))])
-def test_unported_knobs_raise_naming_the_knob(knob):
-    """A mesh serves the dense and MoE families, but not a "model" axis
-    that splits the heads and widths unevenly (3 columns of the
-    reduced MoE model's 4 heads): uneven column splits are not
-    ported."""
+def test_unported_knobs_raise_naming_the_knob(knob, monkeypatch):
+    """A mesh serves the dense and MoE families on any "model" axis,
+    one that splits the heads and widths unevenly too (3 columns of
+    the reduced MoE model's 4 heads, d_model 128 and d_ff_expert 64:
+    the attention and the o projection whole on the first column),
+    with the ``mesh_shape=None`` engine's tokens; no knob of it
+    raises."""
+    from _port_whole_heads import engine_tokens
     from repro_torch.models import lm
+    monkeypatch.setenv("XLA_FLAGS",
+                       "--xla_force_host_platform_device_count=3")
     cfg = get_config("qwen3-moe-235b-a22b").reduced()
     params = lm.init_params(cfg, 0, torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match=next(iter(knob))):
-        engine.ChameleonEngine(cfg, params,
-                               engine.EngineConfig(**BASE, **knob),
-                               device="cpu")
+    eng = engine.ChameleonEngine(cfg, params,
+                                 engine.EngineConfig(**BASE, **knob),
+                                 device="cpu")
+    assert eng.params.whole == {"attn", "out"}
+    assert engine_tokens(cfg, params, knob["mesh_shape"]) == \
+        engine_tokens(cfg, params, None)
 
 
 def test_spec_decode_builds_a_speculative_engine(setup):

@@ -395,11 +395,10 @@ class TestClusterAndSystems:
 # ---------------------------------------------------------- not served
 def test_moe_on_a_mesh_raises_naming_the_missing_piece():
     """What stays refused on a mesh: MoE with ``spec_decode`` (no MoE
-    verify pass, on a mesh or off it), and a config whose ``d_ff`` does
-    not divide the "model" axis (uneven column splits are not ported);
-    each message names the missing piece. A config whose ``n_heads``
-    does not divide the axis is served, its attention whole on the
-    first column, with the ``mesh_shape=None`` engine's tokens."""
+    verify pass, on a mesh or off it), the message naming the missing
+    piece. A config whose ``d_ff`` or ``n_heads`` does not divide the
+    "model" axis is served, its MLP or its attention whole on the first
+    column, with the ``mesh_shape=None`` engine's tokens."""
     import dataclasses
 
     from _port_whole_heads import engine_tokens
@@ -415,17 +414,11 @@ def test_moe_on_a_mesh_raises_naming_the_missing_piece():
                                                   spec_decode=True),
                         draft=(cfg, params), device="cpu")
     base = get_config("chameleon-llama-7b").reduced()
-    odd_ff = dataclasses.replace(base, d_ff=250)
-    with pytest.raises(NotImplementedError,
-                       match="d_ff=250 on a 4-way model axis"):
-        ChameleonEngine(odd_ff, lm.init_params(odd_ff, 0, torch.float32,
-                                               device="cpu"),
-                        EngineConfig(n_adapters=2, mesh_shape=(1, 4)),
-                        device="cpu")
-    odd = dataclasses.replace(base, n_heads=6, n_kv_heads=2)
-    odd_params = lm.init_params(odd, 0, torch.float32, device="cpu")
-    assert engine_tokens(odd, odd_params, (1, 4)) == \
-        engine_tokens(odd, odd_params, None)
+    for over in (dict(d_ff=250), dict(n_heads=6, n_kv_heads=2)):
+        odd = dataclasses.replace(base, **over)
+        odd_params = lm.init_params(odd, 0, torch.float32, device="cpu")
+        assert engine_tokens(odd, odd_params, (1, 4)) == \
+            engine_tokens(odd, odd_params, None)
 
 
 def test_reference_mesh_engine_fails_at_its_first_prefill():

@@ -383,6 +383,7 @@ def test_kv_replicas_agree_on_distinct_positions(name, mesh_shape, paged):
         assert len(st.unique()) == mesh_shape[0] * mesh_shape[1]
 
 
+@pytest.mark.filterwarnings("ignore:fit_spec")
 def test_kv_heads_of_column_and_the_refusals():
     assert [tsh.kv_heads_of_column(8, 4, m) for m in range(4)] == [
         (0, 2), (2, 4), (4, 6), (6, 8)]
@@ -390,16 +391,21 @@ def test_kv_heads_of_column_and_the_refusals():
         (0, 1)] * 4
     assert [tsh.kv_heads_of_column(2, 4, m) for m in range(4)] == [
         (0, 1), (0, 1), (1, 2), (1, 2)]
+    # What the port once refused now serves the unsharded port's logits
+    # and tokens: 3 KV heads on 2 columns (the attention whole) and a
+    # shared expert hidden of 66 on 4 (the shared expert whole).
+    from _port_uneven import assert_serves_unsharded
+    from repro_torch.models import api
     cfg = models()["cfg"]
-    assert tsh.mesh_unsupported(cfg, 4) == []
+    assert tsh.whole_blocks(cfg, 4) == frozenset()
     odd = dataclasses.replace(cfg, n_heads=12, n_kv_heads=3)
-    assert tsh.mesh_unsupported(odd, 2) == [
-        "n_kv_heads=3 on a 2-way model axis (a column's query heads "
-        "would read parts of two KV groups)"]
     wide = dataclasses.replace(models("llama4-maverick-400b-a17b")["cfg"],
                                shared_expert_ff=66)
-    assert any("shared_expert_ff=66" in w
-               for w in tsh.mesh_unsupported(wide, 4))
+    for c, M, block in ((odd, 2, "attn"), (wide, 4, "shared")):
+        assert tsh.whole_blocks(c, M) == {block}
+        params = api.init_params(c, 0, torch.float32, device="cpu")
+        _, mp = assert_serves_unsharded(c, params, (1, M))
+        assert mp.n_cols(block) == 1
 
 
 # ------------------------------------------------------- the rule table

@@ -22,8 +22,9 @@ and ``conv_state_spec`` say. Under token parallelism each data shard
 routes its own rows with its own capacity groups, so the MoE prefill's
 references are the prefills of each shard's rows. Also: the engine's
 full-batch scope (``batch_axes=()``) gives the same logits, whisper's
-published vocabulary of 51865 serves whole on 2 columns, and the
-engine still refuses the four families.
+published vocabulary of 51865 serves whole on 2 columns, falcon-mamba's
+and zamba2's mixers serve whole on 3 columns, and the engine still
+refuses the four families.
 """
 import numpy as np
 import pytest
@@ -129,7 +130,7 @@ def test_whisper_published_vocab_serves_whole_on_two_columns():
     stay whole on every column, and the mesh gives the unsharded
     logits."""
     cfg = get_config("whisper-base").reduced(vocab_size=51865)
-    assert tsh.mesh_unsupported(cfg, 2) == []
+    assert tsh.whole_blocks(cfg, 2) == frozenset()
     params = api.init_params(cfg, 0, torch.float32, device="cpu")
     rng = np.random.default_rng(5)
     toks = torch.from_numpy(rng.integers(0, 51865, (2, 6)).astype(np.int32))
@@ -145,22 +146,25 @@ def test_whisper_published_vocab_serves_whole_on_two_columns():
     assert torch.allclose(got, want, rtol=REL, atol=REL)
 
 
+@pytest.mark.filterwarnings("ignore:fit_spec")
 def test_refusals_name_the_dimension():
-    """Heads, widths, SSM channels and Mamba2 heads the columns do not
-    divide are refused; every family is served otherwise."""
+    """What the port once refused now serves: every family's reduced
+    config splits every block over 4 columns, and falcon-mamba's
+    d_inner of 256 and zamba2's 8 Mamba2 heads on 3 columns (the mixer
+    whole on the first column, the state in the rule table's layout)
+    give the unsharded port's logits and tokens."""
+    from _port_uneven import assert_serves_unsharded
     for name in FAMILIES.values():
-        assert tsh.mesh_unsupported(get_config(name).reduced(), 4) == []
-    falcon = get_config("falcon-mamba-7b").reduced()
-    zamba = get_config("zamba2-1.2b").reduced()
-    assert any(r.startswith("d_inner=256 on a 3-way model")
-               for r in tsh.mesh_unsupported(falcon, 3))
-    assert any(r.startswith("n_ssm_heads=8 on a 3-way model")
-               for r in tsh.mesh_unsupported(zamba, 3))
-    with pytest.raises(NotImplementedError, match="d_inner=256"), \
-            pytest.warns(UserWarning, match="drops non-dividing"):
-        place_params(falcon, api.init_params(falcon, 0, torch.float32,
-                                             device="cpu"),
-                     cpu_mesh((1, 3)))
+        assert tsh.whole_blocks(get_config(name).reduced(), 4) == frozenset()
+    for name in ("falcon-mamba-7b", "zamba2-1.2b"):
+        cfg = get_config(name).reduced()
+        assert "mixer" in tsh.whole_blocks(cfg, 3)
+        params = api.init_params(cfg, 0, torch.float32, device="cpu")
+        state, mp = assert_serves_unsharded(cfg, params, (1, 3))
+        assert mp.n_cols("mixer") == 1
+        ssm = state[0]
+        assert tuple(ssm.sharding.spec) == tuple(
+            tsh.ssm_state_spec(mp.mesh, ssm.shape))
 
 
 @pytest.mark.parametrize("family", ["vlm", "ssm", "hybrid", "encdec"])

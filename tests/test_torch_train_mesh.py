@@ -24,10 +24,10 @@ port's seeded params:
   ``tests/test_training.py``'s elastic restore);
 - ``launch.train.train(mesh=make_host_mesh("cpu"))`` over a forced host
   count of 2 trains the losses of one device;
-- the collectives and the row-parallel anchors on their own, and the
-  refusals: heads the "model" axis does not divide (no family is
-  refused for want of a sharded path), a batch that does not split over
-  the batch axes.
+- the collectives and the row-parallel anchors on their own; heads
+  and a d_ff the "model" axis does not divide train (no family or
+  config is refused for want of a sharded path), and the refusal that
+  stays: a batch that does not split over the batch axes.
 """
 import dataclasses
 import importlib
@@ -255,13 +255,15 @@ def test_other_families_refuse_a_split_mesh():
     steps are ``tests/test_torch_train_mesh_families.py``'s), and on one
     position the mesh step equals the unsharded one; heads the "model"
     axis does not divide train (the attention whole on each batch row's
-    first column), while a hidden it does not divide is still refused,
-    naming the dimension."""
+    first column), and so does a hidden it does not divide (the MLP
+    whole there), within ``TOL`` of the unsharded step."""
     from repro_torch.configs import ARCH_IDS
     for name in ARCH_IDS:
         cfg = get_config(name).reduced()
         for mesh in ("2x1", "1x2"):
-            assert tsh.train_unsupported(cfg, cpu_mesh(mesh)) == [], name
+            p = place(cfg, api.init_params(cfg, 0, torch.float32,
+                                           device="cpu"), cpu_mesh(mesh))[0]
+            assert tsh.TrainView(cfg, p).whole == frozenset(), name
     for name in ("falcon-mamba-7b", "zamba2-1.2b", "whisper-base"):
         cfg = get_config(name).reduced()
         params = api.init_params(cfg, 0, torch.float32, device="cpu")
@@ -286,11 +288,15 @@ def test_other_families_refuse_a_split_mesh():
     for k in ("loss", "grad_norm"):
         assert abs(float(got[k]) - float(want[k])) <= TOL * float(want[k])
     odd = dataclasses.replace(cfg, d_ff=250)
-    p, o = place(odd, api.init_params(odd, 0, torch.float32, device="cpu"),
-                 m8)
-    with pytest.raises(NotImplementedError,
-                       match="d_ff=250 on a 8-way model axis"):
-        make_train_step(odd, OPT)(p, o, b)
+    params = api.init_params(odd, 0, torch.float32, device="cpu")
+    p, o = place(odd, params, m8)
+    assert tsh.TrainView(odd, p).whole == {"attn", "mlp"}
+    got = make_train_step(odd, OPT)(p, o, b)[2]
+    want = make_train_step(odd, OPT)(
+        {k: v.clone() for k, v in params.items()},
+        init_opt_state(params, OPT), b)[2]
+    for k in ("loss", "grad_norm"):
+        assert abs(float(got[k]) - float(want[k])) <= TOL * float(want[k])
 
 
 def test_a_batch_must_split_over_the_batch_axes():

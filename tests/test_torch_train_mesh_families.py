@@ -55,10 +55,10 @@ from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models.hybrid import attn_sites  # noqa: E402
 from repro_torch.models.layers import rms_norm  # noqa: E402
 from repro_torch.models.ssm_lm import _SSM_LEAVES  # noqa: E402
-from repro_torch.training import (make_train_step,  # noqa: E402
-                                  restore_checkpoint, save_checkpoint)
+from repro_torch.training import (restore_checkpoint,  # noqa: E402
+                                  save_checkpoint)
 
-from _port_train_mesh import (MESHES, OPT, STEPS,  # noqa: E402
+from _port_train_mesh import (MESHES, STEPS,  # noqa: E402
                               assert_runs_close, cpu_mesh, jax_run, place,
                               run, unsharded)
 from _port_training import (TOL, attention_layers, batch_np,  # noqa: E402
@@ -376,19 +376,18 @@ def test_launcher_trains_over_the_host_mesh(monkeypatch):
             assert abs(b[k] - a[k]) <= TOL * max(abs(a[k]), 1.0), (k, a, b)
 
 
+@pytest.mark.filterwarnings("ignore:fit_spec")
 def test_uneven_ssm_dims_refuse():
-    """d_inner or the Mamba2 heads that "model" does not divide: the step
-    raises naming the dimension."""
+    """What the port once refused now trains: d_inner (falcon-mamba) or
+    the Mamba2 heads (zamba2) that 3 columns do not divide run the
+    mixer whole on each batch row's first column, and the step equals
+    the unsharded one."""
     grid = np.empty(3, dtype=object)
     grid[:] = [torch.device("cpu")] * 3
     m3 = Mesh(grid.reshape(1, 3), ("data", "model"))
-    for name, what in ((FALCON, "d_inner=256 on a 3-way model"),
-                       (ZAMBA, "n_ssm_heads=8 on a 3-way model")):
-        cfg = get_config(name).reduced()
-        assert any(r.startswith(what.split(" on")[0])
-                   for r in tsh.train_unsupported(cfg, m3)), name
-        with pytest.warns(UserWarning, match="drops non-dividing"):
-            p, o = place(cfg, _reference(name)[1], m3)
-        b = to_tensors(batch_np(cfg, 0), "cpu")
-        with pytest.raises(NotImplementedError, match=what):
-            make_train_step(cfg, OPT)(p, o, b)
+    for name in (FALCON, ZAMBA):
+        cfg, params, ref = _reference(name)
+        p, o = place(cfg, params, m3)
+        tv = tsh.TrainView(cfg, p)
+        assert "mixer" in tv.whole and tv.n_cols("mixer") == 1, name
+        assert_runs_close(ref, run(cfg, p, o))

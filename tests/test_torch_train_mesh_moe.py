@@ -22,7 +22,8 @@ params, held with ``tests/_port_training.py``'s tolerances:
   (qwen2-vl's two against one: ``tests/test_torch_train_mesh.py``), an
   elastic restore from (2, 1) onto (1, 2), and ``launch.train.train``
   over a forced host count of 2;
-- the refusal of expert dimensions the mesh axes do not divide.
+- expert dimensions the mesh axes do not divide: the step runs them
+  whole and equals the unsharded step.
 """
 import importlib
 
@@ -43,10 +44,10 @@ from repro_torch.distributed import sharding as tsh  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
-from repro_torch.training import (make_train_step,  # noqa: E402
-                                  restore_checkpoint, save_checkpoint)
+from repro_torch.training import (restore_checkpoint,  # noqa: E402
+                                  save_checkpoint)
 
-from _port_train_mesh import (MESHES, STEPS, OPT,  # noqa: E402
+from _port_train_mesh import (MESHES, STEPS,  # noqa: E402
                               assert_runs_close, cpu_mesh, jax_run, place,
                               run, unsharded)
 from _port_training import TOL, batch_np, to_tensors  # noqa: E402
@@ -229,23 +230,24 @@ def test_launcher_trains_over_the_host_mesh(monkeypatch):
             assert abs(b[k] - a[k]) <= TOL * max(abs(a[k]), 1.0), (k, a, b)
 
 
+@pytest.mark.filterwarnings("ignore:fit_spec")
 def test_undivided_expert_dims_refuse():
-    """n_experts the "data" size does not divide, or d_ff_expert the
-    "model" size does not divide: the rule table would replicate them,
-    so the step and the forward raise naming the dimension."""
-    for over, mesh, what in (
-            ({"n_experts": 5}, "2x1", "n_experts=5 on a 2-way data"),
-            ({"d_ff_expert": 33}, "1x2", "d_ff_expert=33 on a 2-way model")):
+    """What the port once refused now trains: n_experts the "data" size
+    does not divide (every batch shard runs every expert on its own
+    tokens) or d_ff_expert the "model" size does not divide (the expert
+    hidden whole on the first column); the step equals the unsharded
+    one, drops included, and so does the forward."""
+    for over, mesh, block in (({"n_experts": 5}, "2x1", "experts"),
+                              ({"d_ff_expert": 33}, "1x2", "expert_ff")):
         cfg = get_config(QWEN3).reduced(**over)
-        params = api.init_params(cfg, 0, torch.float32, device="cpu")
+        params, ref = unsharded(cfg)
+        p, o = place(cfg, params, cpu_mesh(mesh))
+        assert tsh.TrainView(cfg, p).whole == {block}
         b = to_tensors(batch_np(cfg, 0), "cpu")
-        with pytest.warns(UserWarning, match="drops non-dividing"):
-            p, o = place(cfg, params, cpu_mesh(mesh))
-        with pytest.raises(NotImplementedError,
-                           match=what + ".*ROADMAP Queue 1"):
-            make_train_step(cfg, OPT)(p, o, b)
-        with pytest.raises(NotImplementedError, match=what):
-            api.forward(cfg, p, b["tokens"])
+        torch.testing.assert_close(api.forward(cfg, p, b["tokens"]),
+                                   api.forward(cfg, params, b["tokens"]),
+                                   rtol=1e-5, atol=1e-5)
+        assert_runs_close(ref, run(cfg, p, o))
 
 
 def test_all_to_all_sums_straddled_groups():

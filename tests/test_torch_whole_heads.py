@@ -5,10 +5,10 @@ The JAX rule table keeps a weight split wherever its dimension divides
 the axis (q of 6 heads of 32 over 4 columns: 1.5 heads a block) and
 replicates the head activations; the port then computes the attention
 block whole on each batch row's first column, from weights assembled
-from those blocks (``sharding.whole_heads``). Reduced configs with 6
-heads (2 KV heads) at (1, 4) and (2, 4) for the dense, MoE, VLM and
-hybrid (its shared block) families and whisper with 4 heads at (1, 8),
-in f32, over repeated ``cpu`` positions:
+from those blocks (``sharding.whole_blocks``: ``attn``). Reduced
+configs with 6 heads (2 KV heads) at (1, 4) and (2, 4) for the dense,
+MoE, VLM and hybrid (its shared block) families and whisper with 4
+heads at (1, 8), in f32, over repeated ``cpu`` positions:
 
 - serving steps: a prefill and greedy decode steps teacher-forced with
   the unsharded port's tokens, logits within 1e-5 relative (``REL``)
@@ -20,10 +20,10 @@ in f32, over repeated ``cpu`` positions:
   steps, with ``tests/_port_training.py``'s tolerances (loss and grad
   norm 1e-4 relative, params within lr a step, moments 1e-4), the
   attention weights' gradients reduced into their stored blocks once;
-- no published config is refused for its heads on 2, 4, 8 or 16
-  columns, with 1 or 16 data shards, serving or training; the rules
-  that stay (an uneven d_ff, KV heads a column would read parts of)
-  still refuse.
+- no published config is refused for its heads on 2, 3, 4, 6, 8 or 16
+  columns, with 1 or 16 data shards, serving or training; what the
+  port once refused (an uneven d_ff, KV heads a column would read
+  parts of) now runs whole on the first column.
 """
 import dataclasses
 
@@ -37,9 +37,11 @@ jax.devices()
 
 from _port_train_mesh import assert_runs_close, place, run  # noqa: E402
 from _port_train_mesh import unsharded as unsharded_train  # noqa: E402
+from _port_uneven import assert_serves_unsharded  # noqa: E402
 from _port_whole_heads import (FORCE8, ODD, REL, engine_tokens,  # noqa
                                mesh_steps, odd_config, odd_params,
                                rel_err, unsharded)
+from repro_torch.models import api  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.distributed import sharding as tsh  # noqa: E402
 from repro_torch.launch.mesh import Mesh  # noqa: E402
@@ -60,7 +62,7 @@ def mesh_of(shape) -> Mesh:
 def test_mesh_steps_equal_unsharded(family, shape):
     want, tokens = unsharded(family)
     got, state, mp = mesh_steps(family, shape)
-    assert mp.whole_heads and mp.attn_cols == 1
+    assert "attn" in mp.whole and mp.n_cols("attn") == 1
     assert len(got) == len(want)
     for step, (g, w) in enumerate(zip(got, want)):
         assert g.shape == w.shape and torch.isfinite(g).all()
@@ -114,7 +116,7 @@ def test_train_step_equals_unsharded(family, shape):
     cfg = odd_config(family)
     params, ref = unsharded_train(cfg)
     p, o = place(cfg, params, mesh_of(shape))
-    assert tsh.TrainView(cfg, p).whole_heads
+    assert "attn" in tsh.TrainView(cfg, p).whole
     got = run(cfg, p, o)
     assert_runs_close(ref, got)
 
@@ -132,25 +134,41 @@ def test_whole_heads_under_remat(remat):
 
 @pytest.mark.filterwarnings("ignore:fit_spec")
 @pytest.mark.parametrize("data", [1, 16])
-@pytest.mark.parametrize("M", [2, 4, 8, 16])
+@pytest.mark.parametrize("M", [2, 3, 4, 6, 8, 16])
 def test_no_published_config_refused_for_heads(M, data):
-    mesh = mesh_of((data, M))
+    """Every published config serves and trains on 2, 3, 4, 6, 8 or 16
+    columns with 1 or 16 data shards: its attention runs whole exactly
+    where M does not divide its heads (or its KV heads neither divide M
+    nor are divided by it); the other blocks M does not divide run
+    whole too (``tests/test_torch_uneven_splits.py`` builds each
+    config's views on such meshes)."""
     for name in ARCH_IDS:
         cfg = get_config(name)
-        assert tsh.mesh_unsupported(cfg, M) == [], (name, M)
-        assert tsh.train_unsupported(cfg, mesh) == [], (name, M, data)
+        Kh = cfg.n_kv_heads
+        attn = bool(cfg.n_heads) and bool(cfg.n_heads % M
+                                          or Kh % M and M % Kh)
+        for train in (False, True):
+            whole = tsh.whole_blocks(cfg, M, data, train=train)
+            assert ("attn" in whole) == attn, (name, M, data, train)
 
 
+@pytest.mark.filterwarnings("ignore:fit_spec")
 def test_the_remaining_rules_still_refuse():
+    """What the port once refused now runs: a d_ff 4 columns do not
+    divide (the MLP whole on the first column) and 12 heads of 6 KV
+    heads on 4 columns (a column's query heads would read parts of two
+    KV groups: the attention whole) serve the unsharded port's logits
+    and tokens, and train its steps."""
     cfg = get_config("internlm2-1.8b").reduced()
-    odd_ff = dict(d_ff=250)
-    assert tsh.mesh_unsupported(dataclasses.replace(cfg, **odd_ff), 4) == [
-        "d_ff=250 on a 4-way model axis (column compute needs even "
-        "blocks; uneven column splits are not ported)"]
-    kv = dataclasses.replace(cfg, n_heads=6, n_kv_heads=6)
-    assert tsh.mesh_unsupported(kv, 4) == [
-        "n_kv_heads=6 on a 4-way model axis (a column's query heads "
-        "would read parts of two KV groups)"]
-    assert tsh.mesh_unsupported(odd_config("dense"), 4) == []
-    assert not tsh.whole_heads(cfg, 4) and tsh.whole_heads(
-        odd_config("dense"), 4)
+    for over, block in ((dict(d_ff=250), "mlp"),
+                        (dict(n_heads=12, n_kv_heads=6), "attn")):
+        odd = dataclasses.replace(cfg, **over)
+        assert tsh.whole_blocks(odd, 4) == {block}
+        params = api.init_params(odd, 0, torch.float32, device="cpu")
+        _, mp = assert_serves_unsharded(odd, params, (1, 4))
+        assert mp.n_cols(block) == 1
+        _, ref = unsharded_train(odd)
+        assert_runs_close(ref, run(odd, *place(odd, params,
+                                               mesh_of((2, 4)))))
+    assert tsh.whole_blocks(cfg, 4) == frozenset()
+    assert "attn" in tsh.whole_blocks(odd_config("dense"), 4)
