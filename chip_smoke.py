@@ -21,11 +21,13 @@ of the JAX package. Phases, one JSON line each:
              the plain version's median ms (CUDA events, L2 flushed
              before each launch), the bound from bytes and operations,
              and a PyTorch yardstick (``library_ms``) the port never
-             calls. sgmv and flash_attention have two instances each
-             (tensor cores for bf16, CUDA cores otherwise): every case
-             line names the instance that launched, and it must be the
-             one the dtype and shape select; each kernel's timing line
-             counts the checked cases of each instance
+             calls. sgmv has two instances (tensor cores for bf16,
+             CUDA cores otherwise), flash_attention three (tensor cores
+             for bf16 with dh % 16 == 0, CUDA cores for other bf16,
+             ``tf32x3`` for f32: three TF32 products an f32 product):
+             every case line names the instance that launched, and it
+             must be the one the dtype and shape select; each kernel's
+             timing line counts the checked cases of each instance
              (``checked_by_instance``). bgmv and paged_attention run
              over thread-block clusters: a ``kernel_sweep`` line times
              each cluster size (paged_attention's also times a PyTorch
@@ -198,8 +200,13 @@ of the JAX package. Phases, one JSON line each:
              autograd through SDPA and the bound of the route's
              arithmetic, with the CUDA-core f32 bound beside it
              (``kernel_time_train`` lines); the forward with and
-             without the log-sum-exp at internlm2's f32 shape and at
-             (8, 256, 32, 128) bf16 (``kernel_time_train_fwd``); two
+             without the log-sum-exp at the f32 training shapes
+             (``tf32x3``: internlm2's, qwen3-moe's (2, 1) shard,
+             qwen2-vl's whole block, zamba2's and whisper's shards)
+             and at (8, 256, 32, 128) bf16, the same bits twice and
+             either way, timed beside SDPA and the bound of the route's
+             arithmetic (f32 rows also the CUDA-core bound)
+             (``kernel_time_train_fwd``); two
              train steps of one reduced config a family in f32, card
              against CPU (``parity_train``: loss, grad norm, moments
              and params within 1e-4, forward and backward flash
@@ -211,8 +218,9 @@ of the JAX package. Phases, one JSON line each:
              SyntheticLM (8, 512) (``train``: losses, s/step,
              tokens/s, peak memory; the published config rematerialises
              each layer, so the flash forward launches 48 times a step
-             (the forward and the backward's recompute) and its
-             backward 24, nothing else, no plain version), one
+             (the forward and the backward's recompute, all
+             ``tf32x3``) and its backward 24, nothing else, no plain
+             version), one
              step with ``microbatches=2``, one step under
              torch.profiler (device busy share), the remat A/B
              (``train_remat_ab``: two steps from the trained state
@@ -467,6 +475,8 @@ def kernel_resources() -> dict:
         dynamic[f"expand_tc<{rp}>"] = sg.sgmv_tc_smem_bytes(rp, 1)
     for dh in (32, 64, 128, 256):
         dynamic[f"flash_tc<{dh}>"] = fa.flash_attention_tc_smem_bytes(dh)
+        dynamic[f"flash_tf32x3<{dh}>"] = \
+            fa.flash_attention_tf32x3_smem_bytes(dh)
     fb = build.library("flash_attention_bwd", importlib.import_module(
         "repro_torch.kernels.flash_attention")._BWD_ARGTYPES)
     for ops, code in (("Bf16Ops", 1), ("Tf32x3Ops", 0)):
@@ -759,8 +769,9 @@ def flash_bound(q, k, v, causal: bool) -> tuple:
 def phase_flash(record, rows, randn, flush) -> dict:
     """flash_attention against its plain version: causal and not, MHA
     32/32/128 (Llama-7B), GQA 40/8/128 (qwen2.5-32b) and MQA 8/1/128,
-    f32 and bf16, ragged S (5, 100, 1000) and block multiples (256,
-    2048); then timed at the main path's largest prefill bucket
+    f32 (``tf32x3``) and bf16 (``tensor_cores``), ragged S (5, 100,
+    1000) and block multiples (256, 2048); then timed at the main
+    path's largest prefill bucket
     (8, 256, 32, 128) and at (1, 2048, 32, 128), bf16 causal. Returns
     the calls that launch it on the timed operands."""
     import importlib
@@ -3765,7 +3776,7 @@ def phase_train_kernels(flush, shapes=None, dtypes=("f32", "bf16"),
     route's arithmetic; f32 rows also carry the CUDA-core bound); one
     ``phase`` line each. Then ``time_forward_lse`` at ``fwd_shapes``
     (``FWD_LSE_SHAPES``). Returns the kernels-line row (internlm2,
-    f32)."""
+    f32), with the forward's line at that shape under ``forward``."""
     import importlib
 
     import torch
@@ -3846,38 +3857,58 @@ def phase_train_kernels(flush, shapes=None, dtypes=("f32", "bf16"),
             if label == FULL_ARCH and tname == "f32":
                 row = line
             del q, k, v, out, dout, got, qt, kt, vt, lo, lse
-    time_forward_lse(flush, randn, fwd_shapes or FWD_LSE_SHAPES,
-                     phase + "_fwd")
-    return row
+    fwd = time_forward_lse(flush, randn, fwd_shapes or FWD_LSE_SHAPES,
+                           phase + "_fwd")
+    return dict(row, forward=fwd.get(FULL_ARCH)) if row else row
 
 
-#: The forward with and without its log-sum-exp: the train step's f32
-#: shape (internlm2-1.8b, the CUDA-core instance) and the dense
-#: prefill's bf16 bucket (the tensor-core instance).
+#: The forward with and without its log-sum-exp: the f32 training
+#: shapes (the ``tf32x3`` instance): internlm2-1.8b's step (the kernels
+#: line), qwen3-moe's (2, 2048) batch split over 2 data shards (64/4
+#: heads, G 16), qwen2-vl-7b's whole block (28/4 heads), zamba2's
+#: shared block and whisper's encoder (full) and decoder split over 2
+#: data shards; and the dense prefill's bf16 bucket (the tensor-core
+#: instance).
 FWD_LSE_SHAPES = (("internlm2-1.8b", 8, 512, 16, 8, 128, "f32"),
+                  ("qwen3-moe shard", 1, 2048, 64, 4, 128, "f32"),
+                  ("qwen2-vl block", 8, 512, 28, 4, 128, "f32"),
+                  ("zamba2 shard", 4, 512, 32, 32, 64, "f32"),
+                  ("whisper encoder shard", 4, 1500, 8, 8, 64, "f32",
+                   False),
+                  ("whisper decoder shard", 4, 256, 8, 8, 64, "f32"),
                   ("llama (8, 256)", 8, 256, 32, 32, 128, "bf16"))
 
 
-def time_forward_lse(flush, randn, shapes, phase: str) -> None:
+def time_forward_lse(flush, randn, shapes, phase: str) -> dict:
     """flash_attention at ``shapes`` (label, B, S, H, Kh, dh, dtype[,
     causal]; causal unless it says otherwise), with ``return_lse`` off
-    and on: the output against its plain version (f32 1e-4; bf16 one
-    ulp plus ``FLASH_P_ROUNDING``), the same bits either way, the
-    log-sum-exp within 1e-5 of ``flash_attention_lse_plain``, and both
-    timed beside SDPA; one ``phase`` line a shape."""
+    (twice) and on: three launches of the instance ``flash_instance``
+    names and no plain version, the output against its plain version
+    (f32 1e-4; bf16 one ulp plus ``FLASH_P_ROUNDING``), the same bits
+    each time, the log-sum-exp within 1e-5 of
+    ``flash_attention_lse_plain``, and both timed beside SDPA and the
+    bound of the instance's arithmetic (bf16 tensor cores, f32 as
+    3xTF32; f32 rows also ``bound_ms_cuda_cores``); one ``phase`` line
+    a shape. Returns the lines by label."""
     import importlib
 
     import torch
     import torch.nn.functional as F
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    lines = {}
     for label, B, S, H, Kh, dh, tname, *rest in shapes:
         causal = rest[0] if rest else True
         dt = torch.float32 if tname == "f32" else torch.bfloat16
         q = randn(B, S, H, dh, dtype=dt)
         k, v = randn(B, S, Kh, dh, dtype=dt), randn(B, S, Kh, dh, dtype=dt)
+        inst = fa.flash_instance(dt, dh)
+        fa.STATS.reset()
         out = fa.flash_attention(q, k, v, causal)
+        again = fa.flash_attention(q, k, v, causal)
         out2, lse = fa.flash_attention(q, k, v, causal, return_lse=True)
         torch.cuda.synchronize()
+        launched_ok = (fa.STATS.instances == {inst: 3}
+                       and fa.STATS.plain == 0)
         want = fa.flash_attention_plain(q, k, v, causal)
         atol, rtol = TOL["f32" if tname == "f32" else "bf16_out"]
         bound = atol + rtol * want.float().abs()
@@ -3887,30 +3918,43 @@ def time_forward_lse(flush, randn, shapes, phase: str) -> None:
         diff = (out.float() - want.float()).abs()
         lse_want = fa.flash_attention_lse_plain(q, k, causal)
         lse_err = (lse - lse_want).abs()
-        ok = bool((diff <= bound).all() and torch.equal(out, out2)
+        same_bits = bool(torch.equal(out, again) and torch.equal(out, out2))
+        ok = bool((diff <= bound).all() and same_bits and launched_ok
                   and (lse_err <= 1e-5 + 1e-5 * lse_want.abs()).all())
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         pairs = S * (S + 1) // 2 if causal else S * S
-        fb = bound_ms(nbytes(q, k, v) + nbytes(q), 4 * B * H * dh * pairs,
-                      op_type(q, k, v))
-        emit(dict(phase=phase, kernel="flash_attention",
-                  case=f"{label}, q {tuple(q.shape)}, Kh {Kh}, {tname}, "
-                       f"{'causal' if causal else 'full'}",
-                  instance=fa.flash_instance(dt, dh),
-                  max_abs_err=diff.max().item(),
-                  lse_max_abs_err=lse_err.max().item(), ok=ok,
-                  ms=median_ms(lambda: fa.flash_attention(q, k, v, causal),
-                               flush),
-                  ms_with_lse=median_ms(lambda: fa.flash_attention(
-                      q, k, v, causal, return_lse=True), flush),
-                  plain_ms=median_ms(lambda: fa.flash_attention_plain(
-                      q, k, v, causal), flush),
-                  library_ms=median_ms(lambda: F.scaled_dot_product_attention(
-                      qt, kt, vt, is_causal=causal, enable_gqa=True), flush),
-                  bound_ms=fb[0], bound_by=fb[1]))
-        check(ok, f"flash_attention forward [{label}, {tname}] with its "
-                  f"log-sum-exp disagrees with its plain version")
-        del q, k, v, out, out2, lse, want, bound, diff, qt, kt, vt
+        flops = 4 * B * H * dh * pairs
+        fb = bound_ms(nbytes(q, k, v) + nbytes(q), flops,
+                      "bf16" if tname == "bf16" else "tf32x3")
+        extra = {}
+        if tname == "f32":
+            extra["bound_ms_cuda_cores"] = bound_ms(
+                nbytes(q, k, v) + nbytes(q), flops, "f32")[0]
+        line = dict(phase=phase, kernel="flash_attention",
+                    case=f"{label}, q {tuple(q.shape)}, Kh {Kh}, {tname}, "
+                         f"{'causal' if causal else 'full'}",
+                    instance=inst, launches=dict(fa.STATS.instances),
+                    same_bits=same_bits, max_abs_err=diff.max().item(),
+                    lse_max_abs_err=lse_err.max().item(), ok=ok,
+                    ms=median_ms(lambda: fa.flash_attention(q, k, v, causal),
+                                 flush),
+                    ms_with_lse=median_ms(lambda: fa.flash_attention(
+                        q, k, v, causal, return_lse=True), flush),
+                    plain_ms=median_ms(lambda: fa.flash_attention_plain(
+                        q, k, v, causal), flush),
+                    library_ms=median_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            qt, kt, vt, is_causal=causal, enable_gqa=True),
+                        flush),
+                    bound_ms=fb[0], bound_by=fb[1], **extra)
+        emit(line)
+        lines[label] = line
+        check(ok, f"flash_attention forward [{label}, {tname}]: launches "
+                  f"{line['launches']} (want {inst} 3 times), same bits "
+                  f"{same_bits}, or with its log-sum-exp it disagrees "
+                  f"with its plain version")
+        del q, k, v, out, again, out2, lse, want, bound, diff, qt, kt, vt
+    return lines
 
 
 def _train_stats() -> dict:
@@ -4088,10 +4132,11 @@ def phase_train_full() -> dict:
     deleted. Kernel counts are zeroed just before the launcher's steps
     and read just after: the flash backward must launch once a layer a
     step and the forward ``fwd_runs`` times (twice under the published
-    config's remat: the backward recomputes each layer), nothing else
-    and no plain version. Between the profile and the checkpoint, the
-    remat A/B (``train_remat_ab``). Returns the backward's launches on
-    the launcher's run."""
+    config's remat: the backward recomputes each layer), every forward
+    launch of the ``tf32x3`` instance, nothing else and no plain
+    version. Between the profile and the checkpoint, the remat A/B
+    (``train_remat_ab``). Returns the backward's and the forward's
+    launches on the launcher's run."""
     import importlib
     import shutil
     import tempfile
@@ -4138,8 +4183,11 @@ def phase_train_full() -> dict:
               launches=launches, plain=plain, remat=cfg.remat,
               tf32=torch.backends.cuda.matmul.allow_tf32))
     check(finite, f"{cfg.name}: non-finite loss or grad norm {hist}")
-    check(launches == want and not plain,
-          f"{cfg.name}: launches {launches} (want {want}), plain {plain}")
+    fwd_inst = dict(stats["flash_attention"].instances)
+    check(launches == want and not plain
+          and fwd_inst == {"tf32x3": want["flash_attention"]},
+          f"{cfg.name}: launches {launches} (want {want}), plain {plain}, "
+          f"flash forward instances {fwd_inst} (want tf32x3 only)")
 
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
                                   seq_len=FULL_SEQ, global_batch=FULL_BATCH))
@@ -4219,7 +4267,8 @@ def phase_train_full() -> dict:
               deleted=not Path(tmp).exists()))
     check(exact, f"{cfg.name}: the params checkpoint did not restore "
                  f"bit-exact")
-    return dict(launches=launches["flash_attention_bwd"])
+    return dict(launches=launches["flash_attention_bwd"],
+                fwd_launches=launches["flash_attention"])
 
 
 def fwd_runs(cfg) -> int:
@@ -4330,7 +4379,8 @@ def phase_train() -> dict:
     """Phase 7: the backward kernel at its shapes, the families' reduced
     train steps card against CPU, the reduced checkpoint, the full-width
     run and the example. Returns the kernels-line row of
-    flash_attention_bwd."""
+    flash_attention_bwd, with the f32 forward's line under ``forward``
+    and its launches on the full-width run under ``fwd_launches``."""
     import torch
     scratch = torch.empty(64 * MIB, dtype=torch.uint8, device="cuda")
 
@@ -4345,7 +4395,8 @@ def phase_train() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     run_train_example()
-    return dict(row, launches=full["launches"])
+    return dict(row, launches=full["launches"],
+                fwd_launches=full["fwd_launches"])
 
 
 # ------------------------------------------------------------ phase 8
@@ -5506,7 +5557,16 @@ def main() -> int:
              launches=bwd["launches"], max_abs_err=bwd["max_abs_err"],
              ms=bwd["ms"], plain_ms=bwd["plain_ms"],
              bound_ms=bwd["bound_ms"], bound_by=bwd["bound_by"],
-             library_ms=bwd["library_ms"])]})
+             library_ms=bwd["library_ms"]),
+        dict(name="flash_attention_tf32x3", route="cuda", instance="tf32x3",
+             source=KERNELS["flash_attention"][0],
+             replaces=KERNELS["flash_attention"][1],
+             launches=bwd["fwd_launches"],
+             max_abs_err=bwd["forward"]["max_abs_err"],
+             ms=bwd["forward"]["ms"], plain_ms=bwd["forward"]["plain_ms"],
+             bound_ms=bwd["forward"]["bound_ms"],
+             bound_by=bwd["forward"]["bound_by"],
+             library_ms=bwd["forward"]["library_ms"])]})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

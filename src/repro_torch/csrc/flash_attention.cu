@@ -10,9 +10,11 @@
 //
 // Bound: bytes of q, k, v and the output at the engine's (8, 256)
 // prefill bucket; operations (4 * B * H * S^2 * dh, halved when causal)
-// once S reaches about a thousand positions, (1, 2048) for example.
+// once S reaches about a thousand positions, (1, 2048) for example, and
+// in f32 at the training shapes, where 3xTF32 runs three TF32 products
+// an f32 product (495 / 3 TFLOP/s).
 //
-// Two instances, picked by the wrapper from dtype and head_dim alone:
+// Three instances, picked by the wrapper from dtype and head_dim alone:
 //
 // * Tensor cores (bf16 with dh % 16 == 0, dh <= 256: the dense
 //   prefill's case at full width), FlashAttention-2's layout. One block
@@ -40,15 +42,43 @@
 //   masked; query rows past S are not stored. The output goes through
 //   shared memory to 16-byte stores. A dh below the instance's width
 //   (32, 64, 128, 256) is zero-padded in shared memory.
-// * CUDA cores (f32, or bf16 with dh % 16 != 0): one block of 256
-//   threads per (64 query rows, h, b) looping over 64-position key
-//   tiles staged as f32 in shared memory, each thread a 4 x 4 block of
-//   scores from 16-byte shared-memory reads, row statistics by
-//   half-warp shuffles, probabilities through shared memory, V in K's
-//   buffer; q pre-scaled in f32 before the product. Tensor cores would
-//   change f32's arithmetic.
+// * tf32x3 (f32, any dh), the same layout on m16n8k8.tf32 with the
+//   backward's operand path (csrc/flash_ops.cuh): every f32 operand
+//   splits into tf32 hi + lo and each product is lo·hi + hi·lo + hi·hi
+//   (one TF32 product keeps 2^-11, which misses the f32 gate of 1e-4).
+//   The splits round to nearest (Tf32x3RnOps) where the backward's
+//   truncate: truncation meets the gate too, but it put the output 2-7
+//   times as far from f64 (root mean square) as the CUDA-core kernel's
+//   f32 FMAs, rounding 1-3.5 times (H100), and the f32 serving paths
+//   that read this output round LoRA intermediates to bf16 downstream,
+//   where a difference of 1e-6 can flip a rounding. Q stays in shared
+//   memory as f32 (row stride DH + 4, conflict-free scalar fragment
+//   loads, split at each load); K and V tiles come through a cp.async
+//   double buffer whose next tile is issued right after the tile's
+//   barrier. S = Q·K^T over DH / 8 k-steps; the online softmax in
+//   registers with quad shuffles (the scores scaled to log2 units
+//   first, so a warp whose keys in a tile are all masked for a row
+//   keeps finite values); P's C fragments are the A operand of P·V with
+//   V K-major and k permuted (mma.cuh), so P never leaves registers.
+//   Each 8-key step of P·V goes into fresh registers that an FADD adds
+//   to the accumulator (`accumulate`): the mma accumulator truncates,
+//   and S / 8 steps into it would drift toward zero, as the backward's
+//   did. Shared memory: Q and a double-buffered K/V in f32 fill the SM
+//   at DH 128 (169 KB, one block), so up to DH 128 each slab of 16
+//   query rows has two warps, each walking half of every key tile with
+//   its own (m, l, O), merged at the end in a fixed order
+//   (`merge_parts`); DH 256 walks 32-key tiles with one warp a slab.
+//   Loops over k unroll partly (F32Cfg::kUnroll, kUnrollPV), as in the
+//   backward. No atomics: the same bits every call, with or without the
+//   log-sum-exp.
+// * CUDA cores (bf16 with dh % 16 != 0): one block of 256 threads per
+//   (64 query rows, h, b) looping over 64-position key tiles staged as
+//   f32 in shared memory, each thread a 4 x 4 block of scores from
+//   16-byte shared-memory reads, row statistics by half-warp shuffles,
+//   probabilities through shared memory, V in K's buffer; q pre-scaled
+//   in f32 before the product.
 //
-// Both instances can also write each query row's log-sum-exp of the
+// Every instance can also write each query row's log-sum-exp of the
 // scaled, masked scores (m + log l of the online softmax, natural log,
 // f32, (B, H, S)) for the backward kernel (csrc/flash_attention_bwd.cu):
 // one f32 store a row when the caller passes the pointer, nothing when
@@ -57,6 +87,7 @@
 // Strides in elements are passed for the batch, sequence and head axes
 // of every tensor; the head_dim axis is contiguous.
 #include "common.cuh"
+#include "flash_ops.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -592,9 +623,11 @@ flash_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-bool aligned16(const void* p, Strides st) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && st.b % 8 == 0 &&
-         st.s % 8 == 0 && st.h % 8 == 0;
+// A 16-byte aligned base and strides that keep every row 16-byte
+// aligned: ch elements are 16 bytes.
+bool aligned16(const void* p, Strides st, long long ch) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && st.b % ch == 0 &&
+         st.s % ch == 0 && st.h % ch == 0;
 }
 
 template <int DH>
@@ -608,8 +641,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   // 16-byte copies need 16-byte aligned rows in every tensor.
-  const int vec = aligned16(q, qst) && aligned16(k, kst) &&
-                  aligned16(v, vst) && aligned16(out, ost);
+  const int vec = aligned16(q, qst, 8) && aligned16(k, kst, 8) &&
+                  aligned16(v, vst, 8) && aligned16(out, ost, 8);
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)dh);
   const dim3 grid((S + kTile - 1) / kTile, H, B);
   kernel<<<grid, kTcThreads, smem, stream>>>(
@@ -619,20 +652,282 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------- tf32x3 instance
+// Tile sizes of the tf32x3 instance at width DH (see the note at the
+// top).
+template <int DH>
+struct F32Cfg {
+  using Op = flash::Tf32x3RnOps;
+  static constexpr int LD = DH + Op::kPad;
+  // Keys a tile: Q plus the double-buffered K and V fit 227 KB.
+  static constexpr int BK = DH < 256 ? 64 : 32;
+  // Warps a slab of 16 query rows, each walking BK / kSplit keys of
+  // every tile: two up to DH 128, where one block fills the SM and 4
+  // warps would leave each scheduler one warp to hide latencies with.
+  static constexpr int kSplit = DH <= 128 ? 2 : 1;
+  static constexpr int kThreads = 128 * kSplit;
+  static constexpr int NT = BK / 8 / kSplit;   // n-tiles of a warp's keys
+  // Unrolling of the k loops of S = Q K^T: by 8 at DH <= 64, 4 at 128,
+  // 1 at 256 (as the backward's: more hoisted the next steps' loads and
+  // splits into spills there); of P·V's 8-key steps from DH 128 not at
+  // all, which leaves DH 128 without spills at the same speed (H100).
+  static constexpr int kUnroll = DH <= 64 ? 8 : DH <= 128 ? 4 : 1;
+  static constexpr int kUnrollPV = DH < 128 ? kUnroll : 1;
+  static constexpr size_t smem() {
+    return (size_t)(kTile + 4 * BK) * LD * sizeof(float);
+  }
+};
+
+// s[NT] = A · B^T over DH: A 16 row-major rows of this warp, B an
+// N-major tile of NT * 8 rows.
+template <class Op, int DH, int LD, int NT, int UNROLL>
+__device__ __forceinline__ void score_tile(float (&s)[NT][4],
+                                           const typename Op::E* a,
+                                           const typename Op::E* b,
+                                           int lane) {
+  flash::zero(s);
+#pragma unroll(UNROLL)
+  for (int kk = 0; kk < DH / Op::KS; ++kk) {
+    flash::AFrag fa;
+    Op::load_a(fa, a, LD, kk * Op::KS, lane);
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) {
+      flash::BFrag x[2];
+      Op::load_b_n(x, b, LD, 16 * j, kk * Op::KS, lane);
+      Op::mma_exact(s[2 * j], fa, x[0]);
+      Op::mma_exact(s[2 * j + 1], fa, x[1]);
+    }
+  }
+}
+
+// Max of row half hh (rows g and g + 8 of the C fragments) over this
+// thread's NT * 2 values, then over the quad.
+template <int NT>
+__device__ __forceinline__ float quad_row_max(const float (&s)[NT][4],
+                                              int hh) {
+  float v = fmaxf(s[0][2 * hh], s[0][2 * hh + 1]);
+#pragma unroll
+  for (int j = 1; j < NT; ++j)
+    v = fmaxf(v, fmaxf(s[j][2 * hh], s[j][2 * hh + 1]));
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+// The online-softmax state (m, l, O) of the warps of part 1 merged into
+// that of part 0 of the same slab through shared memory (`buf`, 4 * (NC
+// * 4 + 4) * 32 floats), in fragment order: conflict-free, and one fixed
+// order of the two sums. m is the same over a quad, l is this thread's
+// partial sum.
+template <int NC>
+__device__ __forceinline__ void merge_parts(float (&o)[NC][4], float (&m)[2],
+                                            float (&l)[2], float* buf,
+                                            int slab, int part, int lane) {
+  float* b = buf + slab * (NC * 4 + 4) * 32 + lane;
+  if (part == 1) {
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) b[(n * 4 + e) * 32] = o[n][e];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      b[(NC * 4 + hh) * 32] = m[hh];
+      b[(NC * 4 + 2 + hh) * 32] = l[hh];
+    }
+  }
+  __syncthreads();
+  if (part == 0) {
+    float a0[2], a1[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float m1 = b[(NC * 4 + hh) * 32];
+      const float mn = fmaxf(m[hh], m1);
+      a0[hh] = tc::exp2_fast(m[hh] - mn);
+      a1[hh] = tc::exp2_fast(m1 - mn);
+      l[hh] = l[hh] * a0[hh] + b[(NC * 4 + 2 + hh) * 32] * a1[hh];
+      m[hh] = mn;
+    }
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[n][e] = o[n][e] * a0[e >> 1] + b[(n * 4 + e) * 32] * a1[e >> 1];
+  }
+}
+
+// DH: the instance width (32, 64, 128 or 256, from tc_width); the
+// kernel takes any dh <= DH with dh % 4 == 0.
+// The minimum of one block an SM is spelled out: without it ptxas gave
+// DH 64 fewer registers (146 against 230) and the kernel ran 13-19 %
+// slower (H100).
+template <int DH>
+__global__ void __launch_bounds__(F32Cfg<DH>::kThreads, 1)
+flash_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ out,
+             float* __restrict__ lse, int S, int G, int dh, Strides qst,
+             Strides kst, Strides vst, Strides ost, int causal,
+             float scale_log2, int vec) {
+  using C = F32Cfg<DH>;
+  using Op = typename C::Op;
+  constexpr int LD = C::LD, BK = C::BK, SP = C::kSplit;
+  constexpr int NTHR = C::kThreads, NT = C::NT, NC = DH / 8;
+  extern __shared__ float4 smem_f32[];
+  float* qs = reinterpret_cast<float*>(smem_f32);   // kTile x LD
+  float* kv = qs + kTile * LD;              // 2 x (K: BK rows, V: BK rows)
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int c2 = (lane & 3) * 2;
+  const int slab = warp % 4, part = SP > 1 ? warp / 4 : 0;  // rows; keys
+  const int koff = part * (BK / SP);
+  // Causal blocks take their key tiles up to the diagonal: the longest
+  // start first, so the short ones fill the last wave.
+  const int q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kTile;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const float* kb = k + b * kst.b + (h / G) * kst.h;
+  const float* vb = v + b * vst.b + (h / G) * vst.h;
+  const int q_last = min(q0 + kTile, S) - 1;
+  const int n_tiles = causal ? q_last / BK + 1 : (S + BK - 1) / BK;
+
+  if (dh < DH) flash::zero_pad<float, DH, LD, NTHR>(qs, kTile + 4 * BK, dh);
+  flash::copy_rows<float, DH, LD, kTile, NTHR>(
+      qs, q + b * qst.b + h * qst.h, qst.s, q0, S, dh, vec);
+  flash::copy_rows<float, DH, LD, BK, NTHR>(kv, kb, kst.s, 0, S, dh, vec);
+  flash::copy_rows<float, DH, LD, BK, NTHR>(kv + BK * LD, vb, vst.s, 0, S,
+                                            dh, vec);
+  tc::cp_async_commit();               // group: Q, K_0 and V_0
+
+  const int row_lo = q0 + slab * 16 + (lane >> 2);  // rows: +0, +8
+  const float* qw = qs + slab * 16 * LD;
+  float o[NC][4];
+  flash::zero(o);
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BK;
+    const float* ks = kv + (t & 1) * 2 * BK * LD;
+    const float* vs = ks + BK * LD;
+    // Tile t came during tile t - 1: one wait and one barrier a tile,
+    // which also frees tile t - 1's buffers for tile t + 1.
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    if (t + 1 < n_tiles) {
+      float* nk = kv + ((t + 1) & 1) * 2 * BK * LD;
+      flash::copy_rows<float, DH, LD, BK, NTHR>(nk, kb, kst.s, k0 + BK, S,
+                                                dh, vec);
+      flash::copy_rows<float, DH, LD, BK, NTHR>(nk + BK * LD, vb, vst.s,
+                                                k0 + BK, S, dh, vec);
+    }
+    tc::cp_async_commit();
+
+    // S = Q K^T for this warp's NT * 8 keys of the tile, masked (the
+    // diagonal and the ragged last tile only), then in log2 units of
+    // the scaled scores. Scaling before the max keeps p finite where
+    // all of a row's keys in this warp's half are masked: m is then the
+    // masked value itself and p is 1, a state that the next real score
+    // (or merge_parts) scales by 0.
+    float sc[NT][4];
+    score_tile<Op, DH, LD, NT, C::kUnroll>(sc, qw, ks + koff * LD, lane);
+    const bool mask = (causal && k0 + BK - 1 > q0) || k0 + BK > S;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (mask) {
+          const int kpos = k0 + koff + 8 * j + c2 + (e & 1);
+          if (kpos >= S)
+            sc[j][e] = -INFINITY;      // no such key: probability 0
+          else if (causal && kpos > row_lo + 8 * (e >> 1))
+            sc[j][e] = kNegInf;        // the Pallas kernel's mask value
+        }
+        sc[j][e] *= scale_log2;
+      }
+    float alpha[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float m_new = fmaxf(m[hh], quad_row_max(sc, hh));
+      alpha[hh] = tc::exp2_fast(m[hh] - m_new);
+      m[hh] = m_new;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[j][e] = tc::exp2_fast(sc[j][e] - m[e >> 1]);
+        sum[e >> 1] += sc[j][e];
+      }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * alpha[hh] + sum[hh];
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+    // O += P V: each 8-key step into fresh registers, added by FADD.
+    flash::accumulate<Op, LD, NT, NC, C::kUnrollPV>(o, sc, vs + koff * LD,
+                                                    0, lane);
+  }
+  if (SP > 1) {                        // the two halves' states, in K/V's
+    tc::cp_async_wait<0>();
+    __syncthreads();                   // every warp's last reads are done
+    merge_parts(o, m, l, kv, slab, part, lane);
+  }
+  if (part != 0) return;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    l[hh] = fmaxf(l[hh], 1e-30f);
+    // m is in log2 units of the scaled scores: lse = (m + log2 l) ln 2.
+    const int qpos = row_lo + 8 * hh;
+    if (lse != nullptr && c2 == 0 && qpos < S)
+      lse[((long long)b * gridDim.y + h) * S + qpos] =
+          (m[hh] + log2f(l[hh])) * 0.6931471805599453f;
+  }
+#pragma unroll
+  for (int n = 0; n < NC; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] /= l[e >> 1];
+  flash::store_rows(out + b * ost.b + h * ost.h, ost.s, q0 + slab * 16, 0,
+                    S, dh, o, 1.f, vec);
+}
+
+template <int DH>
+int launch_tf32x3(const float* q, const float* k, const float* v,
+                  float* out, float* lse, int B, int S, int H, int G,
+                  int dh, Strides qst, Strides kst, Strides vst,
+                  Strides ost, int causal, cudaStream_t stream) {
+  using C = F32Cfg<DH>;
+  auto kernel = flash_tf32x3<DH>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::smem());
+  if (err != cudaSuccess) return (int)err;
+  // 16-byte copies and paired stores need 16-byte aligned rows.
+  const int vec = aligned16(q, qst, 4) && aligned16(k, kst, 4) &&
+                  aligned16(v, vst, 4) && aligned16(out, ost, 4);
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)dh);
+  const dim3 grid((S + kTile - 1) / kTile, H, B);
+  kernel<<<grid, C::kThreads, C::smem(), stream>>>(
+      q, k, v, out, lse, S, G, dh, qst, kst, vst, ost, causal, scale_log2,
+      vec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// The instances, as the wrapper's flash_instance names them.
+enum Instance : int { kCudaCores = 0, kTensorCores = 1, kTf32x3 = 2 };
+
 // Strides are in elements; the head_dim axis of every tensor is
-// contiguous and dh is a multiple of 4. tensor_cores = 1 takes the
-// tensor-core instance, 0 the CUDA-core one: the wrapper's
-// flash_instance owns that rule (bf16 with dh % 16 == 0). lse, when not
-// null, receives each row's log-sum-exp (f32, B * H * S contiguous).
-// Returns the CUDA error code of the launch.
+// contiguous and dh is a multiple of 4. `instance` takes kTensorCores
+// (bf16, dh % 16 == 0), kTf32x3 (f32) or kCudaCores (bf16, any other
+// dh): the wrapper's flash_instance owns that rule, and a dtype the
+// instance does not take is refused. lse, when not null, receives each
+// row's log-sum-exp (f32, B * H * S contiguous). Returns the CUDA error
+// code of the launch.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int B, int S,
     int H, int Kh, int dh, long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh, long long vsb,
     long long vss, long long vsh, long long osb, long long oss,
-    long long osh, int causal, int dtype, int tensor_cores, void* lse_out,
+    long long osh, int causal, int dtype, int instance, void* lse_out,
     void* stream) {
   if (B < 1 || S < 1 || H < 1 || Kh < 1 || H % Kh || dh < 4 || dh > 256 ||
       dh % 4 || B > 65535 || H > 65535)
@@ -642,7 +937,7 @@ extern "C" int flash_attention_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lse = static_cast<float*>(lse_out);
   const int G = H / Kh;
-  if (tensor_cores) {
+  if (instance == kTensorCores && dtype == DTYPE_BF16 && dh % 16 == 0) {
     switch (tc_width(dh)) {
       case 32:
         return launch_tc<32>(q, k, v, out, lse, B, S, H, G, dh, qst, kst,
@@ -658,10 +953,27 @@ extern "C" int flash_attention_launch(
                               vst, ost, causal, st);
     }
   }
-  if (dtype == DTYPE_F32)
-    return launch_dh<float>(q, k, v, out, lse, B, S, H, G, dh, qst, kst, vst,
-                            ost, causal, st);
-  if (dtype == DTYPE_BF16)
+  if (instance == kTf32x3 && dtype == DTYPE_F32) {
+    const float *qf = static_cast<const float*>(q),
+                *kf = static_cast<const float*>(k),
+                *vf = static_cast<const float*>(v);
+    float* of = static_cast<float*>(out);
+    switch (tc_width(dh)) {
+      case 32:
+        return launch_tf32x3<32>(qf, kf, vf, of, lse, B, S, H, G, dh, qst,
+                                 kst, vst, ost, causal, st);
+      case 64:
+        return launch_tf32x3<64>(qf, kf, vf, of, lse, B, S, H, G, dh, qst,
+                                 kst, vst, ost, causal, st);
+      case 128:
+        return launch_tf32x3<128>(qf, kf, vf, of, lse, B, S, H, G, dh, qst,
+                                  kst, vst, ost, causal, st);
+      default:
+        return launch_tf32x3<256>(qf, kf, vf, of, lse, B, S, H, G, dh, qst,
+                                  kst, vst, ost, causal, st);
+    }
+  }
+  if (instance == kCudaCores && dtype == DTYPE_BF16)
     return launch_dh<__nv_bfloat16>(q, k, v, out, lse, B, S, H, G, dh, qst,
                                     kst, vst, ost, causal, st);
   return (int)cudaErrorInvalidValue;
@@ -671,4 +983,18 @@ extern "C" int flash_attention_launch(
 // bytes.
 extern "C" int flash_attention_tc_smem_bytes(int dh) {
   return (int)tc_smem_bytes(tc_width(dh));
+}
+
+// The same of the tf32x3 instance.
+extern "C" int flash_attention_tf32x3_smem_bytes(int dh) {
+  switch (tc_width(dh)) {
+    case 32:
+      return (int)F32Cfg<32>::smem();
+    case 64:
+      return (int)F32Cfg<64>::smem();
+    case 128:
+      return (int)F32Cfg<128>::smem();
+    default:
+      return (int)F32Cfg<256>::smem();
+  }
 }

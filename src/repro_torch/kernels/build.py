@@ -40,8 +40,8 @@ _LOCK = threading.Lock()
 
 
 # Kernel instances of sgmv and flash_attention, chosen by dtype and shape;
-# the flash backward's f32 instance runs each f32 product as three TF32
-# tensor-core products.
+# the f32 instance of flash_attention and of its backward runs each f32
+# product as three TF32 tensor-core products.
 TENSOR_CORES = "tensor_cores"
 CUDA_CORES = "cuda_cores"
 TF32X3 = "tf32x3"
@@ -50,9 +50,9 @@ TF32X3 = "tf32x3"
 class KernelStats:
     """Per-kernel counters: ``launches`` counts CUDA launches (added to
     only right after a successful launch), ``instances`` the same per
-    kernel instance (sgmv, flash_attention and its backward have two,
-    the other kernels one), ``plain`` counts calls the wrapper served with its
-    plain PyTorch version (CPU tensors)."""
+    kernel instance (flash_attention has three, sgmv and the flash
+    backward two, the other kernels one), ``plain`` counts calls the
+    wrapper served with its plain PyTorch version (CPU tensors)."""
 
     def __init__(self) -> None:
         self.reset()

@@ -18,23 +18,28 @@ block per (64 query rows, h, b) walks its 64-position key tiles in a
 loop with the state in registers, stops at the diagonal when causal,
 and masks the ragged query rows and key columns itself, so any S works
 (the engine's prefill buckets start at 8 positions; the Pallas kernel
-needs S % 128 == 0). Two instances, picked by ``flash_instance`` from
-dtype and head_dim alone:
+needs S % 128 == 0). Three instances, picked by ``flash_instance``
+from dtype and head_dim alone:
 
 - ``tensor_cores`` for bf16 with dh % 16 == 0 (the dense prefill at
   full width): both products on mma.sync, K/V through a cp.async double
   buffer, and the probabilities split into two bf16 parts (hi + lo) for
   P·V, so P keeps f32 accuracy as in the Pallas kernel.
-- ``cuda_cores`` for f32, and for bf16 with dh % 16 != 0: f32 FMAs
-  from 16-byte shared-memory reads. Tensor cores would change f32's
-  arithmetic.
+- ``tf32x3`` for f32, any dh (the f32 train step and the f32 models):
+  the same layout on TF32 mma.sync, every f32 product as three TF32
+  products (lo·hi + hi·lo + hi·hi, as the backward's ``tf32x3``, but
+  with each operand split to nearest rather than truncated), each 8-key
+  step of P·V added to the accumulator through fresh registers.
+- ``cuda_cores`` for bf16 with dh % 16 != 0: f32 FMAs from 16-byte
+  shared-memory reads.
 
-``STATS.instances`` counts the launches of each.
+``STATS.instances`` counts the launches of each. A CUDA tensor launches
+its instance or raises; nothing falls back to the plain version.
 ``flash_attention_plain`` is the function the kernel computes, in
 plain PyTorch: the port's ``gqa_attention``, which the JAX package's
 oracle also is; the wrapper uses it only for CPU tensors.
 
-Both instances can also return each query row's log-sum-exp of the
+Every instance can also return each query row's log-sum-exp of the
 scaled, masked scores (``return_lse=True``; f32, (B, H, S)), which the
 backward reads instead of rebuilding it; ``flash_attention_lse_plain``
 is its plain version (``torch.logsumexp``).
@@ -73,21 +78,24 @@ BWD_STATS = KernelStats()
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
              + [ctypes.c_void_p] * 2)
+# The instance codes of csrc/flash_attention.cu's ``Instance``.
+_INSTANCE_CODES = {CUDA_CORES: 0, TENSOR_CORES: 1, TF32X3: 2}
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                  + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 2
                  + [ctypes.c_void_p])
 
 
 def flash_instance(dtype: torch.dtype, dh: int) -> str:
-    """The kernel instance a CUDA call launches: ``tensor_cores`` for
-    bf16 with dh a multiple of 16, else ``cuda_cores``. Raises for a dh
-    neither takes (above 256 or not a multiple of 4)."""
+    """The kernel instance a CUDA call launches: for bf16
+    ``tensor_cores`` with dh a multiple of 16, else ``cuda_cores``; for
+    f32 ``tf32x3`` at every dh. Raises for a dh none takes (above 256 or
+    not a multiple of 4)."""
     if dh > MAX_DH or dh < 4 or dh % 4:
         raise ValueError(f"flash_attention supports dh <= {MAX_DH} a "
                          f"multiple of 4, got {dh}")
-    if dtype == torch.bfloat16 and dh % 16 == 0:
-        return TENSOR_CORES
-    return CUDA_CORES
+    if dtype == torch.bfloat16:
+        return TENSOR_CORES if dh % 16 == 0 else CUDA_CORES
+    return TF32X3
 
 
 def flash_bwd_instance(dtype: torch.dtype, dh: int) -> str:
@@ -183,7 +191,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
-        Kh, dh, *strides, int(causal), code, int(inst == TENSOR_CORES),
+        Kh, dh, *strides, int(causal), code, _INSTANCE_CODES[inst],
         lse.data_ptr() if return_lse else None, stream_handle(q.device))
     check_launch("flash_attention", err)
     STATS.launched(inst)

@@ -1,12 +1,14 @@
-"""The flash_attention backward's tolerance and a plain-torch emulation
-of its kernel's arithmetic, shared by ``tests/test_torch_flash_bwd.py``
+"""The flash_attention backward's tolerance and plain-torch emulations
+of the flash kernels' arithmetic, shared by
+``tests/test_torch_flash_bwd.py`` and ``tests/test_torch_flash.py``
 (CPU) and ``tests/test_torch_cuda.py`` (card).
 
-``flash_bwd_tol`` is the gate ``chip_smoke.py`` holds the kernel to
-(``flash_bwd_allowance``). ``emulate_bwd`` computes the gradient with
-the kernel's rounding of each operand and f32 accumulation, but over
-whole (S, S) matrices rather than tiles: it checks the precision design
-(which operands are split, and how), not the order of the sums.
+``flash_bwd_tol`` is the gate ``chip_smoke.py`` holds the backward
+kernel to (``flash_bwd_allowance``). ``emulate_bwd`` computes the
+gradient, and ``emulate_fwd`` the forward's output and log-sum-exp,
+with the kernel's rounding of each operand and f32 accumulation, but
+over whole (S, S) matrices rather than tiles: they check the precision
+design (which operands are split, and how), not the order of the sums.
 """
 import importlib
 
@@ -43,6 +45,14 @@ def round_tf32(x: torch.Tensor) -> torch.Tensor:
     return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
 
 
+def round_tf32_rn(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> tf32 to nearest, ties away from zero, as the forward
+    kernel's ``split_tf32_rn``: add half a tf32 ulp (0x1000) to the
+    bits, then mask the 13 low mantissa bits."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(
+        torch.float32)
+
+
 def round_bf16(x: torch.Tensor) -> torch.Tensor:
     """f32 -> bf16 values (kept in f32), round to nearest even, as
     ``__floats2bfloat162_rn``: add 0x7FFF plus the lowest kept bit,
@@ -61,14 +71,16 @@ def product(a: torch.Tensor, b: torch.Tensor, mode: str,
             split_a: bool) -> torch.Tensor:
     """a @ b (batched, f32) with the kernel's operand rounding: "tf32x3"
     splits both into tf32 hi + lo (each truncated, as the card reads
-    them) and adds lo·hi + hi·lo + hi·hi; "tf32" one TF32 product;
+    them) and adds lo·hi + hi·lo + hi·hi; "tf32x3_rn" the same with
+    both parts rounded to nearest; "tf32" one TF32 product;
     "bf16" splits a into bf16 hi + lo when ``split_a`` (P, dS), b being
     exact bf16; "bf16_once" rounds a split
     operand once to bf16. Each partial product is an f32 matmul: exact
     products (tf32 x tf32 and bf16 x bf16 fit in f32), f32 sums."""
-    if mode == "tf32x3":
-        ah, al = _split(a, round_tf32)
-        bh, bl = _split(b, round_tf32)
+    if mode in ("tf32x3", "tf32x3_rn"):
+        rnd = round_tf32 if mode == "tf32x3" else round_tf32_rn
+        ah, al = _split(a, rnd)
+        bh, bl = _split(b, rnd)
         return al @ bh + ah @ bl + ah @ bh
     if mode == "tf32":
         return round_tf32(a) @ round_tf32(b)
@@ -105,3 +117,27 @@ def emulate_bwd(q, k, v, out, dout, lse, causal, mode):
     dv = product(p.transpose(-1, -2), dh_o, mode, True)
     dk, dv = (t.reshape(B, Kh, G, S, dh).sum(2) for t in (dk, dv))
     return tuple(t.permute(0, 2, 1, 3) for t in (dq, dk, dv))
+
+
+def emulate_fwd(q, k, v, causal, mode):
+    """(out, lse) in f32 as the forward kernel forms them from q, k, v
+    (f32 tensors): S = q k^T by ``product`` (both operands split in
+    the 3xTF32 modes; the kernel's is "tf32x3_rn"), causal positions at
+    -1e30, scaled by dh^-0.5, P = exp(S -
+    max) over the row, l = sum P, out = (P v) / l with P and v split
+    (the kernel's P·V takes P's fragments as its A operand), lse = max +
+    log l. -> out (B, S, H, dh), lse (B, H, S)."""
+    B, S, H, dh = q.shape
+    G = H // k.shape[2]
+    qh = q.permute(0, 2, 1, 3)
+    kh, vh = (t.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+              for t in (k, v))
+    s = product(qh, kh.transpose(-1, -2), mode, False)
+    if causal:
+        s = s.masked_fill(torch.ones(S, S, dtype=torch.bool).triu(1), -1e30)
+    s = s * dh ** -0.5
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    den = p.sum(-1, keepdim=True)
+    out = product(p, vh, mode, True) / den
+    return out.permute(0, 2, 1, 3), (m + torch.log(den))[..., 0]

@@ -28,12 +28,16 @@ exported from one card engine and imported into another (paged and
 dense, and with the source's pipelined horizon in flight); migration
 payloads are pinned host copies within 1e-4 of the CPU's.
 
-sgmv and flash_attention each have two instances, chosen from dtype and
+sgmv has two instances and flash_attention three, chosen from dtype and
 shape alone (``sgmv_instance``, ``flash_instance``): every case asserts
 which one launched, tensor cores for bf16 (flash: dh % 16 == 0), CUDA
-cores for f32 and for bf16 flash at dh 36. The bf16 flash cases also
-hold the kernel to one bf16 ulp of the all-f32 plain version rounded
-once, the accuracy the split of P into two bf16 parts is there to keep.
+cores for f32 sgmv and for bf16 flash at dh 36, ``tf32x3`` (three TF32
+products an f32 product) for f32 flash at every dh. The f32 flash
+forward also gives the same bits twice and with and without its
+log-sum-exp, at ragged S and at qwen3-moe's G 16 over S 2048. The bf16
+flash cases also hold the kernel to one bf16 ulp of the all-f32 plain
+version rounded once, the accuracy the split of P into two bf16 parts
+is there to keep.
 
 paged_attention splits each row's pages over a thread-block cluster:
 rows of length 0 (every page fully masked), P * page and at and past a
@@ -385,8 +389,9 @@ def test_flash_attention_matches_plain(card, B, S, H, Kh, dh, causal, dt):
 
 
 def flash_instance(dt, dh):
-    return ("tensor_cores" if dt == "bf16" and dh % 16 == 0
-            else "cuda_cores")
+    if dt == "f32":
+        return "tf32x3"
+    return "tensor_cores" if dh % 16 == 0 else "cuda_cores"
 
 
 def check_flash(got, q, k, v, causal):
@@ -434,6 +439,34 @@ def test_flash_attention_bf16_dh36_takes_cuda_cores(card, causal):
     check_flash(got, q, k, v, causal)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,Kh,dh", [
+    (2, 5, 4, 2, 128), (1, 100, 8, 1, 64), (2, 1000, 4, 4, 32),
+    (1, 77, 6, 3, 36), (1, 130, 4, 2, 256), (2, 65, 4, 4, 80),
+    (1, 2048, 16, 1, 128)])
+def test_flash_attention_tf32x3_forward(card, B, S, H, Kh, dh, causal):
+    """The f32 forward launches ``tf32x3`` only, no plain version, and
+    meets the f32 gate (1e-4 abs+rel) at ragged S, every instance width,
+    and at (1, 2048) with G 16 (qwen3-moe's 64/4 heads), where P·V walks
+    256 k-steps; a second call and the call with the log-sum-exp give
+    the same bits."""
+    gen = torch.Generator().manual_seed(S + dh)
+    q = randn(gen, (B, S, H, dh), torch.float32, card)
+    k = randn(gen, (B, S, Kh, dh), torch.float32, card)
+    v = randn(gen, (B, S, Kh, dh), torch.float32, card)
+    fa_mod.STATS.reset()
+    got = fa_mod.flash_attention(q, k, v, causal)
+    again = fa_mod.flash_attention(q, k, v, causal)
+    out, lse = fa_mod.flash_attention(q, k, v, causal, return_lse=True)
+    torch.cuda.synchronize()
+    assert fa_mod.STATS.instances == {"tf32x3": 3}
+    assert fa_mod.STATS.plain == 0
+    assert torch.equal(got, again) and torch.equal(got, out)
+    check_flash(got, q, k, v, causal)
+    torch.testing.assert_close(lse, fa_mod.flash_attention_lse_plain(
+        q, k, causal), rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("pad", [0, 4])
 def test_flash_attention_tensor_cores_reads_strided_views(card, pad):
     """bf16 q/k/v as (B, H, S, dh + pad) tensors viewed as (B, S, H, dh):
@@ -448,6 +481,22 @@ def test_flash_attention_tensor_cores_reads_strided_views(card, pad):
                                   v.contiguous())
     torch.cuda.synchronize()
     assert fa_mod.STATS.instances == {"tensor_cores": 2}
+    assert torch.equal(got, want)
+
+
+def test_flash_attention_tf32x3_reads_unaligned_views(card):
+    """f32 q/k/v as (B, H, S, dh + 2) tensors viewed as (B, S, H, dh):
+    rows 8 bytes apart from 16-byte alignment take the element copies,
+    same bits as contiguous copies."""
+    gen = torch.Generator().manual_seed(13)
+    q, k, v = (randn(gen, (2, h, 70, 66), torch.float32, card)
+               [..., 2:].transpose(1, 2) for h in (4, 2, 2))
+    fa_mod.STATS.reset()
+    got = fa_mod.flash_attention(q, k, v)
+    want = fa_mod.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous())
+    torch.cuda.synchronize()
+    assert fa_mod.STATS.instances == {"tf32x3": 2}
     assert torch.equal(got, want)
 
 
@@ -1317,7 +1366,7 @@ def test_flash_attention_bwd_without_lse_runs_the_forward(card):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dh", [36, 64, 128])
 def test_flash_attention_forward_lse_matches_plain(card, dh, causal, dt):
-    """Both forward instances' log-sum-exp against
+    """Every forward instance's log-sum-exp against
     ``flash_attention_lse_plain`` on the same values (1e-5 abs+rel; the
     scores and sums are f32 on both sides), and the output is the same
     bits with and without it."""

@@ -166,7 +166,7 @@ def _imported_names(tree):
 @pytest.mark.parametrize("path", [
     "chip_smoke.py", "chip_profile.py", "chip_prefill.py",
     "chip_f32_agreement.py", "chip_mesh.py", "chip_flash_bwd.py",
-    "examples/torch_long_context_ssm.py",
+    "chip_flash_fwd.py", "examples/torch_long_context_ssm.py",
     "examples/torch_train_with_recovery.py",
     *sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))])
 def test_no_jax_or_reference_import_in_source(path):
@@ -187,6 +187,15 @@ def test_chip_smoke_fails_without_a_gpu(monkeypatch, tmp_path):
             env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
         assert out.returncode != 0
         assert '"ok": true' not in out.stdout
+
+
+def test_chip_flash_fwd_fails_without_a_gpu():
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "chip_flash_fwd.py")],
+        capture_output=True, text=True, timeout=120, cwd=ROOT,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert "err_vs_f64" not in out.stdout
 
 
 def test_chip_prefill_fails_without_a_gpu():
