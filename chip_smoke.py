@@ -38,11 +38,24 @@ of the JAX package. Phases, one JSON line each:
              pages under a length mask as its library time. sgmv is
              also checked and timed at the speculative verify pass's
              shape (x (64, 4096): 8 rows of one tile of 8 tokens, dout
-             4096 and 1024) on ``kernel_time_verify`` lines.
+             4096 and 1024) on ``kernel_time_verify`` lines. The two
+             instances no engine at full width runs are timed on
+             ``kernel_time_instance`` lines: sgmv's ``cuda_cores`` at
+             the bf16 row's shape with x in f32 (A/B bf16; gathered
+             ``bmm`` x2 in f32 as library), and flash_attention's
+             bf16 ``cuda_cores`` at dh 88 (BLIP-2's ViT-g head width,
+             a kernel shape only: no config here has a head width
+             that is not a multiple of 16), first checked at ragged S
+             (5, 100, 1000; 32/32 and 32/8 heads, causal and full) and
+             at (8, 256, 32, 88) causal, then timed there
+             beside SDPA, with the bound at the bf16 peak and at the
+             f32 CUDA-core peak.
 3. parity  — reduced Llama in f32, the card (kernels) against the CPU
              (plain versions) on the same weights: ``prefill_paged``
              and one ``decode_step_paged``; the dense ``prefill``, the
-             K/V slab it fills and one ``decode_step`` over the slab.
+             K/V slab it fills and one ``decode_step`` over the slab
+             (the f32 LoRA launches sgmv's ``cuda_cores`` instance
+             only; its launches are on the ``parity`` line).
              Then two engine cases, each served on the card and on the
              CPU port with the same weights and trace
              (``parity_engine``): a chunked-prefill engine (chunk 8),
@@ -133,6 +146,25 @@ of the JAX package. Phases, one JSON line each:
              step (``mesh_engine``: tokens must be identical; ms a step,
              peak memory, shard gauges). Each run's kernel launches are
              counted from zero and every kernel of its path must launch.
+   examples — the port's serving examples on the same weights
+             (``phase_examples``), one ``example`` line a run, each
+             through its ``main`` with the weights handed over and freed
+             after: ``examples/torch_quickstart.py`` (streaming, seeded
+             sampling, a cancel), ``torch_serve_manyadapter.py`` in its
+             three modes (the DES head-to-head, ``--engine``,
+             ``--cluster``: two replicas sharing the weights),
+             ``torch_disagg_cluster.py`` (three replicas, a KV handoff,
+             a cancel during it) and ``torch_gateway_multitenant.py``
+             (admission over the DES node). Each example asserts its
+             own contract and, on the card, that bgmv, sgmv and
+             paged_attention launched in its served run (counts zeroed
+             after any warm-up) with no plain version and no einsum
+             LoRA (the default ``EngineConfig``'s prefix cache
+             sends prefill through the suffix path: flash_attention is
+             not on it); each line carries seconds, requests finished
+             and cancelled, TTFT p50/p99 (engine clock), cache hits,
+             misses and evictions, handoffs and GB shipped, launches
+             and peak memory, gated at the fused peak + 8 GB.
    engine  — (MoE) with Llama's weights freed (under 1 GB may stay
              allocated): ``qwen3-moe-235b-a22b`` at its published widths
              cut to 8 layers (42.3 GB of seeded bf16 weights drawn on
@@ -286,7 +318,8 @@ of the JAX package. Phases, one JSON line each:
              prefill's state in the layout of ``kv_cache_spec``,
              ``ssm_state_spec`` and ``conv_state_spec``, each kernel
              launched the counted number of times (counts zeroed just
-             before each mesh's run), no plain version; whether (1, 1)
+             before each mesh's run; sgmv's by instance on the line),
+             no plain version; whether (1, 1)
              is bit-identical is reported. Then in bf16 ms a prefill
              call, ms a decode step and peak memory unsharded, at
              (1, 1), at (2, 2) and at the whole-head mesh.
@@ -321,10 +354,11 @@ of the JAX package. Phases, one JSON line each:
              the unsharded case's, logits within 1e-4 relative, the
              state in the rule table's layout, flash_attention, sgmv
              and bgmv launched as often as the unsharded case a batch
-             row (the whole column's; none on the others) and no plain
-             version; ms a prefill, ms a decode step and peak memory
-             beside the unsharded case's. Then one train step under
-             the published remat on (4, 512) (``uneven_train``, as
+             row (the whole column's; none on the others; sgmv's by
+             instance on the line) and no plain version; ms a
+             prefill, ms a decode step and peak memory beside the
+             unsharded case's. Then one train step under the
+             published remat on (4, 512) (``uneven_train``, as
              phase 8's ``train_mesh``): loss and grad norm within
              1e-4, params within lr, moments within 1e-4 of the
              unsharded step, flash forward and backward launched on
@@ -592,6 +626,8 @@ def phase_kernels() -> dict:
                sgmv.sgmv_plain(x, A, Bw, ts, tile), "lora_bf16",
                instance=launched(sgmv, sgmv.sgmv_instance(
                    xdt, A.dtype, r, tile)))
+        if xdt == torch.float32:
+            sgmv_cuda_cores_time(flush, sgmv, x, A, Bw, ts, tile, r)
     x = x_sgmv = randn(T, d, dtype=torch.bfloat16)
     ms = median_ms(lambda: sgmv.sgmv(x, A, Bw, ts, tile), flush)
     plain = median_ms(lambda: sgmv.sgmv_plain(x, A, Bw, ts, tile), flush)
@@ -705,6 +741,39 @@ def phase_kernels() -> dict:
     return rows, calls
 
 
+def sgmv_cuda_cores_time(flush, sgmv, x, A, Bw, ts, tile, r) -> None:
+    """sgmv's ``cuda_cores`` instance (any f32 operand; here x f32, A/B
+    bf16) timed at the bf16 row's shape, just checked by the caller:
+    one ``kernel_time_instance`` line with its bound (bytes at the HBM
+    rate, operations at the f32 CUDA-core peak), its plain version and
+    two gathered ``bmm``s in f32 (A and B cast outside the timed
+    call)."""
+    import torch
+    T, d = x.shape
+    inst = sgmv.sgmv_instance(x.dtype, A.dtype, r, tile)
+    check(inst == "cuda_cores", f"sgmv x f32 selects {inst}")
+    xt = x.view(T // tile, tile, d)
+    A32, B32 = A.float(), Bw.float()
+    used = ts.unique().numel()
+    b, by = bound_ms(nbytes(x, ts) + used * nbytes(A[0], Bw[0])
+                     + T * Bw.shape[-1] * x.element_size(),
+                     2 * T * r * (d + Bw.shape[-1]), op_type(x, A))
+    sgmv.STATS.reset()
+    ms = median_ms(lambda: sgmv.sgmv(x, A, Bw, ts, tile), flush)
+    timed = dict(sgmv.STATS.instances)
+    check(set(timed) == {inst}, f"sgmv timed launches {timed}")
+    emit(dict(phase="kernel_time_instance", kernel="sgmv", instance=inst,
+              shape=f"x {tuple(x.shape)} f32, A/B bf16, r {r}, tile "
+                    f"{tile}, {A.shape[0]} slots",
+              ms=ms,
+              plain_ms=median_ms(lambda: sgmv.sgmv_plain(x, A, Bw, ts,
+                                                         tile), flush),
+              bound_ms=b, bound_by=by,
+              library_ms=median_ms(lambda: torch.bmm(
+                  torch.bmm(xt, A32[ts.long()]), B32[ts.long()]), flush),
+              library="gathered bmm x2 in f32"))
+
+
 def sgmv_verify_shape(record, randn, flush, sgmv, A, n_slots, d, r):
     """sgmv at the speculative verify pass's shape: 8 rows of S 8 (a
     verify of kk + 1 <= 5 tokens pads each row to one tile of 8), tile
@@ -757,13 +826,100 @@ def launched(mod, want: str) -> str:
     return want
 
 
-def flash_bound(q, k, v, causal: bool) -> tuple:
+def flash_bound(q, k, v, causal: bool, op: str | None = None) -> tuple:
     """Bytes of q, k, v and the output once; 4 * dh operations per
-    (query head, query, key) pair the mask keeps."""
+    (query head, query, key) pair the mask keeps, at the peak of the
+    operands' type or of ``op``."""
     B, S, H, dh = q.shape
     pairs = S * (S + 1) // 2 if causal else S * S
     return bound_ms(nbytes(q, k, v) + nbytes(q), 4 * B * H * dh * pairs,
-                    op_type(q, k, v))
+                    op or op_type(q, k, v))
+
+
+def flash_case(record, randn, fa, B, S, H, Kh, dh, dt, causal) -> None:
+    """One flash_attention case on fresh operands against its plain
+    version: the instance that launched must be the one dtype and dh
+    select, and a bf16 output must also be within one ulp of the all-f32
+    plain version rounded once."""
+    import torch
+    tname = "f32" if dt == torch.float32 else "bf16"
+    q = randn(B, S, H, dh, dtype=dt)
+    k = randn(B, S, Kh, dh, dtype=dt)
+    v = randn(B, S, Kh, dh, dtype=dt)
+    fa.STATS.reset()
+    got = fa.flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_plain(q, k, v, causal)
+    extra = None
+    info = dict(instance=launched(fa, fa.flash_instance(dt, dh)))
+    if dt == torch.bfloat16:
+        extra = FLASH_P_ROUNDING * fa.flash_attention_plain(
+            q.float(), k.float(), v.float().abs(), causal)
+        # Why the extra term: without it the plain version fails one
+        # ulp; the all-f32 plain version, rounded once, holds the kernel
+        # to it.
+        atol, rtol = TOL["bf16_out"]
+        diff = (got.float() - want.float()).abs()
+        w32 = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                       causal).to(dt)
+        d32 = (got.float() - w32.float()).abs()
+        info.update(
+            one_ulp_ok=bool((diff <= atol + rtol * want.float().abs())
+                            .all()),
+            max_abs_err_vs_f32_plain=d32.max().item(),
+            one_ulp_ok_vs_f32_plain=bool(
+                (d32 <= atol + rtol * w32.float().abs()).all()))
+    record("flash_attention",
+           f"{'causal' if causal else 'full'}, H {H}/Kh {Kh}, {tname}, "
+           f"B {B}, S {S}" + ("" if dh == 128 else f", dh {dh}"), got,
+           want, "f32" if tname == "f32" else "bf16_out", extra, **info)
+    check(info.get("one_ulp_ok_vs_f32_plain", True),
+          f"flash_attention [{H}/{Kh}, S {S}, dh {dh}] is more than one "
+          f"bf16 ulp from the all-f32 plain version")
+
+
+#: flash_attention's bf16 ``cuda_cores`` instance runs at a head width
+#: that is not a multiple of 16; no config here has one. 88 is the head
+#: width of BLIP-2's ViT-g vision encoder (hf: Salesforce/blip2-opt-2.7b,
+#: vision hidden 1408, 16 heads), named as a kernel shape only. (phi-2's
+#: 80 is 5 * 16: it runs the ``tensor_cores`` instance.)
+FLASH_CUDA_CORES_DH = 88
+
+
+def flash_cuda_cores(record, randn, flush, fa) -> None:
+    """The bf16 ``cuda_cores`` instance at dh 88: checked against its
+    plain version at ragged S (5, 100, 1000), MHA 32/32 and GQA 32/8,
+    causal and full, and at (8, 256, 32, 88) causal; then timed there
+    beside its plain version and SDPA, with the bound at the bf16 peak
+    (the operands' type) and at the f32 CUDA-core peak beside it (one
+    ``kernel_time_instance`` line)."""
+    import torch
+    import torch.nn.functional as F
+    dh, dt = FLASH_CUDA_CORES_DH, torch.bfloat16
+    for causal in (True, False):
+        for H, Kh in ((32, 32), (32, 8)):
+            for S in (5, 100, 1000):
+                flash_case(record, randn, fa, 2, S, H, Kh, dh, dt, causal)
+    B, S, H = 8, 256, 32
+    flash_case(record, randn, fa, B, S, H, H, dh, dt, True)
+    q, k, v = (randn(B, S, H, dh, dtype=dt) for _ in range(3))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    inst = fa.flash_instance(dt, dh)
+    fa.STATS.reset()
+    ms = median_ms(lambda: fa.flash_attention(q, k, v), flush)
+    check(set(fa.STATS.instances) == {inst} == {"cuda_cores"},
+          f"flash dh {dh} timed launches {fa.STATS.instances}")
+    b, by = flash_bound(q, k, v, True)
+    emit(dict(phase="kernel_time_instance", kernel="flash_attention",
+              instance=inst, shape=f"q/k/v {tuple(q.shape)} bf16, causal",
+              ms=ms,
+              plain_ms=median_ms(lambda: fa.flash_attention_plain(q, k, v),
+                                 flush),
+              bound_ms=b, bound_by=by,
+              bound_ms_cuda_cores=flash_bound(q, k, v, True, "f32")[0],
+              library_ms=median_ms(lambda: F.scaled_dot_product_attention(
+                  qt, kt, vt, is_causal=True), flush),
+              library="SDPA, causal"))
 
 
 def phase_flash(record, rows, randn, flush) -> dict:
@@ -782,46 +938,11 @@ def phase_flash(record, rows, randn, flush) -> dict:
     dh = 128
     for causal in (True, False):
         for H, Kh in ((32, 32), (40, 8), (8, 1)):
-            for dt, tname in ((torch.float32, "f32"),
-                              (torch.bfloat16, "bf16")):
+            for dt in (torch.float32, torch.bfloat16):
                 for S in (5, 100, 1000, 256, 2048):
-                    B = 2 if S <= 1000 else 1
-                    q = randn(B, S, H, dh, dtype=dt)
-                    k = randn(B, S, Kh, dh, dtype=dt)
-                    v = randn(B, S, Kh, dh, dtype=dt)
-                    fa.STATS.reset()
-                    got = fa.flash_attention(q, k, v, causal)
-                    torch.cuda.synchronize()
-                    want = fa.flash_attention_plain(q, k, v, causal)
-                    extra = None
-                    info = dict(instance=launched(
-                        fa, fa.flash_instance(dt, dh)))
-                    if dt == torch.bfloat16:
-                        extra = FLASH_P_ROUNDING * fa.flash_attention_plain(
-                            q.float(), k.float(), v.float().abs(), causal)
-                        # Why the extra term: without it the plain
-                        # version fails one ulp; the all-f32 plain
-                        # version, rounded once, holds the kernel to it.
-                        atol, rtol = TOL["bf16_out"]
-                        diff = (got.float() - want.float()).abs()
-                        w32 = fa.flash_attention_plain(
-                            q.float(), k.float(), v.float(), causal).to(dt)
-                        d32 = (got.float() - w32.float()).abs()
-                        info.update(
-                            one_ulp_ok=bool((diff <= atol + rtol * want
-                                             .float().abs()).all()),
-                            max_abs_err_vs_f32_plain=d32.max().item(),
-                            one_ulp_ok_vs_f32_plain=bool(
-                                (d32 <= atol + rtol * w32.float().abs())
-                                .all()))
-                    record("flash_attention",
-                           f"{'causal' if causal else 'full'}, H {H}/Kh "
-                           f"{Kh}, {tname}, B {B}, S {S}", got, want,
-                           "f32" if tname == "f32" else "bf16_out", extra,
-                           **info)
-                    check(info.get("one_ulp_ok_vs_f32_plain", True),
-                          f"flash_attention [{H}/{Kh}, S {S}] is more than "
-                          f"one bf16 ulp from the all-f32 plain version")
+                    flash_case(record, randn, fa, 2 if S <= 1000 else 1, S,
+                               H, Kh, dh, dt, causal)
+    flash_cuda_cores(record, randn, flush, fa)
     calls = {}
     for B, S in ((8, 256), (1, 2048)):
         q, k, v = (randn(B, S, 32, dh, dtype=torch.bfloat16)
@@ -851,7 +972,11 @@ def phase_parity() -> None:
     """Reduced Llama, f32: the card's kernels against the CPU's plain
     versions on the same weights. Paged: suffix prefill then one decode
     step. Dense: whole-prompt prefill (flash_attention), its K/V copied
-    into an f32 slab as the engine does, then one decode step."""
+    into an f32 slab as the engine does, then one decode step. The f32
+    LoRA runs sgmv's ``cuda_cores`` instance (its launches are on the
+    line)."""
+    import importlib
+
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import api
@@ -877,6 +1002,8 @@ def phase_parity() -> None:
     seq_len = torch.tensor([32, 17, 5], dtype=torch.int32)
     tok1 = torch.randint(0, cfg.vocab_size, (B, 1), generator=rng).int()
     idx = torch.tensor([2, 0, 1], dtype=torch.int32)
+    sgmv_stats = importlib.import_module("repro_torch.kernels.sgmv").STATS
+    sgmv_stats.reset()          # the CPU pass counts plain calls only
     out = {}
     for dev in ("cpu", "cuda"):
         mv = {k: v.to(dev) for k, v in params.items()}
@@ -906,8 +1033,11 @@ def phase_parity() -> None:
               decode_logits_err=errs[1], k_pages_err=errs[2],
               v_pages_err=errs[3], dense_prefill_logits_err=errs[4],
               k_slab_err=errs[5], v_slab_err=errs[6],
-              dense_decode_logits_err=errs[7], tol=tol, ok=ok))
+              dense_decode_logits_err=errs[7], tol=tol, ok=ok,
+              sgmv_launches_by_instance=dict(sgmv_stats.instances)))
     check(ok, f"card vs CPU step parity failed: {errs} (tol {tol})")
+    check(set(sgmv_stats.instances) == {"cuda_cores"},
+          f"f32 parity launched sgmv {sgmv_stats.instances}")
 
 
 #: (input_len, output_len, adapter) of the reduced engine cases.
@@ -1812,6 +1942,98 @@ def run_tier(name, opts, cfg, params, fused, stats, greedy) -> None:
     check(peak < fused["peak_mem_gb"] + TIER_MEM_SLACK_GB,
           f"{name}: peak memory {peak:.2f} GB against the fused "
           f"engine's {fused['peak_mem_gb']:.2f} GB")
+
+
+# ------------------------- phase 5c, examples (after the mesh phase)
+def load_example(script: str):
+    """``examples/<script>`` as a module, its ``main`` not run."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        Path(script).stem, ROOT / "examples" / script)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+#: (script, arguments, serves the model) of each run of the examples
+#: phase, in order; the DES runs (serve_manyadapter's default, the
+#: gateway) serve no model and get no weights.
+EXAMPLE_RUNS = (("torch_quickstart.py", (), True),
+                ("torch_serve_manyadapter.py", (), False),
+                ("torch_serve_manyadapter.py", ("--engine",), True),
+                ("torch_serve_manyadapter.py", ("--cluster",), True),
+                ("torch_disagg_cluster.py", (), True),
+                ("torch_gateway_multitenant.py", (), False))
+
+
+def phase_examples(cfg, params, fused: dict) -> None:
+    """The port's four serving examples on the card (``EXAMPLE_RUNS``),
+    each through its ``main``, the runs that serve the model with the
+    full-width weights handed over (the replicas of a tier share them),
+    one at a time and freed after. Each example asserts its own contract
+    and, on the card, that bgmv, sgmv and paged_attention launched in
+    its served run (counts zeroed after any warm-up) with no plain
+    version and no einsum LoRA (``example_support.counted_launches``:
+    the example raises, and the phase fails); its line carries seconds,
+    requests finished and cancelled, TTFT p50/p99 (the engine clock:
+    monotonic seconds since the engine, or the tier's shared clock,
+    last started or reset), the adapter cache's hits, misses and
+    evictions, handoffs and GB shipped (disagg), each kernel's
+    launches and peak memory against the fused engine's."""
+    import torch
+    t0 = time.perf_counter()
+    secs = {}
+    for script, argv, serves in EXAMPLE_RUNS:
+        name = " ".join((Path(script).stem, *argv))
+        weights = dict(model_cfg=cfg, params=params) if serves else {}
+        secs[name] = run_example(script, argv, weights, fused)
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(dict(phase="phase_examples", seconds=secs,
+              total_s=time.perf_counter() - t0))
+
+
+def run_example(script: str, argv: tuple, weights: dict,
+                fused: dict) -> float:
+    """One example run on the card (``weights``: the ``main`` keywords
+    that hand over the model): its line, its checks; the seconds it
+    took. The example's own printout goes to stderr."""
+    import io
+
+    import torch
+    mod = load_example(script)
+    name = " ".join((Path(script).stem, *argv))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = mod.main(list(argv), **weights)
+        torch.cuda.synchronize()
+    except (AssertionError, RuntimeError) as exc:
+        raise PhaseError(f"example {name}: its contract failed: "
+                         f"{type(exc).__name__}: {exc}") from exc
+    finally:
+        sys.stderr.write(buf.getvalue())
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    printed = buf.getvalue().strip().splitlines()
+    res = dict(phase="example", example=name, seconds=secs,
+               **{k: v for k, v in out.items()
+                  if k not in ("streamed", "sampled")},
+               peak_mem_gb=peak, fused_peak_mem_gb=fused["peak_mem_gb"],
+               last_line=printed[-1] if printed else None)
+    emit(res)
+    check(out["finished"] > 0 and out["finished"] + out.get("cancelled", 0)
+          + out.get("rejected", 0) == out["requests"],
+          f"example {name}: {out['finished']} finished of "
+          f"{out['requests']}")
+    if weights:                 # it served the model on the card
+        check(peak < fused["peak_mem_gb"] + TIER_MEM_SLACK_GB,
+              f"example {name}: peak memory {peak:.2f} GB against the "
+              f"fused engine's {fused['peak_mem_gb']:.2f} GB")
+    return secs
 
 
 # ------------------------------------------------- phase 5b, meshes
@@ -4356,12 +4578,7 @@ def run_train_example() -> None:
     """``examples/torch_train_with_recovery.py`` on the card with its
     defaults (200 steps, failures injected at 60 and 140): both
     recoveries taken, the final loss below the first."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "torch_train_with_recovery",
-        ROOT / "examples" / "torch_train_with_recovery.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    mod = load_example("torch_train_with_recovery.py")
     t0 = time.perf_counter()
     out = mod.main([])
     losses = out["losses"]
@@ -5115,6 +5332,7 @@ def serve_mesh_model(arch: str, n_layers, B: int, S: int,
             state_specs_ok=[tuple(s) for s in serve_mesh_state_specs(
                 cfg, B, S, shape)] == got["specs"],
             launches=launches, launches_expected=want, plain_calls=plain,
+            sgmv_launches_by_instance=dict(stats["sgmv"].instances),
             prefill_ms=got["prefill_ms"], decode_ms_per_step=got["decode_ms"],
             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
         emit(line)
@@ -5418,6 +5636,7 @@ def _phase_uneven() -> None:
                     cfg, B, S, shape)] == got["specs"],
                 launches=launches, launches_expected=want,
                 launches_unsharded=one, plain_calls=plain,
+                sgmv_launches_by_instance=dict(stats["sgmv"].instances),
                 prefill_ms=got["prefill_ms"],
                 decode_ms_per_step=got["decode_ms"],
                 ref_prefill_ms=base["prefill_ms"],
@@ -5504,6 +5723,7 @@ def main() -> int:
         engines = phase_engine(cfg, params)
         phase_tiers(cfg, params, engines["fused"])
         phase_mesh(cfg, params)
+        phase_examples(cfg, params, engines["fused"])
         # Free Llama's 13.5 GB before the 42.3 GB of the MoE model.
         del params
         gc.collect()

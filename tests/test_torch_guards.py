@@ -167,7 +167,10 @@ def _imported_names(tree):
     "chip_smoke.py", "chip_profile.py", "chip_prefill.py",
     "chip_f32_agreement.py", "chip_mesh.py", "chip_flash_bwd.py",
     "chip_flash_fwd.py", "examples/torch_long_context_ssm.py",
-    "examples/torch_train_with_recovery.py",
+    "examples/torch_train_with_recovery.py", "examples/torch_quickstart.py",
+    "examples/torch_serve_manyadapter.py",
+    "examples/torch_disagg_cluster.py",
+    "examples/torch_gateway_multitenant.py",
     *sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))])
 def test_no_jax_or_reference_import_in_source(path):
     names = list(_imported_names(ast.parse((ROOT / path).read_text())))
